@@ -3,10 +3,13 @@
 
     python3 chip_smoke.py            # from the repository root, one card
 
-The main path is SD1.5 text-to-latent sampling: the full-width SD1.5 UNet
-(``model_channels`` 320, ``context_dim`` 768, 8 heads, ``channel_mult``
-(1, 2, 4, 4)) with a bf16 torso and f32 GroupNorm / softmax, random weights
-from a seed, under DDIM-50 on 64x64x4 latents with a 77x768 context.
+The port's paths are SD1.5 text-to-latent sampling and SD1.5 training: the
+full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
+``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
+GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
+77x768 context; sampled with DDIM-50, and trained with the DDPM eps-loss
+(1000 steps), full remat (``use_checkpoint=True``), adafactor (lr 1e-4),
+gradient clipping at 1.0 and a gradual EMA (0.9999) with a bf16 shadow.
 
 Phases (any failure exits non-zero, and the last line is then not printed):
   1. the card's name and power limit; the kernels built from ``dmtpu_torch/csrc``;
@@ -24,16 +27,31 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      launch counts of the timed run) and DDIMCFG s=7.5 at batch 2: its guided
      noise prediction at the first step and its sample after a few steps,
      each held against the f32 plain path within 1.5x the plain bf16 path's
-     error.
+     error;
+  6. K2 (attention backward) at every attention shape of the path, b16 bf16:
+     dq, dk and dv against its plain version and against f32 autograd
+     through ``mha``, with both times;
+  7. training: (a) at batch 2, one fixed batch, t and eps: the loss and the
+     gradient through the kernels against an f32 plain run (TF32 off), within
+     1.5x the plain bf16 path's relative error plus 1e-3; (b) the launches
+     of K1, K2 and K3 per step, derived from the module tree and checked
+     exactly; (c) at batch 16: one warm-up step, then 10 timed steps (images
+     per second, ms per step, peak memory) and a ``torch.profiler``
+     breakdown of one step; (d) 10 steps on one fixed batch 2: the kernel
+     path's loss is finite and falls, and stays within 1e-3 of the plain
+     bf16 path's loss at the same weights at every step.
 
 Before the last line it prints one JSON object with each kernel's launches in
-the timed main-path run, error and times, and the card's name and power
-limit.  The last line is ``{"ok": true, "device": {...}}``.  It needs no
+the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
+and all three counted in each of the two runs), error and times, and the
+card's name and power limit.  The last line is ``{"ok": true, "device": {...}}``.  It needs no
 network and leaves no process behind.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,6 +62,8 @@ STEPS = 50                  # DDIM-50 over 1000 training steps, uniform respacin
 CFG_BATCH, CFG_STEPS, CFG_SCALE = 2, 5, 7.5
 UNET_CHECK_BATCH = 2
 UNET_TIMED_FORWARDS, UNET_PROFILED_FORWARDS = 10, 3
+TRAIN_CHECK_BATCH, TRAIN_TIMED_STEPS, LEARN_STEPS = 2, 10, 10
+TRAIN_LR, TRAIN_CLIP, EMA_DECAY = 1e-4, 1.0, 0.9999
 SEED = 0
 
 SD15 = dict(in_channels=4, model_channels=320, out_channels=4, num_res_blocks=2,
@@ -95,7 +115,11 @@ def main() -> int:
     from dmtpu_torch.models.stablediffusion import SDUNetModel
     from dmtpu_torch.ops import _build, plain_ops
     from dmtpu_torch.ops.attention import mha
-    from dmtpu_torch.ops.flash_attention import flash_attention_fwd, flash_attention_reference
+    from dmtpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        flash_attention_reference,
+    )
     from dmtpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference
 
     dev = torch.device("cuda")
@@ -267,7 +291,8 @@ def main() -> int:
         f"kernels, kernels, plain; {card}): kernels {fwd_ms['kernels']}, "
         f"plain {fwd_ms['plain']}")
     log(f"UNet b{B} forward device time by class, kernel path (torch.profiler, ms per "
-        f"forward over {UNET_PROFILED_FORWARDS}): " + json.dumps(profile["classes"]))
+        f"forward over {UNET_PROFILED_FORWARDS}; wall {profile['wall_ms']:.3f} ms per forward "
+        f"under the profiler): " + json.dumps(profile["classes"]))
     for name, ms in profile["top"]:
         log(f"  {ms:9.4f} ms  {name}")
     check(profile["classes"]["K1 attention"] > 0 and profile["classes"]["K3 GroupNorm"] > 0,
@@ -286,19 +311,22 @@ def main() -> int:
     with torch.no_grad():
         sampler.sample(unet, noise)  # warm-up
         torch.cuda.synchronize()
-        flash_attention_fwd.launches = group_norm_silu.launches = 0
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
         t0 = time.perf_counter()
         out = sampler.sample(unet, noise)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    main_launches = {"K1": flash_attention_fwd.launches, "K3": group_norm_silu.launches}
+    main_launches = {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                     "K3": group_norm_silu.launches}
     sps = B / seconds
     log(f"DDIM-{STEPS} b{B} 64x64x4: {seconds:.3f} s, {sps:.4f} samples/s ({card}); "
         f"launches {main_launches}")
     check(tuple(out.shape) == (B, 4, 64, 64) and bool(torch.isfinite(out).all()),
           "DDIM-50 output finite, [16, 4, 64, 64]")
-    check(main_launches == {"K1": STEPS * ATTN_PER_FORWARD, "K3": STEPS * GN_PER_FORWARD},
-          f"DDIM-50 launches == {STEPS} x ({ATTN_PER_FORWARD}, {GN_PER_FORWARD})")
+    check(main_launches == {"K1": STEPS * ATTN_PER_FORWARD, "K2": 0,
+                            "K3": STEPS * GN_PER_FORWARD},
+          f"DDIM-50 launches == {STEPS} x ({ATTN_PER_FORWARD}, 0, {GN_PER_FORWARD})")
 
     cfg = DDIMCFG(CFG_SCALE, "context", total_steps=1000, respace_type="uniform",
                   respace_steps=STEPS)
@@ -342,21 +370,40 @@ def main() -> int:
           "DDIMCFG sample: finite, err(kernels) <= 1.5 err(plain)")
     check(cfg_launches == (CFG_STEPS * ATTN_PER_FORWARD, CFG_STEPS * GN_PER_FORWARD),
           f"DDIMCFG launches == {CFG_STEPS} x ({ATTN_PER_FORWARD}, {GN_PER_FORWARD})")
+    del model, out, out_k, out_p, out_f
+    torch.cuda.empty_cache()
+
+    # ---- 6. K2 --------------------------------------------------------------
+    k2 = phase_k2(dev, check, time_ms, gen)
+
+    # ---- 7. training -----------------------------------------------------------
+    train = phase_train(dev, check, gen, ref_model, card)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed: {failures}")
         return 1
+    by_path = {name: {"ddim50": main_launches[name],
+                      f"train{TRAIN_TIMED_STEPS}": train["launches"][name]}
+               for name in ("K1", "K2", "K3")}
     log(json.dumps({"kernels": [
         {"name": "flash_attn_fwd", "route": "cuda", "source": "dmtpu_torch/csrc/flash_attn_fwd.cu",
          "replaces": "dmtpu/ops/flash_small_d.py:50", "launches": main_launches["K1"],
+         "launches_by_path": by_path["K1"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "timing": f"per b{B} UNet forward: sum over its {ATTN_PER_FORWARD} attention calls"},
+        {"name": "flash_attn_bwd", "route": "cuda", "source": "dmtpu_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "dmtpu/ops/flash_small_d.py:118", "launches": train["launches"]["K2"],
+         "launches_by_path": by_path["K2"],
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "timing": f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards"},
         {"name": "group_norm_silu", "route": "cuda", "source": "dmtpu_torch/csrc/group_norm_silu.cu",
          "replaces": "dmtpu/ops/groupnorm.py:44", "launches": main_launches["K3"],
+         "launches_by_path": by_path["K3"],
          "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
          "timing": f"per b{B} UNet forward: sum over its {GN_PER_FORWARD} GroupNorm calls"},
-    ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms, "card": card}))
+    ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
+        "train_b16": train["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -364,40 +411,280 @@ def main() -> int:
     return 0
 
 
+def phase_k2(dev, check, time_ms, gen) -> dict:
+    """K2 at every attention shape of the path, b16 h8 bf16, from K1's outputs
+    and a random dO: dq, dk and dv against K2's plain version and against f32
+    autograd through ``mha`` on the same bf16 values; both times."""
+    import torch
+    from dmtpu_torch.ops.attention import mha
+    from dmtpu_torch.ops.flash_attention import (
+        flash_attention_backward_reference,
+        flash_attention_bwd,
+        flash_attention_fwd,
+    )
+
+    total_ms, total_plain_ms, worst = 0.0, 0.0, 0.0
+    g = gen(SEED + 6)
+    for (sq, sk, d), calls in ATTN_CALLS.items():
+        q, k, v, do = (torch.randn(B, s, 8, d, generator=g, device=dev).bfloat16()
+                       for s in (sq, sk, sk, sq))
+        o, lse = flash_attention_fwd(q, k, v)
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        plain = flash_attention_backward_reference(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        row = dict(b=B, h=8, sq=sq, sk=sk, d=d, calls=calls)
+        ok = all(bool(torch.isfinite(x).all()) and x.dtype == torch.bfloat16 for x in got)
+        # both versions round P and dS to bf16, from f32 values that differ in
+        # their last bits (exp2 vs exp, summation order, dq's f32 atomics in
+        # run-to-run order): single elements may land one bf16 step apart, so
+        # 1e-2 of max|grad| and 1e-2 relative L2; a skipped or doubled tile
+        # moves the L2 error by 1/sqrt(tiles), 12% at S=4096.  Against f32
+        # autograd 2e-2: the kernel rounds P, dS and its outputs to bf16
+        for name, a, b in zip(("dq", "dk", "dv"), got, plain):
+            err = (a.float() - b.float()).abs().max().item()
+            rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+            row[f"{name}_max_abs_err"], row[f"{name}_rel_l2"] = err, rel
+            ok = ok and err <= 1e-2 * b.float().abs().max().item() and rel <= 1e-2
+            worst = max(worst, err)
+        del plain
+        leaves = [x.float().requires_grad_() for x in (q, k, v)]
+        mha(*leaves).backward(do.float())
+        for name, a, leaf in zip(("dq", "dk", "dv"), got, leaves):
+            b = leaf.grad
+            rel = ((a.float() - b).norm() / b.norm()).item()
+            row[f"{name}_rel_l2_vs_f32_mha"] = rel
+            ok = ok and rel <= 2e-2 and \
+                (a.float() - b).abs().max().item() <= 2e-2 * b.abs().max().item()
+        del leaves, got
+        torch.cuda.empty_cache()
+        row["ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), 10)
+        row["plain_ms"] = time_ms(
+            lambda: flash_attention_backward_reference(q, k, v, o, lse, do), 3)
+        total_ms += calls * row["ms"]
+        total_plain_ms += calls * row["plain_ms"]
+        log("K2", json.dumps(row))
+        check(ok, f"K2 bf16 b{B} h8 S_q={sq} S_k={sk} d={d}: vs plain and vs f32 mha autograd")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    log(f"K2 per b{B} train step ({ATTN_PER_FORWARD} calls): {total_ms:.4f} ms, "
+        f"plain {total_plain_ms:.4f} ms")
+    return {"ms": total_ms, "plain_ms": total_plain_ms, "max_abs_err": worst}
+
+
+def per_step_launches(model) -> dict:
+    """Kernel launches of one train step, read off the module tree: K1 once
+    per attention in the forward and again in the recompute of a
+    rematerialised block; K2 once per attention; K3 once per GroupNorm in the
+    forward and again for those inside rematerialised blocks (the GroupNorm
+    backward runs the plain version, no kernel)."""
+    from dmtpu_torch.models.adm import GroupNorm32, ResBlock
+    from dmtpu_torch.models.stablediffusion.attention import CrossAttention, SpatialTransformer
+
+    def count(kind, root):
+        return sum(isinstance(m, kind) for m in root.modules())
+
+    remat_roots = [m for m in model.modules() if isinstance(m, (ResBlock, SpatialTransformer))]
+    attn = count(CrossAttention, model)
+    attn_remat = sum(count(CrossAttention, r) for r in remat_roots) if model.use_checkpoint else 0
+    gn = count(GroupNorm32, model)
+    gn_remat = sum(count(GroupNorm32, r) for r in remat_roots) if model.use_checkpoint else 0
+    return {"K1": attn + attn_remat, "K2": attn, "K3": gn + gn_remat}
+
+
+def phase_train(dev, check, gen, ref_model, card) -> dict:
+    """Phase 7 (see the module docstring).  ``ref_model`` is the f32 UNet
+    whose random weights every run here starts from."""
+    import torch
+    from dmtpu_torch.diffusions import DDPM
+    from dmtpu_torch.models.stablediffusion import SDUNetModel
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
+    from dmtpu_torch.utils.optim import adafactor
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+
+    init = {k: v.detach().clone() for k, v in ref_model.state_dict().items()}
+    model = SDUNetModel(**SD15, torso_dtype=torch.bfloat16, use_checkpoint=True,
+                        device=dev).train()
+    model.load_state_dict(init)
+    ref_model.train()
+    want_per_step = per_step_launches(model)
+    log(f"train: launches per step from the module tree (remat on): {want_per_step}")
+    diffuser = DDPM(total_steps=1000)
+
+    def fixed_loss(m):
+        def loss_fn(batch, generator):
+            return diffuser.loss_func(m, batch["image"], batch["t"], eps=batch["eps"],
+                                      model_kwargs={"context": batch["context"]})
+        return loss_fn
+
+    g = gen(SEED + 7)
+    fixed = {"image": torch.randn(TRAIN_CHECK_BATCH, 4, 64, 64, generator=g, device=dev),
+             "eps": torch.randn(TRAIN_CHECK_BATCH, 4, 64, 64, generator=g, device=dev),
+             "t": torch.tensor([999, 421], device=dev)[:TRAIN_CHECK_BATCH],
+             "context": torch.randn(TRAIN_CHECK_BATCH, 77, 768, generator=g, device=dev)}
+
+    # (a) loss and gradient at b2 against f32
+    def loss_and_grads(m, plain: bool):
+        m.zero_grad(set_to_none=True)
+        with plain_ops() if plain else contextlib.nullcontext():
+            loss = fixed_loss(m)(fixed, None)
+            loss.backward()
+        return loss.detach(), {n: p.grad for n, p in m.named_parameters()}
+
+    loss_f, grads_f = loss_and_grads(ref_model, plain=True)
+    grads_f = {n: gr.clone() for n, gr in grads_f.items()}
+    ref_model.zero_grad(set_to_none=True)
+    zero_counts()
+    loss_k, grads_k = loss_and_grads(model, plain=False)
+    torch.cuda.synchronize()
+    check_launches = counts()
+    err_k = (sum((grads_k[n] - grads_f[n]).square().sum() for n in grads_f).sqrt()
+             / sum(gr.square().sum() for gr in grads_f.values()).sqrt()).item()
+    lerr_k = abs(loss_k.item() - loss_f.item()) / abs(loss_f.item())
+    loss_p, grads_p = loss_and_grads(model, plain=True)
+    err_p = (sum((grads_p[n] - grads_f[n]).square().sum() for n in grads_f).sqrt()
+             / sum(gr.square().sum() for gr in grads_f.values()).sqrt()).item()
+    lerr_p = abs(loss_p.item() - loss_f.item()) / abs(loss_f.item())
+    log(f"train b{TRAIN_CHECK_BATCH} loss: f32 {loss_f.item():.6f}, kernels {loss_k.item():.6f}, "
+        f"plain bf16 {loss_p.item():.6f}; rel err vs f32: kernels {lerr_k:.3e}, plain {lerr_p:.3e}")
+    log(f"train b{TRAIN_CHECK_BATCH} gradient ({len(grads_f)} tensors): rel L2 err vs f32 plain: "
+        f"kernels {err_k:.3e}, plain bf16 {err_p:.3e}; launches {check_launches}")
+    check(bool(torch.isfinite(loss_k)) and lerr_k <= 1.5 * lerr_p + 1e-3,
+          "train loss: err(kernels) <= 1.5 err(plain) + 1e-3")
+    check(err_k <= 1.5 * err_p + 1e-3, "train gradient: err(kernels) <= 1.5 err(plain) + 1e-3")
+    # (b) exact launches of one forward + backward
+    check(check_launches == want_per_step,
+          f"train forward+backward launches {check_launches} == {want_per_step}")
+    del grads_f, grads_k, grads_p
+    ref_model.zero_grad(set_to_none=True)
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    def fresh_state():
+        model.load_state_dict(init)
+        return TrainState.create(model, adafactor(model.parameters(), lr=TRAIN_LR),
+                                 ema_decay=EMA_DECAY, ema_gradual=True,
+                                 ema_dtype=torch.bfloat16)
+
+    # (d) learning on one fixed batch.  The kernel path trains, and before each
+    # of its steps the plain bf16 path's loss is taken at the same weights.
+    # The two are not trained apart: each adafactor step (at first a step of
+    # lr in the sign of every gradient) compounds their rounding differences,
+    # so their losses part by more than either path's error
+    step = make_train_step(fixed_loss(model), clip_grad_norm=TRAIN_CLIP)
+    lk, ls = [], []
+    state = fresh_state()
+    for _ in range(LEARN_STEPS):
+        with torch.no_grad(), plain_ops():
+            ls.append(fixed_loss(model)(fixed, None).item())
+        lk.append(step(state, fixed)["loss"].item())
+    del state
+    same = max(abs(a - b) / abs(b) for a, b in zip(lk, ls))
+    log(f"train b{TRAIN_CHECK_BATCH} fixed batch, {LEARN_STEPS} steps, loss: kernels {lk}; "
+        f"plain at the same weights {ls} (worst rel. diff {same:.3e})")
+    check(all(map(math.isfinite, lk)) and lk[-1] < lk[0], "train: the kernel path's loss falls")
+    # at the same weights the two paths differ only in rounding (at most
+    # 5.9e-5 over 10 steps on the card); 1e-3 is the floor of (a)
+    check(same <= 1e-3, "train: at the kernel path's weights of each step, its loss is within "
+                        "1e-3 of the plain path's")
+    torch.cuda.empty_cache()
+
+    # (c) timing at b16 through the main path's own loss (random t and eps)
+    g = gen(SEED + 8)
+    batch = {"image": torch.randn(B, 4, 64, 64, generator=g, device=dev),
+             "context": torch.randn(B, 77, 768, generator=g, device=dev)}
+    state = fresh_state()
+    step = make_train_step(make_diffusion_loss_fn(diffuser, model, 1000),
+                           clip_grad_norm=TRAIN_CLIP)
+    step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    history = [step(state, batch) for _ in range(TRAIN_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in history]
+    norms = [m["grad_norm"].item() for m in history]
+    metrics = {"imgs_per_s": B * TRAIN_TIMED_STEPS / seconds,
+               "ms_per_step": 1e3 * seconds / TRAIN_TIMED_STEPS,
+               "peak_bytes": peak, "batch": B, "steps": TRAIN_TIMED_STEPS,
+               "launches_per_step": want_per_step}
+    log(f"train b{B}: {TRAIN_TIMED_STEPS} steps in {seconds:.3f} s, {metrics['imgs_per_s']:.4f} "
+        f"imgs/s, {metrics['ms_per_step']:.3f} ms/step, peak {peak / 2**30:.3f} GiB ({card}); "
+        f"launches {launches}; losses {losses}; grad norms {norms}")
+    check(all(map(math.isfinite, losses + norms)), "train b16: finite losses and grad norms")
+    check(launches == {k: TRAIN_TIMED_STEPS * n for k, n in want_per_step.items()},
+          f"train b{B} launches == {TRAIN_TIMED_STEPS} x {want_per_step}")
+    check(state.ema.num_updates == TRAIN_TIMED_STEPS + 1
+          and all(s.dtype == torch.bfloat16 for s in state.ema.shadow.values()),
+          "train: EMA updated each step, bf16 shadow")
+    torch.cuda.empty_cache()
+    profile = profile_by_class(lambda: step(state, batch), 2)
+    log(f"train b{B} step device time by class (torch.profiler, ms per step over 2; wall "
+        f"{profile['wall_ms']:.3f} ms per step under the profiler): "
+        + json.dumps(profile["classes"]) + "; annotated ranges: " + json.dumps(profile["ranges"]))
+    for name, ms in profile["top"]:
+        log(f"  {ms:9.4f} ms  {name}")
+    metrics["profile_ms"] = dict(profile["classes"], wall=profile["wall_ms"], **profile["ranges"])
+    return {"launches": launches, "metrics": metrics}
+
+
 # kernel-name fragments -> class, first match wins
 KERNEL_CLASSES = (
-    ("flash_fwd", "K1 attention"), ("group_norm", "K3 GroupNorm"),
+    ("flash_fwd", "K1 attention"), ("flash_bwd", "K2 attention backward"),
+    ("group_norm", "K3 GroupNorm"),
     ("at::native", "PyTorch elementwise and reductions"),
     ("nchwToNhwc", "cuDNN convolutions"), ("nhwcToNchw", "cuDNN convolutions"),
-    ("fprop", "cuDNN convolutions"), ("conv", "cuDNN convolutions"),
+    ("fprop", "cuDNN convolutions"), ("dgrad", "cuDNN convolutions"),
+    ("wgrad", "cuDNN convolutions"), ("conv", "cuDNN convolutions"),
     ("gemm", "cuBLAS GEMMs"), ("nvjet", "cuBLAS GEMMs"),
 )
 
 
-def profile_by_class(fn, forwards: int) -> dict:
-    """Device time per forward of ``fn`` by class of kernel (``KERNEL_CLASSES``,
-    else "other"), and the twelve costliest kernels, from ``torch.profiler``."""
+def profile_by_class(fn, calls: int) -> dict:
+    """Device time per call of ``fn`` by class of kernel (``KERNEL_CLASSES``,
+    else "other"), the twelve costliest kernels, the device span of each
+    annotated range (such as ``Optimizer.step``; not a kernel, so not in the
+    classes) and the wall time per call, from ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(forwards):
+        t0 = time.perf_counter()
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / calls
     classes = {name: 0.0 for _, name in KERNEL_CLASSES}
     classes["other"] = 0.0
-    kernels = []
+    kernels, ranges = [], {}
     for row in prof.key_averages():
         if row.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ms = row.self_device_time_total / 1e3 / forwards
+        ms = row.self_device_time_total / 1e3 / calls
+        if getattr(row, "is_user_annotation", False):
+            ranges[row.key] = ms
+            continue
         cls = next((c for frag, c in KERNEL_CLASSES if frag in row.key), "other")
         classes[cls] += ms
         kernels.append((row.key[:150], ms))
     classes["total"] = sum(classes.values())
-    return {"classes": classes, "top": sorted(kernels, key=lambda kv: -kv[1])[:12]}
+    return {"classes": classes, "top": sorted(kernels, key=lambda kv: -kv[1])[:12],
+            "ranges": ranges, "wall_ms": wall_ms}
 
 
 def init_random_(model, generator) -> None:

@@ -32,74 +32,22 @@
 //   - q, k, v and o are addressed through [B, S, H, D] strides, so the
 //     projection outputs [B, S, H*D] need no transpose copy.
 // Not yet: TMA, wgmma, warp specialisation.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_common.cuh"
 
 namespace {
+
+using namespace dmtpu;
 
 constexpr int kRows = 64;   // Q rows per CTA and keys per K/V tile
 constexpr int kWarps = 4;   // each warp owns 16 Q rows
 constexpr float kLn2 = 0.6931471805599453f;
 
-struct Strides {
-  long long b, s, h;  // element strides of [B, S, H, D]; D is contiguous
-};
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy global -> shared; zero-fills when !valid (no bytes read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Starts async copies of rows [r0, r0 + kRows) of one (b, h) slice into a
-// [kRows][LD] bf16 tile.  Rows past n_rows and columns past the real head
-// dim (nvec 16-byte chunks) are zero-filled.
 template <int DP, int LD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                           long long row_stride, int r0, int n_rows, int nvec) {
-  constexpr int kVec = DP / 8;
-  for (int i = threadIdx.x; i < kRows * kVec; i += kWarps * 32) {
-    const int r = i / kVec, c = i % kVec;
-    const bool valid = r0 + r < n_rows && c < nvec;
-    const __nv_bfloat16* from = valid ? src + (long long)(r0 + r) * row_stride + c * 8 : src;
-    cp_async16(dst + r * LD + c * 8, from, valid);
-  }
+  load_tile<kRows, DP, LD, kWarps * 32>(dst, src, row_stride, r0, n_rows, nvec);
 }
 
 template <int DP>
@@ -126,9 +74,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   const __nv_bfloat16* kbase = k + b * ks.b + h * ks.h;
   const __nv_bfloat16* vbase = v + b * vs.b + h * vs.h;
 
-  load_tile<DP, LD>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, nvec);
-  load_tile<DP, LD>(sK, kbase, ks.s, 0, Sk, nvec);
-  load_tile<DP, LD>(sV, vbase, vs.s, 0, Sk, nvec);
+  load_rows<DP, LD>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, nvec);
+  load_rows<DP, LD>(sK, kbase, ks.s, 0, Sk, nvec);
+  load_rows<DP, LD>(sV, vbase, vs.s, 0, Sk, nvec);
   cp_async_commit();
 
   float acc[NT][4];
@@ -143,8 +91,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const int buf = it & 1;
     if (it + 1 < ntiles) {
       const int nb = buf ^ 1;
-      load_tile<DP, LD>(sK + nb * kRows * LD, kbase, ks.s, (it + 1) * kRows, Sk, nvec);
-      load_tile<DP, LD>(sV + nb * kRows * LD, vbase, vs.s, (it + 1) * kRows, Sk, nvec);
+      load_rows<DP, LD>(sK + nb * kRows * LD, kbase, ks.s, (it + 1) * kRows, Sk, nvec);
+      load_rows<DP, LD>(sV + nb * kRows * LD, vbase, vs.s, (it + 1) * kRows, Sk, nvec);
       cp_async_commit();
       cp_async_wait<1>();  // everything but the tile just started has landed
     } else {
@@ -215,10 +163,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     // O += P V, 16 keys per step; P's A fragment is two adjacent S tiles
     #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      uint32_t pa[4];
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
       #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bv[4];

@@ -12,7 +12,8 @@ Images are NCHW; output channels beyond ``xt``'s are a learned variance, so
 the split is on dim 1 (the JAX package splits its last axis).  Noise comes
 from an explicit ``torch.Generator``.
 
-Classes: ``DDPM`` (ancestral sampling) and ``DDPMCFG`` (classifier-free
+Classes: ``DDPM`` (ancestral sampling, and the training loss
+``loss_func`` over ``diffuse`` / ``get_v``) and ``DDPMCFG`` (classifier-free
 guidance as ONE model call on the doubled batch, with an optional
 ``guidance_interval``).
 """
@@ -38,7 +39,7 @@ def _randn(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Te
 
 
 class DDPM:
-    """Denoising Diffusion Probabilistic Models (sampling)."""
+    """Denoising Diffusion Probabilistic Models (sampling and the training loss)."""
 
     def __init__(
         self,
@@ -76,6 +77,43 @@ class DDPM:
         self.respaced_seq = np.asarray(respaced_seq, dtype=np.int64)
         if self.respaced_seq.ndim != 1:
             raise ValueError("respaced_seq must be 1-D")
+
+    # ------------------------------------------------------------------
+    # forward process and training loss (reference: diffusions/ddpm.py:122-172)
+    # ------------------------------------------------------------------
+    def _gather(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        """alphas_cumprod[t] as float32, shaped [B, 1, 1, ...] against ``like``."""
+        table = torch.from_numpy(self.alphas_cumprod.astype(np.float32)).to(like.device)
+        ac = table[t.to(like.device).long()]
+        return ac.reshape(ac.shape + (1,) * (like.dim() - ac.dim()))
+
+    def diffuse(self, x0: torch.Tensor, t: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
+        """A sample of q(x_t | x_0): sqrt(ac) x0 + sqrt(1 - ac) eps."""
+        ac = self._gather(t, x0)
+        return torch.sqrt(ac) * x0 + torch.sqrt(1.0 - ac) * eps
+
+    def get_v(self, x0: torch.Tensor, eps: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """The v-prediction target sqrt(ac) eps - sqrt(1 - ac) x0."""
+        ac = self._gather(t, x0)
+        return torch.sqrt(ac) * eps - torch.sqrt(1.0 - ac) * x0
+
+    def loss_func(self, model_fn: ModelFn, x0: torch.Tensor, t: torch.Tensor,
+                  eps: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None,
+                  model_kwargs: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+        """f32 MSE of the model output against eps, x0 or v (``objective``).
+        ``eps`` defaults to a standard normal drawn from ``generator``."""
+        if eps is None:
+            eps = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+        xt = self.diffuse(x0, t, eps)
+        pred = model_fn(xt, t, **(model_kwargs or {}))
+        if self.objective == "pred_eps":
+            target = eps
+        elif self.objective == "pred_x0":
+            target = x0
+        else:
+            target = self.get_v(x0, eps, t)
+        return torch.mean(torch.square(pred.float() - target.float()))
 
     # ------------------------------------------------------------------
     # sampler tape: per-step scalars, float64 on host -> float32 arrays

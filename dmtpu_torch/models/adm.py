@@ -10,8 +10,11 @@ they are, even where ``forward`` fuses a GroupNorm and its SiLU into one
 ``group_norm`` call.
 
 Torso dtype: the JAX package computes the torso's convolutions and dense
-layers in ``torso_dtype`` (bf16) from f32 params.  Here the torso's ``Conv2d``
-and ``Linear`` hold their weights in that dtype and cast their input to it;
+layers in ``torso_dtype`` (bf16) from f32 params (Flax ``dtype`` with f32
+``param_dtype``).  Here too the torso's ``Conv2d`` and ``Linear`` hold f32
+parameters and cast input, weight and bias to ``torso_dtype`` in
+``forward``, as Flax's ``promote_dtype`` does, so a gradient reaches the f32
+parameter and an optimizer step smaller than a bf16 ulp is kept.
 GroupNorm and LayerNorm params stay f32 and normalise in f32.
 """
 from __future__ import annotations
@@ -40,18 +43,37 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 1000
     return emb
 
 
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    return None if t is None else t.to(dtype)
+
+
 class Linear(nn.Linear):
-    """``nn.Linear`` that casts its input to its weight's dtype (the torso dtype)."""
+    """``nn.Linear`` with f32 parameters that computes in ``dtype`` (the torso
+    dtype; f32 when None): input, weight and bias are cast to it."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype=None, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.compute_dtype = dtype or torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that casts its input to its weight's dtype (the torso dtype)."""
+    """``nn.Conv2d`` with f32 parameters that computes in ``dtype`` (the torso
+    dtype; f32 when None): input, weight and bias are cast to it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dtype=None, device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         padding=padding, device=device)
+        self.compute_dtype = dtype or torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
 class GroupNorm32(nn.GroupNorm):

@@ -11,10 +11,15 @@ params.
 layers; the time embedding, every GroupNorm and LayerNorm, the softmax and
 the output head stay f32.
 
+``use_checkpoint=True`` rematerialises every ResBlock and every
+SpatialTransformer call in the backward pass, the calls the JAX module wraps
+in ``remat_call``; dropout follows ``model.train()``.
+
 Options of the JAX module that are not ported raise ``NotImplementedError``
 when set: the ``use_fp16`` / ``use_bf16`` aliases of ``torso_dtype``,
 class / vector conditioning (``num_classes``, ``adm_in_channels``),
-remat (``use_checkpoint``), ``use_linear_in_transformer``, per-level
+selective remat (a policy name as ``use_checkpoint``),
+``use_linear_in_transformer``, per-level
 ``num_res_blocks`` / ``transformer_depth``, the SDXL structure fields
 (``transformer_depth_middle``, ``disable_self_attentions``,
 ``num_attention_blocks``, ``disable_middle_*``), the non-spatial ADM
@@ -39,11 +44,12 @@ from dmtpu_torch.models.adm import (
     timestep_embedding,
 )
 from dmtpu_torch.models.stablediffusion.attention import SpatialTransformer
+from dmtpu_torch.ops.rematerialize import normalize_use_checkpoint, remat_call
 
 # option -> the value that means "off"; anything else is not ported yet
 _UNPORTED = {
     "use_fp16": False, "use_bf16": False,
-    "num_classes": None, "adm_in_channels": None, "use_checkpoint": False,
+    "num_classes": None, "adm_in_channels": None,
     "use_linear_in_transformer": False, "use_spatial_transformer": True,
     "spatial_transformer_attn_type": "softmax", "freeu": None, "tome_ratio": 0.0,
     "tome_sx": 2, "tome_sy": 2, "tome_max_downsample": 1, "tome_seed": None,
@@ -57,15 +63,17 @@ _UNPORTED = {
 
 class TimestepEmbedSequential(nn.ModuleList):
     """One UNet block: ResBlocks take the embedding, SpatialTransformers the
-    context, the rest only the features (reference: TimestepEmbedSequential)."""
+    context, the rest only the features (reference: TimestepEmbedSequential).
+    ``remat`` recomputes the ResBlocks and SpatialTransformers in the
+    backward pass."""
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor,
-                context: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, context: Optional[torch.Tensor],
+                remat: bool = False) -> torch.Tensor:
         for layer in self:
             if isinstance(layer, ResBlock):
-                x = layer(x, emb)
+                x = remat_call(layer, x, emb) if remat else layer(x, emb)
             elif isinstance(layer, SpatialTransformer):
-                x = layer(x, context)
+                x = remat_call(layer, x, context) if remat else layer(x, context)
             else:
                 x = layer(x)
         return x
@@ -92,6 +100,7 @@ class SDUNetModel(nn.Module):
         transformer_depth: int = 1,
         context_dim: Optional[int] = None,
         legacy: bool = True,
+        use_checkpoint: Any = False,
         torso_dtype: Optional[torch.dtype] = None,
         device: Any = None,
         **unported: Any,
@@ -107,6 +116,7 @@ class SDUNetModel(nn.Module):
             if not isinstance(value, int):
                 raise NotImplementedError(f"per-level {name} is not ported")
         self.torso_dtype = torso_dtype
+        self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
         self.num_heads, self.num_head_channels, self.legacy = num_heads, num_head_channels, legacy
         ted = model_channels * 4
         kw = dict(dtype=torso_dtype, device=device)
@@ -184,11 +194,12 @@ class SDUNetModel(nn.Module):
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels))
         h = x
         hs = []
+        remat = self.use_checkpoint
         for block in self.input_blocks:
-            h = block(h, emb, context)
+            h = block(h, emb, context, remat)
             hs.append(h)
-        h = self.middle_block(h, emb, context)
+        h = self.middle_block(h, emb, context, remat)
         for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb, context)
+            h = block(torch.cat([h, hs.pop()], dim=1), emb, context, remat)
         h = self.out[0](h.to(x.dtype), silu=True)
         return self.out[2](h)

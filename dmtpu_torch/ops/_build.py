@@ -1,14 +1,15 @@
 """Build and load the port's CUDA kernels.
 
 Every ``dmtpu_torch/csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which is
-loaded with ``ctypes``.  No PyTorch headers are included, so the build takes
-seconds.  The build happens at first use, into ``build/kernels/<digest>/``
-under the repository root (listed in ``.gitignore``); the digest covers the
-sources and the flags, so an edited kernel is rebuilt.  Concurrent first
-builds (several test workers) each compile to a private temporary file and
-publish it with an atomic rename, so no process ever loads a half-written
-library.
+(``sm_90a``), with the ``*.cuh`` headers beside it, one ``nvcc`` process per
+source, all started together; the objects are then linked into ONE shared
+library with a plain C interface, which is loaded with ``ctypes``.  No
+PyTorch headers are included, so the build takes seconds.  The build happens at
+first use, into ``build/kernels/<digest>/`` under the repository root
+(listed in ``.gitignore``); the digest covers the sources, headers and
+flags, so an edited kernel is rebuilt.  Concurrent first builds (several
+test workers) each compile to a private temporary file and publish it with
+an atomic rename, so no process ever loads a half-written library.
 
 Each C entry point takes its pointers and the stream as ``void*`` and returns
 the ``cudaError_t`` of its launch; ``check`` turns a non-zero code into an
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -38,6 +39,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, B, H, Sq, Sk, D, 12 strides, scale_log2, stream
     "dmtpu_flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    # q, k, v, o, dO, lse, delta, dq_acc, dq, dk, dv, B, H, Sq, Sk, D, 21 strides,
+    # scale, stream
+    "dmtpu_flash_attn_bwd": [_P] * 11 + [_I] * 5 + [_L] * 21 + [_F, _P],
     # x, weight, bias, y, N, C, HW, G, eps, silu, is_bf16, channels_last, stream
     "dmtpu_group_norm_silu": [_P] * 4 + [_I] * 4 + [_F, _I, _I, _I, _P],
 }
@@ -62,7 +66,7 @@ def build() -> Path:
     """Compile the kernels if needed; returns the library's path."""
     sources = _sources()
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -71,13 +75,27 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".libdmtpu_kernels.so.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc, pid = _nvcc(), os.getpid()
+    tmp = out_dir / f".libdmtpu_kernels.so.{pid}"
+    objects = [out_dir / f".{src.stem}.{pid}.o" for src in sources]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    steps = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in zip(cmds, procs)]
+    if all(rc == 0 for *_, rc in steps):
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        steps.append((cmd, proc.stdout, proc.returncode))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text("".join(" ".join(cmd) + "\n" + out
+                                               for cmd, out, _ in steps))
+    failed = [(cmd, out, rc) for cmd, out, rc in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out[-4000:]}")
     os.replace(tmp, lib)
     return lib
 

@@ -8,9 +8,11 @@ Counterpart of ``dmtpu/ops/attention.py``.  All shapes are **[B, S, H, D]**
   ``S_q * S_k <= 2**21`` and in f32 otherwise, f32 softmax, weights cast to
   v's dtype.
 - ``attention``: the one dispatch every model calls.  A CPU tensor, or any
-  tensor inside ``dispatch.plain_ops()``, goes to ``mha``; a CUDA tensor
-  goes to the K1 kernel (``dmtpu_torch.ops.flash_attention``), which raises
-  on what it does not take.  The TPU dispatch gates of the JAX package are
+  tensor inside ``dispatch.plain_ops()``, goes to ``mha``, whose gradient is
+  ordinary autograd; a CUDA tensor goes to ``flash_attention``
+  (``dmtpu_torch.ops.flash_attention``), the differentiable op whose
+  forward is the K1 kernel and whose backward is the K2 kernel, which raise
+  on what they do not take.  The TPU dispatch gates of the JAX package are
   not carried over.
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Optional
 import torch
 
 from dmtpu_torch.ops.dispatch import kernels_enabled
-from dmtpu_torch.ops.flash_attention import flash_attention_fwd
+from dmtpu_torch.ops.flash_attention import flash_attention
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,7 +43,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
-    """[B, S, H, D] attention: ``mha`` on the CPU, the K1 kernel on CUDA."""
+    """[B, S, H, D] attention: ``mha`` on the CPU, K1 (forward) and K2
+    (backward) on CUDA."""
     if q.device.type == "cpu" or not kernels_enabled():
         return mha(q, k, v, scale)
-    return flash_attention_fwd(q, k, v, scale)[0]
+    return flash_attention(q, k, v, scale)

@@ -1,18 +1,29 @@
-"""K1: hand-written attention forward for Hopper (``csrc/flash_attn_fwd.cu``).
+"""K1 and K2: hand-written attention forward and backward for Hopper.
 
-Counterpart of ``dmtpu/ops/flash_small_d.py`` (its ``_fwd`` path).  Layout is
-[B, S, H, D] as in ``dmtpu.ops.attention``; unlike the TPU kernel it takes
-S_q != S_k (cross-attention), head dims that are multiples of 8 up to 160
-(zero-padded to 48, 80 or 160 in shared memory) and ragged sequence
-lengths (masked).
+Counterpart of ``dmtpu/ops/flash_small_d.py`` (its ``_fwd`` and ``_bwd``
+paths and the ``custom_vjp`` that joins them).  Layout is [B, S, H, D] as
+in ``dmtpu.ops.attention``; unlike the TPU kernels these take S_q != S_k
+(cross-attention), head dims that are multiples of 8 up to 160 (zero-padded
+to 48, 80 or 160 in shared memory) and ragged sequence lengths (masked).
 
-- ``flash_attention_fwd(q, k, v, scale) -> (o, lse)``: on a CUDA tensor it
-  launches the kernel (bf16 only; anything else raises), on a CPU tensor it
-  runs ``flash_attention_reference``.  ``lse`` is the f32 row logsumexp,
-  [B, H, S_q], which the backward kernel will consume.
-- ``flash_attention_reference``: the plain PyTorch version of the same math
-  (f32 logits and softmax, P cast to V's dtype for PV).
-- ``flash_attention_fwd.launches`` counts kernel launches.
+- ``flash_attention(q, k, v, scale) -> o``: the differentiable op
+  (``FlashAttention``, a ``torch.autograd.Function``): its forward runs
+  ``flash_attention_fwd`` and saves q, k, v, o and the lse; its backward runs
+  ``flash_attention_bwd``.
+- ``flash_attention_fwd(q, k, v, scale) -> (o, lse)`` (K1,
+  ``csrc/flash_attn_fwd.cu``): ``lse`` is the f32 row logsumexp
+  [B, H, S_q] that the backward consumes.
+- ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2,
+  ``csrc/flash_attn_bwd.cu``).
+- ``flash_attention_reference`` and ``flash_attention_backward_reference``:
+  the plain PyTorch versions of the same math in f32 (P cast to V's dtype
+  for PV and dV, dS cast to Q's dtype for dK and dQ, as the TPU kernels
+  cast them).
+
+Each wrapper launches its kernel on a CUDA tensor (bf16 only; anything else
+raises) and runs its plain version on a CPU tensor, so on the CPU the
+``FlashAttention`` function is the plain forward and backward.  Each
+wrapper's ``launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -37,25 +48,42 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype), lse
 
 
+def flash_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                       o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                                       scale: Optional[float] = None
+                                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K2, in f32: P from the saved lse, delta = rowsum(dO o O),
+    dS = P (dP - delta) scale; P cast to ``v.dtype`` for dV and dS to
+    ``q.dtype`` for dK and dQ.  Returns (dq, dk, dv) in the inputs' dtypes."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.einsum("bqhd,bkhd->bhqk", qf, kf).mul_(scale).sub_(lse[..., None]).exp_()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), dof)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)  # [B, H, S_q]
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, vf).sub_(delta[..., None]).mul_(p).mul_(scale)
+    del p
+    ds = ds.to(q.dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _passable(t: torch.Tensor) -> bool:
+    """[B, S, H, D] with contiguous D and 16-byte aligned rows (strides % 8 == 0)."""
+    return t.dim() == 4 and t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) \
+        and t.data_ptr() % 16 == 0
+
+
 def _check_bshd(name: str, t: torch.Tensor) -> None:
     if t.dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: {name} must be bfloat16 on CUDA, got {t.dtype}")
-    if t.dim() != 4 or t.stride(-1) != 1:
-        raise ValueError(f"flash_attention: {name} must be [B, S, H, D] with contiguous D, "
-                         f"got shape {tuple(t.shape)} strides {t.stride()}")
-    if any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-        raise ValueError(f"flash_attention: {name} needs 16-byte aligned rows "
-                         f"(strides % 8 == 0), got strides {t.stride()}")
+    if not _passable(t):
+        raise ValueError(f"flash_attention: {name} must be [B, S, H, D] with contiguous D and "
+                         f"16-byte aligned rows (strides % 8 == 0), got shape {tuple(t.shape)} "
+                         f"strides {t.stride()}")
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward, [B, S, H, D] -> ([B, S_q, H, D], lse [B, H, S_q])."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if k.shape != (b, sk, h, d) or v.shape != k.shape:
@@ -67,6 +95,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k and v must be on one device")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_bshd(name, t)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: Optional[float] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention forward, [B, S, H, D] -> ([B, S_q, H, D], lse [B, H, S_q])."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_qkv(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -81,3 +122,78 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, scale: Optional[float] = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward from K1's outputs: (dq, dk, dv), [B, S, H, D] each.
+
+    q, k, v and o are read through their strides.  ``do`` is too, when its
+    head dim is contiguous and its rows 16-byte aligned; a ``do`` that is not
+    (autograd hands a broadcast zero-stride gradient for a ``sum()``) is
+    copied with ``.contiguous()`` first.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check_qkv(q, k, v)
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 [{b}, {h}, {sq}], "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    if any(t.device != q.device for t in (o, lse, do)):
+        raise ValueError("flash_attention_bwd: all inputs must be on one device")
+    if not _passable(do):
+        do = do.contiguous()
+    for name, t in (("o", o), ("do", do)):
+        _check_bshd(name, t)
+    scale = d ** -0.5 if scale is None else scale
+    dev = q.device
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    dq_acc = torch.empty((b, sq, h, d), dtype=torch.float32, device=dev)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=dev)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=dev)
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+               *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3]]
+    err = _build.library().dmtpu_flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, sq, sk, d, *strides, scale, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "flash_attention_bwd launch")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention whose forward is K1 and whose backward is K2 (their plain
+    versions on the CPU); the port of ``flash_small_d``'s ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                scale: Optional[float]) -> torch.Tensor:
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable attention through K1 and K2, [B, S, H, D] -> [B, S_q, H, D]."""
+    return FlashAttention.apply(q, k, v, scale)

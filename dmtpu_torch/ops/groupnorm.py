@@ -9,8 +9,14 @@ normalisation are computed in f32; the output has the input's dtype.
   reference.
 - ``group_norm_silu_reference``: the plain PyTorch version (two-pass
   statistics, as ``dmtpu.ops.groupnorm.group_norm_silu_reference``).
-- ``group_norm``: the one dispatch every model calls: ``group_norm_silu``,
-  or the reference inside ``dispatch.plain_ops()``.
+- ``GroupNormSiLU``: the differentiable op, a ``torch.autograd.Function``
+  whose forward is ``group_norm_silu`` and whose backward re-runs the
+  reference under autograd and takes its gradients for x, weight and bias,
+  as the JAX ``custom_vjp`` does (``dmtpu/ops/groupnorm.py::_bwd``).  The
+  JAX package has no Pallas backward for GroupNorm, so the plain PyTorch
+  backward is the faithful port; only the forward is a kernel.
+- ``group_norm``: the one dispatch every model calls: ``GroupNormSiLU``, or
+  the reference (plain autograd) inside ``dispatch.plain_ops()``.
 - ``group_norm_silu.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -80,9 +86,34 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 group_norm_silu.launches = 0
 
 
+class GroupNormSiLU(torch.autograd.Function):
+    """K3 forward; backward through the plain version (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
+                eps: float, silu: bool) -> torch.Tensor:
+        ctx.save_for_backward(x, weight, bias)
+        ctx.args = (groups, eps, silu)
+        return group_norm_silu(x, weight, bias, groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        saved = ctx.saved_tensors
+        wanted = [i for i in range(3) if ctx.needs_input_grad[i]]
+        with torch.enable_grad(), torch.profiler.record_function("GroupNormSiLU.backward"):
+            inputs = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
+            out = group_norm_silu_reference(*inputs, *ctx.args)
+            grads = torch.autograd.grad(out, [inputs[i] for i in wanted], grad)
+        result = [None] * 6
+        for i, g in zip(wanted, grads):
+            result[i] = g
+        return tuple(result)
+
+
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                groups: int = 32, eps: float = 1e-5, silu: bool = False) -> torch.Tensor:
-    """GroupNorm(+SiLU), NCHW: the K3 wrapper, or its plain version inside
-    ``plain_ops()``."""
-    fn = group_norm_silu if kernels_enabled() else group_norm_silu_reference
-    return fn(x, weight, bias, groups, eps, silu)
+    """GroupNorm(+SiLU), NCHW: ``GroupNormSiLU`` (K3 forward), or the plain
+    version inside ``plain_ops()``."""
+    if not kernels_enabled():
+        return group_norm_silu_reference(x, weight, bias, groups, eps, silu)
+    return GroupNormSiLU.apply(x, weight, bias, groups, eps, silu)

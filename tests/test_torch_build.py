@@ -1,0 +1,78 @@
+"""dmtpu_torch.ops._build on the CPU, with a stand-in for ``nvcc``.
+
+The real compiler exists only on a CUDA machine; here a small script takes
+its place.  It writes the file named by ``-o``, prints a ptxas-like line for
+each compile, and fails on a source that holds ``#error``.  A compile also
+waits (up to 20 s) until every source of the directory has started
+compiling, so a build that ran its compiles one after the other fails.
+"""
+import os
+import stat
+import sys
+import textwrap
+
+import pytest
+
+from dmtpu_torch.ops import _build
+
+FAKE_NVCC = textwrap.dedent("""\
+    import pathlib, sys, time
+    args = sys.argv[1:]
+    out = pathlib.Path(args[args.index("-o") + 1])
+    if "-c" in args:
+        src = pathlib.Path(args[-1])
+        (out.parent / (src.stem + ".started")).touch()
+        deadline = time.time() + 20
+        while len(list(out.parent.glob("*.started"))) < len(list(src.parent.glob("*.cu"))):
+            if time.time() > deadline:
+                sys.exit("compiles ran one after the other")
+            time.sleep(0.05)
+        if "#error" in src.read_text():
+            sys.exit(src.name + ": error")
+        print("ptxas info    : Used 32 registers in " + src.name)
+    out.write_text("built from " + " ".join(args))
+    """)
+
+
+@pytest.fixture
+def fake_tree(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("a.cu", "b.cu", "c.cu"):
+        (csrc / name).write_text(f"// {name}\n")
+    (csrc / "common.cuh").write_text("// shared header\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\n" + FAKE_NVCC)
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    return csrc
+
+
+def test_build_compiles_every_source_at_once_then_links(fake_tree):
+    lib = _build.build()
+    out_dir = lib.parent
+    assert lib.name == "libdmtpu_kernels.so" and lib.read_text().startswith("built from -shared")
+    log = (out_dir / "build.log").read_text()
+    for name in ("a.cu", "b.cu", "c.cu"):
+        assert f"Used 32 registers in {name}" in log
+    assert log.count(" -c ") == 3 and " -shared " in log
+    # the objects and the private library are gone; only the published one stays
+    assert sorted(p.name for p in out_dir.iterdir() if not p.name.endswith(".started")) == \
+        ["build.log", "libdmtpu_kernels.so"]
+    # a second call finds the library; an edited header gives a new digest
+    assert _build.build() == lib
+    (fake_tree / "common.cuh").write_text("// edited\n")
+    assert _build.build().parent != out_dir
+
+
+def test_build_failure_raises_and_publishes_nothing(fake_tree):
+    (fake_tree / "b.cu").write_text("#error broken kernel\n")
+    with pytest.raises(RuntimeError, match="nvcc failed.*b.cu"):
+        _build.build()
+    (out_dir,) = (_build.BUILD_ROOT).iterdir()
+    left = sorted(p.name for p in out_dir.iterdir() if not p.name.endswith(".started"))
+    assert left == ["build.log"]
+    assert "b.cu: error" in (out_dir / "build.log").read_text()
+    assert not os.path.exists(out_dir / "libdmtpu_kernels.so")

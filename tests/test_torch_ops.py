@@ -7,8 +7,10 @@ them.  ``tests/test_torch_kernels.py`` holds the CUDA kernels against the
 plain versions on the card.
 
 Tolerances: f32 on the CPU differs only by summation order (2e-5, as the JAX
-package's own kernel tests).  bf16 compares two frameworks that round the
-logits and P at different places: 2e-2, bf16's resolution at unit scale.
+package's own kernel tests; 5e-5 for gradients, as its own gradient test,
+since they sum over one more axis).  bf16 compares two frameworks that
+round the logits and P at different places: 2e-2, bf16's resolution at unit
+scale.
 """
 import os
 import subprocess
@@ -26,8 +28,12 @@ from dmtpu.ops import flash_small_d as jfsd
 from dmtpu.ops import groupnorm as jgn
 from dmtpu_torch.ops import (
     attention,
+    flash_attention,
+    flash_attention_backward_reference,
+    flash_attention_bwd,
     flash_attention_fwd,
     flash_attention_reference,
+    group_norm,
     group_norm_silu,
     group_norm_silu_reference,
     mha,
@@ -126,6 +132,103 @@ def test_group_norm_matches_jax_reference(c, hw, dtype):
     np.testing.assert_allclose(nhwc(got.float().numpy()), want, rtol=tol, atol=tol)
 
 
+GRAD_TOL = dict(rtol=5e-5, atol=5e-5)
+
+
+def _torch_grads(fn, arrays, do):
+    """Gradients of sum(fn(*tensors) * do) for f32 CPU tensors made from ``arrays``."""
+    leaves = [t(a).requires_grad_() for a in arrays]
+    fn(*leaves).backward(t(do))
+    return [leaf.grad.numpy() for leaf in leaves]
+
+
+@pytest.mark.parametrize("s,d,block_q,block_k", [(256, 40, 128, 128), (512, 80, 128, 256),
+                                                 (512, 40, 128, 256), (256, 80, 128, 128)])
+def test_flash_backward_matches_pallas_interpret(s, d, block_q, block_k):
+    """K2's plain version, and the FlashAttention function on the CPU (whose
+    bodies are the plain versions), against jax.grad of the Pallas
+    flash_small_d (forward and fused backward kernels) in interpret mode."""
+    b, h = 2, 2
+    q, k, v = _qkv(5, b, s, s, h, d)
+    do = np.random.RandomState(6).randn(b, s, h, d).astype(np.float32)
+    scale = d ** -0.5
+
+    def loss(qq, kk, vv):
+        return jnp.sum(jfsd.flash_small_d_bshd(qq, kk, vv, scale, block_q, block_k)
+                       * jnp.asarray(do))
+
+    with jax.default_device(CPU), pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    o, lse = flash_attention_fwd(t(q), t(k), t(v), scale)
+    ref = flash_attention_backward_reference(t(q), t(k), t(v), o, lse, t(do), scale)
+    got = _torch_grads(lambda *a: flash_attention(*a, scale), (q, k, v), do)
+    for name, w, r, g in zip("qkv", want, ref, got):
+        np.testing.assert_allclose(r.numpy(), np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
+        np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
+
+
+@pytest.mark.parametrize("sq,d", [(256, 160), (64, 40), (128, 80)])
+def test_cross_attention_grads_match_jax_mha(sq, d):
+    """S_k=77 at SD's head dims: the FlashAttention function's gradients on
+    the CPU (K2's plain version) against jax.grad of the JAX package's mha."""
+    q, k, v = _qkv(7, 2, sq, 77, 2, d)
+    do = np.random.RandomState(8).randn(2, sq, 2, d).astype(np.float32)
+
+    def loss(qq, kk, vv):
+        return jnp.sum(jattn.mha(qq, kk, vv) * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    got = _torch_grads(flash_attention, (q, k, v), do)
+    for name, w, g in zip("qkv", want, got):
+        np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
+
+
+def test_flash_attention_function_wiring():
+    """What the autograd function saves and hands back, on the CPU: the
+    plain forward's output and f32 lse, its inputs' dtypes for the
+    gradients, the backward reference's exact values, and the head-dim
+    default for ``scale``."""
+    q, k, v = (t(a).bfloat16().requires_grad_() for a in _qkv(9, 2, 64, 77, 2, 40))
+    do = torch.from_numpy(np.random.RandomState(10).randn(2, 64, 2, 40).astype(np.float32))
+    o = flash_attention(q, k, v)
+    saved = o.grad_fn.saved_tensors
+    assert [tuple(x.shape) for x in saved] == [(2, 64, 2, 40), (2, 77, 2, 40), (2, 77, 2, 40),
+                                               (2, 64, 2, 40), (2, 2, 64)]
+    assert [x.dtype for x in saved] == [torch.bfloat16] * 4 + [torch.float32]
+    want_o, want_lse = flash_attention_reference(q, k, v, 40 ** -0.5)
+    assert torch.equal(o, want_o) and torch.equal(saved[4], want_lse)
+    o.backward(do.bfloat16())
+    want = flash_attention_backward_reference(q.detach(), k.detach(), v.detach(), want_o,
+                                              want_lse, do.bfloat16(), 40 ** -0.5)
+    for leaf, w in zip((q, k, v), want):
+        assert leaf.grad.dtype == torch.bfloat16
+        assert torch.equal(leaf.grad, w)
+    assert all(torch.equal(a, b) for a, b in zip(
+        flash_attention_bwd(q.detach(), k.detach(), v.detach(), want_o, want_lse,
+                            do.bfloat16()), want))
+
+
+@pytest.mark.parametrize("silu,eps", [(True, 1e-5), (False, 1e-6)])
+def test_group_norm_grads_match_jax(silu, eps):
+    """The GroupNormSiLU function (K3's plain version forward, the plain
+    backward) against jax.grad of the JAX custom_vjp group_norm_silu."""
+    rs = np.random.RandomState(11)
+    x = (rs.randn(2, 64, 4, 4) * 2 + 0.5).astype(np.float32)
+    w = rs.randn(64).astype(np.float32)
+    bias = rs.randn(64).astype(np.float32)
+    gy = rs.randn(2, 64, 4, 4).astype(np.float32)
+
+    def loss(xx, ww, bb):
+        return jnp.sum(jgn.group_norm_silu(xx, ww, bb, 32, eps, silu) * jnp.asarray(nhwc(gy)))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(nhwc(x)), jnp.asarray(w),
+                                             jnp.asarray(bias))
+    got = _torch_grads(lambda *a: group_norm(*a, 32, eps, silu), (x, w, bias), gy)
+    np.testing.assert_allclose(nhwc(got[0]), np.asarray(want[0]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[1], np.asarray(want[1]), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[2], np.asarray(want[2]), rtol=1e-4, atol=1e-4)
+
+
 def test_wrappers_raise_on_unsupported_devices():
     x = torch.zeros(1, 32, 2, 4, device="meta")
     w = torch.ones(32, device="meta")
@@ -134,6 +237,8 @@ def test_wrappers_raise_on_unsupported_devices():
     q = torch.zeros(1, 8, 1, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention_bwd(q, q, q, q, torch.zeros(1, 1, 8, device="meta"), q)
 
 
 def test_plain_ops_switch_nests_and_restores():

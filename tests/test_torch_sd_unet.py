@@ -109,7 +109,7 @@ def test_tiny_unet_ddim_matches():
 
 
 @pytest.mark.parametrize("opt", [
-    {"num_classes": 10}, {"use_checkpoint": True}, {"use_linear_in_transformer": True},
+    {"num_classes": 10}, {"use_checkpoint": "dots"}, {"use_linear_in_transformer": True},
     {"tome_ratio": 0.5}, {"freeu": (1.1, 1.2, 0.9, 0.2)}, {"num_res_blocks": [1, 2]},
     {"transformer_depth": [1, 2]}, {"use_spatial_transformer": False},
     {"num_attention_blocks": [1, 1]}, {"disable_middle_transformer": True},
@@ -131,14 +131,26 @@ def test_unported_forward_options_raise():
 
 
 def test_torso_dtype_keeps_norms_and_embedding_f32():
+    """Every parameter is f32 (as the JAX package's param_dtype); the torso's
+    convolutions and dense layers compute in bf16, and the output is f32."""
     model = SDUNetModel(**TINY_SD_UNET_CFG, torso_dtype=torch.bfloat16)
-    dtypes = {k: v.dtype for k, v in model.state_dict().items()}
-    assert dtypes["input_blocks.1.0.in_layers.2.weight"] == torch.bfloat16
-    assert dtypes["input_blocks.1.1.transformer_blocks.0.attn1.to_q.weight"] == torch.bfloat16
-    assert dtypes["input_blocks.1.0.in_layers.0.weight"] == torch.float32
-    assert dtypes["input_blocks.1.1.transformer_blocks.0.norm1.weight"] == torch.float32
-    assert dtypes["time_embed.0.weight"] == torch.float32
-    assert dtypes["out.2.weight"] == torch.float32
-    with torch.no_grad():
-        out = model(torch.randn(1, 4, 8, 8), torch.tensor([10]), torch.randn(1, 7, 24))
+    assert {v.dtype for v in model.state_dict().values()} == {torch.float32}
+    torch.nn.init.normal_(model.out[2].weight, std=0.1)  # zero-initialised: no gradient past it
+    seen = {}
+
+    def record(name):
+        return lambda module, args, out: seen.__setitem__(name, out.dtype)
+
+    for name in ("input_blocks.1.0.in_layers.2",
+                 "input_blocks.1.1.transformer_blocks.0.attn1.to_q",
+                 "input_blocks.1.0.in_layers.0", "time_embed.0", "out.2"):
+        model.get_submodule(name).register_forward_hook(record(name))
+    out = model(torch.randn(1, 4, 8, 8), torch.tensor([10]), torch.randn(1, 7, 24))
+    assert seen["input_blocks.1.0.in_layers.2"] == torch.bfloat16
+    assert seen["input_blocks.1.1.transformer_blocks.0.attn1.to_q"] == torch.bfloat16
+    assert seen["input_blocks.1.0.in_layers.0"] == torch.bfloat16  # GN keeps its input dtype
+    assert seen["time_embed.0"] == torch.float32 and seen["out.2"] == torch.float32
     assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    out.square().mean().backward()
+    grad = model.get_submodule("input_blocks.0.0").weight.grad  # reached through the skips
+    assert grad.dtype == torch.float32 and grad.abs().max() > 0
