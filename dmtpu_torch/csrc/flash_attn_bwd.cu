@@ -309,12 +309,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dO,
                    const void* lse, const void* delta, void* dq_acc, void* dk, void* dv,
                    int B, int H, int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs,
                    Strides dos, Strides dks, Strides dvs, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)6 * kRows * (DP + 8) * sizeof(__nv_bfloat16) +
-                      (size_t)kRows * (kRows + 8) * sizeof(__nv_bfloat16) +
-                      (size_t)4 * kRows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_kernel<DP, DSPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  constexpr size_t smem = (size_t)6 * kRows * (DP + 8) * sizeof(__nv_bfloat16) +
+                          (size_t)kRows * (kRows + 8) * sizeof(__nv_bfloat16) +
+                          (size_t)4 * kRows * sizeof(float);
+  static bool allowed[kMaxDevices] = {};
+  const cudaError_t attr =
+      allow_dynamic_smem(flash_bwd_kernel<DP, DSPLIT>, (int)smem, allowed);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((Sk + kRows - 1) / kRows, B * H);
   flash_bwd_kernel<DP, DSPLIT><<<grid, 4 * DSPLIT * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),

@@ -9,18 +9,31 @@
 //
 // What bounds it on this card: bytes.  It does a handful of operations per
 // element, far below the ~295 operations per byte at which the tensor cores
-// would become the limit.  The TPU kernel held a whole [H*W, C] sample in
-// VMEM and read it once; here one (sample, group) holds up to 30 x 4096
-// values in SD1.5 (122,880), too many for shared memory.  So one CTA per
-// (sample, group) reads its values twice: once for the statistics and once to
-// normalise and write.  Both layouts PyTorch gives the UNet's activations are
-// read in place: contiguous NCHW (the group is one slab, read 16 bytes at a
-// time) and channels-last (C/G contiguous values at each pixel, read 2 values
-// at a time; cuDNN returns bf16 convolutions in this layout).  The statistics
-// are Welford-style: each thread folds exact two-pass moments of 8-value
-// chunks into its running (count, mean, M2) with Chan's merge, and the
-// threads' states are merged across the block.  The TPU kernel's
-// E[x^2] - E[x]^2, which cancels badly in f32, is not copied.
+// would become the limit; the least it can move is x once in and y once out.
+// The TPU kernel held a whole [H*W, C] sample in VMEM and read it once; here
+// a sample is up to 7.9 MB, far beyond one SM's shared memory, so every
+// kernel below makes two passes over x, statistics first, and the second
+// pass's reads come partly out of the 50 MB L2 cache.  Three kernels, chosen
+// by dmtpu_torch/ops/groupnorm.py::plan:
+//   - "rows", for channels-last (N, H, W, C in memory; cuDNN returns the
+//     UNet's bf16 convolutions so): a group is only C/G contiguous values at
+//     each pixel (20 bytes at a 640-byte stride for C=320), so a CTA takes
+//     whole pixel rows instead, 16 bytes a thread along C, and the CTAs of a
+//     sample form a thread block cluster that merges the per-group
+//     statistics through distributed shared memory, in a fixed order and
+//     without atomics.  See the comment at group_norm_rows_kernel;
+//   - one CTA per (sample, group) over contiguous NCHW (the group is one
+//     slab, read 16 bytes at a time);
+//   - one CTA per (sample, group) over channels-last, two values at a time:
+//     for the shapes "rows" does not take (C no multiple of 8, fewer than 8
+//     channels a group).
+// The statistics are (count, mean, M2) states merged with Chan's formula
+// across threads, warps and CTAs; a thread's own state comes from exact
+// two-pass moments of 8-value chunks (the per-group kernels) or from sums of
+// x - shift and (x - shift)^2 with the shift at its first pixel's group mean
+// (the rows kernel).  The TPU kernel's E[x^2] - E[x]^2, which cancels badly
+// in f32, is not copied.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -183,6 +196,230 @@ group_norm_kernel(const T* __restrict__ x, const float* __restrict__ weight,
   }
 }
 
+// ---- channels-last, a block of pixels per CTA ("rows") ----------------------
+// x is [N][HW][C] in memory.  The CTAs of one thread block cluster share a
+// sample; its pixel rows go round them in turn, `rows` at a time.  A thread
+// owns one 8-channel chunk of the pixel row (chunk cc = tid % (C / 8)) at
+// every (cluster size * rows)-th pixel, so a warp reads whole rows, 16 bytes a
+// thread at neighbouring addresses, and a thread's channels, groups, weights
+// and biases never change.  With C / G >= 8 a chunk lies in at most two groups: A holds
+// its first `na` channels and B the rest.  Both passes keep two batches of
+// loads in registers: the next batch is in flight while this one is used.
+constexpr int kMaxRowThreads = 512;
+constexpr int kMaxGroups = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kDepth = 4;  // pixel rows of one batch of loads; two batches are live
+
+// The 8 values of one thread at one pixel, as loaded.
+template <typename T>
+struct Chunk;
+template <>
+struct Chunk<__nv_bfloat16> {
+  uint4 raw;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    raw = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void unpack(float* v) const {
+    // a bf16 is the upper half of its f32
+    v[0] = __uint_as_float(raw.x << 16); v[1] = __uint_as_float(raw.x & 0xffff0000u);
+    v[2] = __uint_as_float(raw.y << 16); v[3] = __uint_as_float(raw.y & 0xffff0000u);
+    v[4] = __uint_as_float(raw.z << 16); v[5] = __uint_as_float(raw.z & 0xffff0000u);
+    v[6] = __uint_as_float(raw.w << 16); v[7] = __uint_as_float(raw.w & 0xffff0000u);
+  }
+};
+template <>
+struct Chunk<float> {
+  uint4 lo, hi;
+  __device__ __forceinline__ void load(const float* p) {
+    lo = reinterpret_cast<const uint4*>(p)[0];
+    hi = reinterpret_cast<const uint4*>(p)[1];
+  }
+  __device__ __forceinline__ void unpack(float* v) const {
+    v[0] = __uint_as_float(lo.x); v[1] = __uint_as_float(lo.y);
+    v[2] = __uint_as_float(lo.z); v[3] = __uint_as_float(lo.w);
+    v[4] = __uint_as_float(hi.x); v[5] = __uint_as_float(hi.y);
+    v[6] = __uint_as_float(hi.z); v[7] = __uint_as_float(hi.w);
+  }
+};
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T, bool kSilu>
+__global__ void __launch_bounds__(kMaxRowThreads)
+group_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ weight,
+                       const float* __restrict__ bias, T* __restrict__ y, int C, int HW, int G,
+                       float eps, int rows) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float t_n[2][kMaxRowThreads], t_mean[2][kMaxRowThreads], t_m2[2][kMaxRowThreads];
+  __shared__ float part[3][kMaxGroups];  // this CTA's (count, mean, M2) per group
+  __shared__ float fin[2][kMaxGroups];   // the sample's mean and rstd per group
+
+  const int rank = blockIdx.x, csize = gridDim.x;  // the cluster spans the grid's x
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int cpr = C / 8, cpg = C / G;               // chunks per pixel row, channels per group
+  const bool active = tid < rows * cpr;
+  const int r = tid / cpr, cc = tid % cpr;
+  const int c0 = cc * 8;
+  const int ga = c0 / cpg;
+  const int na = min(8, (ga + 1) * cpg - c0);      // channels of the chunk in group ga
+  // pixel rows go round the cluster in turn, `rows` at a time: at any moment
+  // the CTAs of a sample read neighbouring ranges of memory
+  const int stride = csize * rows;                  // between a thread's pixels
+  const int p_first = rank * rows + r;
+  const int p_end = active ? HW : 0;
+  const int step = kDepth * stride;
+  const T* src = x + (long long)blockIdx.y * HW * C + c0;
+  T* dst = y + (long long)blockIdx.y * HW * C + c0;
+
+  auto load_batch = [&](Chunk<T>(&batch)[kDepth], int p) {
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u)
+      if (p + u * stride < p_end) batch[u].load(src + (long long)(p + u * stride) * C);
+  };
+
+  // pass 1: sums of d = x - shift and of d * d over all 8 channels and over
+  // A's alone (B is the difference), the shifts being the group means of the
+  // thread's first pixel: close to the mean, so the squares do not cancel
+  float in_a[8], shift[8];
+  float s_all = 0.f, q_all = 0.f, s_a = 0.f, q_a = 0.f, shift_a = 0.f, shift_b = 0.f;
+  int folds = 0;
+  Chunk<T> cur[kDepth], nxt[kDepth];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) in_a[j] = j < na ? 1.f : 0.f;
+  load_batch(cur, p_first);
+  if (p_first < p_end) {
+    float v[8];
+    cur[0].unpack(v);
+    float sum_all = 0.f, sum_a = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sum_all += v[j];
+      sum_a = fmaf(v[j], in_a[j], sum_a);
+    }
+    shift_a = sum_a / na;
+    shift_b = na < 8 ? (sum_all - sum_a) / (8 - na) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) shift[j] = j < na ? shift_a : shift_b;
+  for (int p = p_first; p < p_end; p += step) {
+    load_batch(nxt, p + step);
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) {
+      if (p + u * stride >= p_end) break;
+      float v[8];
+      cur[u].unpack(v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = v[j] - shift[j];
+        const float dd = d * d;
+        s_all += d;
+        q_all += dd;
+        s_a = fmaf(d, in_a[j], s_a);
+        q_a = fmaf(dd, in_a[j], q_a);
+      }
+      ++folds;
+    }
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) cur[u] = nxt[u];
+  }
+  // (count, mean, M2) of the thread's share of A and of B
+  {
+    const float n_a = (float)(folds * na), n_b = (float)(folds * (8 - na));
+    const float s_b = s_all - s_a, q_b = q_all - q_a;
+    t_n[0][tid] = n_a;
+    t_mean[0][tid] = n_a > 0.f ? shift_a + s_a / n_a : 0.f;
+    t_m2[0][tid] = n_a > 0.f ? fmaxf(q_a - s_a * s_a / n_a, 0.f) : 0.f;
+    t_n[1][tid] = n_b;
+    t_mean[1][tid] = n_b > 0.f ? shift_b + s_b / n_b : 0.f;
+    t_m2[1][tid] = n_b > 0.f ? fmaxf(q_b - s_b * s_b / n_b, 0.f) : 0.f;
+  }
+  __syncthreads();
+
+  // the CTA's state of each group: one warp per group, lanes over the
+  // (pixel row, chunk) threads that hold a share of it, then a fixed tree
+  const int warp = tid / 32, lane = tid % 32, nwarps = threads / 32;
+  for (int g = warp; g < G; g += nwarps) {
+    const int cc_lo = (g * cpg) / 8, ncc = ((g + 1) * cpg - 1) / 8 - cc_lo + 1;
+    float n = 0.f, mean = 0.f, m2 = 0.f;
+    for (int e = lane; e < rows * ncc; e += 32) {
+      const int ecc = cc_lo + e % ncc;
+      const int owner = (e / ncc) * cpr + ecc;
+      const int slot = (ecc * 8) / cpg == g ? 0 : 1;
+      merge(n, mean, m2, t_n[slot][owner], t_mean[slot][owner], t_m2[slot][owner]);
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float nb = __shfl_xor_sync(0xffffffffu, n, off);
+      const float mb = __shfl_xor_sync(0xffffffffu, mean, off);
+      const float m2b = __shfl_xor_sync(0xffffffffu, m2, off);
+      merge(n, mean, m2, nb, mb, m2b);
+    }
+    if (lane == 0) {
+      part[0][g] = n;
+      part[1][g] = mean;
+      part[2][g] = m2;
+    }
+  }
+  // pass 2 runs from the last batch to the first: what pass 1 read last is the
+  // likeliest to be in the L2 cache still.  Its first loads fly during the merge
+  const int nbatch = p_first < p_end ? (p_end - p_first + step - 1) / step : 0;
+  int p = p_first + (nbatch - 1) * step;
+  if (nbatch > 0) load_batch(cur, p);
+  // the sample's state: every CTA reads the partial states of all CTAs of the
+  // cluster through distributed shared memory and merges them in rank order,
+  // so all of them hold the same statistics, bit for bit, with no atomics
+  cluster.sync();
+  if (tid < G) {
+    float n = 0.f, mean = 0.f, m2 = 0.f;
+    for (int other = 0; other < csize; ++other) {
+      const float* remote = cluster.map_shared_rank(&part[0][0], other);
+      merge(n, mean, m2, remote[tid], remote[kMaxGroups + tid], remote[2 * kMaxGroups + tid]);
+    }
+    fin[0][tid] = mean;
+    fin[1][tid] = rsqrtf(m2 / n + eps);
+  }
+  cluster.sync();  // no CTA leaves, or overwrites `part`, while another reads it
+  if (!active) return;
+
+  // pass 2: y = x * sc + sh with the thread's 8 scales and shifts; for the
+  // SiLU, y / (1 + 2^(x * ec + eh)) with ec, eh = -log2(e) * (sc, sh)
+  float sc[8], sh[8], ec[8], eh[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int g = min(j < na ? ga : ga + 1, G - 1);
+    sc[j] = weight[c0 + j] * fin[1][g];
+    sh[j] = bias[c0 + j] - fin[0][g] * sc[j];
+    ec[j] = -kLog2e * sc[j];
+    eh[j] = -kLog2e * sh[j];
+  }
+  for (int i = 0; i < nbatch; ++i, p -= step) {
+    if (i + 1 < nbatch) load_batch(nxt, p - step);
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) {
+      if (p + u * stride >= p_end) break;
+      float v[8];
+      cur[u].unpack(v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float t = fmaf(v[j], sc[j], sh[j]);
+        v[j] = kSilu ? t * rcp_approx(1.f + ex2_approx(fmaf(v[j], ec[j], eh[j]))) : t;
+      }
+      store8(dst + (long long)(p + u * stride) * C, v);
+    }
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) cur[u] = nxt[u];
+  }
+}
+
 template <typename T, bool kNhwc>
 cudaError_t launch(const void* x, const void* w, const void* b, void* y, int N, int C, int HW,
                    int G, float eps, bool silu, cudaStream_t stream) {
@@ -200,18 +437,68 @@ cudaError_t launch(const void* x, const void* w, const void* b, void* y, int N, 
   return cudaGetLastError();
 }
 
+template <typename T, bool kSilu>
+cudaError_t launch_rows_instance(const T* x, const float* w, const float* b, T* y, int N, int C,
+                                 int HW, int G, float eps, int cluster, int rows, int threads,
+                                 cudaStream_t stream) {
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster, N);
+  config.blockDim = dim3(threads);
+  config.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  config.attrs = attrs;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, group_norm_rows_kernel<T, kSilu>, x, w, b, y, C, HW, G, eps,
+                            rows);
+}
+
+template <typename T>
+cudaError_t launch_rows(const void* x, const void* w, const void* b, void* y, int N, int C, int HW,
+                        int G, float eps, bool silu, int cluster, int rows, int threads,
+                        cudaStream_t stream) {
+  if (C % 8 || C / G < 8 || G > kMaxGroups || threads > kMaxRowThreads || threads % 32 ||
+      rows < 1 || rows * (C / 8) > threads || cluster < 1 || cluster > 8)
+    return cudaErrorInvalidValue;
+  const T* xt = static_cast<const T*>(x);
+  const float* wt = static_cast<const float*>(w);
+  const float* bt = static_cast<const float*>(b);
+  T* yt = static_cast<T*>(y);
+  if (silu)
+    return launch_rows_instance<T, true>(xt, wt, bt, yt, N, C, HW, G, eps, cluster, rows, threads,
+                                         stream);
+  return launch_rows_instance<T, false>(xt, wt, bt, yt, N, C, HW, G, eps, cluster, rows, threads,
+                                        stream);
+}
+
 }  // namespace
 
-// x, y: f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned, either
-// contiguous NCHW (channels_last = 0; needs HW % 8 == 0) or channels-last
-// (channels_last = 1; needs (C / G) % 2 == 0); y has x's layout.  weight,
-// bias: f32 [C].  Needs C % G == 0.  Returns the CUDA error code of the
-// launch (0 on success).
+// x, y: f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned; y has x's
+// layout.  weight, bias: f32 [C].  Needs C % G == 0.  kernel:
+//   0  contiguous NCHW, one CTA per (sample, group); needs HW % 8 == 0;
+//   1  channels-last, one CTA per (sample, group); needs (C / G) % 2 == 0;
+//   2  channels-last, a cluster of `cluster` CTAs (at most 8) per sample,
+//      `rows` pixel rows a pass in a CTA of `threads` threads (a multiple of
+//      32, at least rows * C / 8, at most 512); needs C % 8 == 0, C / G >= 8,
+//      G <= 128.
+// Returns the CUDA error code of the launch (0 on success).
 extern "C" int dmtpu_group_norm_silu(const void* x, const void* weight, const void* bias,
                                      void* y, int N, int C, int HW, int G, float eps,
-                                     int silu, int is_bf16, int channels_last, void* stream) {
+                                     int silu, int is_bf16, int kernel, int cluster, int rows,
+                                     int threads, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool s = silu != 0;
+  if (kernel == 2) {
+    if (is_bf16)
+      return (int)launch_rows<__nv_bfloat16>(x, weight, bias, y, N, C, HW, G, eps, s, cluster,
+                                             rows, threads, st);
+    return (int)launch_rows<float>(x, weight, bias, y, N, C, HW, G, eps, s, cluster, rows,
+                                   threads, st);
+  }
+  const bool channels_last = kernel == 1;
   if (is_bf16 && channels_last)
     return (int)launch<__nv_bfloat16, true>(x, weight, bias, y, N, C, HW, G, eps, s, st);
   if (is_bf16)

@@ -22,6 +22,21 @@ struct Strides {
   long long b, s, h;  // element strides of [B, S, H, D]; D is contiguous
 };
 
+// Raises a kernel's dynamic shared-memory limit once per device, not once per
+// call: the attribute belongs to the device's context, so `done` (one static
+// array per kernel instance) remembers which devices have it.
+constexpr int kMaxDevices = 64;
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel* kernel, int bytes, bool (&done)[kMaxDevices]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && done[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && device < kMaxDevices) done[device] = true;
+  return err;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -39,11 +39,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, B, H, Sq, Sk, D, 12 strides, scale_log2, stream
     "dmtpu_flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    "dmtpu_flash_attn_fwd_mma": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
     # q, k, v, o, dO, lse, delta, dq_acc, dq, dk, dv, B, H, Sq, Sk, D, 21 strides,
     # scale, stream
     "dmtpu_flash_attn_bwd": [_P] * 11 + [_I] * 5 + [_L] * 21 + [_F, _P],
-    # x, weight, bias, y, N, C, HW, G, eps, silu, is_bf16, channels_last, stream
-    "dmtpu_group_norm_silu": [_P] * 4 + [_I] * 4 + [_F, _I, _I, _I, _P],
+    # x, weight, bias, y, N, C, HW, G, eps, silu, is_bf16, kernel, cluster, rows, threads,
+    # stream
+    "dmtpu_group_norm_silu": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 6 + [_P],
 }
 
 

@@ -10,9 +10,11 @@ to 48, 80 or 160 in shared memory) and ragged sequence lengths (masked).
   (``FlashAttention``, a ``torch.autograd.Function``): its forward runs
   ``flash_attention_fwd`` and saves q, k, v, o and the lse; its backward runs
   ``flash_attention_bwd``.
-- ``flash_attention_fwd(q, k, v, scale) -> (o, lse)`` (K1,
-  ``csrc/flash_attn_fwd.cu``): ``lse`` is the f32 row logsumexp
-  [B, H, S_q] that the backward consumes.
+- ``flash_attention_fwd(q, k, v, scale) -> (o, lse)`` (K1): ``lse`` is the
+  f32 row logsumexp [B, H, S_q] that the backward consumes.  Two kernels
+  stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims 40
+  and 80, the long self-attention shapes) and ``csrc/flash_attn_fwd_mma.cu``
+  (mma.sync, everything else); ``select_kernel`` is the gate.
 - ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2,
   ``csrc/flash_attn_bwd.cu``).
 - ``flash_attention_reference`` and ``flash_attention_backward_reference``:
@@ -70,8 +72,10 @@ def flash_attention_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torc
 
 def _passable(t: torch.Tensor) -> bool:
     """[B, S, H, D] with contiguous D and 16-byte aligned rows (strides % 8 == 0)."""
-    return t.dim() == 4 and t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:3]) \
-        and t.data_ptr() % 16 == 0
+    if t.dim() != 4:
+        return False
+    sb, ss, sh, sd = t.stride()
+    return sd == 1 and not (sb | ss | sh) & 7 and not t.data_ptr() & 15
 
 
 def _check_bshd(name: str, t: torch.Tensor) -> None:
@@ -84,23 +88,72 @@ def _check_bshd(name: str, t: torch.Tensor) -> None:
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if k.shape != (b, sk, h, d) or v.shape != k.shape:
+    """Raises on what the kernels do not take.  It runs before every launch,
+    so it compares plain ints and builds its messages only on failure."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
-    if d % 8 or d > 160:
+    d = q.shape[3]
+    if d & 7 or d > 160:
         raise ValueError(f"flash_attention: head dim must be a multiple of 8 up to 160, got {d}")
-    if k.device != q.device or v.device != q.device:
+    device = q.get_device()
+    if k.get_device() != device or v.get_device() != device:
         raise ValueError("flash_attention: q, k and v must be on one device")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_bshd(name, t)
+    _check_bshd("q", q)
+    _check_bshd("k", k)
+    _check_bshd("v", v)
+
+
+# K1 is two hand-written kernels with one interface.  "wgmma"
+# (csrc/flash_attn_fwd.cu: TMA loads, a ring of K/V stages, wgmma, 128 Q rows
+# and 128 keys a tile) is instantiated for head dims 40 and 80 and needs a
+# positive scale (it takes the running max before scaling); "mma"
+# (csrc/flash_attn_fwd_mma.cu: mma.sync, 64 x 64 tiles) takes every head dim
+# up to 160.
+WGMMA_HEAD_DIMS = (40, 80)
+# Below this many keys the wgmma kernel is one 128-key tile, mostly masked,
+# and the mma.sync kernel is as fast or faster; see the gate's numbers in
+# ``select_kernel``.
+WGMMA_MIN_KEYS = 129
+
+
+def kernels_for(d: int, scale: Optional[float] = None) -> list[str]:
+    """The K1 kernels that take head dim ``d`` (and ``scale``), the general one first."""
+    names = ["mma"]
+    if d in WGMMA_HEAD_DIMS and (scale is None or scale > 0):
+        names.append("wgmma")
+    return names
+
+
+def select_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> str:
+    """The K1 kernel a call is dispatched to.
+
+    Measured on an NVIDIA H100 80GB HBM3 (700 W) by ``chip_smoke.py`` phase 2,
+    b16 h8 bf16, both kernels in one call, ms (mma.sync / wgmma): S=4096 d=40
+    2.44-2.48 / 1.18; S=1024 d=80 0.257 / 0.118; S_q=4096 S_k=77 d=40 0.110 /
+    0.123; S_q=1024 S_k=77 d=80 0.051 / 0.048, both within the 0.047 ms the
+    host takes to launch one.  So the wgmma kernel takes what has more than
+    one 128-key tile; with 77 keys its one tile is 40% masked keys and the
+    shape stays on mma.sync.
+    """
+    if "wgmma" in kernels_for(d, scale) and sk >= WGMMA_MIN_KEYS:
+        return "wgmma"
+    return "mma"
+
+
+_ENTRY_POINTS = {"mma": "dmtpu_flash_attn_fwd_mma", "wgmma": "dmtpu_flash_attn_fwd"}
+_LOG2E = math.log2(math.e)
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None, kernel: Optional[str] = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward, [B, S, H, D] -> ([B, S_q, H, D], lse [B, H, S_q])."""
+    """Attention forward, [B, S, H, D] -> ([B, S_q, H, D], lse [B, H, S_q]).
+
+    ``kernel`` forces "mma" or "wgmma" (it raises if that kernel does not take
+    the call); by default ``select_kernel`` chooses.
+    """
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, scale)
     if q.device.type != "cuda":
@@ -108,20 +161,29 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_qkv(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    if kernel is None:
+        kernel = select_kernel(sq, sk, d, scale)
+        if kernel == "wgmma" and min(strides) <= 0:  # a broadcast view: no tensor map
+            kernel = "mma"
+    elif kernel not in kernels_for(d, scale) or (kernel == "wgmma" and min(strides) <= 0):
+        raise ValueError(f"flash_attention: kernel {kernel!r} does not take head dim {d}, "
+                         f"scale {scale}, strides {strides}")
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]]
-    err = _build.library().dmtpu_flash_attn_fwd(
+    err = getattr(_build.library(), _ENTRY_POINTS[kernel])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        b, h, sq, sk, d, *strides, scale * math.log2(math.e),
+        b, h, sq, sk, d, *strides, *out.stride()[:3], scale * _LOG2E,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention launch")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_kernel[kernel] += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_kernel = {"mma": 0, "wgmma": 0}
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,

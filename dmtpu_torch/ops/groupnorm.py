@@ -7,6 +7,9 @@ normalisation are computed in f32; the output has the input's dtype.
   it launches the kernel (f32 or bf16, contiguous NCHW or channels-last,
   f32 weight and bias; anything else raises), on a CPU tensor it runs the
   reference.
+- ``plan`` and ``kernels_for``: which of the source's three kernels a call
+  takes (channels-last goes by whole pixel rows with a thread block cluster
+  per sample, where C and C/groups allow) and the launch shape.
 - ``group_norm_silu_reference``: the plain PyTorch version (two-pass
   statistics, as ``dmtpu.ops.groupnorm.group_norm_silu_reference``).
 - ``GroupNormSiLU``: the differentiable op, a ``torch.autograd.Function``
@@ -20,6 +23,9 @@ normalisation are computed in f32; the output has the input's dtype.
 - ``group_norm_silu.launches`` counts kernel launches.
 """
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,9 +50,57 @@ def group_norm_silu_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch
     return xn.to(x.dtype)
 
 
+# The three K3 kernels of ``csrc/group_norm_silu.cu`` (the C interface's
+# ``kernel`` argument): one CTA per (sample, group) over contiguous NCHW
+# ("nchw") or over channels-last ("groups", C/G values a pixel, two at a
+# time), and "rows": channels-last by whole pixel rows, 16 bytes a thread, a
+# thread block cluster per sample.
+_KERNEL_IDS = {"nchw": 0, "groups": 1, "rows": 2}
+ROWS_THREADS = 512         # the rows kernel's largest CTA
+ROWS_CLUSTER = 8           # most CTAs per sample (the portable cluster size)
+# CTAs in all.  Measured on an NVIDIA H100 80GB HBM3 (700 W), b16 (320, 4096)
+# bf16: 64 CTAs of 480 threads, each thread with two batches of four 16-byte
+# loads live (3.9 MB in flight), 0.069 ms; 128 such CTAs 0.081 ms; 32, 0.101 ms.
+ROWS_TARGET_CTAS = 64
+ROWS_MAX_GROUPS = 128
+
+
+@functools.lru_cache(maxsize=None)
+def plan(c: int, hw: int, groups: int, esize: int, channels_last: bool, n: int = 16) -> dict:
+    """How K3 runs a [n, c, hw] call: ``kernel`` and, for "rows", its launch
+    shape: ``cluster`` CTAs per sample (a power of two, so that the batch has
+    about ``ROWS_TARGET_CTAS`` in all), ``rows`` pixel rows a pass in a CTA of
+    ``threads`` threads (a thread owns 8 channels of a pixel)."""
+    if not channels_last:
+        return {"kernel": "nchw"}
+    cpr = c // 8  # 8-channel chunks per pixel row
+    if c % 8 or c // groups < 8 or cpr > ROWS_THREADS or groups > ROWS_MAX_GROUPS:
+        return {"kernel": "groups"}
+    rows = ROWS_THREADS // cpr
+    threads = -(-rows * cpr // 32) * 32
+    cluster = ROWS_CLUSTER
+    while cluster > 1 and (n * cluster > ROWS_TARGET_CTAS or hw // cluster < rows):
+        cluster //= 2
+    return {"kernel": "rows", "cluster": cluster, "rows": rows, "threads": threads}
+
+
+@functools.lru_cache(maxsize=None)
+def kernels_for(c: int, hw: int, groups: int, channels_last: bool) -> tuple[str, ...]:
+    """The K3 kernels that take the call, the general one first."""
+    if not channels_last:
+        return ("nchw",)
+    names = ("groups",) if (c // groups) % 2 == 0 else ()
+    if plan(c, hw, groups, 2, True)["kernel"] == "rows":
+        names += ("rows",)
+    return names
+
+
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                    groups: int = 32, eps: float = 1e-5, silu: bool = True) -> torch.Tensor:
-    """Fused GroupNorm(+SiLU), NCHW.  weight/bias: [C]."""
+                    groups: int = 32, eps: float = 1e-5, silu: bool = True,
+                    kernel: Optional[str] = None) -> torch.Tensor:
+    """Fused GroupNorm(+SiLU), NCHW.  weight/bias: [C].  ``kernel`` forces one
+    of ``kernels_for``'s names (it raises if that kernel does not take the
+    call); by default ``plan`` chooses."""
     if x.device.type == "cpu":
         return group_norm_silu_reference(x, weight, bias, groups, eps, silu)
     if x.device.type != "cuda":
@@ -58,26 +112,37 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.dim() != 4:
         raise ValueError(f"group_norm_silu: x must be [N, C, H, W], got {tuple(x.shape)}")
     n, c, h, w = x.shape
-    if weight.shape != (c,) or bias.shape != (c,) or weight.device != x.device \
-            or bias.device != x.device:
+    device = x.get_device()
+    if weight.shape != (c,) or bias.shape != (c,) or weight.get_device() != device \
+            or bias.get_device() != device:
         raise ValueError(f"group_norm_silu: weight and bias must be [{c}] on {x.device}")
     if c % groups or x.data_ptr() % 16:
         raise ValueError(f"group_norm_silu: needs C % groups == 0 and 16-byte alignment, "
                          f"got C={c}, groups={groups}")
     if x.is_contiguous() and (h * w) % 8 == 0:
         channels_last = False
-    elif x.is_contiguous(memory_format=torch.channels_last) and (c // groups) % 2 == 0:
+    elif x.is_contiguous(memory_format=torch.channels_last) and \
+            kernels_for(c, h * w, groups, True):
         channels_last = True
     else:
         raise ValueError(f"group_norm_silu: x must be contiguous NCHW with H*W % 8 == 0 or "
-                         f"channels-last with C/groups even, got shape {tuple(x.shape)} "
-                         f"strides {x.stride()}")
-    weight, bias = weight.contiguous(), bias.contiguous()
+                         f"channels-last with C/groups even or C % 8 == 0 and C/groups >= 8, "
+                         f"got shape {tuple(x.shape)} strides {x.stride()}")
+    how = plan(c, h * w, groups, x.element_size(), channels_last, n)
+    if kernel is not None and kernel != how["kernel"]:
+        if kernel not in kernels_for(c, h * w, groups, channels_last):
+            raise ValueError(f"group_norm_silu: kernel {kernel!r} does not take shape "
+                             f"{tuple(x.shape)}, groups {groups}, strides {x.stride()}")
+        how = {"kernel": kernel}
+    if not weight.is_contiguous() or not bias.is_contiguous():
+        weight, bias = weight.contiguous(), bias.contiguous()
     out = torch.empty_like(x)  # keeps x's layout
     err = _build.library().dmtpu_group_norm_silu(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
         n, c, h * w, groups, float(eps), int(silu), int(x.dtype == torch.bfloat16),
-        int(channels_last), torch.cuda.current_stream(x.device).cuda_stream)
+        _KERNEL_IDS[how["kernel"]], how.get("cluster", 0), how.get("rows", 0),
+        how.get("threads", 0),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "group_norm_silu launch")
     group_norm_silu.launches += 1
     return out

@@ -76,3 +76,35 @@ def test_build_failure_raises_and_publishes_nothing(fake_tree):
     assert left == ["build.log"]
     assert "b.cu: error" in (out_dir / "build.log").read_text()
     assert not os.path.exists(out_dir / "libdmtpu_kernels.so")
+
+
+_C_TYPES = {"const void*": _build._P, "void*": _build._P, "int": _build._I,
+            "long long": _build._L, "float": _build._F}
+
+
+def _entry_points():
+    """(name, ctypes argument list) of every ``extern "C" int`` function of csrc/."""
+    import re
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)\s*{', src.read_text()):
+            types = [" ".join(p.split()[:-1]).replace(" *", "*") for p in params.split(",")]
+            found[name] = [_C_TYPES[ty] for ty in types]
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_ctypes_signature_matches_the_c_source(name):
+    """A pointer passed as a 32-bit int is cut: every entry point's argtypes
+    are held against its declaration in the CUDA source."""
+    assert _build._SIGNATURES[name] == _entry_points()[name]
+
+
+def test_every_entry_point_has_a_signature_and_every_source_is_built():
+    assert sorted(_entry_points()) == sorted(_build._SIGNATURES)
+    names = {p.name for p in _build._sources()}
+    assert {"flash_attn_fwd.cu", "flash_attn_fwd_mma.cu", "flash_attn_bwd.cu",
+            "group_norm_silu.cu"} <= names
+    # the headers are no translation units, but an edit to one rebuilds the library
+    assert "hopper.cuh" not in names and (_build.CSRC / "hopper.cuh").exists()
+    assert "compute_90a" in " ".join(_build.NVCC_FLAGS)  # wgmma and setmaxnreg need the `a`

@@ -35,6 +35,10 @@ from dmtpu_torch.ops import (
     mha,
     plain_ops,
 )
+from dmtpu_torch.ops.flash_attention import kernels_for as k1_kernels_for
+from dmtpu_torch.ops.flash_attention import select_kernel
+from dmtpu_torch.ops.groupnorm import kernels_for as k3_kernels_for
+from dmtpu_torch.ops.groupnorm import plan as k3_plan
 
 
 @pytest.fixture
@@ -239,3 +243,178 @@ def test_k2_kernel_rejects_unsupported_inputs(cuda):
     q = torch.zeros(1, 64, 1, 192, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="up to 160"):
         flash_attention_bwd(q, q, q, q, lse, q)
+
+
+# ---- K1: the wgmma kernel and the dispatch between the two kernels ----------
+
+ATTN_SHAPES = [(4096, 4096, 40), (1024, 1024, 80), (256, 256, 160), (64, 64, 160),
+               (4096, 77, 40), (1024, 77, 80), (256, 77, 160), (64, 77, 160)]
+
+
+def _k1_case(cuda, seed, b, sq, sk, h, d):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(b, s, h, d, generator=g, device=cuda).bfloat16() for s in (sq, sk, sk)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [None, "mma", "wgmma"])
+@pytest.mark.parametrize("sq,sk,d", ATTN_SHAPES)
+def test_k1_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, sq, sk, d, kernel):
+    """b2 h8 at the eight shapes of the SD1.5 UNet: the dispatch, and each
+    kernel forced; a kernel that does not take the head dim raises."""
+    q, k, v = _k1_case(cuda, 10, 2, sq, sk, 8, d)
+    if kernel is not None and kernel not in k1_kernels_for(d):
+        with pytest.raises(ValueError, match="does not take"):
+            flash_attention_fwd(q, k, v, kernel=kernel)
+        return
+    before = dict(flash_attention_fwd.launches_by_kernel)
+    o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
+    took = kernel or select_kernel(sq, sk, d)
+    assert flash_attention_fwd.launches_by_kernel[took] == before[took] + 1
+    want_o, want_lse = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert_k1_close(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 64, 72, 80, 160])
+@pytest.mark.parametrize("sq,sk", [(333, 77), (77, 333), (200, 333), (129, 129), (1, 130)])
+def test_k1_ragged_lengths_at_every_head_dim(cuda, sq, sk, d):
+    """Lengths that are no multiple of a tile, through every kernel that takes
+    the head dim: keys past S_k are masked, rows past S_q are not written."""
+    q, k, v = _k1_case(cuda, 11, 2, sq, sk, 3, d)
+    want_o, want_lse = flash_attention_reference(q, k, v)
+    for kernel in k1_kernels_for(d):
+        o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
+        torch.cuda.synchronize()
+        assert_k1_close(o, want_o)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["mma", "wgmma"])
+def test_k1_each_kernel_reads_strided_projections(cuda, kernel):
+    """q/k/v as views of one [B, S, 3*H*D] projection: the wgmma kernel's
+    tensor maps and the mma.sync kernel's pointers both follow the strides."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    b, s, h, d = 2, 300, 4, 80
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).bfloat16()
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, s, h, d) for i in range(3))
+    o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
+    want_o, want_lse = flash_attention_reference(q, k, v)
+    assert_k1_close(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_k1_dispatch_leaves_what_wgmma_cannot_take_to_mma(cuda):
+    """A scale that is not positive, and a broadcast (zero-stride) k, go to the
+    mma.sync kernel by themselves and are refused when wgmma is forced."""
+    q, k, v = _k1_case(cuda, 13, 1, 256, 256, 2, 40)
+    before = dict(flash_attention_fwd.launches_by_kernel)
+    o, _ = flash_attention_fwd(q, k, v, scale=-0.1)
+    assert_k1_close(o, flash_attention_reference(q, k, v, scale=-0.1)[0])
+    kb = k[:, :, :1].expand(-1, -1, 2, -1)
+    o, _ = flash_attention_fwd(q, kb, v)
+    assert_k1_close(o, flash_attention_reference(q, kb, v)[0])
+    assert flash_attention_fwd.launches_by_kernel == {"mma": before["mma"] + 2,
+                                                      "wgmma": before["wgmma"]}
+    for kwargs, keys in (({"scale": -0.1}, k), ({}, kb)):
+        with pytest.raises(ValueError, match="does not take"):
+            flash_attention_fwd(q, keys, v, kernel="wgmma", **kwargs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,d", [(4096, 4096, 40), (1024, 1024, 80), (300, 200, 40)])
+def test_k2_consumes_the_wgmma_forward(cuda, sq, sk, d):
+    """K2 reads o and lse of whichever K1 kernel ran: the same gradients from both."""
+    q, k, v, do = _qkv_do(cuda, 14, 2, sq, sk, 8, d)
+    want = flash_attention_backward_reference(q, k, v, *flash_attention_reference(q, k, v), do)
+    for kernel in ("wgmma", "mma"):
+        o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
+        assert_grads_close(flash_attention_bwd(q, k, v, o, lse, do), want, 1e-2)
+
+
+# ---- K3: the rows kernel (channels-last) beside the per-group kernels --------
+
+GN_PAIRS = [(320, 1024), (320, 4096), (640, 256), (640, 1024), (640, 4096), (960, 1024),
+            (960, 4096), (1280, 64), (1280, 256), (1280, 1024), (1920, 256), (1920, 1024),
+            (2560, 64), (2560, 256)]
+
+
+def _k3_case(cuda, seed, n, c, hw, dtype, layout):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    side = int(hw ** 0.5)
+    x = (torch.randn(n, c, side, hw // side, generator=g, device=cuda) * 3 + 2).to(
+        dtype=dtype, memory_format=layout)
+    return x, torch.randn(c, generator=g, device=cuda), torch.randn(c, generator=g, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,hw", GN_PAIRS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("silu,eps", [(True, 1e-5), (False, 1e-6)])
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last])
+def test_k3_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, c, hw, dtype, silu,
+                                                                       eps, layout):
+    """Every (C, H*W) pair of the SD1.5 UNet, both dtypes and layouts, SiLU on
+    and off, through each kernel that takes the call; two runs agree bit for
+    bit (the statistics are merged in a fixed order, with no atomics)."""
+    x, w, bias = _k3_case(cuda, 20, 2, c, hw, dtype, layout)
+    want = group_norm_silu_reference(x, w, bias, 32, eps, silu)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    channels_last = layout == torch.channels_last
+    names = k3_kernels_for(c, hw, 32, channels_last)
+    assert names == (("groups", "rows") if channels_last else ("nchw",))
+    for kernel in names:
+        got = group_norm_silu(x, w, bias, 32, eps, silu, kernel=kernel)
+        again = group_norm_silu(x, w, bias, 32, eps, silu, kernel=kernel)
+        assert got.is_contiguous(memory_format=layout) and torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 16, 70])
+@pytest.mark.parametrize("c,side,groups", [(320, 16, 32), (96, 5, 8), (72, 4, 8), (2560, 8, 32)])
+def test_k3_rows_kernel_at_every_cluster_size(cuda, n, c, side, groups):
+    """The cluster shrinks as the batch grows and for small images; a group
+    of 9 channels (72 / 8) makes every chunk straddle two groups."""
+    x, w, bias = _k3_case(cuda, 21, n, c, side * side, torch.float32, torch.channels_last)
+    how = k3_plan(c, side * side, groups, 4, True, n)
+    assert how["kernel"] == "rows"
+    got = group_norm_silu(x, w, bias, groups, 1e-5, True)
+    want = group_norm_silu_reference(x, w, bias, groups, 1e-5, True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_k3_statistics_survive_a_large_mean(cuda):
+    """mean >> std: the shifted sums of the rows kernel and the Welford chunks
+    of the per-group kernels both keep the variance (E[x^2] - E[x]^2 in f32
+    would lose it: 100^2 against 1e-4).  The bound is 1e-2: the kernels apply
+    y = x * (w * rstd) + (b - mean * w * rstd), two terms of about 1e4 |w|
+    that cancel, so y carries a few f32 roundings of 1e4 |w| (|w| up to 4)."""
+    x, w, bias = _k3_case(cuda, 22, 2, 320, 1024, torch.float32, torch.channels_last)
+    x = (x - 2) / 3 * 0.01 + 100  # std 0.01 around 100
+    want = group_norm_silu_reference(x.double(), w.double(), bias.double(), 32, 1e-8, False)
+    for kernel in ("rows", "groups"):
+        got = group_norm_silu(x, w, bias, 32, 1e-8, False, kernel=kernel)
+        torch.testing.assert_close(got.double(), want, rtol=1e-2, atol=1e-2)
+    got = group_norm_silu(x.contiguous(), w, bias, 32, 1e-8, False)
+    torch.testing.assert_close(got.double(), want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_k3_channels_last_shapes_the_rows_kernel_does_not_take(cuda):
+    """Two channels a group go to the per-group kernel; an odd count that is
+    no multiple of 8 is refused; a forced kernel that does not fit raises."""
+    x, w, bias = _k3_case(cuda, 23, 2, 64, 64, torch.float32, torch.channels_last)
+    assert k3_kernels_for(64, 64, 32, True) == ("groups",)
+    torch.testing.assert_close(group_norm_silu(x, w, bias), group_norm_silu_reference(x, w, bias),
+                               rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="does not take"):
+        group_norm_silu(x, w, bias, kernel="rows")
+    x, w, bias = _k3_case(cuda, 23, 2, 33, 64, torch.float32, torch.channels_last)
+    with pytest.raises(ValueError, match="channels-last"):
+        group_norm_silu(x, w, bias, 11)

@@ -264,3 +264,30 @@ def test_port_imports_no_jax():
             "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root, timeout=120)
+
+
+@pytest.mark.parametrize("kernel", [None, "mma", "wgmma"])
+def test_forced_attention_kernel_on_the_cpu_is_the_plain_version(kernel):
+    """``kernel=`` chooses among the CUDA kernels; a CPU tensor goes to the
+    plain version whatever it says, as the JAX package's own dispatch leaves
+    the CPU to its reference."""
+    q, k, v = (t(a) for a in _qkv(7, 1, 160, 160, 2, 40))
+    got_o, got_lse = flash_attention_fwd(q, k, v, kernel=kernel)
+    want_o, want_lse = flash_attention_reference(q, k, v)
+    assert torch.equal(got_o, want_o) and torch.equal(got_lse, want_lse)
+    want = np.asarray(jattn.mha(*(jnp.asarray(a.numpy()) for a in (q, k, v))))
+    np.testing.assert_allclose(got_o.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kernel", [None, "nchw", "groups", "rows"])
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last])
+def test_forced_group_norm_kernel_on_the_cpu_is_the_plain_version(kernel, layout):
+    rs = np.random.RandomState(8)
+    x = t((rs.randn(2, 320, 4, 4) * 2 + 1).astype(np.float32)).to(memory_format=layout)
+    scale, bias = t(rs.randn(320).astype(np.float32)), t(rs.randn(320).astype(np.float32))
+    got = group_norm_silu(x, scale, bias, 32, 1e-5, True, kernel=kernel)
+    assert torch.equal(got, group_norm_silu_reference(x, scale, bias, 32, 1e-5, True))
+    want = np.asarray(jgn.group_norm_silu_reference(
+        jnp.asarray(nhwc(x.numpy())), jnp.asarray(scale.numpy()), jnp.asarray(bias.numpy()),
+        32, 1e-5, True))
+    np.testing.assert_allclose(nhwc(got.numpy()), want, rtol=2e-5, atol=2e-5)
