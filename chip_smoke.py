@@ -42,17 +42,21 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      noise prediction at the first step and its sample after a few steps,
      each held against the f32 plain path within 1.5x the plain bf16 path's
      error;
-  6. K2 (attention backward) at every attention shape of the path, b16 bf16:
-     dq, dk and dv against its plain version and against f32 autograd
-     through ``mha``, with both times and the columns of 2 (``library_ms``:
-     forward and backward of one SDPA call, less its forward alone);
+  6. K2 (attention backward; two kernels, wgmma and mma.sync, behind one
+     dispatch) at every attention shape of the path, b16 bf16: as in 2, every
+     kernel that takes the shape is checked (dq, dk and dv against K2's plain
+     version and against f32 autograd through ``mha``) and timed, the row
+     names the one the dispatch chose, and that one must not be the slower;
+     where one CTA holds all of a dq row's sum (one key tile, wgmma) two runs
+     must agree bit for bit; the columns of 2 (``library_ms``: forward and
+     backward of one SDPA call, less its forward alone);
   7. training: (a) at batch 2, one fixed batch, t and eps: the loss and the
      gradient through the kernels against an f32 plain run (TF32 off), within
      1.5x the plain bf16 path's relative error plus 1e-3; (b) the launches
      of K1, K2 and K3 per step, derived from the module tree and checked
-     exactly; (c) at batch 16: one warm-up step, then 10 timed steps (images
-     per second, ms per step, peak memory) and a ``torch.profiler``
-     breakdown of one step; (d) 10 steps on one fixed batch 2: the kernel
+     exactly, K2's also by kernel as its dispatch predicts; (c) at batch 16:
+     one warm-up step, then 10 timed steps (images per second, ms per step,
+     peak memory) and a ``torch.profiler`` breakdown of one step; (d) 10 steps on one fixed batch 2: the kernel
      path's loss is finite and falls, and stays within 1e-3 of the plain
      bf16 path's loss at the same weights at every step.
 
@@ -495,6 +499,7 @@ def main() -> int:
 
     # ---- 6. K2 --------------------------------------------------------------
     k2 = phase_k2(dev, check, time_ms, host_us, gen)
+    k2_by_kernel = k2.pop("by_kernel")
 
     # ---- 7. training -----------------------------------------------------------
     train = phase_train(dev, check, gen, ref_model, card)
@@ -524,9 +529,13 @@ def main() -> int:
              other_sources=["dmtpu_torch/csrc/flash_attn_fwd_mma.cu",
                             "dmtpu_torch/csrc/hopper.cuh"],
              launches_by_kernel=k1_by_kernel),
-        entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
-              "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
-              f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards", k2),
+        dict(entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
+                   "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
+                   f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards",
+                   k2),
+             other_sources=["dmtpu_torch/csrc/flash_attn_bwd_mma.cu",
+                            "dmtpu_torch/csrc/hopper.cuh"],
+             launches_by_kernel=train["k2_by_kernel"], ms_by_kernel=k2_by_kernel),
         entry("group_norm_silu", "dmtpu_torch/csrc/group_norm_silu.cu",
               "dmtpu/ops/groupnorm.py:44", (main_launches["K3"], by_path["K3"]),
               f"per b{B} UNet forward: sum over its {GN_PER_FORWARD} GroupNorm calls", k3),
@@ -564,54 +573,77 @@ def forced_plan(module, how: dict):
 
 def phase_k2(dev, check, time_ms, host_us, gen) -> dict:
     """K2 at every attention shape of the path, b16 h8 bf16, from K1's outputs
-    and a random dO: dq, dk and dv against K2's plain version and against f32
-    autograd through ``mha`` on the same bf16 values; both times."""
+    and a random dO: dq, dk and dv of every K2 kernel that takes the shape
+    against K2's plain version and against f32 autograd through ``mha`` on the
+    same bf16 values; the kernels' times in turns, and the dispatch's choice."""
     import torch
     from dmtpu_torch.ops import roofline
     from dmtpu_torch.ops.attention import mha
     from dmtpu_torch.ops.flash_attention import (
+        WGMMA_BWD_KEY_TILE,
+        bwd_kernels_for,
         flash_attention_backward_reference,
         flash_attention_bwd,
         flash_attention_fwd,
+        select_bwd_kernel,
     )
 
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, host_us=0.0)
     bound_ms_by = {"bytes": 0.0, "operations": 0.0}
+    by_kernel = {"mma": 0.0, "wgmma": 0.0}  # ms per train step through each kernel
     worst = 0.0
     g = gen(SEED + 6)
     for (sq, sk, d), calls in ATTN_CALLS.items():
         q, k, v, do = (torch.randn(B, s, 8, d, generator=g, device=dev).bfloat16()
                        for s in (sq, sk, sk, sq))
         o, lse = flash_attention_fwd(q, k, v)
-        got = flash_attention_bwd(q, k, v, o, lse, do)
+        names = bwd_kernels_for(d)
+        chosen = select_bwd_kernel(sq, sk, d)
         plain = flash_attention_backward_reference(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-        row = dict(b=B, h=8, sq=sq, sk=sk, d=d, calls=calls)
-        ok = all(bool(torch.isfinite(x).all()) and x.dtype == torch.bfloat16 for x in got)
+        leaves = [x.float().requires_grad_() for x in (q, k, v)]
+        mha(*leaves).backward(do.float())
+        row = dict(b=B, h=8, sq=sq, sk=sk, d=d, calls=calls, kernel=chosen)
         # both versions round P and dS to bf16, from f32 values that differ in
-        # their last bits (exp2 vs exp, summation order, dq's f32 atomics in
+        # their last bits (exp2 vs exp, summation order, dq's f32 adds in
         # run-to-run order): single elements may land one bf16 step apart, so
         # 1e-2 of max|grad| and 1e-2 relative L2; a skipped or doubled tile
         # moves the L2 error by 1/sqrt(tiles), 12% at S=4096.  Against f32
         # autograd 2e-2: the kernel rounds P, dS and its outputs to bf16
-        for name, a, b in zip(("dq", "dk", "dv"), got, plain):
-            err = (a.float() - b.float()).abs().max().item()
-            rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
-            row[f"{name}_max_abs_err"], row[f"{name}_rel_l2"] = err, rel
-            ok = ok and err <= 1e-2 * b.float().abs().max().item() and rel <= 1e-2
-            worst = max(worst, err)
-        del plain
-        leaves = [x.float().requires_grad_() for x in (q, k, v)]
-        mha(*leaves).backward(do.float())
-        for name, a, leaf in zip(("dq", "dk", "dv"), got, leaves):
-            b = leaf.grad
-            rel = ((a.float() - b).norm() / b.norm()).item()
-            row[f"{name}_rel_l2_vs_f32_mha"] = rel
-            ok = ok and rel <= 2e-2 and \
-                (a.float() - b).abs().max().item() <= 2e-2 * b.abs().max().item()
-        del leaves, got
+        for kernel in names:
+            got = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
+            torch.cuda.synchronize()
+            ok = all(bool(torch.isfinite(x).all()) and x.dtype == torch.bfloat16 for x in got)
+            errs = {}
+            for name, a, want, leaf in zip(("dq", "dk", "dv"), got, plain, leaves):
+                a, want, f32 = a.float(), want.float(), leaf.grad
+                err = (a - want).abs().max().item()
+                rel = ((a - want).norm() / want.norm()).item()
+                rel_f32 = ((a - f32).norm() / f32.norm()).item()
+                errs[f"{name}_max_abs_err"], errs[f"{name}_rel_l2"] = err, rel
+                errs[f"{name}_rel_l2_vs_f32_mha"] = rel_f32
+                ok = ok and err <= 1e-2 * want.abs().max().item() and rel <= 1e-2 and \
+                    rel_f32 <= 2e-2 and \
+                    (a - f32).abs().max().item() <= 2e-2 * f32.abs().max().item()
+            check(ok, f"K2[{kernel}] bf16 b{B} h8 S_q={sq} S_k={sk} d={d}: vs plain and vs f32 "
+                      f"mha autograd")
+            if kernel == "wgmma" and sk <= WGMMA_BWD_KEY_TILE:
+                # one key tile: the CTA writes dq itself, with no adds across CTAs
+                again = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"K2[{kernel}] S_q={sq} S_k={sk} d={d}: two runs agree bit for bit")
+                del again
+            if kernel == chosen:
+                row.update(errs)
+                worst = max(worst, *(errs[f"{name}_max_abs_err"] for name in ("dq", "dk", "dv")))
+            del got
+        del plain, leaves
         torch.cuda.empty_cache()
-        row["ms"] = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do), 10)
+        ms_by_kernel = {name: [] for name in names}
+        for name in names + names[::-1]:
+            ms_by_kernel[name].append(
+                time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, kernel=name), 10))
+        row["ms"] = sum(ms_by_kernel[chosen]) / len(ms_by_kernel[chosen])
+        row["ms_by_kernel"] = ms_by_kernel
         row["plain_ms"] = time_ms(
             lambda: flash_attention_backward_reference(q, k, v, o, lse, do), 3)
         # the library's backward: forward and backward of one SDPA call on
@@ -636,12 +668,15 @@ def phase_k2(dev, check, time_ms, host_us, gen) -> dict:
         for key in totals:
             totals[key] += calls * row[key]
         bound_ms_by[row["bound_by"]] += calls * row["bound_ms"]
+        by_kernel[chosen] += calls * row["ms"]
         log("K2", json.dumps(row))
-        check(ok, f"K2 bf16 b{B} h8 S_q={sq} S_k={sk} d={d}: vs plain and vs f32 mha autograd")
+        check(not_the_slower(ms_by_kernel, chosen, row["ms"], row["host_us"]),
+              f"K2 dispatch S_q={sq} S_k={sk} d={d}: {chosen} is not the slower kernel")
         del q, k, v, do, o, lse, lq, lk, lv, ldo
         torch.cuda.empty_cache()
-    log(f"K2 per b{B} train step ({ATTN_PER_FORWARD} calls): " + json.dumps(totals))
-    return dict(totals, max_abs_err=worst, bound_ms_by=bound_ms_by)
+    log(f"K2 per b{B} train step ({ATTN_PER_FORWARD} calls): " + json.dumps(totals)
+        + "; by kernel: " + json.dumps(by_kernel))
+    return dict(totals, max_abs_err=worst, bound_ms_by=bound_ms_by, by_kernel=by_kernel)
 
 
 def per_step_launches(model) -> dict:
@@ -671,7 +706,11 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
     from dmtpu_torch.diffusions import DDPM
     from dmtpu_torch.models.stablediffusion import SDUNetModel
     from dmtpu_torch.ops import plain_ops
-    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        select_bwd_kernel,
+    )
     from dmtpu_torch.ops.groupnorm import group_norm_silu
     from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
     from dmtpu_torch.utils.optim import adafactor
@@ -683,6 +722,12 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
+
+    # K2 launches of one step by kernel, as the dispatch sends the path's shapes
+    k2_per_step = {"mma": 0, "wgmma": 0}
+    for (sq, sk, d), calls in ATTN_CALLS.items():
+        k2_per_step[select_bwd_kernel(sq, sk, d)] += calls
 
     init = {k: v.detach().clone() for k, v in ref_model.state_dict().items()}
     model = SDUNetModel(**SD15, torso_dtype=torch.bfloat16, use_checkpoint=True,
@@ -720,6 +765,7 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
     loss_k, grads_k = loss_and_grads(model, plain=False)
     torch.cuda.synchronize()
     check_launches = counts()
+    check_k2 = dict(flash_attention_bwd.launches_by_kernel)
     err_k = (sum((grads_k[n] - grads_f[n]).square().sum() for n in grads_f).sqrt()
              / sum(gr.square().sum() for gr in grads_f.values()).sqrt()).item()
     lerr_k = abs(loss_k.item() - loss_f.item()) / abs(loss_f.item())
@@ -737,6 +783,8 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
     # (b) exact launches of one forward + backward
     check(check_launches == want_per_step,
           f"train forward+backward launches {check_launches} == {want_per_step}")
+    check(check_k2 == k2_per_step and k2_per_step["wgmma"] > 0,
+          f"train forward+backward K2 launches by kernel {check_k2} == {k2_per_step}")
     del grads_f, grads_k, grads_p
     ref_model.zero_grad(set_to_none=True)
     model.zero_grad(set_to_none=True)
@@ -787,19 +835,23 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = counts()
+    k2_by_kernel = dict(flash_attention_bwd.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"].item() for m in history]
     norms = [m["grad_norm"].item() for m in history]
     metrics = {"imgs_per_s": B * TRAIN_TIMED_STEPS / seconds,
                "ms_per_step": 1e3 * seconds / TRAIN_TIMED_STEPS,
                "peak_bytes": peak, "batch": B, "steps": TRAIN_TIMED_STEPS,
-               "launches_per_step": want_per_step}
+               "launches_per_step": want_per_step, "k2_launches_per_step": k2_per_step}
     log(f"train b{B}: {TRAIN_TIMED_STEPS} steps in {seconds:.3f} s, {metrics['imgs_per_s']:.4f} "
         f"imgs/s, {metrics['ms_per_step']:.3f} ms/step, peak {peak / 2**30:.3f} GiB ({card}); "
         f"launches {launches}; losses {losses}; grad norms {norms}")
     check(all(map(math.isfinite, losses + norms)), "train b16: finite losses and grad norms")
     check(launches == {k: TRAIN_TIMED_STEPS * n for k, n in want_per_step.items()},
           f"train b{B} launches == {TRAIN_TIMED_STEPS} x {want_per_step}")
+    check(k2_by_kernel == {k: TRAIN_TIMED_STEPS * n for k, n in k2_per_step.items()},
+          f"train b{B} K2 launches by kernel {k2_by_kernel} == {TRAIN_TIMED_STEPS} x "
+          f"{k2_per_step}")
     check(state.ema.num_updates == TRAIN_TIMED_STEPS + 1
           and all(s.dtype == torch.bfloat16 for s in state.ema.shadow.values()),
           "train: EMA updated each step, bf16 shadow")
@@ -811,7 +863,7 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
     for name, ms in profile["top"]:
         log(f"  {ms:9.4f} ms  {name}")
     metrics["profile_ms"] = dict(profile["classes"], wall=profile["wall_ms"], **profile["ranges"])
-    return {"launches": launches, "metrics": metrics}
+    return {"launches": launches, "k2_by_kernel": k2_by_kernel, "metrics": metrics}
 
 
 # kernel-name fragments -> class, first match wins

@@ -42,7 +42,6 @@
 //     multiply-add before ex2.approx;
 //   - keys past S_k (zero-filled by TMA) are masked to -inf in the last tile;
 //     rows past S_q are computed on zeros and not written.
-#include <dlfcn.h>
 #include <math.h>
 
 #include "hopper.cuh"
@@ -69,12 +68,6 @@ struct Config {
   // 1024 spare bytes to align the tiles
   static constexpr int kSmem = kAtomBytes + kRowBytes * (1 + 2 * kStages) + 8 * kBarriers;
 };
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc,
@@ -154,12 +147,8 @@ __device__ __forceinline__ void pack_p(uint32_t (&p)[8][4], const float (&s)[64]
 // Named barriers 1 and 2: consumer warpgroup w issues its products after a
 // sync on barrier 1 + w and then arrives on the other's, so the two take
 // turns on the tensor cores and one's softmax runs under the other's products.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(1 + wg) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - wg) : "memory");
-}
+__device__ __forceinline__ void turn_wait(int wg) { named_sync(1 + wg, 256); }
+__device__ __forceinline__ void turn_pass(int wg) { named_arrive(2 - wg, 256); }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -306,39 +295,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda; this library links against the
-// CUDA runtime only, so it is looked up in the libcuda the process has loaded.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* libcuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-    return libcuda ? reinterpret_cast<EncodeTiled>(dlsym(libcuda, "cuTensorMapEncodeTiled"))
-                   : nullptr;
-  }();
-  return fn;
-}
-
-// [B, S, H, D] bf16 with element strides st, as the rank-4 map (D, H, S, B)
-// with boxes of 64 columns x 128 rows of one (b, h), 128-byte swizzle, zero
-// fill out of bounds.  The map holds the address: it is made for each launch.
-bool make_map(CUtensorMap* map, const void* base, int B, int H, int S, int D, Strides st) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
-                                 (cuuint64_t)st.b * 2};
-  const cuuint32_t box[4] = {64, 1, 128, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
                    int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
@@ -348,8 +304,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
       allow_dynamic_smem(flash_fwd_wgmma_kernel<D>, Config<D>::kSmem, allowed);
   if (attr != cudaSuccess) return attr;
   alignas(64) CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, B, H, Sq, D, qs) || !make_map(&mk, k, B, H, Sk, D, ks) ||
-      !make_map(&mv, v, B, H, Sk, D, vs))
+  if (!make_bshd_map(&mq, q, B, H, Sq, D, qs, kBlockM) ||
+      !make_bshd_map(&mk, k, B, H, Sk, D, ks, kBlockN) ||
+      !make_bshd_map(&mv, v, B, H, Sk, D, vs, kBlockN))
     return cudaErrorInvalidValue;
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
   flash_fwd_wgmma_kernel<D><<<grid, kThreads, Config<D>::kSmem, stream>>>(

@@ -1,6 +1,8 @@
-// Hopper-only building blocks of the K1 attention forward: mbarriers, TMA tile
-// loads, shared-memory matrix descriptors and the asynchronous warpgroup
-// product (wgmma) with f32 accumulators, as inline PTX for sm_90a.
+// Hopper-only building blocks of the attention kernels (K1 forward, K2
+// backward): mbarriers, TMA tile loads, bulk copies and bulk reduce-adds,
+// shared-memory matrix descriptors and the asynchronous warpgroup product
+// (wgmma) with f32 accumulators, as inline PTX for sm_90a; and the tensor map
+// of a [B, S, H, D] tensor.
 //
 // Accumulator layout of wgmma.m64nNk16 (warp w of the warpgroup owns rows
 // 16w..16w+15; g = lane / 4, t = lane % 4): d[4j + 0..1] is (row g, columns
@@ -20,6 +22,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <dlfcn.h>
 
 #include "mma_common.cuh"  // smem_addr, pack_bf16, Strides
 
@@ -69,6 +72,94 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte aligned)
+// from device memory into shared memory; completion is reported to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+// dst[i] += src[i] for `bytes` / 4 contiguous f32 values, from shared memory
+// into device memory, as one asynchronous bulk operation of the issuing
+// thread's current bulk group (the adds are atomic element by element and
+// their order among CTAs is not fixed).
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 "
+      "[%0], [%1], %2;\n" ::"l"(dst),
+      "r"(smem_addr(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until the issuing thread's bulk groups have read their shared memory
+// (the source may be overwritten) ...
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... or have completed altogether.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Orders this thread's ordinary shared-memory writes before reads by the
+// asynchronous proxy (wgmma operands, bulk copies) that follow a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Named barrier `id` (1..15) over `threads` threads (a multiple of 32).
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// 2^x on the special-function unit.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cuTensorMapEncodeTiled lives in libcuda; the kernel library links against
+// the CUDA runtime only, so it is looked up in the libcuda the process has
+// loaded.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* libcuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return libcuda ? reinterpret_cast<EncodeTiled>(dlsym(libcuda, "cuTensorMapEncodeTiled"))
+                   : nullptr;
+  }();
+  return fn;
+}
+
+// [B, S, H, D] bf16 with element strides st, as the rank-4 map (D, H, S, B)
+// with boxes of 64 columns x `box_rows` rows of one (b, h), 128-byte swizzle,
+// zero fill out of bounds.  The map holds the address: it is made for each
+// launch.
+inline bool make_bshd_map(CUtensorMap* map, const void* base, int B, int H, int S, int D,
+                          Strides st, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.h * 2, (cuuint64_t)st.s * 2,
+                                 (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ---- wgmma -------------------------------------------------------------------
 // Descriptor of a 128-byte-swizzled operand tile (see the header comment).
 __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo_bytes,
@@ -106,8 +197,11 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
-#define DMTPU_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define DMTPU_F16(d, i) DMTPU_F4(d, i), DMTPU_F4(d, i + 4), DMTPU_F4(d, i + 8), DMTPU_F4(d, i + 12)
+// C is the constraint: "+f" for an accumulator that is read and written, "=f"
+// for one that the product only writes.
+#define DMTPU_F4(C, d, i) C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3])
+#define DMTPU_F16(C, d, i) \
+  DMTPU_F4(C, d, i), DMTPU_F4(C, d, i + 4), DMTPU_F4(C, d, i + 8), DMTPU_F4(C, d, i + 12)
 
 // d[64 x 128] (+)= a[64 x 16] (shared, K-major) * b[128 x 16]^T (shared, K-major).
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
@@ -120,7 +214,8 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a, u
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : DMTPU_F16(d, 0), DMTPU_F16(d, 16), DMTPU_F16(d, 32), DMTPU_F16(d, 48)
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16), DMTPU_F16("+f", d, 32),
+        DMTPU_F16("+f", d, 48)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
@@ -133,7 +228,7 @@ __device__ __forceinline__ void wgmma_rs_n40(float (&d)[20], const uint32_t (&a)
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19"
       "}, {%20, %21, %22, %23}, %24, p, 1, 1, 1;\n}\n"
-      : DMTPU_F16(d, 0), DMTPU_F4(d, 16)
+      : DMTPU_F16("+f", d, 0), DMTPU_F4("+f", d, 16)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
@@ -147,8 +242,77 @@ __device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39"
       "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
-      : DMTPU_F16(d, 0), DMTPU_F16(d, 16), DMTPU_F4(d, 32), DMTPU_F4(d, 36)
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16), DMTPU_F4("+f", d, 32), DMTPU_F4("+f", d, 36)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 64] (+)= a[64 x 16] (shared, K-major) * b[64 x 16]^T (shared, K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// The same two products with nothing read from d: d = a * b^T.  The compiler
+// then knows the accumulator's old values are dead.
+__device__ __forceinline__ void wgmma_ss_n64_first(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : DMTPU_F16("=f", d, 0), DMTPU_F16("=f", d, 16)
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+__device__ __forceinline__ void wgmma_ss_n128_first(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DMTPU_F16("=f", d, 0), DMTPU_F16("=f", d, 16), DMTPU_F16("=f", d, 32),
+        DMTPU_F16("=f", d, 48)
+      : "l"(desc_a), "l"(desc_b), "r"(0));
+}
+
+// d[64 x 40] (+)= a[16 x 64]^T (shared, MN-major) * b[16 x 40] (shared, MN-major): both
+// operands are stored [k][m] and [k][n] and read through the transposing descriptors.
+__device__ __forceinline__ void wgmma_ss_tt_n40(float (&d)[20], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19"
+      "}, %20, %21, p, 1, 1, 1, 1;\n}\n"
+      : DMTPU_F16("+f", d, 0), DMTPU_F4("+f", d, 16)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 80] (+)= a[16 x 64]^T (shared, MN-major) * b[16 x 80] (shared, MN-major).
+__device__ __forceinline__ void wgmma_ss_tt_n80(float (&d)[40], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, 1, 1;\n}\n"
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16), DMTPU_F4("+f", d, 32), DMTPU_F4("+f", d, 36)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 #undef DMTPU_F4

@@ -1,0 +1,252 @@
+"""Development probe of K2 (attention backward) on one CUDA card.
+
+    python -m dmtpu_torch.dev.k2_probe            # check, then time, then variants
+    python -m dmtpu_torch.dev.k2_probe variants   # one phase
+
+- ``check``: builds the kernels, prints what ``ptxas`` said of the wgmma
+  kernel (registers, spills, any C75xx remark), and holds the wgmma kernel
+  against K2's plain version at small, ragged and full-width shapes.
+- ``time``: both K2 kernels in the order mma, wgmma, wgmma, mma, beside the
+  backward of ``scaled_dot_product_attention`` (forward and backward less the
+  forward alone), b16 h8 bf16, and the wgmma path's three kernels apart
+  (``torch.profiler``).
+- ``variants``: what each kernel's time is made of.  Patched copies of the two
+  sources are built beside each other (``build/dev/variants/``) and timed in
+  turns: the mma.sync kernel with its dQ atomics compiled out, with its
+  exponentials replaced by a multiply, and with both; the wgmma kernel without
+  its bulk reduce-adds, without its exponentials, and without both.  The
+  patched kernels compute wrong values; only their times are read.
+
+With no argument each phase runs in a process of its own with a time limit: a
+kernel that hangs on an mbarrier would otherwise never return.
+"""
+from __future__ import annotations
+
+import ctypes
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+CSRC = ROOT / "dmtpu_torch" / "csrc"
+OUT = ROOT / "build" / "dev" / "variants"
+PHASE_LIMITS = {"check": 240, "time": 300, "variants": 300}  # seconds
+
+CHECK_SHAPES = [  # b, sq, sk, h, d
+    (1, 64, 128, 1, 40), (1, 128, 256, 1, 40), (2, 256, 512, 2, 40), (1, 64, 128, 1, 80),
+    (2, 256, 512, 2, 80), (2, 333, 200, 3, 40), (2, 200, 333, 3, 80), (1, 1, 130, 1, 40),
+    (2, 100, 77, 2, 80), (2, 333, 128, 3, 40), (2, 4096, 77, 8, 40), (2, 1024, 77, 8, 80),
+    (2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80)]
+TIMED_SHAPES = [(4096, 4096, 40), (1024, 1024, 80), (4096, 77, 40), (1024, 77, 80),
+                (256, 256, 40), (4096, 256, 40)]  # sq, sk, d at b16 h8
+
+# (source file, entry point, {variant: [(pattern, replacement), ...]}); a
+# pattern is a regular expression that must match the source
+_NO_ATOMICS = (r"atomicAdd\(dst, acc\[n\]\[2 \* r\]\);\s*atomicAdd\(dst \+ 1, [^;]*;",
+               "if (acc[n][2 * r] == 12345.678f && acc[n][2 * r + 1] == 2.5f) dst[0] = 1.f;")
+_MMA_NO_EXP = (r"exp2f\((s\[j\]\[c\] \* scale_log2 - tL\[r\])\)", r"(\1)")
+_NO_REDUCE = (r"bulk_reduce_add_f32\(dq_out[^;]*;", "")
+_WGMMA_NO_EXP = (r"ex2\((fmaf\(s\[[^\]]*\], scale_log2, -l\.[xy]\))\)", r"\1")
+VARIANTS = [
+    ("flash_attn_bwd_mma.cu", "dmtpu_flash_attn_bwd_mma",
+     {"as_it_is": [], "no_dq_atomics": [_NO_ATOMICS], "no_exp": [_MMA_NO_EXP],
+      "neither": [_NO_ATOMICS, _MMA_NO_EXP]}),
+    ("flash_attn_bwd.cu", "dmtpu_flash_attn_bwd",
+     {"as_it_is": [], "no_dq_reduce": [_NO_REDUCE], "no_exp": [_WGMMA_NO_EXP],
+      "neither": [_NO_REDUCE, _WGMMA_NO_EXP]}),
+]
+
+
+def patched(source: str, substitutions) -> str:
+    """``source`` with every (pattern, replacement) applied; a pattern that
+    matches nothing raises, so an edited kernel cannot silently go unpatched."""
+    for pattern, replacement in substitutions:
+        source, n = re.subn(pattern, replacement, source)
+        if n == 0:
+            raise ValueError(f"pattern matches nothing: {pattern}")
+    return source
+
+
+def _card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    return out.stdout.strip()
+
+
+def _time_ms(torch, fn, reps: int = 10) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _case(torch, gen, b, sq, sk, h, d):
+    return [torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+            for s in (sq, sk, sk, sq)]
+
+
+def check() -> int:
+    import torch
+    from dmtpu_torch.ops import _build
+    from dmtpu_torch.ops.flash_attention import (WGMMA_BWD_KEY_TILE,
+                                                 flash_attention_backward_reference,
+                                                 flash_attention_bwd, flash_attention_reference)
+    t0 = time.time()
+    lib = _build.build()
+    _build.library()
+    print(f"built and loaded in {time.time() - t0:.1f} s", flush=True)
+    log = (lib.parent / "build.log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "C75" in line or "error" in line.lower():
+            print("  ", line.strip()[:300])
+        if "flash_bwd_wgmma_kernel" in line and "Compiling" in line:
+            print("  ", "\n   ".join(x.strip()[:160] for x in log[i:i + 5]))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    for b, sq, sk, h, d in CHECK_SHAPES:
+        q, k, v, do = _case(torch, gen, b, sq, sk, h, d)
+        o, lse = flash_attention_reference(q, k, v)
+        want = flash_attention_backward_reference(q, k, v, o, lse, do)
+        got = flash_attention_bwd(q, k, v, o, lse, do, kernel="wgmma")
+        torch.cuda.synchronize()
+        line = f"wgmma b{b} sq{sq} sk{sk} h{h} d{d}:"
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            a, w = a.float(), w.float()
+            err, rel = (a - w).abs().max().item(), ((a - w).norm() / w.norm()).item()
+            ok = err <= 1e-2 * w.abs().max().item() and rel <= 1e-2 and \
+                bool(torch.isfinite(a).all())
+            bad += not ok
+            line += f" {name} max err {err:.2e} rel L2 {rel:.2e} {'ok' if ok else 'BAD'};"
+            if not ok:  # where it is wrong: by block of 16 rows, and by column
+                diff = (a - w).abs()[0, :, 0]
+                rows = diff.amax(-1)[:diff.shape[0] // 16 * 16].reshape(-1, 16).amax(-1)
+                print("   ", name, "rows:", [round(x, 3) for x in rows[:16].tolist()],
+                      "columns:", [round(x, 3) for x in diff.amax(0).tolist()])
+        if sk <= WGMMA_BWD_KEY_TILE:
+            again = flash_attention_bwd(q, k, v, o, lse, do, kernel="wgmma")
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            bad += not same
+            line += f" same bits again: {same}"
+        print(line, flush=True)
+    print("check:", "FAILED" if bad else "all ok")
+    return 1 if bad else 0
+
+
+def _sdpa_backward_ms(torch, q, k, v, do) -> float:
+    lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    ldo = do.transpose(1, 2)
+
+    def fwd_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+        lq.grad = lk.grad = lv.grad = None
+        out.backward(ldo)
+
+    def fwd():
+        with torch.no_grad():
+            torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+
+    return _time_ms(torch, fwd_bwd) - _time_ms(torch, fwd)
+
+
+def timing() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    print(_card())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for sq, sk, d in TIMED_SHAPES:
+        q, k, v, do = _case(torch, gen, 16, sq, sk, 8, d)
+        o, lse = flash_attention_fwd(q, k, v)
+        row = {}
+        for name in ("mma", "wgmma", "wgmma", "mma"):
+            row.setdefault(name, []).append(round(_time_ms(
+                torch, lambda: flash_attention_bwd(q, k, v, o, lse, do, kernel=name)), 4))
+        row["sdpa_backward"] = round(_sdpa_backward_ms(torch, q, k, v, do), 4)
+        print("K2 b16 h8 ms", (sq, sk, d), row, flush=True)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                flash_attention_bwd(q, k, v, o, lse, do, kernel="wgmma")
+            torch.cuda.synchronize()
+        for event in prof.key_averages():
+            if "flash" in event.key:
+                print("    ", event.key[:72], round(event.self_device_time_total / 5e3, 4), "ms")
+    return 0
+
+
+def variants() -> int:
+    import torch
+    from dmtpu_torch.ops import _build
+    from dmtpu_torch.ops.flash_attention import _BWD_ROWS, flash_attention_fwd
+    OUT.mkdir(parents=True, exist_ok=True)
+    builds = []
+    for source, entry, named in VARIANTS:
+        text = (CSRC / source).read_text()
+        for name, substitutions in named.items():
+            path = OUT / f"{Path(source).stem}.{name}.cu"
+            path.write_text(patched(text, substitutions))
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o",
+                   str(path.with_suffix(".so")), str(path)]
+            builds.append((source, entry, name, path.with_suffix(".so"), subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    entries = {}
+    for source, entry, name, lib, proc in builds:
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {lib.name}:\n{out[-3000:]}")
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fn.argtypes, fn.restype = _build._SIGNATURES[entry], ctypes.c_int
+        entries.setdefault(source, {})[name] = fn
+    print(_card())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for sq, sk, d in [(4096, 4096, 40), (1024, 1024, 80)]:
+        b, h = 16, 8
+        q, k, v, do = _case(torch, gen, b, sq, sk, h, d)
+        o, lse = flash_attention_fwd(q, k, v)
+        rows = b * h * -(-sq // _BWD_ROWS[d]) * _BWD_ROWS[d]  # enough for either kernel
+        scratch = torch.empty(2 * rows + rows * d, device="cuda")
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        strides = [x for t in (q, k, v, o, do, dk, dv) for x in t.stride()[:3]]
+        for source, named in entries.items():
+            def run(fn):
+                err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                         lse.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 8 * rows,
+                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, sq, sk, d, *strides,
+                         d ** -0.5, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"CUDA error {err}")
+
+            row = {}
+            for name in [*named, *reversed(named)]:
+                row.setdefault(name, []).append(
+                    round(_time_ms(torch, lambda: run(named[name])), 4))
+            print(f"{source} b16 h8 ms", (sq, sk, d), row, flush=True)
+    return 0
+
+
+PHASES = {"check": check, "time": timing, "variants": variants}
+
+
+def main(argv: list[str]) -> int:
+    if argv:
+        return PHASES[argv[0]]()
+    for phase, limit in PHASE_LIMITS.items():
+        try:
+            rc = subprocess.run([sys.executable, "-m", "dmtpu_torch.dev.k2_probe", phase],
+                                cwd=ROOT, timeout=limit).returncode
+        except subprocess.TimeoutExpired:
+            print(f"{phase}: no end within {limit} s (a hung kernel?)")
+            return 5
+        if rc:
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

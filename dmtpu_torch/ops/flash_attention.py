@@ -15,8 +15,15 @@ to 48, 80 or 160 in shared memory) and ragged sequence lengths (masked).
   stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims 40
   and 80, the long self-attention shapes) and ``csrc/flash_attn_fwd_mma.cu``
   (mma.sync, everything else); ``select_kernel`` is the gate.
-- ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2,
-  ``csrc/flash_attn_bwd.cu``).
+- ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2).
+  Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
+  TMA, head dims 40 and 80; dQ's partial sums leave a CTA as whole f32 tiles
+  by ``cp.reduce.async.bulk``) and ``csrc/flash_attn_bwd_mma.cu`` (mma.sync,
+  dQ by scalar f32 atomics; everything else); ``select_bwd_kernel`` is the
+  gate.  Where several key tiles add to dq, neither gives a bitwise
+  reproducible dq: the f32 adds of different CTAs arrive in an order that
+  varies from run to run.  With one key tile (S_k <= 128) the wgmma kernel
+  writes dq itself, in bf16, and two runs agree bit for bit.
 - ``flash_attention_reference`` and ``flash_attention_backward_reference``:
   the plain PyTorch versions of the same math in f32 (P cast to V's dtype
   for PV and dV, dS cast to Q's dtype for dK and dQ, as the TPU kernels
@@ -25,7 +32,8 @@ to 48, 80 or 160 in shared memory) and ragged sequence lengths (masked).
 Each wrapper launches its kernel on a CUDA tensor (bf16 only; anything else
 raises) and runs its plain version on a CPU tensor, so on the CPU the
 ``FlashAttention`` function is the plain forward and backward.  Each
-wrapper's ``launches`` counts kernel launches.
+wrapper's ``launches`` counts kernel launches, and its ``launches_by_kernel``
+counts them by the kernel that ran; ``kernel=`` forces one.
 """
 from __future__ import annotations
 
@@ -186,16 +194,63 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_kernel = {"mma": 0, "wgmma": 0}
 
 
+# K2 is two hand-written kernels with one interface, as K1 is.  "wgmma"
+# (csrc/flash_attn_bwd.cu: a CTA per 128-key tile, TMA loads, a ring of Q / dO
+# stages, wgmma for the five products, dQ added into an f32 buffer by whole
+# tiles with cp.reduce.async.bulk) is instantiated for head dims 40 and 80 and
+# reads q, k, v and dO through tensor maps (positive strides); "mma"
+# (csrc/flash_attn_bwd_mma.cu: mma.sync, 64-key tiles, dQ by scalar f32
+# atomics) takes every head dim up to 160 and any strides.
+_BWD_ENTRY_POINTS = {"mma": "dmtpu_flash_attn_bwd_mma", "wgmma": "dmtpu_flash_attn_bwd"}
+_BWD_ROWS = {40: 128, 80: 64}  # the wgmma kernel pads its f32 scratch to whole steps of rows
+# Its key tile.  With no more keys than this a CTA holds every contribution to
+# its dq rows: it writes them in bf16 itself, the same bits in every run, and
+# needs no f32 sums.
+WGMMA_BWD_KEY_TILE = 128
+
+
+def bwd_kernels_for(d: int) -> list[str]:
+    """The K2 kernels that take head dim ``d``, the general one first."""
+    return ["mma", "wgmma"] if d in WGMMA_HEAD_DIMS else ["mma"]
+
+
+def select_bwd_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> str:
+    """The K2 kernel a call is dispatched to: "wgmma" wherever it is
+    instantiated (head dims 40 and 80), whatever the lengths.  ``scale`` does
+    not matter to K2, which reads the saved lse; the argument mirrors
+    ``select_kernel``.
+
+    Measured on an NVIDIA H100 80GB HBM3 (700 W) by ``chip_smoke.py`` phase 6,
+    b16 h8 bf16, both kernels in one call, ms (mma.sync / wgmma): S=4096 d=40
+    7.23-7.34 / 2.64-2.67; S=1024 d=80 1.08 / 0.40; S_q=4096 S_k=77 d=40
+    0.55-0.57 / 0.152; S_q=1024 S_k=77 d=80 0.257 / 0.090, the last within the
+    0.06-0.12 ms the host takes to launch one.  The wgmma kernel is the faster
+    at every length, so unlike K1's gate this one has no key threshold.
+    """
+    return "wgmma" if "wgmma" in bwd_kernels_for(d) else "mma"
+
+
+def _round_up(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                        lse: torch.Tensor, do: torch.Tensor, scale: Optional[float] = None
+                        lse: torch.Tensor, do: torch.Tensor, scale: Optional[float] = None,
+                        kernel: Optional[str] = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Attention backward from K1's outputs: (dq, dk, dv), [B, S, H, D] each.
 
     q, k, v and o are read through their strides.  ``do`` is too, when its
     head dim is contiguous and its rows 16-byte aligned; a ``do`` that is not
-    (autograd hands a broadcast zero-stride gradient for a ``sum()``) is
-    copied with ``.contiguous()`` first.
+    (autograd hands a gradient of all-zero strides for a ``sum()``) is copied
+    with ``.contiguous()`` first.  ``kernel`` forces "mma" or "wgmma" (it
+    raises if that kernel does not take the call: a head dim other than 40 or
+    80, or a q, k, v or ``do`` broadcast over batch, rows or heads, whose zero
+    stride has no tensor map); by default ``select_bwd_kernel`` chooses and
+    leaves such a call to "mma".
     """
+    if kernel is not None and kernel not in _BWD_ENTRY_POINTS:
+        raise ValueError(f"flash_attention_bwd: unknown kernel {kernel!r}")
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
     if q.device.type != "cuda":
@@ -209,31 +264,50 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 [{b}, {h}, {sq}], "
                          f"got {lse.dtype} {tuple(lse.shape)}")
-    if any(t.device != q.device for t in (o, lse, do)):
+    device = q.get_device()
+    if o.get_device() != device or lse.get_device() != device or do.get_device() != device:
         raise ValueError("flash_attention_bwd: all inputs must be on one device")
     if not _passable(do):
         do = do.contiguous()
-    for name, t in (("o", o), ("do", do)):
-        _check_bshd(name, t)
+    _check_bshd("o", o)
+    _check_bshd("do", do)
+    mapped = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
+    if kernel is None:
+        kernel = select_bwd_kernel(sq, sk, d, scale)
+        if kernel == "wgmma" and min(mapped) <= 0:  # a broadcast view: no tensor map
+            kernel = "mma"
+    elif kernel not in bwd_kernels_for(d) or (kernel == "wgmma" and min(mapped) <= 0):
+        raise ValueError(f"flash_attention_bwd: kernel {kernel!r} does not take head dim {d}, "
+                         f"strides {mapped}")
     scale = d ** -0.5 if scale is None else scale
     dev = q.device
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
-    dq_acc = torch.empty((b, sq, h, d), dtype=torch.float32, device=dev)
+    # one f32 scratch for both kernels' per-row statistics and f32 dQ sums
+    if kernel == "wgmma":
+        rows = b * h * _round_up(sq, _BWD_ROWS[d])
+        n_stat = 2 * rows  # lse * log2(e) and delta
+        n_sums = 0 if sk <= WGMMA_BWD_KEY_TILE else rows * d  # one key tile writes dq itself
+    else:
+        rows = b * h * sq
+        n_stat = _round_up(rows, 4)  # delta; the sums that follow stay 16-byte aligned
+        n_sums = rows * d
+    scratch = torch.empty(n_stat + n_sums, dtype=torch.float32, device=dev)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=dev)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=dev)
-    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-               *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3]]
-    err = _build.library().dmtpu_flash_attn_bwd(
+    err = getattr(_build.library(), _BWD_ENTRY_POINTS[kernel])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, h, sq, sk, d, *strides, scale, torch.cuda.current_stream(dev).cuda_stream)
+        scratch.data_ptr(), scratch.data_ptr() + 4 * n_stat, dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3], scale,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention_bwd launch")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_kernel[kernel] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_kernel = {"mma": 0, "wgmma": 0}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -13,6 +13,7 @@ import textwrap
 
 import pytest
 
+from dmtpu_torch.dev import k2_probe
 from dmtpu_torch.ops import _build
 
 FAKE_NVCC = textwrap.dedent("""\
@@ -104,7 +105,29 @@ def test_every_entry_point_has_a_signature_and_every_source_is_built():
     assert sorted(_entry_points()) == sorted(_build._SIGNATURES)
     names = {p.name for p in _build._sources()}
     assert {"flash_attn_fwd.cu", "flash_attn_fwd_mma.cu", "flash_attn_bwd.cu",
-            "group_norm_silu.cu"} <= names
+            "flash_attn_bwd_mma.cu", "group_norm_silu.cu"} <= names
     # the headers are no translation units, but an edit to one rebuilds the library
     assert "hopper.cuh" not in names and (_build.CSRC / "hopper.cuh").exists()
     assert "compute_90a" in " ".join(_build.NVCC_FLAGS)  # wgmma and setmaxnreg need the `a`
+
+
+def test_both_attention_backward_kernels_have_one_interface():
+    """The dispatch passes the same arguments to either K2 kernel."""
+    assert _build._SIGNATURES["dmtpu_flash_attn_bwd"] == \
+        _build._SIGNATURES["dmtpu_flash_attn_bwd_mma"]
+    assert _build._SIGNATURES["dmtpu_flash_attn_fwd"] == \
+        _build._SIGNATURES["dmtpu_flash_attn_fwd_mma"]
+
+
+@pytest.mark.parametrize("source,variant", [
+    (source, name) for source, _, named in k2_probe.VARIANTS for name in named])
+def test_probe_variants_still_patch_the_kernel_sources(source, variant):
+    """The K2 probe times patched copies of the two backward kernels; every
+    pattern must still match the source it patches, and change it."""
+    (entry, named), = [(e, n) for s, e, n in k2_probe.VARIANTS if s == source]
+    text = (_build.CSRC / source).read_text()
+    assert entry in _build._SIGNATURES and f"int {entry}(" in text
+    out = k2_probe.patched(text, named[variant])
+    assert (out == text) == (variant == "as_it_is")
+    with pytest.raises(ValueError, match="matches nothing"):
+        k2_probe.patched(text, [("no such line in the kernel", "")])

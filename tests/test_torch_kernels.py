@@ -13,8 +13,9 @@ f32 logsumexp is compared at 1e-4; K3 at 1e-4 in f32 and 2e-2 in bf16 (one
 rounding of the output).  K2's dq, dk and dv are held to 1e-2 of their
 largest value and to a relative L2 error of 1e-2: both versions round P and
 dS to bf16, but from f32 values that differ in their last bits (exp2 against
-exp, other summation orders, and dq's f32 atomics, whose order changes from
-run to run), so single elements may land one bf16 step apart (2^-9 relative
+exp, other summation orders, and dq's f32 adds, atomics in one kernel and
+bulk reduce-adds in the other, whose order changes from run to run), so
+single elements may land one bf16 step apart (2^-9 relative
 in L2); a skipped or doubled tile of keys or rows moves the L2 error by
 1/sqrt(tiles), 25% at 16 tiles.  Against f32 autograd through ``mha`` on
 the same bf16 values the bound is 2e-2: the kernel rounds P, dS and its
@@ -35,8 +36,9 @@ from dmtpu_torch.ops import (
     mha,
     plain_ops,
 )
+from dmtpu_torch.ops.flash_attention import bwd_kernels_for as k2_kernels_for
 from dmtpu_torch.ops.flash_attention import kernels_for as k1_kernels_for
-from dmtpu_torch.ops.flash_attention import select_kernel
+from dmtpu_torch.ops.flash_attention import select_bwd_kernel, select_kernel
 from dmtpu_torch.ops.groupnorm import kernels_for as k3_kernels_for
 from dmtpu_torch.ops.groupnorm import plan as k3_plan
 
@@ -328,12 +330,130 @@ def test_k1_dispatch_leaves_what_wgmma_cannot_take_to_mma(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("sq,sk,d", [(4096, 4096, 40), (1024, 1024, 80), (300, 200, 40)])
 def test_k2_consumes_the_wgmma_forward(cuda, sq, sk, d):
-    """K2 reads o and lse of whichever K1 kernel ran: the same gradients from both."""
+    """Either K2 kernel reads o and lse of whichever K1 kernel ran: the same
+    gradients from all four pairs."""
     q, k, v, do = _qkv_do(cuda, 14, 2, sq, sk, 8, d)
     want = flash_attention_backward_reference(q, k, v, *flash_attention_reference(q, k, v), do)
     for kernel in ("wgmma", "mma"):
         o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
-        assert_grads_close(flash_attention_bwd(q, k, v, o, lse, do), want, 1e-2)
+        for bwd_kernel in ("wgmma", "mma"):
+            got = flash_attention_bwd(q, k, v, o, lse, do, kernel=bwd_kernel)
+            assert_grads_close(got, want, 1e-2)
+
+
+# ---- K2: the wgmma kernel and the dispatch between the two kernels ----------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [None, "mma", "wgmma"])
+@pytest.mark.parametrize("sq,sk,d", ATTN_SHAPES)
+def test_k2_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, sq, sk, d, kernel):
+    """b2 h8 at the eight shapes of the SD1.5 UNet: the dispatch, and each
+    kernel forced; a kernel that does not take the head dim raises."""
+    q, k, v, do = _qkv_do(cuda, 15, 2, sq, sk, 8, d)
+    o, lse = flash_attention_fwd(q, k, v)
+    if kernel is not None and kernel not in k2_kernels_for(d):
+        with pytest.raises(ValueError, match="does not take"):
+            flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
+        return
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    got = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
+    took = kernel or select_bwd_kernel(sq, sk, d)
+    assert flash_attention_bwd.launches_by_kernel[took] == before[took] + 1
+    torch.cuda.synchronize()
+    assert all(x.dtype == torch.bfloat16 and torch.isfinite(x).all() for x in got)
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [40, 64, 72, 80, 160])
+@pytest.mark.parametrize("sq,sk", [(333, 77), (77, 333), (200, 333), (129, 129), (1, 130)])
+def test_k2_ragged_lengths_at_every_head_dim(cuda, sq, sk, d):
+    """Lengths that are no multiple of a tile, through every kernel that takes
+    the head dim: keys past S_k get P = 0 and no dk / dv row, rows past S_q
+    add nothing and get no dq row."""
+    q, k, v, do = _qkv_do(cuda, 16, 2, sq, sk, 3, d)
+    o, lse = flash_attention_reference(q, k, v)
+    want = flash_attention_backward_reference(q, k, v, o, lse, do)
+    for kernel in k2_kernels_for(d):
+        got = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
+        torch.cuda.synchronize()
+        assert_grads_close(got, want, 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["mma", "wgmma"])
+def test_k2_each_kernel_reads_strided_projections_and_a_strided_gradient(cuda, kernel):
+    """q/k/v as views of one [B, S, 3*H*D] projection and dO as a view of a
+    wider tensor: the wgmma kernel's tensor maps and the mma.sync kernel's
+    pointers both follow the strides."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    b, s, h, d = 2, 300, 4, 80
+    qkv = torch.randn(b, s, 3 * h * d, generator=g, device=cuda).bfloat16()
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].view(b, s, h, d) for i in range(3))
+    do = torch.randn(b, s, h, 2 * d, generator=g, device=cuda).bfloat16()[..., d:]
+    o, lse = flash_attention_fwd(q, k, v)
+    got = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+
+
+@pytest.mark.gpu
+def test_k2_dispatch_leaves_what_wgmma_cannot_take_to_mma(cuda):
+    """A dO or a k broadcast over the heads (stride 0) has no tensor map: it
+    goes to the mma.sync kernel by itself and is refused when wgmma is forced.
+    The gradient autograd hands for a ``sum()`` is broadcast along the head
+    dim too: that one is copied, and the copy goes to wgmma."""
+    q, k, v, do = _qkv_do(cuda, 18, 1, 256, 256, 2, 40)
+    o, lse = flash_attention_fwd(q, k, v)
+    dob = do[:, :, :1].expand(-1, -1, 2, -1)
+    kb = k[:, :, :1].expand(-1, -1, 2, -1)
+    ob, lseb = flash_attention_fwd(q, kb, v)
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    got = flash_attention_bwd(q, k, v, o, lse, dob)
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, dob), 1e-2)
+    got = flash_attention_bwd(q, kb, v, ob, lseb, do)
+    assert_grads_close(got, flash_attention_backward_reference(q, kb, v, ob, lseb, do), 1e-2)
+    assert flash_attention_bwd.launches_by_kernel == {"mma": before["mma"] + 2,
+                                                      "wgmma": before["wgmma"]}
+    for keys, grad in ((k, dob), (kb, do)):
+        with pytest.raises(ValueError, match="does not take"):
+            flash_attention_bwd(q, keys, v, o, lse, grad, kernel="wgmma")
+    ones = torch.ones((), device=cuda, dtype=torch.bfloat16).expand(1, 256, 2, 40)
+    got = flash_attention_bwd(q, k, v, o, lse, ones)
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, ones), 1e-2)
+    assert flash_attention_bwd.launches_by_kernel["wgmma"] == before["wgmma"] + 1
+    with pytest.raises(ValueError, match="unknown kernel"):
+        flash_attention_bwd(q, k, v, o, lse, do, kernel="tma")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,d", [(4096, 77, 40), (1024, 77, 80), (333, 128, 40), (64, 5, 80)])
+def test_k2_one_key_tile_gives_the_same_bits_in_every_run(cuda, sq, sk, d):
+    """With S_k <= 128 the wgmma kernel's CTA holds all of a dq row's sum and
+    writes it in bf16 itself: no adds across CTAs, so three runs agree bit
+    for bit (and with the plain version within the usual bound)."""
+    q, k, v, do = _qkv_do(cuda, 20, 2, sq, sk, 8, d)
+    o, lse = flash_attention_fwd(q, k, v)
+    runs = [flash_attention_bwd(q, k, v, o, lse, do, kernel="wgmma") for _ in range(3)]
+    torch.cuda.synchronize()
+    assert_grads_close(runs[0], flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.gpu
+def test_k2_gradient_through_the_autograd_function_takes_the_wgmma_kernel(cuda):
+    """attention(...).backward at a head dim of 40 launches K1 once and K2's
+    wgmma kernel once, and agrees with plain autograd."""
+    q, k, v, do = _qkv_do(cuda, 19, 2, 512, 512, 4, 40)
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    attention(*leaves).backward(do)
+    assert flash_attention_bwd.launches_by_kernel == {"mma": before["mma"],
+                                                      "wgmma": before["wgmma"] + 1}
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    with plain_ops():
+        attention(*plain).backward(do)
+    assert_grads_close([x.grad for x in leaves], [x.grad for x in plain], 3e-2)
 
 
 # ---- K3: the rows kernel (channels-last) beside the per-group kernels --------

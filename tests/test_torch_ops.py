@@ -291,3 +291,32 @@ def test_forced_group_norm_kernel_on_the_cpu_is_the_plain_version(kernel, layout
         jnp.asarray(nhwc(x.numpy())), jnp.asarray(scale.numpy()), jnp.asarray(bias.numpy()),
         32, 1e-5, True))
     np.testing.assert_allclose(nhwc(got.numpy()), want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kernel", [None, "mma", "wgmma"])
+@pytest.mark.parametrize("sq,sk,d", [(160, 160, 40), (64, 77, 80)])
+def test_forced_backward_kernel_on_the_cpu_is_the_plain_version(sq, sk, d, kernel):
+    """K2's ``kernel=`` chooses among the CUDA kernels; a CPU tensor goes to
+    the plain version whatever it says, and that agrees with jax.grad of the
+    JAX package's mha."""
+    q, k, v = _qkv(12, 1, sq, sk, 2, d)
+    do = np.random.RandomState(13).randn(1, sq, 2, d).astype(np.float32)
+    o, lse = flash_attention_reference(t(q), t(k), t(v))
+    got = flash_attention_bwd(t(q), t(k), t(v), o, lse, t(do), kernel=kernel)
+    ref = flash_attention_backward_reference(t(q), t(k), t(v), o, lse, t(do))
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+    def loss(qq, kk, vv):
+        return jnp.sum(jattn.mha(qq, kk, vv) * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    for name, w, g in zip("qkv", want, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
+
+
+@pytest.mark.parametrize("name", ["tma", "MMA", ""])
+def test_unknown_backward_kernel_name_raises(name):
+    q = torch.zeros(1, 8, 1, 40)
+    o, lse = flash_attention_reference(q, q, q)
+    with pytest.raises(ValueError, match="unknown kernel"):
+        flash_attention_bwd(q, q, q, o, lse, q, kernel=name)

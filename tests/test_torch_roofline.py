@@ -116,6 +116,47 @@ def test_attention_dispatch_threshold_is_one_key_tile():
     assert fa.select_kernel(64, 129, 40) == "wgmma"
 
 
+@pytest.mark.parametrize("sq,sk,d", ATTN)
+def test_attention_backward_dispatch_of_the_path(sq, sk, d):
+    """K2's wgmma kernel takes every shape of head dim 40 or 80, the
+    cross-attention shapes with their single key tile too; head dim 160
+    stays on mma.sync.  The scale does not matter to K2."""
+    want = "wgmma" if d in (40, 80) else "mma"
+    assert fa.select_bwd_kernel(sq, sk, d) == want
+    assert fa.select_bwd_kernel(sq, sk, d, scale=-1.0) == want
+    assert fa.bwd_kernels_for(d) == (["mma", "wgmma"] if d in (40, 80) else ["mma"])
+
+
+@pytest.mark.parametrize("d", [8, 48, 64, 72, 96, 160])
+def test_other_head_dims_stay_on_mma_in_the_backward(d):
+    assert fa.bwd_kernels_for(d) == ["mma"] and fa.select_bwd_kernel(4096, 4096, d) == "mma"
+
+
+@pytest.mark.parametrize("sk", [1, 64, 77, 128, 129, 4096])
+def test_attention_backward_dispatch_has_no_key_threshold(sk):
+    """Unlike K1's, K2's wgmma kernel is the faster one with a single key tile
+    as well (a CTA still walks every Q row), so the gate reads the head dim only."""
+    assert fa.select_bwd_kernel(4096, sk, 40) == "wgmma"
+    assert fa.select_bwd_kernel(64, sk, 80) == "wgmma"
+    assert fa.select_bwd_kernel(4096, sk, 160) == "mma"
+
+
+def test_attention_backward_launch_plan_of_a_train_step():
+    """32 K2 launches a step: the 20 of head dims 40 and 80 through wgmma, the
+    12 of head dim 160 through mma.sync; the wgmma kernel's f32 scratch is padded
+    to whole steps of 128 (d=40) or 64 (d=80) rows."""
+    plan = {"mma": 0, "wgmma": 0}
+    for (sq, sk, d), calls in chip_smoke.ATTN_CALLS.items():
+        plan[fa.select_bwd_kernel(sq, sk, d)] += calls
+    assert plan == {"wgmma": 20, "mma": 12}
+    assert fa._BWD_ROWS == {40: 128, 80: 64} and set(fa._BWD_ROWS) == set(fa.WGMMA_HEAD_DIMS)
+    # the cross-attention shapes have one key tile: dq written once, in bf16
+    assert fa.WGMMA_BWD_KEY_TILE == 128
+    assert {sk <= fa.WGMMA_BWD_KEY_TILE for (_, sk, _) in ATTN} == {True, False}
+    assert set(fa._BWD_ENTRY_POINTS) == {"mma", "wgmma"}
+    assert [fa._round_up(n, 128) for n in (1, 128, 129, 333)] == [128, 128, 256, 384]
+
+
 @pytest.mark.parametrize("c,hw,dtype,silu,eps", GN)
 def test_group_norm_plan_of_the_path(c, hw, dtype, silu, eps):
     esize = 2 if dtype == "bf16" else 4
