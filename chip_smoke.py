@@ -3,13 +3,21 @@
 
     python3 chip_smoke.py            # from the repository root, one card
 
-The port's paths are SD1.5 text-to-latent sampling and SD1.5 training: the
+The port's paths are SD1.5 text-to-latent sampling, SD1.5 training and SD1.5
+text to image (prompt -> CLIP-L -> DDIMCFG over the UNet -> VAE decode ->
+uint8 images, with img2img and latent inpainting): the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
 77x768 context; sampled with DDIM-50, and trained with the DDPM eps-loss
 (1000 steps), full remat (``use_checkpoint=True``), adafactor (lr 1e-4),
-gradient clipping at 1.0 and a gradual EMA (0.9999) with a bf16 shadow.
+gradient clipping at 1.0 and a gradual EMA (0.9999) with a bf16 shadow.  Text
+to image adds CLIP-L (width 768, 12 layers, 12 heads, vocabulary 49408, 77
+tokens) and the SD1.5 VAE (ch 128, ch_mult (1, 2, 4, 4), 2 ResNet blocks a
+level, attention in the middle only), both f32, built with the UNet from one
+config dict through ``instantiate_from_config`` and driven through the CLI's
+pipeline function ``dmtpu_torch.scripts.sample_sd.sample_images`` with the
+CLI's demo pseudo-tokens (no tokenizer, no YAML, no image file).
 
 Phases (any failure exits non-zero, and the last line is then not printed):
   1. the card's name and power limit; the kernels built from ``dmtpu_torch/csrc``;
@@ -24,13 +32,20 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      of the same tensors, default backend, timed as a yardstick and used
      nowhere in the port), ``host_us`` (host clock over 200 calls of the
      wrapper with no synchronise, per call) and ``host_bound`` (``ms`` within
-     20% of ``host_us``);
+     20% of ``host_us``); all of it at batch 16 (what DDIM-50 and training
+     give K1) and again at batch 32 (the CFG-doubled batch of a 16-image
+     text-to-image request), the plain versions there in slices of 16;
   3. K3 (GroupNorm+SiLU) against its plain version at every GroupNorm shape
      of the path, bf16 and f32, SiLU on and off, eps 1e-5 and 1e-6,
      channels-last (both kernels, "rows" and the per-group one, as in 2) and
      NCHW; two runs must agree bit for bit; the same columns, ``library_ms``
      being ``F.group_norm`` (weight and bias cast to x's dtype in the call, as
-     a caller with f32 parameters has to) followed by ``F.silu``;
+     a caller with f32 parameters has to) followed by ``F.silu``; then the
+     UNet's 19 on-path calls again on 32 samples (the CFG-doubled batch, where
+     the launch plan spreads a sample over fewer CTAs); then the same at the eight GroupNorm shapes of the VAE at 512x512 (up to [16, 256,
+     512, 512], 4 GiB): f32, eps 1e-6, SiLU on and off, contiguous NCHW (what
+     the VAE gives K3) and channels-last (off the path: there a slower
+     dispatch is noted, not failed), summed over one decode and one encode;
   4. one UNet forward through the kernels and one through the plain ops, each
      measured against an f32 plain run (TF32 off): the kernel path must come
      within 1.5x the plain path's error, plus 1e-3; then the batch-16 UNet
@@ -58,13 +73,36 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      one warm-up step, then 10 timed steps (images per second, ms per step,
      peak memory) and a ``torch.profiler`` breakdown of one step; (d) 10 steps on one fixed batch 2: the kernel
      path's loss is finite and falls, and stays within 1e-3 of the plain
-     bf16 path's loss at the same weights at every step.
+     bf16 path's loss at the same weights at every step;
+  8. text to image, f32 with TF32 off but in (c): (a) at batch 2: CLIP-L on the
+     card within 1e-4 relative L2 of the same module on the CPU (f32 on both
+     sides, other summation order); the VAE's decode and encode through K3
+     within 1e-3 relative L2 of the same through the plain GroupNorm (f32 on
+     both sides; K3 rounds otherwise at each of 30 and 22 norms), K3 launched
+     at every GroupNorm and given contiguous NCHW; a prompt -> 5-step DDIMCFG
+     (s = 7.5) -> 512x512 uint8 images through the kernels and through the
+     plain ops, each against an f32 plain run: the kernel path within 1.5x
+     the plain bf16 path's relative L2 error, plus 1e-3; (b) the launches of
+     K1 and K3 in every request here, derived from the module trees (32 and
+     61 a UNet call, 30 a decode, 22 an encode) and checked exactly, K2 0;
+     (c) the timed request: prompt and negative prompt -> DDIMCFG-50 at batch
+     16, 512x512, one warm-up and one timed run (images per second, the
+     stages' times by CUDA events, peak memory), with TF32 in the VAE's f32
+     convolutions as cuDNN runs them by PyTorch's default, which the CLI
+     leaves alone; then the VAE decode alone with and without TF32 and a
+     ``torch.profiler`` breakdown of it; (d) img2img (strength 0.75) and
+     inpainting at batch 2 over a few steps: right shape, varied, exact
+     launches, and with a fully known mask the images are the decode of the
+     known latent (to one step of 255: the latent comes back to one f32
+     rounding).
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
-and all three counted in each of the two runs), error, and its times, bound,
+and all three counted in each of the three timed runs), error, and its times, bound,
 library time and host time summed over the calls of one forward (K2: of one
-train step), and the card's name and power limit.  The last line is
+train step; K1's and K3's also over one UNet call on 32 samples, ``cfg_b32``;
+K3's also over one VAE decode and one encode), and the card's
+name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
 """
@@ -113,6 +151,47 @@ GN_CALLS = {
 }
 ATTN_PER_FORWARD = sum(ATTN_CALLS.values())   # 32
 GN_PER_FORWARD = sum(GN_CALLS.values())       # 61
+
+# The SD1.5 VAE (ch 128, ch_mult (1, 2, 4, 4), 2 ResNet blocks a level, attention
+# in the middle only) at 512x512, read off the module trees: (C, H*W, silu):
+# calls of one decode and of one encode.  All f32, eps 1e-6; the one without
+# SiLU is the mid-block attention's norm.
+VAE_DECODE_GN = {
+    (512, 4096, True): 10, (512, 4096, False): 1, (512, 16384, True): 6,
+    (512, 65536, True): 1, (256, 65536, True): 5, (256, 262144, True): 1,
+    (128, 262144, True): 6,
+}
+VAE_ENCODE_GN = {
+    (128, 262144, True): 4, (128, 65536, True): 1, (256, 65536, True): 3,
+    (256, 16384, True): 1, (512, 16384, True): 3, (512, 4096, True): 9,
+    (512, 4096, False): 1,
+}
+GN_PER_DECODE = sum(VAE_DECODE_GN.values())   # 30
+GN_PER_ENCODE = sum(VAE_ENCODE_GN.values())   # 22
+
+# phase 8: SD1.5 text to image as one config, the dict a YAML file would give
+T2I_STEPS, T2I_SIZE, T2I_SCALE = 50, 512, 7.5
+T2I_CHECK_BATCH, T2I_CHECK_STEPS, T2I_EDIT_STEPS = 2, 5, 4
+SD15_CONF = {
+    "model": {
+        "target": "dmtpu.models.stablediffusion.StableDiffusion",
+        "params": {
+            "scale_factor": 0.18215,
+            "unet_config": {"target": "dmtpu.models.stablediffusion.SDUNetModel",
+                            "params": dict(SD15, torso_dtype="bfloat16")},
+            "vae_config": {"target": "dmtpu.models.stablediffusion.AutoencoderKL",
+                           "params": {"embed_dim": 4, "z_channels": 4, "resolution": 256,
+                                      "ch": 128, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2}},
+            "text_encoder_config": {
+                "target": "dmtpu.models.stablediffusion.FrozenCLIPEmbedder",
+                "params": {"version": "clip-vit-l"}},
+        },
+    },
+    "diffusion": {"target": "diffusions.ddpm.DDPM",
+                  "params": {"total_steps": 1000, "beta_schedule": "quad",
+                             "beta_start": 0.00085, "beta_end": 0.012,
+                             "objective": "pred_eps"}},
+}
 
 
 def log(*args):
@@ -199,15 +278,25 @@ def main() -> int:
         name: bool(getattr(torch.backends.cuda, f"{name}_sdp_enabled")())
         for name in ("flash", "mem_efficient", "math", "cudnn")
         if hasattr(torch.backends.cuda, f"{name}_sdp_enabled")}))
-    k1 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, host_us=0.0, err=0.0,
-              bound_ms_by={"bytes": 0.0, "operations": 0.0})
+    def new_totals():
+        return dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, host_us=0.0, err=0.0,
+                    bound_ms_by={"bytes": 0.0, "operations": 0.0})
+
     g = gen(SEED)
-    for (sq, sk, d), calls in ATTN_CALLS.items():
-        q = torch.randn(B, sq, 8, d, generator=g, device=dev).bfloat16()
-        k = torch.randn(B, sk, 8, d, generator=g, device=dev).bfloat16()
-        v = torch.randn(B, sk, 8, d, generator=g, device=dev).bfloat16()
-        ref_o, ref_lse = flash_attention_reference(q, k, v)
-        plain = mha(q, k, v)
+
+    def k1_case(n, sq, sk, d, calls, totals):
+        """One K1 row at batch ``n``: every kernel that takes the shape checked
+        against the plain versions and timed; the chosen one's columns, times
+        ``calls``, go into ``totals``."""
+        q = torch.randn(n, sq, 8, d, generator=g, device=dev).bfloat16()
+        k = torch.randn(n, sk, 8, d, generator=g, device=dev).bfloat16()
+        v = torch.randn(n, sk, 8, d, generator=g, device=dev).bfloat16()
+        # the plain versions in slices of B samples: at S = 4096 their f32
+        # logits are 8 GiB for 16 samples
+        ref_o, ref_lse = (torch.cat(part) for part in zip(*(
+            flash_attention_reference(q[i:i + B], k[i:i + B], v[i:i + B])
+            for i in range(0, n, B))))
+        plain = torch.cat([mha(q[i:i + B], k[i:i + B], v[i:i + B]) for i in range(0, n, B)])
         chosen = select_kernel(sq, sk, d)
         names = kernels_for(d)
         # bf16 output: one bf16 step (2^-8 relative) of the largest outputs on
@@ -227,7 +316,7 @@ def main() -> int:
                               max_abs_err_vs_own_plain=err_ref, lse_max_abs_err=err_lse)
             check(err_ref <= bound and err_lse <= 1e-3 and rel_mha <= 3e-2 and
                   bool(torch.isfinite(o).all()),
-                  f"K1[{name}] bf16 b{B} h8 S_q={sq} S_k={sk} d={d}")
+                  f"K1[{name}] bf16 b{n} h8 S_q={sq} S_k={sk} d={d}")
             del o, lse
         # each hand-written kernel that takes the shape, in the order first,
         # second, second, first: the dispatch must not pick the slower one
@@ -241,25 +330,33 @@ def main() -> int:
         library_ms = time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 20)
         host = host_us(lambda: flash_attention_fwd(q, k, v), 200)
-        bound_t, bound_by = roofline.bound_ms(*roofline.attention_fwd_work(B, 8, sq, sk, d))
+        bound_t, bound_by = roofline.bound_ms(*roofline.attention_fwd_work(n, 8, sq, sk, d))
         for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_t),
                            ("library_ms", library_ms), ("host_us", host)):
-            k1[key] += calls * value
-        k1["bound_ms_by"][bound_by] += calls * bound_t
-        k1["err"] = max(k1["err"], errs[chosen]["max_abs_err_vs_mha"])
+            totals[key] += calls * value
+        totals["bound_ms_by"][bound_by] += calls * bound_t
+        totals["err"] = max(totals["err"], errs[chosen]["max_abs_err_vs_mha"])
         log("K1", json.dumps(dict(
-            b=B, h=8, sq=sq, sk=sk, d=d, calls=calls, kernel=chosen, **errs[chosen], ms=ms,
+            b=n, h=8, sq=sq, sk=sk, d=d, calls=calls, kernel=chosen, **errs[chosen], ms=ms,
             ms_by_kernel=by_kernel, plain_ms=plain_ms, bound_ms=bound_t, bound_by=bound_by,
             library_ms=library_ms, host_us=host, host_bound=ms <= 1.2 * host / 1e3)))
         check(not_the_slower(by_kernel, chosen, ms, host),
-              f"K1 dispatch S_q={sq} S_k={sk} d={d}: {chosen} is not the slower kernel")
+              f"K1 dispatch b{n} S_q={sq} S_k={sk} d={d}: {chosen} is not the slower kernel")
         del q, k, v, qt, kt, vt, ref_o, ref_lse, plain
+
+    # batch 16 is what DDIM-50 and training give K1; a text-to-image request of
+    # 16 images calls the UNet on the CFG-doubled batch of 32
+    k1, k1_cfg = new_totals(), new_totals()
+    for n, totals in ((B, k1), (2 * B, k1_cfg)):
+        for (sq, sk, d), calls in ATTN_CALLS.items():
+            k1_case(n, sq, sk, d, calls, totals)
+            torch.cuda.empty_cache()
     log(f"K1 per b{B} UNet forward ({ATTN_PER_FORWARD} calls): " + json.dumps(k1))
+    log(f"K1 per b{2 * B} UNet forward ({ATTN_PER_FORWARD} calls): " + json.dumps(k1_cfg))
     torch.cuda.empty_cache()
 
     # ---- 3. K3 ------------------------------------------------------------
-    k3 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, host_us=0.0, err=0.0,
-              bound_ms_by={"bytes": 0.0, "operations": 0.0})
+    k3, k3_cfg = new_totals(), new_totals()
     pairs = sorted({(c, hw) for c, hw, *_ in GN_CALLS})
     # the UNet's activations are channels-last (cuDNN returns its bf16
     # convolutions so); NCHW is checked too, and timed but not summed
@@ -273,61 +370,99 @@ def main() -> int:
         y = torch.nn.functional.group_norm(x, 32, w.to(x.dtype), bias.to(x.dtype), eps)
         return torch.nn.functional.silu(y) if silu else y
 
+    def add_row(totals, row, calls):
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us"):
+            totals[key] += calls * row[key]
+        totals["bound_ms_by"][row["bound_by"]] += calls * row["bound_ms"]
+        if calls:
+            totals["err"] = max(totals["err"], row["max_abs_err"])
+
+    def k3_case(c, hw, dname, silu, eps, layout, calls, on_path=True, n=B):
+        """One K3 row at batch ``n``: every kernel that takes the call checked against the
+        plain version (two runs bit for bit) and timed.  ``calls`` is printed
+        with the row, which is returned.  Off the path a slower dispatch is
+        logged, not failed."""
+        dtype = torch.bfloat16 if dname == "bf16" else torch.float32
+        side = int(hw ** 0.5)
+        x = (torch.randn(n, c, side, side, generator=g, device=dev) * 2 + 0.5).to(
+            dtype=dtype, memory_format=layout)
+        w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+        bias = 0.1 * torch.randn(c, generator=g, device=dev)
+        ref = group_norm_silu_reference(x, w, bias, 32, eps, silu)
+        names = list(gn_kernels_for(c, hw, 32, layout == cl))
+        planned = gn_plan(c, hw, 32, x.element_size(), layout == cl, n)
+        chosen = planned["kernel"]
+        # f32: summation order only.  bf16: the two round f32 values that
+        # differ in the last f32 bits, so they may land one bf16 step
+        # (at most 2^-7 of the value) apart
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        errs = {}
+        for name in names:
+            y = group_norm_silu(x, w, bias, 32, eps, silu, kernel=name)
+            again = group_norm_silu(x, w, bias, 32, eps, silu, kernel=name)
+            torch.cuda.synchronize()
+            diff = (y.float() - ref.float()).abs_()
+            errs[name] = diff.max().item()
+            check(bool((diff <= tol * ref.float().abs() + 1e-4).all())
+                  and bool(torch.isfinite(y).all()) and torch.equal(y, again)
+                  and y.is_contiguous(memory_format=layout),
+                  f"K3[{name}] {dname} silu={silu} eps={eps} {layout} b{n} C={c} HW={hw}")
+            del y, again, diff
+        by_kernel = {name: [] for name in names}
+        for name in names + names[::-1]:
+            by_kernel[name].append(time_ms(
+                lambda: group_norm_silu(x, w, bias, 32, eps, silu, kernel=name), 20))
+        ms = sum(by_kernel[chosen]) / len(by_kernel[chosen])
+        plain_ms = time_ms(lambda: group_norm_silu_reference(x, w, bias, 32, eps, silu), 3)
+        library_ms = time_ms(lambda: library_gn(x, w, bias, eps, silu), 10)
+        host = host_us(lambda: group_norm_silu(x, w, bias, 32, eps, silu), 200)
+        bound_t, bound_by = roofline.bound_ms(
+            *roofline.group_norm_work(n, c, hw, x.element_size(), silu),
+            peak_flops=roofline.PEAK_F32_FLOPS)
+        row = dict(
+            b=n, c=c, hw=hw, dtype=dname, silu=silu, eps=eps,
+            layout="NHWC" if layout == cl else "NCHW", calls=calls, kernel=chosen,
+            cluster=planned.get("cluster"),
+            max_abs_err=errs[chosen], ms=ms, ms_by_kernel=by_kernel, plain_ms=plain_ms,
+            bound_ms=bound_t, bound_by=bound_by, library_ms=library_ms, host_us=host,
+            host_bound=ms <= 1.2 * host / 1e3)
+        log("K3", json.dumps(row))
+        what = (f"K3 dispatch b{n} {dname} silu={silu} {layout} C={c} HW={hw}: {chosen} is not "
+                f"the slower kernel")
+        if on_path or not_the_slower(by_kernel, chosen, ms, host):
+            check(not_the_slower(by_kernel, chosen, ms, host), what)
+        else:
+            log("NOTE (off the path, not a failure): not so: " + what)
+        return row
+
     for c, hw in pairs:
         for dname, silu, eps, layout in variants:
-            dtype = torch.bfloat16 if dname == "bf16" else torch.float32
-            side = int(hw ** 0.5)
-            x = (torch.randn(B, c, side, side, generator=g, device=dev) * 2 + 0.5).to(
-                dtype=dtype, memory_format=layout)
-            w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
-            bias = 0.1 * torch.randn(c, generator=g, device=dev)
-            ref = group_norm_silu_reference(x, w, bias, 32, eps, silu)
-            names = list(gn_kernels_for(c, hw, 32, layout == cl))
-            chosen = gn_plan(c, hw, 32, x.element_size(), layout == cl, B)["kernel"]
-            # f32: summation order only.  bf16: the two round f32 values that
-            # differ in the last f32 bits, so they may land one bf16 step
-            # (at most 2^-7 of the value) apart
-            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-            errs = {}
-            for name in names:
-                y = group_norm_silu(x, w, bias, 32, eps, silu, kernel=name)
-                again = group_norm_silu(x, w, bias, 32, eps, silu, kernel=name)
-                torch.cuda.synchronize()
-                diff = (y.float() - ref.float()).abs()
-                errs[name] = diff.max().item()
-                check(bool((diff <= tol * ref.float().abs() + 1e-4).all())
-                      and bool(torch.isfinite(y).all()) and torch.equal(y, again)
-                      and y.is_contiguous(memory_format=layout),
-                      f"K3[{name}] {dname} silu={silu} eps={eps} {layout} b{B} C={c} HW={hw}")
-                del y, again, diff
             calls = GN_CALLS.get((c, hw, dname, silu, eps), 0) if layout == cl else 0
-            by_kernel = {name: [] for name in names}
-            for name in names + names[::-1]:
-                by_kernel[name].append(time_ms(
-                    lambda: group_norm_silu(x, w, bias, 32, eps, silu, kernel=name), 20))
-            ms = sum(by_kernel[chosen]) / len(by_kernel[chosen])
-            plain_ms = time_ms(lambda: group_norm_silu_reference(x, w, bias, 32, eps, silu), 3)
-            library_ms = time_ms(lambda: library_gn(x, w, bias, eps, silu), 10)
-            host = host_us(lambda: group_norm_silu(x, w, bias, 32, eps, silu), 200)
-            bound_t, bound_by = roofline.bound_ms(
-                *roofline.group_norm_work(B, c, hw, x.element_size(), silu),
-                peak_flops=roofline.PEAK_F32_FLOPS)
-            for key, value in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound_t),
-                               ("library_ms", library_ms), ("host_us", host)):
-                k3[key] += calls * value
-            k3["bound_ms_by"][bound_by] += calls * bound_t
-            k3["err"] = max(k3["err"], errs[chosen])
-            log("K3", json.dumps(dict(
-                b=B, c=c, hw=hw, dtype=dname, silu=silu, eps=eps,
-                layout="NHWC" if layout == cl else "NCHW", calls=calls, kernel=chosen,
-                max_abs_err=errs[chosen], ms=ms, ms_by_kernel=by_kernel, plain_ms=plain_ms,
-                bound_ms=bound_t, bound_by=bound_by, library_ms=library_ms, host_us=host,
-                host_bound=ms <= 1.2 * host / 1e3)))
-            check(not_the_slower(by_kernel, chosen, ms, host),
-                  f"K3 dispatch {dname} silu={silu} {layout} C={c} HW={hw}: {chosen} is not "
-                  f"the slower kernel")
-            del x, ref
+            add_row(k3, k3_case(c, hw, dname, silu, eps, layout, calls), calls)
     log(f"K3 per b{B} UNet forward ({GN_PER_FORWARD} calls): " + json.dumps(k3))
+    # the CFG-doubled batch of a 16-image text-to-image request: the UNet's 19
+    # GroupNorm calls on 32 samples, where the plan spreads a sample over fewer
+    # CTAs (the row has the cluster)
+    for (c, hw, dname, silu, eps), calls in GN_CALLS.items():
+        add_row(k3_cfg, k3_case(c, hw, dname, silu, eps, cl, calls, n=2 * B), calls)
+    log(f"K3 per b{2 * B} UNet forward ({GN_PER_FORWARD} calls): " + json.dumps(k3_cfg))
+    # the VAE's GroupNorms at 512x512: f32, eps 1e-6, contiguous NCHW on the
+    # path (phase 8 checks that), channels-last checked and timed beside it
+    k3_vae = {name: new_totals() for name in ("decode", "encode")}
+    for c, hw in sorted({(c, hw) for c, hw, _ in list(VAE_DECODE_GN) + list(VAE_ENCODE_GN)}):
+        for silu in (True, False):
+            for layout in (nchw, cl):
+                on_path = layout == nchw
+                calls = {name: table.get((c, hw, silu), 0) if on_path else 0
+                         for name, table in (("decode", VAE_DECODE_GN), ("encode", VAE_ENCODE_GN))}
+                row = k3_case(c, hw, "f32", silu, 1e-6, layout, calls, on_path=on_path)
+                for name in calls:
+                    add_row(k3_vae[name], row, calls[name])
+                torch.cuda.empty_cache()
+    log(f"K3 per b{B} VAE decode at {T2I_SIZE}x{T2I_SIZE} ({GN_PER_DECODE} calls): "
+        + json.dumps(k3_vae["decode"]))
+    log(f"K3 per b{B} VAE encode at {T2I_SIZE}x{T2I_SIZE} ({GN_PER_ENCODE} calls): "
+        + json.dumps(k3_vae["encode"]))
     # how the rows kernel's time depends on the CTAs a sample is spread over
     # (the plan aims at 64 in all), beside what the card's memory system gives a
     # plain copy (one read, one write) and a plain sum (one read) of the same x
@@ -343,6 +478,15 @@ def main() -> int:
     log("K3 rows kernel, b16 (320, 4096) bf16 SiLU, ms by CTAs per sample: "
         + json.dumps(by_cluster) + f"; planned {planned['cluster']}; x.clone() "
         f"{time_ms(lambda: x.clone(), 20):.4f} ms, x.sum() {time_ms(lambda: x.sum(), 20):.4f} ms")
+    # the same on the 32 samples of a CFG-doubled call (checked above as planned)
+    x = torch.cat([x, x])
+    planned = gn_plan(320, 4096, 32, 2, True, 2 * B)
+    by_cluster = {}
+    for cluster in (8, 4, 2, 1):
+        with forced_plan(groupnorm_module, dict(planned, cluster=cluster)):
+            by_cluster[cluster] = time_ms(lambda: group_norm_silu(x, w, bias, 32, 1e-5, True), 20)
+    log(f"K3 rows kernel, b{2 * B} (320, 4096) bf16 SiLU, ms by CTAs per sample: "
+        + json.dumps(by_cluster) + f"; planned {planned['cluster']}")
     del x
     torch.cuda.empty_cache()
 
@@ -503,13 +647,17 @@ def main() -> int:
 
     # ---- 7. training -----------------------------------------------------------
     train = phase_train(dev, check, gen, ref_model, card)
+
+    # ---- 8. text to image --------------------------------------------------------
+    t2i = phase_text_to_image(dev, check, gen, ref_model, card, time_ms)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
         log(f"chip_smoke: {len(failures)} check(s) failed: {failures}")
         return 1
     by_path = {name: {"ddim50": main_launches[name],
-                      f"train{TRAIN_TIMED_STEPS}": train["launches"][name]}
+                      f"train{TRAIN_TIMED_STEPS}": train["launches"][name],
+                      f"txt2img{T2I_STEPS}": t2i["launches"][name]}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -528,7 +676,10 @@ def main() -> int:
                    f"per b{B} UNet forward: sum over its {ATTN_PER_FORWARD} attention calls", k1),
              other_sources=["dmtpu_torch/csrc/flash_attn_fwd_mma.cu",
                             "dmtpu_torch/csrc/hopper.cuh"],
-             launches_by_kernel=k1_by_kernel),
+             launches_by_kernel=k1_by_kernel,
+             # the same columns at the CFG-doubled batch of the text-to-image
+             # request: summed over the 32 calls of one UNet call on 32 samples
+             cfg_b32=k1_cfg),
         dict(entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
                    "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
                    f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards",
@@ -536,11 +687,16 @@ def main() -> int:
              other_sources=["dmtpu_torch/csrc/flash_attn_bwd_mma.cu",
                             "dmtpu_torch/csrc/hopper.cuh"],
              launches_by_kernel=train["k2_by_kernel"], ms_by_kernel=k2_by_kernel),
-        entry("group_norm_silu", "dmtpu_torch/csrc/group_norm_silu.cu",
-              "dmtpu/ops/groupnorm.py:44", (main_launches["K3"], by_path["K3"]),
-              f"per b{B} UNet forward: sum over its {GN_PER_FORWARD} GroupNorm calls", k3),
+        dict(entry("group_norm_silu", "dmtpu_torch/csrc/group_norm_silu.cu",
+                   "dmtpu/ops/groupnorm.py:44", (main_launches["K3"], by_path["K3"]),
+                   f"per b{B} UNet forward: sum over its {GN_PER_FORWARD} GroupNorm calls", k3),
+             # the same columns summed over the GroupNorm calls of one b16 VAE
+             # decode (30) and encode (22) at 512x512, f32
+             vae_decode=k3_vae["decode"], vae_encode=k3_vae["encode"],
+             # and over the 61 calls of one UNet call on 32 samples
+             cfg_b32=k3_cfg),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
-        "train_b16": train["metrics"], "card": card}))
+        "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -864,6 +1020,250 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
         log(f"  {ms:9.4f} ms  {name}")
     metrics["profile_ms"] = dict(profile["classes"], wall=profile["wall_ms"], **profile["ranges"])
     return {"launches": launches, "k2_by_kernel": k2_by_kernel, "metrics": metrics}
+
+
+def phase_text_to_image(dev, check, gen, ref_model, card, time_ms) -> dict:
+    """Phase 8 (see the module docstring).  ``ref_model`` is the f32 UNet of
+    phase 4: the text-to-image stack's UNet gets its weights."""
+    import copy
+
+    import numpy as np
+    import torch
+    from dmtpu_torch.models.adm import GroupNorm32
+    from dmtpu_torch.models.stablediffusion import StableDiffusion
+    from dmtpu_torch.models.stablediffusion.attention import CrossAttention
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.scripts.sample_sd import _demo_token_ids, sample_images
+    from dmtpu_torch.utils.config import instantiate_from_config
+
+    def count(kind, root):
+        return sum(isinstance(m, kind) for m in root.modules())
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel_err(a, ref) -> float:
+        a, ref = (torch.as_tensor(np.asarray(x, np.float32)) for x in (a, ref))
+        return ((a - ref).norm() / ref.norm()).item()
+
+    # the stack, from the config dict through the registry; f32 parameters,
+    # the UNet with a bf16 torso and phase 4's weights
+    sd = instantiate_from_config(SD15_CONF["model"], device=dev).eval()
+    check(isinstance(sd, StableDiffusion) and sd.unet.torso_dtype == torch.bfloat16,
+          "text to image: StableDiffusion built from the config dict, bf16 UNet torso")
+    sd.unet.load_state_dict(ref_model.state_dict())
+    g = gen(SEED + 9)
+    init_random_(sd.vae, g)
+    init_random_(sd.text_encoder, g)
+    ref_model.eval()
+    bf16_unet = sd.unet
+    sizes = {name: sum(p.numel() for p in m.parameters())
+             for name, m in (("unet", sd.unet), ("vae", sd.vae), ("clip", sd.text_encoder))}
+    log(f"text to image: parameters {sizes}, all f32: "
+        f"{all(p.dtype == torch.float32 for p in sd.parameters())}")
+    per = {"attn": count(CrossAttention, sd.unet), "unet_gn": count(GroupNorm32, sd.unet),
+           "decode_gn": count(GroupNorm32, sd.vae.decoder),
+           "encode_gn": count(GroupNorm32, sd.vae.encoder)}
+    log(f"text to image: kernel calls from the module trees: {per}")
+    check(per == {"attn": ATTN_PER_FORWARD, "unet_gn": GN_PER_FORWARD,
+                  "decode_gn": GN_PER_DECODE, "encode_gn": GN_PER_ENCODE},
+          "module trees give 32 attention and 61 + 30 + 22 GroupNorm calls")
+
+    def want_launches(rows: int, batches: int = 1, encodes: int = 0) -> dict:
+        """One request: ``rows`` guided UNet calls and one decode a batch."""
+        return {"K1": batches * rows * per["attn"], "K2": 0,
+                "K3": batches * (rows * per["unet_gn"] + per["decode_gn"])
+                + encodes * per["encode_gn"]}
+
+    # (a) the parts at batch 2, f32 with TF32 off (set in phase 4)
+    b = T2I_CHECK_BATCH
+    ids = torch.as_tensor(np.concatenate([
+        _demo_token_ids("a photograph of an astronaut", 77, 49408),
+        _demo_token_ids("", 77, 49408)]), device=dev)
+    with torch.no_grad():
+        emb = sd.text_encoder_encode_tokens(ids)
+        emb_cpu = copy.deepcopy(sd.text_encoder).cpu().encode_tokens(ids.cpu())
+    err = rel_err(emb.cpu(), emb_cpu)
+    log(f"CLIP-L b{b} on the card vs the same module on the CPU (f32): rel L2 err {err:.3e}, "
+        f"max abs {(emb.cpu() - emb_cpu).abs().max().item():.3e}")
+    # f32 on both sides, sums in another order through 12 layers
+    check(tuple(emb.shape) == (b, 77, 768) and bool(torch.isfinite(emb).all()) and err <= 1e-4,
+          "CLIP-L on the card: [2, 77, 768], finite, within 1e-4 rel L2 of the CPU")
+
+    # the VAE through K3 against the plain GroupNorm, and the layouts K3 is given
+    layouts = set()
+
+    def note_layout(_, args):
+        x = args[0]
+        layouts.add("NCHW" if x.is_contiguous() else
+                    "NHWC" if x.is_contiguous(memory_format=torch.channels_last) else "other")
+
+    hooks = [m.register_forward_pre_hook(note_layout)
+             for m in sd.vae.modules() if isinstance(m, GroupNorm32)]
+    z = torch.randn(b, 4, T2I_SIZE // 8, T2I_SIZE // 8, generator=g, device=dev)
+    x = torch.rand(b, 3, T2I_SIZE, T2I_SIZE, generator=g, device=dev) * 2 - 1
+    with torch.no_grad():
+        zero_counts()
+        dec_k, enc_k = sd.decode_latent(z), sd.vae.encode_moments(x)
+        torch.cuda.synchronize()
+        vae_launches = counts()
+        with plain_ops():
+            dec_p, enc_p = sd.decode_latent(z), sd.vae.encode_moments(x)
+    for h in hooks:
+        h.remove()
+    err_d, err_e = rel_err(dec_k.cpu(), dec_p.cpu()), rel_err(enc_k.cpu(), enc_p.cpu())
+    log(f"VAE b{b} {T2I_SIZE}x{T2I_SIZE} through K3 vs plain GroupNorm (f32, TF32 off): rel L2 "
+        f"err decode {err_d:.3e}, encode {err_e:.3e}; launches {vae_launches}; K3's inputs "
+        f"{sorted(layouts)}")
+    # f32 on both sides: K3's statistics and SiLU round otherwise (1e-4 of a
+    # value at worst, phase 3) through 30 and 22 norms
+    check(tuple(dec_k.shape) == (b, 3, T2I_SIZE, T2I_SIZE) and err_d <= 1e-3
+          and tuple(enc_k.shape) == (b, 8, T2I_SIZE // 8, T2I_SIZE // 8) and err_e <= 1e-3
+          and bool(torch.isfinite(dec_k).all()) and bool(torch.isfinite(enc_k).all()),
+          "VAE decode and encode through K3 within 1e-3 rel L2 of the plain path")
+    check(vae_launches == {"K1": 0, "K2": 0, "K3": GN_PER_DECODE + GN_PER_ENCODE},
+          f"VAE launches {vae_launches}: K3 at every GroupNorm ({GN_PER_DECODE} + "
+          f"{GN_PER_ENCODE}), no K1")
+    check(layouts == {"NCHW"}, "every GroupNorm of the VAE was given contiguous NCHW")
+    del dec_k, dec_p, enc_k, enc_p, z, x
+
+    # a prompt -> 5-step DDIMCFG -> image: kernels and plain bf16 against f32
+    request = dict(negative="blurry, low quality", height=T2I_SIZE, width=T2I_SIZE,
+                   guidance_scale=T2I_SCALE, seed=SEED, sd=sd)
+    prompt = "a photograph of an astronaut riding a horse"
+    small = dict(request, n_samples=b, batch_size=b, respace_steps=T2I_CHECK_STEPS)
+    rows = len(instantiate_from_config(
+        SD15_CONF["diffusion"], respace_type="uniform",
+        respace_steps=T2I_CHECK_STEPS).respaced_seq)
+    zero_counts()
+    img_k = sample_images(SD15_CONF, prompt, **small)
+    got = counts()
+    with plain_ops():
+        img_p = sample_images(SD15_CONF, prompt, **small)
+        sd.unet = ref_model
+        try:
+            img_f = sample_images(SD15_CONF, prompt, **small)
+        finally:
+            sd.unet = bf16_unet
+    err_k, err_p = rel_err(img_k, img_f), rel_err(img_p, img_f)
+    log(f"text to image b{b}, {rows} DDIMCFG steps, s={T2I_SCALE}, {T2I_SIZE}x{T2I_SIZE} uint8 "
+        f"images: rel L2 err vs the f32 plain run: kernels {err_k:.3e}, plain bf16 {err_p:.3e}; "
+        f"mean {img_k.mean():.1f}, share of pixels at 0 or 255 "
+        f"{float(((img_k == 0) | (img_k == 255)).mean()):.3f}; launches {got}")
+    check(img_k.shape == (b, T2I_SIZE, T2I_SIZE, 3) and img_k.dtype == np.uint8
+          and err_k <= 1.5 * err_p + 1e-3,
+          "text to image: uint8 [2, 512, 512, 3], err(kernels) <= 1.5 err(plain) + 1e-3")
+    check(img_k.std() > 1.0 and not np.array_equal(img_k[0], img_k[1]),
+          "text to image: the images vary, and from sample to sample")
+    # (b) exact launches of one request
+    check(got == want_launches(rows), f"text to image launches {got} == {want_launches(rows)}")
+
+    # (d) img2img and inpainting at batch 2
+    edit = dict(request, n_samples=b, batch_size=b, respace_steps=T2I_EDIT_STEPS)
+    rows = len(instantiate_from_config(
+        SD15_CONF["diffusion"], respace_type="uniform",
+        respace_steps=T2I_EDIT_STEPS).respaced_seq)
+    rs = np.random.RandomState(SEED)
+    picture = rs.uniform(-1, 1, size=(T2I_SIZE, T2I_SIZE, 3)).astype(np.float32)
+    zero_counts()
+    img = sample_images(SD15_CONF, prompt, init_image=picture, strength=0.75, **edit)
+    got, edit_rows = counts(), max(1, min(rows, round(0.75 * rows)))
+    check(img.shape == (b, T2I_SIZE, T2I_SIZE, 3) and img.std() > 1.0,
+          "img2img (strength 0.75): uint8 [2, 512, 512, 3]")
+    check(got == want_launches(edit_rows, encodes=1),
+          f"img2img launches {got} == {want_launches(edit_rows, encodes=1)} ({edit_rows} of "
+          f"{rows} steps, one encode)")
+    mask = np.ones((T2I_SIZE // 8, T2I_SIZE // 8), np.float32)
+    mask[16:48, 16:48] = 0.0
+    zero_counts()
+    img = sample_images(SD15_CONF, prompt, inpaint_image=picture, inpaint_mask=mask, **edit)
+    got = counts()
+    check(img.shape == (b, T2I_SIZE, T2I_SIZE, 3) and img.std() > 1.0,
+          "inpainting: uint8 [2, 512, 512, 3]")
+    check(got == want_launches(rows, encodes=1),
+          f"inpainting launches {got} == {want_launches(rows, encodes=1)}")
+    # a fully known mask gives back the known latent at t = 0: the request's
+    # images are the decode of that latent (the encode draws from seed + 1)
+    full = sample_images(SD15_CONF, prompt, inpaint_image=picture, inpaint_mask=np.ones_like(mask),
+                         **edit)
+    with torch.no_grad():
+        known = torch.as_tensor(picture, device=dev).permute(2, 0, 1)[None].expand(b, -1, -1, -1)
+        z_known = sd.encode_latent(known.contiguous(),
+                                   torch.Generator(device=dev).manual_seed(SEED + 1))
+        want = ((sd.decode_latent(z_known).clamp(-1, 1).permute(0, 2, 3, 1) + 1) / 2 * 255).cpu()
+    worst = np.abs(full.astype(np.int64) - want.numpy().astype(np.int64)).max()
+    log(f"inpainting with a fully known mask vs the decode of the known latent: worst "
+        f"difference {worst} of 255")
+    # the latent comes back to 1e-6 (one f32 rounding of a + (b - a)); a uint8
+    # that sat at a rounding edge may move by one
+    check(worst <= 1, "inpainting: a fully known mask gives back the known latent's image")
+
+    # (c) the timed request: b16, DDIMCFG-50, 512x512; the f32 convolutions of
+    # the VAE with TF32, PyTorch's default for cuDNN, which the CLI leaves alone
+    torch.backends.cudnn.allow_tf32 = True
+    events = []
+
+    def on_stage(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        events.append((name, event))
+
+    timed = dict(request, n_samples=B, batch_size=B, respace_steps=T2I_STEPS)
+    rows = len(instantiate_from_config(
+        SD15_CONF["diffusion"], respace_type="uniform", respace_steps=T2I_STEPS).respaced_seq)
+    sample_images(SD15_CONF, prompt, **timed)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    images = sample_images(SD15_CONF, prompt, on_stage=on_stage, **timed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tf32 = bool(torch.backends.cudnn.allow_tf32)
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    stage_ms = {name: before.elapsed_time(after)
+                for (_, before), (name, after) in zip(events, events[1:])}
+    metrics = {"imgs_per_s": B / seconds, "seconds": seconds, "batch": B, "steps": rows,
+               "size": T2I_SIZE, "guidance_scale": T2I_SCALE, "stage_ms": stage_ms,
+               "peak_bytes": peak, "vae_conv_tf32": tf32}
+    log(f"text to image b{B}, DDIMCFG-{T2I_STEPS} ({rows} UNet calls on {2 * B} samples), "
+        f"{T2I_SIZE}x{T2I_SIZE}: {seconds:.3f} s, {metrics['imgs_per_s']:.4f} images/s, stages "
+        f"(CUDA events, ms) {json.dumps(stage_ms)}, peak {peak / 2**30:.3f} GiB, VAE "
+        f"convolutions in TF32: {tf32} ({card}); launches {launches}")
+    check(images.shape == (B, T2I_SIZE, T2I_SIZE, 3) and images.dtype == np.uint8
+          and images.std() > 1.0, "text to image b16: uint8 [16, 512, 512, 3]")
+    check(launches == want_launches(rows),
+          f"text to image b16 launches {launches} == {want_launches(rows)}")
+    # the VAE decode alone at b16, with and without TF32 in its convolutions,
+    # and where its device time goes
+    z = torch.randn(B, 4, T2I_SIZE // 8, T2I_SIZE // 8, generator=g, device=dev)
+    with torch.no_grad():
+        decode_ms = {}
+        for tf32 in (True, False, False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            decode_ms.setdefault("tf32" if tf32 else "f32", []).append(
+                time_ms(lambda: sd.decode_latent(z), 2))
+        torch.backends.cudnn.allow_tf32 = True
+        with plain_ops():
+            decode_ms["tf32_plain_group_norm"] = [time_ms(lambda: sd.decode_latent(z), 2)]
+        profile = profile_by_class(lambda: sd.decode_latent(z), 1)
+    torch.backends.cudnn.allow_tf32 = False
+    metrics["vae_decode_ms"] = decode_ms
+    metrics["vae_decode_profile_ms"] = profile["classes"]
+    log(f"VAE decode b{B} {T2I_SIZE}x{T2I_SIZE} ms (CUDA events, 2 decodes each, order tf32, "
+        f"f32, f32, tf32): {json.dumps(decode_ms)}; device time by class, TF32 (torch.profiler, "
+        f"one decode): " + json.dumps(profile["classes"]))
+    for name, ms in profile["top"]:
+        log(f"  {ms:9.4f} ms  {name}")
+    return {"launches": launches, "metrics": metrics}
 
 
 # kernel-name fragments -> class, first match wins

@@ -11,6 +11,9 @@ converts torch tensors onto Flax leaves by fixed rules
   scale                  -> weight  (GroupNorm, LayerNorm)
   embedding              -> weight
   bias                   -> bias
+  text_projection        -> text_projection  (the CLIP tower's raw
+                            [width, projection_dim] matrix, used as
+                            ``pooled @ text_projection`` in both packages)
 
 so parameters made by the JAX package load into the port's modules, whose
 keys are the upstream torch keys.  The params tree is nested dicts of numpy
@@ -42,6 +45,8 @@ def torch_name(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[Tuple[in
         name = "weight"
     elif leaf in _LEAF:
         name, perm = _LEAF[leaf], None
+    elif leaf == "text_projection":
+        name, perm = leaf, None
     else:
         raise ValueError(f"unknown Flax leaf {leaf!r} at {'/'.join(path)}")
     return (f"{base}.{name}" if base else name), perm

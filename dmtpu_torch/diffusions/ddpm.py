@@ -5,7 +5,9 @@ Every scalar a step needs is computed once on the host in float64 and
 stored as float32 (``pair_tape`` / ``sampler_tape``, the same tables as the
 JAX package).  ``sample_loop`` is a Python loop over the tape rows whose
 coefficients are host floats, so a step never waits for the device: the
-loop only enqueues work.
+loop only enqueues work.  After each step it calls ``apply_guidance``, a
+no-op here that ``dmtpu_torch.diffusions.guidance.BaseGuidance`` overrides;
+every sampler shares this one loop, so every sampler has the seam.
 
 The model seam is ``model_fn(xt, t_batch, **model_kwargs) -> output``.
 Images are NCHW; output channels beyond ``xt``'s are a learned variance, so
@@ -217,6 +219,12 @@ class DDPM:
             "reverse_eps": reverse_eps,
         }
 
+    def apply_guidance(self, out: Dict[str, torch.Tensor], xt: torch.Tensor, c: Row,
+                       generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The guidance seam: a step's outputs, transformed.  ``BaseGuidance``
+        overrides it.  (reference: diffusions/guidance/base.py:74-142)"""
+        return out
+
     # ------------------------------------------------------------------
     # the sampling loop
     # ------------------------------------------------------------------
@@ -251,6 +259,7 @@ class DDPM:
         ys: Dict[str, list] = {k: [] for k in collect}
         for c in rows[start_step:stop]:
             out = self._model_step(model_fn, x, c, generator, model_kwargs)
+            out = self.apply_guidance(out, x, c, generator)
             for k in collect:
                 ys[k].append(out[k])
             x = out["sample"]

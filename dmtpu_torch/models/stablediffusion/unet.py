@@ -7,7 +7,8 @@ fields.  Submodule names are the upstream torch ones (``input_blocks.1.0``,
 are, and ``dmtpu_torch.convert.load_flax_params`` loads the JAX package's
 params.
 
-``torso_dtype`` sets the dtype of the torso's convolutions and dense
+``torso_dtype`` (a ``torch.dtype``, or its name as a config file gives it:
+``"bfloat16"``) sets the dtype of the torso's convolutions and dense
 layers; the time embedding, every GroupNorm and LayerNorm, the softmax and
 the output head stay f32.
 
@@ -115,6 +116,8 @@ class SDUNetModel(nn.Module):
                             ("transformer_depth", transformer_depth)):
             if not isinstance(value, int):
                 raise NotImplementedError(f"per-level {name} is not ported")
+        if isinstance(torso_dtype, str):  # a YAML config names the dtype
+            torso_dtype = getattr(torch, torso_dtype)
         self.torso_dtype = torso_dtype
         self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
         self.num_heads, self.num_head_channels, self.legacy = num_heads, num_head_channels, legacy

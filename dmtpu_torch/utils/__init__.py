@@ -1,1 +1,1 @@
-"""Utilities: the optimizer factories."""
+"""Utilities: config, image output, logging and the optimizer factories."""

@@ -280,6 +280,21 @@ def test_k1_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, sq,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,d", ATTN_SHAPES)
+def test_k1_every_shape_of_the_path_at_the_cfg_doubled_batch(cuda, sq, sk, d):
+    """b32 h8, what a 16-image request with classifier-free guidance gives K1:
+    the dispatched kernel against the plain version, which runs in slices of
+    8 samples (its f32 logits at S = 4096 are 4 GiB for 8)."""
+    q, k, v = _k1_case(cuda, 12, 32, sq, sk, 8, d)
+    o, lse = flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    for i in range(0, 32, 8):
+        want_o, want_lse = flash_attention_reference(q[i:i + 8], k[i:i + 8], v[i:i + 8])
+        assert_k1_close(o[i:i + 8], want_o)
+        torch.testing.assert_close(lse[i:i + 8], want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", [40, 64, 72, 80, 160])
 @pytest.mark.parametrize("sq,sk", [(333, 77), (77, 333), (200, 333), (129, 129), (1, 130)])
 def test_k1_ragged_lengths_at_every_head_dim(cuda, sq, sk, d):
@@ -495,6 +510,26 @@ def test_k3_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, c, 
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("c,hw", GN_PAIRS)
+@pytest.mark.parametrize("dtype,silu,eps", [(torch.bfloat16, True, 1e-5),
+                                            (torch.bfloat16, False, 1e-6),
+                                            (torch.float32, True, 1e-5)])
+def test_k3_every_shape_of_the_path_at_the_cfg_doubled_batch(cuda, c, hw, dtype, silu, eps):
+    """32 samples, channels-last, what a 16-image request with classifier-free
+    guidance gives K3: the plan spreads a sample over fewer CTAs there than at
+    batch 16 (a cluster of 2 where the image has the rows for it)."""
+    x, w, bias = _k3_case(cuda, 24, 32, c, hw, dtype, torch.channels_last)
+    how = k3_plan(c, hw, 32, x.element_size(), True, 32)
+    assert how["kernel"] == "rows" and how["cluster"] == 2
+    got = group_norm_silu(x, w, bias, 32, eps, silu)
+    again = group_norm_silu(x, w, bias, 32, eps, silu)
+    want = group_norm_silu_reference(x, w, bias, 32, eps, silu)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert got.is_contiguous(memory_format=torch.channels_last) and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 3, 16, 70])
 @pytest.mark.parametrize("c,side,groups", [(320, 16, 32), (96, 5, 8), (72, 4, 8), (2560, 8, 32)])
 def test_k3_rows_kernel_at_every_cluster_size(cuda, n, c, side, groups):
@@ -538,3 +573,65 @@ def test_k3_channels_last_shapes_the_rows_kernel_does_not_take(cuda):
     x, w, bias = _k3_case(cuda, 23, 2, 33, 64, torch.float32, torch.channels_last)
     with pytest.raises(ValueError, match="channels-last"):
         group_norm_silu(x, w, bias, 11)
+
+
+# ---- K3 at the VAE's GroupNorm shapes, and the VAE through it ---------------------
+
+VAE_GN_PAIRS = [(128, 65536), (128, 262144), (256, 16384), (256, 65536), (256, 262144),
+                (512, 4096), (512, 16384), (512, 65536)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,hw", VAE_GN_PAIRS)
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last])
+def test_k3_every_group_norm_shape_of_the_vae(cuda, c, hw, silu, layout):
+    """The SD1.5 VAE at 512x512: f32, eps 1e-6, SiLU on (ResNet blocks, the
+    output norm) and off (the attention's norm), b2, through each kernel that
+    takes the call; two runs agree bit for bit."""
+    x, w, bias = _k3_case(cuda, 30, 2, c, hw, torch.float32, layout)
+    want = group_norm_silu_reference(x, w, bias, 32, 1e-6, silu)
+    channels_last = layout == torch.channels_last
+    names = k3_kernels_for(c, hw, 32, channels_last)
+    assert names == (("nchw",) if not channels_last else
+                     ("groups",) if c == 128 else ("groups", "rows"))
+    for kernel in names:
+        got = group_norm_silu(x, w, bias, 32, 1e-6, silu, kernel=kernel)
+        again = group_norm_silu(x, w, bias, 32, 1e-6, silu, kernel=kernel)
+        assert got.is_contiguous(memory_format=layout) and torch.equal(got, again)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,layout", [(128, torch.contiguous_format), (256, torch.channels_last)])
+def test_k3_past_two_gib(cuda, c, layout):
+    """b16 at 512x512: 2 GiB (C = 128) and 4 GiB (C = 256) tensors, byte
+    offsets beyond an int32; the last sample is compared, where they are largest."""
+    x, w, bias = _k3_case(cuda, 31, 16, c, 262144, torch.float32, layout)
+    assert x.numel() * 4 >= 2 ** 31
+    got = group_norm_silu(x, w, bias, 32, 1e-6, True)
+    want = group_norm_silu_reference(x[-1:], w, bias, 32, 1e-6, True)
+    torch.testing.assert_close(got[-1:], want, rtol=1e-4, atol=1e-4)
+    assert bool(torch.isfinite(got[0]).all())
+
+
+@pytest.mark.gpu
+def test_vae_and_clip_run_k3_and_no_attention_kernel(cuda):
+    """A small VAE on the card: every GroupNorm launches K3, the mid-block's
+    one-head attention stays on the plain ``mha``, and the result is the plain
+    path's (f32, TF32 off: 1e-4)."""
+    from dmtpu_torch.models.adm import GroupNorm32
+    from dmtpu_torch.models.stablediffusion import AutoencoderKL
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    vae = AutoencoderKL(ch=64, ch_mult=(1, 2), num_res_blocks=1, resolution=32, device=cuda).eval()
+    norms = sum(isinstance(m, GroupNorm32) for m in vae.modules())
+    x = torch.randn(2, 3, 32, 32, device=cuda)
+    with torch.no_grad():
+        group_norm_silu.launches = flash_attention_fwd.launches = 0
+        got, _ = vae(x, sample_posterior=False)
+        assert (group_norm_silu.launches, flash_attention_fwd.launches) == (norms, 0)
+        with plain_ops():
+            want, _ = vae(x, sample_posterior=False)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

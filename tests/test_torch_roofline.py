@@ -11,10 +11,14 @@ import importlib.util
 import math
 from pathlib import Path
 
-import pytest
+import collections
 
+import pytest
+import torch
+
+from dmtpu_torch.models.adm import GroupNorm32
 from dmtpu_torch.ops import groupnorm as gn
-from dmtpu_torch.ops import roofline
+from dmtpu_torch.ops import plain_ops, roofline
 
 # the package exports a function of the same name as this module
 fa = importlib.import_module("dmtpu_torch.ops.flash_attention")
@@ -28,6 +32,7 @@ B, H = chip_smoke.B, 8
 ATTN = sorted(chip_smoke.ATTN_CALLS)
 GN = sorted(chip_smoke.GN_CALLS)
 BIG_SELF_ATTENTION = {(4096, 4096, 40), (1024, 1024, 80)}
+VAE_GN = sorted(set(chip_smoke.VAE_DECODE_GN) | set(chip_smoke.VAE_ENCODE_GN))
 
 
 def test_the_path_has_eight_attention_and_nineteen_groupnorm_shapes():
@@ -203,3 +208,103 @@ def test_roofline_peaks_are_the_data_sheet():
     assert (roofline.PEAK_BF16_FLOPS, roofline.PEAK_F32_FLOPS, roofline.PEAK_BYTES_PER_S) == \
         (989e12, 67e12, 3.35e12)
     assert math.isclose(roofline.PEAK_BF16_FLOPS / roofline.PEAK_BYTES_PER_S, 295.2, abs_tol=0.1)
+
+
+# ---- the VAE's GroupNorms at 512x512 (phase 3's second table, phase 8) ---------
+
+def _group_norm_calls(module, run):
+    """(C, H*W, silu) -> calls of ``module``'s GroupNorms in ``run()``, on the
+    meta device: shapes only, at the full size, no arithmetic."""
+    seen = collections.Counter()
+
+    def note(_, args, kwargs):
+        x = args[0]
+        seen[(x.shape[1], x.shape[2] * x.shape[3], bool(kwargs.get("silu", False)))] += 1
+
+    hooks = [m.register_forward_pre_hook(note, with_kwargs=True)
+             for m in module.modules() if isinstance(m, GroupNorm32)]
+    with torch.no_grad(), plain_ops():
+        run()
+    for h in hooks:
+        h.remove()
+    return dict(seen)
+
+
+def test_vae_group_norm_tables_are_the_module_tree_s():
+    from dmtpu_torch.utils.config import instantiate_from_config
+
+    conf = chip_smoke.SD15_CONF["model"]["params"]["vae_config"]
+    vae = instantiate_from_config(conf, device="meta")
+    side = chip_smoke.T2I_SIZE
+    z = torch.empty(1, 4, side // 8, side // 8, device="meta")
+    x = torch.empty(1, 3, side, side, device="meta")
+    assert _group_norm_calls(vae, lambda: vae.decode(z)) == chip_smoke.VAE_DECODE_GN
+    assert _group_norm_calls(vae, lambda: vae.encode_moments(x)) == chip_smoke.VAE_ENCODE_GN
+    count = lambda root: sum(isinstance(m, GroupNorm32) for m in root.modules())  # noqa: E731
+    assert (count(vae.decoder), count(vae.encoder)) == \
+        (chip_smoke.GN_PER_DECODE, chip_smoke.GN_PER_ENCODE) == (30, 22)
+    with torch.no_grad(), plain_ops():
+        assert vae.decode(z).shape == (1, 3, side, side)
+        assert vae.encode_moments(x).shape == (1, 8, side // 8, side // 8)
+    assert all(m.eps == 1e-6 for m in vae.modules() if isinstance(m, GroupNorm32))
+
+
+def test_sd15_conf_is_the_full_width_stack():
+    """CLIP-L, the SD1.5 VAE and the SD1.5 UNet, by parameter count (meta device)."""
+    from dmtpu_torch.utils.config import instantiate_from_config
+
+    sd = instantiate_from_config(chip_smoke.SD15_CONF["model"], device="meta")
+    size = lambda m: sum(p.numel() for p in m.parameters())  # noqa: E731
+    assert size(sd.unet) == 859_520_964 and sd.unet.torso_dtype == torch.bfloat16
+    assert size(sd.vae) == 83_653_863
+    assert size(sd.text_encoder) == 123_060_480
+    assert (sd.text_encoder.max_length, sd.text_encoder.model.vocab_size) == (77, 49408)
+
+
+@pytest.mark.parametrize("c,hw,silu", VAE_GN)
+def test_vae_group_norm_work_bound_and_plan(c, hw, silu):
+    ops, nbytes = roofline.group_norm_work(B, c, hw, 4, silu)
+    assert nbytes == 2 * B * c * hw * 4 and ops == B * c * hw * (10 if silu else 6)
+    ms, by = roofline.bound_ms(ops, nbytes, peak_flops=roofline.PEAK_F32_FLOPS)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
+    # contiguous NCHW, as the f32 VAE gives it: one CTA per (sample, group)
+    assert gn.plan(c, hw, 32, 4, False, B) == {"kernel": "nchw"} and hw % 8 == 0
+    assert gn.kernels_for(c, hw, 32, False) == ("nchw",)
+    # channels-last: 4 channels a group (C = 128) cannot go by whole rows
+    how = gn.plan(c, hw, 32, 4, True, B)
+    if c == 128:
+        assert how == {"kernel": "groups"} and gn.kernels_for(c, hw, 32, True) == ("groups",)
+    else:
+        assert how["kernel"] == "rows" and gn.kernels_for(c, hw, 32, True) == ("groups", "rows")
+        assert how["rows"] * (c // 8) <= how["threads"] <= gn.ROWS_THREADS
+        assert B * how["cluster"] <= gn.ROWS_TARGET_CTAS and hw // how["cluster"] >= how["rows"]
+
+
+def test_the_largest_vae_activation_needs_64_bit_offsets():
+    c, hw, _ = max(VAE_GN, key=lambda k: k[0] * k[1])
+    assert (c, hw) == (256, 262144) and B * c * hw == 2 ** 30   # elements: fits an int32
+    assert B * c * hw * 4 == 2 ** 32                            # bytes: does not
+    ops, nbytes = roofline.group_norm_work(B, 128, 262144, 4)
+    assert nbytes == 4_294_967_296
+    ms, _ = roofline.bound_ms(ops, nbytes, peak_flops=roofline.PEAK_F32_FLOPS)
+    assert ms == pytest.approx(1.2821, abs=1e-4)
+
+
+@pytest.mark.parametrize("c,hw,dtype,silu,eps", GN)
+def test_group_norm_plan_at_the_cfg_doubled_batch(c, hw, dtype, silu, eps):
+    """A b16 text-to-image request calls the UNet on 32 samples: the rows
+    kernel's cluster halves against b16's, its CTA does not change."""
+    esize = 2 if dtype == "bf16" else 4
+    b16, b32 = gn.plan(c, hw, 32, esize, True, B), gn.plan(c, hw, 32, esize, True, 2 * B)
+    assert b32["kernel"] == "rows" and 2 * B * b32["cluster"] <= gn.ROWS_TARGET_CTAS
+    assert b32["cluster"] == max(1, b16["cluster"] // 2) == 2
+    assert (b32["rows"], b32["threads"]) == (b16["rows"], b16["threads"])
+
+
+def test_launches_of_one_text_to_image_request():
+    """What phase 8 checks on the card, from the tables: 50 guided steps and
+    one decode; img2img and inpainting add one encode."""
+    steps = chip_smoke.T2I_STEPS
+    assert steps * sum(chip_smoke.ATTN_CALLS.values()) == 1600
+    assert steps * sum(chip_smoke.GN_CALLS.values()) + chip_smoke.GN_PER_DECODE == 3080
+    assert chip_smoke.GN_PER_DECODE + chip_smoke.GN_PER_ENCODE == 52
