@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py            # from the repository root, one card
 
-The port's paths are SD1.5 text-to-latent sampling, SD1.5 training and SD1.5
+The port's paths are SD1.5 text-to-latent sampling, SD1.5 training, SD1.5
 text to image (prompt -> CLIP-L -> DDIMCFG over the UNet -> VAE decode ->
-uint8 images, with img2img and latent inpainting): the
+uint8 images, with img2img and latent inpainting) and SD1.5 fine-tuning
+through its CLIs (``python -m dmtpu_torch.scripts.train_sd``, full and LoRA,
+and ``merge_lora``, from ``configs/sd15_finetune.yaml`` and
+``configs/sd15_lora.yaml``): the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -94,11 +97,43 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      inpainting at batch 2 over a few steps: right shape, varied, exact
      launches, and with a fully known mask the images are the decode of the
      known latent (to one step of 255: the latent comes back to one f32
-     rounding).
+     rounding);
+  9. the fine-tuning CLI: (a) at batch 2, 512x512, the CLI's own loss
+     (``make_sd_loss_fn``: latent encode, caption drop, text encode,
+     eps-loss) on the stack of ``configs/sd15_finetune.yaml`` at fixed draws
+     (posterior noise, drop mask, t, eps from one step's generator): its loss
+     and UNet gradient through the kernels against an f32 plain run (TF32
+     off), within 1.5x the plain bf16 path's relative error plus 1e-3, and no
+     VAE or CLIP parameter with a gradient; (b) the launches of K1, K2 and K3
+     per step derived from the module trees (32, 32, 61 + 22 for the
+     encoder: no remat in the config), a preview row and a decode, checked
+     exactly in (a) and in every CLI run below; then a step of each mode
+     (the CLI's loss, and the optimizer and EMA of each config) on one fixed
+     batch of 8 without the loader, timed (5 steps, host clock) and profiled
+     (device time by class, annotated ranges, the card's idle share of the
+     wall time under the profiler); (c) ``train_sd.main`` in this
+     process, full fine-tune at batch 8 on 16 seeded-noise 512x512 PNGs with
+     sidecar captions and a character-level CLIPTokenizer that the phase
+     writes into a temporary directory (``CaptionedImageDir``, 4 loader
+     workers): 4 steps with a save and an EMA preview (DDIMCFG, 10 steps),
+     then ``-r latest`` to 6 steps: finite losses, both checkpoints, the
+     resume, the preview, the bf16 EMA's count; ms per step and images per
+     second (host clock between the loop's steps, from each run's second
+     step on: the loop reads each step's loss, so it waits for the card),
+     peak memory, the checkpoint's size and its save and load seconds; (d)
+     LoRA (``configs/sd15_lora.yaml``, rank 16) for 3 steps: adapters-only
+     checkpoints, a bit-identical base UNet, the adapters moved; then
+     ``merge_lora.main`` on its checkpoint and the same-seed base, whose
+     merged UNet's b2 forward (loaded through ``load_weights``) agrees with
+     the base run with the EMA adapters within 1e-3 relative L2 (plain
+     path).  Both CLIs run with this script's non-zero random init in place
+     of ``init_params`` (same seed, same draws), so that every layer gets a
+     gradient; the temporary directory is removed.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
-and all three counted in each of the three timed runs), error, and its times, bound,
+and all three counted in each of the three timed runs and in the first run
+of each fine-tuning CLI), error, and its times, bound,
 library time and host time summed over the calls of one forward (K2: of one
 train step; K1's and K3's also over one UNet call on 32 samples, ``cfg_b32``;
 K3's also over one VAE decode and one encode), and the card's
@@ -192,6 +227,13 @@ SD15_CONF = {
                              "beta_start": 0.00085, "beta_end": 0.012,
                              "objective": "pred_eps"}},
 }
+
+# phase 9: the fine-tuning CLI from the repository's configs, on data and a
+# tokenizer that the phase writes for itself
+FT_CONFIG, LORA_CONFIG = "configs/sd15_finetune.yaml", "configs/sd15_lora.yaml"
+FT_SIZE, FT_IMAGES, FT_BATCH, FT_CHECK_BATCH = 512, 16, 8, 2
+FT_STEPS, FT_RESUMED_STEPS, LORA_STEPS, FT_PREVIEW_STEPS, FT_TIMED_STEPS = 4, 6, 3, 10, 5
+FT_CAPTIONS = ("a photo of object {}", "a drawing of thing {}", "an image number {}", "")
 
 
 def log(*args):
@@ -650,6 +692,9 @@ def main() -> int:
 
     # ---- 8. text to image --------------------------------------------------------
     t2i = phase_text_to_image(dev, check, gen, ref_model, card, time_ms)
+
+    # ---- 9. the fine-tuning CLI ----------------------------------------------------
+    ft = phase_finetune_cli(dev, check, gen, ref_model, card)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
@@ -657,7 +702,8 @@ def main() -> int:
         return 1
     by_path = {name: {"ddim50": main_launches[name],
                       f"train{TRAIN_TIMED_STEPS}": train["launches"][name],
-                      f"txt2img{T2I_STEPS}": t2i["launches"][name]}
+                      f"txt2img{T2I_STEPS}": t2i["launches"][name],
+                      **{path: counted[name] for path, counted in ft["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -696,7 +742,8 @@ def main() -> int:
              # and over the 61 calls of one UNet call on 32 samples
              cfg_b32=k3_cfg),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
-        "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"], "card": card}))
+        "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
+        "finetune_cli_b8": ft["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1263,6 +1310,388 @@ def phase_text_to_image(dev, check, gen, ref_model, card, time_ms) -> dict:
         f"one decode): " + json.dumps(profile["classes"]))
     for name, ms in profile["top"]:
         log(f"  {ms:9.4f} ms  {name}")
+    return {"launches": launches, "metrics": metrics}
+
+
+def write_finetune_inputs(root: str, n: int, size: int) -> tuple:
+    """``n`` seeded-noise ``size``² PNGs, each with a sidecar caption, and a
+    local CLIPTokenizer directory with a character-level vocabulary (a-z,
+    0-9), under ``root``: (image directory, tokenizer directory)."""
+    import numpy as np
+    from PIL import Image
+    from transformers import CLIPTokenizer
+
+    images, tokenizer = os.path.join(root, "images"), os.path.join(root, "tokenizer")
+    os.makedirs(images)
+    os.makedirs(tokenizer)
+    rs = np.random.RandomState(SEED)
+    for i in range(n):
+        Image.fromarray(rs.randint(0, 256, (size, size, 3), np.uint8)).save(
+            os.path.join(images, f"{i:03d}.png"))
+        with open(os.path.join(images, f"{i:03d}.txt"), "w") as f:
+            f.write(FT_CAPTIONS[i % len(FT_CAPTIONS)].format(i))
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for ch in "abcdefghijklmnopqrstuvwxyz0123456789":
+        vocab[ch] = len(vocab)
+        vocab[ch + "</w>"] = len(vocab)
+    vocab_file, merges_file = (os.path.join(tokenizer, name) for name in ("vocab.json",
+                                                                          "merges.txt"))
+    with open(vocab_file, "w") as f:
+        json.dump(vocab, f)
+    with open(merges_file, "w") as f:
+        f.write("#version: 0.2\n")
+    CLIPTokenizer(vocab_file, merges_file).save_pretrained(tokenizer)
+    return images, tokenizer
+
+
+def phase_finetune_cli(dev, check, gen, ref_model, card) -> dict:
+    """Phase 9 (see the module docstring).  ``ref_model`` is the f32 UNet of
+    phase 4: (a) gives its weights to the config's UNet."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dmtpu_torch.diffusions import DDIMCFG
+    from dmtpu_torch.models.adm import GroupNorm32
+    from dmtpu_torch.models.lora import init_lora, lora_scale, lora_weights
+    from dmtpu_torch.models.stablediffusion import StableDiffusion
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        select_bwd_kernel,
+    )
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.parallel import TrainState, make_train_step, step_generator
+    from dmtpu_torch.scripts import merge_lora, train_sd
+    from dmtpu_torch.utils.checkpoint import load_checkpoint_host
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ft_conf = load_config(os.path.join(here, FT_CONFIG))
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel(a, ref) -> float:
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+    # (b) launches per step, from the module trees: no remat in the config, so
+    # K1 and K2 once per attention, K3 at the UNet's GroupNorms and at the
+    # VAE encoder's (the latent encode of the batch; the GroupNorm backward is
+    # the plain version); a preview row is one guided UNet call, then one decode
+    sd = instantiate_from_config(ft_conf.model, device=dev)
+    per_step = per_step_launches(sd.unet)
+    enc_gn = sum(isinstance(m, GroupNorm32) for m in sd.vae.encoder.modules())
+    dec_gn = sum(isinstance(m, GroupNorm32) for m in sd.vae.decoder.modules())
+    unet_gn = per_step["K3"]
+    per_step["K3"] += enc_gn
+    k2_per_step = {"mma": 0, "wgmma": 0}
+    for (sq, sk, d), calls in ATTN_CALLS.items():
+        k2_per_step[select_bwd_kernel(sq, sk, d)] += calls
+    log(f"fine-tuning CLI: launches per step from the module trees {per_step} (K2 by kernel "
+        f"{k2_per_step}); per preview row K1 {per_step['K1']}, K3 {unet_gn}; per decode K3 "
+        f"{dec_gn}")
+    check(per_step == {"K1": ATTN_PER_FORWARD, "K2": ATTN_PER_FORWARD,
+                       "K3": GN_PER_FORWARD + GN_PER_ENCODE} and not sd.unet.use_checkpoint,
+          f"fine-tuning: the config's tree gives 32 / 32 / {GN_PER_FORWARD} + {GN_PER_ENCODE} "
+          f"launches a step (no remat)")
+
+    # (a) the CLI's loss at b2 against f32 (TF32 off since phase 4): the
+    # config's stack, its UNet with phase 4's weights, VAE and CLIP random
+    sd.unet.load_state_dict(ref_model.state_dict())
+    g = gen(SEED + 10)
+    init_random_(sd.vae, g)
+    init_random_(sd.text_encoder, g)
+    for frozen in (sd.vae, sd.text_encoder):
+        frozen.requires_grad_(False).eval()
+    sd.unet.train()
+    ref_model.train()
+    b, p_uncond, lat = FT_CHECK_BATCH, 0.5, FT_SIZE // 8
+
+    def mixed_drop(step):  # the draws of make_sd_loss_fn: posterior noise, then the mask
+        gs = step_generator(SEED, step, dev)
+        torch.randn(b, 4, lat, lat, generator=gs, device=dev)
+        drop = torch.rand(b, generator=gs, device=dev) < p_uncond
+        return 0 < int(drop.sum()) < b
+
+    at = next(s for s in range(100) if mixed_drop(s))
+    tokens = sd.text_encoder.max_length  # ids 2-73: the phase's tokenizer's
+    batch = {"image": torch.rand(b, 3, FT_SIZE, FT_SIZE, generator=g, device=dev) * 2 - 1,
+             "input_ids": torch.randint(2, 74, (b, tokens), generator=g, device=dev)}
+    empty = torch.randint(2, 74, (1, tokens), generator=g, device=dev)
+    diffuser = instantiate_from_config(ft_conf.diffusion)
+    total = int(ft_conf.diffusion.params.total_steps)
+
+    def loss_and_grad(unet, plain):
+        unet.zero_grad(set_to_none=True)
+        loss_fn = train_sd.make_sd_loss_fn(sd, diffuser, empty, p_uncond, total, unet)
+        with plain_ops() if plain else contextlib.nullcontext():
+            loss = loss_fn(batch, step_generator(SEED, at, dev))
+            loss.backward()
+        return loss.detach(), torch.cat([p.grad.flatten() for p in unet.parameters()])
+
+    loss_f, grad_f = loss_and_grad(ref_model, plain=True)
+    ref_model.zero_grad(set_to_none=True)
+    zero_counts()
+    loss_k, grad_k = loss_and_grad(sd.unet, plain=False)
+    torch.cuda.synchronize()
+    check_launches, check_k2 = counts(), dict(flash_attention_bwd.launches_by_kernel)
+    loss_p, grad_p = loss_and_grad(sd.unet, plain=True)
+    sd.unet.zero_grad(set_to_none=True)
+    lerr_k, lerr_p = (abs(x.item() - loss_f.item()) / abs(loss_f.item()) for x in (loss_k, loss_p))
+    err_k, err_p = rel(grad_k, grad_f), rel(grad_p, grad_f)
+    del grad_f, grad_k, grad_p
+    log(f"fine-tuning loss b{b} {FT_SIZE}x{FT_SIZE} (encode, caption drop at step {at}, text "
+        f"encode, eps-loss): f32 {loss_f.item():.6f}, kernels {loss_k.item():.6f}, plain bf16 "
+        f"{loss_p.item():.6f}; rel err vs f32: kernels {lerr_k:.3e}, plain {lerr_p:.3e}; UNet "
+        f"gradient rel L2 err vs f32: kernels {err_k:.3e}, plain bf16 {err_p:.3e}; launches "
+        f"{check_launches}, K2 by kernel {check_k2}")
+    check(bool(torch.isfinite(loss_k)) and lerr_k <= 1.5 * lerr_p + 1e-3,
+          "fine-tuning loss: err(kernels) <= 1.5 err(plain) + 1e-3")
+    check(err_k <= 1.5 * err_p + 1e-3,
+          "fine-tuning UNet gradient: err(kernels) <= 1.5 err(plain) + 1e-3")
+    check(all(p.grad is None for m in (sd.vae, sd.text_encoder) for p in m.parameters()),
+          "fine-tuning: no VAE or CLIP parameter has a gradient")
+    check(check_launches == per_step and check_k2 == k2_per_step,
+          f"fine-tuning forward+backward launches {check_launches} == {per_step}, K2 by kernel "
+          f"{check_k2} == {k2_per_step}")
+    # where the time of a step goes: the CLI's own loss, optimizer and EMA
+    # from the configs, on one fixed b8 batch (no loader), TF32 in cuDNN as
+    # in the CLI; a few timed steps, then torch.profiler over two
+    torch.backends.cudnn.allow_tf32 = True
+    lora_conf = load_config(os.path.join(here, LORA_CONFIG))
+    batch = {"image": torch.rand(FT_BATCH, 3, FT_SIZE, FT_SIZE, generator=g, device=dev) * 2 - 1,
+             "input_ids": torch.randint(2, 74, (FT_BATCH, tokens), generator=g, device=dev)}
+    profiles = {}
+    for mode, conf in (("full", ft_conf), ("lora", lora_conf)):
+        if mode == "lora":
+            sd.unet.zero_grad(set_to_none=True)
+            sd.unet.requires_grad_(False)
+            trainable = init_lora(sd.unet, gen(SEED + 12), rank=int(conf.train.lora.rank))
+            with torch.no_grad():  # b non-zero, as after some training
+                for name, p in trainable.named_parameters():
+                    if name.endswith(".b"):
+                        p.normal_(0.0, 1e-3, generator=g)
+            unet = train_sd.lora_unet(sd, dict(trainable.named_parameters()),
+                                      lora_scale(int(conf.train.lora.rank),
+                                                 conf.train.lora.get("alpha")))
+        else:
+            trainable, unet = sd.unet, None
+        state = TrainState.create(
+            trainable, instantiate_from_config(conf.train.optim, params=trainable.parameters()),
+            ema_decay=conf.train.ema_decay, ema_gradual=conf.train.get("ema_gradual", True),
+            ema_dtype=conf.train.get("ema_dtype"))
+        step = make_train_step(
+            train_sd.make_sd_loss_fn(sd, diffuser, empty, float(conf.train.p_uncond), total,
+                                     unet), clip_grad_norm=conf.train.clip_grad_norm)
+        step(state, batch)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FT_TIMED_STEPS):
+            step(state, batch)
+        torch.cuda.synchronize()
+        bare_ms = 1e3 * (time.perf_counter() - t0) / FT_TIMED_STEPS
+        prof = profile_by_class(lambda: step(state, batch), 2)
+        device_ms = prof["classes"]["total"]
+        profiles[mode] = dict(prof["classes"], wall_under_profiler=prof["wall_ms"],
+                              bare_step_ms=bare_ms, **prof["ranges"])
+        log(f"fine-tuning step ({mode}) b{FT_BATCH} {FT_SIZE}x{FT_SIZE}, fixed batch, no loader: "
+            f"{bare_ms:.3f} ms/step over {FT_TIMED_STEPS} (host clock); device time by class "
+            f"(torch.profiler, ms per step over 2; wall {prof['wall_ms']:.3f} ms per step under "
+            f"the profiler, the card idle {1 - device_ms / prof['wall_ms']:.3f} of it): "
+            + json.dumps(prof["classes"]) + "; annotated ranges: " + json.dumps(prof["ranges"]))
+        for name, ms in prof["top"]:
+            log(f"  {ms:9.4f} ms  {name}")
+        del state, step, trainable, unet
+        torch.cuda.empty_cache()
+    del sd, batch
+    ref_model.eval()
+    torch.cuda.empty_cache()
+
+    # (c), (d): the CLIs themselves, in this process.  TF32 in cuDNN as
+    # PyTorch has it by default, which the CLIs leave alone.  The random
+    # init is this script's (every layer non-zero, the same draws from the
+    # same seed on the card), so that every parameter gets a gradient
+    rows = len(DDIMCFG(total_steps=total, respace_type="uniform",
+                       respace_steps=FT_PREVIEW_STEPS).respaced_seq)
+
+    def want_launches(steps, previews):
+        return {"K1": steps * per_step["K1"] + previews * rows * per_step["K1"],
+                "K2": steps * per_step["K2"],
+                "K3": steps * per_step["K3"] + previews * (rows * unet_gn + dec_gn)}
+
+    def nonzero_init(self, generator=None, img_size=64):
+        init_random_(self, generator)
+        return self
+
+    captured = {}
+    real_build, real_init = train_sd.build_model, StableDiffusion.init_params
+
+    def capturing_build(conf, device, logger):
+        sd = captured["sd"] = real_build(conf, device, logger)
+        # kept on the host, so that the run's peak memory is the CLI's own
+        captured["unet_at_build"] = {k: v.to("cpu", copy=True)
+                                     for k, v in sd.unet.state_dict().items()}
+        return sd
+
+    root = tempfile.mkdtemp(prefix="dmtpu_finetune_")
+    metrics = {"batch": FT_BATCH, "size": FT_SIZE, "card": card, "step_profile_ms": profiles}
+    launches = {}
+    StableDiffusion.init_params = nonzero_init
+    try:
+        images, tokenizer = write_finetune_inputs(root, FT_IMAGES, FT_SIZE)
+        common = [f"data.params.root={images}", f"tokenizer={tokenizer}",
+                  f"train.batch_size={FT_BATCH}", "dataloader.num_workers=4",
+                  f"train.sample_respace_steps={FT_PREVIEW_STEPS}", "train.print_freq=1",
+                  f"seed={SEED}", "--device", "cuda", "-ni"]
+        exp = os.path.join(root, "full")
+
+        def run(config, steps, freq, *extra):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            t0 = time.perf_counter()
+            result = train_sd.main(["-c", os.path.join(here, config), *common, *extra,
+                                    f"train.n_steps={steps}", f"train.save_freq={freq}",
+                                    f"train.sample_freq={freq}"])
+            torch.cuda.synchronize()
+            result.update(seconds=time.perf_counter() - t0, launches=counts(),
+                          k2_by_kernel=dict(flash_attention_bwd.launches_by_kernel),
+                          peak_bytes=torch.cuda.max_memory_allocated())
+            return result
+
+        # (c) full fine-tune: 4 steps, a save, a preview; then resume to 6
+        first = run(FT_CONFIG, FT_STEPS, FT_STEPS, "-e", exp)
+        again = run(FT_CONFIG, FT_RESUMED_STEPS, FT_STEPS, "-e", exp, "-r", "latest")
+        ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
+        last = os.path.join(exp, "ckpt", ckpts[-1])
+        size = sum(os.path.getsize(os.path.join(last, f)) for f in os.listdir(last))
+        blob = load_checkpoint_host(last)
+        ema_ok = (blob["ema"]["num_updates"] == FT_RESUMED_STEPS and blob["step"] ==
+                  FT_RESUMED_STEPS and all(s.dtype == torch.bfloat16
+                                           for s in blob["ema"]["shadow"].values()))
+        del blob
+        text = "\n".join(open(os.path.join(exp, f)).read() for f in os.listdir(exp)
+                         if f.startswith("output-"))
+        step_ms = [1e3 * s for s in first["step_seconds"]]  # from the run's second step
+        ms = sum(step_ms) / len(step_ms)
+        metrics["full"] = {
+            "ms_per_step": ms, "imgs_per_s": 1e3 * FT_BATCH / ms, "step_ms": step_ms,
+            "resumed_step_ms": [1e3 * s for s in again["step_seconds"]],
+            "peak_bytes": max(first["peak_bytes"], again["peak_bytes"]),
+            "checkpoint_bytes": size, "save_seconds": first["save_seconds"]
+            + again["save_seconds"], "load_seconds": again["load_seconds"],
+            "run_seconds": [first["seconds"], again["seconds"]],
+            "losses": first["losses"] + again["losses"]}
+        launches["train_sd_full"] = first["launches"]
+        log(f"train_sd full fine-tune b{FT_BATCH} {FT_SIZE}x{FT_SIZE}: {ms:.3f} ms/step "
+            f"({step_ms}), {metrics['full']['imgs_per_s']:.4f} imgs/s, peak "
+            f"{metrics['full']['peak_bytes'] / 2**30:.3f} GiB ({card}); checkpoint "
+            f"{size / 1e9:.3f} GB, saves {metrics['full']['save_seconds']} s, load "
+            f"{again['load_seconds']:.3f} s; runs {first['seconds']:.1f} + {again['seconds']:.1f} "
+            f"s; losses {metrics['full']['losses']}; launches {first['launches']} then "
+            f"{again['launches']}; checkpoints {ckpts}")
+        check(all(map(math.isfinite, metrics["full"]["losses"]))
+              and len(metrics["full"]["losses"]) == FT_RESUMED_STEPS,
+              "train_sd: finite losses at every step of both runs")
+        check(ckpts == [f"step{FT_STEPS - 1:06d}", f"step{FT_RESUMED_STEPS - 1:06d}"]
+              and "Resumed from" in text and "RANDOM-INIT" in text,
+              "train_sd: two checkpoints, resumed from the first")
+        check(os.path.isfile(os.path.join(exp, "samples", f"step{FT_STEPS - 1:06d}.png")),
+              "train_sd: the EMA preview was written")
+        check(ema_ok, "train_sd: after the resume the checkpoint's EMA counts every step and its "
+                      "shadow is bf16 (ema_dtype: bfloat16 from the config)")
+        check(first["launches"] == want_launches(FT_STEPS, 1)
+              and first["k2_by_kernel"] == {k: FT_STEPS * n for k, n in k2_per_step.items()}
+              and again["launches"] == want_launches(FT_RESUMED_STEPS - FT_STEPS, 0),
+              f"train_sd launches {first['launches']}, {again['launches']} == "
+              f"{want_launches(FT_STEPS, 1)}, {want_launches(FT_RESUMED_STEPS - FT_STEPS, 0)} "
+              f"({FT_STEPS} steps and a {rows}-row preview; then {FT_RESUMED_STEPS - FT_STEPS} "
+              f"steps)")
+        shutil.rmtree(exp)
+        torch.cuda.empty_cache()
+
+        # (d) LoRA: a few steps, adapters-only checkpoints, a frozen base; the merge
+        exp = os.path.join(root, "lora")
+        train_sd.build_model = capturing_build
+        try:
+            lora = run(LORA_CONFIG, LORA_STEPS, LORA_STEPS, "-e", exp)
+        finally:
+            train_sd.build_model = real_build
+        sd = captured.pop("sd")
+        base_same = all(torch.equal(v, sd.unet.state_dict()[k].cpu())
+                        for k, v in captured.pop("unet_at_build").items())
+        ckpt = os.path.join(exp, "ckpt", f"step{LORA_STEPS - 1:06d}")
+        size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        blob = load_checkpoint_host(ckpt)
+        n_adapter = sum(v.numel() for v in blob["model"].values())
+        adapters_only = all(k.endswith((".a", ".b")) for k in blob["model"]) and \
+            blob["ema"]["shadow"].keys() == blob["model"].keys()
+        moved = max(v.abs().max().item() for k, v in blob["model"].items() if k.endswith(".b"))
+        step_ms = [1e3 * s for s in lora["step_seconds"]]
+        ms = sum(step_ms) / len(step_ms)
+        metrics["lora"] = {"ms_per_step": ms, "imgs_per_s": 1e3 * FT_BATCH / ms,
+                           "step_ms": step_ms, "peak_bytes": lora["peak_bytes"],
+                           "checkpoint_bytes": size, "adapter_params": n_adapter,
+                           "save_seconds": lora["save_seconds"], "losses": lora["losses"],
+                           "run_seconds": lora["seconds"]}
+        launches["train_sd_lora"] = lora["launches"]
+        log(f"train_sd LoRA (rank 16) b{FT_BATCH} {FT_SIZE}x{FT_SIZE}: {ms:.3f} ms/step "
+            f"({step_ms}), {metrics['lora']['imgs_per_s']:.4f} imgs/s, peak "
+            f"{lora['peak_bytes'] / 2**30:.3f} GiB ({card}); checkpoint {size / 1e6:.3f} MB, "
+            f"{n_adapter} adapter parameters, largest |b| {moved:.3e}; losses {lora['losses']}; "
+            f"launches {lora['launches']}")
+        check(adapters_only and size < 1e8 and all(map(math.isfinite, lora["losses"])),
+              "train_sd LoRA: finite losses; the checkpoint holds the adapters only")
+        check(base_same and moved > 0, "train_sd LoRA: the base UNet is bit-identical after "
+                                       "training, the adapters moved")
+        check(lora["launches"] == want_launches(LORA_STEPS, 1)
+              and lora["k2_by_kernel"] == {k: LORA_STEPS * n for k, n in k2_per_step.items()},
+              f"train_sd LoRA launches {lora['launches']} == {want_launches(LORA_STEPS, 1)}")
+
+        merged_path = os.path.join(root, "merged.pt")
+        t0 = time.perf_counter()
+        merge_lora.main(["-c", os.path.join(here, LORA_CONFIG), "--lora", ckpt, "--out",
+                         merged_path, "--device", "cuda", f"seed={SEED}"])
+        merge_seconds = time.perf_counter() - t0
+        scale = lora_scale(int(lora_conf.train.lora.rank), lora_conf.train.lora.get("alpha"))
+        merged = instantiate_from_config(lora_conf.model, device=dev).load_weights(
+            merged_path).eval()
+        sd.eval()
+        g = gen(SEED + 11)
+        x = torch.randn(FT_CHECK_BATCH, 4, lat, lat, generator=g, device=dev)
+        ts = torch.tensor([999, 421], device=dev)[:FT_CHECK_BATCH]
+        ctx = torch.randn(FT_CHECK_BATCH, tokens,
+                          int(lora_conf.model.params.unet_config.params.context_dim),
+                          generator=g, device=dev)
+        shadow = {k: v.to(dev, torch.float32) for k, v in blob["ema"]["shadow"].items()}
+        with torch.no_grad(), plain_ops():
+            want = torch.func.functional_call(
+                sd.unet, lora_weights(dict(sd.unet.named_parameters()), shadow, scale), (x, ts),
+                {"context": ctx})
+            got = merged.unet(x, ts, context=ctx)
+            base = sd.unet(x, ts, context=ctx)
+        err, shift = rel(got, want), rel(base, want)
+        metrics["lora"]["merge_seconds"] = merge_seconds
+        log(f"merge_lora: {merge_seconds:.1f} s; the merged UNet's b{FT_CHECK_BATCH} forward vs "
+            f"the base with the EMA adapters (plain path): rel L2 err {err:.3e}; the base alone "
+            f"differs by {shift:.3e}")
+        check(err <= 1e-3 and bool(torch.isfinite(got).all()),
+              "merge_lora: the merged weights give the adapted UNet within 1e-3 rel L2")
+        del sd, merged, blob, shadow, want, got, base
+    finally:
+        StableDiffusion.init_params = real_init
+        torch.backends.cudnn.allow_tf32 = False
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
     return {"launches": launches, "metrics": metrics}
 
 

@@ -1,0 +1,4 @@
+"""Data: image transforms, captioned datasets and the threaded loader."""
+from dmtpu_torch.data.loader import DataLoader
+
+__all__ = ["DataLoader"]

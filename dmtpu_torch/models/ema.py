@@ -6,16 +6,30 @@ changes the shadow in place, which keeps one copy of it on the card.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
+
+# the dtype names a config gives (``dmtpu/utils/optim.py::_dtype``)
+_DTYPE_NAMES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                "float32": torch.float32, "f32": torch.float32}
+
+
+def as_dtype(dtype: Union[torch.dtype, str, None]) -> Optional[torch.dtype]:
+    """A ``torch.dtype`` (or None) from itself or its name in a config."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    if dtype not in _DTYPE_NAMES:
+        raise ValueError(f"unknown dtype name {dtype!r}: expected one of {sorted(_DTYPE_NAMES)}")
+    return _DTYPE_NAMES[dtype]
 
 
 class EMAState:
     """Shadow copies of named parameters and the count of updates.
 
-    ``dtype`` (e.g. ``torch.bfloat16``) stores the shadow in that dtype,
+    ``dtype`` (e.g. ``torch.bfloat16``, or its name ``"bfloat16"`` / ``"bf16"``
+    as a config gives it) stores the shadow in that dtype,
     which halves its memory for f32 params; per-step increments of relative
     size (1 - decay) |p - s| / |s| below bf16's resolution then round away,
     so a bf16 shadow suits fine-tunes, not long slow-decay averages.
@@ -30,7 +44,10 @@ class EMAState:
 
     @classmethod
     def create(cls, params: Mapping[str, torch.Tensor], decay: float = 0.9999,
-               gradual: bool = True, dtype: Optional[torch.dtype] = None) -> "EMAState":
+               gradual: bool = True, dtype: Union[torch.dtype, str, None] = None
+               ) -> "EMAState":
+        dtype = as_dtype(dtype)
+
         def copy(p: torch.Tensor) -> torch.Tensor:
             p = p.detach()
             return p.to(dtype, copy=True) if dtype is not None and p.is_floating_point() \

@@ -83,7 +83,9 @@ class StableDiffusion(nn.Module):
         """Load a CompVis-format checkpoint (keys under
         ``model.diffusion_model.``, ``first_stage_model.`` and
         ``cond_stage_model.``; ``text_encoder_sd`` optionally gives the text
-        tower apart, in the HF or the open_clip layout).  A dict in this
+        tower apart, in the HF or the open_clip layout; leaves the text tower
+        does not own, such as an open_clip ``text_projection`` beside a tower
+        without one, are left out).  A dict in this
         module's own layout (``unet.``, ``vae.``, ``text_encoder.``) loads as
         with any ``nn.Module``."""
         if text_encoder_sd is None and \
@@ -98,12 +100,20 @@ class StableDiffusion(nn.Module):
         self.unet.load_state_dict(as_tensors["unet"], strict=strict)
         self.vae.load_state_dict(as_tensors["vae"], strict=strict)
         if as_tensors["text_encoder"] is not None:
-            self.text_encoder.model.load_state_dict(as_tensors["text_encoder"], strict=strict)
+            # an open_clip tower carries its pooled path (``text_projection``)
+            # whether or not this tower has one: leaves the tower does not own
+            # are dropped, as the JAX converter loads it non-strictly; a
+            # missing leaf still raises
+            tower = self.text_encoder.model
+            own = tower.state_dict()
+            tower.load_state_dict({k: v for k, v in as_tensors["text_encoder"].items()
+                                   if k in own}, strict=strict)
         return self
 
     def load_weights(self, path: str) -> "StableDiffusion":
         """Load a CompVis-format ``.ckpt`` (``torch.load`` with
-        ``weights_only=True``) or ``.safetensors``."""
+        ``weights_only=True``) or ``.safetensors``, or a ``.pt`` in this
+        module's own layout (what ``merge_lora`` writes)."""
         if path.endswith(".safetensors"):
             try:
                 from safetensors.torch import load_file
@@ -116,7 +126,8 @@ class StableDiffusion(nn.Module):
             state_dict = state_dict.get("state_dict", state_dict)
         else:
             raise ValueError(f"unsupported weights file {path!r}: expected .ckpt or .safetensors")
-        return self.load_state_dict(state_dict)
+        self.load_state_dict(state_dict)
+        return self
 
     def init_params(self, generator: Optional[torch.Generator] = None,
                     img_size: int = 64) -> "StableDiffusion":

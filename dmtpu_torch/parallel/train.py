@@ -7,7 +7,10 @@ data-parallel or sharded training (DDP / FSDP) is not ported.  The JAX step
 is one pure compiled function of (state, batch, rng); here the state holds
 the model, whose parameters the optimizer updates in place, and a step's
 randomness is one ``torch.Generator`` seeded from (seed, step), as the JAX
-callers fold the step into their key.
+callers fold the step into their key.  Dropout inside the model draws from
+the device's default generator, which the step seeds from (seed, step) too
+(a stream apart from the loss's generator, as the JAX loss folds a dropout
+key out of the step's key) and gives back to the caller as it found it.
 
 A loss function is ``loss_fn(batch, generator) -> scalar loss``; the
 diffusion loss draws, in this order, the timesteps, the noise and the
@@ -15,8 +18,9 @@ label-dropout mask from the generator.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
@@ -37,18 +41,39 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, optimizer: torch.optim.Optimizer,
                ema_decay: Optional[float] = 0.9999, ema_gradual: bool = True,
-               ema_dtype: Optional[torch.dtype] = None) -> "TrainState":
-        """``ema_dtype=torch.bfloat16`` halves the EMA shadow's memory (see
-        ``EMAState``); ``ema_decay=None`` keeps no EMA."""
+               ema_dtype: Union[torch.dtype, str, None] = None) -> "TrainState":
+        """``ema_dtype=torch.bfloat16`` (or its name, ``"bfloat16"``) halves
+        the EMA shadow's memory (see ``EMAState``); ``ema_decay=None`` keeps
+        no EMA."""
         ema = (EMAState.create(dict(model.named_parameters()), ema_decay, ema_gradual, ema_dtype)
                if ema_decay is not None else None)
         return cls(model, optimizer, ema)
 
 
+def _mixed_seed(*entropy: int) -> int:
+    return int(np.random.SeedSequence(list(entropy)).generate_state(1, np.uint64)[0]) >> 1
+
+
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
     """The one generator of step ``step``: seeded from (seed, step)."""
-    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(mixed) >> 1)
+    return torch.Generator(device=device).manual_seed(_mixed_seed(seed, step))
+
+
+@contextlib.contextmanager
+def dropout_rng(seed: int, step: int, device: torch.device) -> Iterator[None]:
+    """Within the block the default generator of ``device`` (what
+    ``nn.Dropout`` draws from) is seeded from (seed, step), on a stream apart
+    from ``step_generator``'s; the caller's state is restored afterwards.
+    Seeding a CUDA generator sets its host-side seed and offset: no
+    synchronisation."""
+    if device.type == "cuda":
+        index = torch.cuda.current_device() if device.index is None else device.index
+        generator, devices = torch.cuda.default_generators[index], [index]
+    else:
+        generator, devices = torch.default_generator, []
+    with torch.random.fork_rng(devices=devices, device_type="cuda"):
+        generator.manual_seed(_mixed_seed(seed, step, 1))
+        yield
 
 
 def _split(batch: Any, n: int) -> list:
@@ -77,6 +102,9 @@ def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
     4. steps the optimizer, then updates the EMA with the new parameters;
     5. advances ``state.step``.
 
+    The loss draws from ``step_generator(seed, step)``, dropout from the
+    device's default generator under ``dropout_rng(seed, step)``.
+
     The metrics stay on the device, so a step does not wait for the card.
     """
 
@@ -86,10 +114,11 @@ def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
         state.optimizer.zero_grad(set_to_none=True)
         parts = _split(batch, micro_batches) if micro_batches > 1 else [batch]
         loss = torch.zeros((), device=params[0].device)
-        for part in parts:
-            part_loss = loss_fn(part, generator)
-            (part_loss / len(parts)).backward()
-            loss += part_loss.detach()
+        with dropout_rng(seed, state.step, params[0].device):
+            for part in parts:
+                part_loss = loss_fn(part, generator)
+                (part_loss / len(parts)).backward()
+                loss += part_loss.detach()
         loss /= len(parts)
         grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params if p.grad is not None])
         if clip_grad_norm is not None:

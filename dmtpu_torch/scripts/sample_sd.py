@@ -149,12 +149,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
-def resolve_device(name: str) -> torch.device:
-    """The device to run on.  ``cuda`` without a card raises: the pipeline
-    does not carry on on the CPU unless asked to."""
+def resolve_device(name: str, cli: str = "sample_sd") -> torch.device:
+    """The device to run on.  ``cuda`` without a card raises: the CLI
+    ``cli`` does not carry on on the CPU unless asked to."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("sample_sd: no CUDA device; pass --device cpu to run on the CPU")
+        raise RuntimeError(f"{cli}: no CUDA device; pass --device cpu to run on the CPU")
     return device
 
 

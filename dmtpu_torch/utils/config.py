@@ -178,6 +178,8 @@ _PORTED = {
     "dmtpu.models.stablediffusion.text_encoders.FrozenCLIPEmbedder",
     "dmtpu.models.stablediffusion.text_encoders.FrozenOpenCLIPEmbedder",
     "dmtpu.utils.optim.adam", "dmtpu.utils.optim.adamw", "dmtpu.utils.optim.adafactor",
+    "dmtpu.utils.optim.sgd",
+    "dmtpu.data.captioned.CaptionedImageDir", "dmtpu.data.captioned.SyntheticCaptioned",
 }
 
 

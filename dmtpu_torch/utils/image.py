@@ -53,3 +53,7 @@ def make_grid(images: np.ndarray, nrow: int = 8, pad: int = 2) -> np.ndarray:
         x = pad + col * (w + pad)
         grid[y:y + h, x:x + w] = images[i]
     return grid
+
+
+def save_image_grid(images: np.ndarray, path: str, nrow: int = 8) -> None:
+    save_image(make_grid(images, nrow=nrow), path)

@@ -11,6 +11,10 @@ given parameters, computing what the optax chain computes:
 - ``adamw``: the same with ``weight_decay=0.01``.
 - ``adafactor``: ``Adafactor`` below, optax's ``adafactor`` with this repo's
   defaults.
+- ``sgd``: ``torch.optim.SGD``, whose coupled weight decay and momentum
+  buffer compute ``optax.chain(add_decayed_weights, sgd(momentum, nesterov))``.
+
+``lr_fn`` gives the learning rate of a config's optimizer for logging.
 
 Not ported, since no caller of the JAX factories sets them: a bf16 first
 moment (``mu_dtype``), adafactor's momentum and parameter scaling, and
@@ -18,10 +22,29 @@ learning-rate schedules given as configs.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
+
+
+def lr_fn(optim_conf: Mapping) -> Callable[[int], float]:
+    """step -> the learning rate the optimizer of ``optim_conf`` applies, for
+    logging, by the JAX function's rules: a config without ``lr`` logs 1e-3
+    for the repo's factories (their default) and NaN for adafactor (no fixed
+    step size) or an unknown target.  A schedule given as a config raises:
+    schedules are not ported."""
+    params = dict(optim_conf.get("params", None) or {})
+    lr = params.get("lr", params.get("learning_rate"))
+    if lr is None:
+        target = str(optim_conf.get("target", ""))
+        if "adafactor" not in target.lower() and \
+                any(t in target for t in ("torch.optim.", "utils.optim.")):
+            return lambda step: 1e-3
+        return lambda step: float("nan")
+    if isinstance(lr, Mapping):
+        raise NotImplementedError("learning-rate schedules given as configs are not ported")
+    return lambda step: float(lr)
 
 
 def adam(params: Iterable, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
@@ -34,6 +57,12 @@ def adam(params: Iterable, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e
 def adamw(params: Iterable, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
           weight_decay: float = 0.01) -> torch.optim.Optimizer:
     return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+
+
+def sgd(params: Iterable, lr: float, momentum: float = 0.0, weight_decay: float = 0.0,
+        nesterov: bool = False) -> torch.optim.Optimizer:
+    return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay,
+                           nesterov=nesterov)
 
 
 def adafactor(params: Iterable, lr: Optional[float] = None, min_dim_size_to_factor: int = 128,

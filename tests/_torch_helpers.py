@@ -46,3 +46,48 @@ def nhwc(x: np.ndarray) -> np.ndarray:
 
 def t(x: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def jax_sd_params(jsd, img_size: int, seed: int = 0) -> dict:
+    """``jsd.init_params``'s {"unet", "vae", "text_encoder"} layout, each
+    part's init compiled (the wrapper's own init runs op by op: ~40 s for
+    the tiny stack on the CPU), every leaf perturbed with seeded normals."""
+    import jax
+    import jax.numpy as jnp
+
+    k_unet, k_vae, k_text = jax.random.split(jax.random.PRNGKey(seed), 3)
+    lat, max_len = img_size // 8, jsd.text_encoder.max_length
+    raw = {
+        "unet": jax.jit(jsd.unet.init)(
+            k_unet, jnp.zeros((1, lat, lat, jsd.unet.in_channels)), jnp.zeros((1,), jnp.int32),
+            jnp.zeros((1, max_len, jsd.unet.context_dim))),
+        "vae": jax.jit(lambda k, x: jsd.vae.init(k, x, rng=jax.random.PRNGKey(0)))(
+            k_vae, jnp.zeros((1, img_size, img_size, 3))),
+        "text_encoder": jax.jit(jsd.text_encoder.model.init)(
+            k_text, jnp.ones((1, max_len), jnp.int32)),
+    }
+    return {name: {"params": perturb(raw[name]["params"], i)}
+            for i, name in enumerate(("unet", "vae", "text_encoder"))}
+
+
+def char_tokenizer_dir(path) -> str:
+    """A local CLIPTokenizer directory with a character-level vocabulary
+    (a-z, 0-9): the tokenizer of ``tests/_tiny_fixtures.py::make_tiny_clip_dir``
+    without its Flax CLIP model."""
+    import json
+    import os
+
+    from transformers import CLIPTokenizer
+
+    os.makedirs(path, exist_ok=True)
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for ch in "abcdefghijklmnopqrstuvwxyz0123456789":
+        vocab[ch] = len(vocab)
+        vocab[ch + "</w>"] = len(vocab)
+    vocab_file, merges_file = os.path.join(path, "vocab.json"), os.path.join(path, "merges.txt")
+    with open(vocab_file, "w") as f:
+        json.dump(vocab, f)
+    with open(merges_file, "w") as f:
+        f.write("#version: 0.2\n")
+    CLIPTokenizer(vocab_file, merges_file).save_pretrained(str(path))
+    return str(path)

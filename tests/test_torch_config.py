@@ -13,6 +13,7 @@ import pytest
 from dmtpu.utils import config as jconfig
 from dmtpu.utils import image as jimage
 from dmtpu_torch import diffusions as td
+from dmtpu_torch.data import captioned
 from dmtpu_torch.diffusions import guidance as tg
 from dmtpu_torch.models import stablediffusion as tsd
 from dmtpu_torch.models.ema import EMAState
@@ -43,6 +44,9 @@ TARGETS = [
     ("dmtpu.models.stablediffusion.FrozenOpenCLIPEmbedder", tsd.FrozenOpenCLIPEmbedder),
     ("torch.optim.AdamW", toptim.adamw),
     ("dmtpu.utils.optim.adafactor", toptim.adafactor),
+    ("torch.optim.SGD", toptim.sgd),
+    ("dmtpu.data.captioned.CaptionedImageDir", captioned.CaptionedImageDir),
+    ("dmtpu.data.captioned.SyntheticCaptioned", captioned.SyntheticCaptioned),
     ("dmtpu_torch.diffusions.ddim.DDIM", td.DDIM),   # this package's own paths
     ("collections.OrderedDict", __import__("collections").OrderedDict),  # any other import
 ]
@@ -60,7 +64,7 @@ def test_reference_table_is_the_jax_package_s():
 @pytest.mark.parametrize("target", [
     "diffusions.dpm_solver.DPMSolverPPCFG", "models.dit.model.DiT", "models.unet.UNet",
     "diffusions.guidance.ilvr.ILVR", "dmtpu.models.sdxl.StableDiffusionXL",
-    "dmtpu.models.pesser.PesserUNet", "dmtpu.data.captioned.CaptionedImageDir", "dmtpu.anything",
+    "dmtpu.models.pesser.PesserUNet", "dmtpu.data.captioned.SyntheticEmbedded", "dmtpu.anything",
 ])
 def test_unported_target_is_named(target):
     with pytest.raises(NotImplementedError, match="no counterpart in dmtpu_torch") as e:

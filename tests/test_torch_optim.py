@@ -61,6 +61,9 @@ def _to_torch(tree):
     ("adam", dict(lr=1e-2)),
     ("adam", dict(lr=1e-2, weight_decay=1e-2)),
     ("adamw", dict(lr=1e-2)),
+    ("sgd", dict(lr=1e-2)),
+    ("sgd", dict(lr=1e-2, momentum=0.9, weight_decay=1e-2)),
+    ("sgd", dict(lr=1e-2, momentum=0.9, nesterov=True)),
 ])
 def test_optimizer_matches_optax(name, kwargs):
     params, grads = _arrays(0)

@@ -308,3 +308,25 @@ def test_launches_of_one_text_to_image_request():
     assert steps * sum(chip_smoke.ATTN_CALLS.values()) == 1600
     assert steps * sum(chip_smoke.GN_CALLS.values()) + chip_smoke.GN_PER_DECODE == 3080
     assert chip_smoke.GN_PER_DECODE + chip_smoke.GN_PER_ENCODE == 52
+
+
+@pytest.mark.parametrize("config", ["configs/sd15_finetune.yaml", "configs/sd15_lora.yaml"])
+def test_finetune_configs_give_the_launches_and_adapters_chip_smoke_expects(config):
+    """Phase 9's launches per CLI step (no remat: 32 K1, 32 K2, 61 K3 in the
+    UNet and 22 in the VAE encoder) and the rank-16 LoRA's adapters, read off
+    the configs' module trees on the meta device."""
+    from dmtpu_torch.models.lora import init_lora, lora_param_count
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config
+
+    conf = load_config(str(Path(__file__).resolve().parents[1] / config))
+    sd = instantiate_from_config(conf.model, device="meta")
+    assert not sd.unet.use_checkpoint
+    assert chip_smoke.per_step_launches(sd.unet) == {"K1": 32, "K2": 32, "K3": 61}
+    assert sum(isinstance(m, GroupNorm32) for m in sd.vae.encoder.modules()) == \
+        chip_smoke.GN_PER_ENCODE
+    assert sum(isinstance(m, GroupNorm32) for m in sd.vae.decoder.modules()) == \
+        chip_smoke.GN_PER_DECODE
+    if conf.train.get("lora"):
+        lora = init_lora(sd.unet, rank=int(conf.train.lora.rank))
+        assert len(lora.paths) == 4 * 32 and lora_param_count(dict(lora.named_parameters())) \
+            == 3_188_736
