@@ -5,8 +5,9 @@
 
 The port's paths are SD1.5 text-to-latent sampling, SD1.5 training, SD1.5
 text to image (prompt -> CLIP-L -> DDIMCFG over the UNet -> VAE decode ->
-uint8 images, with img2img and latent inpainting) and SD1.5 fine-tuning
-through its CLIs (``python -m dmtpu_torch.scripts.train_sd``, full and LoRA,
+uint8 images, with img2img and latent inpainting), the same request with the
+serving accelerators (DPM-Solver++, PFDiff, DeepCache, ToMe, FreeU) and SD1.5
+fine-tuning through its CLIs (``python -m dmtpu_torch.scripts.train_sd``, full and LoRA,
 and ``merge_lora``, from ``configs/sd15_finetune.yaml`` and
 ``configs/sd15_lora.yaml``): the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
@@ -37,7 +38,10 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      wrapper with no synchronise, per call) and ``host_bound`` (``ms`` within
      20% of ``host_us``); all of it at batch 16 (what DDIM-50 and training
      give K1) and again at batch 32 (the CFG-doubled batch of a 16-image
-     text-to-image request), the plain versions there in slices of 16;
+     text-to-image request), the plain versions there in slices of 16; and
+     at b32 at the 64x64 level's self-attention under ToMe (S 2048 at ratio
+     0.5, 2868 at 0.3, off the 128 grid), with K1's time over SDPA's there
+     and at S=4096;
   3. K3 (GroupNorm+SiLU) against its plain version at every GroupNorm shape
      of the path, bf16 and f32, SiLU on and off, eps 1e-5 and 1e-6,
      channels-last (both kernels, "rows" and the per-group one, as in 2) and
@@ -128,14 +132,30 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      the base run with the EMA adapters within 1e-3 relative L2 (plain
      path).  Both CLIs run with this script's non-zero random init in place
      of ``init_params`` (same seed, same draws), so that every layer gets a
-     gradient; the temporary directory is removed.
+     gradient; the temporary directory is removed;
+ 10. the serving accelerators through ``sample_images`` on phase 8's stack,
+     as the JAX package's bench extras on the SD path (``SERVE_CONFIGS``):
+     DPM-Solver++ 20 steps, PFDiff on the 50-step grid (26 UNet calls),
+     DDIM-50 and PFDiff-50 with DeepCache (2, 3), DDIM-50 with ToMe 0.5,
+     DDIM-50 with FreeU sd15, and the stack (ToMe, FreeU, PFDiff, DeepCache):
+     (a) each at b2 over 5 steps through the kernels and through the plain
+     ops against an f32 plain run (TF32 off): within 1.5x the plain bf16
+     path's relative L2 error, plus 1e-3, with exact launches; DeepCache at
+     interval 1 gives the plain DDIM and PFDiff requests' images within 1e-5;
+     (b) each at b16, 512x512, one warm-up and one timed request: images per
+     second, the stages' times, peak memory, and the launches of K1 and K3
+     checked exactly against the UNet calls by kind (32 and 61 a full call,
+     10 and 16 a shallow one, read off the module tree) plus 30 K3 a decode,
+     K2 none; (c) a ``torch.profiler`` breakdown of one UNet call on 32
+     samples: full, shallow, with ToMe 0.5 and with FreeU sd15.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
 and all three counted in each of the three timed runs and in the first run
-of each fine-tuning CLI), error, and its times, bound,
+of each fine-tuning CLI and serving request), error, and its times, bound,
 library time and host time summed over the calls of one forward (K2: of one
 train step; K1's and K3's also over one UNet call on 32 samples, ``cfg_b32``;
+K1's also over the merged self-attentions of one under ToMe, ``tome_b32``;
 K3's also over one VAE decode and one encode), and the card's
 name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
@@ -227,6 +247,29 @@ SD15_CONF = {
                              "beta_start": 0.00085, "beta_end": 0.012,
                              "objective": "pred_eps"}},
 }
+
+# phase 2: the 64x64 level's self-attention under ToMe in a b16 CFG request
+# (32 samples): 4096 - r tokens, r = int(4096 * ratio) (``ops/tome.py::tome_r``):
+# 2048 at 0.5, 2868 at 0.3 (off the 128-token grid); 5 calls a UNet call
+TOME_ATTN = {0.5: (2048, 2048, 40), 0.3: (2868, 2868, 40)}
+TOME_ATTN_CALLS = 5
+
+# phase 10: the serving accelerators through ``sample_images`` on phase 8's
+# stack, b16 512x512 CFG 7.5 (the JAX package's bench extras on the SD path)
+SERVE_CONFIGS = {
+    "dpmpp20": dict(sampler="dpmpp", respace_steps=20),
+    "pfdiff50": dict(sampler="pfdiff", respace_steps=50),
+    "ddim50_deepcache": dict(sampler="ddim", respace_steps=50, deepcache=(2, 3)),
+    "pfdiff50_deepcache": dict(sampler="pfdiff", respace_steps=50, deepcache=(2, 3)),
+    "ddim50_tome": dict(sampler="ddim", respace_steps=50, tome_ratio=0.5),
+    "ddim50_freeu": dict(sampler="ddim", respace_steps=50, freeu="sd15"),
+    "stack": dict(sampler="pfdiff", respace_steps=50, deepcache=(2, 3), tome_ratio=0.5,
+                  freeu="sd15"),
+}
+SERVE_CHECK_STEPS = 5
+# a shallow DeepCache pass at skip 3: input blocks 0-2 and the last three
+# output blocks (2 + 3 ResBlocks, 2 + 3 SpatialTransformers) and the out norm
+SHALLOW_ATTN, SHALLOW_GN = 10, 16
 
 # phase 9: the fine-tuning CLI from the repository's configs, on data and a
 # tokenizer that the phase writes for itself
@@ -385,16 +428,29 @@ def main() -> int:
         check(not_the_slower(by_kernel, chosen, ms, host),
               f"K1 dispatch b{n} S_q={sq} S_k={sk} d={d}: {chosen} is not the slower kernel")
         del q, k, v, qt, kt, vt, ref_o, ref_lse, plain
+        return ms / library_ms
 
     # batch 16 is what DDIM-50 and training give K1; a text-to-image request of
     # 16 images calls the UNet on the CFG-doubled batch of 32
     k1, k1_cfg = new_totals(), new_totals()
+    over_sdpa = {}  # K1's time over SDPA's, b32, by (S_q, S_k, d)
     for n, totals in ((B, k1), (2 * B, k1_cfg)):
         for (sq, sk, d), calls in ATTN_CALLS.items():
-            k1_case(n, sq, sk, d, calls, totals)
+            over_sdpa[(sq, sk, d)] = k1_case(n, sq, sk, d, calls, totals)
             torch.cuda.empty_cache()
     log(f"K1 per b{B} UNet forward ({ATTN_PER_FORWARD} calls): " + json.dumps(k1))
     log(f"K1 per b{2 * B} UNet forward ({ATTN_PER_FORWARD} calls): " + json.dumps(k1_cfg))
+    # ToMe's merged self-attention at the 64x64 level, on the CFG-doubled batch
+    k1_tome = {}
+    for ratio, (sq, sk, d) in TOME_ATTN.items():
+        k1_tome[f"r{ratio}"] = new_totals()
+        over_sdpa[(sq, sk, d)] = k1_case(2 * B, sq, sk, d, TOME_ATTN_CALLS, k1_tome[f"r{ratio}"])
+        torch.cuda.empty_cache()
+    log(f"K1 ToMe rows, b{2 * B}, summed over the {TOME_ATTN_CALLS} merged self-attentions of "
+        f"a UNet call: " + json.dumps(k1_tome))
+    log(f"K1 time over SDPA's, b{2 * B} h8 d40: " + json.dumps(
+        {f"S={sq}": over_sdpa[(sq, sk, d)] for sq, sk, d in
+         [(4096, 4096, 40)] + list(TOME_ATTN.values())}))
     torch.cuda.empty_cache()
 
     # ---- 3. K3 ------------------------------------------------------------
@@ -695,6 +751,9 @@ def main() -> int:
 
     # ---- 9. the fine-tuning CLI ----------------------------------------------------
     ft = phase_finetune_cli(dev, check, gen, ref_model, card)
+
+    # ---- 10. the serving accelerators ----------------------------------------------
+    serve = phase_serving(dev, check, t2i.pop("sd"), ref_model, card)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
@@ -703,7 +762,9 @@ def main() -> int:
     by_path = {name: {"ddim50": main_launches[name],
                       f"train{TRAIN_TIMED_STEPS}": train["launches"][name],
                       f"txt2img{T2I_STEPS}": t2i["launches"][name],
-                      **{path: counted[name] for path, counted in ft["launches"].items()}}
+                      **{path: counted[name] for path, counted in ft["launches"].items()},
+                      **{f"serve_{path}": counted[name]
+                         for path, counted in serve["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -725,7 +786,10 @@ def main() -> int:
              launches_by_kernel=k1_by_kernel,
              # the same columns at the CFG-doubled batch of the text-to-image
              # request: summed over the 32 calls of one UNet call on 32 samples
-             cfg_b32=k1_cfg),
+             cfg_b32=k1_cfg,
+             # and over the 5 merged self-attentions of a UNet call on 32
+             # samples under ToMe at ratios 0.5 and 0.3
+             tome_b32=k1_tome),
         dict(entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
                    "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
                    f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards",
@@ -743,7 +807,7 @@ def main() -> int:
              cfg_b32=k3_cfg),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
-        "finetune_cli_b8": ft["metrics"], "card": card}))
+        "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1310,6 +1374,180 @@ def phase_text_to_image(dev, check, gen, ref_model, card, time_ms) -> dict:
         f"one decode): " + json.dumps(profile["classes"]))
     for name, ms in profile["top"]:
         log(f"  {ms:9.4f} ms  {name}")
+    return {"launches": launches, "metrics": metrics, "sd": sd}
+
+
+def phase_serving(dev, check, sd, ref_model, card) -> dict:
+    """Phase 10 (see the module docstring): the serving accelerators through
+    ``sample_images`` on phase 8's stack ``sd`` (bf16 UNet torso);
+    ``ref_model`` is the f32 UNet with the same weights."""
+    import numpy as np
+    import torch
+    from dmtpu_torch.diffusions import DDIM, PFDiffDDIM
+    from dmtpu_torch.models.adm import GroupNorm32
+    from dmtpu_torch.models.stablediffusion.attention import CrossAttention
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.freeu import SD15_DEFAULTS
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.scripts.sample_sd import sample_images
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel_err(a, ref) -> float:
+        a, ref = (torch.as_tensor(np.asarray(x, np.float32)) for x in (a, ref))
+        return ((a - ref).norm() / ref.norm()).item()
+
+    def count(kind, blocks):
+        return sum(isinstance(m, kind) for b in blocks for m in b.modules())
+
+    # the kernel calls of one UNet call of each kind, from the module tree
+    unet = sd.unet
+    shallow_blocks = list(unet.input_blocks[:3]) + list(unet.output_blocks[-3:])
+    per = {"full": (count(CrossAttention, [unet]), count(GroupNorm32, [unet])),
+           "shallow": (count(CrossAttention, shallow_blocks),
+                       count(GroupNorm32, shallow_blocks) + 1),  # + the out norm
+           "decode": count(GroupNorm32, [sd.vae.decoder])}
+    log(f"serving: kernel calls of a full and a shallow (skip 3) UNet call, and of a decode, "
+        f"from the module trees: {per}")
+    check(per == {"full": (ATTN_PER_FORWARD, GN_PER_FORWARD),
+                  "shallow": (SHALLOW_ATTN, SHALLOW_GN), "decode": GN_PER_DECODE},
+          f"module trees give ({ATTN_PER_FORWARD}, {GN_PER_FORWARD}) a full call, "
+          f"({SHALLOW_ATTN}, {SHALLOW_GN}) a shallow one, {GN_PER_DECODE} a decode")
+
+    def unet_calls(config: dict, steps: int) -> tuple:
+        """(full, shallow) UNet calls of one batch of ``config``, from the
+        samplers' own tapes: a row a call, PFDiff's ``nfe``; DeepCache runs
+        call k full when k % interval == 0."""
+        dp = dict(SD15_CONF["diffusion"]["params"], respace_type="uniform", respace_steps=steps)
+        n = (PFDiffDDIM(**dp).nfe if config.get("sampler") == "pfdiff"
+             else len(DDIM(**dp).respaced_seq))
+        interval = config["deepcache"][0] if config.get("deepcache") else 1
+        full = len(range(0, n, interval))
+        return full, n - full
+
+    def want_launches(config: dict, steps: int) -> dict:
+        full, shallow = unet_calls(config, steps)
+        return {"K1": full * per["full"][0] + shallow * per["shallow"][0], "K2": 0,
+                "K3": full * per["full"][1] + shallow * per["shallow"][1] + per["decode"]}
+
+    prompt = "a photograph of an astronaut riding a horse"
+    request = dict(negative="blurry, low quality", height=T2I_SIZE, width=T2I_SIZE,
+                   guidance_scale=T2I_SCALE, seed=SEED, sd=sd)
+    bf16_unet = sd.unet
+    torch.backends.cudnn.allow_tf32 = False
+
+    # (a) each accelerator at b2 over a few steps: the kernel path and the
+    # plain bf16 path against an f32 plain run
+    b = T2I_CHECK_BATCH
+    for name, config in SERVE_CONFIGS.items():
+        small = dict(request, **dict(config, respace_steps=SERVE_CHECK_STEPS), n_samples=b,
+                     batch_size=b)
+        zero_counts()
+        img_k = sample_images(SD15_CONF, prompt, **small)
+        got = counts()
+        with plain_ops():
+            img_p = sample_images(SD15_CONF, prompt, **small)
+            sd.unet = ref_model
+            try:
+                img_f = sample_images(SD15_CONF, prompt, **small)
+            finally:
+                sd.unet = bf16_unet
+        err_k, err_p = rel_err(img_k, img_f), rel_err(img_p, img_f)
+        want = want_launches(config, SERVE_CHECK_STEPS)
+        log(f"serving {name} b{b}, {SERVE_CHECK_STEPS} steps, {T2I_SIZE}x{T2I_SIZE}: rel L2 err "
+            f"vs the f32 plain run: kernels {err_k:.3e}, plain bf16 {err_p:.3e}; UNet calls "
+            f"(full, shallow) {unet_calls(config, SERVE_CHECK_STEPS)}; launches {got}")
+        check(img_k.shape == (b, T2I_SIZE, T2I_SIZE, 3) and img_k.std() > 1.0
+              and err_k <= 1.5 * err_p + 1e-3,
+              f"serving {name} b{b}: images vary, err(kernels) <= 1.5 err(plain) + 1e-3")
+        check(got == want, f"serving {name} b{b} launches {got} == {want}")
+    # DeepCache with interval 1 calls the full UNet at every step: the images
+    # of the plain sampler, through the kernels
+    for sampler in ("ddim", "pfdiff"):
+        small = dict(request, sampler=sampler, n_samples=b, batch_size=b,
+                     respace_steps=SERVE_CHECK_STEPS)
+        plain = sample_images(SD15_CONF, prompt, **small)
+        cached = sample_images(SD15_CONF, prompt, deepcache=(1, 3), **small)
+        err = rel_err(cached, plain)
+        log(f"serving {sampler} with DeepCache (1, 3) vs without, b{b}: rel L2 {err:.3e}")
+        check(err <= 1e-5, f"serving {sampler}: DeepCache interval 1 is the plain sampler (1e-5)")
+
+    # (b) the timed requests: b16, 512x512; the VAE's convolutions with TF32,
+    # as the CLI leaves them (phase 8)
+    torch.backends.cudnn.allow_tf32 = True
+    metrics, launches = {}, {}
+    for name, config in SERVE_CONFIGS.items():
+        timed = dict(request, **config, n_samples=B, batch_size=B)
+        events = []
+
+        def on_stage(stage):
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            events.append((stage, event))
+
+        sample_images(SD15_CONF, prompt, **timed)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        images = sample_images(SD15_CONF, prompt, on_stage=on_stage, **timed)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches[name] = counts()
+        stage_ms = {stage: before.elapsed_time(after)
+                    for (_, before), (stage, after) in zip(events, events[1:])}
+        full, shallow = unet_calls(config, config["respace_steps"])
+        metrics[name] = {"imgs_per_s": B / seconds, "seconds": seconds, "batch": B,
+                         "unet_calls": {"full": full, "shallow": shallow},
+                         "stage_ms": stage_ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+                         **{k: v for k, v in config.items() if k != "respace_steps"},
+                         "steps": config["respace_steps"]}
+        want = want_launches(config, config["respace_steps"])
+        log(f"serving {name} b{B} {T2I_SIZE}x{T2I_SIZE}: {seconds:.3f} s, "
+            f"{B / seconds:.4f} images/s, UNet calls on {2 * B} samples {full} full + {shallow} "
+            f"shallow, stages (CUDA events, ms) {json.dumps(stage_ms)}, peak "
+            f"{metrics[name]['peak_bytes'] / 2**30:.3f} GiB ({card}); launches {launches[name]}")
+        check(images.shape == (B, T2I_SIZE, T2I_SIZE, 3) and images.dtype == np.uint8
+              and images.std() > 1.0, f"serving {name} b16: uint8 [16, 512, 512, 3]")
+        check(launches[name] == want, f"serving {name} b16 launches {launches[name]} == {want}")
+    torch.backends.cudnn.allow_tf32 = False
+
+    # (c) where a UNet call on 32 samples spends its device time: full, the
+    # shallow pass, and the full call with ToMe 0.5 and with FreeU sd15
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    x = torch.randn(2 * B, 4, T2I_SIZE // 8, T2I_SIZE // 8, generator=g, device=dev)
+    ts = torch.full((2 * B,), 501, device=dev)
+    ctx = torch.randn(2 * B, 77, SD15["context_dim"], generator=g, device=dev)
+    profiles = {}
+    with torch.no_grad():
+        _, cache = unet(x, ts, ctx, dc_skip=3)
+        profiles["full"] = profile_by_class(lambda: unet(x, ts, ctx), 3)
+        profiles["shallow"] = profile_by_class(
+            lambda: unet(x, ts, ctx, dc_skip=3, dc_cached=cache), 3)
+        sd.set_tome(0.5)
+        profiles["tome0.5"] = profile_by_class(lambda: unet(x, ts, ctx), 3)
+        sd.set_tome(0.0)
+        sd.set_freeu(SD15_DEFAULTS)
+        profiles["freeu_sd15"] = profile_by_class(lambda: unet(x, ts, ctx), 3)
+        sd.set_freeu(None)
+    for kind, profile in profiles.items():
+        log(f"serving: one UNet call on {2 * B} samples, {kind}: device time by class (torch."
+            f"profiler, ms a call over 3; wall {profile['wall_ms']:.3f} ms a call under the "
+            f"profiler): " + json.dumps(profile["classes"]))
+        if kind in ("tome0.5", "freeu_sd15"):
+            for kernel, ms in profile["top"][:8]:
+                log(f"  {ms:9.4f} ms  {kernel}")
+    metrics["unet_b32_call_device_ms"] = {kind: profile["classes"]
+                                          for kind, profile in profiles.items()}
+    del x, ctx, cache
+    torch.cuda.empty_cache()
     return {"launches": launches, "metrics": metrics}
 
 

@@ -8,8 +8,8 @@ the JAX wrapper is functional over one params dict ``{"unet", "vae",
 its methods take no ``params``.  A CompVis ``.ckpt`` / ``.safetensors`` loads
 natively: the modules carry the upstream keys, and
 ``dmtpu_torch.convert.sd.split_sd_checkpoint`` only splits the prefixes.
-
-Token Merging and FreeU (``set_tome`` / ``set_freeu``) are not ported yet.
+``set_tome`` / ``set_freeu`` switch the UNet's serving accelerators; the
+parameters stay as they are.
 """
 from __future__ import annotations
 
@@ -147,13 +147,26 @@ class StableDiffusion(nn.Module):
                             * p[0].numel() ** -0.5)
         return self
 
-    def set_tome(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "Token Merging is not ported to dmtpu_torch yet (ROADMAP Queue 1 item 7)")
+    _UNSET = object()
 
-    def set_freeu(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "FreeU is not ported to dmtpu_torch yet (ROADMAP Queue 1 item 7)")
+    def set_tome(self, ratio: float, sx: Any = _UNSET, sy: Any = _UNSET,
+                 max_downsample: Any = _UNSET, seed: Any = _UNSET) -> "StableDiffusion":
+        """Token Merging on the UNet at ``ratio`` (0 = off); the knobs left
+        unspecified keep their current values (``set_tome(0.6)`` after
+        ``set_tome(0.5, seed=3)`` changes only the ratio).  No parameter
+        changes.  Returns self."""
+        u, unset = self.unet, self._UNSET
+        u.set_tome(ratio, u.tome_sx if sx is unset else sx, u.tome_sy if sy is unset else sy,
+                   u.tome_max_downsample if max_downsample is unset else max_downsample,
+                   u.tome_seed if seed is unset else seed)
+        return self
+
+    def set_freeu(self, scales=None) -> "StableDiffusion":
+        """FreeU on the UNet with ``scales=(b1, b2, s1, s2)`` (e.g.
+        ``dmtpu_torch.ops.freeu.SD15_DEFAULTS``), or off (None).  No parameter
+        changes.  Returns self."""
+        self.unet.set_freeu(scales)
+        return self
 
     # --- the pieces --------------------------------------------------------
     def unet_forward(self, x: torch.Tensor, timesteps: torch.Tensor,

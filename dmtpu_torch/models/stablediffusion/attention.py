@@ -5,12 +5,13 @@ models/stablediffusion/attention.py — GEGLU :46-53, FeedForward :56-72,
 CrossAttention :89-141, BasicTransformerBlock :199-228, SpatialTransformer
 :231-285).  Every attention goes through ``dmtpu_torch.ops.attention`` in
 the [B, S, H, D] layout; the SpatialTransformer's GroupNorm (eps 1e-6, no
-SiLU) goes through ``group_norm``.  Token Merging and the linear
+SiLU) goes through ``group_norm``.  Token Merging (``tome_ratio`` > 0,
+``dmtpu_torch.ops.tome``) wraps a block's self-attention; the linear
 projections (``use_linear``) are not ported.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,6 +19,7 @@ from torch import nn
 
 from dmtpu_torch.models.adm import Conv2d, GroupNorm32, Linear
 from dmtpu_torch.ops.attention import attention
+from dmtpu_torch.ops.tome import bipartite_soft_matching_2d, tome_r
 
 
 class GEGLU(nn.Module):
@@ -69,12 +71,21 @@ class CrossAttention(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """(reference: models/stablediffusion/attention.py:199-228)"""
+    """(reference: models/stablediffusion/attention.py:199-228)
+
+    ``tome_ratio > 0`` (serving; adds no parameters) merges tokens around the
+    self-attention: the block input picks the matching (tomesd's call
+    structure), ``attn1`` runs on N - r tokens, and its output is unmerged
+    before the residual add.  Skipped when ``attn1`` is a cross-attention
+    (``disable_self_attn``) or the token grid ``hw`` is not given."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: Optional[int] = None,
-                 disable_self_attn: bool = False, dtype=None, device=None):
+                 disable_self_attn: bool = False, tome_ratio: float = 0.0, tome_sx: int = 2,
+                 tome_sy: int = 2, tome_seed: Optional[int] = None, dtype=None, device=None):
         super().__init__()
         self.disable_self_attn = disable_self_attn
+        self.tome_ratio, self.tome_sx, self.tome_sy, self.tome_seed = (
+            tome_ratio, tome_sx, tome_sy, tome_seed)
         self.attn1 = CrossAttention(dim, context_dim if disable_self_attn else None, n_heads,
                                     d_head, dtype=dtype, device=device)
         self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, dtype=dtype,
@@ -89,9 +100,21 @@ class BasicTransformerBlock(nn.Module):
         # f32 LayerNorm, as the JAX package's f32-param LayerNorm computes it
         return F.layer_norm(x.float(), norm.normalized_shape, norm.weight, norm.bias, norm.eps)
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.attn1(self._ln(self.norm1, x),
-                       context=context if self.disable_self_attn else None) + x
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        h = self._ln(self.norm1, x)
+        if self.disable_self_attn:
+            x = self.attn1(h, context=context) + x
+        else:
+            r = 0
+            if self.tome_ratio > 0 and hw is not None:
+                r = tome_r(x.shape[1], self.tome_ratio, *hw, self.tome_sx, self.tome_sy)
+            if r > 0:
+                merge, unmerge = bipartite_soft_matching_2d(
+                    x, *hw, sx=self.tome_sx, sy=self.tome_sy, r=r, seed=self.tome_seed)
+                x = unmerge(self.attn1(merge(h))) + x
+            else:
+                x = self.attn1(h) + x
         x = self.attn2(self._ln(self.norm2, x), context=context) + x
         x = self.ff(self._ln(self.norm3, x)) + x
         return x
@@ -101,20 +124,23 @@ class SpatialTransformer(nn.Module):
     """(reference: models/stablediffusion/attention.py:231-285)
 
     GroupNorm (eps 1e-6) -> 1x1 proj_in -> ``depth`` transformer blocks over
-    the H*W tokens -> zero-initialised 1x1 proj_out, plus the residual.
+    the H*W tokens -> zero-initialised 1x1 proj_out, plus the residual.  The
+    ``tome_*`` options go to every block (``BasicTransformerBlock``).
     """
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, disable_self_attn: bool = False,
-                 dtype=None, device=None):
+                 tome_ratio: float = 0.0, tome_sx: int = 2, tome_sy: int = 2,
+                 tome_seed: Optional[int] = None, dtype=None, device=None):
         super().__init__()
         inner = n_heads * d_head
         self.norm = GroupNorm32(in_channels, eps=1e-6, device=device)
         self.proj_in = Conv2d(in_channels, inner, 1, dtype=dtype, device=device)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, n_heads, d_head, context_dim=context_dim,
-                                  disable_self_attn=disable_self_attn, dtype=dtype,
-                                  device=device)
+                                  disable_self_attn=disable_self_attn,
+                                  tome_ratio=tome_ratio, tome_sx=tome_sx, tome_sy=tome_sy,
+                                  tome_seed=tome_seed, dtype=dtype, device=device)
             for _ in range(depth))
         self.proj_out = Conv2d(inner, in_channels, 1, dtype=dtype, device=device)
         nn.init.zeros_(self.proj_out.weight)
@@ -127,6 +153,6 @@ class SpatialTransformer(nn.Module):
         inner = x.shape[1]
         x = x.flatten(2).transpose(1, 2)  # [B, H*W, inner]
         for block in self.transformer_blocks:
-            x = block(x, context=context)
+            x = block(x, context=context, hw=(h, w))
         x = x.transpose(1, 2).reshape(b, inner, h, w)
         return self.proj_out(x) + x_in

@@ -16,6 +16,16 @@ the output head stay f32.
 SpatialTransformer call in the backward pass, the calls the JAX module wraps
 in ``remat_call``; dropout follows ``model.train()``.
 
+The serving accelerators add no parameters (the ``state_dict`` is the same
+with them on or off):
+
+- Token Merging (``tome_ratio``, ``tome_sx``, ``tome_sy``, ``tome_seed``) in
+  the SpatialTransformers of the levels with ``ds <= tome_max_downsample``
+  (``dmtpu_torch/ops/tome.py``); ``set_tome`` changes it on a built model.
+- FreeU (``freeu=(b1, b2, s1, s2)``, ``dmtpu_torch/ops/freeu.py``) at each
+  decoder concat; ``set_freeu`` changes it.
+- DeepCache passes (``forward``'s ``dc_skip`` / ``dc_cached``).
+
 Options of the JAX module that are not ported raise ``NotImplementedError``
 when set: the ``use_fp16`` / ``use_bf16`` aliases of ``torso_dtype``,
 class / vector conditioning (``num_classes``, ``adm_in_channels``),
@@ -25,12 +35,11 @@ selective remat (a policy name as ``use_checkpoint``),
 (``transformer_depth_middle``, ``disable_self_attentions``,
 ``num_attention_blocks``, ``disable_middle_*``), the non-spatial ADM
 attention path (``use_spatial_transformer=False``, ``num_heads_upsample``,
-``use_new_attention_order``), Token Merging (``tome_*``), FreeU and
-DeepCache (``dc_skip`` / ``dc_cached``).
+``use_new_attention_order``).
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -45,6 +54,7 @@ from dmtpu_torch.models.adm import (
     timestep_embedding,
 )
 from dmtpu_torch.models.stablediffusion.attention import SpatialTransformer
+from dmtpu_torch.ops.freeu import apply_freeu
 from dmtpu_torch.ops.rematerialize import normalize_use_checkpoint, remat_call
 
 # option -> the value that means "off"; anything else is not ported yet
@@ -52,8 +62,7 @@ _UNPORTED = {
     "use_fp16": False, "use_bf16": False,
     "num_classes": None, "adm_in_channels": None,
     "use_linear_in_transformer": False, "use_spatial_transformer": True,
-    "spatial_transformer_attn_type": "softmax", "freeu": None, "tome_ratio": 0.0,
-    "tome_sx": 2, "tome_sy": 2, "tome_max_downsample": 1, "tome_seed": None,
+    "spatial_transformer_attn_type": "softmax",
     # SDXL structure and the ADM-attention path's head options
     "transformer_depth_middle": None, "disable_self_attentions": None,
     "num_attention_blocks": None, "disable_middle_self_attn": False,
@@ -103,6 +112,12 @@ class SDUNetModel(nn.Module):
         legacy: bool = True,
         use_checkpoint: Any = False,
         torso_dtype: Optional[torch.dtype] = None,
+        tome_ratio: float = 0.0,
+        tome_sx: int = 2,
+        tome_sy: int = 2,
+        tome_max_downsample: int = 1,
+        tome_seed: Optional[int] = None,
+        freeu: Optional[Sequence[float]] = None,
         device: Any = None,
         **unported: Any,
     ):
@@ -135,8 +150,10 @@ class SDUNetModel(nn.Module):
 
         def st(ch):
             heads, dim_head = self._dim_head(ch)
-            return SpatialTransformer(ch, heads, dim_head, depth=transformer_depth,
-                                      context_dim=context_dim, **kw)
+            module = SpatialTransformer(ch, heads, dim_head, depth=transformer_depth,
+                                        context_dim=context_dim, **kw)
+            module.ds = ds  # the level, read where the module is built
+            return module
 
         self.input_blocks = nn.ModuleList([TimestepEmbedSequential(
             [Conv2d(in_channels, model_channels, 3, padding=1, **kw)])])
@@ -174,6 +191,30 @@ class SDUNetModel(nn.Module):
 
         self.out = nn.Sequential(GroupNorm32(ch, device=device), nn.SiLU(),
                                  _zeros_conv(ch, out_channels, 3, device=device))
+        self.set_tome(tome_ratio, tome_sx, tome_sy, tome_max_downsample, tome_seed)
+        self.set_freeu(freeu)
+
+    def set_tome(self, ratio: float, sx: int = 2, sy: int = 2, max_downsample: int = 1,
+                 seed: Optional[int] = None) -> "SDUNetModel":
+        """Token Merging at ``ratio`` (0 = off) in the SpatialTransformers of the
+        levels with ``ds <= max_downsample``."""
+        self.tome_ratio, self.tome_sx, self.tome_sy = float(ratio), int(sx), int(sy)
+        self.tome_max_downsample, self.tome_seed = int(max_downsample), seed
+        for st in self.modules():
+            if isinstance(st, SpatialTransformer):
+                for block in st.transformer_blocks:
+                    block.tome_ratio = self.tome_ratio if st.ds <= max_downsample else 0.0
+                    block.tome_sx, block.tome_sy, block.tome_seed = self.tome_sx, self.tome_sy, seed
+        return self
+
+    def set_freeu(self, scales: Optional[Sequence[float]]) -> "SDUNetModel":
+        """FreeU with ``scales`` = (b1, b2, s1, s2), or off (None)."""
+        if scales is not None:
+            scales = tuple(float(s) for s in scales)
+            if len(scales) != 4:
+                raise ValueError(f"FreeU needs exactly (b1, b2, s1, s2), got {len(scales)}")
+        self.freeu = scales
+        return self
 
     def _dim_head(self, ch: int):
         """The reference's head-dim resolution (spatial-transformer branch)."""
@@ -187,22 +228,52 @@ class SDUNetModel(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor] = None, y: Optional[torch.Tensor] = None,
-                dc_skip: Optional[int] = None,
-                dc_cached: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: [B, C, H, W]; timesteps: [B]; context: [B, T, context_dim]."""
+                dc_skip: Optional[int] = None, dc_cached: Optional[torch.Tensor] = None
+                ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """x: [B, C, H, W]; timesteps: [B]; context: [B, T, context_dim].
+
+        DeepCache passes (Ma et al. 2023):
+
+        - ``dc_skip=None``: the plain forward; returns ``out``.
+        - ``dc_skip=k``, no ``dc_cached``: FULL pass; returns ``(out, u)``,
+          ``u`` the up-path feature entering the last ``k`` output blocks.
+        - ``dc_skip=k``, ``dc_cached=u``: SHALLOW pass: only the first ``k``
+          input blocks and the last ``k`` output blocks run, with ``u``
+          spliced in; returns ``(out, u)``.
+        """
         if y is not None:
             raise NotImplementedError("class / vector conditioning (y) is not ported")
-        if dc_skip is not None or dc_cached is not None:
-            raise NotImplementedError("DeepCache (dc_skip / dc_cached) is not ported")
+        total_pops = len(self.output_blocks)
+        if dc_skip is None:
+            if dc_cached is not None:
+                raise ValueError("dc_cached needs dc_skip")
+        elif not 0 < dc_skip <= total_pops:
+            raise ValueError(f"dc_skip must be in [1, {total_pops}], got {dc_skip}")
+        shallow = dc_cached is not None
+        boundary = total_pops - (dc_skip or 0)
+
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels))
         h = x
         hs = []
         remat = self.use_checkpoint
-        for block in self.input_blocks:
+        for block in self.input_blocks[:dc_skip] if shallow else self.input_blocks:
             h = block(h, emb, context, remat)
             hs.append(h)
-        h = self.middle_block(h, emb, context, remat)
-        for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb, context, remat)
+        if not shallow:
+            h = self.middle_block(h, emb, context, remat)
+        u = dc_cached
+        for i, block in enumerate(self.output_blocks):
+            if i < boundary and shallow:
+                continue
+            if i == boundary and dc_skip is not None:
+                if shallow:
+                    h = dc_cached  # splice the cached deep feature
+                else:
+                    u = h  # capture the input of the first shallow block
+            skip = hs.pop()
+            if self.freeu is not None:
+                h, skip = apply_freeu(h, skip, self.model_channels, *self.freeu)
+            h = block(torch.cat([h, skip], dim=1), emb, context, remat)
         h = self.out[0](h.to(x.dtype), silu=True)
-        return self.out[2](h)
+        out = self.out[2](h)
+        return out if dc_skip is None else (out, u)

@@ -4,22 +4,29 @@
 
 Counterpart of ``scripts/sample_sd.py``, with the same flags and the same
 validation, plus ``--device`` (default ``cuda``: without a card the CLI fails
-unless ``--device cpu`` is given).  Prompt -> CLIP text encoder -> DDIM or
-DDPM with classifier-free guidance (one doubled-batch UNet call a step) ->
-VAE decode -> PNGs; ``--guidance_interval T_LO T_HI`` limits the guidance to
-an interval of timesteps, ``--init_image`` / ``--strength`` is img2img (SDEdit
-in latent space) and ``--inpaint_image`` / ``--inpaint_mask`` latent
-inpainting (ddim only).
+unless ``--device cpu`` is given).  Prompt -> CLIP text encoder -> a sampler
+with classifier-free guidance (one doubled-batch UNet call a step) -> VAE
+decode -> PNGs.
+
+- ``--sampler ddim | ddpm | dpmpp | pfdiff``: DDIM, DDPM, DPM-Solver++(2M)
+  or PFDiff-1 over DDIM;
+- ``--guidance_interval T_LO T_HI``: guidance on an interval of timesteps
+  (ddim, ddpm);
+- ``--tome_ratio R [--tome_max_downsample DS]``: Token Merging in the
+  self-attention of the levels with ``ds <= DS``;
+- ``--freeu [sd15|sd21|sdxl]`` or ``--freeu_scales B1 B2 S1 S2``: FreeU;
+- ``--deepcache INTERVAL SKIP``: a cached UNet (ddim, pfdiff): the full UNet
+  every INTERVAL-th call, the outermost SKIP skip levels in between;
+- ``--init_image`` / ``--strength``: img2img (SDEdit in latent space);
+- ``--inpaint_image`` / ``--inpaint_mask``: latent inpainting (ddim).
+
+The data-parallel sampler of the JAX CLI is not ported: one device.
 
 Weights: a CompVis ``.ckpt`` / ``.safetensors`` via ``--weights``; without it
 the pipeline runs with seeded random parameters (demo mode: wiring and
 performance only).  Prompts are tokenized by a local CLIPTokenizer
 (``DMTPU_CLIP_TOKENIZER``); demo mode falls back to deterministic pseudo-token
 ids, so the CLI runs with no file but its config.
-
-Not ported yet (ROADMAP Queue 1 item 7): ``--sampler dpmpp|pfdiff``,
-``--tome_ratio``, ``--freeu`` / ``--freeu_scales`` and ``--deepcache`` parse
-and then exit with one line that says so.
 
 Optional packages, imported where they are needed: ``yaml`` (the config
 file), ``PIL`` (reading and writing images), ``transformers`` (the
@@ -30,22 +37,34 @@ arrays, returns the images as one uint8 array, and needs none of them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import os
-from typing import Any, Callable, Mapping, Optional, Sequence
+from typing import Any, Callable, Iterator, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from dmtpu_torch.diffusions import DDIMCFG, DDPMCFG
+from dmtpu_torch.diffusions import (
+    DDIM,
+    DDIMCFG,
+    DDPMCFG,
+    DPMSolverPPCFG,
+    PFDiffDDIM,
+    PFDiffDDIMCFG,
+)
+from dmtpu_torch.diffusions.deepcache import deepcache_sample, pfdiff_deepcache_sample
 from dmtpu_torch.diffusions.guidance import MaskGuidanceDDIMCFG
+from dmtpu_torch.ops import freeu as freeu_lib
 from dmtpu_torch.utils.config import instantiate_from_config, load_config
 from dmtpu_torch.utils.image import pil_image
 from dmtpu_torch.utils.logger import get_logger
 from dmtpu_torch.utils.misc import image_norm_to_uint8
 
-_SAMPLERS = {"ddim": DDIMCFG, "ddpm": DDPMCFG}
-_UNPORTED_SAMPLERS = ("dpmpp", "pfdiff")
+_SAMPLERS = {"ddim": DDIMCFG, "ddpm": DDPMCFG, "dpmpp": DPMSolverPPCFG,
+             "pfdiff": PFDiffDDIMCFG}
+FREEU_PRESETS = {"sd15": freeu_lib.SD15_DEFAULTS, "sd21": freeu_lib.SD21_DEFAULTS,
+                 "sdxl": freeu_lib.SDXL_DEFAULTS}
 LATENT_CHANNELS = 4
 
 
@@ -64,18 +83,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--seed", type=int, default=2022)
     p.add_argument("--sampler", type=str, default="ddim",
-                   choices=sorted(_SAMPLERS) + sorted(_UNPORTED_SAMPLERS))
+                   choices=sorted(_SAMPLERS))
     p.add_argument("--respace_type", type=str, default="uniform")
     p.add_argument("--respace_steps", type=int, default=50)
     p.add_argument("--guidance_scale", type=float, default=7.5)
     p.add_argument("--guidance_interval", type=float, nargs=2, default=None,
                    metavar=("T_LO", "T_HI"))
     p.add_argument("--tome_ratio", type=float, default=0.0)
-    p.add_argument("--tome_max_downsample", type=int, default=1)
+    p.add_argument("--tome_max_downsample", type=int, default=1,
+                   help="merge at levels with ds <= this (2 for SDXL-style "
+                        "UNets whose finest attention level is ds=2)")
     p.add_argument("--freeu", type=str, nargs="?", const="sd15", default=None,
-                   choices=["sd15", "sd21", "sdxl"])
+                   choices=sorted(FREEU_PRESETS),
+                   help="enable FreeU with a model-family preset "
+                        "(bare --freeu = sd15 paper scales)")
     p.add_argument("--freeu_scales", type=float, nargs=4, default=None,
-                   metavar=("B1", "B2", "S1", "S2"))
+                   metavar=("B1", "B2", "S1", "S2"),
+                   help="explicit FreeU scales (overrides --freeu preset)")
     p.add_argument("--deepcache", type=int, nargs=2, default=None,
                    metavar=("INTERVAL", "SKIP"))
     p.add_argument("--init_image", type=str, default=None,
@@ -122,30 +146,12 @@ def flag_conflict(*, sampler: str, init_image: Any = None, strength: float = 0.7
     return None
 
 
-def unported_flags(a: argparse.Namespace) -> list[str]:
-    """The flags given that this package does not serve yet."""
-    given = []
-    if a.sampler in _UNPORTED_SAMPLERS:
-        given.append(f"--sampler {a.sampler}")
-    if a.tome_ratio > 0:
-        given.append("--tome_ratio")
-    if a.freeu is not None or a.freeu_scales is not None:
-        given.append("--freeu")
-    if a.deepcache is not None:
-        given.append("--deepcache")
-    return given
-
-
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = build_parser()
     args = p.parse_args(argv)
     conflict = flag_conflict(**vars(args))
     if conflict:
         p.error(conflict)
-    unported = unported_flags(args)
-    if unported:
-        raise SystemExit(f"sample_sd: {', '.join(unported)} not ported to dmtpu_torch yet "
-                         "(ROADMAP Queue 1 item 7)")
     return args
 
 
@@ -223,6 +229,70 @@ def build_model(conf: Mapping, weights: Optional[str], device: torch.device):
     return sd
 
 
+def freeu_scales(freeu: Union[None, str, Sequence[float]]) -> Optional[Tuple[float, ...]]:
+    """FreeU's (b1, b2, s1, s2) from a preset name, the scales themselves, or
+    None (off)."""
+    if freeu is None:
+        return None
+    if isinstance(freeu, str):
+        if freeu not in FREEU_PRESETS:
+            raise ValueError(f"unknown FreeU preset {freeu!r}: one of {sorted(FREEU_PRESETS)}")
+        return FREEU_PRESETS[freeu]
+    return tuple(float(s) for s in freeu)
+
+
+@contextlib.contextmanager
+def serving_accelerators(sd, tome_ratio: float, tome_max_downsample: int,
+                         freeu: Union[None, str, Sequence[float]]) -> Iterator[None]:
+    """ToMe and FreeU on ``sd``'s UNet for the block, as asked; the settings
+    it had before come back afterwards."""
+    scales, unet = freeu_scales(freeu), sd.unet
+    before = (unet.tome_ratio, unet.tome_max_downsample, unet.freeu)
+    try:
+        sd.set_tome(tome_ratio, max_downsample=tome_max_downsample)
+        sd.set_freeu(scales)
+        yield
+    finally:
+        sd.set_tome(before[0], max_downsample=before[1])
+        sd.set_freeu(before[2])
+
+
+def deepcache_sampler(diffuser, sd, cond: torch.Tensor, uncond: torch.Tensor,
+                      guidance_scale: float, interval: int, skip: int,
+                      generator: Optional[torch.Generator]) -> Callable[..., torch.Tensor]:
+    """noise -> latents through a DeepCache loop with classifier-free
+    guidance: one UNet call on the doubled batch ([x, x], context [cond,
+    uncond]) a step, so the cache holds both halves; the halves are combined
+    in the loop's seam with the tape row in hand, each ``predict``-ed (so
+    ``clip_denoised`` clips each as ``DDPMCFG`` does), then
+    ``(1 - s) eps_u + s eps_c``.  ``diffuser`` is a ``DDIM`` or a ``PFDiffDDIM``."""
+    if diffuser.objective != "pred_eps":
+        # the seam hands the step the guided eps as the model output
+        raise NotImplementedError(f"--deepcache needs objective pred_eps, got "
+                                  f"{diffuser.objective}")
+    context = torch.cat([cond, uncond])
+    s = guidance_scale
+
+    def cfg_combine(out2, x, c):
+        out_c, out_u = out2.chunk(2)
+        eps_c = diffuser.predict(out_c, x, c)["pred_eps"]
+        eps_u = diffuser.predict(out_u, x, c)["pred_eps"]
+        return (1.0 - s) * eps_u + s * eps_c
+
+    def full_fn(x, t):
+        return sd.unet(torch.cat([x, x]), torch.cat([t, t]), context=context, dc_skip=skip)
+
+    def shallow_fn(x, t, cache):
+        return sd.unet(torch.cat([x, x]), torch.cat([t, t]), context=context, dc_skip=skip,
+                       dc_cached=cache)[0]
+
+    if isinstance(diffuser, PFDiffDDIM):
+        return lambda x: pfdiff_deepcache_sample(diffuser, full_fn, shallow_fn, x, interval,
+                                                 eps_fn=cfg_combine)
+    return lambda x: deepcache_sample(diffuser, full_fn, shallow_fn, x, generator, interval,
+                                      postprocess=cfg_combine)
+
+
 @torch.no_grad()
 def sample_images(
     conf: Mapping,
@@ -239,6 +309,10 @@ def sample_images(
     respace_steps: int = 50,
     guidance_scale: float = 7.5,
     guidance_interval: Optional[Sequence[float]] = None,
+    tome_ratio: float = 0.0,
+    tome_max_downsample: int = 1,
+    freeu: Union[None, str, Sequence[float]] = None,
+    deepcache: Optional[Sequence[int]] = None,
     init_image: Optional[np.ndarray] = None,
     strength: float = 0.75,
     inpaint_image: Optional[np.ndarray] = None,
@@ -251,90 +325,101 @@ def sample_images(
     """The pipeline: ``n_samples`` images of ``prompt`` as uint8 [N, H, W, 3].
 
     ``conf`` has ``model`` and ``diffusion`` (``target`` / ``params``), as the
-    YAML file does.  ``init_image`` and ``inpaint_image`` are [-1, 1] float
-    [height, width, 3] arrays, ``inpaint_mask`` a 0 / 1 array on the latent
-    grid [height // 8, width // 8] (1 = keep).  ``sd`` is a ready
-    ``StableDiffusion`` (else it is built from ``conf`` by ``build_model``);
-    ``on_stage(name)`` is called as the work of each stage has been enqueued
-    ("begin", "text_encode", then "sample" and "decode" for each batch).
+    YAML file does.  ``tome_ratio`` / ``tome_max_downsample``, ``freeu`` (a
+    preset name or the four scales) and ``deepcache`` (``(interval, skip)``)
+    are the CLI's accelerator flags.  ``init_image`` and ``inpaint_image``
+    are [-1, 1] float [height, width, 3] arrays, ``inpaint_mask`` a 0 / 1
+    array on the latent grid [height // 8, width // 8] (1 = keep).  ``sd``
+    is a ready ``StableDiffusion`` (else it is built from ``conf`` by
+    ``build_model``); its ToMe and FreeU settings are as before when the call
+    returns.  ``on_stage(name)`` is called as the work of each stage has been
+    enqueued ("begin", "text_encode", then "sample" and "decode" for each
+    batch).
     """
     if sampler not in _SAMPLERS:
-        raise ValueError(f"sampler {sampler!r} is not ported (ddim and ddpm are)")
+        raise ValueError(f"unknown sampler {sampler!r}: one of {sorted(_SAMPLERS)}")
     conflict = flag_conflict(
         sampler=sampler, init_image=init_image, strength=strength, inpaint_image=inpaint_image,
-        inpaint_mask=inpaint_mask, guidance_interval=guidance_interval)
+        inpaint_mask=inpaint_mask, guidance_interval=guidance_interval, deepcache=deepcache)
     if conflict:
         raise ValueError(conflict)
     dev = resolve_device(device)
-    mark = on_stage or (lambda name: None)
     if sd is None:
         sd = build_model(conf, weights, dev)
-    real_weights = bool(weights)
+    with serving_accelerators(sd, tome_ratio, tome_max_downsample, freeu):
+        mark = on_stage or (lambda name: None)
+        dp = dict(conf["diffusion"].get("params", None) or {})
+        dp.pop("device", None)
+        if sampler != "ddpm":
+            dp.pop("var_type", None)
+        dp.update(respace_type=respace_type, respace_steps=respace_steps)
+        extra = dict(guidance_scale=guidance_scale, cond_kwarg="text_embed")
+        if guidance_interval is not None:
+            extra["guidance_interval"] = tuple(guidance_interval)
 
-    dp = dict(conf["diffusion"].get("params", None) or {})
-    dp.pop("device", None)
-    if sampler != "ddpm":
-        dp.pop("var_type", None)
-    dp.update(respace_type=respace_type, respace_steps=respace_steps)
-    extra = dict(guidance_scale=guidance_scale, cond_kwarg="text_embed")
-    if guidance_interval is not None:
-        extra["guidance_interval"] = tuple(guidance_interval)
+        def image_batch(image: np.ndarray) -> torch.Tensor:
+            """[H, W, 3] -> [batch, 3, H, W] on the device."""
+            x = torch.as_tensor(np.ascontiguousarray(image, np.float32), device=dev)
+            return x.permute(2, 0, 1)[None].expand(batch_size, -1, -1, -1).contiguous()
 
-    def image_batch(image: np.ndarray) -> torch.Tensor:
-        """[H, W, 3] -> [batch, 3, H, W] on the device."""
-        x = torch.as_tensor(np.ascontiguousarray(image, np.float32), device=dev)
-        return x.permute(2, 0, 1)[None].expand(batch_size, -1, -1, -1).contiguous()
+        mark("begin")
+        ce = encode_prompt(sd, prompt, batch_size, bool(weights), dev)
+        ue = encode_prompt(sd, negative, batch_size, bool(weights), dev)
+        mark("text_encode")
+        lat_h, lat_w = height // 8, width // 8
+        generator = torch.Generator(device=dev).manual_seed(seed)
 
-    mark("begin")
-    ce = encode_prompt(sd, prompt, batch_size, real_weights, dev)
-    ue = encode_prompt(sd, negative, batch_size, real_weights, dev)
-    mark("text_encode")
-    lat_h, lat_w = height // 8, width // 8
+        span, t_edit, init_lat = {}, None, None
+        if deepcache is not None:
+            interval, skip = deepcache
+            diffuser = (PFDiffDDIM if sampler == "pfdiff" else DDIM)(**dp)
+            run = deepcache_sampler(diffuser, sd, ce, ue, guidance_scale, interval, skip, generator)
+        else:
+            if inpaint_image is not None:
+                # latent inpainting: the known region is overwritten each step
+                # through the guidance seam (dmtpu_torch/diffusions/guidance)
+                diffuser = MaskGuidanceDDIMCFG(**dp, **extra)
+                z_known = sd.encode_latent(image_batch(inpaint_image),
+                                           torch.Generator(device=dev).manual_seed(seed + 1))
+                lat_mask = torch.as_tensor(np.asarray(inpaint_mask, np.float32), device=dev)
+                if lat_mask.shape != (lat_h, lat_w):
+                    raise ValueError(f"inpaint_mask must be [{lat_h}, {lat_w}], got "
+                                     f"{tuple(lat_mask.shape)}")
+                diffuser.set_mask_and_image(
+                    z_known, lat_mask[None, None].expand(batch_size, -1, -1, -1).contiguous())
+            else:
+                diffuser = _SAMPLERS[sampler](**dp, **extra)
+            if init_image is not None:
+                # img2img: encode once, diffuse to the strength point, run the
+                # tail of the reverse tape
+                steps = len(diffuser.respaced_seq)
+                edit_steps = max(1, min(steps, round(strength * steps)))
+                t_edit = int(diffuser.respaced_seq[edit_steps - 1])
+                span = {"start_step": steps - edit_steps}
+                init_lat = sd.encode_latent(image_batch(init_image),
+                                            torch.Generator(device=dev).manual_seed(seed + 2))
+            model_fn = sd.make_model_fn()
 
-    start_row, t_edit, init_lat = 0, None, None
-    if inpaint_image is not None:
-        # latent inpainting: the known region is overwritten each step through
-        # the guidance seam (dmtpu_torch/diffusions/guidance)
-        diffuser = MaskGuidanceDDIMCFG(**dp, **extra)
-        z_known = sd.encode_latent(image_batch(inpaint_image),
-                                   torch.Generator(device=dev).manual_seed(seed + 1))
-        lat_mask = torch.as_tensor(np.asarray(inpaint_mask, np.float32), device=dev)
-        if lat_mask.shape != (lat_h, lat_w):
-            raise ValueError(f"inpaint_mask must be [{lat_h}, {lat_w}], got "
-                             f"{tuple(lat_mask.shape)}")
-        diffuser.set_mask_and_image(
-            z_known, lat_mask[None, None].expand(batch_size, -1, -1, -1).contiguous())
-    else:
-        diffuser = _SAMPLERS[sampler](**dp, **extra)
-    if init_image is not None:
-        # img2img: encode once, diffuse to the strength point, run the tail of
-        # the reverse tape
-        steps = len(diffuser.respaced_seq)
-        edit_steps = max(1, min(steps, round(strength * steps)))
-        t_edit = int(diffuser.respaced_seq[edit_steps - 1])
-        start_row = steps - edit_steps
-        init_lat = sd.encode_latent(image_batch(init_image),
-                                    torch.Generator(device=dev).manual_seed(seed + 2))
+            def run(x):
+                return diffuser.sample(model_fn, x, generator, uncond_conditioning=ue,
+                                       model_kwargs=dict(text_embed=ce), **span)
 
-    model_fn = sd.make_model_fn()
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    images = []
-    done = 0
-    while done < n_samples:
-        x = torch.randn(batch_size, LATENT_CHANNELS, lat_h, lat_w, generator=generator,
-                        device=dev)
-        if init_lat is not None:
-            t = torch.full((batch_size,), t_edit, dtype=torch.int64, device=dev)
-            x = diffuser.diffuse(init_lat, t, x)
-        z = diffuser.sample(model_fn, x, generator, uncond_conditioning=ue,
-                            model_kwargs=dict(text_embed=ce), start_step=start_row)
-        mark("sample")
-        decoded = sd.decode_latent(z).clamp(-1.0, 1.0)
-        mark("decode")
-        take = min(batch_size, n_samples - done)
-        images.append(image_norm_to_uint8(decoded[:take].permute(0, 2, 3, 1).cpu().numpy()))
-        done += take
-    return np.concatenate(images)
+        images = []
+        done = 0
+        while done < n_samples:
+            x = torch.randn(batch_size, LATENT_CHANNELS, lat_h, lat_w, generator=generator,
+                            device=dev)
+            if init_lat is not None:
+                t = torch.full((batch_size,), t_edit, dtype=torch.int64, device=dev)
+                x = diffuser.diffuse(init_lat, t, x)
+            z = run(x)
+            mark("sample")
+            decoded = sd.decode_latent(z).clamp(-1.0, 1.0)
+            mark("decode")
+            take = min(batch_size, n_samples - done)
+            images.append(image_norm_to_uint8(decoded[:take].permute(0, 2, 3, 1).cpu().numpy()))
+            done += take
+        return np.concatenate(images)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -353,6 +438,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         height=args.height, width=args.width, seed=args.seed, sampler=args.sampler,
         respace_type=args.respace_type, respace_steps=args.respace_steps,
         guidance_scale=args.guidance_scale, guidance_interval=args.guidance_interval,
+        tome_ratio=args.tome_ratio, tome_max_downsample=args.tome_max_downsample,
+        freeu=args.freeu_scales if args.freeu_scales is not None else args.freeu,
+        deepcache=args.deepcache,
         init_image=(load_image(args.init_image, args.width, args.height)
                     if args.init_image else None),
         strength=args.strength,

@@ -162,6 +162,10 @@ _PORTED = {
     "dmtpu.diffusions.ddim.DDIM", "dmtpu.diffusions.ddim.DDIMCFG",
     "dmtpu.diffusions.DDPM", "dmtpu.diffusions.DDPMCFG",
     "dmtpu.diffusions.DDIM", "dmtpu.diffusions.DDIMCFG",
+    "dmtpu.diffusions.dpm_solver.DPMSolverPP", "dmtpu.diffusions.dpm_solver.DPMSolverPPCFG",
+    "dmtpu.diffusions.pfdiff.PFDiffDDIM", "dmtpu.diffusions.pfdiff.PFDiffDDIMCFG",
+    "dmtpu.diffusions.DPMSolverPP", "dmtpu.diffusions.DPMSolverPPCFG",
+    "dmtpu.diffusions.PFDiffDDIM", "dmtpu.diffusions.PFDiffDDIMCFG",
     "dmtpu.diffusions.guidance.base.BaseGuidance",
     "dmtpu.diffusions.guidance.mask_guidance.MaskGuidance",
     "dmtpu.diffusions.guidance.mask_guidance.MaskGuidanceDDIMCFG",

@@ -91,3 +91,24 @@ def char_tokenizer_dir(path) -> str:
         f.write("#version: 0.2\n")
     CLIPTokenizer(vocab_file, merges_file).save_pretrained(str(path))
     return str(path)
+
+
+def jax_random_params(module, *args, seed: int = 0) -> dict:
+    """Seeded random Flax params for ``module.init(key, *args)`` without
+    running the init (``jax.eval_shape`` traces it in seconds where the init
+    itself compiles for tens): kernels N(0, 1 / fan_in), norm scales
+    1 + N(0, 0.05^2), biases and everything else N(0, 0.05^2)."""
+    import jax
+
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
+    rs = np.random.RandomState(seed)
+
+    def go(tree, name=""):
+        if hasattr(tree, "items"):
+            return {k: go(v, k) for k, v in tree.items()}
+        noise = rs.randn(*tree.shape).astype(np.float32)
+        if name == "kernel":
+            return noise / np.sqrt(np.prod(tree.shape[:-1]))
+        return (1.0 if name == "scale" else 0.0) + 0.05 * noise
+
+    return {"params": go(shapes["params"])}

@@ -30,6 +30,8 @@ TARGETS = [
     ("diffusions.ddim.DDIMCFG", td.DDIMCFG),
     ("dmtpu.diffusions.ddim.DDIM", td.DDIM),
     ("dmtpu.diffusions.DDIMCFG", td.DDIMCFG),
+    ("diffusions.dpm_solver.DPMSolverPPCFG", td.DPMSolverPPCFG),
+    ("dmtpu.diffusions.pfdiff.PFDiffDDIMCFG", td.PFDiffDDIMCFG),
     ("diffusions.guidance.mask_guidance.MaskGuidance", tg.MaskGuidance),
     ("dmtpu.diffusions.guidance.MaskGuidanceDDIMCFG", tg.MaskGuidanceDDIMCFG),
     ("diffusions.guidance.base.BaseGuidance", tg.BaseGuidance),
@@ -62,7 +64,7 @@ def test_reference_table_is_the_jax_package_s():
 
 
 @pytest.mark.parametrize("target", [
-    "diffusions.dpm_solver.DPMSolverPPCFG", "models.dit.model.DiT", "models.unet.UNet",
+    "diffusions.euler.EulerSampler", "models.dit.model.DiT", "models.unet.UNet",
     "diffusions.guidance.ilvr.ILVR", "dmtpu.models.sdxl.StableDiffusionXL",
     "dmtpu.models.pesser.PesserUNet", "dmtpu.data.captioned.SyntheticEmbedded", "dmtpu.anything",
 ])

@@ -1,9 +1,9 @@
 """``python -m dmtpu_torch.scripts.sample_sd`` on the CPU, demo mode.
 
-The cases of ``tests/test_sample_sd_cli.py`` that the port serves, on the
-same tiny config file: pseudo-tokens -> text encoder -> sampler -> VAE decode
--> PNGs, with ``--device cpu``; the flag conflicts; the flags that are not
-ported yet; and the refusal to run without a card unless told to.
+The cases of ``tests/test_sample_sd_cli.py`` on the same tiny config file:
+pseudo-tokens -> text encoder -> sampler -> VAE decode -> PNGs, with
+``--device cpu``; the serving accelerators' flags, each seen at work; the
+flag conflicts; and the refusal to run without a card unless told to.
 """
 import os
 import subprocess
@@ -13,6 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from dmtpu_torch.diffusions import DPMSolverPPCFG, PFDiffDDIM
+from dmtpu_torch.models.stablediffusion import SDUNetModel
+from dmtpu_torch.models.stablediffusion import attention as sd_attention
+from dmtpu_torch.models.stablediffusion import unet as sd_unet
+from dmtpu_torch.ops import freeu as freeu_lib
 from dmtpu_torch.scripts import sample_sd
 from dmtpu_torch.utils.config import instantiate_from_config, load_config
 from tests._tiny_fixtures import tiny_sd_config
@@ -98,6 +103,32 @@ def test_flag_conflicts_abort(tmp_path, capsys, bad):
     assert not (tmp_path / "o").exists()
 
 
+def _spy(monkeypatch) -> dict:
+    """What the run did: each UNet call's ToMe ratio, FreeU scales and
+    DeepCache pass, and the calls of the solvers' and ToMe's own functions."""
+    seen = {"unet": [], "dpmpp": 0, "pfdiff": 0, "merges": 0, "freeu": 0}
+
+    def count(key, fn):
+        def wrapped(*args, **kwargs):
+            seen[key] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    forward = SDUNetModel.forward
+
+    def unet_forward(self, *args, dc_skip=None, dc_cached=None, **kwargs):
+        seen["unet"].append((self.tome_ratio, self.freeu, dc_skip, dc_cached is not None))
+        return forward(self, *args, dc_skip=dc_skip, dc_cached=dc_cached, **kwargs)
+
+    monkeypatch.setattr(SDUNetModel, "forward", unet_forward)
+    monkeypatch.setattr(DPMSolverPPCFG, "_x0_step", count("dpmpp", DPMSolverPPCFG._x0_step))
+    monkeypatch.setattr(PFDiffDDIM, "_jump_with_eps", count("pfdiff", PFDiffDDIM._jump_with_eps))
+    monkeypatch.setattr(sd_attention, "bipartite_soft_matching_2d",
+                        count("merges", sd_attention.bipartite_soft_matching_2d))
+    monkeypatch.setattr(sd_unet, "apply_freeu", count("freeu", sd_unet.apply_freeu))
+    return seen
+
+
 @pytest.mark.parametrize("flags,named", [
     (["--sampler", "dpmpp"], "--sampler dpmpp"),
     (["--sampler", "pfdiff"], "--sampler pfdiff"),
@@ -108,12 +139,38 @@ def test_flag_conflicts_abort(tmp_path, capsys, bad):
     (["--deepcache", "2", "2"], "--deepcache"),
     (["--sampler", "pfdiff", "--deepcache", "2", "2", "--tome_ratio", "0.5"], "--tome_ratio"),
 ], ids=lambda x: "_".join(s.lstrip("-") for s in x) if isinstance(x, list) else None)
-def test_unported_flags_exit_with_one_line(tmp_path, flags, named):
-    with pytest.raises(SystemExit) as e:
-        sample_sd.main(_argv(tmp_path, "o", flags))
-    message = str(e.value)
-    assert named in message and "not ported" in message and "Queue 1 item 7" in message
-    assert "\n" not in message and not (tmp_path / "o").exists()
+def test_unported_flags_exit_with_one_line(tmp_path, monkeypatch, flags, named):
+    """The JAX CLI's serving-accelerator flags, alone and composed, run end
+    to end and write the images; each flag given (``named`` among them) is
+    seen at work in the run: the solver's own steps, the UNet called with the
+    ToMe ratio and the FreeU scales asked for (and tokens merged where the
+    tiny model has attention at a merged level), shallow DeepCache passes."""
+    seen = _spy(monkeypatch)
+    assert _run(tmp_path, monkeypatch, "o", flags) == ["0.png", "1.png"]
+    opts = vars(sample_sd.parse_args(_argv(tmp_path, "o", flags)))
+    given, engaged = set(), set()
+    if opts["sampler"] != "ddim":
+        given.add(f"--sampler {opts['sampler']}")
+        if seen[opts["sampler"]]:
+            engaged.add(f"--sampler {opts['sampler']}")
+    calls = seen["unet"]
+    if opts["tome_ratio"] > 0:
+        given.add("--tome_ratio")
+        if calls and all(ratio == opts["tome_ratio"] for ratio, *_ in calls):
+            engaged.add("--tome_ratio")
+        # the tiny model's attention sits at ds 2 only
+        assert (seen["merges"] > 0) == (opts["tome_max_downsample"] >= 2)
+    if opts["freeu"] or opts["freeu_scales"]:
+        given.add("--freeu")
+        want = tuple(opts["freeu_scales"] or sample_sd.FREEU_PRESETS[opts["freeu"]])
+        if calls and all(scales == want for _, scales, *_ in calls) and seen["freeu"]:
+            engaged.add("--freeu")
+    if opts["deepcache"]:
+        given.add("--deepcache")
+        if any(shallow for *_, shallow in calls) and not all(shallow for *_, shallow in calls):
+            engaged.add("--deepcache")
+    assert named in given and engaged == given
+    assert freeu_lib.SD21_DEFAULTS == sample_sd.FREEU_PRESETS["sd21"]
 
 
 def test_real_weights_without_tokenizer_abort(tmp_path, monkeypatch):
@@ -201,5 +258,43 @@ def test_sample_images_returns_uint8_and_is_seeded(tmp_path):
     with pytest.raises(ValueError, match=r"\[8, 8\]"):
         sample_sd.sample_images(conf, "x", inpaint_image=known,
                                 inpaint_mask=np.ones((4, 4), np.float32), **kw)
-    with pytest.raises(ValueError, match="not ported"):
-        sample_sd.sample_images(conf, "x", sampler="dpmpp", **kw)
+    with pytest.raises(ValueError, match="unknown sampler"):
+        sample_sd.sample_images(conf, "x", sampler="euler", **kw)
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "pfdiff"])
+def test_deepcache_interval_one_is_the_plain_request(tmp_path, sampler):
+    """``deepcache=(1, skip)`` runs the full UNet at every step: the request's
+    images are the plain sampler's, bit for bit (the output layer is given
+    weights: at its zero init every request gives the same images)."""
+    conf = load_config(tiny_sd_config(tmp_path / "sd.yaml"))
+    sd = sample_sd.build_model(conf, None, torch.device("cpu"))
+    torch.nn.init.normal_(sd.unet.out[2].weight, std=0.3, generator=torch.Generator().manual_seed(1))
+    kw = dict(n_samples=2, batch_size=2, height=64, width=64, respace_steps=5,
+              guidance_scale=3.0, device="cpu", sd=sd, sampler=sampler)
+    plain = sample_sd.sample_images(conf, "a tiny cat", **kw)
+    assert np.array_equal(sample_sd.sample_images(conf, "a tiny cat", deepcache=(1, 2), **kw),
+                          plain)
+    assert not np.array_equal(sample_sd.sample_images(conf, "a tiny cat", deepcache=(2, 2), **kw),
+                              plain)
+
+
+def test_sample_images_leaves_the_model_s_accelerators_as_they_were(tmp_path):
+    conf = load_config(tiny_sd_config(tmp_path / "sd.yaml"))
+    sd = sample_sd.build_model(conf, None, torch.device("cpu"))
+    sd.set_tome(0.3, max_downsample=2, seed=4)
+    seen = []
+    forward = sd.unet.forward
+    sd.unet.forward = lambda *a, **k: seen.append((sd.unet.tome_ratio, sd.unet.freeu)) or \
+        forward(*a, **k)
+    kw = dict(n_samples=1, batch_size=1, height=64, width=64, respace_steps=2, device="cpu", sd=sd)
+    sample_sd.sample_images(conf, "x", tome_ratio=0.5, freeu="sdxl", **kw)
+    assert set(seen) == {(0.5, freeu_lib.SDXL_DEFAULTS)}
+    u = sd.unet
+    assert (u.tome_ratio, u.tome_max_downsample, u.tome_seed, u.freeu) == (0.3, 2, 4, None)
+    with pytest.raises(ValueError, match="FreeU preset"):
+        sample_sd.sample_images(conf, "x", freeu="sd30", **kw)
+    conf["diffusion"]["params"]["objective"] = "pred_v"
+    with pytest.raises(NotImplementedError, match="pred_eps"):
+        sample_sd.sample_images(conf, "x", deepcache=(2, 2), **kw)
+    assert u.tome_ratio == 0.3

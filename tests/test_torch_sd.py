@@ -216,10 +216,22 @@ def test_defaults_scale_factor_and_unported_accelerators():
                          text_encoder_config=_tiny_sd_model()["params"]["text_encoder_config"],
                          scale_factor=0.5)
     assert sd.unet is None and sd.scale_factor == 0.5
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        sd.set_tome(0.5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        sd.set_freeu((1.2, 1.4, 0.9, 0.2))
+    # ToMe and FreeU rebind the UNet's knobs, keep the parameters, chain
+    full = instantiate_from_config(_tiny_sd_model())
+    before = {k: v.clone() for k, v in full.state_dict().items()}
+    assert full.set_tome(0.5, seed=3) is full and full.set_tome(0.6) is full
+    u = full.unet
+    assert (u.tome_ratio, u.tome_sx, u.tome_sy, u.tome_max_downsample, u.tome_seed) == (
+        0.6, 2, 2, 1, 3)  # the knobs left out keep their values
+    full.set_tome(0.0, max_downsample=2, seed=None)
+    assert (u.tome_ratio, u.tome_max_downsample, u.tome_seed) == (0.0, 2, None)
+    assert full.set_freeu((1.2, 1.4, 0.9, 0.2)) is full and u.freeu == (1.2, 1.4, 0.9, 0.2)
+    assert full.set_freeu(None).unet.freeu is None
+    with pytest.raises(ValueError, match="exactly"):
+        full.set_freeu((1.2, 1.4, 0.9))
+    after = full.state_dict()
+    assert after.keys() == before.keys() and all(torch.equal(after[k], v)
+                                                 for k, v in before.items())
     sd.text_encoder.tokenizer = lambda texts, **kw: {
         "input_ids": np.stack([_ids(x)[0] for x in texts])}
     with torch.no_grad():

@@ -110,7 +110,7 @@ def test_tiny_unet_ddim_matches():
 
 @pytest.mark.parametrize("opt", [
     {"num_classes": 10}, {"use_checkpoint": "dots"}, {"use_linear_in_transformer": True},
-    {"tome_ratio": 0.5}, {"freeu": (1.1, 1.2, 0.9, 0.2)}, {"num_res_blocks": [1, 2]},
+    {"num_res_blocks": [1, 2]},
     {"transformer_depth": [1, 2]}, {"use_spatial_transformer": False},
     {"num_attention_blocks": [1, 1]}, {"disable_middle_transformer": True},
     {"use_fp16": True}, {"use_bf16": True},
@@ -121,13 +121,33 @@ def test_unported_options_raise(opt):
         SDUNetModel(**cfg, device="meta")
 
 
+@pytest.mark.parametrize("opt", [{"tome_ratio": 0.5}, {"freeu": (1.1, 1.2, 0.9, 0.2)}],
+                         ids=["tome_ratio", "freeu"])
+def test_serving_accelerator_options_build_and_run(opt):
+    """The options that switch ToMe and FreeU build a model with the same
+    parameters, whose forward runs and differs from the plain model's
+    (parity with the JAX module: ``tests/test_torch_accelerators.py``)."""
+    _, _, plain, x, ts, ctx = _tiny_pair()
+    model = SDUNetModel(**TINY_SD_UNET_CFG, **opt).eval()
+    model.load_state_dict(plain.state_dict())
+    with torch.no_grad():
+        got, want = model(t(x), t(ts), t(ctx)), plain(t(x), t(ts), t(ctx))
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert not torch.allclose(got, want, atol=1e-5)
+
+
 def test_unported_forward_options_raise():
-    model = SDUNetModel(**TINY_SD_UNET_CFG)
-    x, ts = torch.zeros(1, 4, 8, 8), torch.zeros(1, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="DeepCache"):
-        model(x, ts, torch.zeros(1, 7, 24), dc_skip=1)
+    """Vector conditioning still raises; the DeepCache passes run (full: the
+    plain output and the cache; shallow with it: the plain output again)."""
+    model = SDUNetModel(**TINY_SD_UNET_CFG).eval()
+    x, ts = torch.randn(1, 4, 8, 8), torch.zeros(1, dtype=torch.int64)
+    ctx = torch.randn(1, 7, 24)
+    with torch.no_grad():
+        out, u = model(x, ts, ctx, dc_skip=1)
+        assert torch.equal(out, model(x, ts, ctx))
+        assert torch.equal(model(x, ts, ctx, dc_skip=1, dc_cached=u)[0], out)
     with pytest.raises(NotImplementedError, match="conditioning"):
-        model(x, ts, torch.zeros(1, 7, 24), y=torch.zeros(1))
+        model(x, ts, ctx, y=torch.zeros(1))
 
 
 def test_torso_dtype_keeps_norms_and_embedding_f32():
