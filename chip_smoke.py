@@ -9,7 +9,9 @@ uint8 images, with img2img and latent inpainting), the same request with the
 serving accelerators (DPM-Solver++, PFDiff, DeepCache, ToMe, FreeU) and SD1.5
 fine-tuning through its CLIs (``python -m dmtpu_torch.scripts.train_sd``, full and LoRA,
 and ``merge_lora``, from ``configs/sd15_finetune.yaml`` and
-``configs/sd15_lora.yaml``): the
+``configs/sd15_lora.yaml``), and DiT-XL/2 (with MDTv2-XL/2) class-conditional
+sampling at 256x256 through ``python -m dmtpu_torch.scripts.sample_cfg``'s
+request function (phase 11); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -53,6 +55,8 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      512, 512], 4 GiB): f32, eps 1e-6, SiLU on and off, contiguous NCHW (what
      the VAE gives K3) and channels-last (off the path: there a slower
      dispatch is noted, not failed), summed over one decode and one encode;
+     and the decoder's seven shapes at 256x256 on 32 samples (DiT's decode,
+     NCHW), summed over one decode;
   4. one UNet forward through the kernels and one through the plain ops, each
      measured against an f32 plain run (TF32 off): the kernel path must come
      within 1.5x the plain path's error, plus 1e-3; then the batch-16 UNet
@@ -147,7 +151,26 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      checked exactly against the UNet calls by kind (32 and 61 a full call,
      10 and 16 a shallow one, read off the module tree) plus 30 K3 a decode,
      K2 none; (c) a ``torch.profiler`` breakdown of one UNet call on 32
-     samples: full, shallow, with ToMe 0.5 and with FreeU sd15.
+     samples: full, shallow, with ToMe 0.5 and with FreeU sd15;
+ 11. DiT-XL/2 (depth 28, hidden 1152, 16 heads of 72, patch 2, 32x32x4
+     latents, bf16 torso, f32 parameters) with the SD VAE (f32) as
+     ``DIT_CONF``, built through the registry, seeded non-zero weights (the
+     adaLN-Zero modulations and the final layer too), driven through
+     ``sample_cfg``'s ``make_diffuser`` and ``sample_class``: (a) at b2 a
+     forward and a 5-step DDIMCFG request (s = 4, class 207) to 256x256
+     images through the kernels and through the plain ops, each against an
+     f32 plain run (TF32 off): within 1.5x the plain bf16 path's relative L2
+     error, plus 1e-3, with exact launches (28 K1 a forward, 30 K3 a decode);
+     (b) K1 at the request's shape, b64 h16 S=256 d=72 with q, k and v
+     strided views of one projection: both kernels against the plain
+     versions, timed as in 2 beside the bound, SDPA's time and the host's;
+     (c) the timed request: b32, class 207, DDIMCFG-50, s = 4 (one warm-up,
+     one timed: images per second, the stages' times by CUDA events, peak
+     memory, launches exactly 1400 K1 through wgmma, 30 K3, no K2), the
+     forward on 64 samples timed and profiled by class, and the decode
+     profiled; (d) MDTv2-XL/2 (the class's defaults) on a b8 DDIMCFG-10
+     request: finite images, launches K1 0 (its relative-position attention
+     is plain PyTorch), K3 30.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -155,8 +178,10 @@ and all three counted in each of the three timed runs and in the first run
 of each fine-tuning CLI and serving request), error, and its times, bound,
 library time and host time summed over the calls of one forward (K2: of one
 train step; K1's and K3's also over one UNet call on 32 samples, ``cfg_b32``;
-K1's also over the merged self-attentions of one under ToMe, ``tome_b32``;
-K3's also over one VAE decode and one encode), and the card's
+K1's also over the merged self-attentions of one under ToMe, ``tome_b32``,
+and over the 28 of one DiT-XL/2 call on 64 samples, ``dit_b64``; K3's also
+over one VAE decode and one encode, and over one b32 decode at 256x256,
+``dit_vae_decode_b32``), and the card's
 name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
@@ -277,6 +302,37 @@ FT_CONFIG, LORA_CONFIG = "configs/sd15_finetune.yaml", "configs/sd15_lora.yaml"
 FT_SIZE, FT_IMAGES, FT_BATCH, FT_CHECK_BATCH = 512, 16, 8, 2
 FT_STEPS, FT_RESUMED_STEPS, LORA_STEPS, FT_PREVIEW_STEPS, FT_TIMED_STEPS = 4, 6, 3, 10, 5
 FT_CAPTIONS = ("a photo of object {}", "a drawing of thing {}", "an image number {}", "")
+
+# phase 11: DiT-XL/2 class-conditional sampling through ``sample_cfg``'s request
+# function at 256x256 (``benchmarks/northstar.py:75-91``: DiT-XL/2 on 32x32x4
+# latents, bf16 torso), the config dict a YAML file would give: the
+# sd-vae-ft-ema architecture as the VAE, the DiT's linear schedule and learned
+# variance; MDTv2-XL/2 (the class's defaults) beside it
+DIT_CONF = {
+    "data": {"params": {"img_size": 256}, "img_channels": 3, "num_classes": 1000},
+    "model": {
+        "target": "models.dit.dit.DiT",
+        "params": {
+            "vit_config": {"target": "models.dit.model.DiT",
+                           "params": {"depth": 28, "hidden_size": 1152, "patch_size": 2,
+                                      "num_heads": 16, "input_size": 32, "dtype": "bfloat16"}},
+            "vae_config": {"target": "models.dit.autoencoder.AutoEncoderKL",
+                           "params": {"embed_dim": 4, "z_channels": 4, "resolution": 256,
+                                      "ch": 128, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2}},
+        },
+    },
+    "diffusion": {"target": "diffusions.ddpm.DDPM",
+                  "params": {"total_steps": 1000, "beta_schedule": "linear",
+                             "beta_start": 0.0001, "beta_end": 0.02, "objective": "pred_eps",
+                             "var_type": "learned_range"}},
+}
+DIT_B, DIT_STEPS, DIT_SCALE, DIT_CLASS = 32, 50, 4.0, 207
+DIT_CHECK_BATCH, DIT_CHECK_STEPS, MDT_B, MDT_STEPS = 2, 5, 8, 10
+# one DiT-XL/2 forward: 28 self-attentions at S=256 over 16 heads of 72
+DIT_HEADS, DIT_ATTN, DIT_ATTN_PER_FORWARD = 16, (256, 256, 72), 28
+# the VAE decoder at 256x256 (32x32 latents): VAE_DECODE_GN's shapes at a
+# quarter of the pixels; 30 calls a decode
+DIT_DECODE_GN = {(c, hw // 4, silu): n for (c, hw, silu), n in VAE_DECODE_GN.items()}
 
 
 def log(*args):
@@ -561,6 +617,12 @@ def main() -> int:
         + json.dumps(k3_vae["decode"]))
     log(f"K3 per b{B} VAE encode at {T2I_SIZE}x{T2I_SIZE} ({GN_PER_ENCODE} calls): "
         + json.dumps(k3_vae["encode"]))
+    # the same decoder at 256x256 on 32 samples: DiT's request (phase 11)
+    k3_dit = new_totals()
+    for (c, hw, silu), calls in DIT_DECODE_GN.items():
+        add_row(k3_dit, k3_case(c, hw, "f32", silu, 1e-6, nchw, calls, n=DIT_B), calls)
+        torch.cuda.empty_cache()
+    log(f"K3 per b{DIT_B} VAE decode at 256x256 ({GN_PER_DECODE} calls): " + json.dumps(k3_dit))
     # how the rows kernel's time depends on the CTAs a sample is spread over
     # (the plan aims at 64 in all), beside what the card's memory system gives a
     # plain copy (one read, one write) and a plain sum (one read) of the same x
@@ -754,6 +816,11 @@ def main() -> int:
 
     # ---- 10. the serving accelerators ----------------------------------------------
     serve = phase_serving(dev, check, t2i.pop("sd"), ref_model, card)
+
+    # ---- 11. DiT-XL/2 and MDTv2-XL/2 through sample_cfg -------------------------------
+    del ref_model
+    torch.cuda.empty_cache()
+    dit = phase_dit(dev, check, gen, card, time_ms, host_us)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
@@ -764,7 +831,8 @@ def main() -> int:
                       f"txt2img{T2I_STEPS}": t2i["launches"][name],
                       **{path: counted[name] for path, counted in ft["launches"].items()},
                       **{f"serve_{path}": counted[name]
-                         for path, counted in serve["launches"].items()}}
+                         for path, counted in serve["launches"].items()},
+                      **{path: counted[name] for path, counted in dit["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -789,7 +857,10 @@ def main() -> int:
              cfg_b32=k1_cfg,
              # and over the 5 merged self-attentions of a UNet call on 32
              # samples under ToMe at ratios 0.5 and 0.3
-             tome_b32=k1_tome),
+             tome_b32=k1_tome,
+             # and over the 28 self-attentions (d=72) of one DiT-XL/2 call on
+             # the 64 samples of a 32-image CFG request
+             dit_b64=dit["k1_per_forward"]),
         dict(entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
                    "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
                    f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards",
@@ -804,10 +875,13 @@ def main() -> int:
              # decode (30) and encode (22) at 512x512, f32
              vae_decode=k3_vae["decode"], vae_encode=k3_vae["encode"],
              # and over the 61 calls of one UNet call on 32 samples
-             cfg_b32=k3_cfg),
+             cfg_b32=k3_cfg,
+             # and over the 30 calls of one b32 VAE decode at 256x256 (DiT's)
+             dit_vae_decode_b32=k3_dit),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
-        "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"], "card": card}))
+        "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
+        "dit_b32": dit["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1931,6 +2005,276 @@ def phase_finetune_cli(dev, check, gen, ref_model, card) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     return {"launches": launches, "metrics": metrics}
+
+
+def phase_dit(dev, check, gen, card, time_ms, host_us) -> dict:
+    """Phase 11 (see the module docstring): DiT-XL/2 and MDTv2-XL/2
+    class-conditional sampling through ``sample_cfg``'s request function."""
+    import argparse
+
+    import torch
+    from dmtpu_torch.models.dit import DiT, TimmAttention
+    from dmtpu_torch.models.latent import LatentDiffusionWrapper
+    from dmtpu_torch.models.stablediffusion.autoencoder import AutoencoderKL
+    from dmtpu_torch.ops import plain_ops, roofline
+    from dmtpu_torch.ops.attention import mha
+    from dmtpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        flash_attention_reference,
+        kernels_for,
+        select_kernel,
+    )
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.scripts.sample_cfg import make_diffuser, sample_class
+    from dmtpu_torch.utils.config import Config, instantiate_from_config
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel_err(a, ref) -> float:
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+    def diffuser(steps):
+        args = argparse.Namespace(sampler="ddim", guidance_scale=DIT_SCALE, var_type=None,
+                                  guidance_interval=None, ddim_eta=0.0, respace_type="uniform",
+                                  respace_steps=steps)
+        return make_diffuser(args, Config(DIT_CONF))
+
+    conf = Config(DIT_CONF)
+    num_classes = conf.data.num_classes
+    size = conf.data.params.img_size
+    shape = (4, size // 8, size // 8)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # the wrapper from the config dict through the registry: the bf16 DiT-XL/2
+    # torso and the f32 VAE; an f32 DiT with the same weights is the reference
+    model = instantiate_from_config(conf.model, device=dev).eval()
+    vit = model.vit
+    check(isinstance(model, LatentDiffusionWrapper) and isinstance(vit, DiT)
+          and vit.dtype == torch.bfloat16 and isinstance(model.vae, AutoencoderKL),
+          "DiT: LatentDiffusionWrapper built from the config dict, bf16 DiT torso, f32 VAE")
+    g = gen(SEED + 20)
+    init_random_(vit, g)  # adaLN-Zero and the final layer non-zero: else the output is 0
+    init_random_(model.vae, g)
+    ref_vit = DiT(**dict(conf.model.params.vit_config.params, dtype=None), device=dev).eval()
+    ref_vit.load_state_dict(vit.state_dict())
+    attn_calls = sum(isinstance(m, TimmAttention) for m in vit.modules())
+    decode_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in model.vae.decoder.modules())
+    log(f"DiT-XL/2: {sum(p.numel() for p in vit.parameters())} params (f32), depth "
+        f"{len(vit.blocks)}, hidden {vit.hidden_size}, heads {vit.num_heads}, tokens "
+        f"{vit.grid ** 2}; from the module trees: {attn_calls} attention calls a forward, "
+        f"{decode_gn} GroupNorms a decode")
+    check((attn_calls, decode_gn) == (DIT_ATTN_PER_FORWARD, GN_PER_DECODE),
+          f"DiT module trees give {DIT_ATTN_PER_FORWARD} attention and {GN_PER_DECODE} "
+          "GroupNorm calls")
+
+    # (a) agreement at b2: a forward, then a 5-step DDIMCFG request to images
+    b = DIT_CHECK_BATCH
+    x = torch.randn(b, *shape, generator=g, device=dev)
+    ts = torch.tensor([999, 421], device=dev)
+    ys = torch.tensor([DIT_CLASS, num_classes], device=dev)
+    with torch.no_grad():
+        zero_counts()
+        got_k = vit(x, ts, ys)
+        torch.cuda.synchronize()
+        fwd_launches = counts()
+        with plain_ops():
+            got_p, want = vit(x, ts, ys), ref_vit(x, ts, ys)
+    err_k, err_p = rel_err(got_k, want), rel_err(got_p, want)
+    log(f"DiT-XL/2 b{b} forward: rel L2 err vs f32 plain: kernels {err_k:.3e}, plain bf16 "
+        f"{err_p:.3e}; launches {fwd_launches}")
+    check(tuple(got_k.shape) == (b, 8) + shape[1:] and bool(torch.isfinite(got_k).all())
+          and err_k <= 1.5 * err_p + 1e-3,
+          f"DiT forward: [{b}, 8, {shape[1]}, {shape[2]}], err(kernels) <= 1.5 err(plain) "
+          "+ 1e-3")
+    check(fwd_launches == {"K1": DIT_ATTN_PER_FORWARD, "K2": 0, "K3": 0},
+          f"DiT forward launches {fwd_launches} == K1 {DIT_ATTN_PER_FORWARD}")
+    small = dict(shape=shape, num_classes=num_classes, batch_size=b, seed=SEED, device=dev)
+    rows = len(diffuser(DIT_CHECK_STEPS).respaced_seq)
+    zero_counts()
+    img_k = sample_class(model, diffuser(DIT_CHECK_STEPS), DIT_CLASS, b, **small)
+    torch.cuda.synchronize()
+    req_launches = counts()
+    with plain_ops():
+        img_p = sample_class(model, diffuser(DIT_CHECK_STEPS), DIT_CLASS, b, **small)
+        model.vit = ref_vit
+        try:
+            img_f = sample_class(model, diffuser(DIT_CHECK_STEPS), DIT_CLASS, b, **small)
+        finally:
+            model.vit = vit
+    err_k, err_p = rel_err(img_k, img_f), rel_err(img_p, img_f)
+    log(f"DiT b{b}, {rows} DDIMCFG steps, s={DIT_SCALE}, class {DIT_CLASS}, {size}x{size} "
+        f"images: "
+        f"rel L2 err vs the f32 plain run: kernels {err_k:.3e}, plain bf16 {err_p:.3e}; std "
+        f"{img_k.float().std().item():.3f}; launches {req_launches}")
+    check(tuple(img_k.shape) == (b, 3, size, size) and bool(torch.isfinite(img_k).all())
+          and err_k <= 1.5 * err_p + 1e-3,
+          f"DiT request b{b}: [{b}, 3, {size}, {size}], err(kernels) <= 1.5 err(plain) + 1e-3")
+    want_small = {"K1": rows * DIT_ATTN_PER_FORWARD, "K2": 0, "K3": GN_PER_DECODE}
+    check(req_launches == want_small, f"DiT request b2 launches {req_launches} == {want_small}")
+    check(img_k.float().std().item() > 1e-2 and not torch.equal(img_k[0], img_k[1]),
+          "DiT request b2: the images vary, and from sample to sample")
+    del got_k, got_p, want, img_k, img_p, img_f, ref_vit
+    torch.cuda.empty_cache()
+
+    # (b) K1 at the request's shape: b64 (the CFG-doubled b32) h16 S=256 d=72,
+    # q, k and v strided views of one projection, as TimmAttention hands them
+    n, (sq, sk, d), h = 2 * DIT_B, DIT_ATTN, DIT_HEADS
+    qkv = torch.randn(n, sq, 3, h, d, generator=g, device=dev).bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    ref_o, ref_lse = flash_attention_reference(q, k, v)
+    plain = mha(q, k, v)
+    chosen, names = select_kernel(sq, sk, d), kernels_for(d)
+    bound_err = 1e-2 * ref_o.float().abs().max().item()  # as phase 2
+    errs = {}
+    for name in names:
+        o, lse = flash_attention_fwd(q, k, v, kernel=name)
+        torch.cuda.synchronize()
+        err_ref = (o.float() - ref_o.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        rel_mha = (o.float() - plain.float()).abs().max().item() / plain.float().abs().max().item()
+        errs[name] = dict(max_abs_err=err_ref, lse_max_abs_err=err_lse, rel_err_vs_mha=rel_mha)
+        check(err_ref <= bound_err and err_lse <= 1e-3 and rel_mha <= 3e-2
+              and bool(torch.isfinite(o).all()),
+              f"K1[{name}] bf16 b{n} h{h} S={sq} d={d}, strided q/k/v")
+    by_kernel = {name: [] for name in names}
+    for name in names + names[::-1]:
+        by_kernel[name].append(time_ms(lambda: flash_attention_fwd(q, k, v, kernel=name), 50))
+    ms = sum(by_kernel[chosen]) / len(by_kernel[chosen])
+    plain_ms = time_ms(lambda: mha(q, k, v), 5)
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 50)
+    host = host_us(lambda: flash_attention_fwd(q, k, v), 200)
+    bound_t, bound_by = roofline.bound_ms(*roofline.attention_fwd_work(n, h, sq, sk, d))
+    k1_row = dict(b=n, h=h, sq=sq, sk=sk, d=d, calls=DIT_ATTN_PER_FORWARD, kernel=chosen,
+                  **errs[chosen], ms=ms, ms_by_kernel=by_kernel, plain_ms=plain_ms,
+                  bound_ms=bound_t, bound_by=bound_by, library_ms=library_ms, host_us=host,
+                  host_bound=ms <= 1.2 * host / 1e3)
+    log("K1", json.dumps(k1_row))
+    log(f"K1 at DiT's shape: {ms / bound_t:.2f}x its bound, {ms / library_ms:.3f}x SDPA's time "
+        f"({card})")
+    check(chosen == "wgmma" and not_the_slower(by_kernel, chosen, ms, host),
+          f"K1 dispatch b{n} S={sq} d={d}: {chosen} (wgmma) is not the slower kernel")
+    k1_per_forward = {key: DIT_ATTN_PER_FORWARD * k1_row[key]
+                      for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us")}
+    k1_per_forward.update(err=errs[chosen]["max_abs_err"],
+                          bound_ms_by={bound_by: k1_per_forward["bound_ms"]})
+    del qkv, q, k, v, qt, kt, vt, ref_o, ref_lse, plain
+    torch.cuda.empty_cache()
+
+    # (c) the timed request: b32, class 207, DDIMCFG-50, s = 4, 256x256, with
+    # the VAE's f32 convolutions in TF32 (cuDNN's default, which the CLI keeps)
+    torch.backends.cudnn.allow_tf32 = True
+    events = []
+
+    def on_stage(name):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        events.append((name, event))
+
+    timed = dict(shape=shape, num_classes=num_classes, batch_size=DIT_B, seed=SEED, device=dev)
+    sampler = diffuser(DIT_STEPS)
+    rows = len(sampler.respaced_seq)
+    sample_class(model, sampler, DIT_CLASS, DIT_B, **timed)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    on_stage("begin")
+    images = sample_class(model, sampler, DIT_CLASS, DIT_B, on_stage=on_stage, **timed)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, by_kernel = counts(), dict(flash_attention_fwd.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated()
+    stage_ms = {name: before.elapsed_time(after)
+                for (_, before), (name, after) in zip(events, events[1:])}
+    want = {"K1": rows * DIT_ATTN_PER_FORWARD, "K2": 0, "K3": GN_PER_DECODE}
+    # one sampler step's model call on the CFG-doubled batch, profiled
+    x2 = torch.randn(2 * DIT_B, *shape, generator=g, device=dev)
+    t2 = torch.full((2 * DIT_B,), 500, device=dev)
+    y2 = torch.cat([torch.full((DIT_B,), DIT_CLASS, device=dev),
+                    torch.full((DIT_B,), num_classes, device=dev)])
+    with torch.no_grad():
+        step_ms = time_ms(lambda: vit(x2, t2, y2), 5)
+        profile = profile_by_class(lambda: vit(x2, t2, y2), 2)
+        z = torch.randn(DIT_B, *shape, generator=g, device=dev)
+        decode_profile = profile_by_class(lambda: model.decode_latent(z), 1)
+    metrics = {"imgs_per_s": DIT_B / seconds, "seconds": seconds, "batch": DIT_B, "steps": rows,
+               "size": size, "class": DIT_CLASS,
+               "guidance_scale": DIT_SCALE, "stage_ms": stage_ms, "peak_bytes": peak,
+               "cfg_forward_ms": step_ms, "cfg_forward_profile_ms": profile["classes"],
+               "cfg_forward_wall_ms": profile["wall_ms"],
+               "vae_decode_profile_ms": decode_profile["classes"], "launches": launches,
+               "k1_by_kernel": by_kernel}
+    log(f"DiT-XL/2 b{DIT_B}, DDIMCFG-{DIT_STEPS} ({rows} DiT calls on {2 * DIT_B} samples), "
+        f"class {DIT_CLASS}, s={DIT_SCALE}, {size}x{size}: {seconds:.3f} s, "
+        f"{metrics['imgs_per_s']:.4f} images/s, stages (CUDA events, ms) {json.dumps(stage_ms)}, "
+        f"peak {peak / 2**30:.3f} GiB ({card}); launches {launches}, K1 by kernel {by_kernel}")
+    log(f"DiT-XL/2 forward on {2 * DIT_B} samples: {step_ms:.3f} ms (CUDA events, 5 forwards); "
+        f"device time by class (torch.profiler, ms per forward over 2; wall "
+        f"{profile['wall_ms']:.3f} ms under the profiler): " + json.dumps(profile["classes"]))
+    for name, kernel_ms in profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {name}")
+    log(f"VAE decode b{DIT_B} {size}x{size}, TF32, device time by class (one decode): "
+        + json.dumps(decode_profile["classes"]))
+    check(tuple(images.shape) == (DIT_B, 3, size, size) and bool(torch.isfinite(images).all())
+          and images.float().std().item() > 1e-2,
+          f"DiT request b{DIT_B}: finite [{DIT_B}, 3, {size}, {size}]")
+    check(launches == want, f"DiT request b{DIT_B} launches {launches} == {want}")
+    check(by_kernel == {"mma": 0, "wgmma": want["K1"]},
+          f"DiT request b{DIT_B}: every K1 launch through wgmma {by_kernel}")
+    check(profile["classes"]["K1 attention"] > 0, "profile: the DiT forward ran K1 on the card")
+    del images, x2, t2, y2, z
+    torch.cuda.empty_cache()
+
+    # (d) MDTv2-XL/2 (the class's defaults) on a DDIMCFG-10 b8 request: its
+    # relative-position attention is plain PyTorch, so K1 is not launched
+    mdt_conf = {"target": "models.mdt.mdt.MDT",
+                "params": {"vit_config": {"target": "models.mdt.model.MDTv2",
+                                          "params": {"dtype": "bfloat16"}},
+                           "vae_config": conf.model.params.vae_config}}
+    mdt = instantiate_from_config(Config(mdt_conf), device=dev).eval()
+    init_random_(mdt.vit, g)
+    mdt.vae.load_state_dict(model.vae.state_dict())
+    del model, vit
+    torch.cuda.empty_cache()
+    log(f"MDTv2-XL/2: {sum(p.numel() for p in mdt.vit.parameters())} params, "
+        f"{len(mdt.vit.en_inblocks) + len(mdt.vit.en_outblocks) + len(mdt.vit.de_blocks)} "
+        f"blocks (+1 side block), decode_layer {mdt.vit.decode_layer}")
+    small = dict(timed, batch_size=MDT_B)
+    sampler = diffuser(MDT_STEPS)
+    rows = len(sampler.respaced_seq)
+    sample_class(mdt, sampler, DIT_CLASS, MDT_B, **small)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    images = sample_class(mdt, sampler, DIT_CLASS, MDT_B, **small)
+    torch.cuda.synchronize()
+    mdt_seconds = time.perf_counter() - t0
+    mdt_launches = counts()
+    want = {"K1": 0, "K2": 0, "K3": GN_PER_DECODE}
+    log(f"MDTv2-XL/2 b{MDT_B}, DDIMCFG-{MDT_STEPS} ({rows} calls on {2 * MDT_B} samples), "
+        f"{size}x{size}: {mdt_seconds:.3f} s, {MDT_B / mdt_seconds:.4f} images/s ({card}); "
+        f"launches {mdt_launches}")
+    check(tuple(images.shape) == (MDT_B, 3, size, size) and bool(torch.isfinite(images).all())
+          and images.float().std().item() > 1e-2,
+          f"MDTv2 request b{MDT_B}: finite [{MDT_B}, 3, {size}, {size}]")
+    check(mdt_launches == want, f"MDTv2 request b{MDT_B} launches {mdt_launches} == {want}")
+    metrics["mdt_b8_ddimcfg10"] = {"imgs_per_s": MDT_B / mdt_seconds, "seconds": mdt_seconds,
+                                   "steps": rows, "launches": mdt_launches}
+    del mdt, images
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    return {"launches": {"dit_ddimcfg50": launches, "mdt_ddimcfg10": mdt_launches},
+            "metrics": metrics, "k1": k1_row, "k1_per_forward": k1_per_forward}
 
 
 # kernel-name fragments -> class, first match wins

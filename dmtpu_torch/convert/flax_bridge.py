@@ -14,6 +14,11 @@ converts torch tensors onto Flax leaves by fixed rules
   text_projection        -> text_projection  (the CLIP tower's raw
                             [width, projection_dim] matrix, used as
                             ``pooled @ text_projection`` in both packages)
+  pos_embed, decoder_pos_embed, mask_token,
+  rel_pos_bias__relative_position_bias_table
+                         -> the same name, ``__`` as ``.`` (MDT's raw
+                            parameters, declared under their torch names
+                            and layouts)
 
 so parameters made by the JAX package load into the port's modules, whose
 keys are the upstream torch keys.  The params tree is nested dicts of numpy
@@ -29,6 +34,9 @@ import torch
 from torch import nn
 
 _LEAF = {"scale": "weight", "embedding": "weight", "bias": "bias"}
+# raw parameters (``self.param``) that carry their torch name and layout
+_RAW = {"text_projection", "pos_embed", "decoder_pos_embed", "mask_token",
+        "rel_pos_bias__relative_position_bias_table"}
 
 
 def torch_name(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
@@ -45,8 +53,8 @@ def torch_name(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[Tuple[in
         name = "weight"
     elif leaf in _LEAF:
         name, perm = _LEAF[leaf], None
-    elif leaf == "text_projection":
-        name, perm = leaf, None
+    elif leaf in _RAW:
+        name, perm = leaf.replace("__", "."), None
     else:
         raise ValueError(f"unknown Flax leaf {leaf!r} at {'/'.join(path)}")
     return (f"{base}.{name}" if base else name), perm

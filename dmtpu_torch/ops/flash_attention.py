@@ -12,8 +12,8 @@ to 48, 80 or 160 in shared memory) and ragged sequence lengths (masked).
   ``flash_attention_bwd``.
 - ``flash_attention_fwd(q, k, v, scale) -> (o, lse)`` (K1): ``lse`` is the
   f32 row logsumexp [B, H, S_q] that the backward consumes.  Two kernels
-  stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims 40
-  and 80, the long self-attention shapes) and ``csrc/flash_attn_fwd_mma.cu``
+  stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims 40,
+  72 and 80, the long self-attention shapes) and ``csrc/flash_attn_fwd_mma.cu``
   (mma.sync, everything else); ``select_kernel`` is the gate.
 - ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2).
   Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
@@ -115,11 +115,11 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 # K1 is two hand-written kernels with one interface.  "wgmma"
 # (csrc/flash_attn_fwd.cu: TMA loads, a ring of K/V stages, wgmma, 128 Q rows
-# and 128 keys a tile) is instantiated for head dims 40 and 80 and needs a
-# positive scale (it takes the running max before scaling); "mma"
-# (csrc/flash_attn_fwd_mma.cu: mma.sync, 64 x 64 tiles) takes every head dim
-# up to 160.
-WGMMA_HEAD_DIMS = (40, 80)
+# and 128 keys a tile) is instantiated for head dims 40 and 80 (SD1.5) and 72
+# (DiT) and needs a positive scale (it takes the running max before scaling);
+# "mma" (csrc/flash_attn_fwd_mma.cu: mma.sync, 64 x 64 tiles) takes every
+# head dim up to 160.
+WGMMA_HEAD_DIMS = (40, 72, 80)
 # Below this many keys the wgmma kernel is one 128-key tile, mostly masked,
 # and the mma.sync kernel is as fast or faster; see the gate's numbers in
 # ``select_kernel``.
@@ -143,7 +143,10 @@ def select_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> st
     0.123; S_q=1024 S_k=77 d=80 0.051 / 0.048, both within the 0.047 ms the
     host takes to launch one.  So the wgmma kernel takes what has more than
     one 128-key tile; with 77 keys its one tile is 40% masked keys and the
-    shape stays on mma.sync.
+    shape stays on mma.sync.  DiT-XL/2's self-attention (phase 11, b64 h16
+    S=256 d=72, two key tiles, q/k/v strided views of one projection), two
+    timings each: mma.sync 0.1465 and 0.1463 ms, wgmma 0.1055 and 0.1052; so
+    d=72 takes the same rule.
     """
     if "wgmma" in kernels_for(d, scale) and sk >= WGMMA_MIN_KEYS:
         return "wgmma"
@@ -202,6 +205,8 @@ flash_attention_fwd.launches_by_kernel = {"mma": 0, "wgmma": 0}
 # (csrc/flash_attn_bwd_mma.cu: mma.sync, 64-key tiles, dQ by scalar f32
 # atomics) takes every head dim up to 160 and any strides.
 _BWD_ENTRY_POINTS = {"mma": "dmtpu_flash_attn_bwd_mma", "wgmma": "dmtpu_flash_attn_bwd"}
+# K2's wgmma kernel is instantiated for head dims 40 and 80 only
+WGMMA_BWD_HEAD_DIMS = (40, 80)
 _BWD_ROWS = {40: 128, 80: 64}  # the wgmma kernel pads its f32 scratch to whole steps of rows
 # Its key tile.  With no more keys than this a CTA holds every contribution to
 # its dq rows: it writes them in bf16 itself, the same bits in every run, and
@@ -211,7 +216,7 @@ WGMMA_BWD_KEY_TILE = 128
 
 def bwd_kernels_for(d: int) -> list[str]:
     """The K2 kernels that take head dim ``d``, the general one first."""
-    return ["mma", "wgmma"] if d in WGMMA_HEAD_DIMS else ["mma"]
+    return ["mma", "wgmma"] if d in WGMMA_BWD_HEAD_DIMS else ["mma"]
 
 
 def select_bwd_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> str:

@@ -172,6 +172,8 @@ _PORTED = {
     "dmtpu.diffusions.guidance.BaseGuidance", "dmtpu.diffusions.guidance.MaskGuidance",
     "dmtpu.diffusions.guidance.MaskGuidanceDDIMCFG",
     "dmtpu.models.ema.EMAState",
+    "dmtpu.models.dit.DiT", "dmtpu.models.mdt.MDTv2",
+    "dmtpu.models.latent.LatentDiffusionWrapper", "dmtpu.models.latent.PretrainedVAE",
     "dmtpu.models.stablediffusion.StableDiffusion",
     "dmtpu.models.stablediffusion.SDUNetModel",
     "dmtpu.models.stablediffusion.unet.SDUNetModel",

@@ -16,7 +16,10 @@ from dmtpu_torch import diffusions as td
 from dmtpu_torch.data import captioned
 from dmtpu_torch.diffusions import guidance as tg
 from dmtpu_torch.models import stablediffusion as tsd
+from dmtpu_torch.models.dit import DiT
 from dmtpu_torch.models.ema import EMAState
+from dmtpu_torch.models.latent import LatentDiffusionWrapper, PretrainedVAE
+from dmtpu_torch.models.mdt import MDTv2
 from dmtpu_torch.utils import config as tconfig
 from dmtpu_torch.utils import image as timage
 from dmtpu_torch.utils import optim as toptim
@@ -49,6 +52,13 @@ TARGETS = [
     ("torch.optim.SGD", toptim.sgd),
     ("dmtpu.data.captioned.CaptionedImageDir", captioned.CaptionedImageDir),
     ("dmtpu.data.captioned.SyntheticCaptioned", captioned.SyntheticCaptioned),
+    ("models.dit.dit.DiT", LatentDiffusionWrapper),
+    ("models.dit.model.DiT", DiT),
+    ("dmtpu.models.dit.DiT", DiT),
+    ("models.mdt.mdt.MDT", LatentDiffusionWrapper),
+    ("models.mdt.model.MDTv2", MDTv2),
+    ("models.dit.autoencoder.AutoEncoderKL", PretrainedVAE),
+    ("models.mdt.autoencoder.AutoEncoderKL", PretrainedVAE),
     ("dmtpu_torch.diffusions.ddim.DDIM", td.DDIM),   # this package's own paths
     ("collections.OrderedDict", __import__("collections").OrderedDict),  # any other import
 ]
@@ -64,7 +74,7 @@ def test_reference_table_is_the_jax_package_s():
 
 
 @pytest.mark.parametrize("target", [
-    "diffusions.euler.EulerSampler", "models.dit.model.DiT", "models.unet.UNet",
+    "diffusions.euler.EulerSampler", "models.mmdit.MMDiT", "models.unet.UNet",
     "diffusions.guidance.ilvr.ILVR", "dmtpu.models.sdxl.StableDiffusionXL",
     "dmtpu.models.pesser.PesserUNet", "dmtpu.data.captioned.SyntheticEmbedded", "dmtpu.anything",
 ])

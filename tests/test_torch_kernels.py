@@ -325,6 +325,26 @@ def test_k1_each_kernel_reads_strided_projections(cuda, kernel):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [None, "mma", "wgmma"])
+def test_k1_at_dit_xl2_shape_through_every_kernel(cuda, kernel):
+    """DiT-XL/2's self-attention, S=256 over 16 heads of 72, q, k and v the
+    strided views of one [B, S, 3, H, D] projection that ``TimmAttention``
+    hands K1; the dispatch sends d=72 with two key tiles to wgmma."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    qkv = torch.randn(4, 256, 3, 16, 72, generator=g, device=cuda).bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert select_kernel(256, 256, 72) == "wgmma" and k1_kernels_for(72) == ["mma", "wgmma"]
+    before = dict(flash_attention_fwd.launches_by_kernel)
+    o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
+    took = kernel or "wgmma"
+    assert flash_attention_fwd.launches_by_kernel[took] == before[took] + 1
+    want_o, want_lse = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert_k1_close(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_k1_dispatch_leaves_what_wgmma_cannot_take_to_mma(cuda):
     """A scale that is not positive, and a broadcast (zero-stride) k, go to the
     mma.sync kernel by themselves and are refused when wgmma is forced."""
