@@ -9,9 +9,11 @@ uint8 images, with img2img and latent inpainting), the same request with the
 serving accelerators (DPM-Solver++, PFDiff, DeepCache, ToMe, FreeU) and SD1.5
 fine-tuning through its CLIs (``python -m dmtpu_torch.scripts.train_sd``, full and LoRA,
 and ``merge_lora``, from ``configs/sd15_finetune.yaml`` and
-``configs/sd15_lora.yaml``), and DiT-XL/2 (with MDTv2-XL/2) class-conditional
+``configs/sd15_lora.yaml``), DiT-XL/2 (with MDTv2-XL/2) class-conditional
 sampling at 256x256 through ``python -m dmtpu_torch.scripts.sample_cfg``'s
-request function (phase 11); for the SD paths the
+request function (phase 11), and DiT-XL/2 class-conditional training at
+batch 32 through ``python -m dmtpu_torch.scripts.train_ddpm_cfg`` (phase 12);
+for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -170,7 +172,30 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      forward on 64 samples timed and profiled by class, and the decode
      profiled; (d) MDTv2-XL/2 (the class's defaults) on a b8 DDIMCFG-10
      request: finite images, launches K1 0 (its relative-position attention
-     is plain PyTorch), K3 30.
+     is plain PyTorch), K3 30;
+ 12. DiT-XL/2 class-conditional training (``DIT_TRAIN``: ``bench.py``'s
+     ``dit_train``, bf16 torso, no remat, ``learn_sigma=False``): (a) K2 at
+     b32 h16 S=256 d=72 on strided q/k/v views of one projection, from K1's
+     outputs and a random dO: both kernels against the plain version and
+     f32 autograd through ``mha`` (phase 6's tolerances), timed as in 6
+     beside the bound, SDPA's backward and the host's time; the dispatch's
+     wgmma must not be the slower; (b) at b2 the loss, the gradient and its
+     norm through the kernels and through the plain ops, each against an
+     f32 plain run (TF32 off): within 1.5x the plain bf16 path's relative
+     error, plus 1e-3; exactly 28 K1 and 28 K2 launches a step, all wgmma;
+     (c) b32, adafactor 1e-4, clip 1.0, no EMA: a warm-up, 10 timed steps
+     (images per second, ms per step, peak memory, launches exactly 10 x
+     (28, 28, 0), all wgmma), one profiled step (device time by class,
+     annotated ranges, the card's idle share); (d) ``train_ddpm_cfg.main``
+     in this process from a config the phase writes into a temporary
+     directory (DiT-XL/2, ``Synthetic`` 32x32x4 latents of 1000 classes,
+     batch 32, a bf16 EMA, ``p_uncond`` 0.1): 4 steps with a save at step 2
+     and an eval grid at step 3, then ``-r latest`` to 6: checkpoints, grids
+     (RGBA latents), the resumed step and EMA count, finite losses, exact
+     launches (training and the grid's 50-step DDPMCFG), ms per step,
+     checkpoint seconds and bytes; the directory is removed; (e) MDTv2-XL/2
+     at b8: one unmasked train step and a masked (``mask_ratio`` 0.3)
+     forward and backward, finite gradients everywhere, times, no kernel.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -181,7 +206,8 @@ train step; K1's and K3's also over one UNet call on 32 samples, ``cfg_b32``;
 K1's also over the merged self-attentions of one under ToMe, ``tome_b32``,
 and over the 28 of one DiT-XL/2 call on 64 samples, ``dit_b64``; K3's also
 over one VAE decode and one encode, and over one b32 decode at 256x256,
-``dit_vae_decode_b32``), and the card's
+``dit_vae_decode_b32``; K2's also over the 28 of one DiT-XL/2 b32 train step,
+``dit_train_b32``), and the card's
 name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
@@ -333,6 +359,16 @@ DIT_HEADS, DIT_ATTN, DIT_ATTN_PER_FORWARD = 16, (256, 256, 72), 28
 # the VAE decoder at 256x256 (32x32 latents): VAE_DECODE_GN's shapes at a
 # quarter of the pixels; 30 calls a decode
 DIT_DECODE_GN = {(c, hw // 4, silu): n for (c, hw, silu), n in VAE_DECODE_GN.items()}
+
+# phase 12: DiT-XL/2 class-conditional training, ``bench.py``'s ``dit_train``
+# (``benchmarks/train_northstar.py:158-192``: DiT-XL/2 on 32x32x4 latents,
+# bf16 torso, no remat, ``learn_sigma=False``, adafactor 1e-4, clip 1.0, no
+# EMA, batch 32), and ``train_ddpm_cfg`` from a config the phase writes
+DIT_TRAIN = dict(depth=28, hidden_size=1152, patch_size=2, num_heads=16, input_size=32,
+                 learn_sigma=False, use_checkpoint=False, dtype="bfloat16")
+DIT_TRAIN_B, DIT_TRAIN_STEPS, DIT_TRAIN_CHECK_BATCH = 32, 10, 2
+DIT_CLI_STEPS, DIT_CLI_RESUMED_STEPS, DIT_CLI_IMAGES = 4, 6, 128
+MDT_TRAIN_B, MDT_MASK_RATIO = 8, 0.3
 
 
 def log(*args):
@@ -821,6 +857,10 @@ def main() -> int:
     del ref_model
     torch.cuda.empty_cache()
     dit = phase_dit(dev, check, gen, card, time_ms, host_us)
+
+    # ---- 12. DiT-XL/2 training and train_ddpm_cfg ------------------------------------
+    torch.cuda.empty_cache()
+    dit_train = phase_dit_train(dev, check, gen, card, time_ms, host_us)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
@@ -832,7 +872,8 @@ def main() -> int:
                       **{path: counted[name] for path, counted in ft["launches"].items()},
                       **{f"serve_{path}": counted[name]
                          for path, counted in serve["launches"].items()},
-                      **{path: counted[name] for path, counted in dit["launches"].items()}}
+                      **{path: counted[name] for path, counted in dit["launches"].items()},
+                      **{path: counted[name] for path, counted in dit_train["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -867,7 +908,12 @@ def main() -> int:
                    k2),
              other_sources=["dmtpu_torch/csrc/flash_attn_bwd_mma.cu",
                             "dmtpu_torch/csrc/hopper.cuh"],
-             launches_by_kernel=train["k2_by_kernel"], ms_by_kernel=k2_by_kernel),
+             launches_by_kernel=train["k2_by_kernel"], ms_by_kernel=k2_by_kernel,
+             # the same columns over the 28 attention backwards (d=72, the
+             # wgmma instance) of one DiT-XL/2 b32 train step, and their
+             # launches by kernel in the 10 timed steps
+             dit_train_b32=dit_train["k2_per_step"],
+             dit_train_launches_by_kernel=dit_train["k2_by_kernel"]),
         dict(entry("group_norm_silu", "dmtpu_torch/csrc/group_norm_silu.cu",
                    "dmtpu/ops/groupnorm.py:44", (main_launches["K3"], by_path["K3"]),
                    f"per b{B} UNet forward: sum over its {GN_PER_FORWARD} GroupNorm calls", k3),
@@ -881,7 +927,7 @@ def main() -> int:
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
         "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
-        "dit_b32": dit["metrics"], "card": card}))
+        "dit_b32": dit["metrics"], "dit_train_b32": dit_train["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -2275,6 +2321,379 @@ def phase_dit(dev, check, gen, card, time_ms, host_us) -> dict:
     torch.cuda.empty_cache()
     return {"launches": {"dit_ddimcfg50": launches, "mdt_ddimcfg10": mdt_launches},
             "metrics": metrics, "k1": k1_row, "k1_per_forward": k1_per_forward}
+
+
+def phase_dit_train(dev, check, gen, card, time_ms, host_us) -> dict:
+    """Phase 12 (see the module docstring): DiT-XL/2 class-conditional
+    training through K1 and K2 at head dim 72, ``train_ddpm_cfg`` in this
+    process, and an MDTv2-XL/2 step."""
+    import shutil
+    import tempfile
+
+    import torch
+    import yaml
+    from dmtpu_torch.diffusions import DDPM
+    from dmtpu_torch.models.dit import DiT
+    from dmtpu_torch.models.mdt import MDTv2, sample_len_keep
+    from dmtpu_torch.ops import plain_ops, roofline
+    from dmtpu_torch.ops.attention import mha
+    from dmtpu_torch.ops.flash_attention import (
+        bwd_kernels_for,
+        flash_attention_backward_reference,
+        flash_attention_bwd,
+        flash_attention_fwd,
+        select_bwd_kernel,
+    )
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
+    from dmtpu_torch.scripts import train_ddpm_cfg
+    from dmtpu_torch.utils import checkpoint as ckpt_lib
+    from dmtpu_torch.utils.config import Config
+    from dmtpu_torch.utils.optim import adafactor
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
+        flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def by_kernel():
+        return {"K1": dict(flash_attention_fwd.launches_by_kernel),
+                "K2": dict(flash_attention_bwd.launches_by_kernel)}
+
+    def rel(a, ref) -> float:
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, h, (sq, sk, d) = DIT_TRAIN_B, DIT_HEADS, DIT_ATTN
+    per_step = {"K1": DIT_ATTN_PER_FORWARD, "K2": DIT_ATTN_PER_FORWARD, "K3": 0}
+    all_wgmma = {"K1": {"mma": 0, "wgmma": DIT_ATTN_PER_FORWARD},
+                 "K2": {"mma": 0, "wgmma": DIT_ATTN_PER_FORWARD}}
+
+    # (a) K2 at DiT's shape, b32 h16 S=256 d=72, from K1's outputs and a
+    # random dO; q, k and v strided views of one projection, as
+    # TimmAttention hands them
+    g = gen(SEED + 30)
+    qkv = torch.randn(n, sq, 3, h, d, generator=g, device=dev).bfloat16()
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn(n, sq, h, d, generator=g, device=dev).bfloat16()
+    o, lse = flash_attention_fwd(q, k, v)
+    names, chosen = bwd_kernels_for(d), select_bwd_kernel(sq, sk, d)
+    plain = flash_attention_backward_reference(q, k, v, o, lse, do)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    mha(*leaves).backward(do.float())
+    errs = {}
+    for name in names:
+        got = flash_attention_bwd(q, k, v, o, lse, do, kernel=name)
+        torch.cuda.synchronize()
+        ok = all(bool(torch.isfinite(x).all()) and x.dtype == torch.bfloat16 for x in got)
+        errs[name] = {}
+        # phase 6's tolerances (see there)
+        for grad, a, want, leaf in zip(("dq", "dk", "dv"), got, plain, leaves):
+            a, want, f32 = a.float(), want.float(), leaf.grad
+            err = (a - want).abs().max().item()
+            errs[name].update({f"{grad}_max_abs_err": err, f"{grad}_rel_l2": rel(a, want),
+                               f"{grad}_rel_l2_vs_f32_mha": rel(a, f32)})
+            ok = ok and err <= 1e-2 * want.abs().max().item() and rel(a, want) <= 1e-2 and \
+                rel(a, f32) <= 2e-2 and \
+                (a - f32).abs().max().item() <= 2e-2 * f32.abs().max().item()
+        check(ok, f"K2[{name}] bf16 b{n} h{h} S={sq} d={d}, strided q/k/v: vs plain and vs f32 "
+                  "mha autograd")
+        del got
+    del plain, leaves
+    torch.cuda.empty_cache()
+    ms_by_kernel = {name: [] for name in names}
+    for name in names + names[::-1]:
+        ms_by_kernel[name].append(
+            time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, kernel=name), 20))
+    ms = sum(ms_by_kernel[chosen]) / len(ms_by_kernel[chosen])
+    plain_ms = time_ms(lambda: flash_attention_backward_reference(q, k, v, o, lse, do), 3)
+    lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    ldo = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+        lq.grad = lk.grad = lv.grad = None
+        out.backward(ldo)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+
+    library_ms = time_ms(sdpa_fwd_bwd, 20) - time_ms(sdpa_fwd, 20)
+    host = host_us(lambda: flash_attention_bwd(q, k, v, o, lse, do), 100)
+    bound_t, bound_by = roofline.bound_ms(*roofline.attention_bwd_work(n, h, sq, sk, d))
+    k2_row = dict(b=n, h=h, sq=sq, sk=sk, d=d, calls=DIT_ATTN_PER_FORWARD, kernel=chosen,
+                  **errs[chosen], ms=ms, ms_by_kernel=ms_by_kernel, plain_ms=plain_ms,
+                  bound_ms=bound_t, bound_by=bound_by, library_ms=library_ms, host_us=host,
+                  host_bound=ms <= 1.2 * host / 1e3)
+    log("K2", json.dumps(k2_row))
+    best = {name: min(times) for name, times in ms_by_kernel.items()}
+    log(f"K2 at DiT's shape: {ms / bound_t:.2f}x its bound, {ms / library_ms:.3f}x SDPA's "
+        f"backward, the faster kernel {min(best, key=best.get)} ({card})")
+    check(chosen == "wgmma" and not_the_slower(ms_by_kernel, chosen, ms, host),
+          f"K2 dispatch b{n} S={sq} d={d}: {chosen} (wgmma) is not the slower kernel")
+    k2_per_step = {key: DIT_ATTN_PER_FORWARD * k2_row[key]
+                   for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us")}
+    k2_per_step.update(err=max(errs[chosen][f"{x}_max_abs_err"] for x in ("dq", "dk", "dv")),
+                       bound_ms_by={bound_by: k2_per_step["bound_ms"]})
+    del qkv, q, k, v, do, o, lse, lq, lk, lv, ldo
+    torch.cuda.empty_cache()
+
+    # (b) agreement at b2: the loss and the gradient of a DiT-XL/2 step
+    # through the kernels and through the plain bf16 path, each against an
+    # f32 plain run (TF32 off); seeded non-zero weights (adaLN-Zero and the
+    # final layer too, or most gradients would be zero)
+    model = DiT(**DIT_TRAIN, device=dev).train()
+    init_random_(model, g)
+    ref = DiT(**dict(DIT_TRAIN, dtype=None), device=dev).train()
+    ref.load_state_dict(model.state_dict())
+    diffuser = DDPM(total_steps=1000)
+    b = DIT_TRAIN_CHECK_BATCH
+    fixed = {"x": torch.randn(b, 4, 32, 32, generator=g, device=dev),
+             "eps": torch.randn(b, 4, 32, 32, generator=g, device=dev),
+             "t": torch.tensor([999, 421], device=dev)[:b],
+             "y": torch.tensor([DIT_CLASS, 1000], device=dev)[:b]}  # a class and the null row
+
+    def loss_and_grads(m, plain: bool):
+        m.zero_grad(set_to_none=True)
+        with plain_ops() if plain else contextlib.nullcontext():
+            loss = diffuser.loss_func(lambda xt, tt: m(xt, tt, fixed["y"], train=True),
+                                      fixed["x"], fixed["t"], eps=fixed["eps"])
+            loss.backward()
+        grads = {name: p.grad.detach().clone() for name, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    def grad_err(grads, want) -> float:
+        return (sum((grads[k_] - want[k_]).square().sum() for k_ in want).sqrt()
+                / sum(w.square().sum() for w in want.values()).sqrt()).item()
+
+    def norm(grads) -> float:
+        return sum(x.square().sum() for x in grads.values()).sqrt().item()
+
+    loss_f, grads_f = loss_and_grads(ref, plain=True)
+    del ref
+    zero_counts()
+    loss_k, grads_k = loss_and_grads(model, plain=False)
+    torch.cuda.synchronize()
+    step_launches, step_by_kernel = counts(), by_kernel()
+    loss_p, grads_p = loss_and_grads(model, plain=True)
+    errs = {"loss": (abs(loss_k.item() - loss_f.item()) / abs(loss_f.item()),
+                     abs(loss_p.item() - loss_f.item()) / abs(loss_f.item())),
+            "gradient": (grad_err(grads_k, grads_f), grad_err(grads_p, grads_f)),
+            "grad_norm": (abs(norm(grads_k) - norm(grads_f)) / norm(grads_f),
+                          abs(norm(grads_p) - norm(grads_f)) / norm(grads_f))}
+    log(f"DiT-XL/2 train b{b}: loss f32 {loss_f.item():.6f}, kernels {loss_k.item():.6f}, plain "
+        f"bf16 {loss_p.item():.6f}; grad norm f32 {norm(grads_f):.6f}; rel err vs f32 "
+        "(kernels, plain bf16): " + json.dumps(errs) + f"; launches {step_launches}, by kernel "
+        f"{step_by_kernel}")
+    for what, (err_k, err_p) in errs.items():
+        check(math.isfinite(err_k) and err_k <= 1.5 * err_p + 1e-3,
+              f"DiT train {what}: err(kernels) <= 1.5 err(plain) + 1e-3")
+    check(step_launches == per_step and step_by_kernel == all_wgmma,
+          f"DiT train forward+backward launches {step_launches} == {per_step}, all wgmma "
+          f"{step_by_kernel}")
+    del grads_f, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # (c) bench.py's dit_train: b32, adafactor 1e-4, clip 1.0, no EMA, the
+    # diffusion loss's own t and eps; PyTorch's default TF32 settings
+    torch.backends.cudnn.allow_tf32 = True
+    state = TrainState.create(model, adafactor(model.parameters(), lr=TRAIN_LR), ema_decay=None)
+    step = make_train_step(make_diffusion_loss_fn(diffuser, model, 1000),
+                           clip_grad_norm=TRAIN_CLIP)
+    batch = {"image": torch.randn(n, 4, 32, 32, generator=g, device=dev),
+             "y": torch.randint(0, 1000, (n,), generator=g, device=dev)}
+    step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    history = [step(state, batch) for _ in range(DIT_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, kernels_used = counts(), by_kernel()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in history]
+    norms = [m["grad_norm"].item() for m in history]
+    profile = profile_by_class(lambda: step(state, batch), 2)
+    idle = 1 - profile["classes"]["total"] / profile["wall_ms"]
+    metrics = {"imgs_per_s": n * DIT_TRAIN_STEPS / seconds,
+               "ms_per_step": 1e3 * seconds / DIT_TRAIN_STEPS, "peak_bytes": peak, "batch": n,
+               "steps": DIT_TRAIN_STEPS, "launches_per_step": per_step,
+               "profile_ms": dict(profile["classes"], wall=profile["wall_ms"],
+                                  **profile["ranges"]),
+               "idle_share": idle}
+    log(f"DiT-XL/2 train b{n}: {DIT_TRAIN_STEPS} steps in {seconds:.3f} s, "
+        f"{metrics['imgs_per_s']:.4f} imgs/s, {metrics['ms_per_step']:.3f} ms/step, peak "
+        f"{peak / 2**30:.3f} GiB ({card}); launches {launches}, by kernel {kernels_used}; losses "
+        f"{losses}; grad norms {norms}")
+    log(f"DiT-XL/2 train b{n} step device time by class (torch.profiler, ms per step over 2; wall "
+        f"{profile['wall_ms']:.3f} ms per step under the profiler, the card idle {idle:.3f} of "
+        "it): " + json.dumps(profile["classes"]) + "; annotated ranges: "
+        + json.dumps(profile["ranges"]))
+    for name, kernel_ms in profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {name}")
+    check(all(map(math.isfinite, losses + norms)), f"DiT train b{n}: finite losses and grad norms")
+    check(launches == {key: DIT_TRAIN_STEPS * c for key, c in per_step.items()}
+          and kernels_used == {key: {kern: DIT_TRAIN_STEPS * c for kern, c in row.items()}
+                               for key, row in all_wgmma.items()},
+          f"DiT train b{n} launches {launches} == {DIT_TRAIN_STEPS} x {per_step}, all wgmma "
+          f"{kernels_used}")
+    check(profile["classes"]["K2 attention backward"] > 0,
+          "profile: the DiT train step ran K2 on the card")
+    del state, step, batch, history, model
+    torch.cuda.empty_cache()
+
+    # (d) train_ddpm_cfg in this process, from a config written here: the
+    # model initialised the CLI's way (adaLN-Zero), a bf16 EMA, label dropout
+    tmp = tempfile.mkdtemp(prefix="dmtpu_dit_cli_")
+    try:
+        cli_conf = {
+            "seed": SEED,
+            "data": {"target": "datasets.synthetic.Synthetic",
+                     "params": {"img_size": 32, "channels": 4, "n": DIT_CLI_IMAGES,
+                                "num_classes": 1000, "seed": SEED},
+                     "img_channels": 4, "num_classes": 1000},
+            "dataloader": {"num_workers": 4},
+            "model": {"target": "models.dit.model.DiT", "params": dict(DIT_TRAIN)},
+            "diffusion": {"target": "diffusions.ddpm.DDPM",
+                          "params": {"total_steps": 1000, "beta_schedule": "linear",
+                                     "beta_start": 0.0001, "beta_end": 0.02,
+                                     "objective": "pred_eps", "var_type": "fixed_large"}},
+            "train": {"n_steps": DIT_CLI_STEPS, "batch_size": n, "micro_batch": 0,
+                      "clip_grad_norm": TRAIN_CLIP, "ema_decay": EMA_DECAY, "ema_gradual": True,
+                      "ema_dtype": "bfloat16", "print_freq": 1, "save_freq": 2,
+                      "sample_freq": 3, "n_samples_each_class": 1, "p_uncond": 0.1,
+                      "optim": {"target": "dmtpu.utils.optim.adafactor",
+                                "params": {"lr": TRAIN_LR}}},
+        }
+        cfg = os.path.join(tmp, "dit_xl2_cfg.yaml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump(cli_conf, f)
+        exp = os.path.join(tmp, "exp")
+        rows = len(train_ddpm_cfg.eval_sampler(Config(cli_conf)).respaced_seq)
+        sampled = DIT_ATTN_PER_FORWARD * rows  # one eval grid: one DiT call a row
+        zero_counts()
+        first = train_ddpm_cfg.main(["-c", cfg, "-e", exp, "-ni"])
+        torch.cuda.synchronize()
+        run1 = counts()
+        zero_counts()
+        again = train_ddpm_cfg.main(["-c", cfg, "-e", exp, "-ni", "-r", "latest",
+                                     f"train.n_steps={DIT_CLI_RESUMED_STEPS}"])
+        torch.cuda.synchronize()
+        run2 = counts()
+        ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
+        state_file = os.path.join(exp, "ckpt", ckpts[-1], "state.pt")
+        ckpt_bytes = os.path.getsize(state_file)
+        blob = ckpt_lib.load_checkpoint_host(os.path.join(exp, "ckpt", ckpts[-1]))
+        grids = sorted(os.listdir(os.path.join(exp, "samples")))
+        from dmtpu_torch.utils.image import pil_image
+
+        with pil_image().open(os.path.join(exp, "samples", grids[0])) as im:
+            grid_mode, grid_size = im.mode, im.size
+        log_text = "".join(open(os.path.join(exp, f)).read() for f in os.listdir(exp)
+                           if f.startswith("output-"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # an interval between two ticks of the loop spans the later step and
+    # whatever the loop did after the earlier one: keep those after a step
+    # with no save and no eval grid
+    def busy(i):
+        return (i + 1) % cli_conf["train"]["save_freq"] == 0 or \
+            (i + 1) % cli_conf["train"]["sample_freq"] == 0
+
+    cli_steps = [sec for start, run in ((0, first), (DIT_CLI_STEPS, again))
+                 for j, sec in enumerate(run["step_seconds"]) if not busy(start + j)]
+    step_ms = 1e3 * sum(cli_steps) / len(cli_steps)
+    losses = first["losses"] + again["losses"]
+    metrics["cli"] = {"ms_per_step": step_ms, "step_ms": [1e3 * x for x in cli_steps],
+                      "imgs_per_s": n / (step_ms / 1e3), "losses": losses,
+                      "save_seconds": first["save_seconds"] + again["save_seconds"],
+                      "load_seconds": again["load_seconds"], "checkpoint_bytes": ckpt_bytes,
+                      "launches": {"train": run1, "resume": run2}, "eval_rows": rows}
+    log(f"train_ddpm_cfg DiT-XL/2 b{n}: {DIT_CLI_STEPS} steps, then -r latest to "
+        f"{DIT_CLI_RESUMED_STEPS}: ms per step (host clock between the loop's steps, the mean "
+        f"of {len(cli_steps)} with no save or grid between them) {step_ms:.3f}, each "
+        f"{metrics['cli']['step_ms']}; checkpoint "
+        f"{ckpt_bytes / 2**30:.3f} GiB, saves {metrics['cli']['save_seconds']} s, load "
+        f"{again['load_seconds']:.3f} s ({card}); losses {losses}; launches {run1}, {run2}; "
+        f"checkpoints {ckpts}, grids {grids} ({grid_mode}, {grid_size})")
+    check(ckpts == ["step000001", "step000003", "step000005"] and blob["step"] ==
+          DIT_CLI_RESUMED_STEPS and blob["ema"]["num_updates"] == DIT_CLI_RESUMED_STEPS
+          and all(x.dtype == torch.bfloat16 for x in blob["ema"]["shadow"].values())
+          and "Resumed from" in log_text,
+          "train_ddpm_cfg: checkpoints at steps 2, 4 and 6, resumed to step 6, bf16 EMA")
+    check(grids == ["step000002.png", "step000005.png"] and grid_mode == "RGBA"
+          and grid_size == (32 + 4, 10 * 34 + 2),
+          "train_ddpm_cfg: the eval grids of 10 classes x 1 latent, RGBA")
+    check(len(losses) == DIT_CLI_RESUMED_STEPS and all(map(math.isfinite, losses)),
+          "train_ddpm_cfg: finite losses at every step")
+    want1 = {"K1": DIT_CLI_STEPS * DIT_ATTN_PER_FORWARD + sampled,
+             "K2": DIT_CLI_STEPS * DIT_ATTN_PER_FORWARD, "K3": 0}
+    want2 = {"K1": (DIT_CLI_RESUMED_STEPS - DIT_CLI_STEPS) * DIT_ATTN_PER_FORWARD + sampled,
+             "K2": (DIT_CLI_RESUMED_STEPS - DIT_CLI_STEPS) * DIT_ATTN_PER_FORWARD, "K3": 0}
+    check(run1 == want1 and run2 == want2,
+          f"train_ddpm_cfg launches {run1} == {want1}, resumed {run2} == {want2}")
+    del blob
+    torch.cuda.empty_cache()
+
+    # (e) MDTv2-XL/2 (the class's defaults, learn_sigma off as in (c)) at b8:
+    # one unmasked train step through the same loss, then a masked forward
+    # and backward; its attention is plain PyTorch, so only times are read
+    mdt = MDTv2(learn_sigma=False, mask_ratio=MDT_MASK_RATIO, dtype="bfloat16",
+                device=dev).train()
+    init_random_(mdt, g)
+    state = TrainState.create(mdt, adafactor(mdt.parameters(), lr=TRAIN_LR), ema_decay=None)
+    step = make_train_step(make_diffusion_loss_fn(diffuser, mdt, 1000), clip_grad_norm=TRAIN_CLIP)
+    batch = {"image": torch.randn(MDT_TRAIN_B, 4, 32, 32, generator=g, device=dev),
+             "y": torch.randint(0, 1000, (MDT_TRAIN_B,), generator=g, device=dev)}
+    step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    m = step(state, batch)
+    torch.cuda.synchronize()
+    mdt_step_ms = 1e3 * (time.perf_counter() - t0)
+    mdt_launches = counts()
+    len_keep = sample_len_keep(mdt.num_patches, MDT_MASK_RATIO, 0.5)
+    mdt.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    out = mdt(batch["image"], torch.full((MDT_TRAIN_B,), 500, device=dev), batch["y"],
+              enable_mask=True, len_keep=len_keep, mask_generator=g, train=True)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    masked_ms = 1e3 * (time.perf_counter() - t0)
+    grads = [p.grad for p in mdt.parameters() if p.grad is not None]
+    side = max(p.grad.abs().max().item() for name, p in mdt.named_parameters()
+               if name.startswith("sideblocks.") and p.grad is not None)
+    metrics["mdt_b8"] = {"train_step_ms": mdt_step_ms, "masked_fwd_bwd_ms": masked_ms,
+                         "len_keep": len_keep, "loss": m["loss"].item(),
+                         "grad_norm": m["grad_norm"].item(), "launches": mdt_launches}
+    log(f"MDTv2-XL/2 b{MDT_TRAIN_B}: unmasked train step {mdt_step_ms:.3f} ms (host clock, "
+        f"synchronised), masked (mask_ratio {MDT_MASK_RATIO}, {len_keep} of "
+        f"{mdt.num_patches} tokens kept) forward and backward {masked_ms:.3f} ms ({card}); loss "
+        f"{m['loss'].item():.6f}, grad norm {m['grad_norm'].item():.6f}; launches {mdt_launches}")
+    check(math.isfinite(m["loss"].item()) and math.isfinite(m["grad_norm"].item())
+          and len(grads) == len(list(mdt.parameters()))
+          and all(bool(torch.isfinite(x).all()) for x in grads) and side > 0,
+          f"MDTv2 b{MDT_TRAIN_B}: finite unmasked step, masked backward reaches every parameter "
+          "(the side interpolater too) with finite gradients")
+    check(mdt_launches == {"K1": 0, "K2": 0, "K3": 0},
+          f"MDTv2 train step launches {mdt_launches}: no kernel (plain attention)")
+    del mdt, state, step, batch, out, grads
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    return {"launches": {f"dit_train{DIT_TRAIN_STEPS}": launches, "dit_cli_train": run1,
+                         "dit_cli_resume": run2},
+            "metrics": metrics, "k2": k2_row, "k2_per_step": k2_per_step,
+            "k2_by_kernel": kernels_used["K2"]}
 
 
 # kernel-name fragments -> class, first match wins

@@ -1,11 +1,11 @@
 // K2: fused non-causal attention backward for Hopper (sm_90a), bf16 in and out:
-// the kernel of the large self-attention shapes (head dims 40 and 80).
+// the kernel of the large self-attention shapes (head dims 40, 72 and 80).
 //
 // Replaces dmtpu/ops/flash_small_d.py::_bwd_kernel / _bwd (the Pallas TPU
 // fused backward for small head dims), the backward role of the stock Pallas
 // TPU flash kernel that dmtpu/ops/attention.py::flash_mha calls, and the probe
 // variant benchmarks/_smalld_variants.py::_bwd_sem (the same function).  Shapes
-// it does not take (head dim 160 and every head dim other than 40 and 80, a
+// it does not take (head dim 160 and every head dim other than 40, 72 and 80, a
 // broadcast q, k, v or dO) go to the mma.sync kernel in
 // flash_attn_bwd_mma.cu; the gate is in dmtpu_torch/ops/flash_attention.py.
 //
@@ -27,15 +27,19 @@
 //     columns in the 128-byte swizzle; columns past D are out of bounds and
 //     zero-filled without being read) and stay in shared memory.  One producer
 //     thread keeps two stages in flight, each the Q and dO tiles of one step
-//     (128 rows at d=40, 64 at d=80: what the registers hold) plus those
+//     (128 rows at d=40, 64 at d=72 and d=80: what the registers hold) plus those
 //     rows' lse * log2(e) and delta, through full / empty mbarriers;
 //     setmaxnreg gives the producer's registers to the consumers (24 / 240);
 //   - two consumer warpgroups of 64 keys each.  S^T = K Q^T and dP^T = V dO^T
-//     are wgmma m64n128k16 (m64n64k16 at d=80) with both operands in shared
-//     memory, so P^T and dS^T come out in the accumulator layout and feed
-//     dV += P^T dO and dK += dS^T Q as register-A wgmma of width D (n40, n80:
-//     no padded columns), with dO and Q read through the transposing
-//     descriptor.  The two warpgroups run unsynchronised, so one's
+//     are wgmma m64n128k16 (m64n64k16 at d=72 and d=80) with both operands
+//     in shared memory, so P^T and dS^T come out in the accumulator layout
+//     and feed dV += P^T dO and dK += dS^T Q as register-A wgmma of width D
+//     (n40, n72, n80: no padded columns), with dO and Q read through the
+//     transposing descriptor.  At d=72 a row spans two 64-column tiles: the
+//     k16 steps of S^T and dP^T run over 80 columns, the last 8 zero-filled
+//     by TMA (its box of 64 columns counts all its bytes toward the barrier),
+//     and the N=72 products take their B operand from all of tile 0 and 8
+//     columns of tile 1 through the descriptor's stride between tiles.  The two warpgroups run unsynchronised, so one's
 //     exponentials fall under the other's products, and each issues the next
 //     step's S^T and dP^T before it moves this step's dQ out;
 //   - dQ = dS K: dS^T goes to shared memory once (bf16, in the swizzle a TMA
@@ -84,7 +88,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Q rows per step of a CTA's loop: as many as the registers hold.  Per thread
 // S^T and dP^T take ROWS / 2 f32 registers each, dK, dV and a 64-row part of
-// dQ D / 2 each.
+// dQ D / 2 each.  At D=72 shared memory holds 202,792 bytes (D=80: 206,888).
 constexpr int rows_per_step(int D) { return D == 40 ? 128 : 64; }
 
 template <int D>
@@ -109,6 +113,7 @@ struct Config {
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t desc) {
   if constexpr (D == 40) wgmma_rs_n40(d, a, desc, 1);
+  if constexpr (D == 72) wgmma_rs_n72(d, a, desc, 1);
   if constexpr (D == 80) wgmma_rs_n80(d, a, desc, 1);
 }
 
@@ -116,6 +121,7 @@ template <int D>
 __device__ __forceinline__ void wgmma_tt(float (&d)[D / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   if constexpr (D == 40) wgmma_ss_tt_n40(d, desc_a, desc_b, scale_d);
+  if constexpr (D == 72) wgmma_ss_tt_n72(d, desc_a, desc_b, scale_d);
   if constexpr (D == 80) wgmma_ss_tt_n80(d, desc_a, desc_b, scale_d);
 }
 
@@ -560,9 +566,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, 
 }  // namespace
 
 // q, k, v, o, dO, dk, dv: bf16 [B, S, H, D] with the given element strides
-// (D contiguous, D 40 or 80, every stride a positive multiple of 8, 16-byte
+// (D contiguous, D 40, 72 or 80, every stride a positive multiple of 8, 16-byte
 // aligned pointers).  lse: f32 [B, H, Sq] from K1, contiguous.  With Sp = Sq
-// rounded up to a multiple of 128 (D 40) or 64 (D 80): stat: f32 scratch
+// rounded up to a multiple of 128 (D 40) or 64 (D 72, 80): stat: f32 scratch
 // [2, B, H, Sp]; dq_acc: f32 scratch [B, H, Sp, D], 16-byte aligned, not
 // touched when Sk <= 128; dq: bf16 [B, Sq, H, D], contiguous.  Launches three
 // kernels in order on the stream (two when Sk <= 128); returns the first CUDA
@@ -578,11 +584,13 @@ extern "C" int dmtpu_flash_attn_bwd(
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh},
       dos{dosb, doss, dosh}, dks{dksb, dkss, dksh}, dvs{dvsb, dvss, dvsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != 40 && D != 80) return (int)cudaErrorInvalidValue;
+  if (D != 40 && D != 72 && D != 80) return (int)cudaErrorInvalidValue;
   const bool one_tile = Sk <= kKeys;
   const int Sp = (Sq + rows_per_step(D) - 1) / rows_per_step(D) * rows_per_step(D);
   const long long rows = (long long)B * H * Sp;
-  const auto prep = D == 40 ? flash_bwd_wgmma_prep_kernel<40> : flash_bwd_wgmma_prep_kernel<80>;
+  const auto prep = D == 40   ? flash_bwd_wgmma_prep_kernel<40>
+                    : D == 72 ? flash_bwd_wgmma_prep_kernel<72>
+                              : flash_bwd_wgmma_prep_kernel<80>;
   prep<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO),
       static_cast<const float*>(lse), static_cast<float*>(stat), static_cast<float4*>(dq_acc),
@@ -591,18 +599,11 @@ extern "C" int dmtpu_flash_attn_bwd(
   if (err != cudaSuccess) return (int)err;
   const float* st_in = static_cast<const float*>(stat);
   float* acc = static_cast<float*>(dq_acc);
-  if (D == 40 && one_tile)
-    err = launch<40, true>(q, k, v, dO, st_in, acc, dq, dk, dv, B, H, Sq, Sp, Sk, qs, ks, vs, dos,
-                           dks, dvs, scale, st);
-  else if (D == 40)
-    err = launch<40, false>(q, k, v, dO, st_in, acc, dq, dk, dv, B, H, Sq, Sp, Sk, qs, ks, vs,
-                            dos, dks, dvs, scale, st);
-  else if (one_tile)
-    err = launch<80, true>(q, k, v, dO, st_in, acc, dq, dk, dv, B, H, Sq, Sp, Sk, qs, ks, vs, dos,
-                           dks, dvs, scale, st);
-  else
-    err = launch<80, false>(q, k, v, dO, st_in, acc, dq, dk, dv, B, H, Sq, Sp, Sk, qs, ks, vs,
-                            dos, dks, dvs, scale, st);
+  const auto main_kernel = D == 40   ? (one_tile ? launch<40, true> : launch<40, false>)
+                           : D == 72 ? (one_tile ? launch<72, true> : launch<72, false>)
+                                     : (one_tile ? launch<80, true> : launch<80, false>);
+  err = main_kernel(q, k, v, dO, st_in, acc, dq, dk, dv, B, H, Sq, Sp, Sk, qs, ks, vs, dos, dks,
+                    dvs, scale, st);
   if (err != cudaSuccess || one_tile) return (int)err;
   const long long n8 = (long long)B * Sq * H * D / 8;
   flash_bwd_wgmma_cast_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, st>>>(

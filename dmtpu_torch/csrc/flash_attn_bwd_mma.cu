@@ -6,9 +6,9 @@
 // TPU flash kernel that dmtpu/ops/attention.py::flash_mha calls, and the probe
 // variant benchmarks/_smalld_variants.py::_bwd_sem (the same function).  It
 // takes every head dim that is a multiple of 8 up to 160 and any strides; head
-// dims 40 and 80 go to the wgmma kernel in flash_attn_bwd.cu (the gate is in
-// dmtpu_torch/ops/flash_attention.py), so on SD1.5's path this one runs the
-// head dim 160 shapes.
+// dims 40, 72 and 80 go to the wgmma kernel in flash_attn_bwd.cu (the gate is
+// in dmtpu_torch/ops/flash_attention.py), so on SD1.5's path this one runs the
+// head dim 160 shapes, and on DiT's none.
 //
 // What it computes, per (batch, head), from K1's saved f32 row logsumexp:
 //   delta = rowsum(dO o O)                      (f32)

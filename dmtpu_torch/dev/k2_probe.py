@@ -38,9 +38,13 @@ CHECK_SHAPES = [  # b, sq, sk, h, d
     (1, 64, 128, 1, 40), (1, 128, 256, 1, 40), (2, 256, 512, 2, 40), (1, 64, 128, 1, 80),
     (2, 256, 512, 2, 80), (2, 333, 200, 3, 40), (2, 200, 333, 3, 80), (1, 1, 130, 1, 40),
     (2, 100, 77, 2, 80), (2, 333, 128, 3, 40), (2, 4096, 77, 8, 40), (2, 1024, 77, 8, 80),
-    (2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80)]
+    (2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (1, 64, 128, 1, 72), (2, 200, 333, 3, 72),
+    (2, 100, 77, 2, 72), (4, 256, 256, 16, 72)]
+# DiT-XL/2's self-attention: q, k and v strided views of one [B, S, 3, H, D]
+# projection (b, s, h, d)
+STRIDED_SHAPES = [(4, 256, 16, 72), (32, 256, 16, 72)]
 TIMED_SHAPES = [(4096, 4096, 40), (1024, 1024, 80), (4096, 77, 40), (1024, 77, 80),
-                (256, 256, 40), (4096, 256, 40)]  # sq, sk, d at b16 h8
+                (256, 256, 40), (4096, 256, 40), (256, 256, 72)]  # sq, sk, d at b16 h8
 
 # (source file, entry point, {variant: [(pattern, replacement), ...]}); a
 # pattern is a regular expression that must match the source
@@ -92,6 +96,12 @@ def _case(torch, gen, b, sq, sk, h, d):
             for s in (sq, sk, sk, sq)]
 
 
+def _strided_case(torch, gen, b, s, h, d):
+    qkv = torch.randn(b, s, 3, h, d, generator=gen, device="cuda").bfloat16()
+    do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do
+
+
 def check() -> int:
     import torch
     from dmtpu_torch.ops import _build
@@ -110,13 +120,16 @@ def check() -> int:
             print("  ", "\n   ".join(x.strip()[:160] for x in log[i:i + 5]))
     gen = torch.Generator(device="cuda").manual_seed(0)
     bad = 0
-    for b, sq, sk, h, d in CHECK_SHAPES:
-        q, k, v, do = _case(torch, gen, b, sq, sk, h, d)
+    cases = [(shape, False) for shape in CHECK_SHAPES]
+    cases += [((b, s, s, h, d), True) for b, s, h, d in STRIDED_SHAPES]
+    for (b, sq, sk, h, d), strided in cases:
+        q, k, v, do = (_strided_case(torch, gen, b, sq, h, d) if strided
+                       else _case(torch, gen, b, sq, sk, h, d))
         o, lse = flash_attention_reference(q, k, v)
         want = flash_attention_backward_reference(q, k, v, o, lse, do)
         got = flash_attention_bwd(q, k, v, o, lse, do, kernel="wgmma")
         torch.cuda.synchronize()
-        line = f"wgmma b{b} sq{sq} sk{sk} h{h} d{d}:"
+        line = f"wgmma b{b} sq{sq} sk{sk} h{h} d{d}{' strided' if strided else ''}:"
         for name, a, w in zip(("dq", "dk", "dv"), got, want):
             a, w = a.float(), w.float()
             err, rel = (a - w).abs().max().item(), ((a - w).norm() / w.norm()).item()

@@ -17,7 +17,7 @@ to 48, 80 or 160 in shared memory) and ragged sequence lengths (masked).
   (mma.sync, everything else); ``select_kernel`` is the gate.
 - ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2).
   Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
-  TMA, head dims 40 and 80; dQ's partial sums leave a CTA as whole f32 tiles
+  TMA, head dims 40, 72 and 80; dQ's partial sums leave a CTA as whole f32 tiles
   by ``cp.reduce.async.bulk``) and ``csrc/flash_attn_bwd_mma.cu`` (mma.sync,
   dQ by scalar f32 atomics; everything else); ``select_bwd_kernel`` is the
   gate.  Where several key tiles add to dq, neither gives a bitwise
@@ -200,14 +200,14 @@ flash_attention_fwd.launches_by_kernel = {"mma": 0, "wgmma": 0}
 # K2 is two hand-written kernels with one interface, as K1 is.  "wgmma"
 # (csrc/flash_attn_bwd.cu: a CTA per 128-key tile, TMA loads, a ring of Q / dO
 # stages, wgmma for the five products, dQ added into an f32 buffer by whole
-# tiles with cp.reduce.async.bulk) is instantiated for head dims 40 and 80 and
-# reads q, k, v and dO through tensor maps (positive strides); "mma"
-# (csrc/flash_attn_bwd_mma.cu: mma.sync, 64-key tiles, dQ by scalar f32
-# atomics) takes every head dim up to 160 and any strides.
+# tiles with cp.reduce.async.bulk) is instantiated for head dims 40 and 80
+# (SD1.5) and 72 (DiT) and reads q, k, v and dO through tensor maps (positive
+# strides); "mma" (csrc/flash_attn_bwd_mma.cu: mma.sync, 64-key tiles, dQ by
+# scalar f32 atomics) takes every head dim up to 160 and any strides.
 _BWD_ENTRY_POINTS = {"mma": "dmtpu_flash_attn_bwd_mma", "wgmma": "dmtpu_flash_attn_bwd"}
-# K2's wgmma kernel is instantiated for head dims 40 and 80 only
-WGMMA_BWD_HEAD_DIMS = (40, 80)
-_BWD_ROWS = {40: 128, 80: 64}  # the wgmma kernel pads its f32 scratch to whole steps of rows
+WGMMA_BWD_HEAD_DIMS = (40, 72, 80)
+# the wgmma kernel pads its f32 scratch to whole steps of rows
+_BWD_ROWS = {40: 128, 72: 64, 80: 64}
 # Its key tile.  With no more keys than this a CTA holds every contribution to
 # its dq rows: it writes them in bf16 itself, the same bits in every run, and
 # needs no f32 sums.
@@ -221,8 +221,8 @@ def bwd_kernels_for(d: int) -> list[str]:
 
 def select_bwd_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> str:
     """The K2 kernel a call is dispatched to: "wgmma" wherever it is
-    instantiated (head dims 40 and 80), whatever the lengths.  ``scale`` does
-    not matter to K2, which reads the saved lse; the argument mirrors
+    instantiated (head dims 40, 72 and 80), whatever the lengths.  ``scale``
+    does not matter to K2, which reads the saved lse; the argument mirrors
     ``select_kernel``.
 
     Measured on an NVIDIA H100 80GB HBM3 (700 W) by ``chip_smoke.py`` phase 6,
@@ -231,6 +231,10 @@ def select_bwd_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -
     0.55-0.57 / 0.152; S_q=1024 S_k=77 d=80 0.257 / 0.090, the last within the
     0.06-0.12 ms the host takes to launch one.  The wgmma kernel is the faster
     at every length, so unlike K1's gate this one has no key threshold.
+    DiT-XL/2's attention backward (phase 12, b32 h16 S=256 d=72, two key
+    tiles, q/k/v strided views of one projection), two timings each:
+    mma.sync 0.3573 and 0.3567 ms, wgmma 0.1868 and 0.1867; d=72 takes the
+    same rule.
     """
     return "wgmma" if "wgmma" in bwd_kernels_for(d) else "mma"
 
@@ -249,8 +253,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     head dim is contiguous and its rows 16-byte aligned; a ``do`` that is not
     (autograd hands a gradient of all-zero strides for a ``sum()``) is copied
     with ``.contiguous()`` first.  ``kernel`` forces "mma" or "wgmma" (it
-    raises if that kernel does not take the call: a head dim other than 40 or
-    80, or a q, k, v or ``do`` broadcast over batch, rows or heads, whose zero
+    raises if that kernel does not take the call: a head dim other than 40,
+    72 or 80, or a q, k, v or ``do`` broadcast over batch, rows or heads, whose zero
     stride has no tensor map); by default ``select_bwd_kernel`` chooses and
     leaves such a call to "mma".
     """

@@ -1,4 +1,4 @@
-"""Helpers shared by the sampling CLIs.
+"""Helpers shared by the CLIs.
 
 Counterpart of ``scripts/_common.py``: ``base_parser``, ``load_conf``,
 ``diffusion_params``, ``image_shape`` and the ``.npz`` and torch-file
@@ -6,19 +6,39 @@ branches of ``load_model_params``, with ``load_torch_weights`` (the JAX
 package's ``dmtpu.convert.load_torch_weights``) beside them.  The orbax
 train-state directory of the JAX loader has no counterpart (the port's
 checkpoints are torch files), and the data-parallel sampler is not ported:
-one device.
+one device.  The training CLIs share ``TrainRun`` (their flags, experiment
+directory, loader, resume and loop; overrides are ``key=value`` items only:
+the JAX package's ``train_dotlist`` pairs a stray token with its neighbour,
+which is not carried over) and ``to_device``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import logging
 import os
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+import time
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from dmtpu_torch.utils.config import Config, load_config, merge_dotlist
+from dmtpu_torch.data import DataLoader
+from dmtpu_torch.parallel import step_generator
+from dmtpu_torch.scripts.sample_sd import resolve_device
+from dmtpu_torch.utils import checkpoint as ckpt_lib
+from dmtpu_torch.utils.config import Config, instantiate_from_config, load_config, merge_dotlist
+from dmtpu_torch.utils.logger import StatusTracker, get_logger
+from dmtpu_torch.utils.misc import (
+    check_freq,
+    create_exp_dir,
+    find_resume_checkpoint,
+    get_data_generator,
+    get_time_str,
+)
+from dmtpu_torch.utils.optim import lr_fn
+from dmtpu_torch.utils.profiling import StepTimer
 
 
 def base_parser(description: Optional[str] = None) -> argparse.ArgumentParser:
@@ -34,6 +54,172 @@ def base_parser(description: Optional[str] = None) -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     return p
+
+
+def train_parser(doc: str) -> argparse.ArgumentParser:
+    """The flags every training CLI takes: ``-c -e -r -ni`` and ``--device``."""
+    p = argparse.ArgumentParser(description=doc.splitlines()[0])
+    p.add_argument("-c", "--config", type=str, required=True)
+    p.add_argument("-e", "--exp_dir", type=str)
+    p.add_argument("-r", "--resume", type=str,
+                   help="resume from a checkpoint: a path, `best` or `latest`")
+    p.add_argument("-ni", "--no_interaction", action="store_true", default=False)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
+    return p
+
+
+def parse_overrides(unknown: Sequence[str]) -> List[str]:
+    """``key=value`` items (leading dashes dropped); anything else is an
+    error, never a value paired with its neighbour."""
+    bad = [a for a in unknown if "=" not in a]
+    if bad:
+        raise SystemExit(f"unrecognized arguments: {bad} (config overrides are key=value)")
+    return [a.lstrip("-") for a in unknown]
+
+
+def to_device(images: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A loader's [B, H, W, C] float32 batch -> contiguous [B, C, H, W] on
+    ``device``, through pinned memory on a card."""
+    x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
+    if device.type == "cuda":
+        x = x.pin_memory().to(device, non_blocking=True)
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
+@dataclasses.dataclass
+class TrainRun:
+    """One run of a training CLI (``train_sd``, ``train_ddpm_cfg``): its
+    flags, device, config, experiment directory, logger and status tracker,
+    and the parts of the reference's train scripts that do not depend on
+    the model: the loader, the resume and the loop."""
+
+    args: argparse.Namespace
+    device: torch.device
+    conf: Config
+    exp_dir: str
+    logger: logging.Logger
+    tracker: StatusTracker
+
+    @classmethod
+    def open(cls, argv: Optional[Sequence[str]], doc: str, cli: str) -> "TrainRun":
+        """Parse ``argv`` (``train_parser``'s flags and ``key=value``
+        overrides), resolve the device (``cuda`` without a card exits before
+        anything is written) and create the experiment directory with the
+        run's config, its log file and tensorboard tracker."""
+        args, unknown = train_parser(doc).parse_known_args(argv)
+        overrides = parse_overrides(unknown)
+        try:
+            device = resolve_device(args.device, cli=cli)
+        except RuntimeError as e:
+            raise SystemExit(str(e)) from None
+        time_str = get_time_str()
+        exp_dir = args.exp_dir or os.path.join("runs", f"exp-{time_str}")
+        conf = merge_dotlist(load_config(args.config), overrides)
+        import yaml
+
+        create_exp_dir(exp_dir, yaml.safe_dump(conf.to_dict()), exist_ok=args.resume is not None,
+                       time_str=time_str, no_interaction=args.no_interaction)
+        logger = get_logger(log_file=os.path.join(exp_dir, f"output-{time_str}.log"))
+        tracker = StatusTracker(logger, exp_dir, print_freq=conf.train.print_freq)
+        logger.info(f"Experiment directory: {exp_dir}")
+        logger.info("Device: " + (torch.cuda.get_device_name(device) if device.type == "cuda"
+                                  else str(device)))
+        return cls(args, device, conf, exp_dir, logger, tracker)
+
+    @property
+    def seed(self) -> int:
+        return self.conf.get("seed", 0)
+
+    @property
+    def micro_batches(self) -> int:
+        """Splits of a batch (``train.micro_batch``; 0 or absent: one)."""
+        batch_size = self.conf.train.batch_size
+        return max(1, batch_size // (self.conf.train.get("micro_batch", 0) or batch_size))
+
+    def loader(self) -> DataLoader:
+        """The shuffled loader of ``conf.data`` (whole batches, ``seed``,
+        the ``dataloader`` block's settings)."""
+        batch_size = self.conf.train.batch_size
+        train_set = instantiate_from_config(self.conf.data)
+        loader = DataLoader(train_set, batch_size=batch_size, shuffle=True, drop_last=True,
+                            seed=self.seed, **self.conf.get("dataloader", {}))
+        self.logger.info(f"Size of training set: {len(train_set)}")
+        if len(loader) == 0:
+            raise ValueError(f"the training set holds {len(train_set)} items, fewer than a "
+                             f"batch of {batch_size}")
+        return loader
+
+    def resume(self, state) -> Optional[float]:
+        """With ``-r``, restore its checkpoint into ``state`` and return the
+        seconds the load took; else None."""
+        if self.args.resume is None:
+            return None
+        path = find_resume_checkpoint(self.exp_dir, self.args.resume)
+        t0 = time.perf_counter()
+        ckpt_lib.load_checkpoint(path, state)
+        seconds = time.perf_counter() - t0
+        self.logger.info(f"Resumed from {path} at step {state.step}")
+        return seconds
+
+    def train(self, state, train_step: Callable, loader: DataLoader,
+              to_batch: Callable[[Any], Any],
+              sample: Callable[[str, torch.Generator], None]) -> Dict[str, Any]:
+        """The loop from ``state.step`` to ``train.n_steps``: each loader
+        batch goes through ``to_batch`` into ``train_step``; the metrics stay
+        on the device until a print, save or sample boundary or the last
+        step; every ``save_freq`` steps, and at the end, a checkpoint; every
+        ``sample_freq`` steps ``sample(<exp_dir>/samples/stepNNNNNN.png,
+        generator)``.  Returns what the run measured: the steps' host times
+        between ticks (``step_seconds``, from the second step of the run on),
+        the seconds of each save, the logged losses and the experiment
+        directory (``load_seconds`` is the caller's)."""
+        train = self.conf.train
+        lr_at = lr_fn(train.optim)
+        result: Dict[str, Any] = {"exp_dir": self.exp_dir, "save_seconds": [], "losses": []}
+        step = state.step
+
+        def save_ckpt() -> None:
+            t0 = time.perf_counter()
+            ckpt_lib.save_checkpoint(os.path.join(self.exp_dir, "ckpt"), step, state)
+            result["save_seconds"].append(time.perf_counter() - t0)
+
+        self.logger.info("Start training...")
+        gen = get_data_generator(loader)
+        timer = StepTimer()
+        pending = []
+        try:
+            while step < train.n_steps:
+                metrics = train_step(state, to_batch(next(gen)))
+                timer.tick()
+                # the throughput is read at tick time, so each logged step
+                # keeps its own reading; the metrics stay on the device until
+                # a print
+                pending.append((step, metrics, timer.throughput(train.batch_size)))
+                if check_freq(train.print_freq, step) or check_freq(train.save_freq, step) \
+                        or check_freq(train.sample_freq, step) or step + 1 == train.n_steps:
+                    for s, m, tput in pending:
+                        loss = float(m["loss"])
+                        result["losses"].append(loss)
+                        self.tracker.track_status(
+                            "Train", {"loss": loss, "grad_norm": m["grad_norm"], "lr": lr_at(s),
+                                      "imgs_per_sec": tput}, s)
+                    pending.clear()
+                if check_freq(train.save_freq, step):
+                    save_ckpt()
+                if check_freq(train.sample_freq, step):
+                    sample(os.path.join(self.exp_dir, "samples", f"step{step:0>6d}.png"),
+                           step_generator(self.seed, 2 ** 30 + step, self.device))
+                step += 1
+        finally:
+            gen.close()  # stops the loader's threads
+        if not check_freq(train.save_freq, step - 1):
+            step -= 1
+            save_ckpt()
+        self.tracker.close()
+        self.logger.info("End of training")
+        result["step_seconds"] = list(timer.times)
+        return result
 
 
 def load_conf(args: argparse.Namespace, unknown: Sequence[str]) -> Config:

@@ -25,8 +25,9 @@ from typing import Optional, Sequence
 import torch
 
 from dmtpu_torch.models.lora import lora_param_count, lora_scale, merge_lora
+from dmtpu_torch.scripts._common import parse_overrides
 from dmtpu_torch.scripts.sample_sd import resolve_device
-from dmtpu_torch.scripts.train_sd import build_model, parse_overrides
+from dmtpu_torch.scripts.train_sd import build_model
 from dmtpu_torch.utils.checkpoint import load_checkpoint_host
 from dmtpu_torch.utils.config import load_config, merge_dotlist
 from dmtpu_torch.utils.logger import get_logger

@@ -37,55 +37,19 @@ sharded training (one card), and LoRA together with the UNet's
 """
 from __future__ import annotations
 
-import argparse
 import math
-import os
-import time
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
-import numpy as np
 import torch
 
-from dmtpu_torch.data import DataLoader
 from dmtpu_torch.diffusions import DDIMCFG
-from dmtpu_torch.parallel import TrainState, make_train_step, step_generator
-from dmtpu_torch.scripts.sample_sd import LATENT_CHANNELS, resolve_device
-from dmtpu_torch.utils import checkpoint as ckpt_lib
-from dmtpu_torch.utils.config import instantiate_from_config, load_config, merge_dotlist
+from dmtpu_torch.parallel import TrainState, make_train_step
+from dmtpu_torch.scripts._common import TrainRun, to_device
+from dmtpu_torch.scripts.sample_sd import LATENT_CHANNELS
+from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image_grid
-from dmtpu_torch.utils.logger import StatusTracker, get_logger
-from dmtpu_torch.utils.misc import (
-    check_freq,
-    create_exp_dir,
-    find_resume_checkpoint,
-    get_data_generator,
-    get_time_str,
-)
-from dmtpu_torch.utils.optim import lr_fn
-from dmtpu_torch.utils.profiling import StepTimer
 
 UNetFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("-c", "--config", type=str, required=True)
-    p.add_argument("-e", "--exp_dir", type=str)
-    p.add_argument("-r", "--resume", type=str,
-                   help="resume from a checkpoint: a path, `best` or `latest`")
-    p.add_argument("-ni", "--no_interaction", action="store_true", default=False)
-    p.add_argument("--device", type=str, default="cuda",
-                   help="cuda (default; fails without a card) or cpu")
-    return p
-
-
-def parse_overrides(unknown: Sequence[str]) -> List[str]:
-    """``key=value`` items (leading dashes dropped); anything else is an
-    error, never a value paired with its neighbour."""
-    bad = [a for a in unknown if "=" not in a]
-    if bad:
-        raise SystemExit(f"unrecognized arguments: {bad} (config overrides are key=value)")
-    return [a.lstrip("-") for a in unknown]
 
 
 def make_sd_loss_fn(sd, diffuser, empty_ids: torch.Tensor, p_uncond: float, total_steps: int,
@@ -143,51 +107,14 @@ def build_model(conf: Mapping, device: torch.device, logger):
     return sd
 
 
-def to_device(images: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A loader's [B, H, W, C] float32 batch -> contiguous [B, C, H, W] on
-    ``device``, through pinned memory on a card."""
-    x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-    if device.type == "cuda":
-        x = x.pin_memory().to(device, non_blocking=True)
-    return x.permute(0, 3, 1, 2).contiguous()
-
-
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
-    """Train; returns what the run measured: the steps' host times between
-    ticks (``step_seconds``, from the second step of the run on), the seconds
-    of each checkpoint save and of the load, the logged losses and the
-    experiment directory."""
-    args, unknown = build_parser().parse_known_args(argv)
-    overrides = parse_overrides(unknown)
-    try:
-        device = resolve_device(args.device, cli="train_sd")
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
-    time_str = get_time_str()
-    exp_dir = args.exp_dir or os.path.join("runs", f"exp-{time_str}")
-    conf = merge_dotlist(load_config(args.config), overrides)
-    import yaml
-
-    create_exp_dir(exp_dir, yaml.safe_dump(conf.to_dict()), exist_ok=args.resume is not None,
-                   time_str=time_str, no_interaction=args.no_interaction)
-    logger = get_logger(log_file=os.path.join(exp_dir, f"output-{time_str}.log"))
-    tracker = StatusTracker(logger, exp_dir, print_freq=conf.train.print_freq)
-    seed = conf.get("seed", 0)
-    logger.info(f"Experiment directory: {exp_dir}")
-    logger.info("Device: " + (torch.cuda.get_device_name(device) if device.type == "cuda"
-                              else str(device)))
+    """Train; returns what the run measured (``TrainRun.train``'s result and
+    the seconds of the load, ``load_seconds``)."""
+    run = TrainRun.open(argv, __doc__, "train_sd")
+    conf, device, logger, seed = run.conf, run.device, run.logger, run.seed
 
     # data: captioned images, tokenized per batch on the host
-    batch_size = conf.train.batch_size
-    micro_batch = conf.train.get("micro_batch", 0) or batch_size
-    micro_batches = max(1, batch_size // micro_batch)
-    train_set = instantiate_from_config(conf.data)
-    loader = DataLoader(train_set, batch_size=batch_size, shuffle=True, drop_last=True,
-                        seed=seed, **conf.get("dataloader", {}))
-    logger.info(f"Size of training set: {len(train_set)}")
-    if len(loader) == 0:
-        raise ValueError(f"the training set holds {len(train_set)} items, fewer than a batch "
-                         f"of {batch_size}")
+    loader = run.loader()
 
     # model: the UNet trains; the VAE and the text tower stay frozen
     sd = build_model(conf, device, logger)
@@ -249,24 +176,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     diffuser = instantiate_from_config(conf.diffusion)
     total_steps = int(conf.diffusion.params.total_steps)
     optimizer = instantiate_from_config(conf.train.optim, params=trainable.parameters())
-    lr_at = lr_fn(conf.train.optim)
     loss_fn = make_sd_loss_fn(sd, diffuser, empty_ids, float(conf.train.get("p_uncond", 0.0)),
                               total_steps, unet)
     state = TrainState.create(trainable, optimizer, ema_decay=conf.train.ema_decay,
                               ema_gradual=conf.train.get("ema_gradual", True),
                               ema_dtype=conf.train.get("ema_dtype"))
-    result: Dict[str, Any] = {"exp_dir": exp_dir, "save_seconds": [], "load_seconds": None,
-                              "losses": []}
-    step = 0
-    if args.resume is not None:
-        path = find_resume_checkpoint(exp_dir, args.resume)
-        t0 = time.perf_counter()
-        ckpt_lib.load_checkpoint(path, state)
-        result["load_seconds"] = time.perf_counter() - t0
-        step = state.step
-        logger.info(f"Resumed from {path} at step {step}")
+    load_seconds = run.resume(state)
     train_step = make_train_step(loss_fn, clip_grad_norm=conf.train.clip_grad_norm,
-                                 micro_batches=micro_batches, seed=seed)
+                                 micro_batches=run.micro_batches, seed=seed)
 
     # the periodic CFG preview through the EMA weights
     dp = dict(conf.diffusion.get("params", None) or {})
@@ -297,48 +214,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
         images = sd.decode_latent(z).clamp(-1.0, 1.0).permute(0, 2, 3, 1).cpu().numpy()
         save_image_grid(images, savepath, nrow=math.ceil(math.sqrt(n)))
 
-    def save_ckpt() -> None:
-        t0 = time.perf_counter()
-        ckpt_lib.save_checkpoint(os.path.join(exp_dir, "ckpt"), step, state)
-        result["save_seconds"].append(time.perf_counter() - t0)
+    def to_batch(batch) -> Dict[str, torch.Tensor]:
+        return {"image": to_device(batch["image"], device),
+                "input_ids": tokenize(batch["caption"])}
 
-    n_steps = conf.train.n_steps
-    logger.info("Start training...")
-    gen = get_data_generator(loader)
-    timer = StepTimer()
-    pending = []
-    try:
-        while step < n_steps:
-            batch = next(gen)
-            batch = {"image": to_device(batch["image"], device),
-                     "input_ids": tokenize(batch["caption"])}
-            metrics = train_step(state, batch)
-            timer.tick()
-            # the throughput is read at tick time, so each logged step keeps
-            # its own reading; the metrics stay on the card until a print
-            pending.append((step, metrics, timer.throughput(batch_size)))
-            if check_freq(conf.train.print_freq, step) or check_freq(conf.train.save_freq, step) \
-                    or check_freq(conf.train.sample_freq, step) or step + 1 == n_steps:
-                for s, m, tput in pending:
-                    loss = float(m["loss"])
-                    result["losses"].append(loss)
-                    tracker.track_status("Train", {"loss": loss, "grad_norm": m["grad_norm"],
-                                                   "lr": lr_at(s), "imgs_per_sec": tput}, s)
-                pending.clear()
-            if check_freq(conf.train.save_freq, step):
-                save_ckpt()
-            if check_freq(conf.train.sample_freq, step):
-                sample_and_save(os.path.join(exp_dir, "samples", f"step{step:0>6d}.png"),
-                                step_generator(seed, 2 ** 30 + step, device))
-            step += 1
-    finally:
-        gen.close()  # stops the loader's threads
-    if not check_freq(conf.train.save_freq, step - 1):
-        step -= 1
-        save_ckpt()
-    tracker.close()
-    logger.info("End of training")
-    result["step_seconds"] = list(timer.times)
+    result = run.train(state, train_step, loader, to_batch, sample_and_save)
+    result["load_seconds"] = load_seconds
     return result
 
 

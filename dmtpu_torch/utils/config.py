@@ -186,6 +186,10 @@ _PORTED = {
     "dmtpu.utils.optim.adam", "dmtpu.utils.optim.adamw", "dmtpu.utils.optim.adafactor",
     "dmtpu.utils.optim.sgd",
     "dmtpu.data.captioned.CaptionedImageDir", "dmtpu.data.captioned.SyntheticCaptioned",
+    "dmtpu.data.datasets.ImageDir", "dmtpu.data.datasets.MNIST", "dmtpu.data.datasets.CIFAR10",
+    "dmtpu.data.datasets.CelebAHQ", "dmtpu.data.datasets.ImageNet",
+    "dmtpu.data.datasets.Synthetic", "dmtpu.data.image_dir.ImageDir", "dmtpu.data.mnist.MNIST",
+    "dmtpu.data.cifar10.CIFAR10", "dmtpu.data.celebahq.CelebAHQ", "dmtpu.data.imagenet.ImageNet",
 }
 
 

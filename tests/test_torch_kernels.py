@@ -363,7 +363,8 @@ def test_k1_dispatch_leaves_what_wgmma_cannot_take_to_mma(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("sq,sk,d", [(4096, 4096, 40), (1024, 1024, 80), (300, 200, 40)])
+@pytest.mark.parametrize("sq,sk,d", [(4096, 4096, 40), (1024, 1024, 80), (300, 200, 40),
+                                     (256, 256, 72)])
 def test_k2_consumes_the_wgmma_forward(cuda, sq, sk, d):
     """Either K2 kernel reads o and lse of whichever K1 kernel ran: the same
     gradients from all four pairs."""
@@ -432,6 +433,37 @@ def test_k2_each_kernel_reads_strided_projections_and_a_strided_gradient(cuda, k
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [None, "mma", "wgmma"])
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+def test_k2_at_dit_xl2_shape_through_every_kernel(cuda, kernel, layout):
+    """DiT-XL/2's self-attention backward, S=256 over 16 heads of 72 (two key
+    tiles: dq summed across CTAs in f32): q, k and v as the strided views of
+    one [B, S, 3, H, D] projection that ``TimmAttention`` hands the kernels,
+    and as contiguous tensors; the dispatch sends d=72 to wgmma."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    b, s, h, d = 4, 256, 16, 72
+    if layout == "strided":
+        qkv = torch.randn(b, s, 3, h, d, generator=g, device=cuda).bfloat16()
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        assert q.stride() == (s * 3 * h * d, 3 * h * d, d, 1)
+    else:
+        q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).bfloat16() for _ in range(3))
+    do = torch.randn(b, s, h, d, generator=g, device=cuda).bfloat16()
+    assert select_bwd_kernel(s, s, d) == "wgmma" and k2_kernels_for(d) == ["mma", "wgmma"]
+    o, lse = flash_attention_fwd(q, k, v)
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    got = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
+    took = kernel or "wgmma"
+    assert flash_attention_bwd.launches_by_kernel[took] == before[took] + 1
+    torch.cuda.synchronize()
+    assert all(x.dtype == torch.bfloat16 and torch.isfinite(x).all() for x in got)
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    mha(*leaves).backward(do.float())
+    assert_grads_close(got, [x.grad for x in leaves], 2e-2)
+
+
+@pytest.mark.gpu
 def test_k2_dispatch_leaves_what_wgmma_cannot_take_to_mma(cuda):
     """A dO or a k broadcast over the heads (stride 0) has no tensor map: it
     goes to the mma.sync kernel by itself and is refused when wgmma is forced.
@@ -461,7 +493,8 @@ def test_k2_dispatch_leaves_what_wgmma_cannot_take_to_mma(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("sq,sk,d", [(4096, 77, 40), (1024, 77, 80), (333, 128, 40), (64, 5, 80)])
+@pytest.mark.parametrize("sq,sk,d", [(4096, 77, 40), (1024, 77, 80), (333, 128, 40), (64, 5, 80),
+                                     (256, 128, 72), (100, 77, 72)])
 def test_k2_one_key_tile_gives_the_same_bits_in_every_run(cuda, sq, sk, d):
     """With S_k <= 128 the wgmma kernel's CTA holds all of a dq row's sum and
     writes it in bf16 itself: no adds across CTAs, so three runs agree bit

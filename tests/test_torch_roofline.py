@@ -132,9 +132,22 @@ def test_attention_backward_dispatch_of_the_path(sq, sk, d):
     assert fa.bwd_kernels_for(d) == (["mma", "wgmma"] if d in (40, 80) else ["mma"])
 
 
-@pytest.mark.parametrize("d", [8, 48, 64, 72, 96, 160])
+@pytest.mark.parametrize("d", [8, 48, 56, 64, 96, 160])
 def test_other_head_dims_stay_on_mma_in_the_backward(d):
     assert fa.bwd_kernels_for(d) == ["mma"] and fa.select_bwd_kernel(4096, 4096, d) == "mma"
+
+
+def test_attention_backward_at_dit_xl2_shape():
+    """DiT-XL/2's 28 self-attentions a step (S=256, 16 heads of 72, two key
+    tiles) go to K2's wgmma kernel; at b32 the call moves 151.5 MB (q, k, v,
+    o, dO read, dq, dk, dv written, the f32 lse read) and is bound by bytes."""
+    assert fa.bwd_kernels_for(72) == ["mma", "wgmma"]
+    assert fa.select_bwd_kernel(256, 256, 72) == "wgmma" and 256 > fa.WGMMA_BWD_KEY_TILE
+    ops, nbytes = roofline.attention_bwd_work(32, 16, 256, 256, 72)
+    assert nbytes == 2 * 32 * 16 * 72 * 8 * 256 + 4 * 32 * 16 * 256 == 151_519_232
+    assert ops == 10 * 32 * 16 * 256 * 256 * 72
+    ms, by = roofline.bound_ms(ops, nbytes)
+    assert by == "bytes" and abs(ms - nbytes / 3.35e9) < 1e-12 and 0.045 < ms < 0.046
 
 
 @pytest.mark.parametrize("sk", [1, 64, 77, 128, 129, 4096])
@@ -149,12 +162,13 @@ def test_attention_backward_dispatch_has_no_key_threshold(sk):
 def test_attention_backward_launch_plan_of_a_train_step():
     """32 K2 launches a step: the 20 of head dims 40 and 80 through wgmma, the
     12 of head dim 160 through mma.sync; the wgmma kernel's f32 scratch is padded
-    to whole steps of 128 (d=40) or 64 (d=80) rows."""
+    to whole steps of 128 (d=40) or 64 (d=72, d=80) rows."""
     plan = {"mma": 0, "wgmma": 0}
     for (sq, sk, d), calls in chip_smoke.ATTN_CALLS.items():
         plan[fa.select_bwd_kernel(sq, sk, d)] += calls
     assert plan == {"wgmma": 20, "mma": 12}
-    assert fa._BWD_ROWS == {40: 128, 80: 64} and set(fa._BWD_ROWS) == set(fa.WGMMA_BWD_HEAD_DIMS)
+    assert fa._BWD_ROWS == {40: 128, 72: 64, 80: 64}
+    assert set(fa._BWD_ROWS) == set(fa.WGMMA_BWD_HEAD_DIMS)
     # the cross-attention shapes have one key tile: dq written once, in bf16
     assert fa.WGMMA_BWD_KEY_TILE == 128
     assert {sk <= fa.WGMMA_BWD_KEY_TILE for (_, sk, _) in ATTN} == {True, False}
