@@ -11,9 +11,11 @@ fine-tuning through its CLIs (``python -m dmtpu_torch.scripts.train_sd``, full a
 and ``merge_lora``, from ``configs/sd15_finetune.yaml`` and
 ``configs/sd15_lora.yaml``), DiT-XL/2 (with MDTv2-XL/2) class-conditional
 sampling at 256x256 through ``python -m dmtpu_torch.scripts.sample_cfg``'s
-request function (phase 11), and DiT-XL/2 class-conditional training at
-batch 32 through ``python -m dmtpu_torch.scripts.train_ddpm_cfg`` (phase 12);
-for the SD paths the
+request function (phase 11), DiT-XL/2 class-conditional training at
+batch 32 through ``python -m dmtpu_torch.scripts.train_ddpm_cfg`` (phase 12),
+and MMDiT text to image through ``python -m dmtpu_torch.scripts.sample_mmdit``'s
+request function: SD3-medium from ``configs/sd3_medium.yaml`` at 1024x1024
+and ``bench.py``'s MMDiT-B/2 (phase 13); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -58,7 +60,8 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      the VAE gives K3) and channels-last (off the path: there a slower
      dispatch is noted, not failed), summed over one decode and one encode;
      and the decoder's seven shapes at 256x256 on 32 samples (DiT's decode,
-     NCHW), summed over one decode;
+     NCHW) and at 1024x1024 on 2 samples (SD3-medium's), each summed over
+     one decode;
   4. one UNet forward through the kernels and one through the plain ops, each
      measured against an f32 plain run (TF32 off): the kernel path must come
      within 1.5x the plain path's error, plus 1e-3; then the batch-16 UNet
@@ -195,7 +198,32 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      launches (training and the grid's 50-step DDPMCFG), ms per step,
      checkpoint seconds and bytes; the directory is removed; (e) MDTv2-XL/2
      at b8: one unmasked train step and a masked (``mask_ratio`` 0.3)
-     forward and backward, finite gradients everywhere, times, no kernel.
+     forward and backward, finite gradients everywhere, times, no kernel;
+ 13. MMDiT text to image through ``sample_mmdit``'s request function
+     (``sample_mmdit.sample_mmdit``; the CLI's ``conditioning``,
+     ``build_model``, ``build_decoder`` and ``make_diffuser``): (a) K1 at
+     head dim 64 at the joint attention of one CFG-doubled call, q, k and v
+     made by ``torch.cat`` of the two streams, S = 4250 over 24 heads at b4
+     (SD3-medium) and S = 333 over 12 heads at b64 (MMDiT-B/2), both with a
+     masked last key tile: both kernels against the plain versions, timed as
+     in 2 beside the bound, SDPA's time and the host's, wgmma chosen and not
+     the slower; (b) SD3-medium from ``configs/sd3_medium.yaml`` with
+     ``model.params.dtype=bfloat16`` (MMDiT-L/2: hidden 1536, depth 24, 24
+     heads of 64, 128x128x16 latents, 154 x 4096 context, pooled 2048; the
+     16-channel VAE, f32), seeded non-zero weights, the CLI's demo
+     pseudo-embeddings of a prompt: a forward on the CFG-doubled b2 batch and
+     a 2-step request to 1024x1024 images through the kernels and through
+     the plain ops, each against an f32 plain run (TF32 off): within 1.5x the
+     plain bf16 path's relative L2 error, plus 1e-3, launches exact (24 K1 a
+     forward, 30 K3 a decode); (c) the timed request: b2, FlowMatchingCFG
+     Euler-28, time shift 3, s = 4, 1024x1024 (one warm-up, one timed: images
+     per second, the stages by CUDA events, peak memory beside the
+     parameters' bytes, launches exactly 672 K1 through wgmma, 30 K3, no K2),
+     one MMDiT-L/2 call on 4 samples timed and profiled by class, the decode
+     profiled; (d) ``bench.py``'s ``mmdit_sample``: MMDiT-B/2 (qk_norm), b32,
+     FlowDPMSolverCFG-20, s = 4, 32x32x4 latents, 77 x 4096 random context,
+     no VAE: samples per second, launches exactly 240 K1 through wgmma, one
+     call on 64 samples timed and profiled by class.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -204,10 +232,12 @@ of each fine-tuning CLI and serving request), error, and its times, bound,
 library time and host time summed over the calls of one forward (K2: of one
 train step; K1's and K3's also over one UNet call on 32 samples, ``cfg_b32``;
 K1's also over the merged self-attentions of one under ToMe, ``tome_b32``,
-and over the 28 of one DiT-XL/2 call on 64 samples, ``dit_b64``; K3's also
-over one VAE decode and one encode, and over one b32 decode at 256x256,
-``dit_vae_decode_b32``; K2's also over the 28 of one DiT-XL/2 b32 train step,
-``dit_train_b32``), and the card's
+and over the 28 of one DiT-XL/2 call on 64 samples, ``dit_b64``, and over
+the joint attentions of one CFG-doubled MMDiT call, ``sd3_medium_b4`` and
+``mmdit_b2_b64``; K3's also over one VAE decode and one encode,
+over one b32 decode at 256x256, ``dit_vae_decode_b32``, and one b2 decode at
+1024x1024, ``sd3_vae_decode_b2``; K2's also over the 28 of one DiT-XL/2 b32
+train step, ``dit_train_b32``), and the card's
 name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
@@ -369,6 +399,27 @@ DIT_TRAIN = dict(depth=28, hidden_size=1152, patch_size=2, num_heads=16, input_s
 DIT_TRAIN_B, DIT_TRAIN_STEPS, DIT_TRAIN_CHECK_BATCH = 32, 10, 2
 DIT_CLI_STEPS, DIT_CLI_RESUMED_STEPS, DIT_CLI_IMAGES = 4, 6, 128
 MDT_TRAIN_B, MDT_MASK_RATIO = 8, 0.3
+
+# phase 13: MMDiT text to image through ``sample_mmdit``'s request function:
+# SD3-medium (``configs/sd3_medium.yaml``: MMDiT-L/2, 24 heads of 64, 128x128x16
+# latents, 154 context tokens, FlowMatching Euler-28 at time shift 3, the
+# 16-channel VAE to 1024x1024) with its torso in bf16 as the CLI's override
+# gives it, and ``bench.py``'s ``mmdit_sample`` (``bench.py:214-266``:
+# MMDiT-B/2 on 32x32x4 latents, 77 context tokens, FlowDPM-20, CFG 4, b32)
+SD3_CONFIG, SD3_OVERRIDES = "configs/sd3_medium.yaml", ["model.params.dtype=bfloat16"]
+SD3_B, SD3_STEPS, SD3_CHECK_STEPS, SD3_SCALE = 2, 28, 2, 4.0
+SD3_PROMPT = "a photograph of an astronaut riding a horse"
+MMDIT_B2 = dict(input_size=32, in_channels=4, context_dim=4096, pooled_dim=2048,
+                dtype="bfloat16")
+MMDIT_B2_B, MMDIT_B2_STEPS, MMDIT_B2_CTX = 32, 20, 77
+# the joint attention of one CFG-doubled call, (b, h, S), and its calls a forward
+MMDIT_ATTN = {"sd3_medium_b4": (2 * SD3_B, 24, 154 + 4096),
+              "mmdit_b2_b64": (2 * MMDIT_B2_B, 12, MMDIT_B2_CTX + 256)}
+MMDIT_ATTN_PER_FORWARD = {"sd3_medium_b4": 24, "mmdit_b2_b64": 12}
+MMDIT_CONTEXT_TOKENS = {"sd3_medium_b4": 154, "mmdit_b2_b64": MMDIT_B2_CTX}
+# the VAE decoder at 1024x1024 (128x128x16 latents): VAE_DECODE_GN's shapes at
+# four times the pixels; 30 calls a decode
+SD3_DECODE_GN = {(c, 4 * hw, silu): n for (c, hw, silu), n in VAE_DECODE_GN.items()}
 
 
 def log(*args):
@@ -659,6 +710,13 @@ def main() -> int:
         add_row(k3_dit, k3_case(c, hw, "f32", silu, 1e-6, nchw, calls, n=DIT_B), calls)
         torch.cuda.empty_cache()
     log(f"K3 per b{DIT_B} VAE decode at 256x256 ({GN_PER_DECODE} calls): " + json.dumps(k3_dit))
+    # and at 1024x1024 on SD3_B samples: the 16-channel VAE's decode (phase 13)
+    k3_sd3 = new_totals()
+    for (c, hw, silu), calls in SD3_DECODE_GN.items():
+        add_row(k3_sd3, k3_case(c, hw, "f32", silu, 1e-6, nchw, calls, n=SD3_B), calls)
+        torch.cuda.empty_cache()
+    log(f"K3 per b{SD3_B} VAE decode at 1024x1024 ({GN_PER_DECODE} calls): "
+        + json.dumps(k3_sd3))
     # how the rows kernel's time depends on the CTAs a sample is spread over
     # (the plan aims at 64 in all), beside what the card's memory system gives a
     # plain copy (one read, one write) and a plain sum (one read) of the same x
@@ -861,6 +919,10 @@ def main() -> int:
     # ---- 12. DiT-XL/2 training and train_ddpm_cfg ------------------------------------
     torch.cuda.empty_cache()
     dit_train = phase_dit_train(dev, check, gen, card, time_ms, host_us)
+
+    # ---- 13. MMDiT through sample_mmdit: SD3-medium and bench's MMDiT-B/2 -----------
+    torch.cuda.empty_cache()
+    mmdit = phase_mmdit(dev, check, gen, card, time_ms, host_us)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
@@ -873,7 +935,8 @@ def main() -> int:
                       **{f"serve_{path}": counted[name]
                          for path, counted in serve["launches"].items()},
                       **{path: counted[name] for path, counted in dit["launches"].items()},
-                      **{path: counted[name] for path, counted in dit_train["launches"].items()}}
+                      **{path: counted[name] for path, counted in dit_train["launches"].items()},
+                      **{path: counted[name] for path, counted in mmdit["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -901,7 +964,10 @@ def main() -> int:
              tome_b32=k1_tome,
              # and over the 28 self-attentions (d=72) of one DiT-XL/2 call on
              # the 64 samples of a 32-image CFG request
-             dit_b64=dit["k1_per_forward"]),
+             dit_b64=dit["k1_per_forward"],
+             # and over the joint attentions (d=64) of one CFG-doubled MMDiT
+             # call: SD3-medium's 24 on 4 samples, MMDiT-B/2's 12 on 64
+             **mmdit["k1_per_forward"]),
         dict(entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
                    "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
                    f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards",
@@ -923,11 +989,14 @@ def main() -> int:
              # and over the 61 calls of one UNet call on 32 samples
              cfg_b32=k3_cfg,
              # and over the 30 calls of one b32 VAE decode at 256x256 (DiT's)
-             dit_vae_decode_b32=k3_dit),
+             dit_vae_decode_b32=k3_dit,
+             # and of one b2 decode at 1024x1024 (SD3-medium's 16-channel VAE)
+             sd3_vae_decode_b2=k3_sd3),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
         "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
-        "dit_b32": dit["metrics"], "dit_train_b32": dit_train["metrics"], "card": card}))
+        "dit_b32": dit["metrics"], "dit_train_b32": dit_train["metrics"],
+        "mmdit": mmdit["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -946,6 +1015,67 @@ def not_the_slower(by_kernel: dict, chosen: str, ms: float, host_us: float) -> b
         return True
     return all(best[chosen] <= 1.25 * t for t in best.values())
 
+
+def k1_call_row(q, k, v, calls: int, label: str, check, time_ms, host_us, card: str,
+                reps: int) -> tuple:
+    """K1 at one call of a path, the dispatch expected on wgmma: every kernel
+    that takes the shape checked against the plain ``mha`` and K1's own
+    plain version (phase 2's tolerances) and timed (order first, second,
+    second, first, ``reps`` calls each), beside the plain version, SDPA, the
+    host's time and the bound.  Returns (the row, its columns times
+    ``calls``: the sums over one forward)."""
+    import torch
+    from dmtpu_torch.ops import roofline
+    from dmtpu_torch.ops.attention import mha
+    from dmtpu_torch.ops.flash_attention import (
+        flash_attention_fwd,
+        flash_attention_reference,
+        kernels_for,
+        select_kernel,
+    )
+
+    n, sq, h, d = q.shape
+    sk = k.shape[1]
+    ref_o, ref_lse = flash_attention_reference(q, k, v)
+    plain = mha(q, k, v)
+    chosen, names = select_kernel(sq, sk, d), kernels_for(d)
+    bound_err = 1e-2 * ref_o.float().abs().max().item()  # as phase 2
+    errs = {}
+    for name in names:
+        o, lse = flash_attention_fwd(q, k, v, kernel=name)
+        torch.cuda.synchronize()
+        err_ref = (o.float() - ref_o.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        err_mha = (o.float() - plain.float()).abs().max().item()
+        rel_mha = err_mha / plain.float().abs().max().item()
+        errs[name] = dict(max_abs_err_vs_mha=err_mha, rel_err_vs_mha=rel_mha,
+                          max_abs_err_vs_own_plain=err_ref, lse_max_abs_err=err_lse)
+        check(err_ref <= bound_err and err_lse <= 1e-3 and rel_mha <= 3e-2
+              and bool(torch.isfinite(o).all()),
+              f"K1[{name}] bf16 b{n} h{h} S_q={sq} S_k={sk} d={d}, {label}")
+        del o, lse
+    by_kernel = {name: [] for name in names}
+    for name in names + names[::-1]:
+        by_kernel[name].append(time_ms(lambda: flash_attention_fwd(q, k, v, kernel=name), reps))
+    ms = sum(by_kernel[chosen]) / len(by_kernel[chosen])
+    plain_ms = time_ms(lambda: mha(q, k, v), 3)
+    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))  # [B, H, S, D] views
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), reps)
+    host = host_us(lambda: flash_attention_fwd(q, k, v), 200)
+    bound_t, bound_by = roofline.bound_ms(*roofline.attention_fwd_work(n, h, sq, sk, d))
+    row = dict(b=n, h=h, sq=sq, sk=sk, d=d, calls=calls, kernel=chosen, **errs[chosen], ms=ms,
+               ms_by_kernel=by_kernel, plain_ms=plain_ms, bound_ms=bound_t, bound_by=bound_by,
+               library_ms=library_ms, host_us=host, host_bound=ms <= 1.2 * host / 1e3)
+    log("K1", json.dumps(row))
+    log(f"K1 at {label}: {ms / bound_t:.2f}x its bound, {ms / library_ms:.3f}x SDPA's time "
+        f"({card})")
+    check(chosen == "wgmma" and not_the_slower(by_kernel, chosen, ms, host),
+          f"K1 dispatch b{n} h{h} S={sq} d={d}: {chosen} (wgmma) is not the slower kernel")
+    per = {key: calls * row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                             "host_us")}
+    per.update(err=errs[chosen]["max_abs_err_vs_mha"], bound_ms_by={bound_by: per["bound_ms"]})
+    return row, per
 
 @contextlib.contextmanager
 def forced_plan(module, how: dict):
@@ -2062,15 +2192,8 @@ def phase_dit(dev, check, gen, card, time_ms, host_us) -> dict:
     from dmtpu_torch.models.dit import DiT, TimmAttention
     from dmtpu_torch.models.latent import LatentDiffusionWrapper
     from dmtpu_torch.models.stablediffusion.autoencoder import AutoencoderKL
-    from dmtpu_torch.ops import plain_ops, roofline
-    from dmtpu_torch.ops.attention import mha
-    from dmtpu_torch.ops.flash_attention import (
-        flash_attention_bwd,
-        flash_attention_fwd,
-        flash_attention_reference,
-        kernels_for,
-        select_kernel,
-    )
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
     from dmtpu_torch.ops.groupnorm import group_norm_silu
     from dmtpu_torch.scripts.sample_cfg import make_diffuser, sample_class
     from dmtpu_torch.utils.config import Config, instantiate_from_config
@@ -2175,45 +2298,10 @@ def phase_dit(dev, check, gen, card, time_ms, host_us) -> dict:
     # q, k and v strided views of one projection, as TimmAttention hands them
     n, (sq, sk, d), h = 2 * DIT_B, DIT_ATTN, DIT_HEADS
     qkv = torch.randn(n, sq, 3, h, d, generator=g, device=dev).bfloat16()
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    ref_o, ref_lse = flash_attention_reference(q, k, v)
-    plain = mha(q, k, v)
-    chosen, names = select_kernel(sq, sk, d), kernels_for(d)
-    bound_err = 1e-2 * ref_o.float().abs().max().item()  # as phase 2
-    errs = {}
-    for name in names:
-        o, lse = flash_attention_fwd(q, k, v, kernel=name)
-        torch.cuda.synchronize()
-        err_ref = (o.float() - ref_o.float()).abs().max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
-        rel_mha = (o.float() - plain.float()).abs().max().item() / plain.float().abs().max().item()
-        errs[name] = dict(max_abs_err=err_ref, lse_max_abs_err=err_lse, rel_err_vs_mha=rel_mha)
-        check(err_ref <= bound_err and err_lse <= 1e-3 and rel_mha <= 3e-2
-              and bool(torch.isfinite(o).all()),
-              f"K1[{name}] bf16 b{n} h{h} S={sq} d={d}, strided q/k/v")
-    by_kernel = {name: [] for name in names}
-    for name in names + names[::-1]:
-        by_kernel[name].append(time_ms(lambda: flash_attention_fwd(q, k, v, kernel=name), 50))
-    ms = sum(by_kernel[chosen]) / len(by_kernel[chosen])
-    plain_ms = time_ms(lambda: mha(q, k, v), 5)
-    qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
-    library_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), 50)
-    host = host_us(lambda: flash_attention_fwd(q, k, v), 200)
-    bound_t, bound_by = roofline.bound_ms(*roofline.attention_fwd_work(n, h, sq, sk, d))
-    k1_row = dict(b=n, h=h, sq=sq, sk=sk, d=d, calls=DIT_ATTN_PER_FORWARD, kernel=chosen,
-                  **errs[chosen], ms=ms, ms_by_kernel=by_kernel, plain_ms=plain_ms,
-                  bound_ms=bound_t, bound_by=bound_by, library_ms=library_ms, host_us=host,
-                  host_bound=ms <= 1.2 * host / 1e3)
-    log("K1", json.dumps(k1_row))
-    log(f"K1 at DiT's shape: {ms / bound_t:.2f}x its bound, {ms / library_ms:.3f}x SDPA's time "
-        f"({card})")
-    check(chosen == "wgmma" and not_the_slower(by_kernel, chosen, ms, host),
-          f"K1 dispatch b{n} S={sq} d={d}: {chosen} (wgmma) is not the slower kernel")
-    k1_per_forward = {key: DIT_ATTN_PER_FORWARD * k1_row[key]
-                      for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us")}
-    k1_per_forward.update(err=errs[chosen]["max_abs_err"],
-                          bound_ms_by={bound_by: k1_per_forward["bound_ms"]})
-    del qkv, q, k, v, qt, kt, vt, ref_o, ref_lse, plain
+    k1_row, k1_per_forward = k1_call_row(
+        qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], DIT_ATTN_PER_FORWARD,
+        "DiT's shape, strided q/k/v", check, time_ms, host_us, card, 50)
+    del qkv
     torch.cuda.empty_cache()
 
     # (c) the timed request: b32, class 207, DDIMCFG-50, s = 4, 256x256, with
@@ -2694,6 +2782,250 @@ def phase_dit_train(dev, check, gen, card, time_ms, host_us) -> dict:
                          "dit_cli_resume": run2},
             "metrics": metrics, "k2": k2_row, "k2_per_step": k2_per_step,
             "k2_by_kernel": kernels_used["K2"]}
+
+
+def phase_mmdit(dev, check, gen, card, time_ms, host_us) -> dict:
+    """Phase 13 (see the module docstring): MMDiT text to image through
+    ``sample_mmdit``'s request function, SD3-medium at 1024x1024 and
+    ``bench.py``'s MMDiT-B/2, and K1 at head dim 64."""
+    import argparse
+
+    import torch
+    from dmtpu_torch.diffusions import FlowDPMSolverCFG
+    from dmtpu_torch.models.mmdit import MMDiT, MMDiTBlock, mmdit_model
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.scripts import sample_mmdit as cli
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config, merge_dotlist
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel_err(a, ref) -> float:
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+    g = gen(SEED + 30)
+
+    # (a) K1 at d=64: the joint attention's shapes, q, k and v made by torch.cat
+    # of the context and image streams, as MMDiTBlock hands them
+    k1_rows, k1_per_forward = {}, {}
+    for name, (n, h, s) in MMDIT_ATTN.items():
+        lc = MMDIT_CONTEXT_TOKENS[name]
+        q, k, v = (torch.cat([torch.randn(n, lc, h, 64, generator=g, device=dev),
+                              torch.randn(n, s - lc, h, 64, generator=g, device=dev)],
+                             1).bfloat16() for _ in range(3))
+        k1_rows[name], k1_per_forward[name] = k1_call_row(
+            q, k, v, MMDIT_ATTN_PER_FORWARD[name], f"{name}, torch.cat of the two streams",
+            check, time_ms, host_us, card, 20)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    # the SD3-medium stack from the repository's config, as the CLI builds it
+    conf = merge_dotlist(load_config(SD3_CONFIG), SD3_OVERRIDES)
+    size = conf.data.params.img_size
+    shape = (conf.data.img_channels, size, size)
+    args = argparse.Namespace(embeddings=None, class_idx=None, prompt=SD3_PROMPT, weights=None,
+                              context_len=None, respace_type="uniform", respace_steps=None,
+                              solver=None, time_shift=None, guidance_scale=None)
+    context, pooled = cli.conditioning(args, conf)
+    model = cli.build_model(conf, None, dev)
+    decoder = cli.build_decoder(conf, None, dev)
+    init_random_(model, g)  # adaLN-Zero and the final layer non-zero: else the output is 0
+    init_random_(decoder.vae, g)
+    ref = instantiate_from_config(dict(conf.model, params=dict(conf.model.params, dtype=None)),
+                                  device=dev).eval()
+    ref.load_state_dict(model.state_dict())
+    blocks = sum(isinstance(m, MMDiTBlock) for m in model.modules())
+    decode_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in decoder.vae.decoder.modules())
+    log(f"SD3-medium MMDiT-L/2: {sum(p.numel() for p in model.parameters())} params (f32), "
+        f"depth {model.depth}, hidden {model.hidden_size}, heads {model.num_heads} of "
+        f"{model.hidden_size // model.num_heads}, {model.grid ** 2} + {context.shape[1]} tokens, "
+        f"dtype {model.dtype}; VAE {sum(p.numel() for p in decoder.vae.parameters())} params; "
+        f"from the module trees: {blocks} joint attentions a forward, {decode_gn} GroupNorms a "
+        f"decode")
+    check(isinstance(model, MMDiT) and model.dtype == torch.bfloat16
+          and (blocks, decode_gn) == (MMDIT_ATTN_PER_FORWARD["sd3_medium_b4"], GN_PER_DECODE)
+          and shape == (16, 128, 128),
+          "SD3-medium from configs/sd3_medium.yaml: bf16 torso, 24 joint attentions, 30 "
+          "GroupNorms a decode, 128x128x16 latents")
+
+    def diffuser(steps):
+        return cli.make_diffuser(argparse.Namespace(**{**vars(args), "respace_steps": steps}),
+                                 conf)
+
+    # (b) agreement at b2, TF32 off: a forward of the CFG-doubled batch, then a
+    # short request to 1024x1024 images, each three ways
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.randn(2 * SD3_B, *shape, generator=g, device=dev)
+    ts = torch.tensor([999.0, 750.5, 421.25, 3.0][:2 * SD3_B], device=dev)
+    ctx = torch.as_tensor(context, device=dev).expand(2 * SD3_B, -1, -1).contiguous()
+    ctx[SD3_B:] = 0  # the unconditional half: the null conditioning
+    y = {"context": ctx, "pooled": torch.as_tensor(pooled, device=dev).repeat(2 * SD3_B, 1)}
+    y["pooled"][SD3_B:] = 0
+    with torch.no_grad():
+        zero_counts()
+        got_k = model(x, ts, y)
+        torch.cuda.synchronize()
+        fwd_launches = counts()
+        with plain_ops():
+            got_p, want = model(x, ts, y), ref(x, ts, y)
+    err_k, err_p = rel_err(got_k, want), rel_err(got_p, want)
+    log(f"MMDiT-L/2 b{2 * SD3_B} forward: rel L2 err vs f32 plain: kernels {err_k:.3e}, plain "
+        f"bf16 {err_p:.3e}; std {want.std().item():.3f}; launches {fwd_launches}")
+    check(tuple(got_k.shape) == (2 * SD3_B,) + shape and bool(torch.isfinite(got_k).all())
+          and err_k <= 1.5 * err_p + 1e-3,
+          "MMDiT-L/2 forward: err(kernels) <= 1.5 err(plain) + 1e-3")
+    want_fwd = {"K1": MMDIT_ATTN_PER_FORWARD["sd3_medium_b4"], "K2": 0, "K3": 0}
+    check(fwd_launches == want_fwd, f"MMDiT-L/2 forward launches {fwd_launches} == {want_fwd}")
+    del got_k, got_p, want, x, y, ctx
+    small = dict(shape=shape, batch_size=SD3_B, seed=SEED, decode=decoder, device=dev)
+    zero_counts()
+    img_k, _ = cli.sample_mmdit(model, diffuser(SD3_CHECK_STEPS), context, pooled, SD3_B, **small)
+    torch.cuda.synchronize()
+    req_launches = counts()
+    with plain_ops():
+        img_p, _ = cli.sample_mmdit(model, diffuser(SD3_CHECK_STEPS), context, pooled, SD3_B,
+                                    **small)
+        img_f, _ = cli.sample_mmdit(ref, diffuser(SD3_CHECK_STEPS), context, pooled, SD3_B,
+                                    **small)
+    err_k, err_p = rel_err(img_k, img_f), rel_err(img_p, img_f)
+    px = size * 8
+    log(f"SD3-medium b{SD3_B}, Euler-{SD3_CHECK_STEPS}, s={SD3_SCALE}, {px}x{px} images: rel L2 "
+        f"err vs the f32 plain run: kernels {err_k:.3e}, plain bf16 {err_p:.3e}; std "
+        f"{img_k.float().std().item():.3f}; launches {req_launches}")
+    check(tuple(img_k.shape) == (SD3_B, 3, px, px) and bool(torch.isfinite(img_k).all())
+          and err_k <= 1.5 * err_p + 1e-3,
+          f"SD3-medium request b{SD3_B}: [{SD3_B}, 3, {px}, {px}], err(kernels) <= 1.5 "
+          "err(plain) + 1e-3")
+    want_small = {"K1": SD3_CHECK_STEPS * MMDIT_ATTN_PER_FORWARD["sd3_medium_b4"], "K2": 0,
+                  "K3": GN_PER_DECODE}
+    check(req_launches == want_small,
+          f"SD3-medium request b{SD3_B} launches {req_launches} == {want_small}")
+    check(img_k.float().std().item() > 1e-2 and not torch.equal(img_k[0], img_k[1]),
+          "SD3-medium request: the images vary, and from sample to sample")
+    del img_k, img_p, img_f, ref
+    torch.cuda.empty_cache()
+
+    # (c) the timed SD3-medium request: b2, Euler-28, shift 3, CFG 4, 1024x1024,
+    # the VAE's f32 convolutions in TF32 (cuDNN's default, which the CLI keeps)
+    torch.backends.cudnn.allow_tf32 = True
+    sampler = diffuser(None)
+    rows = len(sampler.respaced_seq)
+    cli.sample_mmdit(model, sampler, context, pooled, SD3_B, **small)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    images, stage_ms = cli.sample_mmdit(model, sampler, context, pooled, SD3_B, **small)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, by_kernel = counts(), dict(flash_attention_fwd.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated()
+    params_bytes = sum(p.numel() * p.element_size() for m in (model, decoder)
+                       for p in m.parameters())
+    want = {"K1": rows * MMDIT_ATTN_PER_FORWARD["sd3_medium_b4"], "K2": 0, "K3": GN_PER_DECODE}
+    # one sampler step's model call on the CFG-doubled batch, and one decode, profiled
+    x2 = torch.randn(2 * SD3_B, *shape, generator=g, device=dev)
+    t2 = torch.full((2 * SD3_B,), 500.0, device=dev)
+    y2 = {"context": torch.as_tensor(context, device=dev).repeat(2 * SD3_B, 1, 1),
+          "pooled": torch.as_tensor(pooled, device=dev).repeat(2 * SD3_B, 1)}
+    with torch.no_grad():
+        step_ms = time_ms(lambda: model(x2, t2, y2), 3)
+        profile = profile_by_class(lambda: model(x2, t2, y2), 2)
+        z = torch.randn(SD3_B, *shape, generator=g, device=dev)
+        decode_profile = profile_by_class(lambda: decoder(z), 1)
+    metrics = {"sd3_medium_b2": {
+        "imgs_per_s": SD3_B / seconds, "seconds": seconds, "batch": SD3_B, "steps": rows,
+        "size": px, "guidance_scale": sampler.guidance_scale, "stage_ms": stage_ms,
+        "peak_bytes": peak, "params_bytes": params_bytes, "cfg_forward_ms": step_ms,
+        "cfg_forward_profile_ms": profile["classes"], "cfg_forward_wall_ms": profile["wall_ms"],
+        "vae_decode_profile_ms": decode_profile["classes"], "launches": launches,
+        "k1_by_kernel": by_kernel}}
+    log(f"SD3-medium b{SD3_B}, Euler-{rows} ({rows} MMDiT calls on {2 * SD3_B} samples), shift "
+        f"{sampler.time_shift}, s={sampler.guidance_scale}, {px}x{px}: {seconds:.3f} s, "
+        f"{SD3_B / seconds:.4f} images/s, stages (CUDA events, ms) {json.dumps(stage_ms)}, peak "
+        f"{peak / 2**30:.3f} GiB (parameters {params_bytes / 2**30:.3f} GiB) ({card}); launches "
+        f"{launches}, K1 by kernel {by_kernel}")
+    log(f"MMDiT-L/2 forward on {2 * SD3_B} samples: {step_ms:.3f} ms (CUDA events, 3 forwards); "
+        f"device time by class (torch.profiler, ms per forward over 2; wall "
+        f"{profile['wall_ms']:.3f} ms under the profiler): " + json.dumps(profile["classes"]))
+    for kname, kernel_ms in profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {kname}")
+    log(f"VAE decode b{SD3_B} {px}x{px}, TF32, device time by class (one decode): "
+        + json.dumps(decode_profile["classes"]))
+    check(tuple(images.shape) == (SD3_B, 3, px, px) and bool(torch.isfinite(images).all())
+          and images.float().std().item() > 1e-2 and set(stage_ms) == {"sample", "decode"},
+          f"SD3-medium request b{SD3_B}: finite [{SD3_B}, 3, {px}, {px}], stage times")
+    check(launches == want, f"SD3-medium request b{SD3_B} launches {launches} == {want}")
+    check(by_kernel == {"mma": 0, "wgmma": want["K1"]},
+          f"SD3-medium request: every K1 launch through wgmma {by_kernel}")
+    check(profile["classes"]["K1 attention"] > 0, "profile: the MMDiT forward ran K1 on the card")
+    del model, decoder, images, x2, t2, y2, z
+    torch.cuda.empty_cache()
+
+    # (d) bench.py's mmdit_sample: MMDiT-B/2, b32, FlowDPM-20, CFG 4, no VAE
+    b2 = mmdit_model("MMDiT-B/2", **MMDIT_B2, device=dev).eval()
+    init_random_(b2, g)
+    b2_blocks = sum(isinstance(m, MMDiTBlock) for m in b2.modules())
+    check(b2_blocks == MMDIT_ATTN_PER_FORWARD["mmdit_b2_b64"] and b2.qk_norm,
+          f"MMDiT-B/2: {b2_blocks} joint attentions a forward, qk_norm on")
+    b2_sampler = FlowDPMSolverCFG(guidance_scale=SD3_SCALE, total_steps=1000,
+                                  respace_steps=MMDIT_B2_STEPS)
+    b2_ctx = torch.randn(MMDIT_B2_B, MMDIT_B2_CTX, MMDIT_B2["context_dim"], generator=g,
+                         device=dev)
+    b2_pooled = torch.randn(MMDIT_B2_B, MMDIT_B2["pooled_dim"], generator=g, device=dev)
+    b2_shape = (MMDIT_B2["in_channels"], MMDIT_B2["input_size"], MMDIT_B2["input_size"])
+    b2_kw = dict(shape=b2_shape, batch_size=MMDIT_B2_B, seed=SEED, device=dev)
+    cli.sample_mmdit(b2, b2_sampler, b2_ctx, b2_pooled, MMDIT_B2_B, **b2_kw)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    latents, b2_stages = cli.sample_mmdit(b2, b2_sampler, b2_ctx, b2_pooled, MMDIT_B2_B, **b2_kw)
+    torch.cuda.synchronize()
+    b2_seconds = time.perf_counter() - t0
+    b2_launches, b2_by_kernel = counts(), dict(flash_attention_fwd.launches_by_kernel)
+    x2 = torch.randn(2 * MMDIT_B2_B, *b2_shape, generator=g, device=dev)
+    t2 = torch.full((2 * MMDIT_B2_B,), 500.0, device=dev)
+    y2 = {"context": b2_ctx.repeat(2, 1, 1), "pooled": b2_pooled.repeat(2, 1)}
+    with torch.no_grad():
+        b2_step_ms = time_ms(lambda: b2(x2, t2, y2), 10)
+        b2_profile = profile_by_class(lambda: b2(x2, t2, y2), 3)
+    b2_want = {"K1": MMDIT_B2_STEPS * MMDIT_ATTN_PER_FORWARD["mmdit_b2_b64"], "K2": 0, "K3": 0}
+    metrics["mmdit_b2_b32"] = {
+        "samples_per_s": MMDIT_B2_B / b2_seconds, "seconds": b2_seconds, "batch": MMDIT_B2_B,
+        "steps": MMDIT_B2_STEPS, "stage_ms": b2_stages, "cfg_forward_ms": b2_step_ms,
+        "cfg_forward_profile_ms": b2_profile["classes"],
+        "cfg_forward_wall_ms": b2_profile["wall_ms"], "launches": b2_launches,
+        "k1_by_kernel": b2_by_kernel}
+    log(f"MMDiT-B/2 b{MMDIT_B2_B}, FlowDPM-{MMDIT_B2_STEPS} CFG {SD3_SCALE} on {b2_shape} latents, "
+        f"{MMDIT_B2_CTX} context tokens: {b2_seconds:.3f} s, {MMDIT_B2_B / b2_seconds:.4f} "
+        f"samples/s ({card}); launches {b2_launches}, K1 by kernel {b2_by_kernel}")
+    log(f"MMDiT-B/2 forward on {2 * MMDIT_B2_B} samples: {b2_step_ms:.3f} ms (CUDA events, 10 "
+        f"forwards); device time by class (ms per forward over 3; wall "
+        f"{b2_profile['wall_ms']:.3f} ms under the profiler): "
+        + json.dumps(b2_profile["classes"]))
+    for kname, kernel_ms in b2_profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {kname}")
+    check(tuple(latents.shape) == (MMDIT_B2_B,) + b2_shape and bool(torch.isfinite(latents).all())
+          and latents.float().std().item() > 1e-2,
+          f"MMDiT-B/2 request b{MMDIT_B2_B}: finite latents of {b2_shape}")
+    check(b2_launches == b2_want, f"MMDiT-B/2 request launches {b2_launches} == {b2_want}")
+    check(b2_by_kernel == {"mma": 0, "wgmma": b2_want["K1"]},
+          f"MMDiT-B/2 request: every K1 launch through wgmma {b2_by_kernel}")
+    del b2, latents, x2, t2, y2, b2_ctx, b2_pooled
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    return {"launches": {f"sd3_euler{rows}": launches,
+                         f"mmdit_b2_flowdpm{MMDIT_B2_STEPS}": b2_launches},
+            "metrics": metrics, "k1": k1_rows, "k1_per_forward": k1_per_forward}
 
 
 # kernel-name fragments -> class, first match wins

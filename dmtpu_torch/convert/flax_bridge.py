@@ -24,10 +24,17 @@ so parameters made by the JAX package load into the port's modules, whose
 keys are the upstream torch keys.  The params tree is nested dicts of numpy
 arrays (``jax.device_get`` of a Flax params tree), with or without the
 top-level ``"params"`` wrapper.
+
+The JAX MMDiT names its modules otherwise (``t_mlp0``, ``blocks__i/x_qkv``,
+...): ``mmdit_key`` maps those keys onto SD3's upstream ones, the inverse of
+the table of ``dmtpu/convert/zoo.py::convert_mmdit``.  A module with a
+``flax_rename`` attribute (the port's MMDiT) has its keys renamed so by
+``load_flax_params``.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Tuple
+import re
+from typing import Any, Callable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +67,34 @@ def torch_name(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[Tuple[in
     return (f"{base}.{name}" if base else name), perm
 
 
+# the JAX MMDiT's top-level modules -> SD3's
+_MMDIT_TOP = (("x_embedder.", "x_embedder.proj."), ("t_mlp0.", "t_embedder.mlp.0."),
+              ("t_mlp2.", "t_embedder.mlp.2."), ("pooled_mlp0.", "y_embedder.mlp.0."),
+              ("pooled_mlp2.", "y_embedder.mlp.2."))
+# a block's modules, per stream (x, ctx) -> x_block / context_block
+_MMDIT_BLOCK = (("adaLN.", "adaLN_modulation.1."), ("qkv.", "attn.qkv."),
+                ("proj.", "attn.proj."), ("qknorm.q_norm.", "attn.ln_q."),
+                ("qknorm.k_norm.", "attn.ln_k."), ("mlp.", "mlp."))
+_MMDIT_BLOCK_KEY = re.compile(r"blocks\.(\d+)\.(x|ctx)_(.*)")
+
+
+def mmdit_key(key: str) -> str:
+    """The SD3 key of a JAX MMDiT leaf's torch key (``blocks.3.ctx_qkv.weight``
+    -> ``joint_blocks.3.context_block.attn.qkv.weight``)."""
+    for src, dst in _MMDIT_TOP:
+        if key.startswith(src):
+            return dst + key[len(src):]
+    m = _MMDIT_BLOCK_KEY.fullmatch(key)
+    if m is None:
+        return key  # context_embedder, final_layer
+    i, stream, rest = m.groups()
+    block = "x_block" if stream == "x" else "context_block"
+    for src, dst in _MMDIT_BLOCK:
+        if rest.startswith(src):
+            return f"joint_blocks.{i}.{block}.{dst}{rest[len(src):]}"
+    raise ValueError(f"unrecognised JAX MMDiT leaf: {key}")
+
+
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
     for k, v in tree.items():
         if isinstance(v, Mapping):
@@ -68,14 +103,19 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
             yield prefix + (str(k),), v
 
 
-def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """Torch state_dict (f32 CPU tensors) from a JAX-package params tree."""
+def state_dict_from_flax(params: Mapping[str, Any],
+                         rename: Optional[Callable[[str], str]] = None
+                         ) -> dict[str, torch.Tensor]:
+    """Torch state_dict (f32 CPU tensors) from a JAX-package params tree;
+    ``rename`` maps each key once converted (``mmdit_key``)."""
     if set(params) == {"params"}:
         params = params["params"]
     out: dict[str, torch.Tensor] = {}
     for path, leaf in _flatten(params):
         arr = np.asarray(leaf)
         key, perm = torch_name(path, arr.ndim)
+        if rename is not None:
+            key = rename(key)
         if perm is not None:
             arr = arr.transpose(perm)
         if key in out:
@@ -86,6 +126,8 @@ def state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
 
 def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     """Load a JAX-package params tree into ``module`` (strict: every key must
-    match).  Tensors are copied into the module's own dtypes and device."""
-    module.load_state_dict(state_dict_from_flax(params), strict=True)
+    match), through the module's ``flax_rename`` where it has one.  Tensors
+    are copied into the module's own dtypes and device."""
+    module.load_state_dict(state_dict_from_flax(params, getattr(module, "flax_rename", None)),
+                           strict=True)
     return module

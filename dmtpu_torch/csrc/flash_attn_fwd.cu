@@ -1,6 +1,6 @@
 // K1: non-causal attention forward for Hopper (sm_90a), bf16 in and out:
 // the kernel of the large self-attention shapes (head dims 40 and 80 of
-// SD1.5, 72 of DiT).
+// SD1.5, 72 of DiT, 64 of MMDiT's joint attention).
 //
 // Replaces dmtpu/ops/flash_small_d.py::_fwd_kernel / _fwd (the Pallas TPU
 // flash kernel for small head dims) and the forward role of the stock Pallas
@@ -33,9 +33,9 @@
 //   - head dims that are no multiple of 64 cost nothing in device memory:
 //     the box is 64 columns wide and columns past D are out of bounds, which
 //     TMA zero-fills without reading.  Q K^T runs over ceil(D / 16) steps
-//     (48 columns for d=40, 80 for d=72 and d=80, the second 64-column tile
-//     holding columns 64..79, of which 72..79 are zeros for d=72); P V is a
-//     single wgmma of width D (n40, n72, n80);
+//     (48 columns for d=40, 64 for d=64, 80 for d=72 and d=80, the second
+//     64-column tile holding columns 64..79, of which 72..79 are zeros for
+//     d=72); P V is a single wgmma of width D (n40, n64, n72, n80);
 //   - overlap: each consumer issues the next tile's Q K^T and the current
 //     tile's P V together, and computes the softmax of the next tile while
 //     P V runs; the two consumer warpgroups take turns issuing their
@@ -75,6 +75,7 @@ template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc,
                                          int scale_d) {
   if constexpr (D == 40) wgmma_rs_n40(o, a, desc, scale_d);
+  if constexpr (D == 64) wgmma_rs_n64(o, a, desc, scale_d);
   if constexpr (D == 72) wgmma_rs_n72(o, a, desc, scale_d);
   if constexpr (D == 80) wgmma_rs_n80(o, a, desc, scale_d);
 }
@@ -321,7 +322,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 }  // namespace
 
 // q, k, v, o: bf16 [B, S, H, D] with the given element strides (D contiguous,
-// D 40, 72 or 80, every stride a positive multiple of 8, 16-byte aligned
+// D 40, 64, 72 or 80, every stride a positive multiple of 8, 16-byte aligned
 // pointers).  lse: f32 [B, H, Sq], contiguous.  scale_log2 = softmax scale *
 // log2(e), positive.  Returns the CUDA error code of the launch (0 on
 // success; cudaErrorInvalidValue for a head dim or strides it does not take).
@@ -336,6 +337,8 @@ extern "C" int dmtpu_flash_attn_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 40)
     return (int)launch<40>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, os, scale_log2, st);
+  if (D == 64)
+    return (int)launch<64>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, os, scale_log2, st);
   if (D == 72)
     return (int)launch<72>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, os, scale_log2, st);
   if (D == 80)

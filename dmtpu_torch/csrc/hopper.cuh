@@ -232,6 +232,19 @@ __device__ __forceinline__ void wgmma_rs_n40(float (&d)[20], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// d[64 x 64] (+)= a[64 x 16] (registers) * b[16 x 64] (shared, MN-major: transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 // d[64 x 72] (+)= a[64 x 16] (registers) * b[16 x 72] (shared, MN-major: transposed).
 __device__ __forceinline__ void wgmma_rs_n72(float (&d)[36], const uint32_t (&a)[4],
                                              uint64_t desc_b, int scale_d) {

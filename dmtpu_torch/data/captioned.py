@@ -1,11 +1,10 @@
 """Captioned image datasets for latent text-to-image fine-tuning.
 
-Counterpart of ``CaptionedImageDir`` and ``SyntheticCaptioned`` of
-``dmtpu/data/captioned.py`` (``SyntheticEmbedded``, for cached text
-embeddings, is not ported yet).  Items are ``{"image": float32 HWC in
-[-1, 1], "caption": str}``; the loader stacks the images and gathers the
-captions into an array, and the training CLI tokenizes each batch on the
-host.
+Counterpart of ``dmtpu/data/captioned.py``: ``CaptionedImageDir`` and
+``SyntheticCaptioned``, whose items are ``{"image": float32 HWC in [-1, 1],
+"caption": str}`` (the loader stacks the images and gathers the captions
+into an array, and the training CLI tokenizes each batch on the host), and
+``SyntheticEmbedded``, whose items carry cached text embeddings instead.
 """
 from __future__ import annotations
 
@@ -67,3 +66,30 @@ class SyntheticCaptioned:
     def __getitem__(self, i: int):
         return {"image": self.images[i],
                 "caption": self._TEMPLATES[i % len(self._TEMPLATES)].format(i)}
+
+
+class SyntheticEmbedded:
+    """Seeded images and PRECOMPUTED text embeddings, the cached-embedding
+    text-to-image workflow (MMDiT on ``{"image", "context", "pooled"}`` with
+    no text tower in the step); the same arrays as the JAX package's from the
+    same seed.  Images and embeddings follow the pseudo-class
+    ``index % n_classes``, so the conditioning is learnable."""
+
+    def __init__(self, img_size: int = 32, channels: int = 3, n: int = 256, context_len: int = 8,
+                 context_dim: int = 64, pooled_dim: int = 32, n_classes: int = 4, seed: int = 0,
+                 **_):
+        rng = np.random.RandomState(seed)
+        cls = np.arange(n) % n_classes
+        base = rng.uniform(-1, 1, (n_classes, img_size, img_size, channels))
+        noise = 0.1 * rng.randn(n, img_size, img_size, channels)
+        self.images = np.clip(base[cls] + noise, -1, 1).astype(np.float32)
+        ctx_table = rng.randn(n_classes, context_len, context_dim)
+        pool_table = rng.randn(n_classes, pooled_dim)
+        self.contexts = ctx_table[cls].astype(np.float32)
+        self.pooled = pool_table[cls].astype(np.float32)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i: int):
+        return {"image": self.images[i], "context": self.contexts[i], "pooled": self.pooled[i]}

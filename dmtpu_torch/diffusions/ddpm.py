@@ -273,15 +273,27 @@ class DDPM:
         return final
 
 
+def _tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts, lists and tuples (``jax.tree.map``
+    for the conditioning pytrees the CFG merge sees); ``rest`` are trees of the
+    same structure whose leaves are passed alongside."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
 def cfg_double_merge(x: torch.Tensor, model_kwargs: Dict[str, Any], cond_kwarg: str,
                      uncond_key: str) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """(x2, merged kwargs) for the ONE 2B-batched CFG call: [cond | uncond].
 
-    The conditioning is a tensor (the JAX package also takes pytrees, which
-    the SDXL vector conditioning needs; not ported).  Other ``model_kwargs``
-    are carried onto the doubled batch by the JAX package's heuristic: a
-    tensor with ``shape[0] == B`` is treated as per-sample and tiled to 2B.
-    Raises if the conditional kwarg or the unconditional entry is missing.
+    The conditioning is a tensor or a pytree of them (MMDiT's ``{"context",
+    "pooled"}``): cond and uncond are concatenated leaf by leaf.  Other
+    ``model_kwargs`` are carried onto the doubled batch by the JAX package's
+    heuristic: a tensor leaf with ``shape[0] == B`` is treated as per-sample
+    and tiled to 2B.  Raises if the conditional kwarg or the unconditional
+    entry is missing.
     """
     if cond_kwarg not in model_kwargs:
         raise ValueError(f"Condition argument `{cond_kwarg}` not found in model_kwargs.")
@@ -289,7 +301,7 @@ def cfg_double_merge(x: torch.Tensor, model_kwargs: Dict[str, Any], cond_kwarg: 
     if uncond is None:
         raise ValueError(
             "CFG sampling requires `uncond_conditioning` (a null class index / "
-            f"empty-prompt embedding matching the conditional `{cond_kwarg}`); got None.")
+            f"empty-prompt embedding pytree matching the conditional `{cond_kwarg}`); got None.")
     b = x.shape[0]
 
     def _double(a):
@@ -297,8 +309,9 @@ def cfg_double_merge(x: torch.Tensor, model_kwargs: Dict[str, Any], cond_kwarg: 
             return torch.cat([a, a], dim=0)
         return a
 
-    merged = {k: _double(v) for k, v in model_kwargs.items() if k != uncond_key}
-    merged[cond_kwarg] = torch.cat([model_kwargs[cond_kwarg], uncond], dim=0)
+    merged = {k: _tree_map(_double, v) for k, v in model_kwargs.items() if k != uncond_key}
+    merged[cond_kwarg] = _tree_map(lambda c, u: torch.cat([c, u], dim=0),
+                                   model_kwargs[cond_kwarg], uncond)
     return torch.cat([x, x], dim=0), merged
 
 

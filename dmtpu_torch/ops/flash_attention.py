@@ -13,7 +13,7 @@ to 48, 80 or 160 in shared memory) and ragged sequence lengths (masked).
 - ``flash_attention_fwd(q, k, v, scale) -> (o, lse)`` (K1): ``lse`` is the
   f32 row logsumexp [B, H, S_q] that the backward consumes.  Two kernels
   stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims 40,
-  72 and 80, the long self-attention shapes) and ``csrc/flash_attn_fwd_mma.cu``
+  64, 72 and 80, the long self-attention shapes) and ``csrc/flash_attn_fwd_mma.cu``
   (mma.sync, everything else); ``select_kernel`` is the gate.
 - ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2).
   Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
@@ -115,11 +115,11 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 # K1 is two hand-written kernels with one interface.  "wgmma"
 # (csrc/flash_attn_fwd.cu: TMA loads, a ring of K/V stages, wgmma, 128 Q rows
-# and 128 keys a tile) is instantiated for head dims 40 and 80 (SD1.5) and 72
-# (DiT) and needs a positive scale (it takes the running max before scaling);
-# "mma" (csrc/flash_attn_fwd_mma.cu: mma.sync, 64 x 64 tiles) takes every
-# head dim up to 160.
-WGMMA_HEAD_DIMS = (40, 72, 80)
+# and 128 keys a tile) is instantiated for head dims 40 and 80 (SD1.5), 72
+# (DiT) and 64 (MMDiT) and needs a positive scale (it takes the running max
+# before scaling); "mma" (csrc/flash_attn_fwd_mma.cu: mma.sync, 64 x 64 tiles)
+# takes every head dim up to 160.
+WGMMA_HEAD_DIMS = (40, 64, 72, 80)
 # Below this many keys the wgmma kernel is one 128-key tile, mostly masked,
 # and the mma.sync kernel is as fast or faster; see the gate's numbers in
 # ``select_kernel``.
@@ -146,7 +146,11 @@ def select_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> st
     shape stays on mma.sync.  DiT-XL/2's self-attention (phase 11, b64 h16
     S=256 d=72, two key tiles, q/k/v strided views of one projection), two
     timings each: mma.sync 0.1465 and 0.1463 ms, wgmma 0.1055 and 0.1052; so
-    d=72 takes the same rule.
+    d=72 takes the same rule.  MMDiT's joint attention at d=64 (phase 13, q,
+    k and v concatenated from the two streams, a masked last key tile): b4
+    h24 S=4250, mma.sync 2.967 and 2.951 ms, wgmma 1.058 and 1.061; b64 h12
+    S=333 (77 of its third key tile's 128 keys valid), mma.sync 0.2178 and
+    0.2139, wgmma 0.1220 and 0.1214; so d=64 takes it too.
     """
     if "wgmma" in kernels_for(d, scale) and sk >= WGMMA_MIN_KEYS:
         return "wgmma"

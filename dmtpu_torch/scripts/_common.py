@@ -284,10 +284,13 @@ def load_npz_params(path: str) -> Dict[str, Any]:
         return data["params"].item()
 
 
-def load_model_params(path: str, model: nn.Module) -> nn.Module:
+def load_model_params(path: str, model: nn.Module,
+                      converter: Optional[Callable[[Dict[str, torch.Tensor], nn.Module],
+                                                   Dict[str, Any]]] = None) -> nn.Module:
     """``model`` with the weights of ``path`` loaded: a JAX-package ``.npz``
-    export (through the Flax bridge) or a torch file in ``model``'s keys.
-    Returns the model."""
+    export (through the Flax bridge) or a torch file, in ``model``'s keys or
+    mapped onto them by ``converter(state_dict, model)`` (``sample_mmdit``
+    passes ``convert_mmdit`` for the SD3 release layout).  Returns the model."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory: the JAX package's orbax train states are not read here; "
@@ -296,5 +299,6 @@ def load_model_params(path: str, model: nn.Module) -> nn.Module:
         from dmtpu_torch.convert import load_flax_params
 
         return load_flax_params(model, load_npz_params(path))
-    model.load_state_dict(load_torch_weights(path))
+    state_dict = load_torch_weights(path)
+    model.load_state_dict(converter(state_dict, model) if converter else state_dict)
     return model

@@ -11,8 +11,8 @@ unless ``--device cpu`` is given).  Class labels and noise -> a CFG sampler
 batch; the null class is row ``num_classes`` of the label table) -> the VAE
 decode of a latent model -> PNGs in ``save_dir/class{c}/``.
 
-- ``--sampler ddpm | ddim | dpmpp | pfdiff``; ``flow`` (the flow-matching
-  samplers) is not ported yet and raises;
+- ``--sampler ddpm | ddim | dpmpp | pfdiff``; ``flow`` (``FlowMatchingCFG``
+  over a class-conditional model) is not wired here yet and raises;
 - ``--guidance_interval T_LO T_HI`` (ddpm, ddim), ``--var_type``;
 - models: the latent DiT / MDT wrapper (``models.dit.dit.DiT``,
   ``models.mdt.mdt.MDT``) with ``--weights`` either a JAX-package ``.npz``
@@ -93,8 +93,8 @@ def make_diffuser(args: argparse.Namespace, conf) -> DDPMCFG:
     """The CFG sampler the flags name, over the config's diffusion."""
     if args.sampler == "flow":
         raise NotImplementedError(
-            "--sampler flow: the flow-matching samplers (FlowMatchingCFG) are not ported yet "
-            "(ROADMAP.md, Queue 1 item K)")
+            "--sampler flow: FlowMatchingCFG serves sample_mmdit; its class-conditional use "
+            "here is not ported yet (ROADMAP.md, Queue 1 item K)")
     extra = dict(guidance_scale=args.guidance_scale)
     if args.var_type is not None:
         extra["var_type"] = args.var_type

@@ -166,13 +166,17 @@ _PORTED = {
     "dmtpu.diffusions.pfdiff.PFDiffDDIM", "dmtpu.diffusions.pfdiff.PFDiffDDIMCFG",
     "dmtpu.diffusions.DPMSolverPP", "dmtpu.diffusions.DPMSolverPPCFG",
     "dmtpu.diffusions.PFDiffDDIM", "dmtpu.diffusions.PFDiffDDIMCFG",
+    "dmtpu.diffusions.flow.FlowMatching", "dmtpu.diffusions.flow.FlowMatchingCFG",
+    "dmtpu.diffusions.flow_dpm.FlowDPMSolver", "dmtpu.diffusions.flow_dpm.FlowDPMSolverCFG",
+    "dmtpu.diffusions.FlowMatching", "dmtpu.diffusions.FlowMatchingCFG",
+    "dmtpu.diffusions.FlowDPMSolver", "dmtpu.diffusions.FlowDPMSolverCFG",
     "dmtpu.diffusions.guidance.base.BaseGuidance",
     "dmtpu.diffusions.guidance.mask_guidance.MaskGuidance",
     "dmtpu.diffusions.guidance.mask_guidance.MaskGuidanceDDIMCFG",
     "dmtpu.diffusions.guidance.BaseGuidance", "dmtpu.diffusions.guidance.MaskGuidance",
     "dmtpu.diffusions.guidance.MaskGuidanceDDIMCFG",
     "dmtpu.models.ema.EMAState",
-    "dmtpu.models.dit.DiT", "dmtpu.models.mdt.MDTv2",
+    "dmtpu.models.dit.DiT", "dmtpu.models.mdt.MDTv2", "dmtpu.models.mmdit.MMDiT",
     "dmtpu.models.latent.LatentDiffusionWrapper", "dmtpu.models.latent.PretrainedVAE",
     "dmtpu.models.stablediffusion.StableDiffusion",
     "dmtpu.models.stablediffusion.SDUNetModel",
@@ -186,6 +190,7 @@ _PORTED = {
     "dmtpu.utils.optim.adam", "dmtpu.utils.optim.adamw", "dmtpu.utils.optim.adafactor",
     "dmtpu.utils.optim.sgd",
     "dmtpu.data.captioned.CaptionedImageDir", "dmtpu.data.captioned.SyntheticCaptioned",
+    "dmtpu.data.captioned.SyntheticEmbedded",
     "dmtpu.data.datasets.ImageDir", "dmtpu.data.datasets.MNIST", "dmtpu.data.datasets.CIFAR10",
     "dmtpu.data.datasets.CelebAHQ", "dmtpu.data.datasets.ImageNet",
     "dmtpu.data.datasets.Synthetic", "dmtpu.data.image_dir.ImageDir", "dmtpu.data.mnist.MNIST",

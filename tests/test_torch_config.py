@@ -20,6 +20,7 @@ from dmtpu_torch.models.dit import DiT
 from dmtpu_torch.models.ema import EMAState
 from dmtpu_torch.models.latent import LatentDiffusionWrapper, PretrainedVAE
 from dmtpu_torch.models.mdt import MDTv2
+from dmtpu_torch.models.mmdit import MMDiT
 from dmtpu_torch.utils import config as tconfig
 from dmtpu_torch.utils import image as timage
 from dmtpu_torch.utils import optim as toptim
@@ -57,6 +58,13 @@ TARGETS = [
     ("dmtpu.models.dit.DiT", DiT),
     ("models.mdt.mdt.MDT", LatentDiffusionWrapper),
     ("models.mdt.model.MDTv2", MDTv2),
+    ("models.mmdit.MMDiT", MMDiT),
+    ("dmtpu.models.mmdit.MMDiT", MMDiT),
+    ("diffusions.flow.FlowMatching", td.FlowMatching),
+    ("diffusions.flow.FlowMatchingCFG", td.FlowMatchingCFG),
+    ("diffusions.flow_dpm.FlowDPMSolver", td.FlowDPMSolver),
+    ("dmtpu.diffusions.FlowDPMSolverCFG", td.FlowDPMSolverCFG),
+    ("dmtpu.data.captioned.SyntheticEmbedded", captioned.SyntheticEmbedded),
     ("models.dit.autoencoder.AutoEncoderKL", PretrainedVAE),
     ("models.mdt.autoencoder.AutoEncoderKL", PretrainedVAE),
     ("dmtpu_torch.diffusions.ddim.DDIM", td.DDIM),   # this package's own paths
@@ -74,9 +82,9 @@ def test_reference_table_is_the_jax_package_s():
 
 
 @pytest.mark.parametrize("target", [
-    "diffusions.euler.EulerSampler", "models.mmdit.MMDiT", "models.unet.UNet",
+    "diffusions.euler.EulerSampler", "diffusions.heun.HeunSampler", "models.unet.UNet",
     "diffusions.guidance.ilvr.ILVR", "dmtpu.models.sdxl.StableDiffusionXL",
-    "dmtpu.models.pesser.PesserUNet", "dmtpu.data.captioned.SyntheticEmbedded", "dmtpu.anything",
+    "dmtpu.models.pesser.PesserUNet", "diffusions.ddpm_ip.DDPM_IP", "dmtpu.anything",
 ])
 def test_unported_target_is_named(target):
     with pytest.raises(NotImplementedError, match="no counterpart in dmtpu_torch") as e:

@@ -688,3 +688,65 @@ def test_vae_and_clip_run_k3_and_no_attention_kernel(cuda):
         with plain_ops():
             want, _ = vae(x, sample_posterior=False)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---- K1 at head dim 64: MMDiT's joint attention ------------------------------
+
+# (b, h, S): SD3-medium's 154 + 4096 tokens over 24 heads, and bench's MMDiT-B/2
+# at 77 + 256 over 12; both have a masked last key tile
+MMDIT_ATTN = [(1, 24, 4250), (4, 12, 333)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [None, "mma", "wgmma"])
+@pytest.mark.parametrize("b,h,s", MMDIT_ATTN)
+def test_k1_at_mmdit_shapes_through_every_kernel(cuda, b, h, s, kernel):
+    """Contiguous q, k and v made by ``torch.cat`` of the context and image
+    streams, as the joint attention hands them; the dispatch sends d=64 with
+    more than one key tile to wgmma."""
+    g = torch.Generator(device=cuda).manual_seed(15)
+    lc = 154 if s == 4250 else 77
+    q, k, v = (torch.cat([torch.randn(b, lc, h, 64, generator=g, device=cuda),
+                          torch.randn(b, s - lc, h, 64, generator=g, device=cuda)], 1).bfloat16()
+               for _ in range(3))
+    assert select_kernel(s, s, 64) == "wgmma" and k1_kernels_for(64) == ["mma", "wgmma"]
+    before = dict(flash_attention_fwd.launches_by_kernel)
+    o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
+    took = kernel or "wgmma"
+    assert flash_attention_fwd.launches_by_kernel[took] == before[took] + 1
+    want_o, want_lse = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert_k1_close(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qk_norm", [False, True])
+def test_mmdit_runs_one_k1_a_block_and_agrees_with_the_plain_path(cuda, qk_norm):
+    """A small bf16 MMDiT at head dim 64 (4 heads, 3 blocks, 9 + 256 tokens):
+    one K1 launch a block, through wgmma, no K2 or K3; its output within 2e-2
+    relative L2 of the same model through the plain ops (both bf16: the
+    kernel rounds P and O where ``mha`` rounds its logits and weights)."""
+    from dmtpu_torch.models.mmdit import MMDiT
+
+    torch.manual_seed(0)
+    m = MMDiT(input_size=32, patch_size=2, in_channels=4, hidden_size=256, depth=3,
+              num_heads=4, context_dim=32, pooled_dim=16, qk_norm=qk_norm, dtype="bfloat16",
+              device=cuda).eval()
+    for p in m.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    x = torch.randn(2, 4, 32, 32, device=cuda)
+    t = torch.tensor([10.5, 900.0], device=cuda)
+    y = {"context": torch.randn(2, 9, 32, device=cuda), "pooled": torch.randn(2, 16, device=cuda)}
+    with torch.no_grad():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
+        got = m(x, t, y)
+        assert (flash_attention_fwd.launches, flash_attention_bwd.launches,
+                group_norm_silu.launches) == (3, 0, 0)
+        assert flash_attention_fwd.launches_by_kernel == {"mma": 0, "wgmma": 3}
+        with plain_ops():
+            want = m(x, t, y)
+    err = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    assert got.shape == (2, 4, 32, 32) and bool(torch.isfinite(got).all()) and err <= 2e-2

@@ -111,7 +111,7 @@ def test_attention_dispatch_of_the_path(sq, sk, d):
     assert fa.kernels_for(d, scale=0.0) == ["mma"]
 
 
-@pytest.mark.parametrize("d", [8, 48, 56, 64, 96, 160])
+@pytest.mark.parametrize("d", [8, 32, 48, 56, 96, 160])
 def test_other_head_dims_stay_on_mma(d):
     assert fa.kernels_for(d) == ["mma"] and fa.select_kernel(4096, 4096, d) == "mma"
 
@@ -344,3 +344,32 @@ def test_finetune_configs_give_the_launches_and_adapters_chip_smoke_expects(conf
         lora = init_lora(sd.unet, rank=int(conf.train.lora.rank))
         assert len(lora.paths) == 4 * 32 and lora_param_count(dict(lora.named_parameters())) \
             == 3_188_736
+
+
+# MMDiT's joint attention at head dim 64 (chip_smoke phase 13): (b, h, S, calls
+# a forward)
+MMDIT_ATTN = {"sd3_medium_b4": (4, 24, 4250, 24), "mmdit_b2_b64": (64, 12, 333, 12)}
+
+
+@pytest.mark.parametrize("name", sorted(MMDIT_ATTN))
+def test_mmdit_attention_goes_to_wgmma_and_its_bound(name):
+    b, h, s, calls = MMDIT_ATTN[name]
+    assert fa.kernels_for(64) == ["mma", "wgmma"] and fa.select_kernel(s, s, 64) == "wgmma"
+    assert s % 128 and s > fa.WGMMA_MIN_KEYS  # a masked last key tile, more than one tile
+    ops, nbytes = roofline.attention_fwd_work(b, h, s, s, 64)
+    assert ops == 4 * b * h * s * s * 64
+    assert nbytes == 2 * b * h * 64 * 4 * s + 4 * b * h * s
+    # SD3-medium's call is bound by its operations; at S=333 the bytes weigh more
+    want_ms, want_by = {"sd3_medium_b4": (0.4488, "operations"),
+                        "mmdit_b2_b64": (0.03939, "bytes")}[name]
+    assert roofline.bound_ms(ops, nbytes) == (pytest.approx(want_ms, rel=1e-3), want_by)
+    assert (chip_smoke.MMDIT_ATTN[name], chip_smoke.MMDIT_ATTN_PER_FORWARD[name]) == \
+        ((b, h, s), calls)
+
+
+def test_mmdit_request_launches():
+    """672 K1 a 28-step SD3 request (24 a forward) and 30 K3 a decode; 240 K1
+    a 20-step MMDiT-B/2 request; K2 in neither."""
+    assert chip_smoke.SD3_STEPS * chip_smoke.MMDIT_ATTN_PER_FORWARD["sd3_medium_b4"] == 672
+    assert chip_smoke.MMDIT_B2_STEPS * chip_smoke.MMDIT_ATTN_PER_FORWARD["mmdit_b2_b64"] == 240
+    assert chip_smoke.GN_PER_DECODE == 30
