@@ -15,7 +15,9 @@ request function (phase 11), DiT-XL/2 class-conditional training at
 batch 32 through ``python -m dmtpu_torch.scripts.train_ddpm_cfg`` (phase 12),
 and MMDiT text to image through ``python -m dmtpu_torch.scripts.sample_mmdit``'s
 request function: SD3-medium from ``configs/sd3_medium.yaml`` at 1024x1024
-and ``bench.py``'s MMDiT-B/2 (phase 13); for the SD paths the
+and ``bench.py``'s MMDiT-B/2 (phase 13), and MMDiT rectified-flow training:
+``bench.py``'s MMDiT-B/2 at batch 128 and SD3-medium through ``python -m
+dmtpu_torch.scripts.train_mmdit`` (phase 14); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -223,7 +225,38 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      profiled; (d) ``bench.py``'s ``mmdit_sample``: MMDiT-B/2 (qk_norm), b32,
      FlowDPMSolverCFG-20, s = 4, 32x32x4 latents, 77 x 4096 random context,
      no VAE: samples per second, launches exactly 240 K1 through wgmma, one
-     call on 64 samples timed and profiled by class.
+     call on 64 samples timed and profiled by class;
+ 14. MMDiT rectified-flow training (``MMDIT_TRAIN_*``, ``SD3_TRAIN_*``): (a)
+     K1 and K2 at head dim 64 at the joint attention of the two train steps,
+     q, k and v made by ``torch.cat`` of the two streams, S = 333 over 12
+     heads at b128 (MMDiT-B/2) and S = 4250 over 24 heads at b32
+     (SD3-medium; the plain versions there in slices of 2 samples): every
+     kernel against the plain versions (and K2 against f32 autograd through
+     ``mha``), timed as in 2 and 6 beside the bound, SDPA's time (K2: its
+     backward) and the host's, wgmma chosen and not the slower; (b) at b2
+     on ``bench.py``'s MMDiT-B/2 (bf16 torso, QK norm) with f32 and with
+     bf16 parameter storage: the loss, the gradient and its norm through the
+     kernels and through the plain ops, each against an f32 plain run (TF32
+     off) holding the same weights: within 1.5x the plain bf16 path's
+     relative error, plus 1e-3; exactly 12 K1 and 12 K2 a step, all wgmma;
+     (c) ``bench.py``'s ``mmdit_train``: b128, no remat, adafactor 1e-4,
+     clip 1.0, no EMA, ``train_mmdit``'s loss with MMDiT's conditioning
+     dropout: a warm-up, 10 timed steps (images per second, ms per step,
+     peak memory, launches exactly 10 x (12, 12, 0), all wgmma), one profiled
+     step (device time by class, annotated ranges, the card's idle share)
+     and the MFU against 989 TFLOP/s from the forward's operations counted
+     on its shapes (``forward_flops``) times three; (d) ``train_mmdit.main``
+     in this process on ``configs/sd3_medium.yaml`` with
+     ``SD3_TRAIN_OVERRIDES`` (MMDiT-L/2 computing and stored in bf16, remat,
+     the config's batch of 32, adafactor 5e-5 and bf16 EMA 0.9999,
+     ``SyntheticEmbedded`` cut to 64 items, no eval grid): 3 steps and ``-r
+     latest`` to 5: ms per step, peak memory, checkpoint seconds and bytes,
+     finite losses, bf16 storage and EMA, launches exactly (48, 24, 0) a
+     step, all wgmma, and one more step of the loop profiled (idle share);
+     (e) ``sample_cfg --sampler flow``: ``make_diffuser`` and
+     ``sample_class`` on phase 11's DiT-XL/2 with ``learn_sigma`` off and the
+     SD VAE, b4, FlowMatchingCFG-4: finite images, launches 4 x 28 K1 and 30
+     K3.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -237,7 +270,9 @@ the joint attentions of one CFG-doubled MMDiT call, ``sd3_medium_b4`` and
 ``mmdit_b2_b64``; K3's also over one VAE decode and one encode,
 over one b32 decode at 256x256, ``dit_vae_decode_b32``, and one b2 decode at
 1024x1024, ``sd3_vae_decode_b2``; K2's also over the 28 of one DiT-XL/2 b32
-train step, ``dit_train_b32``), and the card's
+train step, ``dit_train_b32``; K1's and K2's also over the joint attentions
+of one MMDiT train step, ``mmdit_train_b128`` and ``sd3_train_b32``), and the
+card's
 name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
@@ -420,6 +455,28 @@ MMDIT_CONTEXT_TOKENS = {"sd3_medium_b4": 154, "mmdit_b2_b64": MMDIT_B2_CTX}
 # the VAE decoder at 1024x1024 (128x128x16 latents): VAE_DECODE_GN's shapes at
 # four times the pixels; 30 calls a decode
 SD3_DECODE_GN = {(c, 4 * hw, silu): n for (c, hw, silu), n in VAE_DECODE_GN.items()}
+
+# phase 14: MMDiT rectified-flow training: ``bench.py``'s ``mmdit_train``
+# (``benchmarks/train_northstar.py:195-250``: MMDiT-B/2 on 32x32x4 latents,
+# 77 x 4096 context, pooled 2048, QK norm, bf16 torso, no remat, adafactor
+# 1e-4, clip 1.0, no EMA, b128) through ``train_mmdit``'s loss, and ``python -m
+# dmtpu_torch.scripts.train_mmdit -c configs/sd3_medium.yaml`` with the torso
+# computing and stored in bf16 (``configs/sd3_medium.yaml:60-65``) and remat on,
+# ``SyntheticEmbedded`` cut to 64 items, no eval grid (16-channel latents make
+# no PNG); ``sample_cfg --sampler flow`` on DiT-XL/2 without learned variance
+MMDIT_TRAIN_B, MMDIT_TRAIN_STEPS, MMDIT_TRAIN_CHECK_BATCH = 128, 10, 2
+SD3_TRAIN_OVERRIDES = ["model.params.dtype=bfloat16", "model.params.param_dtype=bfloat16",
+                       "model.params.use_checkpoint=true", "data.params.n=64",
+                       "dataloader.num_workers=4", "train.print_freq=1", "train.sample_freq=0"]
+SD3_TRAIN_STEPS, SD3_TRAIN_RESUMED_STEPS = 3, 5
+# the joint attention of a train step, (b, h, S), and its calls a step: K1 in
+# the forward (and again in the recompute under remat), K2 in the backward
+MMDIT_TRAIN_ATTN = {"mmdit_train_b128": (MMDIT_TRAIN_B, 12, MMDIT_B2_CTX + 256),
+                    "sd3_train_b32": (32, 24, 154 + 4096)}
+MMDIT_TRAIN_CALLS = {"mmdit_train_b128": {"K1": 12, "K2": 12, "K3": 0},
+                     "sd3_train_b32": {"K1": 48, "K2": 24, "K3": 0}}
+MMDIT_TRAIN_CONTEXT = {"mmdit_train_b128": MMDIT_B2_CTX, "sd3_train_b32": 154}
+FLOW_B, FLOW_STEPS = 4, 4
 
 
 def log(*args):
@@ -923,6 +980,10 @@ def main() -> int:
     # ---- 13. MMDiT through sample_mmdit: SD3-medium and bench's MMDiT-B/2 -----------
     torch.cuda.empty_cache()
     mmdit = phase_mmdit(dev, check, gen, card, time_ms, host_us)
+
+    # ---- 14. MMDiT training: bench's MMDiT-B/2, SD3-medium through train_mmdit ------
+    torch.cuda.empty_cache()
+    mmdit_train = phase_mmdit_train(dev, check, gen, card, time_ms, host_us)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
@@ -936,7 +997,9 @@ def main() -> int:
                          for path, counted in serve["launches"].items()},
                       **{path: counted[name] for path, counted in dit["launches"].items()},
                       **{path: counted[name] for path, counted in dit_train["launches"].items()},
-                      **{path: counted[name] for path, counted in mmdit["launches"].items()}}
+                      **{path: counted[name] for path, counted in mmdit["launches"].items()},
+                      **{path: counted[name]
+                         for path, counted in mmdit_train["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -967,7 +1030,10 @@ def main() -> int:
              dit_b64=dit["k1_per_forward"],
              # and over the joint attentions (d=64) of one CFG-doubled MMDiT
              # call: SD3-medium's 24 on 4 samples, MMDiT-B/2's 12 on 64
-             **mmdit["k1_per_forward"]),
+             **mmdit["k1_per_forward"],
+             # and over those of one train step: MMDiT-B/2's 12 at b128, and
+             # SD3-medium's 48 at b32 (forward and remat recompute)
+             **mmdit_train["k1_per_step"]),
         dict(entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
                    "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
                    f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards",
@@ -979,7 +1045,10 @@ def main() -> int:
              # wgmma instance) of one DiT-XL/2 b32 train step, and their
              # launches by kernel in the 10 timed steps
              dit_train_b32=dit_train["k2_per_step"],
-             dit_train_launches_by_kernel=dit_train["k2_by_kernel"]),
+             dit_train_launches_by_kernel=dit_train["k2_by_kernel"],
+             # and over the joint attention backwards (d=64) of one MMDiT
+             # train step: MMDiT-B/2's 12 at b128, SD3-medium's 24 at b32
+             **mmdit_train["k2_per_step"]),
         dict(entry("group_norm_silu", "dmtpu_torch/csrc/group_norm_silu.cu",
                    "dmtpu/ops/groupnorm.py:44", (main_launches["K3"], by_path["K3"]),
                    f"per b{B} UNet forward: sum over its {GN_PER_FORWARD} GroupNorm calls", k3),
@@ -996,7 +1065,7 @@ def main() -> int:
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
         "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
         "dit_b32": dit["metrics"], "dit_train_b32": dit_train["metrics"],
-        "mmdit": mmdit["metrics"], "card": card}))
+        "mmdit": mmdit["metrics"], "mmdit_train": mmdit_train["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1017,13 +1086,15 @@ def not_the_slower(by_kernel: dict, chosen: str, ms: float, host_us: float) -> b
 
 
 def k1_call_row(q, k, v, calls: int, label: str, check, time_ms, host_us, card: str,
-                reps: int) -> tuple:
+                reps: int, slice_b: int = 0) -> tuple:
     """K1 at one call of a path, the dispatch expected on wgmma: every kernel
     that takes the shape checked against the plain ``mha`` and K1's own
     plain version (phase 2's tolerances) and timed (order first, second,
     second, first, ``reps`` calls each), beside the plain version, SDPA, the
-    host's time and the bound.  Returns (the row, its columns times
-    ``calls``: the sums over one forward)."""
+    host's time and the bound.  With ``slice_b`` the plain versions run on
+    slices of that many samples (their f32 logits of the whole batch would
+    not fit), and ``plain_ms`` is the time of all the slices.  Returns (the
+    row, its columns times ``calls``: the sums over one forward)."""
     import torch
     from dmtpu_torch.ops import roofline
     from dmtpu_torch.ops.attention import mha
@@ -1036,8 +1107,13 @@ def k1_call_row(q, k, v, calls: int, label: str, check, time_ms, host_us, card: 
 
     n, sq, h, d = q.shape
     sk = k.shape[1]
-    ref_o, ref_lse = flash_attention_reference(q, k, v)
-    plain = mha(q, k, v)
+    step = slice_b or n
+
+    def sliced(fn):
+        return [fn(q[i:i + step], k[i:i + step], v[i:i + step]) for i in range(0, n, step)]
+
+    ref_o, ref_lse = (torch.cat(part) for part in zip(*sliced(flash_attention_reference)))
+    plain = torch.cat(sliced(mha))
     chosen, names = select_kernel(sq, sk, d), kernels_for(d)
     bound_err = 1e-2 * ref_o.float().abs().max().item()  # as phase 2
     errs = {}
@@ -1058,7 +1134,8 @@ def k1_call_row(q, k, v, calls: int, label: str, check, time_ms, host_us, card: 
     for name in names + names[::-1]:
         by_kernel[name].append(time_ms(lambda: flash_attention_fwd(q, k, v, kernel=name), reps))
     ms = sum(by_kernel[chosen]) / len(by_kernel[chosen])
-    plain_ms = time_ms(lambda: mha(q, k, v), 3)
+    del ref_o, ref_lse, plain
+    plain_ms = time_ms(lambda: sliced(mha), 1 if slice_b else 3)
     qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))  # [B, H, S, D] views
     library_ms = time_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt), reps)
@@ -1076,6 +1153,110 @@ def k1_call_row(q, k, v, calls: int, label: str, check, time_ms, host_us, card: 
                                              "host_us")}
     per.update(err=errs[chosen]["max_abs_err_vs_mha"], bound_ms_by={bound_by: per["bound_ms"]})
     return row, per
+
+def k2_call_row(q, k, v, do, calls: int, label: str, check, time_ms, host_us, card: str,
+                reps: int, slice_b: int = 0) -> tuple:
+    """K2 at one call of a path, the dispatch expected on wgmma, from K1's
+    outputs and the given dO: every kernel that takes the shape checked
+    against K2's plain version and against f32 autograd through ``mha``
+    (phase 6's tolerances) and timed (order first, second, second, first,
+    ``reps`` calls each), beside the plain version, SDPA's backward (forward
+    and backward of one call less its forward alone), the host's time and the
+    bound.  With ``slice_b`` the plain versions and autograd run on slices of
+    that many samples, and ``plain_ms`` is the time of all the slices.
+    Returns (the row, its columns times ``calls``: the sums over one step)."""
+    import torch
+    from dmtpu_torch.ops import roofline
+    from dmtpu_torch.ops.attention import mha
+    from dmtpu_torch.ops.flash_attention import (
+        bwd_kernels_for,
+        flash_attention_backward_reference,
+        flash_attention_bwd,
+        flash_attention_fwd,
+        select_bwd_kernel,
+    )
+
+    def rel(a, ref) -> float:
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+    n, sq, h, d = q.shape
+    sk = k.shape[1]
+    step = slice_b or n
+    parts = range(0, n, step)
+    o, lse = flash_attention_fwd(q, k, v)
+
+    def plain_parts():
+        return [flash_attention_backward_reference(q[i:i + step], k[i:i + step], v[i:i + step],
+                                                   o[i:i + step], lse[i:i + step],
+                                                   do[i:i + step]) for i in parts]
+
+    plain = [torch.cat(x) for x in zip(*plain_parts())]
+    f32 = []
+    for i in parts:
+        leaves = [x[i:i + step].float().requires_grad_() for x in (q, k, v)]
+        mha(*leaves).backward(do[i:i + step].float())
+        f32.append([leaf.grad for leaf in leaves])
+    f32 = [torch.cat(x) for x in zip(*f32)]
+    names, chosen = bwd_kernels_for(d), select_bwd_kernel(sq, sk, d)
+    errs = {}
+    for name in names:
+        got = flash_attention_bwd(q, k, v, o, lse, do, kernel=name)
+        torch.cuda.synchronize()
+        ok = all(bool(torch.isfinite(x).all()) and x.dtype == torch.bfloat16 for x in got)
+        errs[name] = {}
+        # phase 6's tolerances (see there)
+        for grad, a, want, ref in zip(("dq", "dk", "dv"), got, plain, f32):
+            a, want = a.float(), want.float()
+            err = (a - want).abs().max().item()
+            errs[name].update({f"{grad}_max_abs_err": err, f"{grad}_rel_l2": rel(a, want),
+                               f"{grad}_rel_l2_vs_f32_mha": rel(a, ref)})
+            ok = ok and err <= 1e-2 * want.abs().max().item() and rel(a, want) <= 1e-2 and \
+                rel(a, ref) <= 2e-2 and \
+                (a - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()
+        check(ok, f"K2[{name}] bf16 b{n} h{h} S={sq} d={d}, {label}: vs plain and vs f32 mha "
+                  "autograd")
+        del got
+    del plain, f32
+    torch.cuda.empty_cache()
+    ms_by_kernel = {name: [] for name in names}
+    for name in names + names[::-1]:
+        ms_by_kernel[name].append(
+            time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, kernel=name), reps))
+    ms = sum(ms_by_kernel[chosen]) / len(ms_by_kernel[chosen])
+    plain_ms = time_ms(plain_parts, 1 if slice_b else 3)
+    lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    ldo = do.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        out = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+        lq.grad = lk.grad = lv.grad = None
+        out.backward(ldo)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
+
+    library_ms = time_ms(sdpa_fwd_bwd, reps) - time_ms(sdpa_fwd, reps)
+    host = host_us(lambda: flash_attention_bwd(q, k, v, o, lse, do), 100)
+    bound_t, bound_by = roofline.bound_ms(*roofline.attention_bwd_work(n, h, sq, sk, d))
+    row = dict(b=n, h=h, sq=sq, sk=sk, d=d, calls=calls, kernel=chosen, **errs[chosen], ms=ms,
+               ms_by_kernel=ms_by_kernel, plain_ms=plain_ms, bound_ms=bound_t,
+               bound_by=bound_by, library_ms=library_ms, host_us=host,
+               host_bound=ms <= 1.2 * host / 1e3)
+    log("K2", json.dumps(row))
+    best = {name: min(times) for name, times in ms_by_kernel.items()}
+    log(f"K2 at {label}: {ms / bound_t:.2f}x its bound, {ms / library_ms:.3f}x SDPA's "
+        f"backward, the faster kernel {min(best, key=best.get)} ({card})")
+    check(chosen == "wgmma" and not_the_slower(ms_by_kernel, chosen, ms, host),
+          f"K2 dispatch b{n} S={sq} d={d}: {chosen} (wgmma) is not the slower kernel")
+    per = {key: calls * row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                             "host_us")}
+    per.update(err=max(errs[chosen][f"{x}_max_abs_err"] for x in ("dq", "dk", "dv")),
+               bound_ms_by={bound_by: per["bound_ms"]})
+    del o, lse, lq, lk, lv, ldo
+    torch.cuda.empty_cache()
+    return row, per
+
 
 @contextlib.contextmanager
 def forced_plan(module, how: dict):
@@ -2423,15 +2604,8 @@ def phase_dit_train(dev, check, gen, card, time_ms, host_us) -> dict:
     from dmtpu_torch.diffusions import DDPM
     from dmtpu_torch.models.dit import DiT
     from dmtpu_torch.models.mdt import MDTv2, sample_len_keep
-    from dmtpu_torch.ops import plain_ops, roofline
-    from dmtpu_torch.ops.attention import mha
-    from dmtpu_torch.ops.flash_attention import (
-        bwd_kernels_for,
-        flash_attention_backward_reference,
-        flash_attention_bwd,
-        flash_attention_fwd,
-        select_bwd_kernel,
-    )
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
     from dmtpu_torch.ops.groupnorm import group_norm_silu
     from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
     from dmtpu_torch.scripts import train_ddpm_cfg
@@ -2453,9 +2627,6 @@ def phase_dit_train(dev, check, gen, card, time_ms, host_us) -> dict:
         return {"K1": dict(flash_attention_fwd.launches_by_kernel),
                 "K2": dict(flash_attention_bwd.launches_by_kernel)}
 
-    def rel(a, ref) -> float:
-        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
-
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     n, h, (sq, sk, d) = DIT_TRAIN_B, DIT_HEADS, DIT_ATTN
@@ -2468,69 +2639,11 @@ def phase_dit_train(dev, check, gen, card, time_ms, host_us) -> dict:
     # TimmAttention hands them
     g = gen(SEED + 30)
     qkv = torch.randn(n, sq, 3, h, d, generator=g, device=dev).bfloat16()
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     do = torch.randn(n, sq, h, d, generator=g, device=dev).bfloat16()
-    o, lse = flash_attention_fwd(q, k, v)
-    names, chosen = bwd_kernels_for(d), select_bwd_kernel(sq, sk, d)
-    plain = flash_attention_backward_reference(q, k, v, o, lse, do)
-    leaves = [x.float().requires_grad_() for x in (q, k, v)]
-    mha(*leaves).backward(do.float())
-    errs = {}
-    for name in names:
-        got = flash_attention_bwd(q, k, v, o, lse, do, kernel=name)
-        torch.cuda.synchronize()
-        ok = all(bool(torch.isfinite(x).all()) and x.dtype == torch.bfloat16 for x in got)
-        errs[name] = {}
-        # phase 6's tolerances (see there)
-        for grad, a, want, leaf in zip(("dq", "dk", "dv"), got, plain, leaves):
-            a, want, f32 = a.float(), want.float(), leaf.grad
-            err = (a - want).abs().max().item()
-            errs[name].update({f"{grad}_max_abs_err": err, f"{grad}_rel_l2": rel(a, want),
-                               f"{grad}_rel_l2_vs_f32_mha": rel(a, f32)})
-            ok = ok and err <= 1e-2 * want.abs().max().item() and rel(a, want) <= 1e-2 and \
-                rel(a, f32) <= 2e-2 and \
-                (a - f32).abs().max().item() <= 2e-2 * f32.abs().max().item()
-        check(ok, f"K2[{name}] bf16 b{n} h{h} S={sq} d={d}, strided q/k/v: vs plain and vs f32 "
-                  "mha autograd")
-        del got
-    del plain, leaves
-    torch.cuda.empty_cache()
-    ms_by_kernel = {name: [] for name in names}
-    for name in names + names[::-1]:
-        ms_by_kernel[name].append(
-            time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, kernel=name), 20))
-    ms = sum(ms_by_kernel[chosen]) / len(ms_by_kernel[chosen])
-    plain_ms = time_ms(lambda: flash_attention_backward_reference(q, k, v, o, lse, do), 3)
-    lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    ldo = do.transpose(1, 2)
-
-    def sdpa_fwd_bwd():
-        out = torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
-        lq.grad = lk.grad = lv.grad = None
-        out.backward(ldo)
-
-    def sdpa_fwd():
-        with torch.no_grad():
-            torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
-
-    library_ms = time_ms(sdpa_fwd_bwd, 20) - time_ms(sdpa_fwd, 20)
-    host = host_us(lambda: flash_attention_bwd(q, k, v, o, lse, do), 100)
-    bound_t, bound_by = roofline.bound_ms(*roofline.attention_bwd_work(n, h, sq, sk, d))
-    k2_row = dict(b=n, h=h, sq=sq, sk=sk, d=d, calls=DIT_ATTN_PER_FORWARD, kernel=chosen,
-                  **errs[chosen], ms=ms, ms_by_kernel=ms_by_kernel, plain_ms=plain_ms,
-                  bound_ms=bound_t, bound_by=bound_by, library_ms=library_ms, host_us=host,
-                  host_bound=ms <= 1.2 * host / 1e3)
-    log("K2", json.dumps(k2_row))
-    best = {name: min(times) for name, times in ms_by_kernel.items()}
-    log(f"K2 at DiT's shape: {ms / bound_t:.2f}x its bound, {ms / library_ms:.3f}x SDPA's "
-        f"backward, the faster kernel {min(best, key=best.get)} ({card})")
-    check(chosen == "wgmma" and not_the_slower(ms_by_kernel, chosen, ms, host),
-          f"K2 dispatch b{n} S={sq} d={d}: {chosen} (wgmma) is not the slower kernel")
-    k2_per_step = {key: DIT_ATTN_PER_FORWARD * k2_row[key]
-                   for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us")}
-    k2_per_step.update(err=max(errs[chosen][f"{x}_max_abs_err"] for x in ("dq", "dk", "dv")),
-                       bound_ms_by={bound_by: k2_per_step["bound_ms"]})
-    del qkv, q, k, v, do, o, lse, lq, lk, lv, ldo
+    k2_row, k2_per_step = k2_call_row(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], do,
+                                      DIT_ATTN_PER_FORWARD, "DiT's shape, strided q/k/v", check,
+                                      time_ms, host_us, card, 20)
+    del qkv, do
     torch.cuda.empty_cache()
 
     # (b) agreement at b2: the loss and the gradient of a DiT-XL/2 step
@@ -3026,6 +3139,385 @@ def phase_mmdit(dev, check, gen, card, time_ms, host_us) -> dict:
     return {"launches": {f"sd3_euler{rows}": launches,
                          f"mmdit_b2_flowdpm{MMDIT_B2_STEPS}": b2_launches},
             "metrics": metrics, "k1": k1_rows, "k1_per_forward": k1_per_forward}
+
+
+def phase_mmdit_train(dev, check, gen, card, time_ms, host_us) -> dict:
+    """Phase 14 (see the module docstring): MMDiT rectified-flow training
+    through K1 and K2 at head dim 64, ``train_mmdit`` in this process on
+    SD3-medium, and ``sample_cfg --sampler flow``."""
+    import argparse
+    import shutil
+    import tempfile
+
+    import torch
+    from dmtpu_torch.diffusions import FlowMatching
+    from dmtpu_torch.models.dit import DiT
+    from dmtpu_torch.models.mmdit import MMDiTBlock, mmdit_model
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.ops.roofline import PEAK_BF16_FLOPS
+    from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
+    from dmtpu_torch.scripts import train_mmdit
+    from dmtpu_torch.scripts.sample_cfg import make_diffuser, sample_class
+    from dmtpu_torch.utils import checkpoint as ckpt_lib
+    from dmtpu_torch.utils.config import Config, instantiate_from_config
+    from dmtpu_torch.utils.optim import adafactor
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
+        flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def by_kernel():
+        return {"K1": dict(flash_attention_fwd.launches_by_kernel),
+                "K2": dict(flash_attention_bwd.launches_by_kernel)}
+
+    def all_wgmma(calls, steps=1):
+        return {key: {"mma": 0, "wgmma": steps * calls[key]} for key in ("K1", "K2")}
+
+    g = gen(SEED + 40)
+
+    # (a) K1 and K2 at d=64 at the two train steps' joint attention: q, k and v
+    # made by torch.cat of the two streams, as MMDiTBlock hands them, dO random
+    k1_rows, k2_rows, k1_per_step, k2_per_step = {}, {}, {}, {}
+    for name, (n, h, s) in MMDIT_TRAIN_ATTN.items():
+        lc = MMDIT_TRAIN_CONTEXT[name]
+        q, k, v = (torch.cat([torch.randn(n, lc, h, 64, generator=g, device=dev),
+                              torch.randn(n, s - lc, h, 64, generator=g, device=dev)],
+                             1).bfloat16() for _ in range(3))
+        do = torch.randn(n, s, h, 64, generator=g, device=dev).bfloat16()
+        slice_b = 2 if s > 1024 else 0  # the plain versions' f32 logits: 3.5 GB a slice
+        reps = 10 if s > 1024 else 20
+        label = f"{name}, torch.cat of the two streams"
+        k1_rows[name], k1_per_step[name] = k1_call_row(
+            q, k, v, MMDIT_TRAIN_CALLS[name]["K1"], label, check, time_ms, host_us, card, reps,
+            slice_b=slice_b)
+        k2_rows[name], k2_per_step[name] = k2_call_row(
+            q, k, v, do, MMDIT_TRAIN_CALLS[name]["K2"], label, check, time_ms, host_us, card,
+            reps, slice_b=slice_b)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
+    # (b) agreement at b2 on bench's MMDiT-B/2: the loss, the gradient and its
+    # norm through the kernels and through the plain bf16 path, each against an
+    # f32 plain run (TF32 off); once with f32 parameters, once stored in bf16
+    # (the f32 run then holds the same bf16-rounded weights); seeded non-zero
+    # weights; the second sample's conditioning the all-zeros null
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    diffuser = FlowMatching(total_steps=1000)
+    b = MMDIT_TRAIN_CHECK_BATCH
+    shape = (MMDIT_B2["in_channels"],) + (MMDIT_B2["input_size"],) * 2
+    ctx_shape, pooled_dim = (MMDIT_B2_CTX, MMDIT_B2["context_dim"]), MMDIT_B2["pooled_dim"]
+    fixed = {"x": torch.randn(b, *shape, generator=g, device=dev),
+             "eps": torch.randn(b, *shape, generator=g, device=dev),
+             "t": torch.tensor([999, 421], device=dev)[:b],
+             "y": {"context": torch.randn(b, *ctx_shape, generator=g, device=dev),
+                   "pooled": torch.randn(b, pooled_dim, generator=g, device=dev)}}
+    fixed["y"]["context"][1:] = 0
+    fixed["y"]["pooled"][1:] = 0
+
+    def loss_and_grads(m, plain: bool):
+        m.zero_grad(set_to_none=True)
+        with plain_ops() if plain else contextlib.nullcontext():
+            loss = diffuser.loss_func(lambda xt, tt: m(xt, tt, fixed["y"], train=True),
+                                      fixed["x"], fixed["t"], eps=fixed["eps"])
+            loss.backward()
+        grads = {name: p.grad.detach().float().clone() for name, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    def grad_err(grads, want) -> float:
+        return (sum((grads[k_] - want[k_]).square().sum() for k_ in want).sqrt()
+                / sum(w.square().sum() for w in want.values()).sqrt()).item()
+
+    def norm(grads) -> float:
+        return sum(x.square().sum() for x in grads.values()).sqrt().item()
+
+    per_step = MMDIT_TRAIN_CALLS["mmdit_train_b128"]
+    want_step = {"K1": per_step["K1"], "K2": per_step["K2"], "K3": 0}
+    model = mmdit_model("MMDiT-B/2", **MMDIT_B2, device=dev).train()
+    init_random_(model, g)
+    agreement = {}
+    for storage in ("f32", "bf16"):
+        kw = {"param_dtype": "bfloat16"} if storage == "bf16" else {}
+        m = mmdit_model("MMDiT-B/2", **MMDIT_B2, **kw, device=dev).train()
+        m.load_state_dict(model.state_dict())
+        ref = mmdit_model("MMDiT-B/2", **dict(MMDIT_B2, dtype=None), device=dev).train()
+        ref.load_state_dict(m.state_dict())
+        loss_f, grads_f = loss_and_grads(ref, plain=True)
+        del ref
+        zero_counts()
+        loss_k, grads_k = loss_and_grads(m, plain=False)
+        torch.cuda.synchronize()
+        launches, kernels_used = counts(), by_kernel()
+        loss_p, grads_p = loss_and_grads(m, plain=True)
+        errs = {"loss": (abs(loss_k.item() - loss_f.item()) / abs(loss_f.item()),
+                         abs(loss_p.item() - loss_f.item()) / abs(loss_f.item())),
+                "gradient": (grad_err(grads_k, grads_f), grad_err(grads_p, grads_f)),
+                "grad_norm": (abs(norm(grads_k) - norm(grads_f)) / norm(grads_f),
+                              abs(norm(grads_p) - norm(grads_f)) / norm(grads_f))}
+        stored = sorted({str(p.dtype) for p in m.parameters()})
+        agreement[storage] = dict(errs=errs, launches=launches, param_dtypes=stored)
+        log(f"MMDiT-B/2 train b{b}, {storage} parameters ({stored}): loss f32 {loss_f.item():.6f}, "
+            f"kernels {loss_k.item():.6f}, plain bf16 {loss_p.item():.6f}; grad norm f32 "
+            f"{norm(grads_f):.6f}; rel err vs f32 (kernels, plain bf16): " + json.dumps(errs)
+            + f"; launches {launches}, by kernel {kernels_used}")
+        for what, (err_k, err_p) in errs.items():
+            check(math.isfinite(err_k) and err_k <= 1.5 * err_p + 1e-3,
+                  f"MMDiT-B/2 train ({storage} parameters) {what}: err(kernels) <= 1.5 "
+                  "err(plain) + 1e-3")
+        check(launches == want_step and kernels_used == all_wgmma(per_step),
+              f"MMDiT-B/2 train forward+backward ({storage} parameters) launches {launches} == "
+              f"{want_step}, all wgmma {kernels_used}")
+        del m, grads_f, grads_k, grads_p
+        torch.cuda.empty_cache()
+    del fixed
+
+    # (c) bench.py's mmdit_train: b128, adafactor 1e-4, clip 1.0, no EMA, the
+    # loss's own t and eps, MMDiT's conditioning dropout; PyTorch's TF32 defaults
+    torch.backends.cudnn.allow_tf32 = True
+    n = MMDIT_TRAIN_B
+    blocks = sum(isinstance(m, MMDiTBlock) for m in model.modules())
+    check(blocks == per_step["K1"] and model.qk_norm and model.dtype == torch.bfloat16
+          and model.cond_dropout_prob > 0,
+          f"MMDiT-B/2: {blocks} joint attentions a forward, qk_norm, bf16 torso, dropout")
+    state = TrainState.create(model, adafactor(model.parameters(), lr=TRAIN_LR), ema_decay=None)
+    step = make_train_step(make_diffusion_loss_fn(diffuser, train_mmdit.train_apply(model), 1000),
+                           clip_grad_norm=TRAIN_CLIP)
+    batch = {"image": torch.randn(n, *shape, generator=g, device=dev),
+             "context": torch.randn(n, *ctx_shape, generator=g, device=dev),
+             "pooled": torch.randn(n, pooled_dim, generator=g, device=dev)}
+    step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    history = [step(state, batch) for _ in range(MMDIT_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, kernels_used = counts(), by_kernel()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in history]
+    norms = [m["grad_norm"].item() for m in history]
+    profile = profile_by_class(lambda: step(state, batch), 2)
+    idle = 1 - profile["classes"]["total"] / profile["wall_ms"]
+    fwd_flops = forward_flops(model, batch["image"][:1], torch.full((1,), 500.0, device=dev),
+                              {k: batch[k][:1] for k in ("context", "pooled")})
+    imgs_per_s = n * MMDIT_TRAIN_STEPS / seconds
+    metrics = {"mmdit_b2_b128": {
+        "imgs_per_s": imgs_per_s, "ms_per_step": 1e3 * seconds / MMDIT_TRAIN_STEPS,
+        "peak_bytes": peak, "batch": n, "steps": MMDIT_TRAIN_STEPS,
+        "launches_per_step": per_step, "fwd_flops_per_sample": fwd_flops,
+        # a step as three forwards' worth of products, over the bf16 peak
+        "mfu": imgs_per_s * 3 * fwd_flops / PEAK_BF16_FLOPS,
+        "profile_ms": dict(profile["classes"], wall=profile["wall_ms"], **profile["ranges"]),
+        "idle_share": idle, "agreement_b2": agreement}}
+    log(f"MMDiT-B/2 train b{n}: {MMDIT_TRAIN_STEPS} steps in {seconds:.3f} s, "
+        f"{imgs_per_s:.4f} imgs/s, {1e3 * seconds / MMDIT_TRAIN_STEPS:.3f} ms/step, peak "
+        f"{peak / 2**30:.3f} GiB; forward {fwd_flops / 1e9:.3f} GFLOP a sample, MFU "
+        f"{metrics['mmdit_b2_b128']['mfu']:.4f} of 989 TFLOP/s ({card}); launches {launches}, "
+        f"by kernel {kernels_used}; losses {losses}; grad norms {norms}")
+    log(f"MMDiT-B/2 train b{n} step device time by class (torch.profiler, ms per step over 2; "
+        f"wall {profile['wall_ms']:.3f} ms per step under the profiler, the card idle "
+        f"{idle:.3f} of it): " + json.dumps(profile["classes"]) + "; annotated ranges: "
+        + json.dumps(profile["ranges"]))
+    for name, kernel_ms in profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {name}")
+    check(all(map(math.isfinite, losses + norms)), f"MMDiT-B/2 train b{n}: finite losses and "
+          "grad norms")
+    want = {key: MMDIT_TRAIN_STEPS * c for key, c in per_step.items()}
+    check(launches == want and kernels_used == all_wgmma(per_step, MMDIT_TRAIN_STEPS),
+          f"MMDiT-B/2 train b{n} launches {launches} == {want}, all wgmma {kernels_used}")
+    check(profile["classes"]["K2 attention backward"] > 0,
+          "profile: the MMDiT train step ran K2 on the card")
+    del state, step, batch, history, model
+    torch.cuda.empty_cache()
+
+    # (d) python -m dmtpu_torch.scripts.train_mmdit -c configs/sd3_medium.yaml
+    # in this process: the model initialised the CLI's way (adaLN-Zero), bf16
+    # storage, remat, adafactor 5e-5, the config's bf16 EMA; the loop's step is
+    # kept for one profiled step after the run
+    sd3_calls = MMDIT_TRAIN_CALLS["sd3_train_b32"]
+    kept = {}
+    real_make_train_step = train_mmdit.make_train_step
+
+    def keeping_make_train_step(loss_fn, **kw):
+        inner = real_make_train_step(loss_fn, **kw)
+
+        def step_fn(state, batch):
+            kept.update(step=inner, state=state, batch=batch)
+            return inner(state, batch)
+
+        return step_fn
+
+    tmp = tempfile.mkdtemp(prefix="dmtpu_sd3_train_")
+    train_mmdit.make_train_step = keeping_make_train_step
+    try:
+        exp = os.path.join(tmp, "exp")
+        argv = ["-c", SD3_CONFIG, "-e", exp, "-ni", *SD3_TRAIN_OVERRIDES]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        first = train_mmdit.main(argv + [f"train.n_steps={SD3_TRAIN_STEPS}"])
+        torch.cuda.synchronize()
+        run1, run1_kernels = counts(), by_kernel()
+        sd3_state = kept["state"]
+        sd3_model = sd3_state.model
+        sd3_batch = kept["batch"]["image"].shape[0]
+        dtypes = sorted({str(p.dtype) for p in sd3_model.parameters()})
+        ema_dtypes = sorted({str(x.dtype) for x in sd3_state.ema.shadow.values()})
+        params_bytes = sum(p.numel() * p.element_size() for p in sd3_model.parameters())
+        n_params = sum(p.numel() for p in sd3_model.parameters())
+        sd3_profile = profile_by_class(lambda: kept["step"](kept["state"], kept["batch"]), 1)
+        sd3_idle = 1 - sd3_profile["classes"]["total"] / sd3_profile["wall_ms"]
+        kept.clear()
+        del sd3_state, sd3_model
+        torch.cuda.empty_cache()
+        zero_counts()
+        again = train_mmdit.main(argv + ["-r", "latest",
+                                         f"train.n_steps={SD3_TRAIN_RESUMED_STEPS}"])
+        torch.cuda.synchronize()
+        run2 = counts()
+        sd3_peak = torch.cuda.max_memory_allocated()
+        kept.clear()
+        ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
+        ckpt_bytes = os.path.getsize(os.path.join(exp, "ckpt", ckpts[-1], "state.pt"))
+        blob = ckpt_lib.load_checkpoint_host(os.path.join(exp, "ckpt", ckpts[-1]))
+        blob_step, blob_ema = blob["step"], blob["ema"]["num_updates"]
+        blob_dtypes = sorted({str(x.dtype) for x in blob["model"].values()})
+        del blob
+        log_text = "".join(open(os.path.join(exp, f)).read() for f in os.listdir(exp)
+                           if f.startswith("output-"))
+    finally:
+        train_mmdit.make_train_step = real_make_train_step
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_s = first["step_seconds"] + again["step_seconds"]
+    sd3_ms = 1e3 * sum(step_s) / len(step_s)
+    sd3_losses = first["losses"] + again["losses"]
+    metrics["sd3_medium_cli_b32"] = {
+        "ms_per_step": sd3_ms, "step_ms": [1e3 * x for x in step_s], "batch": sd3_batch,
+        "imgs_per_s": sd3_batch / (sd3_ms / 1e3), "peak_bytes": sd3_peak,
+        "params_bytes": params_bytes, "param_dtypes": dtypes, "ema_dtypes": ema_dtypes,
+        "losses": sd3_losses, "save_seconds": first["save_seconds"] + again["save_seconds"],
+        "load_seconds": again["load_seconds"], "checkpoint_bytes": ckpt_bytes,
+        "profile_ms": dict(sd3_profile["classes"], wall=sd3_profile["wall_ms"],
+                           **sd3_profile["ranges"]),
+        "idle_share": sd3_idle, "launches": {"train": run1, "resume": run2}}
+    log(f"train_mmdit SD3-medium (MMDiT-L/2, bf16 storage {dtypes}, remat, EMA {ema_dtypes}) "
+        f"b{sd3_batch}: {SD3_TRAIN_STEPS} steps, then -r latest to {SD3_TRAIN_RESUMED_STEPS}: ms "
+        f"per step (host clock between the loop's steps) {sd3_ms:.3f}, each "
+        f"{metrics['sd3_medium_cli_b32']['step_ms']}; peak {sd3_peak / 2**30:.3f} GiB "
+        f"(parameters {params_bytes / 2**30:.3f} GiB); checkpoint {ckpt_bytes / 2**30:.3f} GiB, "
+        f"saves {metrics['sd3_medium_cli_b32']['save_seconds']} s, load "
+        f"{again['load_seconds']:.3f} s ({card}); losses {sd3_losses}; launches {run1}, {run2}, "
+        f"by kernel {run1_kernels}; checkpoints {ckpts}")
+    log(f"SD3-medium train b{sd3_batch} step device time by class (torch.profiler, one step; "
+        f"wall {sd3_profile['wall_ms']:.3f} ms under the profiler, the card idle "
+        f"{sd3_idle:.3f} of it): " + json.dumps(sd3_profile["classes"]) + "; annotated "
+        "ranges: " + json.dumps(sd3_profile["ranges"]))
+    for name, kernel_ms in sd3_profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {name}")
+    check(sd3_batch == 32 and dtypes == ["torch.bfloat16", "torch.float32"]
+          and ema_dtypes == ["torch.bfloat16"] and blob_dtypes == dtypes,
+          "train_mmdit SD3-medium: the config's batch of 32, bf16 storage, bf16 EMA")
+    check(ckpts == [f"step{SD3_TRAIN_STEPS - 1:06d}", f"step{SD3_TRAIN_RESUMED_STEPS - 1:06d}"]
+          and blob_step == blob_ema == SD3_TRAIN_RESUMED_STEPS and "Resumed from" in log_text
+          and f"Model parameters: {n_params / 1e6:.2f}M" in log_text,
+          f"train_mmdit SD3-medium: checkpoints at the ends of both runs, resumed to step "
+          f"{SD3_TRAIN_RESUMED_STEPS}, the parameter count logged")
+    check(len(sd3_losses) == SD3_TRAIN_RESUMED_STEPS and all(map(math.isfinite, sd3_losses)),
+          "train_mmdit SD3-medium: finite losses at every step")
+    want1 = {key: SD3_TRAIN_STEPS * c for key, c in sd3_calls.items()}
+    want2 = {key: (SD3_TRAIN_RESUMED_STEPS - SD3_TRAIN_STEPS) * c for key, c in sd3_calls.items()}
+    check(run1 == want1 and run2 == want2
+          and run1_kernels == all_wgmma(sd3_calls, SD3_TRAIN_STEPS),
+          f"train_mmdit SD3-medium launches {run1} == {want1}, resumed {run2} == {want2}, all "
+          f"wgmma {run1_kernels}")
+    check(sd3_profile["classes"]["K2 attention backward"] > 0,
+          "profile: the SD3-medium train step ran K2 on the card")
+    torch.cuda.empty_cache()
+
+    # (e) sample_cfg --sampler flow on phase 11's DiT-XL/2 with the SD VAE,
+    # learn_sigma off (a velocity has its input's channels): a short b4 request
+    conf = Config(DIT_CONF)
+    conf.model.params.vit_config.params.learn_sigma = False
+    flow_model = instantiate_from_config(conf.model, device=dev).eval()
+    init_random_(flow_model.vit, g)
+    init_random_(flow_model.vae, g)
+    args = argparse.Namespace(sampler="flow", guidance_scale=DIT_SCALE, var_type=None,
+                              guidance_interval=None, ddim_eta=0.0, respace_type="uniform",
+                              respace_steps=FLOW_STEPS)
+    flow = make_diffuser(args, conf)
+    size = conf.data.params.img_size
+    zero_counts()
+    t0 = time.perf_counter()
+    images = sample_class(flow_model, flow, DIT_CLASS, FLOW_B, shape=(4, size // 8, size // 8),
+                          num_classes=conf.data.num_classes, batch_size=FLOW_B, seed=SEED,
+                          device=dev)
+    torch.cuda.synchronize()
+    flow_seconds = time.perf_counter() - t0
+    flow_launches = counts()
+    want = {"K1": FLOW_STEPS * DIT_ATTN_PER_FORWARD, "K2": 0, "K3": GN_PER_DECODE}
+    metrics["dit_flow_b4"] = {"seconds": flow_seconds, "steps": FLOW_STEPS,
+                              "launches": flow_launches, "sampler": type(flow).__name__}
+    log(f"sample_cfg --sampler flow: DiT-XL/2 (learn_sigma off) b{FLOW_B}, "
+        f"{type(flow).__name__}-{FLOW_STEPS} s={DIT_SCALE}, {size}x{size}: {flow_seconds:.3f} s "
+        f"(first request, unwarmed; {card}); launches {flow_launches}")
+    check(type(flow).__name__ == "FlowMatchingCFG" and isinstance(flow_model.vit, DiT)
+          and tuple(images.shape) == (FLOW_B, 3, size, size)
+          and bool(torch.isfinite(images).all()) and images.float().std().item() > 1e-2,
+          f"sample_cfg --sampler flow b{FLOW_B}: FlowMatchingCFG, finite varied "
+          f"[{FLOW_B}, 3, {size}, {size}]")
+    check(flow_launches == want, f"sample_cfg --sampler flow launches {flow_launches} == {want}")
+    del flow_model, images
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    return {"launches": {f"mmdit_train{MMDIT_TRAIN_STEPS}": launches,
+                         "sd3_cli_train": run1, "sd3_cli_resume": run2,
+                         f"dit_flow{FLOW_STEPS}": flow_launches},
+            "metrics": metrics, "k1_per_step": k1_per_step, "k2_per_step": k2_per_step}
+
+
+def forward_flops(model, x, t, y) -> int:
+    """Operations (two a multiply-add) of one forward of an MMDiT on these
+    inputs, counted from the shapes the forward sees: every linear layer and
+    the patch convolution at the rows it is given (forward hooks), and each
+    block's joint attention, 4 S^2 D (Q K^T and P V over all heads).  The
+    elementwise work is not counted."""
+    import torch
+    from torch import nn
+
+    from dmtpu_torch.models.mmdit import MMDiTBlock
+
+    total = [0]
+
+    def linear(m, inputs, out):
+        total[0] += 2 * out.numel() * m.in_features
+
+    def conv(m, inputs, out):
+        total[0] += 2 * out.numel() * m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+
+    def joint(m, inputs, out):
+        ctx, xx = inputs[0], inputs[1]
+        s = ctx.shape[1] + xx.shape[1]
+        total[0] += 4 * xx.shape[0] * s * s * xx.shape[2]
+
+    hooks = [m.register_forward_hook(linear if isinstance(m, nn.Linear) else
+                                     conv if isinstance(m, nn.Conv2d) else joint)
+             for m in model.modules() if isinstance(m, (nn.Linear, nn.Conv2d, MMDiTBlock))]
+    try:
+        with torch.no_grad():
+            model(x, t, y)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return total[0]
 
 
 # kernel-name fragments -> class, first match wins

@@ -1,11 +1,11 @@
 // K2: fused non-causal attention backward for Hopper (sm_90a), bf16 in and out:
-// the kernel of the large self-attention shapes (head dims 40, 72 and 80).
+// the kernel of the large self-attention shapes (head dims 40, 64, 72 and 80).
 //
 // Replaces dmtpu/ops/flash_small_d.py::_bwd_kernel / _bwd (the Pallas TPU
 // fused backward for small head dims), the backward role of the stock Pallas
 // TPU flash kernel that dmtpu/ops/attention.py::flash_mha calls, and the probe
 // variant benchmarks/_smalld_variants.py::_bwd_sem (the same function).  Shapes
-// it does not take (head dim 160 and every head dim other than 40, 72 and 80, a
+// it does not take (head dim 160 and every head dim other than 40, 64, 72 and 80, a
 // broadcast q, k, v or dO) go to the mma.sync kernel in
 // flash_attn_bwd_mma.cu; the gate is in dmtpu_torch/ops/flash_attention.py.
 //
@@ -27,15 +27,16 @@
 //     columns in the 128-byte swizzle; columns past D are out of bounds and
 //     zero-filled without being read) and stay in shared memory.  One producer
 //     thread keeps two stages in flight, each the Q and dO tiles of one step
-//     (128 rows at d=40, 64 at d=72 and d=80: what the registers hold) plus those
+//     (128 rows at d=40, 64 at d=64, d=72 and d=80: what the registers hold) plus those
 //     rows' lse * log2(e) and delta, through full / empty mbarriers;
 //     setmaxnreg gives the producer's registers to the consumers (24 / 240);
 //   - two consumer warpgroups of 64 keys each.  S^T = K Q^T and dP^T = V dO^T
-//     are wgmma m64n128k16 (m64n64k16 at d=72 and d=80) with both operands
+//     are wgmma m64n128k16 (m64n64k16 at d=64, d=72 and d=80) with both operands
 //     in shared memory, so P^T and dS^T come out in the accumulator layout
 //     and feed dV += P^T dO and dK += dS^T Q as register-A wgmma of width D
-//     (n40, n72, n80: no padded columns), with dO and Q read through the
-//     transposing descriptor.  At d=72 a row spans two 64-column tiles: the
+//     (n40, n64, n72, n80: no padded columns), with dO and Q read through the
+//     transposing descriptor.  At d=64 a row is one 64-column tile, four k16
+//     steps with no zero-filled column.  At d=72 a row spans two 64-column tiles: the
 //     k16 steps of S^T and dP^T run over 80 columns, the last 8 zero-filled
 //     by TMA (its box of 64 columns counts all its bytes toward the barrier),
 //     and the N=72 products take their B operand from all of tile 0 and 8
@@ -88,7 +89,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Q rows per step of a CTA's loop: as many as the registers hold.  Per thread
 // S^T and dP^T take ROWS / 2 f32 registers each, dK, dV and a 64-row part of
-// dQ D / 2 each.  At D=72 shared memory holds 202,792 bytes (D=80: 206,888).
+// dQ D / 2 each: at D=64 and 128 rows they would need 256 of the 240.  At
+// D=64 shared memory holds 133,160 bytes, at D=72 202,792 (D=80: 206,888).
 constexpr int rows_per_step(int D) { return D == 40 ? 128 : 64; }
 
 template <int D>
@@ -113,6 +115,7 @@ struct Config {
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t desc) {
   if constexpr (D == 40) wgmma_rs_n40(d, a, desc, 1);
+  if constexpr (D == 64) wgmma_rs_n64(d, a, desc, 1);
   if constexpr (D == 72) wgmma_rs_n72(d, a, desc, 1);
   if constexpr (D == 80) wgmma_rs_n80(d, a, desc, 1);
 }
@@ -121,6 +124,7 @@ template <int D>
 __device__ __forceinline__ void wgmma_tt(float (&d)[D / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
   if constexpr (D == 40) wgmma_ss_tt_n40(d, desc_a, desc_b, scale_d);
+  if constexpr (D == 64) wgmma_ss_tt_n64(d, desc_a, desc_b, scale_d);
   if constexpr (D == 72) wgmma_ss_tt_n72(d, desc_a, desc_b, scale_d);
   if constexpr (D == 80) wgmma_ss_tt_n80(d, desc_a, desc_b, scale_d);
 }
@@ -566,9 +570,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dO, 
 }  // namespace
 
 // q, k, v, o, dO, dk, dv: bf16 [B, S, H, D] with the given element strides
-// (D contiguous, D 40, 72 or 80, every stride a positive multiple of 8, 16-byte
+// (D contiguous, D 40, 64, 72 or 80, every stride a positive multiple of 8, 16-byte
 // aligned pointers).  lse: f32 [B, H, Sq] from K1, contiguous.  With Sp = Sq
-// rounded up to a multiple of 128 (D 40) or 64 (D 72, 80): stat: f32 scratch
+// rounded up to a multiple of 128 (D 40) or 64 (D 64, 72, 80): stat: f32 scratch
 // [2, B, H, Sp]; dq_acc: f32 scratch [B, H, Sp, D], 16-byte aligned, not
 // touched when Sk <= 128; dq: bf16 [B, Sq, H, D], contiguous.  Launches three
 // kernels in order on the stream (two when Sk <= 128); returns the first CUDA
@@ -584,11 +588,12 @@ extern "C" int dmtpu_flash_attn_bwd(
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh},
       dos{dosb, doss, dosh}, dks{dksb, dkss, dksh}, dvs{dvsb, dvss, dvsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != 40 && D != 72 && D != 80) return (int)cudaErrorInvalidValue;
+  if (D != 40 && D != 64 && D != 72 && D != 80) return (int)cudaErrorInvalidValue;
   const bool one_tile = Sk <= kKeys;
   const int Sp = (Sq + rows_per_step(D) - 1) / rows_per_step(D) * rows_per_step(D);
   const long long rows = (long long)B * H * Sp;
   const auto prep = D == 40   ? flash_bwd_wgmma_prep_kernel<40>
+                    : D == 64 ? flash_bwd_wgmma_prep_kernel<64>
                     : D == 72 ? flash_bwd_wgmma_prep_kernel<72>
                               : flash_bwd_wgmma_prep_kernel<80>;
   prep<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
@@ -600,6 +605,7 @@ extern "C" int dmtpu_flash_attn_bwd(
   const float* st_in = static_cast<const float*>(stat);
   float* acc = static_cast<float*>(dq_acc);
   const auto main_kernel = D == 40   ? (one_tile ? launch<40, true> : launch<40, false>)
+                           : D == 64 ? (one_tile ? launch<64, true> : launch<64, false>)
                            : D == 72 ? (one_tile ? launch<72, true> : launch<72, false>)
                                      : (one_tile ? launch<80, true> : launch<80, false>);
   err = main_kernel(q, k, v, dO, st_in, acc, dq, dk, dv, B, H, Sq, Sp, Sk, qs, ks, vs, dos, dks,

@@ -328,6 +328,19 @@ __device__ __forceinline__ void wgmma_ss_tt_n40(float (&d)[20], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d[64 x 64] (+)= a[16 x 64]^T (shared, MN-major) * b[16 x 64] (shared, MN-major).
+__device__ __forceinline__ void wgmma_ss_tt_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d[64 x 72] (+)= a[16 x 64]^T (shared, MN-major) * b[16 x 72] (shared, MN-major): b's
 // columns 64..71 are the first 8 of the next 64-column block, LBO bytes on.
 __device__ __forceinline__ void wgmma_ss_tt_n72(float (&d)[36], uint64_t desc_a, uint64_t desc_b,

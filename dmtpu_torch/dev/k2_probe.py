@@ -39,12 +39,14 @@ CHECK_SHAPES = [  # b, sq, sk, h, d
     (2, 256, 512, 2, 80), (2, 333, 200, 3, 40), (2, 200, 333, 3, 80), (1, 1, 130, 1, 40),
     (2, 100, 77, 2, 80), (2, 333, 128, 3, 40), (2, 4096, 77, 8, 40), (2, 1024, 77, 8, 80),
     (2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (1, 64, 128, 1, 72), (2, 200, 333, 3, 72),
-    (2, 100, 77, 2, 72), (4, 256, 256, 16, 72)]
+    (2, 100, 77, 2, 72), (4, 256, 256, 16, 72), (1, 64, 128, 1, 64), (2, 333, 333, 3, 64),
+    (2, 100, 77, 2, 64), (2, 4250, 4250, 2, 64), (8, 333, 333, 12, 64)]
 # DiT-XL/2's self-attention: q, k and v strided views of one [B, S, 3, H, D]
 # projection (b, s, h, d)
 STRIDED_SHAPES = [(4, 256, 16, 72), (32, 256, 16, 72)]
 TIMED_SHAPES = [(4096, 4096, 40), (1024, 1024, 80), (4096, 77, 40), (1024, 77, 80),
-                (256, 256, 40), (4096, 256, 40), (256, 256, 72)]  # sq, sk, d at b16 h8
+                (256, 256, 40), (4096, 256, 40), (256, 256, 72), (333, 333, 64),
+                (4250, 4250, 64)]  # sq, sk, d at b16 h8
 
 # (source file, entry point, {variant: [(pattern, replacement), ...]}); a
 # pattern is a regular expression that must match the source

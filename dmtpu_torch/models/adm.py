@@ -15,7 +15,10 @@ layers in ``torso_dtype`` (bf16) from f32 params (Flax ``dtype`` with f32
 parameters and cast input, weight and bias to ``torso_dtype`` in
 ``forward``, as Flax's ``promote_dtype`` does, so a gradient reaches the f32
 parameter and an optimizer step smaller than a bf16 ulp is kept.
-GroupNorm and LayerNorm params stay f32 and normalise in f32.
+GroupNorm and LayerNorm params stay f32 and normalise in f32.  A module
+that has the JAX package's ``param_dtype`` (MMDiT) passes it on as
+``Linear`` / ``Conv2d``'s ``param_dtype``: the storage dtype, f32 unless
+given.
 """
 from __future__ import annotations
 
@@ -48,12 +51,13 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tenso
 
 
 class Linear(nn.Linear):
-    """``nn.Linear`` with f32 parameters that computes in ``dtype`` (the torso
-    dtype; f32 when None): input, weight and bias are cast to it."""
+    """``nn.Linear`` with parameters stored in ``param_dtype`` (f32 when None)
+    that computes in ``dtype`` (the torso dtype; f32 when None): input,
+    weight and bias are cast to it."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype=None, device=None):
-        super().__init__(in_features, out_features, bias=bias, device=device)
+                 dtype=None, device=None, param_dtype=None):
+        super().__init__(in_features, out_features, bias=bias, device=device, dtype=param_dtype)
         self.compute_dtype = dtype or torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -62,13 +66,14 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with f32 parameters that computes in ``dtype`` (the torso
-    dtype; f32 when None): input, weight and bias are cast to it."""
+    """``nn.Conv2d`` with parameters stored in ``param_dtype`` (f32 when None)
+    that computes in ``dtype`` (the torso dtype; f32 when None): input,
+    weight and bias are cast to it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-                 padding: int = 0, dtype=None, device=None):
+                 padding: int = 0, dtype=None, device=None, param_dtype=None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride,
-                         padding=padding, device=device)
+                         padding=padding, device=device, dtype=param_dtype)
         self.compute_dtype = dtype or torch.float32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

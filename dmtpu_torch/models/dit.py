@@ -99,20 +99,21 @@ class TimmAttention(nn.Module):
 
 
 class TimmMlp(nn.Module):
-    """timm ``Mlp``: fc1 -> GELU (tanh approximation) -> fc2."""
+    """timm ``Mlp``: fc1 -> GELU (tanh approximation) -> fc2; weights stored
+    in ``param_dtype`` (f32 when None)."""
 
-    def __init__(self, dim: int, hidden: int, dtype=None, device=None):
+    def __init__(self, dim: int, hidden: int, dtype=None, device=None, param_dtype=None):
         super().__init__()
-        self.fc1 = Linear(dim, hidden, dtype=dtype, device=device)
-        self.fc2 = Linear(hidden, dim, dtype=dtype, device=device)
+        self.fc1 = Linear(dim, hidden, dtype=dtype, device=device, param_dtype=param_dtype)
+        self.fc2 = Linear(hidden, dim, dtype=dtype, device=device, param_dtype=param_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
 
 
-def ada_ln(dim: int, n: int, dtype, device) -> nn.Sequential:
+def ada_ln(dim: int, n: int, dtype, device, param_dtype=None) -> nn.Sequential:
     """``adaLN_modulation`` = (SiLU, Linear to n * dim), zero-initialised."""
-    lin = Linear(dim, n * dim, dtype=dtype, device=device)
+    lin = Linear(dim, n * dim, dtype=dtype, device=device, param_dtype=param_dtype)
     nn.init.zeros_(lin.weight)
     nn.init.zeros_(lin.bias)
     return nn.Sequential(nn.SiLU(), lin)
@@ -135,12 +136,19 @@ class DiTBlock(nn.Module):
 
 
 class FinalLayer(nn.Module):
-    """(reference: models/dit/model.py:125-142); ``linear`` computes in f32."""
+    """(reference: models/dit/model.py:125-142).  ``linear`` has no ``dtype``
+    in the JAX module, so it computes in the promotion of its input's and
+    its weights' dtypes: f32, or ``dtype`` when both that and
+    ``param_dtype`` are bf16."""
 
-    def __init__(self, dim: int, patch_size: int, out_channels: int, dtype=None, device=None):
+    def __init__(self, dim: int, patch_size: int, out_channels: int, dtype=None, device=None,
+                 param_dtype=None):
         super().__init__()
-        self.adaLN_modulation = ada_ln(dim, 2, dtype, device)
-        self.linear = Linear(dim, patch_size * patch_size * out_channels, device=device)
+        self.adaLN_modulation = ada_ln(dim, 2, dtype, device, param_dtype)
+        self.linear = Linear(dim, patch_size * patch_size * out_channels, device=device,
+                             dtype=torch.promote_types(dtype or torch.float32,
+                                                       param_dtype or torch.float32),
+                             param_dtype=param_dtype)
         nn.init.zeros_(self.linear.weight)
         nn.init.zeros_(self.linear.bias)
 

@@ -66,11 +66,12 @@ class EMAState:
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor]) -> None:
-        """shadow -= (1 - decay) (shadow - param), in f32, stored in the
-        shadow's dtype; ``num_updates`` is incremented before the decay is
-        read (reference: models/ema.py:44-52)."""
+        """shadow -= (1 - decay) (shadow - param), stored in the shadow's
+        dtype: the difference in the wider of the two dtypes (bf16 when both
+        are), the rest in f32, as the JAX update's promotions give it;
+        ``num_updates`` is incremented before the decay is read (reference:
+        models/ema.py:44-52)."""
         self.num_updates += 1
         w = float(np.float32(1.0) - np.float32(self.get_decay()))
         for name, s in self.shadow.items():
-            sf = s.float()
-            s.copy_(sf - w * (sf - params[name].float()))
+            s.copy_(s.float() - w * (s - params[name]).float())

@@ -20,14 +20,20 @@ once its prefix and ``pos_embed`` are dropped
 (``dmtpu_torch.convert.zoo.convert_mmdit``); the JAX package's params load
 through the bridge's rename (``dmtpu_torch.convert.flax_bridge.mmdit_key``).
 
-Torso dtype, as ``dmtpu_torch/models/dit.py``: parameters are f32; the patch
-convolution, the context embedder and the blocks compute in ``dtype`` (bf16
-on the card, where K1 takes bf16 only), the timestep and pooled MLPs and the
-final ``linear`` in f32.  ``pos_embed_max_size`` reads the centre crop of
-the sin/cos table of that base grid at ``offset = (ms - grid) // 2``, as a
-non-persistent buffer.  Conditioning is ``y = {"context": [B, L, Dc],
-"pooled": [B, Dp]}``; ``null_conditioning`` is the all-zeros pytree that
-the training dropout also produces.
+Torso dtype, as ``dmtpu_torch/models/dit.py``: the patch convolution, the
+context embedder and the blocks compute in ``dtype`` (bf16 on the card,
+where K1 takes bf16 only), the timestep and pooled MLPs in f32, the final
+``linear`` in f32 unless ``dtype`` and ``param_dtype`` are both bf16.
+``param_dtype`` (f32 when None) stores the torso's weights: the patch
+convolution, the context embedder, every block's adaLN, qkv, proj and MLP,
+and the final layer; ``param_dtype=bfloat16`` halves the memory of those
+weights and their gradients (what SD3-medium's training config asks for).
+The conditioning MLPs and the QK-RMSNorm scales stay f32, as in JAX.
+``pos_embed_max_size`` reads the centre crop of the sin/cos table of that
+base grid at ``offset = (ms - grid) // 2``, as a non-persistent buffer.
+Conditioning is ``y = {"context": [B, L, Dc], "pooled": [B, Dp]}``;
+``null_conditioning`` is the all-zeros pytree that the training dropout
+also produces.
 """
 from __future__ import annotations
 
@@ -74,15 +80,15 @@ class JointAttention(nn.Module):
     ``ln_q`` / ``ln_k`` and, unless ``pre_only``, the output ``proj``."""
 
     def __init__(self, dim: int, num_heads: int, qk_norm: bool, pre_only: bool, dtype=None,
-                 device=None):
+                 device=None, param_dtype=None):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = Linear(dim, 3 * dim, dtype=dtype, device=device)
+        self.qkv = Linear(dim, 3 * dim, dtype=dtype, device=device, param_dtype=param_dtype)
         if qk_norm:
             self.ln_q = RMSNorm(dim // num_heads, device=device)
             self.ln_k = RMSNorm(dim // num_heads, device=device)
         if not pre_only:
-            self.proj = Linear(dim, dim, dtype=dtype, device=device)
+            self.proj = Linear(dim, dim, dtype=dtype, device=device, param_dtype=param_dtype)
 
     def qkv_heads(self, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """[B, L, D] -> q, k, v [B, L, H, D / H], q and k normalised."""
@@ -99,13 +105,14 @@ class StreamBlock(nn.Module):
     ``context_block``): its modulation, attention side and MLP."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qk_norm: bool,
-                 pre_only: bool = False, dtype=None, device=None):
+                 pre_only: bool = False, dtype=None, device=None, param_dtype=None):
         super().__init__()
         self.pre_only = pre_only
-        self.adaLN_modulation = ada_ln(dim, 2 if pre_only else 6, dtype, device)
-        self.attn = JointAttention(dim, num_heads, qk_norm, pre_only, dtype, device)
+        self.adaLN_modulation = ada_ln(dim, 2 if pre_only else 6, dtype, device, param_dtype)
+        self.attn = JointAttention(dim, num_heads, qk_norm, pre_only, dtype, device, param_dtype)
         if not pre_only:
-            self.mlp = TimmMlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+            self.mlp = TimmMlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device,
+                               param_dtype=param_dtype)
 
     def pre_attention(self, tokens: torch.Tensor, c: torch.Tensor):
         """(q, k, v, the remaining modulation chunks) of this stream."""
@@ -125,11 +132,12 @@ class MMDiTBlock(nn.Module):
     attention over the concatenated [context | image] tokens."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, qk_norm: bool = True,
-                 context_pre_only: bool = False, dtype=None, device=None):
+                 context_pre_only: bool = False, dtype=None, device=None, param_dtype=None):
         super().__init__()
         self.context_block = StreamBlock(dim, num_heads, mlp_ratio, qk_norm, context_pre_only,
-                                         dtype, device)
-        self.x_block = StreamBlock(dim, num_heads, mlp_ratio, qk_norm, False, dtype, device)
+                                         dtype, device, param_dtype)
+        self.x_block = StreamBlock(dim, num_heads, mlp_ratio, qk_norm, False, dtype, device,
+                                   param_dtype)
 
     def forward(self, ctx: torch.Tensor, x: torch.Tensor, c: torch.Tensor
                 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
@@ -172,31 +180,30 @@ class MMDiT(nn.Module):
         device=None,
     ):
         super().__init__()
-        if as_dtype(param_dtype) not in (None, torch.float32):
-            raise NotImplementedError(
-                f"param_dtype={param_dtype}: parameters are f32 here; the torso computes in "
-                "`dtype` (bf16 parameter storage is not ported)")
         self.input_size, self.patch_size, self.in_channels = input_size, patch_size, in_channels
         self.hidden_size, self.depth, self.num_heads = hidden_size, depth, num_heads
         self.context_dim, self.pooled_dim = context_dim, pooled_dim
         self.cond_dropout_prob = float(cond_dropout_prob)
         self.qk_norm, self.pos_embed_max_size = bool(qk_norm), pos_embed_max_size
         self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
-        self.dtype = as_dtype(dtype)
-        p, dt = patch_size, self.dtype
+        self.dtype, self.param_dtype = as_dtype(dtype), as_dtype(param_dtype)
+        p, dt, pdt = patch_size, self.dtype, self.param_dtype
         self.x_embedder = nn.Module()
         self.x_embedder.proj = Conv2d(in_channels, hidden_size, p, stride=p, dtype=dt,
-                                      device=device)
+                                      device=device, param_dtype=pdt)
         self.t_embedder = TimestepEmbedder(hidden_size, device=device)
         self.y_embedder = nn.Module()  # the pooled text vector's MLP, f32
         self.y_embedder.mlp = nn.Sequential(Linear(pooled_dim, hidden_size, device=device),
                                             nn.SiLU(), Linear(hidden_size, hidden_size,
                                                               device=device))
-        self.context_embedder = Linear(context_dim, hidden_size, dtype=dt, device=device)
+        self.context_embedder = Linear(context_dim, hidden_size, dtype=dt, device=device,
+                                       param_dtype=pdt)
         self.joint_blocks = nn.ModuleList([
-            MMDiTBlock(hidden_size, num_heads, mlp_ratio, qk_norm, i == depth - 1, dt, device)
+            MMDiTBlock(hidden_size, num_heads, mlp_ratio, qk_norm, i == depth - 1, dt, device,
+                       pdt)
             for i in range(depth)])
-        self.final_layer = FinalLayer(hidden_size, p, in_channels, dtype=dt, device=device)
+        self.final_layer = FinalLayer(hidden_size, p, in_channels, dtype=dt, device=device,
+                                      param_dtype=pdt)
         self.register_buffer("pos_embed", self._pos_embed(device), persistent=False)
 
     @property

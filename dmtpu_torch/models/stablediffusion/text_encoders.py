@@ -23,7 +23,7 @@ Tokenisation is the host's (a ``transformers`` CLIPTokenizer from a local
 path); the encoders take token ids.
 
 ``FrozenT5Embedder`` and ``FrozenCLIPT5Encoder`` are not ported yet
-(ROADMAP Queue 1 item 9) and raise ``NotImplementedError``.
+(ROADMAP.md, Queue 1 item K) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -234,7 +234,7 @@ class FrozenT5Embedder:
 
     def __init__(self, *args: Any, **kwargs: Any):
         raise NotImplementedError(
-            "FrozenT5Embedder is not ported to dmtpu_torch yet (ROADMAP Queue 1 item 9)")
+            "FrozenT5Embedder is not ported to dmtpu_torch yet (ROADMAP.md, Queue 1 item K)")
 
 
 class FrozenCLIPT5Encoder:
@@ -242,4 +242,4 @@ class FrozenCLIPT5Encoder:
 
     def __init__(self, *args: Any, **kwargs: Any):
         raise NotImplementedError(
-            "FrozenCLIPT5Encoder is not ported to dmtpu_torch yet (ROADMAP Queue 1 item 9)")
+            "FrozenCLIPT5Encoder is not ported to dmtpu_torch yet (ROADMAP.md, Queue 1 item K)")

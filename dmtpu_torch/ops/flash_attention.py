@@ -205,13 +205,13 @@ flash_attention_fwd.launches_by_kernel = {"mma": 0, "wgmma": 0}
 # (csrc/flash_attn_bwd.cu: a CTA per 128-key tile, TMA loads, a ring of Q / dO
 # stages, wgmma for the five products, dQ added into an f32 buffer by whole
 # tiles with cp.reduce.async.bulk) is instantiated for head dims 40 and 80
-# (SD1.5) and 72 (DiT) and reads q, k, v and dO through tensor maps (positive
+# (SD1.5), 72 (DiT) and 64 (MMDiT) and reads q, k, v and dO through tensor maps (positive
 # strides); "mma" (csrc/flash_attn_bwd_mma.cu: mma.sync, 64-key tiles, dQ by
 # scalar f32 atomics) takes every head dim up to 160 and any strides.
 _BWD_ENTRY_POINTS = {"mma": "dmtpu_flash_attn_bwd_mma", "wgmma": "dmtpu_flash_attn_bwd"}
-WGMMA_BWD_HEAD_DIMS = (40, 72, 80)
+WGMMA_BWD_HEAD_DIMS = (40, 64, 72, 80)
 # the wgmma kernel pads its f32 scratch to whole steps of rows
-_BWD_ROWS = {40: 128, 72: 64, 80: 64}
+_BWD_ROWS = {40: 128, 64: 64, 72: 64, 80: 64}
 # Its key tile.  With no more keys than this a CTA holds every contribution to
 # its dq rows: it writes them in bf16 itself, the same bits in every run, and
 # needs no f32 sums.
@@ -225,7 +225,7 @@ def bwd_kernels_for(d: int) -> list[str]:
 
 def select_bwd_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> str:
     """The K2 kernel a call is dispatched to: "wgmma" wherever it is
-    instantiated (head dims 40, 72 and 80), whatever the lengths.  ``scale``
+    instantiated (head dims 40, 64, 72 and 80), whatever the lengths.  ``scale``
     does not matter to K2, which reads the saved lse; the argument mirrors
     ``select_kernel``.
 

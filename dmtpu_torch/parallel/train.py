@@ -59,20 +59,28 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     return torch.Generator(device=device).manual_seed(_mixed_seed(seed, step))
 
 
+def _cuda_index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def default_generator(device: torch.device) -> torch.Generator:
+    """The default generator of ``device``: what ``nn.Dropout`` draws from,
+    and what a model's own dropout draws should be handed inside a train
+    step, where ``dropout_rng`` seeds it from (seed, step)."""
+    if device.type == "cuda":
+        return torch.cuda.default_generators[_cuda_index(device)]
+    return torch.default_generator
+
+
 @contextlib.contextmanager
 def dropout_rng(seed: int, step: int, device: torch.device) -> Iterator[None]:
-    """Within the block the default generator of ``device`` (what
-    ``nn.Dropout`` draws from) is seeded from (seed, step), on a stream apart
-    from ``step_generator``'s; the caller's state is restored afterwards.
-    Seeding a CUDA generator sets its host-side seed and offset: no
-    synchronisation."""
-    if device.type == "cuda":
-        index = torch.cuda.current_device() if device.index is None else device.index
-        generator, devices = torch.cuda.default_generators[index], [index]
-    else:
-        generator, devices = torch.default_generator, []
+    """Within the block the default generator of ``device`` is seeded from
+    (seed, step), on a stream apart from ``step_generator``'s; the caller's
+    state is restored afterwards.  Seeding a CUDA generator sets its
+    host-side seed and offset: no synchronisation."""
+    devices = [_cuda_index(device)] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=devices, device_type="cuda"):
-        generator.manual_seed(_mixed_seed(seed, step, 1))
+        default_generator(device).manual_seed(_mixed_seed(seed, step, 1))
         yield
 
 
@@ -88,6 +96,14 @@ def _split(batch: Any, n: int) -> list:
     if isinstance(batch, (tuple, list)):
         return [type(batch)(x) for x in zip(*(_split(v, n) for v in batch))]
     raise TypeError(f"cannot split a batch of type {type(batch).__name__}")
+
+
+def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """The f32 2-norm of all the tensors together, whatever their dtypes
+    (each tensor's norm is taken in f32: bf16 gradients are not rounded to
+    bf16 norms first)."""
+    norms = torch._foreach_norm(tensors, 2.0, dtype=torch.float32)
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
@@ -120,7 +136,7 @@ def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
                 (part_loss / len(parts)).backward()
                 loss += part_loss.detach()
         loss /= len(parts)
-        grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params if p.grad is not None])
+        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
         if clip_grad_norm is not None:
             torch.nn.utils.clip_grads_with_norm_(params, clip_grad_norm, grad_norm)
         state.optimizer.step()

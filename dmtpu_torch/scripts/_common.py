@@ -9,7 +9,7 @@ checkpoints are torch files), and the data-parallel sampler is not ported:
 one device.  The training CLIs share ``TrainRun`` (their flags, experiment
 directory, loader, resume and loop; overrides are ``key=value`` items only:
 the JAX package's ``train_dotlist`` pairs a stray token with its neighbour,
-which is not carried over) and ``to_device``.
+which is not carried over), ``seeded_instance`` and ``to_device``.
 """
 from __future__ import annotations
 
@@ -78,6 +78,17 @@ def parse_overrides(unknown: Sequence[str]) -> List[str]:
     return [a.lstrip("-") for a in unknown]
 
 
+def seeded_instance(conf: Mapping, device: torch.device, seed: int) -> Any:
+    """The object of the config block ``conf`` (``target`` / ``params``)
+    built on ``device`` with its modules' own initialisation, drawn from the
+    device's generator seeded with ``seed``; the caller's generator state is
+    left as it was."""
+    devices = [device.index or 0] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices, device_type="cuda"):
+        torch.manual_seed(seed)
+        return instantiate_from_config(conf, device=device)
+
+
 def to_device(images: np.ndarray, device: torch.device) -> torch.Tensor:
     """A loader's [B, H, W, C] float32 batch -> contiguous [B, C, H, W] on
     ``device``, through pinned memory on a card."""
@@ -89,10 +100,11 @@ def to_device(images: np.ndarray, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class TrainRun:
-    """One run of a training CLI (``train_sd``, ``train_ddpm_cfg``): its
-    flags, device, config, experiment directory, logger and status tracker,
-    and the parts of the reference's train scripts that do not depend on
-    the model: the loader, the resume and the loop."""
+    """One run of a training CLI (``train_sd``, ``train_ddpm_cfg``,
+    ``train_mmdit``): its flags, device, config, experiment directory,
+    logger and status tracker, and the parts of the reference's train
+    scripts that do not depend on the model: the loader, the resume and the
+    loop."""
 
     args: argparse.Namespace
     device: torch.device

@@ -11,8 +11,10 @@ unless ``--device cpu`` is given).  Class labels and noise -> a CFG sampler
 batch; the null class is row ``num_classes`` of the label table) -> the VAE
 decode of a latent model -> PNGs in ``save_dir/class{c}/``.
 
-- ``--sampler ddpm | ddim | dpmpp | pfdiff``; ``flow`` (``FlowMatchingCFG``
-  over a class-conditional model) is not wired here yet and raises;
+- ``--sampler ddpm | ddim | dpmpp | pfdiff | flow``; ``flow`` is
+  ``FlowMatchingCFG`` over the config's diffusion params (the DDPM keys are
+  ignored), for a model trained on the flow objective whose output has its
+  input's channels (a DiT with ``learn_sigma: false``);
 - ``--guidance_interval T_LO T_HI`` (ddpm, ddim), ``--var_type``;
 - models: the latent DiT / MDT wrapper (``models.dit.dit.DiT``,
   ``models.mdt.mdt.MDT``) with ``--weights`` either a JAX-package ``.npz``
@@ -40,7 +42,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from dmtpu_torch.diffusions import DDIMCFG, DDPMCFG, DPMSolverPPCFG, PFDiffDDIMCFG
+from dmtpu_torch.diffusions import (
+    DDIMCFG,
+    DDPMCFG,
+    DPMSolverPPCFG,
+    FlowMatchingCFG,
+    PFDiffDDIMCFG,
+)
 from dmtpu_torch.models.latent import LatentDiffusionWrapper
 from dmtpu_torch.scripts._common import (
     base_parser,
@@ -57,13 +65,14 @@ from dmtpu_torch.utils.image import save_image
 from dmtpu_torch.utils.logger import get_logger
 from dmtpu_torch.utils.misc import amortize
 
-SAMPLERS = {"ddpm": DDPMCFG, "ddim": DDIMCFG, "dpmpp": DPMSolverPPCFG, "pfdiff": PFDiffDDIMCFG}
+SAMPLERS = {"ddpm": DDPMCFG, "ddim": DDIMCFG, "dpmpp": DPMSolverPPCFG, "pfdiff": PFDiffDDIMCFG,
+            "flow": FlowMatchingCFG}
 LATENT_CHANNELS, LATENT_DOWNSAMPLE = 4, 8
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = base_parser(__doc__.splitlines()[0])
-    p.add_argument("--sampler", type=str, choices=sorted(SAMPLERS) + ["flow"], default="ddpm")
+    p.add_argument("--sampler", type=str, choices=sorted(SAMPLERS), default="ddpm")
     p.add_argument("--guidance_scale", type=float, required=True,
                    help="s=0: uncond; s=1: plain conditional; s>1: guided")
     p.add_argument("--class_ids", type=int, nargs="+", default=None,
@@ -89,12 +98,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> Tuple[argparse.Namespace
     return args, unknown
 
 
-def make_diffuser(args: argparse.Namespace, conf) -> DDPMCFG:
+def make_diffuser(args: argparse.Namespace, conf) -> Any:
     """The CFG sampler the flags name, over the config's diffusion."""
-    if args.sampler == "flow":
-        raise NotImplementedError(
-            "--sampler flow: FlowMatchingCFG serves sample_mmdit; its class-conditional use "
-            "here is not ported yet (ROADMAP.md, Queue 1 item K)")
     extra = dict(guidance_scale=args.guidance_scale)
     if args.var_type is not None:
         extra["var_type"] = args.var_type
@@ -130,6 +135,17 @@ def build_model(conf, weights: str, vae_weights: Optional[str], device: torch.de
         model.load_state_dict(load_torch_weights(weights), vae_sd=vae_sd)
         has_vae = vae_sd is not None
     return model.eval(), True, has_vae
+
+
+def check_flow_model(model: nn.Module) -> None:
+    """Refuse a model with a learned variance (twice its input's channels
+    out) for ``--sampler flow``, whose velocity has the input's channels:
+    the JAX CLI fails on the shapes inside its sampler."""
+    if model.out_channels != model.in_channels:
+        raise ValueError(
+            f"--sampler flow samples a velocity model: the model gives {model.out_channels} "
+            f"channels for {model.in_channels} (learn_sigma); use a flow-trained model with "
+            "learn_sigma: false")
 
 
 def batch_seed(seed: int, class_id: int, index: int) -> int:
@@ -179,6 +195,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     conf = load_conf(args, unknown)
     diffuser = make_diffuser(args, conf)
     model, is_latent, has_vae = build_model(conf, args.weights, args.vae_weights, device)
+    if args.sampler == "flow":
+        check_flow_model(model.vit if is_latent else model)
     shape = image_shape(conf)
     if is_latent:
         # DiT / MDT sample 4-channel latents at size / 8, which the VAE decodes

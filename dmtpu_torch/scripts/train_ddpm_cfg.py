@@ -41,7 +41,7 @@ from torch import nn
 
 from dmtpu_torch.diffusions import DDPMCFG
 from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
-from dmtpu_torch.scripts._common import TrainRun, to_device
+from dmtpu_torch.scripts._common import TrainRun, seeded_instance, to_device
 from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image_grid
 
@@ -50,15 +50,12 @@ def build_model(conf: Mapping, device: torch.device, seed: int) -> nn.Module:
     """The model of ``conf.model`` on ``device``, its parameters drawn by the
     modules' own initialisation from the device's generator seeded with
     ``seed`` (the caller's generator state is left as it was)."""
-    devices = [device.index or 0] if device.type == "cuda" else []
-    with torch.random.fork_rng(devices=devices, device_type="cuda"):
-        torch.manual_seed(seed)
-        try:
-            return instantiate_from_config(conf["model"], device=device)
-        except NotImplementedError as e:
-            raise NotImplementedError(
-                f"{e}: train_ddpm_cfg trains the ported class-conditional models (DiT, MDTv2); "
-                "the pixel-space UNets are ROADMAP.md, Queue 1 item M") from e
+    try:
+        return seeded_instance(conf["model"], device, seed)
+    except NotImplementedError as e:
+        raise NotImplementedError(
+            f"{e}: train_ddpm_cfg trains the ported class-conditional models (DiT, MDTv2); "
+            "the pixel-space UNets are ROADMAP.md, Queue 1 item M") from e
 
 
 def eval_sampler(conf: Mapping) -> DDPMCFG:

@@ -87,7 +87,11 @@ def factored_dims(shape: torch.Size, min_dim_size_to_factor: int) -> Optional[tu
 class Adafactor(torch.optim.Optimizer):
     """Adafactor (Shazeer & Stern, arXiv:1804.04235) as ``optax.adafactor``
     computes it with this repo's defaults (no momentum, no parameter
-    scaling), for f32 parameters.  Per parameter and step n (from 0):
+    scaling).  The second-moment statistics are kept in the parameter's
+    dtype, as optax keeps them (in a dtype narrower than f32 each is decayed
+    and summed in f32 and rounded once, as optax does), and the rest runs in
+    the parameter's dtype (bf16 under MMDiT's ``param_dtype``), as optax's
+    arithmetic does.  Per parameter and step n (from 0):
 
     1. second moment with decay 1 - (n + 1)^-decay_rate of g^2 + eps:
        factored into row and column means over the two largest dims when
@@ -141,14 +145,19 @@ def _update(p: torch.Tensor, g: torch.Tensor, state: dict, group: dict) -> torch
     n = np.float32(state["step"] + 1)
     decay = float(np.float32(1.0) - n ** np.float32(-group["decay_rate"]))
     g_sq = g.square().add_(group["eps"])
+
+    def decayed(name: str, g_sq_mean: torch.Tensor) -> torch.Tensor:
+        v = state[name]
+        if v.dtype == torch.float32:  # in place: two launches
+            return v.mul_(decay).add_(g_sq_mean, alpha=1.0 - decay)
+        return v.copy_(decay * v.float() + (1.0 - decay) * g_sq_mean.float())
+
     dims = factored_dims(p.shape, group["min_dim_size_to_factor"])
     if dims is None:
-        v = state["v"].mul_(decay).add_(g_sq, alpha=1.0 - decay)
-        u = g * v.rsqrt()
+        u = g * decayed("v", g_sq).rsqrt()
     else:
         d1, d0 = dims
-        v_row = state["v_row"].mul_(decay).add_(g_sq.mean(d0), alpha=1.0 - decay)
-        v_col = state["v_col"].mul_(decay).add_(g_sq.mean(d1), alpha=1.0 - decay)
+        v_row, v_col = decayed("v_row", g_sq.mean(d0)), decayed("v_col", g_sq.mean(d1))
         reduced_d1 = d1 - 1 if d1 > d0 else d1
         row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt()
         u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)

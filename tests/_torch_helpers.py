@@ -97,7 +97,8 @@ def jax_random_params(module, *args, seed: int = 0) -> dict:
     """Seeded random Flax params for ``module.init(key, *args)`` without
     running the init (``jax.eval_shape`` traces it in seconds where the init
     itself compiles for tens): kernels N(0, 1 / fan_in), norm scales
-    1 + N(0, 0.05^2), biases and everything else N(0, 0.05^2)."""
+    1 + N(0, 0.05^2), biases and everything else N(0, 0.05^2), each in the
+    dtype the module declares for it (bf16 under ``param_dtype``)."""
     import jax
 
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)
@@ -108,7 +109,7 @@ def jax_random_params(module, *args, seed: int = 0) -> dict:
             return {k: go(v, k) for k, v in tree.items()}
         noise = rs.randn(*tree.shape).astype(np.float32)
         if name == "kernel":
-            return noise / np.sqrt(np.prod(tree.shape[:-1]))
-        return (1.0 if name == "scale" else 0.0) + 0.05 * noise
+            return (noise / np.sqrt(np.prod(tree.shape[:-1]))).astype(tree.dtype)
+        return ((1.0 if name == "scale" else 0.0) + 0.05 * noise).astype(tree.dtype)
 
     return {"params": go(shapes["params"])}

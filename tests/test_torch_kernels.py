@@ -364,7 +364,7 @@ def test_k1_dispatch_leaves_what_wgmma_cannot_take_to_mma(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sq,sk,d", [(4096, 4096, 40), (1024, 1024, 80), (300, 200, 40),
-                                     (256, 256, 72)])
+                                     (256, 256, 72), (333, 333, 64)])
 def test_k2_consumes_the_wgmma_forward(cuda, sq, sk, d):
     """Either K2 kernel reads o and lse of whichever K1 kernel ran: the same
     gradients from all four pairs."""
@@ -494,7 +494,7 @@ def test_k2_dispatch_leaves_what_wgmma_cannot_take_to_mma(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("sq,sk,d", [(4096, 77, 40), (1024, 77, 80), (333, 128, 40), (64, 5, 80),
-                                     (256, 128, 72), (100, 77, 72)])
+                                     (256, 128, 72), (100, 77, 72), (333, 77, 64)])
 def test_k2_one_key_tile_gives_the_same_bits_in_every_run(cuda, sq, sk, d):
     """With S_k <= 128 the wgmma kernel's CTA holds all of a dq row's sum and
     writes it in bf16 itself: no adds across CTAs, so three runs agree bit
@@ -750,3 +750,76 @@ def test_mmdit_runs_one_k1_a_block_and_agrees_with_the_plain_path(cuda, qk_norm)
             want = m(x, t, y)
     err = ((got.float() - want.float()).norm() / want.float().norm()).item()
     assert got.shape == (2, 4, 32, 32) and bool(torch.isfinite(got).all()) and err <= 2e-2
+
+
+# ---- K2 at head dim 64: MMDiT's joint attention backward ----------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", [None, "mma", "wgmma"])
+@pytest.mark.parametrize("b,h,s", MMDIT_ATTN)
+def test_k2_at_mmdit_shapes_through_every_kernel(cuda, b, h, s, kernel):
+    """The joint attention's backward at both ragged MMDiT lengths (4250 =
+    33 * 128 + 26, 333 = 2 * 128 + 77), q, k and v made by ``torch.cat`` of
+    the two streams: the dispatch sends d=64 to wgmma, and each kernel agrees
+    with the plain version, with f32 autograd through ``mha`` and (wgmma)
+    with the mma.sync kernel."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    lc = 154 if s == 4250 else 77
+    q, k, v = (torch.cat([torch.randn(b, lc, h, 64, generator=g, device=cuda),
+                          torch.randn(b, s - lc, h, 64, generator=g, device=cuda)], 1).bfloat16()
+               for _ in range(3))
+    do = torch.randn(b, s, h, 64, generator=g, device=cuda).bfloat16()
+    assert select_bwd_kernel(s, s, 64) == "wgmma" and k2_kernels_for(64) == ["mma", "wgmma"]
+    o, lse = flash_attention_fwd(q, k, v)
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    got = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
+    took = kernel or "wgmma"
+    assert flash_attention_bwd.launches_by_kernel[took] == before[took] + 1
+    torch.cuda.synchronize()
+    assert all(x.dtype == torch.bfloat16 and torch.isfinite(x).all() for x in got)
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    mha(*leaves).backward(do.float())
+    assert_grads_close(got, [x.grad for x in leaves], 2e-2)
+    if took == "wgmma":
+        assert_grads_close(got, flash_attention_bwd(q, k, v, o, lse, do, kernel="mma"), 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("param_dtype", [None, "bfloat16"])
+def test_mmdit_train_step_runs_k1_and_k2_a_block_and_agrees_with_the_plain_path(cuda,
+                                                                              param_dtype):
+    """A small bf16 MMDiT at head dim 64 (4 heads, 3 blocks, 9 + 256 tokens),
+    its parameters f32 or stored in bf16: a forward and backward launch one
+    K1 and one K2 a block, all through wgmma, and the gradient is within 3e-2
+    relative L2 of the same model's through the plain ops (both bf16)."""
+    from dmtpu_torch.models.mmdit import MMDiT
+
+    torch.manual_seed(0)
+    m = MMDiT(input_size=32, patch_size=2, in_channels=4, hidden_size=256, depth=3,
+              num_heads=4, context_dim=32, pooled_dim=16, dtype="bfloat16",
+              param_dtype=param_dtype, device=cuda).train()
+    with torch.no_grad():
+        for p in m.parameters():
+            p.copy_(0.05 * torch.randn(p.shape, device=cuda))
+    x = torch.randn(2, 4, 32, 32, device=cuda)
+    t = torch.tensor([10.5, 900.0], device=cuda)
+    y = {"context": torch.randn(2, 9, 32, device=cuda), "pooled": torch.randn(2, 16, device=cuda)}
+
+    def grads():
+        m.zero_grad(set_to_none=True)
+        m(x, t, y, train=True).float().square().mean().backward()
+        return [p.grad.float().clone() for p in m.parameters()]
+
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
+    flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
+    got = grads()
+    torch.cuda.synchronize()
+    assert flash_attention_fwd.launches_by_kernel == {"mma": 0, "wgmma": 3}
+    assert flash_attention_bwd.launches_by_kernel == {"mma": 0, "wgmma": 3}
+    with plain_ops():
+        want = grads()
+    err = (sum((a - b).square().sum() for a, b in zip(got, want)).sqrt()
+           / sum(b.square().sum() for b in want).sqrt()).item()
+    assert err <= 3e-2 and all(bool(torch.isfinite(a).all()) for a in got)

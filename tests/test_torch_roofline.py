@@ -132,7 +132,7 @@ def test_attention_backward_dispatch_of_the_path(sq, sk, d):
     assert fa.bwd_kernels_for(d) == (["mma", "wgmma"] if d in (40, 80) else ["mma"])
 
 
-@pytest.mark.parametrize("d", [8, 48, 56, 64, 96, 160])
+@pytest.mark.parametrize("d", [8, 32, 48, 56, 96, 160])
 def test_other_head_dims_stay_on_mma_in_the_backward(d):
     assert fa.bwd_kernels_for(d) == ["mma"] and fa.select_bwd_kernel(4096, 4096, d) == "mma"
 
@@ -162,12 +162,12 @@ def test_attention_backward_dispatch_has_no_key_threshold(sk):
 def test_attention_backward_launch_plan_of_a_train_step():
     """32 K2 launches a step: the 20 of head dims 40 and 80 through wgmma, the
     12 of head dim 160 through mma.sync; the wgmma kernel's f32 scratch is padded
-    to whole steps of 128 (d=40) or 64 (d=72, d=80) rows."""
+    to whole steps of 128 (d=40) or 64 (d=64, d=72, d=80) rows."""
     plan = {"mma": 0, "wgmma": 0}
     for (sq, sk, d), calls in chip_smoke.ATTN_CALLS.items():
         plan[fa.select_bwd_kernel(sq, sk, d)] += calls
     assert plan == {"wgmma": 20, "mma": 12}
-    assert fa._BWD_ROWS == {40: 128, 72: 64, 80: 64}
+    assert fa._BWD_ROWS == {40: 128, 64: 64, 72: 64, 80: 64}
     assert set(fa._BWD_ROWS) == set(fa.WGMMA_BWD_HEAD_DIMS)
     # the cross-attention shapes have one key tile: dq written once, in bf16
     assert fa.WGMMA_BWD_KEY_TILE == 128
@@ -373,3 +373,50 @@ def test_mmdit_request_launches():
     assert chip_smoke.SD3_STEPS * chip_smoke.MMDIT_ATTN_PER_FORWARD["sd3_medium_b4"] == 672
     assert chip_smoke.MMDIT_B2_STEPS * chip_smoke.MMDIT_ATTN_PER_FORWARD["mmdit_b2_b64"] == 240
     assert chip_smoke.GN_PER_DECODE == 30
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.MMDIT_TRAIN_ATTN))
+def test_mmdit_train_attention_backward_goes_to_wgmma_and_its_bound(name):
+    """K2 at head dim 64 (chip_smoke phase 14): the dispatch takes wgmma at
+    both train steps' joint attention; MMDiT-B/2's b128 call is bound by its
+    bytes (8 tensors of 65.5 MB and the lse), SD3-medium's b32 call by its
+    8.9e12 operations."""
+    b, h, s = chip_smoke.MMDIT_TRAIN_ATTN[name]
+    assert fa.bwd_kernels_for(64) == ["mma", "wgmma"] and fa.select_bwd_kernel(s, s, 64) == "wgmma"
+    assert s % 128 and s > fa.WGMMA_BWD_KEY_TILE and fa._BWD_ROWS[64] == 64
+    ops, nbytes = roofline.attention_bwd_work(b, h, s, s, 64)
+    assert ops == 10 * b * h * s * s * 64
+    assert nbytes == 2 * b * h * 64 * 8 * s + 4 * b * h * s
+    want_ms, want_by = {"mmdit_train_b128": (0.15696, "bytes"),
+                        "sd3_train_b32": (8.9768, "operations")}[name]
+    assert roofline.bound_ms(ops, nbytes) == (pytest.approx(want_ms, rel=1e-4), want_by)
+    # a step's calls: K1 in the forward (twice under SD3-medium's remat), K2 once
+    blocks = {"mmdit_train_b128": 12, "sd3_train_b32": 24}[name]
+    remat = 2 if name == "sd3_train_b32" else 1
+    assert chip_smoke.MMDIT_TRAIN_CALLS[name] == {"K1": remat * blocks, "K2": blocks, "K3": 0}
+
+
+def test_forward_flops_counts_every_product_of_an_mmdit_forward():
+    """chip_smoke.forward_flops (phase 14's MFU) against the closed form of a
+    small MMDiT's forward on one sample: the patch convolution, the
+    conditioning MLPs, the context embedder, each block's modulations, q/k/v,
+    projections, MLPs and joint attention (the last block's context stream
+    makes q, k and v only), and the final layer."""
+    import torch
+
+    from dmtpu_torch.models.mmdit import MMDiT
+
+    d, depth, p, c, dc, dp, length = 64, 3, 2, 4, 16, 12, 5
+    m = MMDiT(input_size=8, patch_size=p, in_channels=c, hidden_size=d, depth=depth,
+              num_heads=2, context_dim=dc, pooled_dim=dp)
+    t_img = (8 // p) ** 2
+    y = {"context": torch.zeros(1, length, dc), "pooled": torch.zeros(1, dp)}
+    got = chip_smoke.forward_flops(m, torch.zeros(1, c, 8, 8), torch.zeros(1), y)
+    stream = 2 * d * (3 * d + d + 2 * 4 * d)  # qkv, proj, fc1 and fc2, a token
+    want = (2 * t_img * p * p * c * d + 2 * (256 * d + d * d) + 2 * (dp * d + d * d)
+            + 2 * length * dc * d
+            + (depth - 1) * (2 * 2 * d * 6 * d + (t_img + length) * stream)
+            + 2 * d * 6 * d + 2 * d * 2 * d + t_img * stream + length * 2 * d * 3 * d
+            + depth * 4 * (t_img + length) ** 2 * d
+            + 2 * d * 2 * d + 2 * t_img * d * p * p * c)
+    assert got == want

@@ -3,8 +3,10 @@
 The cases of ``tests/test_cli_dp.py``'s ``sample_cfg`` test on a tiny latent
 DiT: the JAX package's ``.npz`` export of the wrapper's params (with and
 without the VAE's), an upstream DiT state dict with a diffusers-named VAE, the
-VAE-less branch that saves latents, ``--guidance_interval``; the refusals
-(``flow``, a pixel-space target, a guidance interval on a solver, no card);
+VAE-less branch that saves latents, ``--guidance_interval``; ``--sampler
+flow`` against the JAX ``FlowMatchingCFG`` request on a DiT without learned
+variance; the refusals (``flow`` on a learned-variance model, a pixel-space
+target, a guidance interval on a solver, no card);
 and the helpers of ``dmtpu_torch/scripts/_common.py``.
 """
 import argparse
@@ -171,8 +173,62 @@ def test_guidance_interval_needs_ddpm_or_ddim(tmp_path, jax_params, sampler):
 
 
 def test_flow_is_refused_naming_the_roadmap_item(tmp_path, jax_params):
-    with pytest.raises(NotImplementedError, match="item K"):
+    """``--sampler flow`` is ported (item K); what it refuses is a model with
+    a learned variance, whose 8 channels out are no velocity of its 4 in (the
+    JAX CLI fails on the shapes inside its sampler)."""
+    with pytest.raises(ValueError, match="velocity model: the model gives 8 channels for 4"):
         _run(tmp_path, _npz(tmp_path, jax_params), ["--sampler", "flow"])
+
+
+def test_flow_sampler_matches_the_jax_flow_request(tmp_path, monkeypatch):
+    """``--sampler flow`` on a tiny DiT without learned variance (3-channel
+    8x8 images): ``make_diffuser`` builds ``FlowMatchingCFG`` from the
+    config's diffusion and the CLI's flags, and ``sample_class`` equals the
+    JAX ``FlowMatchingCFG`` request (the same flags, the null class as the
+    unconditional input) at the same noise, to 1e-5 relative L2 (f32: sums
+    in other orders); the CLI writes its PNGs."""
+    from dmtpu.diffusions import FlowMatchingCFG as JaxFlowMatchingCFG
+    from dmtpu.models.dit import DiT as JaxDiT
+    from dmtpu_torch.diffusions import FlowMatchingCFG
+
+    params = dict(VIT["params"], input_size=8, in_channels=3, learn_sigma=False)
+    jmod = JaxDiT(**params)
+    jp = jax_random_params(jmod, jnp.zeros((1, 8, 8, 3)), jnp.zeros((1,), jnp.int32),
+                           jnp.zeros((1,), jnp.int32), seed=6)
+    conf_path = write_yaml(tmp_path / "flow.yaml", {
+        "data": {"params": {"img_size": 8}, "img_channels": 3, "num_classes": 5},
+        "model": {"target": "models.dit.model.DiT", "params": params},
+        "diffusion": {"target": "diffusions.ddpm.DDPM",
+                      "params": {"total_steps": 50, "var_type": "fixed_large"}}})
+    args, _ = sample_cfg.parse_args(["-c", conf_path, "--weights", "w", "--save_dir", "o",
+                                     "--guidance_scale", "3.0", "--n_samples_each_class", "3",
+                                     "--sampler", "flow", "--respace_steps", "4"])
+    diffuser = sample_cfg.make_diffuser(args, load_config(conf_path))
+    assert type(diffuser) is FlowMatchingCFG and diffuser.guidance_scale == 3.0
+    assert (diffuser.total_steps, diffuser.respace_steps) == (50, 4)
+
+    noise = np.random.RandomState(2).randn(3, 8, 8, 3).astype(np.float32)
+    jsampler = JaxFlowMatchingCFG(guidance_scale=3.0, total_steps=50, respace_type="uniform",
+                                  respace_steps=4, var_type="fixed_large")
+    want = np.clip(np.asarray(jsampler.sample(
+        lambda x, t, y=None, **kw: jmod.apply(jp, x, t, y), jnp.asarray(noise), None,
+        uncond_conditioning=jnp.full((3,), 5, jnp.int32),
+        model_kwargs={"y": jnp.full((3,), 2, jnp.int32)})), -1, 1)
+    model = load_flax_params(DiT(**params), jp).eval()
+    real_randn = torch.randn
+    monkeypatch.setattr(torch, "randn", lambda *shape, **kw: torch.from_numpy(
+        np.ascontiguousarray(noise.transpose(0, 3, 1, 2))) if shape == (3, 3, 8, 8)
+        else real_randn(*shape, **kw))
+    got = sample_cfg.sample_class(model, diffuser, 2, 3, shape=(3, 8, 8), num_classes=5,
+                                  batch_size=4, device="cpu").permute(0, 2, 3, 1).numpy()
+    monkeypatch.undo()
+    assert np.linalg.norm(got - want) <= 1e-5 * np.linalg.norm(want) and np.abs(want).max() > 0
+
+    wpath = tmp_path / "dit.pt"
+    torch.save({"model": model.state_dict()}, wpath)
+    save_dir = _run(tmp_path, str(wpath), ["--sampler", "flow"], conf=conf_path)
+    files, ims = _images(save_dir, 3)
+    assert files == ["0.png", "1.png"] and ims[0].shape == (8, 8, 3)
 
 
 def test_pixel_target_is_refused_naming_the_roadmap_item(tmp_path, jax_params):
