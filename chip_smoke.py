@@ -17,7 +17,9 @@ and MMDiT text to image through ``python -m dmtpu_torch.scripts.sample_mmdit``'s
 request function: SD3-medium from ``configs/sd3_medium.yaml`` at 1024x1024
 and ``bench.py``'s MMDiT-B/2 (phase 13), and MMDiT rectified-flow training:
 ``bench.py``'s MMDiT-B/2 at batch 128 and SD3-medium through ``python -m
-dmtpu_torch.scripts.train_mmdit`` (phase 14); for the SD paths the
+dmtpu_torch.scripts.train_mmdit`` (phase 14), and SDXL-base text to image at
+1024x1024 through the logic of the SDXL page (``dmtpu_torch.ui.sdxl``) and
+``bench.py``'s ``sdxl`` extra (phase 15); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -256,7 +258,35 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      (e) ``sample_cfg --sampler flow``: ``make_diffuser`` and
      ``sample_class`` on phase 11's DiT-XL/2 with ``learn_sigma`` off and the
      SD VAE, b4, FlowMatchingCFG-4: finite images, launches 4 x 28 K1 and 30
-     K3.
+     K3;
+ 15. SDXL-base text to image (``SDXL_CONF``: the sd_xl_base config through
+     the reference targets ``models.sdxl.*``; the UNet of
+     ``benchmarks/northstar.py:94-119`` with ``softmax-xformers`` and no
+     remat, 2.57B parameters, bf16 torso; the conditioner at CLIP-L and bigG
+     widths; the SD VAE; all f32 parameters, built on the card from a seed):
+     (a) K1 at head dim 64 at the four attention shapes of a UNet call on
+     the CFG-doubled b2 batch: self-attention h10 S=4096 and h20 S=1024
+     (wgmma), cross-attention to 77 keys from S=4096 and S=1024 (mma.sync),
+     checked and timed as in 2 beside the bound, SDPA's time and the host's;
+     (b) K3 at the UNet's 15 GroupNorm shapes on b2 (channels-last, bf16,
+     and the f32 output norm) and at the VAE decoder's 7 at 1024x1024 on b1
+     (f32, NCHW), as in 3; (c) the module tree against the tables: 70
+     transformer blocks (140 attention calls) and 46 GroupNorms a UNet call,
+     30 a decode; (d) the conditioner's crossattn [1, 77, 2048] and vector
+     [1, 2816] within 1e-4 relative L2 of the same towers on the CPU (TF32
+     off), the empty negative's text zeroed; (e) a b2 UNet forward with
+     ``y`` at 128x128x4 through the kernels and through the plain ops
+     against an f32 plain run (TF32 off): within 1.5x the plain bf16 path's
+     relative L2 error, plus 1e-3, launches exactly (140, 0, 46); (f) the
+     timed request through ``generate_sdxl``: b1, DDIMCFG-50, s = 5,
+     1024x1024, seeded token ids, empty negative (one warm-up, one timed:
+     images per second, the stages by CUDA events, peak memory, launches
+     exactly 50 x 140 K1 (half wgmma, half mma.sync), no K2, 50 x 46 + 30
+     K3), one UNet call on 2 samples timed and profiled, the decode
+     profiled; (g) ``bench.py``'s ``sdxl``: unguided DDIM-50 at b1 with a
+     random context and a zero vector: samples per second, launches exactly
+     (50 x 140, 0, 50 x 46), and the MFU against 989 TFLOP/s from the
+     forward's operations counted on its shapes (``forward_flops``).
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -271,8 +301,10 @@ the joint attentions of one CFG-doubled MMDiT call, ``sd3_medium_b4`` and
 over one b32 decode at 256x256, ``dit_vae_decode_b32``, and one b2 decode at
 1024x1024, ``sd3_vae_decode_b2``; K2's also over the 28 of one DiT-XL/2 b32
 train step, ``dit_train_b32``; K1's and K2's also over the joint attentions
-of one MMDiT train step, ``mmdit_train_b128`` and ``sd3_train_b32``), and the
-card's
+of one MMDiT train step, ``mmdit_train_b128`` and ``sd3_train_b32``; K1's
+also over the 140 of one SDXL UNet call on 2 samples, ``sdxl_b2``; K3's also
+over the 46 of that call, ``sdxl_unet_b2``, and the 30 of one b1 decode at
+1024x1024, ``sdxl_vae_decode_b1``), and the card's
 name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
@@ -477,6 +509,72 @@ MMDIT_TRAIN_CALLS = {"mmdit_train_b128": {"K1": 12, "K2": 12, "K3": 0},
                      "sd3_train_b32": {"K1": 48, "K2": 24, "K3": 0}}
 MMDIT_TRAIN_CONTEXT = {"mmdit_train_b128": MMDIT_B2_CTX, "sd3_train_b32": 154}
 FLOW_B, FLOW_STEPS = 4, 4
+
+# phase 15: SDXL-base text to image through the Generate logic of the SDXL
+# page (``dmtpu_torch/ui/sdxl.py``; ``streamlit/pages/4_Stable_Diffusion_XL.py``
+# :69-117) at 1024x1024, as one config dict that mirrors the upstream
+# ``sd_xl_base.yaml`` through the reference targets: the UNet of
+# ``benchmarks/northstar.py:94-119`` (2.57B parameters, 128x128x4 latents,
+# ``transformer_depth`` (1, 2, 10), context 2048, "sequential" vector 2816,
+# linear projections) with the yaml's ``softmax-xformers`` attention type and
+# no remat, computing in bf16 over f32 parameters; the sd_xl_base conditioner
+# (CLIP-L at hidden layer 11, bigG penultimate and pooled, three size / crop
+# embedders of 256); the SD VAE; and ``bench.py``'s ``sdxl`` extra (unguided
+# DDIM-50, b1)
+SDXL_UNET = dict(in_channels=4, model_channels=320, out_channels=4, num_res_blocks=2,
+                 attention_resolutions=[4, 2], channel_mult=[1, 2, 4], num_head_channels=64,
+                 use_spatial_transformer=True, transformer_depth=[1, 2, 10], context_dim=2048,
+                 num_classes="sequential", adm_in_channels=2816,
+                 use_linear_in_transformer=True, legacy=False, use_checkpoint=False,
+                 spatial_transformer_attn_type="softmax-xformers", torso_dtype="bfloat16")
+_SGM = "sgm.modules.encoders.modules."
+SDXL_CONF = {
+    "model": {
+        "target": "models.sdxl.stablediffusion.StableDiffusion",
+        "params": {
+            "scale_factor": 0.13025,
+            "conditioner_config": {
+                "target": "models.sdxl.conditioner.GeneralConditioner",
+                "params": {"emb_models": [
+                    {"target": _SGM + "FrozenCLIPEmbedder",
+                     "params": {"layer": "hidden", "layer_idx": 11}},
+                    {"target": _SGM + "FrozenOpenCLIPEmbedder2",
+                     "params": {"arch": "ViT-bigG-14", "layer": "penultimate",
+                                "always_return_pooled": True, "legacy": False}},
+                    *[{"target": _SGM + "ConcatTimestepEmbedderND", "params": {"outdim": 256}}
+                      for _ in range(3)]]}},
+            "unet_config": {"target": "models.sdxl.unet.UNetModel", "params": SDXL_UNET},
+            "vae_config": {"target": "models.sdxl.autoencoder.AutoencoderKL",
+                           "params": {"embed_dim": 4, "z_channels": 4, "resolution": 256,
+                                      "ch": 128, "ch_mult": [1, 2, 4, 4], "num_res_blocks": 2}},
+        },
+    },
+    "diffusion": {"target": "diffusions.ddpm.DDPM",
+                  "params": {"total_steps": 1000, "beta_schedule": "quad",
+                             "beta_start": 0.00085, "beta_end": 0.012,
+                             "objective": "pred_eps"}},
+}
+SDXL_STEPS, SDXL_SCALE, SDXL_SIZE, SDXL_B, SDXL_CFG_B = 50, 5.0, 1024, 1, 2
+SDXL_PROMPT_SEED = 77
+# one SDXL UNet call on 128x128 latents (70 transformer blocks, each a
+# self- and a cross-attention, heads of 64): (S_q, S_k, heads): calls
+SDXL_ATTN = {(4096, 4096, 10): 10, (1024, 1024, 20): 60,
+             (4096, 77, 10): 10, (1024, 77, 20): 60}
+# (C, H*W, dtype, silu, eps): calls.  17 ResBlocks x 2 (bf16, SiLU, 1e-5),
+# 11 SpatialTransformer norms (bf16, no SiLU, 1e-6), the output norm (f32)
+SDXL_GN_CALLS = {
+    (320, 16384, "bf16", True, 1e-5): 7, (640, 16384, "bf16", True, 1e-5): 2,
+    (960, 16384, "bf16", True, 1e-5): 1, (320, 4096, "bf16", True, 1e-5): 1,
+    (640, 4096, "bf16", True, 1e-5): 6, (960, 4096, "bf16", True, 1e-5): 1,
+    (1280, 4096, "bf16", True, 1e-5): 1, (1920, 4096, "bf16", True, 1e-5): 1,
+    (640, 1024, "bf16", True, 1e-5): 1, (1280, 1024, "bf16", True, 1e-5): 10,
+    (1920, 1024, "bf16", True, 1e-5): 1, (2560, 1024, "bf16", True, 1e-5): 2,
+    (640, 4096, "bf16", False, 1e-6): 5, (1280, 1024, "bf16", False, 1e-6): 6,
+    (320, 16384, "f32", True, 1e-5): 1,
+}
+# the SD VAE's decoder at 1024x1024 (128x128x4 latents): SD3_DECODE_GN's shapes
+SDXL_DECODE_GN = SD3_DECODE_GN
+SDXL_BENCH_STEPS = 50  # bench.py's sdxl extra
 
 
 def log(*args):
@@ -984,6 +1082,10 @@ def main() -> int:
     # ---- 14. MMDiT training: bench's MMDiT-B/2, SD3-medium through train_mmdit ------
     torch.cuda.empty_cache()
     mmdit_train = phase_mmdit_train(dev, check, gen, card, time_ms, host_us)
+
+    # ---- 15. SDXL-base text to image through the SDXL page's logic --------------------
+    torch.cuda.empty_cache()
+    sdxl = phase_sdxl(dev, check, gen, card, time_ms, host_us, k3_case, add_row, new_totals)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
@@ -999,7 +1101,8 @@ def main() -> int:
                       **{path: counted[name] for path, counted in dit_train["launches"].items()},
                       **{path: counted[name] for path, counted in mmdit["launches"].items()},
                       **{path: counted[name]
-                         for path, counted in mmdit_train["launches"].items()}}
+                         for path, counted in mmdit_train["launches"].items()},
+                      **{path: counted[name] for path, counted in sdxl["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1033,7 +1136,10 @@ def main() -> int:
              **mmdit["k1_per_forward"],
              # and over those of one train step: MMDiT-B/2's 12 at b128, and
              # SD3-medium's 48 at b32 (forward and remat recompute)
-             **mmdit_train["k1_per_step"]),
+             **mmdit_train["k1_per_step"],
+             # and over the 140 (d=64) of one SDXL UNet call on the 2 samples
+             # of a one-image CFG request
+             sdxl_b2=sdxl["k1_per_call"]),
         dict(entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
                    "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
                    f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards",
@@ -1060,12 +1166,16 @@ def main() -> int:
              # and over the 30 calls of one b32 VAE decode at 256x256 (DiT's)
              dit_vae_decode_b32=k3_dit,
              # and of one b2 decode at 1024x1024 (SD3-medium's 16-channel VAE)
-             sd3_vae_decode_b2=k3_sd3),
+             sd3_vae_decode_b2=k3_sd3,
+             # and over the 46 calls of one SDXL UNet call on 2 samples, and
+             # the 30 of one b1 SD VAE decode at 1024x1024
+             sdxl_unet_b2=sdxl["k3_unet"], sdxl_vae_decode_b1=sdxl["k3_vae"]),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
         "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
         "dit_b32": dit["metrics"], "dit_train_b32": dit_train["metrics"],
-        "mmdit": mmdit["metrics"], "mmdit_train": mmdit_train["metrics"], "card": card}))
+        "mmdit": mmdit["metrics"], "mmdit_train": mmdit_train["metrics"],
+        "sdxl": sdxl["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1086,8 +1196,8 @@ def not_the_slower(by_kernel: dict, chosen: str, ms: float, host_us: float) -> b
 
 
 def k1_call_row(q, k, v, calls: int, label: str, check, time_ms, host_us, card: str,
-                reps: int, slice_b: int = 0) -> tuple:
-    """K1 at one call of a path, the dispatch expected on wgmma: every kernel
+                reps: int, slice_b: int = 0, expect: str = "wgmma") -> tuple:
+    """K1 at one call of a path, the dispatch expected on ``expect``: every kernel
     that takes the shape checked against the plain ``mha`` and K1's own
     plain version (phase 2's tolerances) and timed (order first, second,
     second, first, ``reps`` calls each), beside the plain version, SDPA, the
@@ -1147,8 +1257,9 @@ def k1_call_row(q, k, v, calls: int, label: str, check, time_ms, host_us, card: 
     log("K1", json.dumps(row))
     log(f"K1 at {label}: {ms / bound_t:.2f}x its bound, {ms / library_ms:.3f}x SDPA's time "
         f"({card})")
-    check(chosen == "wgmma" and not_the_slower(by_kernel, chosen, ms, host),
-          f"K1 dispatch b{n} h{h} S={sq} d={d}: {chosen} (wgmma) is not the slower kernel")
+    check(chosen == expect and not_the_slower(by_kernel, chosen, ms, host),
+          f"K1 dispatch b{n} h{h} S_q={sq} S_k={sk} d={d}: {chosen} ({expect}) is not the "
+          "slower kernel")
     per = {key: calls * row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                              "host_us")}
     per.update(err=errs[chosen]["max_abs_err_vs_mha"], bound_ms_by={bound_by: per["bound_ms"]})
@@ -3484,16 +3595,283 @@ def phase_mmdit_train(dev, check, gen, card, time_ms, host_us) -> dict:
             "metrics": metrics, "k1_per_step": k1_per_step, "k2_per_step": k2_per_step}
 
 
-def forward_flops(model, x, t, y) -> int:
-    """Operations (two a multiply-add) of one forward of an MMDiT on these
-    inputs, counted from the shapes the forward sees: every linear layer and
-    the patch convolution at the rows it is given (forward hooks), and each
-    block's joint attention, 4 S^2 D (Q K^T and P V over all heads).  The
-    elementwise work is not counted."""
+def phase_sdxl(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_totals) -> dict:
+    """Phase 15 (see the module docstring): SDXL-base text to image at
+    1024x1024 through ``dmtpu_torch.ui.sdxl`` (the SDXL page's logic), K1 and
+    K3 at SDXL's shapes, and ``bench.py``'s ``sdxl`` extra.  ``k3_row``,
+    ``add_row`` and ``new_totals`` are phase 3's row helpers."""
+    import copy
+
+    import torch
+    from dmtpu_torch.diffusions import DDIM
+    from dmtpu_torch.models.sdxl import StableDiffusionXL
+    from dmtpu_torch.models.stablediffusion import SDUNetModel
+    from dmtpu_torch.models.stablediffusion.attention import BasicTransformerBlock
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        select_kernel,
+    )
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.ops.roofline import PEAK_BF16_FLOPS
+    from dmtpu_torch.ui import sdxl as ui
+    from dmtpu_torch.utils.config import Config, instantiate_from_config
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel_err(a, ref) -> float:
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+    def add_sums(totals, per):
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us"):
+            totals[key] += per[key]
+        for by, ms in per["bound_ms_by"].items():
+            totals["bound_ms_by"][by] += ms
+        totals["err"] = max(totals["err"], per["err"])
+
+    g = gen(SEED + 50)
+    n = SDXL_CFG_B  # the CFG-doubled batch of a one-image request
+
+    # (a) K1 at d=64: the self-attentions of the two attention levels (wgmma)
+    # and the cross-attentions to the 77 text tokens (mma.sync), on b2
+    k1_rows, k1_per_call = {}, new_totals()
+    for (sq, sk, h), calls in SDXL_ATTN.items():
+        q = torch.randn(n, sq, h, 64, generator=g, device=dev).bfloat16()
+        k, v = (torch.randn(n, sk, h, 64, generator=g, device=dev).bfloat16() for _ in range(2))
+        name = f"sdxl_s{sq}_k{sk}"
+        k1_rows[name], per = k1_call_row(
+            q, k, v, calls, f"SDXL b{n} h{h} S_q={sq} S_k={sk}", check, time_ms, host_us, card,
+            20, expect="mma" if sk == 77 else "wgmma")
+        add_sums(k1_per_call, per)
+        del q, k, v
+        torch.cuda.empty_cache()
+    check({row["kernel"] for row in k1_rows.values()} == {"wgmma", "mma"}
+          and all(row["kernel"] == "mma" for row in k1_rows.values() if row["sk"] == 77),
+          "SDXL K1: self-attention through wgmma, the 77-key cross-attention through mma.sync")
+    log(f"K1 per SDXL UNet call on {n} samples ({sum(SDXL_ATTN.values())} calls): "
+        + json.dumps(k1_per_call))
+
+    # (b) K3 at the UNet's GroupNorms (b2, channels-last, bf16 torso, the f32
+    # output norm) and at the VAE decoder's at 1024x1024 (b1, f32, NCHW)
+    k3_unet, k3_vae = new_totals(), new_totals()
+    for (c, hw, dname, silu, eps), calls in SDXL_GN_CALLS.items():
+        add_row(k3_unet, k3_row(c, hw, dname, silu, eps, torch.channels_last, calls, n=n), calls)
+    torch.cuda.empty_cache()
+    for (c, hw, silu), calls in SDXL_DECODE_GN.items():
+        add_row(k3_vae, k3_row(c, hw, "f32", silu, 1e-6, torch.contiguous_format, calls,
+                               n=SDXL_B), calls)
+        torch.cuda.empty_cache()
+    log(f"K3 per SDXL UNet call on {n} samples ({sum(SDXL_GN_CALLS.values())} calls): "
+        + json.dumps(k3_unet))
+    log(f"K3 per b{SDXL_B} VAE decode at {SDXL_SIZE}x{SDXL_SIZE} ({GN_PER_DECODE} calls): "
+        + json.dumps(k3_vae))
+
+    # (c) SDXL-base at full width through the reference targets, built on the
+    # card from a seed (f32 parameters, bf16 UNet torso)
+    conf = Config(SDXL_CONF)
+    t0 = time.perf_counter()
+    model = instantiate_from_config(conf.model, device=dev).eval()
+    init_random_(model, g)  # the zero-initialised layers non-zero: else the UNet's output is 0
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    unet = model.unet
+    blocks = sum(isinstance(m, BasicTransformerBlock) for m in unet.modules())
+    gns = [m.num_channels for m in unet.modules() if isinstance(m, torch.nn.GroupNorm)]
+    decode_gn = sum(isinstance(m, torch.nn.GroupNorm) for m in model.vae.decoder.modules())
+    n_params = {name: sum(p.numel() for p in part.parameters())
+                for name, part in (("unet", unet), ("conditioner", model.conditioner),
+                                   ("vae", model.vae))}
+    attn_per_call, gn_per_call = 2 * blocks, len(gns)
+    want_channels = sorted(c for (c, *_), calls in SDXL_GN_CALLS.items() for _ in range(calls))
+    log(f"SDXL-base: {n_params} parameters (f32), built on the card in {build_s:.1f} s; UNet "
+        f"torso {unet.torso_dtype}; from the module trees: {blocks} transformer blocks, so "
+        f"{attn_per_call} attention calls a UNet call, {gn_per_call} GroupNorms a call, "
+        f"{decode_gn} a decode")
+    check(isinstance(model, StableDiffusionXL) and unet.torso_dtype == torch.bfloat16
+          and all(p.dtype == torch.float32 and p.device.type == "cuda"
+                  for p in model.parameters())
+          and 2.5e9 < n_params["unet"] < 2.6e9
+          and (attn_per_call, gn_per_call, decode_gn) == (
+              sum(SDXL_ATTN.values()), sum(SDXL_GN_CALLS.values()), GN_PER_DECODE)
+          and sorted(gns) == want_channels,
+          "SDXL-base from SDXL_CONF: f32 parameters on the card, bf16 torso, 2.57B UNet, "
+          "the attention and GroupNorm tables match the module tree")
+
+    # (d) the conditioner on the card against the same towers on the CPU, f32,
+    # TF32 off: a prompt's seeded token ids and the zeroed empty negative
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    host_g = torch.Generator().manual_seed(SDXL_PROMPT_SEED)
+    ids = tuple(torch.randint(0, 49408, (1, 77), generator=host_g) for _ in range(2))
+    size = torch.tensor([[SDXL_SIZE, SDXL_SIZE]], dtype=torch.float32)
+    sizes = (size, torch.zeros_like(size), size)
+    with torch.no_grad():
+        cond = model.conditioner(*(x.to(dev) for x in ids + sizes))
+        uncond = model.conditioner(*(x.to(dev) for x in ids + sizes), force_zero_text=True)
+        cpu = copy.deepcopy(model.conditioner).cpu()
+        want = cpu(*ids, *sizes)
+    del cpu
+    cond_err = [rel_err(a.cpu(), b) for a, b in zip(cond, want)]
+    log(f"SDXL conditioner b1: crossattn {tuple(cond[0].shape)}, vector "
+        f"{tuple(cond[1].shape)}; rel L2 err vs the CPU: {cond_err}")
+    pooled = model.conditioner.clip_g.text_projection.shape[1]
+    check(tuple(cond[0].shape) == (1, 77, unet.context_dim)
+          and tuple(cond[1].shape) == (1, unet.adm_in_channels) and max(cond_err) <= 1e-4
+          and not uncond[0].any() and not uncond[1][:, :pooled].any()
+          and torch.equal(uncond[1][:, pooled:], cond[1][:, pooled:]),
+          f"SDXL conditioner: [1, 77, {unet.context_dim}] and [1, {unet.adm_in_channels}], "
+          "within 1e-4 of the CPU; the empty negative's text zeroed")
+
+    # (e) agreement: a b2 UNet forward with y, the CFG-doubled batch of the
+    # request, through the kernels and the plain ops against an f32 plain run
+    ref = SDUNetModel(**dict(SDXL_UNET, torso_dtype=None), device=dev).eval()
+    ref.load_state_dict(unet.state_dict())
+    lat = SDXL_SIZE // 8
+    x = torch.randn(1, 4, lat, lat, generator=g, device=dev).repeat(n, 1, 1, 1)
+    ts = torch.tensor([501, 501], device=dev)
+    ctx, vec = (torch.cat([c, u]) for c, u in zip(cond, uncond))
+    with torch.no_grad():
+        zero_counts()
+        got_k = unet(x, ts, ctx, vec)
+        torch.cuda.synchronize()
+        fwd_launches = counts()
+        with plain_ops():
+            got_p, want = unet(x, ts, ctx, vec), ref(x, ts, ctx, vec)
+    err_k, err_p = rel_err(got_k, want), rel_err(got_p, want)
+    log(f"SDXL UNet b{n} forward at {lat}x{lat}x4 with y: rel L2 err vs f32 plain: kernels "
+        f"{err_k:.3e}, plain bf16 {err_p:.3e}; std {want.std().item():.3f}; launches "
+        f"{fwd_launches}")
+    check(tuple(got_k.shape) == (n, 4, lat, lat) and bool(torch.isfinite(got_k).all())
+          and err_k <= 1.5 * err_p + 1e-3,
+          "SDXL UNet forward: err(kernels) <= 1.5 err(plain) + 1e-3")
+    want_fwd = {"K1": attn_per_call, "K2": 0, "K3": gn_per_call}
+    check(fwd_launches == want_fwd, f"SDXL UNet forward launches {fwd_launches} == {want_fwd}")
+    del ref, got_k, got_p, want
+    torch.cuda.empty_cache()
+
+    # (f) the timed request: the Generate defaults (DDIM, 50 steps, s = 5,
+    # 1024x1024, uniform-linspace), b1, seeded token ids, empty negative; the
+    # VAE's f32 convolutions in TF32, cuDNN's default
+    torch.backends.cudnn.allow_tf32 = True
+    request = dict(sampler="DDIM", steps=SDXL_STEPS, scale=SDXL_SCALE, height=SDXL_SIZE,
+                   width=SDXL_SIZE, batch_size=SDXL_B, batch_count=1,
+                   respace_type="uniform-linspace", seed=SEED, device=dev)
+    dp = dict(conf.diffusion.params, respace_type="uniform-linspace", respace_steps=SDXL_STEPS,
+              guidance_scale=SDXL_SCALE, cond_kwarg="cond")
+    rows = len(ui.SAMPLERS["DDIM"](**dp).respaced_seq)
+    ui.generate_sdxl(conf, model, ids, "", **request)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    images, stage_ms = ui.generate_sdxl(conf, model, ids, "", **request)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, by_kernel = counts(), dict(flash_attention_fwd.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated()
+    params_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    wgmma_calls = sum(calls for (sq, sk, h), calls in SDXL_ATTN.items()
+                      if select_kernel(sq, sk, 64) == "wgmma")
+    want = {"K1": rows * attn_per_call, "K2": 0, "K3": rows * gn_per_call + decode_gn}
+    want_by_kernel = {"wgmma": rows * wgmma_calls, "mma": rows * (attn_per_call - wgmma_calls)}
+    with torch.no_grad():
+        call_ms = time_ms(lambda: unet(x, ts, ctx, vec), 3)
+        profile = profile_by_class(lambda: unet(x, ts, ctx, vec), 2)
+        z = torch.randn(SDXL_B, 4, lat, lat, generator=g, device=dev)
+        decode_profile = profile_by_class(lambda: model.decode_latent(z), 1)
+    metrics = {"sdxl_b1": {
+        "imgs_per_s": SDXL_B / seconds, "seconds": seconds, "batch": SDXL_B, "steps": rows,
+        "size": SDXL_SIZE, "guidance_scale": SDXL_SCALE, "stage_ms": stage_ms,
+        "peak_bytes": peak, "params_bytes": params_bytes, "build_s": build_s,
+        "cfg_call_ms": call_ms, "cfg_call_profile_ms": profile["classes"],
+        "cfg_call_wall_ms": profile["wall_ms"], "vae_decode_profile_ms": decode_profile["classes"],
+        "launches": launches, "k1_by_kernel": by_kernel,
+        "agreement_b2": {"kernels": err_k, "plain_bf16": err_p}, "conditioner_err": cond_err}}
+    log(f"SDXL b{SDXL_B}, DDIMCFG-{rows} ({rows} UNet calls on {n} samples), s={SDXL_SCALE}, "
+        f"{SDXL_SIZE}x{SDXL_SIZE}: {seconds:.3f} s, {SDXL_B / seconds:.4f} images/s, stages "
+        f"(CUDA events, ms) {json.dumps(stage_ms)}, peak {peak / 2**30:.3f} GiB (parameters "
+        f"{params_bytes / 2**30:.3f} GiB) ({card}); launches {launches}, K1 by kernel {by_kernel}")
+    log(f"SDXL UNet call on {n} samples: {call_ms:.3f} ms (CUDA events, 3 calls); device time "
+        f"by class (torch.profiler, ms per call over 2; wall {profile['wall_ms']:.3f} ms under "
+        "the profiler): " + json.dumps(profile["classes"]))
+    for kname, kernel_ms in profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {kname}")
+    log(f"VAE decode b{SDXL_B} {SDXL_SIZE}x{SDXL_SIZE}, TF32, device time by class (one "
+        "decode): " + json.dumps(decode_profile["classes"]))
+    check(tuple(images.shape) == (SDXL_B, 3, SDXL_SIZE, SDXL_SIZE)
+          and bool(torch.isfinite(images).all()) and images.float().std().item() > 1e-2
+          and set(stage_ms) == {"conditioner", "sample", "decode"},
+          f"SDXL request b{SDXL_B}: finite [{SDXL_B}, 3, {SDXL_SIZE}, {SDXL_SIZE}], stage times")
+    check(launches == want, f"SDXL request launches {launches} == {want}")
+    check(by_kernel == want_by_kernel, f"SDXL request K1 by kernel {by_kernel} == "
+                                       f"{want_by_kernel}")
+    check(profile["classes"]["K1 attention"] > 0 and profile["classes"]["K3 GroupNorm"] > 0,
+          "profile: the SDXL UNet call ran K1 and K3 on the card")
+    del images, x, ts, ctx, vec, z
+    torch.cuda.empty_cache()
+
+    # (g) bench.py's sdxl: unguided DDIM-50 (uniform), b1, its random 77 x 2048
+    # context (benchmarks/northstar.py:159) and a zero vector; MFU from the
+    # forward's operations counted on its shapes
+    torch.backends.cudnn.allow_tf32 = False
+    sampler = DDIM(total_steps=1000, respace_type="uniform", respace_steps=SDXL_BENCH_STEPS)
+    b_rows = len(sampler.respaced_seq)
+    b_ctx = torch.randn(SDXL_B, 77, unet.context_dim, generator=g, device=dev)
+    b_vec = torch.zeros(SDXL_B, unet.adm_in_channels, device=dev)
+    noise = torch.randn(SDXL_B, 4, lat, lat, generator=g, device=dev)
+
+    def bench_model(xx, tt, **kw):
+        return unet(xx, tt, b_ctx, b_vec)
+
+    with torch.no_grad():
+        sampler.sample(bench_model, noise)  # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = sampler.sample(bench_model, noise)
+        torch.cuda.synchronize()
+        b_seconds = time.perf_counter() - t0
+    b_launches = counts()
+    flops = forward_flops(unet, noise, torch.full((SDXL_B,), 500, device=dev), b_ctx, b_vec)
+    sps = SDXL_B / b_seconds
+    mfu = sps * b_rows * flops / SDXL_B / PEAK_BF16_FLOPS
+    metrics["bench_sdxl_b1"] = {"samples_per_s": sps, "seconds": b_seconds, "steps": b_rows,
+                                "fwd_flops_per_sample": flops / SDXL_B, "mfu": mfu,
+                                "launches": b_launches}
+    log(f"bench.py sdxl: DDIM-{b_rows} b{SDXL_B} at {lat}x{lat}x4: {b_seconds:.3f} s, "
+        f"{sps:.4f} samples/s; forward {flops / SDXL_B / 1e12:.4f} TFLOP a sample, MFU "
+        f"{mfu:.4f} of 989 TFLOP/s ({card}); launches {b_launches}")
+    b_want = {"K1": b_rows * attn_per_call, "K2": 0, "K3": b_rows * gn_per_call}
+    check(tuple(out.shape) == (SDXL_B, 4, lat, lat) and bool(torch.isfinite(out).all()),
+          "bench sdxl: finite latents")
+    check(b_launches == b_want, f"bench sdxl launches {b_launches} == {b_want}")
+    del model, unet, out, noise, b_ctx, b_vec
+    torch.cuda.empty_cache()
+    return {"launches": {f"sdxl_ddimcfg{rows}": launches, f"sdxl_bench_ddim{b_rows}": b_launches},
+            "metrics": metrics, "k1": k1_rows, "k1_per_call": k1_per_call,
+            "k3_unet": k3_unet, "k3_vae": k3_vae}
+
+
+def forward_flops(model, *inputs) -> int:
+    """Operations (two a multiply-add) of one forward ``model(*inputs)``,
+    counted from the shapes the forward sees: every linear layer and
+    convolution at the rows it is given (forward hooks), and each attention's
+    Q K^T and P V, 4 S_q S_k D over all heads: MMDiT's joint attention (a
+    block) and the SD UNet's ``CrossAttention``.  The elementwise work is not
+    counted."""
     import torch
     from torch import nn
 
     from dmtpu_torch.models.mmdit import MMDiTBlock
+    from dmtpu_torch.models.stablediffusion.attention import CrossAttention
 
     total = [0]
 
@@ -3508,12 +3886,20 @@ def forward_flops(model, x, t, y) -> int:
         s = ctx.shape[1] + xx.shape[1]
         total[0] += 4 * xx.shape[0] * s * s * xx.shape[2]
 
+    def cross(m, args, kwargs, out):
+        x = args[0]
+        ctx = kwargs.get("context", args[1] if len(args) > 1 else None)
+        sk = x.shape[1] if ctx is None else ctx.shape[1]
+        total[0] += 4 * x.shape[0] * x.shape[1] * sk * m.heads * m.dim_head
+
     hooks = [m.register_forward_hook(linear if isinstance(m, nn.Linear) else
                                      conv if isinstance(m, nn.Conv2d) else joint)
              for m in model.modules() if isinstance(m, (nn.Linear, nn.Conv2d, MMDiTBlock))]
+    hooks += [m.register_forward_hook(cross, with_kwargs=True)
+              for m in model.modules() if isinstance(m, CrossAttention)]
     try:
         with torch.no_grad():
-            model(x, t, y)
+            model(*inputs)
     finally:
         for hook in hooks:
             hook.remove()

@@ -30,6 +30,13 @@ The JAX MMDiT names its modules otherwise (``t_mlp0``, ``blocks__i/x_qkv``,
 the table of ``dmtpu/convert/zoo.py::convert_mmdit``.  A module with a
 ``flax_rename`` attribute (the port's MMDiT) has its keys renamed so by
 ``load_flax_params``.
+
+SDXL's tree (``dmtpu.models.sdxl.StableDiffusionXL.init_params``: ``{"unet",
+"vae", "conditioner": {"clip_l", "clip_g"}}``) needs no rule of its own:
+``label_emb__0__0`` is ``label_emb.0.0`` and the linear ``proj_in`` /
+``proj_out`` kernels are 2-D, so transposed as ``nn.Linear`` weights;
+``sdxl_state_dict_from_flax`` puts the parts under the prefixes of the
+port's ``StableDiffusionXL``.
 """
 from __future__ import annotations
 
@@ -131,3 +138,15 @@ def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     module.load_state_dict(state_dict_from_flax(params, getattr(module, "flax_rename", None)),
                            strict=True)
     return module
+
+
+def sdxl_state_dict_from_flax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The port's ``StableDiffusionXL`` state dict (``unet.``, ``vae.``,
+    ``conditioner.clip_l.``, ``conditioner.clip_g.``) from the JAX package's
+    SDXL params (``{"unet", "vae", "conditioner": {"clip_l", "clip_g"}}``;
+    a part that is None is left out)."""
+    parts = {"unet": params.get("unet"), "vae": params.get("vae")}
+    for tower, tree in (params.get("conditioner") or {}).items():
+        parts[f"conditioner.{tower}"] = tree
+    return {f"{prefix}.{key}": value for prefix, tree in parts.items() if tree is not None
+            for key, value in state_dict_from_flax(tree).items()}

@@ -7,7 +7,9 @@ needs no structural conversion: only the prefixes of a CompVis checkpoint
 (reference: models/stablediffusion/stablediffusion.py:73-79: the VAE under
 ``first_stage_model.``, the UNet under ``model.diffusion_model.``, the text
 encoder under ``cond_stage_model.``) are split off, and the open_clip and
-diffusers layouts renamed.  Values may be torch tensors or numpy arrays and
+diffusers layouts renamed.  ``split_sdxl_checkpoint`` does the same for an
+sgm SDXL checkpoint (the counterpart of ``convert_sdxl_checkpoint``,
+``dmtpu/convert/sd.py:169-221``).  Values may be torch tensors or numpy arrays and
 are passed through (the fused open_clip ``in_proj`` is split in three).
 """
 from __future__ import annotations
@@ -134,3 +136,35 @@ def split_sd_checkpoint(state_dict: Mapping[str, Any],
     return {"unet": _strip(state_dict, "model.diffusion_model."),
             "vae": _strip(state_dict, "first_stage_model."),
             "text_encoder": text_encoder_sd or None}
+
+
+def _clip_tower(sd: Mapping[str, Any]) -> StateDict:
+    """A text tower's state dict in the HF or the open_clip layout -> the
+    tower's layout."""
+    if any(".resblocks." in k for k in sd):
+        return openclip_text_to_hf(sd)
+    return hf_clip_text_strip(sd)
+
+
+def split_sdxl_checkpoint(state_dict: Mapping[str, Any],
+                          clip_l_sd: Optional[Mapping[str, Any]] = None,
+                          clip_g_sd: Optional[Mapping[str, Any]] = None
+                          ) -> Dict[str, Optional[StateDict]]:
+    """An sgm SDXL checkpoint -> ``{"unet", "vae", "clip_l", "clip_g"}``
+    state dicts in the port's module layouts.
+
+    The UNet is under ``model.diffusion_model.``, the VAE under
+    ``first_stage_model.``, CLIP-L under ``conditioner.embedders.0.
+    transformer.`` (HF layout) and bigG under ``conditioner.embedders.1.
+    model.`` (open_clip layout); ``clip_l_sd`` / ``clip_g_sd`` (HF or
+    open_clip layout) take the place of the checkpoint's towers.  A tower the
+    checkpoint does not hold is None.
+    """
+    if clip_l_sd is None:
+        clip_l_sd = _strip(state_dict, "conditioner.embedders.0.transformer.")
+    if clip_g_sd is None:
+        clip_g_sd = _strip(state_dict, "conditioner.embedders.1.model.")
+    return {"unet": _strip(state_dict, "model.diffusion_model."),
+            "vae": _strip(state_dict, "first_stage_model."),
+            "clip_l": _clip_tower(clip_l_sd) if clip_l_sd else None,
+            "clip_g": _clip_tower(clip_g_sd) if clip_g_sd else None}

@@ -46,6 +46,19 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 1000
     return emb
 
 
+def resolve_torso_dtype(torso_dtype, use_fp16: bool = False, use_bf16: bool = False):
+    """The torso dtype of a config: ``torso_dtype`` (a ``torch.dtype`` or its
+    name) where given, else bf16 for the reference's ``use_fp16`` /
+    ``use_bf16`` switches, else None (f32).  Counterpart of
+    ``dmtpu/models/adm.py::resolve_torso_dtype``: an fp16 config computes in
+    bf16 here too."""
+    if isinstance(torso_dtype, str):  # a YAML config names the dtype
+        torso_dtype = getattr(torch, torso_dtype)
+    if torso_dtype is not None:
+        return torso_dtype
+    return torch.bfloat16 if use_fp16 or use_bf16 else None
+
+
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
     return None if t is None else t.to(dtype)
 

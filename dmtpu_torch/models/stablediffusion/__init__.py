@@ -47,9 +47,37 @@ __all__ = [
     "FrozenOpenCLIPEmbedder",
     "FrozenT5Embedder",
     "FrozenCLIPT5Encoder",
+    "load_owned_",
+    "seeded_init_",
 ]
 
 _COMPVIS_PREFIXES = ("model.diffusion_model.", "first_stage_model.", "cond_stage_model.")
+
+
+def load_owned_(tower: nn.Module, state_dict: Mapping[str, Any], strict: bool = True) -> None:
+    """Load the leaves of ``state_dict`` that ``tower`` owns.  An open_clip
+    tower carries its pooled path (``text_projection``) and ``logit_scale``
+    whether or not this tower has them: they are dropped, as the JAX
+    converter loads a tower non-strictly; a missing leaf still raises."""
+    own = tower.state_dict()
+    tower.load_state_dict({k: v for k, v in state_dict.items() if k in own}, strict=strict)
+
+
+def seeded_init_(module: nn.Module, generator: Optional[torch.Generator] = None) -> nn.Module:
+    """Seeded random parameters in place, each drawn on its own device:
+    N(0, 1/fan_in) weights and embeddings, unit norm scales, zero biases;
+    the layers the modules zero-initialise stay zero, as in the JAX
+    package's ``init``."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif p.dim() == 1:
+                p.fill_(1.0)
+            elif p.any():  # a weight the constructor left all zero stays zero
+                p.copy_(torch.randn(p.shape, generator=generator, device=p.device)
+                        * p[0].numel() ** -0.5)
+    return module
 
 
 class StableDiffusion(nn.Module):
@@ -100,51 +128,39 @@ class StableDiffusion(nn.Module):
         self.unet.load_state_dict(as_tensors["unet"], strict=strict)
         self.vae.load_state_dict(as_tensors["vae"], strict=strict)
         if as_tensors["text_encoder"] is not None:
-            # an open_clip tower carries its pooled path (``text_projection``)
-            # whether or not this tower has one: leaves the tower does not own
-            # are dropped, as the JAX converter loads it non-strictly; a
-            # missing leaf still raises
-            tower = self.text_encoder.model
-            own = tower.state_dict()
-            tower.load_state_dict({k: v for k, v in as_tensors["text_encoder"].items()
-                                   if k in own}, strict=strict)
+            load_owned_(self.text_encoder.model, as_tensors["text_encoder"], strict)
         return self
 
     def load_weights(self, path: str) -> "StableDiffusion":
-        """Load a CompVis-format ``.ckpt`` (``torch.load`` with
-        ``weights_only=True``) or ``.safetensors``, or a ``.pt`` in this
-        module's own layout (what ``merge_lora`` writes)."""
-        if path.endswith(".safetensors"):
-            try:
-                from safetensors.torch import load_file
-            except ImportError as e:
-                raise ImportError("loading a .safetensors file needs the `safetensors` "
-                                  "package") from e
-            state_dict = load_file(path)
-        elif path.endswith((".ckpt", ".pt", ".pth")):
-            state_dict = torch.load(path, map_location="cpu", weights_only=True)
-            state_dict = state_dict.get("state_dict", state_dict)
-        else:
-            raise ValueError(f"unsupported weights file {path!r}: expected .ckpt or .safetensors")
-        self.load_state_dict(state_dict)
+        """Load a CompVis-format ``.ckpt`` / ``.safetensors`` (the state dict
+        at the top, or under ``state_dict``, ``ema.shadow`` or ``model``), a
+        torch file in this module's own layout (what ``merge_lora`` writes),
+        or the JAX package's ``.npz`` (``params``: ``{"unet", "vae",
+        "text_encoder"}``, what the JAX ``merge_lora`` writes; reference:
+        utils/load.py:7-19)."""
+        from dmtpu_torch.scripts._common import load_npz_params, load_torch_weights
+
+        if path.endswith(".npz"):
+            from dmtpu_torch.convert.flax_bridge import load_flax_params
+
+            params = load_npz_params(path)
+            load_flax_params(self.unet, params["unet"])
+            load_flax_params(self.vae, params["vae"])
+            if params.get("text_encoder") is not None:
+                load_flax_params(self.text_encoder.model, params["text_encoder"])
+            return self
+        if not path.endswith((".safetensors", ".ckpt", ".pt", ".pth")):
+            raise ValueError(f"unsupported weights file {path!r}: expected .ckpt, .pt, "
+                             ".safetensors or .npz")
+        self.load_state_dict(load_torch_weights(path))
         return self
 
     def init_params(self, generator: Optional[torch.Generator] = None,
                     img_size: int = 64) -> "StableDiffusion":
-        """Seeded random parameters, for demos and tests without a checkpoint:
-        N(0, 1/fan_in) weights and embeddings, unit norm scales, zero biases;
-        the layers the modules zero-initialise stay zero, as in the JAX
-        package's ``init``.  ``img_size`` is accepted for parity (no
+        """Seeded random parameters, for demos and tests without a checkpoint
+        (``seeded_init_``).  ``img_size`` is accepted for parity (no
         parameter's shape depends on it)."""
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                if name.endswith("bias"):
-                    p.zero_()
-                elif p.dim() == 1:
-                    p.fill_(1.0)
-                elif p.any():  # a weight the constructor left all zero stays zero
-                    p.copy_(torch.randn(p.shape, generator=generator, device=p.device)
-                            * p[0].numel() ** -0.5)
+        seeded_init_(self, generator)
         return self
 
     _UNSET = object()

@@ -6,8 +6,9 @@ CrossAttention :89-141, BasicTransformerBlock :199-228, SpatialTransformer
 :231-285).  Every attention goes through ``dmtpu_torch.ops.attention`` in
 the [B, S, H, D] layout; the SpatialTransformer's GroupNorm (eps 1e-6, no
 SiLU) goes through ``group_norm``.  Token Merging (``tome_ratio`` > 0,
-``dmtpu_torch.ops.tome``) wraps a block's self-attention; the linear
-projections (``use_linear``) are not ported.
+``dmtpu_torch.ops.tome``) wraps a block's self-attention.  SDXL's
+SpatialTransformer (``use_linear=True``) projects the flattened tokens with
+``nn.Linear`` layers in place of 1x1 convolutions.
 """
 from __future__ import annotations
 
@@ -124,35 +125,52 @@ class SpatialTransformer(nn.Module):
     """(reference: models/stablediffusion/attention.py:231-285)
 
     GroupNorm (eps 1e-6) -> 1x1 proj_in -> ``depth`` transformer blocks over
-    the H*W tokens -> zero-initialised 1x1 proj_out, plus the residual.  The
-    ``tome_*`` options go to every block (``BasicTransformerBlock``).
+    the H*W tokens -> zero-initialised 1x1 proj_out, plus the residual.  With
+    ``use_linear`` (SDXL) the tokens are flattened first and ``proj_in`` /
+    ``proj_out`` are ``nn.Linear`` layers on them (upstream keys, [C_out,
+    C_in] weights), in the order of ``dmtpu/models/stablediffusion/
+    attention.py:153-180``.  ``disable_self_attn`` makes every block's
+    ``attn1`` a cross-attention.  The ``tome_*`` options go to every block
+    (``BasicTransformerBlock``).
     """
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, disable_self_attn: bool = False,
-                 tome_ratio: float = 0.0, tome_sx: int = 2, tome_sy: int = 2,
-                 tome_seed: Optional[int] = None, dtype=None, device=None):
+                 use_linear: bool = False, tome_ratio: float = 0.0, tome_sx: int = 2,
+                 tome_sy: int = 2, tome_seed: Optional[int] = None, dtype=None, device=None):
         super().__init__()
         inner = n_heads * d_head
+        self.use_linear = use_linear
         self.norm = GroupNorm32(in_channels, eps=1e-6, device=device)
-        self.proj_in = Conv2d(in_channels, inner, 1, dtype=dtype, device=device)
+        if use_linear:
+            self.proj_in = Linear(in_channels, inner, dtype=dtype, device=device)
+        else:
+            self.proj_in = Conv2d(in_channels, inner, 1, dtype=dtype, device=device)
         self.transformer_blocks = nn.ModuleList(
             BasicTransformerBlock(inner, n_heads, d_head, context_dim=context_dim,
                                   disable_self_attn=disable_self_attn,
                                   tome_ratio=tome_ratio, tome_sx=tome_sx, tome_sy=tome_sy,
                                   tome_seed=tome_seed, dtype=dtype, device=device)
             for _ in range(depth))
-        self.proj_out = Conv2d(inner, in_channels, 1, dtype=dtype, device=device)
+        if use_linear:
+            self.proj_out = Linear(inner, in_channels, dtype=dtype, device=device)
+        else:
+            self.proj_out = Conv2d(inner, in_channels, 1, dtype=dtype, device=device)
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, c, h, w = x.shape
         x_in = x
-        x = self.proj_in(self.norm(x))
-        inner = x.shape[1]
-        x = x.flatten(2).transpose(1, 2)  # [B, H*W, inner]
+        x = self.norm(x)
+        if not self.use_linear:
+            x = self.proj_in(x)
+        x = x.flatten(2).transpose(1, 2)  # [B, H*W, channels]
+        if self.use_linear:
+            x = self.proj_in(x)
         for block in self.transformer_blocks:
             x = block(x, context=context, hw=(h, w))
-        x = x.transpose(1, 2).reshape(b, inner, h, w)
+        if self.use_linear:
+            return self.proj_out(x).transpose(1, 2).reshape(b, c, h, w) + x_in
+        x = x.transpose(1, 2).reshape(b, x.shape[2], h, w)
         return self.proj_out(x) + x_in

@@ -5,7 +5,7 @@ Counterpart of ``dmtpu/ops/rematerialize.py`` and of ``remat_call`` in
 remat: a wrapped block keeps only its inputs and recomputes its forward in
 the backward pass) or ``False``.  The JAX package's policy names
 (``"dots"``, ``"attn"``, ...), which save chosen intermediates, are not
-ported and raise ``NotImplementedError``.
+ported and raise ``NotImplementedError`` naming ROADMAP.md's item H.
 """
 from __future__ import annotations
 
@@ -19,7 +19,8 @@ def normalize_use_checkpoint(use_checkpoint: Any) -> bool:
     """A config's ``use_checkpoint`` as a bool; a policy name raises."""
     if isinstance(use_checkpoint, str):
         raise NotImplementedError(
-            f"selective remat policy {use_checkpoint!r} is not ported; use True or False")
+            f"selective remat policy {use_checkpoint!r} is not ported yet (ROADMAP.md, "
+            "Queue 1 item H); use True or False")
     return bool(use_checkpoint)
 
 

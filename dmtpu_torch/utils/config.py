@@ -187,6 +187,7 @@ _PORTED = {
     "dmtpu.models.stablediffusion.FrozenOpenCLIPEmbedder",
     "dmtpu.models.stablediffusion.text_encoders.FrozenCLIPEmbedder",
     "dmtpu.models.stablediffusion.text_encoders.FrozenOpenCLIPEmbedder",
+    "dmtpu.models.sdxl.StableDiffusionXL", "dmtpu.models.sdxl.SDXLConditioner",
     "dmtpu.utils.optim.adam", "dmtpu.utils.optim.adamw", "dmtpu.utils.optim.adafactor",
     "dmtpu.utils.optim.sgd",
     "dmtpu.data.captioned.CaptionedImageDir", "dmtpu.data.captioned.SyntheticCaptioned",

@@ -21,6 +21,7 @@ from dmtpu_torch.models.ema import EMAState
 from dmtpu_torch.models.latent import LatentDiffusionWrapper, PretrainedVAE
 from dmtpu_torch.models.mdt import MDTv2
 from dmtpu_torch.models.mmdit import MMDiT
+from dmtpu_torch.models.sdxl import SDXLConditioner, StableDiffusionXL
 from dmtpu_torch.utils import config as tconfig
 from dmtpu_torch.utils import image as timage
 from dmtpu_torch.utils import optim as toptim
@@ -46,6 +47,11 @@ TARGETS = [
     ("dmtpu.models.stablediffusion.SDUNetModel", tsd.SDUNetModel),
     ("models.stablediffusion.autoencoder.AutoEncoderKL", tsd.AutoencoderKL),
     ("models.sdxl.autoencoder.AutoencoderKL", tsd.AutoencoderKL),
+    ("models.sdxl.stablediffusion.StableDiffusion", StableDiffusionXL),
+    ("dmtpu.models.sdxl.StableDiffusionXL", StableDiffusionXL),
+    ("models.sdxl.conditioner.GeneralConditioner", SDXLConditioner),
+    ("dmtpu.models.sdxl.SDXLConditioner", SDXLConditioner),
+    ("models.sdxl.unet.UNetModel", tsd.SDUNetModel),
     ("models.stablediffusion.text_encoders.FrozenCLIPEmbedder", tsd.FrozenCLIPEmbedder),
     ("dmtpu.models.stablediffusion.FrozenOpenCLIPEmbedder", tsd.FrozenOpenCLIPEmbedder),
     ("torch.optim.AdamW", toptim.adamw),
@@ -83,7 +89,7 @@ def test_reference_table_is_the_jax_package_s():
 
 @pytest.mark.parametrize("target", [
     "diffusions.euler.EulerSampler", "diffusions.heun.HeunSampler", "models.unet.UNet",
-    "diffusions.guidance.ilvr.ILVR", "dmtpu.models.sdxl.StableDiffusionXL",
+    "diffusions.guidance.ilvr.ILVR", "models.adm.unet.UNetModel",
     "dmtpu.models.pesser.PesserUNet", "diffusions.ddpm_ip.DDPM_IP", "dmtpu.anything",
 ])
 def test_unported_target_is_named(target):

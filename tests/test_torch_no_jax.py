@@ -29,7 +29,8 @@ def _imported_roots(path: Path) -> set:
 def test_the_port_has_its_new_modules():
     for name in ("dmtpu_torch/diffusions/flow.py", "dmtpu_torch/diffusions/flow_dpm.py",
                  "dmtpu_torch/models/mmdit.py", "dmtpu_torch/convert/zoo.py",
-                 "dmtpu_torch/scripts/sample_mmdit.py", "dmtpu_torch/scripts/train_mmdit.py"):
+                 "dmtpu_torch/scripts/sample_mmdit.py", "dmtpu_torch/scripts/train_mmdit.py",
+                 "dmtpu_torch/models/sdxl.py", "dmtpu_torch/ui/sdxl.py"):
         assert name in SOURCES
 
 

@@ -192,7 +192,7 @@ def test_load_weights_reads_checkpoint_files(pair, tmp_path, suffix):
     assert torch.equal(fresh.unet.out[2].weight, tsd.unet.out[2].weight)
     assert torch.equal(fresh.vae.decoder.conv_out.bias, tsd.vae.decoder.conv_out.bias)
     with pytest.raises(ValueError, match="unsupported weights file"):
-        fresh.load_weights(str(tmp_path / "w.npz"))
+        fresh.load_weights(str(tmp_path / "w.bin"))
 
 
 def test_init_params_is_seeded_and_keeps_zero_layers():
