@@ -19,7 +19,10 @@ and ``bench.py``'s MMDiT-B/2 (phase 13), and MMDiT rectified-flow training:
 ``bench.py``'s MMDiT-B/2 at batch 128 and SD3-medium through ``python -m
 dmtpu_torch.scripts.train_mmdit`` (phase 14), and SDXL-base text to image at
 1024x1024 through the logic of the SDXL page (``dmtpu_torch.ui.sdxl``) and
-``bench.py``'s ``sdxl`` extra (phase 15); for the SD paths the
+``bench.py``'s ``sdxl`` extra (phase 15), and pixel-space sampling through
+``python -m dmtpu_torch.scripts.sample_uncond`` (ADM-256 and the CIFAR-10
+UNet, with DDIM inversion) and the AdaGN UNet through ``sample_cfg`` (phase
+16); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -286,7 +289,33 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      profiled; (g) ``bench.py``'s ``sdxl``: unguided DDIM-50 at b1 with a
      random context and a zero vector: samples per second, launches exactly
      (50 x 140, 0, 50 x 46), and the MFU against 989 TFLOP/s from the
-     forward's operations counted on its shapes (``forward_flops``).
+     forward's operations counted on its shapes (``forward_flops``);
+ 16. pixel-space sampling through ``python -m dmtpu_torch.scripts.sample_uncond``
+     (``sample_fold``, ``build_diffuser`` and ``main``) and ``sample_cfg``:
+     (a) a gradient through K1 at head dim 256 raises, naming item M's
+     training half (K2 stops at 160); (b) ADM-256 (``ADM256_CONF``:
+     guided-diffusion's ``256x256_diffusion_uncond`` flags through the
+     registry, 552.8M parameters, bf16 torso, learned sigma): a b2 forward
+     through the kernels and through the plain ops against an f32 plain run
+     (TF32 off), within 1.5x the plain bf16 path's relative L2 error plus
+     1e-3, with the launches and the calls by shape read off the run; K1
+     (d=64) and K3 at each of those shapes at b16, checked and timed as in 2
+     and 3 beside the bound, the library call and the host's time (the plan's
+     choice not the slower); the timed b16 DDIM-50 request at 256x256
+     (images per second, peak memory, launches exactly 50 x a call's, K1 by
+     kernel), one call timed and profiled by class with the card's idle
+     share; (c) ``configs/ddpm_cifar10.yaml``'s UNet (35.7M, bf16 torso): the
+     b2 agreement, K1 at d=256 (b500 h1 S=256 and S=16, and a ragged S=200)
+     and K3 at its shapes at b500, the timed DDIM-50 and Heun-25 requests at
+     the CLI's batch of 500 (every K1 launch at d=256), one call profiled,
+     and ``sample_uncond --mode reconstruction`` in this process on
+     ``RECON_IMAGES`` PNGs it writes into a temporary ``ImageDir`` (DDIM
+     inversion, then DDIM-50; launches exactly 99 calls' worth); (d)
+     ``configs/ddpm_cfg_cifar10.yaml``'s UNetCategorialAdaGN (bf16 torso, the
+     null class its table's zero last row): the b2 agreement with labels, K1
+     at its shapes on the CFG-doubled b20, and ``sample_cfg.main`` in this
+     process, DDIMCFG-50, ``CFG_EACH`` images of each of the 10 classes
+     (launches exactly, one d=256 call a step); the directory is removed.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -304,8 +333,12 @@ train step, ``dit_train_b32``; K1's and K2's also over the joint attentions
 of one MMDiT train step, ``mmdit_train_b128`` and ``sd3_train_b32``; K1's
 also over the 140 of one SDXL UNet call on 2 samples, ``sdxl_b2``; K3's also
 over the 46 of that call, ``sdxl_unet_b2``, and the 30 of one b1 decode at
-1024x1024, ``sdxl_vae_decode_b1``), and the card's
-name and power limit.  The last line is
+1024x1024, ``sdxl_vae_decode_b1``; K1's and K3's also over one ADM-256 call
+at b16, ``adm256_b16``, and one CIFAR UNet call at b500, ``cifar_b500``, and
+K1's over one AdaGN UNet call on the CFG-doubled b20, ``adagn_b20``), a
+fourth entry for K1's mma.sync instance at head dim 256 (its launches in the
+CIFAR UNet's DDIM-50 request, its columns over the 6 calls of one call
+there), and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
 """
@@ -575,6 +608,30 @@ SDXL_GN_CALLS = {
 # the SD VAE's decoder at 1024x1024 (128x128x4 latents): SD3_DECODE_GN's shapes
 SDXL_DECODE_GN = SD3_DECODE_GN
 SDXL_BENCH_STEPS = 50  # bench.py's sdxl extra
+
+# phase 16: pixel-space unconditional sampling through sample_uncond.
+# guided-diffusion's published 256x256_diffusion_uncond flags (attention at
+# 32, 16 and 8 pixels: the downsample factors 8, 16 and 32; learn_sigma: 6
+# output channels; the release's fp16 torso as a bf16 one), 552.8M parameters,
+# through the reference's registry target; DDIM-50 over its linear 1000-step
+# schedule at b16
+ADM256_CONF = {"target": "models.adm.unet.UNetModel", "params": dict(
+    image_size=256, in_channels=3, model_channels=256, out_channels=6, num_res_blocks=2,
+    attention_resolutions=[8, 16, 32], channel_mult=[1, 1, 2, 2, 4, 4], num_head_channels=64,
+    resblock_updown=True, use_scale_shift_norm=True, dropout=0.0, use_fp16=True)}
+ADM256_DIFFUSION = {"target": "diffusions.ddpm.DDPM", "params": dict(
+    total_steps=1000, beta_schedule="linear", objective="pred_eps", var_type="learned_range")}
+ADM256_PARAMS = 552_814_086
+ADM_B, ADM_STEPS = 16, 50
+# configs/ddpm_cifar10.yaml's UNet (35.7M; one 256-wide head at 16x16 and in
+# the middle) at the CLI's default batch of 500: DDIM-50 and Heun-25, DDIM
+# inversion then sampling of RECON_IMAGES images; configs/ddpm_cfg_cifar10.yaml's
+# UNetCategorialAdaGN through sample_cfg, DDIMCFG-50, CFG_EACH images a class;
+# both with a bf16 torso (K1 takes bf16)
+CIFAR_CONFIG, CIFAR_CFG_CONFIG = "configs/ddpm_cifar10.yaml", "configs/ddpm_cfg_cifar10.yaml"
+PIXEL_OVERRIDES = ["model.params.dtype=bfloat16"]
+CIFAR_PARAMS, ADAGN_PARAMS = 35_746_307, 44_179_459
+CIFAR_B, CIFAR_STEPS, HEUN_STEPS, RECON_IMAGES, CFG_EACH, CFG_SCALE_PIXEL = 500, 50, 25, 8, 10, 2.0
 
 
 def log(*args):
@@ -1086,6 +1143,10 @@ def main() -> int:
     # ---- 15. SDXL-base text to image through the SDXL page's logic --------------------
     torch.cuda.empty_cache()
     sdxl = phase_sdxl(dev, check, gen, card, time_ms, host_us, k3_case, add_row, new_totals)
+
+    # ---- 16. pixel-space sampling through sample_uncond: ADM-256, the CIFAR UNets ------
+    torch.cuda.empty_cache()
+    pixel = phase_pixel(dev, check, gen, card, time_ms, host_us, k3_case, add_row, new_totals)
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
@@ -1102,7 +1163,8 @@ def main() -> int:
                       **{path: counted[name] for path, counted in mmdit["launches"].items()},
                       **{path: counted[name]
                          for path, counted in mmdit_train["launches"].items()},
-                      **{path: counted[name] for path, counted in sdxl["launches"].items()}}
+                      **{path: counted[name] for path, counted in sdxl["launches"].items()},
+                      **{path: counted[name] for path, counted in pixel["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1139,7 +1201,11 @@ def main() -> int:
              **mmdit_train["k1_per_step"],
              # and over the 140 (d=64) of one SDXL UNet call on the 2 samples
              # of a one-image CFG request
-             sdxl_b2=sdxl["k1_per_call"]),
+             sdxl_b2=sdxl["k1_per_call"],
+             # and over the attentions of one pixel-space UNet call: ADM-256's
+             # 16 (d=64) at b16, the CIFAR UNet's 6 (d=256) at b500, the AdaGN
+             # UNet's 11 (d=64 and d=256) on the 20 samples of a CFG batch
+             **pixel["k1_per_call"]),
         dict(entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
                    "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
                    f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards",
@@ -1169,13 +1235,23 @@ def main() -> int:
              sd3_vae_decode_b2=k3_sd3,
              # and over the 46 calls of one SDXL UNet call on 2 samples, and
              # the 30 of one b1 SD VAE decode at 1024x1024
-             sdxl_unet_b2=sdxl["k3_unet"], sdxl_vae_decode_b1=sdxl["k3_vae"]),
+             sdxl_unet_b2=sdxl["k3_unet"], sdxl_vae_decode_b1=sdxl["k3_vae"],
+             # and over the GroupNorms of one ADM-256 call at b16 and one CIFAR
+             # UNet call at b500
+             **pixel["k3_per_call"]),
+        # K1's mma.sync instance at head dim 256 (the pixel UNets' one head as
+        # wide as the channels): its launches in the CIFAR UNet's DDIM-50
+        # request at b500, its columns over the 6 calls of one UNet call there
+        entry("flash_attn_fwd_mma_d256", "dmtpu_torch/csrc/flash_attn_fwd_mma.cu",
+              "dmtpu/ops/flash_small_d.py:50", (pixel["d256_launches"], pixel["d256_by_path"]),
+              f"per b{CIFAR_B} CIFAR UNet call: sum over its 6 attention calls at d=256",
+              pixel["k1_per_call"]["cifar_b500"]),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
         "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
         "dit_b32": dit["metrics"], "dit_train_b32": dit_train["metrics"],
         "mmdit": mmdit["metrics"], "mmdit_train": mmdit_train["metrics"],
-        "sdxl": sdxl["metrics"], "card": card}))
+        "sdxl": sdxl["metrics"], "pixel": pixel["metrics"], "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -3858,6 +3934,391 @@ def phase_sdxl(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_tot
     return {"launches": {f"sdxl_ddimcfg{rows}": launches, f"sdxl_bench_ddim{b_rows}": b_launches},
             "metrics": metrics, "k1": k1_rows, "k1_per_call": k1_per_call,
             "k3_unet": k3_unet, "k3_vae": k3_vae}
+
+
+@contextlib.contextmanager
+def recorded_ops(calls: dict):
+    """Count the dispatching ops' calls of the pixel-space models by shape:
+    ``calls["attention"][(h, S_q, S_k, d)]`` and ``calls["group_norm"][(C, HW,
+    dtype, silu, eps, layout)]``, read off the tensors the models hand them
+    (the module-level names ``attention`` / ``group_norm`` that
+    ``models/adm.py`` and ``models/modules.py`` call are wrapped)."""
+    import collections
+
+    import torch
+    from dmtpu_torch.models import adm, modules
+
+    attn, gn = collections.Counter(), collections.Counter()
+    calls.update(attention=attn, group_norm=gn)
+    originals = {(mod, name): getattr(mod, name) for mod in (adm, modules)
+                 for name in ("attention", "group_norm")}
+
+    def wrap(mod, name):
+        fn = originals[(mod, name)]
+
+        def recorded(*args, **kwargs):
+            x = args[0]
+            if name == "attention":
+                attn[(x.shape[2], x.shape[1], args[1].shape[1], x.shape[3])] += 1
+            else:
+                groups, eps, silu = (list(args[3:]) + [None] * 3)[:3]
+                eps = kwargs.get("eps", 1e-5 if eps is None else eps)
+                silu = kwargs.get("silu", False if silu is None else silu)
+                layout = "nchw" if x.is_contiguous() else "cl"
+                gn[(x.shape[1], x.shape[2] * x.shape[3],
+                    "bf16" if x.dtype == torch.bfloat16 else "f32", bool(silu), eps, layout)] += 1
+            return fn(*args, **kwargs)
+        return recorded
+
+    for (mod, name) in originals:
+        setattr(mod, name, wrap(mod, name))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+
+
+def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_totals) -> dict:
+    """Phase 16 (see the module docstring): pixel-space unconditional
+    sampling through ``sample_uncond`` (ADM-256 and the CIFAR-10 UNet, with
+    DDIM inversion) and the AdaGN UNet through ``sample_cfg``; K1 at head dim
+    256.  ``k3_row``, ``add_row`` and ``new_totals`` are phase 3's row helpers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dmtpu_torch.diffusions import DDIM
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.attention import attention
+    from dmtpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        select_kernel,
+    )
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.scripts import sample_cfg, sample_uncond
+    from dmtpu_torch.utils.config import Config, instantiate_from_config, load_config, merge_dotlist
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
+        flash_attention_fwd.launches_by_head_dim.clear()
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel_err(a, ref) -> float:
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+    def add_sums(totals, per):
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us"):
+            totals[key] += per[key]
+        for by, ms in per["bound_ms_by"].items():
+            totals["bound_ms_by"][by] += ms
+        totals["err"] = max(totals["err"], per["err"])
+
+    def pixel_conf(path):
+        return merge_dotlist(load_config(path), PIXEL_OVERRIDES)
+
+    def build(conf_model, f32_params=None):
+        """(the model of ``conf_model`` on the card with seeded random weights,
+        the same weights in an f32 twin)."""
+        model = instantiate_from_config(conf_model, device=dev).eval()
+        init_random_(model, g)
+        params = dict(conf_model["params"], **(f32_params or {"dtype": None}))
+        ref = instantiate_from_config({"target": conf_model["target"], "params": params},
+                                      device=dev).eval()
+        ref.load_state_dict(model.state_dict())
+        return model, ref
+
+    def agreement(label, model, ref, args):
+        """A b2 forward through the kernels and through the plain ops against
+        the f32 twin (TF32 off); returns (launches, the ops' calls by shape)."""
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.no_grad():
+            zero_counts()
+            with recorded_ops({}) as calls:
+                got_k = model(*args)
+            torch.cuda.synchronize()
+            launches = counts()
+            with plain_ops():
+                got_p, want = model(*args), ref(*args)
+        err_k, err_p = rel_err(got_k, want), rel_err(got_p, want)
+        metrics["agreement_b2"][label] = {"kernels": err_k, "plain_bf16": err_p}
+        log(f"{label} b2 forward: rel L2 err vs f32 plain: kernels {err_k:.3e}, plain bf16 "
+            f"{err_p:.3e}; std {want.std().item():.3f}; launches {launches}; calls by shape: "
+            f"attention {dict(calls['attention'])}, GroupNorm {len(calls['group_norm'])} shapes")
+        want_launches = {"K1": sum(calls["attention"].values()), "K2": 0,
+                         "K3": sum(calls["group_norm"].values())}
+        check(bool(torch.isfinite(got_k).all()) and err_k <= 1.5 * err_p + 1e-3
+              and launches == want_launches,
+              f"{label} forward: err(kernels) <= 1.5 err(plain) + 1e-3, launches {launches} "
+              f"== {want_launches}")
+        return want_launches, calls
+
+    def kernel_rows(label, calls, n, k1_label, k3_label=None):
+        """K1 (and K3) rows at batch ``n`` at the shapes a call records."""
+        k1 = new_totals()
+        for (h, sq, sk, d), k in sorted(calls["attention"].items()):
+            q, kk, v = (torch.randn(n, s, h, d, generator=g, device=dev).bfloat16()
+                        for s in (sq, sk, sk))
+            row, per = k1_call_row(q, kk, v, k, f"{label} b{n} h{h} S={sq} d={d}", check,
+                                   time_ms, host_us, card, 20, expect=select_kernel(sq, sk, d))
+            add_sums(k1, per)
+            k1_rows[f"{k1_label}_h{h}_s{sq}_d{d}"] = row
+            del q, kk, v
+        k1_per_call[k1_label] = k1
+        log(f"K1 per {label} call on {n} samples ({sum(calls['attention'].values())} calls): "
+            + json.dumps(k1))
+        if k3_label:
+            k3 = new_totals()
+            for (c, hw, dname, silu, eps, layout), k in sorted(calls["group_norm"].items()):
+                fmt = torch.channels_last if layout == "cl" else torch.contiguous_format
+                add_row(k3, k3_row(c, hw, dname, silu, eps, fmt, k, n=n), k)
+                torch.cuda.empty_cache()
+            k3_per_call[k3_label] = k3
+            log(f"K3 per {label} call on {n} samples ({sum(calls['group_norm'].values())} "
+                "calls): " + json.dumps(k3))
+
+    def timed(label, fn, want, by_kernel_want=None):
+        """One warm run done by the caller; this is the timed one: seconds,
+        peak, launches (checked exactly)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, by_kernel = counts(), dict(flash_attention_fwd.launches_by_kernel)
+        by_dim = dict(flash_attention_fwd.launches_by_head_dim)
+        check(launches == want, f"{label} launches {launches} == {want}")
+        if by_kernel_want is not None:
+            check(by_kernel == by_kernel_want, f"{label} K1 by kernel {by_kernel} == "
+                                               f"{by_kernel_want}")
+        request_launches[label] = launches
+        return out, seconds, torch.cuda.max_memory_allocated(), by_kernel, by_dim
+
+    def k1_by_kernel(calls, rows):
+        out = {"mma": 0, "wgmma": 0}
+        for (h, sq, sk, d), k in calls["attention"].items():
+            out[select_kernel(sq, sk, d)] += rows * k
+        return out
+
+    g = gen(SEED + 60)
+    metrics = {"agreement_b2": {}}
+    k1_rows, k1_per_call, k3_per_call, request_launches = {}, {}, {}, {}
+
+    # (a) a gradient through head dim 256 is refused, naming the training slice
+    q = torch.randn(2, 16, 1, 256, generator=g, device=dev).bfloat16().requires_grad_()
+    try:
+        attention(q, q, q).float().sum().backward()
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    log(f"d=256 gradient: {refused or 'not refused'}")
+    check("item M's training half" in refused and q.grad is None,
+          "a gradient through K1 at d=256 raises ValueError naming item M's training half")
+
+    # (b) ADM-256, unconditional, from the release's flags through the registry
+    t0 = time.perf_counter()
+    adm, adm_ref = build(Config(ADM256_CONF), {"use_fp16": False})
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in adm.parameters())
+    size = ADM256_CONF["params"]["image_size"]
+    log(f"ADM-256: {n_params} parameters (f32), bf16 torso, built on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(n_params == ADM256_PARAMS and adm.torso_dtype == torch.bfloat16
+          and adm.out_channels == 6, f"ADM-256 from ADM256_CONF: {ADM256_PARAMS} parameters, "
+                                     "bf16 torso, learned sigma")
+    x = torch.randn(2, 3, size, size, generator=g, device=dev)
+    per_call, adm_calls = agreement("ADM-256", adm, adm_ref, (x, torch.tensor([999, 421],
+                                                                               device=dev)))
+    del adm_ref
+    torch.cuda.empty_cache()
+    kernel_rows("ADM-256", adm_calls, ADM_B, "adm256_b16", "adm256_b16")
+    diffusion = Config({"diffusion": ADM256_DIFFUSION})
+    args, _ = sample_uncond.parse_args(["-c", "-", "--weights", "-", "--save_dir", "-",
+                                        "--n_samples", str(ADM_B), "--sampler", "ddim",
+                                        "--respace_steps", str(ADM_STEPS)])
+    ddim = sample_uncond.build_diffuser(args, diffusion)
+    rows = len(ddim.respaced_seq)
+    fn = sample_uncond.model_function(adm)
+    shape = (3, size, size)
+    sample_uncond.sample_fold(fn, DDIM(**dict(ADM256_DIFFUSION["params"], respace_type="uniform",
+                                              respace_steps=2)), 0, ADM_B, shape, SEED, dev)
+    images, seconds, peak, by_kernel, _ = timed(
+        f"adm256_ddim{rows}", lambda: sample_uncond.sample_fold(fn, ddim, 0, ADM_B, shape, SEED,
+                                                                dev)[0],
+        {k: rows * v for k, v in per_call.items()}, k1_by_kernel(adm_calls, rows))
+    with torch.no_grad():
+        xb = torch.randn(ADM_B, *shape, generator=g, device=dev)
+        tb = torch.full((ADM_B,), 500, device=dev)
+        call_ms = time_ms(lambda: adm(xb, tb), 3)
+        profile = profile_by_class(lambda: adm(xb, tb), 2)
+    idle = max(0.0, 1.0 - profile["classes"]["total"] / profile["wall_ms"])
+    metrics["adm256_b16"] = {
+        "imgs_per_s": ADM_B / seconds, "seconds": seconds, "batch": ADM_B, "steps": rows,
+        "peak_bytes": peak, "params": n_params, "call_ms": call_ms,
+        "call_profile_ms": profile["classes"], "call_wall_ms": profile["wall_ms"],
+        "host_share": idle, "k1_by_kernel": by_kernel}
+    log(f"ADM-256 b{ADM_B} DDIM-{rows} at {size}x{size} through sample_uncond.sample_fold: "
+        f"{seconds:.3f} s, {ADM_B / seconds:.4f} images/s, peak {peak / 2**30:.3f} GiB "
+        f"({card}); K1 by kernel {by_kernel}")
+    log(f"ADM-256 call on {ADM_B} samples: {call_ms:.3f} ms (CUDA events, 3 calls); device time "
+        f"by class (torch.profiler, ms per call over 2; wall {profile['wall_ms']:.3f} ms under "
+        f"the profiler, the card idle {idle:.3f} of it): " + json.dumps(profile["classes"]))
+    for kname, kernel_ms in profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {kname}")
+    check(tuple(images.shape) == (ADM_B, 3, size, size) and bool(torch.isfinite(images).all())
+          and profile["classes"]["K1 attention"] > 0 and profile["classes"]["K3 GroupNorm"] > 0,
+          f"ADM-256 request: finite [{ADM_B}, 3, {size}, {size}]; the call ran K1 and K3")
+    del adm, images, x, xb, fn
+    torch.cuda.empty_cache()
+
+    # (c) the CIFAR-10 UNet of configs/ddpm_cifar10.yaml at the CLI's batch
+    conf = pixel_conf(CIFAR_CONFIG)
+    unet, unet_ref = build(conf.model)
+    n_params = sum(p.numel() for p in unet.parameters())
+    img = conf.data.params.img_size
+    shape = (conf.data.get("img_channels", 3), img, img)
+    check(n_params == CIFAR_PARAMS and unet.dtype == torch.bfloat16,
+          f"CIFAR UNet from {CIFAR_CONFIG}: {CIFAR_PARAMS} parameters, bf16 torso")
+    x = torch.randn(2, *shape, generator=g, device=dev)
+    per_call, cifar_calls = agreement("CIFAR UNet", unet, unet_ref,
+                                      (x, torch.tensor([999, 421], device=dev)))
+    del unet_ref
+    check(all(d == 256 and h == 1 for h, _, _, d in cifar_calls["attention"]),
+          "CIFAR UNet: every attention is one head of 256")
+    kernel_rows("CIFAR UNet", cifar_calls, CIFAR_B, "cifar_b500", "cifar_b500")
+    # K1 at d=256 at a ragged length too (the plain version in slices)
+    q, kk, v = (torch.randn(CIFAR_B, 200, 1, 256, generator=g, device=dev).bfloat16()
+                for _ in range(3))
+    k1_rows["cifar_ragged_s200_d256"], _ = k1_call_row(
+        q, kk, v, 0, f"ragged b{CIFAR_B} h1 S=200 d=256", check, time_ms, host_us, card, 20,
+        expect="mma")
+    del q, kk, v
+    fn = sample_uncond.model_function(unet)
+
+    def diffuser(sampler, steps):
+        a, _ = sample_uncond.parse_args(["-c", CIFAR_CONFIG, "--weights", "-", "--save_dir", "-",
+                                         "--n_samples", str(CIFAR_B), "--sampler", sampler,
+                                         "--respace_steps", str(steps)])
+        return sample_uncond.build_diffuser(a, conf)
+
+    sample_uncond.sample_fold(fn, diffuser("ddim", 2), 0, CIFAR_B, shape, SEED, dev)  # warm-up
+    d256_by_path = {}
+    for sampler, steps in (("ddim", CIFAR_STEPS), ("heun", HEUN_STEPS)):
+        sam = diffuser(sampler, steps)
+        calls_n = len(sam.respaced_seq) if sampler == "ddim" else 2 * len(sam.respaced_seq) - 1
+        label = f"cifar_{sampler}{steps}_b{CIFAR_B}"
+        images, seconds, peak, by_kernel, by_dim = timed(
+            label, lambda: sample_uncond.sample_fold(fn, sam, 0, CIFAR_B, shape, SEED, dev)[0],
+            {k: calls_n * v for k, v in per_call.items()}, k1_by_kernel(cifar_calls, calls_n))
+        d256_by_path[label] = by_dim.get(256, 0)
+        metrics[label] = {"imgs_per_s": CIFAR_B / seconds, "seconds": seconds, "batch": CIFAR_B,
+                          "model_calls": calls_n, "peak_bytes": peak, "k1_by_kernel": by_kernel,
+                          "k1_by_head_dim": by_dim}
+        log(f"CIFAR UNet b{CIFAR_B} {sampler}-{steps} ({calls_n} UNet calls) through "
+            f"sample_uncond.sample_fold: {seconds:.3f} s, {CIFAR_B / seconds:.2f} images/s, peak "
+            f"{peak / 2**30:.3f} GiB ({card}); K1 by kernel {by_kernel}, by head dim {by_dim}")
+        check(tuple(images.shape) == (CIFAR_B, *shape) and bool(torch.isfinite(images).all())
+              and by_dim == {256: calls_n * per_call["K1"]},
+              f"CIFAR {sampler}-{steps}: finite images, every K1 launch at d=256")
+        del images
+    d256_launches = d256_by_path[f"cifar_ddim{CIFAR_STEPS}_b{CIFAR_B}"]
+    with torch.no_grad():
+        xb = torch.randn(CIFAR_B, *shape, generator=g, device=dev)
+        tb = torch.full((CIFAR_B,), 500, device=dev)
+        profile = profile_by_class(lambda: unet(xb, tb), 2)
+    metrics[f"cifar_ddim{CIFAR_STEPS}_b{CIFAR_B}"].update(
+        call_profile_ms=profile["classes"], call_wall_ms=profile["wall_ms"])
+    log(f"CIFAR UNet call on {CIFAR_B} samples: device time by class (torch.profiler, ms per call "
+        f"over 2; wall {profile['wall_ms']:.3f} ms under the profiler): "
+        + json.dumps(profile["classes"]))
+    del xb
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_pixel_")
+    try:
+        # reconstruction through the CLI: DDIM inversion, then sampling, of
+        # RECON_IMAGES images the phase writes into an ImageDir
+        from PIL import Image
+
+        os.makedirs(os.path.join(root, "images"))
+        rs = np.random.RandomState(SEED)
+        for i in range(RECON_IMAGES):
+            Image.fromarray(rs.randint(0, 256, (img, img, 3), dtype=np.uint8)).save(
+                os.path.join(root, "images", f"{i}.png"))
+        torch.save(unet.state_dict(), os.path.join(root, "unet.pt"))
+        argv = ["-c", CIFAR_CONFIG, "--weights", os.path.join(root, "unet.pt"), "--save_dir",
+                os.path.join(root, "recon"), "--n_samples", str(RECON_IMAGES), "--sampler",
+                "ddim", "--respace_steps", str(CIFAR_STEPS), "--mode", "reconstruction",
+                "--input_dir", os.path.join(root, "images"), *PIXEL_OVERRIDES]
+        calls_n = 2 * CIFAR_STEPS - 1  # the inversion's S - 1 calls, then S
+        _, seconds, _, by_kernel, _ = timed(
+            "cifar_reconstruction", lambda: sample_uncond.main(argv),
+            {k: calls_n * v for k, v in per_call.items()}, k1_by_kernel(cifar_calls, calls_n))
+        grids = sorted(os.listdir(os.path.join(root, "recon")))
+        shapes = {np.asarray(Image.open(os.path.join(root, "recon", f))).shape for f in grids}
+        metrics["cifar_reconstruction"] = {"seconds": seconds, "images": RECON_IMAGES,
+                                           "model_calls": calls_n}
+        log(f"sample_uncond --mode reconstruction, {RECON_IMAGES} images, DDIM-{CIFAR_STEPS}: "
+            f"{seconds:.3f} s in process ({card}); grids {grids}, shapes {shapes}")
+        check(len(grids) == RECON_IMAGES and shapes == {(img + 4, 2 * img + 6, 3)},
+              f"reconstruction: {RECON_IMAGES} image / reconstruction pairs")
+        del unet, fn
+        torch.cuda.empty_cache()
+
+        # (d) the AdaGN UNet of configs/ddpm_cfg_cifar10.yaml through sample_cfg
+        conf = pixel_conf(CIFAR_CFG_CONFIG)
+        adagn, adagn_ref = build(conf.model)
+        with torch.no_grad():  # the null class is its table's zero last row
+            adagn.class_embed.weight[-1].zero_()
+            adagn_ref.class_embed.weight[-1].zero_()
+        n_params = sum(p.numel() for p in adagn.parameters())
+        num_classes = conf.data.num_classes
+        check(n_params == ADAGN_PARAMS, f"AdaGN UNet from {CIFAR_CFG_CONFIG}: {ADAGN_PARAMS} "
+                                        "parameters")
+        x = torch.randn(2, *shape, generator=g, device=dev)
+        per_call, adagn_calls = agreement(
+            "AdaGN UNet", adagn, adagn_ref,
+            (x, torch.tensor([999, 421], device=dev), torch.tensor([3, num_classes], device=dev)))
+        del adagn_ref
+        kernel_rows("AdaGN UNet", adagn_calls, 2 * CFG_EACH, f"adagn_b{2 * CFG_EACH}")
+        torch.save(adagn.state_dict(), os.path.join(root, "adagn.pt"))
+        argv = ["-c", CIFAR_CFG_CONFIG, "--weights", os.path.join(root, "adagn.pt"),
+                "--save_dir", os.path.join(root, "cfg"), "--sampler", "ddim", "--respace_steps",
+                str(CIFAR_STEPS), "--guidance_scale", str(CFG_SCALE_PIXEL),
+                "--n_samples_each_class", str(CFG_EACH), *PIXEL_OVERRIDES]
+        calls_n = num_classes * CIFAR_STEPS  # one call on the doubled batch a step
+        _, seconds, peak, by_kernel, by_dim = timed(
+            "adagn_ddimcfg", lambda: sample_cfg.main(argv),
+            {k: calls_n * v for k, v in per_call.items()}, k1_by_kernel(adagn_calls, calls_n))
+        written = sum(len(os.listdir(os.path.join(root, "cfg", f"class{c}")))
+                      for c in range(num_classes))
+        metrics["adagn_ddimcfg"] = {"seconds": seconds, "images": written,
+                                    "imgs_per_s": written / seconds, "model_calls": calls_n,
+                                    "peak_bytes": peak, "k1_by_kernel": by_kernel,
+                                    "k1_by_head_dim": by_dim}
+        log(f"sample_cfg, AdaGN UNet, DDIMCFG-{CIFAR_STEPS} s={CFG_SCALE_PIXEL}, {CFG_EACH} "
+            f"images a class, {num_classes} classes: {seconds:.3f} s in process, "
+            f"{written / seconds:.2f} images/s ({card}); K1 by kernel {by_kernel}, by head dim "
+            f"{by_dim}")
+        check(written == num_classes * CFG_EACH and by_dim.get(256, 0) == calls_n,
+              f"sample_cfg AdaGN: {num_classes * CFG_EACH} PNGs; K1 at d=256 once a call")
+        del adagn
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    d256_by_path["adagn_ddimcfg"] = metrics["adagn_ddimcfg"]["k1_by_head_dim"].get(256, 0)
+    return {"launches": request_launches, "metrics": metrics, "k1": k1_rows,
+            "k1_per_call": k1_per_call, "k3_per_call": k3_per_call,
+            "d256_launches": d256_launches, "d256_by_path": d256_by_path}
 
 
 def forward_flops(model, *inputs) -> int:

@@ -31,6 +31,10 @@ the table of ``dmtpu/convert/zoo.py::convert_mmdit``.  A module with a
 ``flax_rename`` attribute (the port's MMDiT) has its keys renamed so by
 ``load_flax_params``.
 
+The JAX pixel UNets store as dense layers what the reference (and the
+port) holds as 1x1 convolutions: ``fit_to_module`` maps those onto the
+module's keys and shapes when ``load_flax_params`` loads them.
+
 SDXL's tree (``dmtpu.models.sdxl.StableDiffusionXL.init_params``: ``{"unet",
 "vae", "conditioner": {"clip_l", "clip_g"}}``) needs no rule of its own:
 ``label_emb__0__0`` is ``label_emb.0.0`` and the linear ``proj_in`` /
@@ -50,7 +54,9 @@ from torch import nn
 _LEAF = {"scale": "weight", "embedding": "weight", "bias": "bias"}
 # raw parameters (``self.param``) that carry their torch name and layout
 _RAW = {"text_projection", "pos_embed", "decoder_pos_embed", "mask_token",
-        "rel_pos_bias__relative_position_bias_table"}
+        "rel_pos_bias__relative_position_bias_table", "positional_embedding"}
+# a Flax ``Dense`` wrapper's leaf whose port counterpart is a 1x1 conv
+_DENSE_LEAF = re.compile(r"(.*)\.dense\.(weight|bias)")
 
 
 def torch_name(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
@@ -131,12 +137,33 @@ def state_dict_from_flax(params: Mapping[str, Any],
     return out
 
 
+def fit_to_module(state_dict: dict[str, torch.Tensor],
+                  target: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """``state_dict`` with the JAX package's dense layers put where the port
+    (and the reference) has 1x1 convolutions: a ``<m>.dense.weight`` the
+    module lacks goes to ``<m>.weight`` (the pixel UNets' q / k / v / proj),
+    and a dense weight goes into a conv's [out, in, 1(, 1)] shape (ADM's
+    kernel-1 qkv convolutions)."""
+    out = {}
+    for key, value in state_dict.items():
+        m = _DENSE_LEAF.fullmatch(key)
+        if key not in target and m is not None and f"{m[1]}.{m[2]}" in target:
+            key = f"{m[1]}.{m[2]}"
+        want = target.get(key)
+        if want is not None and want.shape != value.shape and want.numel() == value.numel() \
+                and want.shape[:value.dim()] == value.shape:
+            value = value.reshape(want.shape)
+        out[key] = value
+    return out
+
+
 def load_flax_params(module: nn.Module, params: Mapping[str, Any]) -> nn.Module:
     """Load a JAX-package params tree into ``module`` (strict: every key must
-    match), through the module's ``flax_rename`` where it has one.  Tensors
-    are copied into the module's own dtypes and device."""
-    module.load_state_dict(state_dict_from_flax(params, getattr(module, "flax_rename", None)),
-                           strict=True)
+    match), through the module's ``flax_rename`` where it has one, with
+    ``fit_to_module``'s dense-to-1x1-conv map.  Tensors are copied into the
+    module's own dtypes and device."""
+    sd = state_dict_from_flax(params, getattr(module, "flax_rename", None))
+    module.load_state_dict(fit_to_module(sd, module.state_dict()), strict=True)
     return module
 
 

@@ -1,6 +1,7 @@
 // K1, the mma.sync kernel: non-causal attention forward, bf16 in and out, for
 // the shapes the wgmma kernel (flash_attn_fwd.cu) does not take or is no
-// faster at: head dim 160, cross-attention to 77 tokens, short sequences.
+// faster at: head dims 160 and 256, cross-attention to 77 tokens, short
+// sequences.
 // The gate is in dmtpu_torch/ops/flash_attention.py.
 //
 // Replaces dmtpu/ops/flash_small_d.py::_fwd_kernel / _fwd (the Pallas TPU
@@ -26,8 +27,15 @@
 //     the PV A-operand layout without touching shared memory;
 //   - shared-memory rows are padded by 16 bytes so ldmatrix reads are free
 //     of bank conflicts;
-//   - one instance per padded head dim of SD1.5 (48, 80, 160); a head dim
-//     below its instance's is zero-padded in shared memory (d=40 -> 48);
+//   - one instance per padded head dim of SD1.5 (48, 80, 160) and one at
+//     256 for the pixel-space UNets, whose single attention head is as wide
+//     as the channels; a head dim below its instance's is zero-padded in
+//     shared memory (d=40 -> 48);
+//   - at 256 a warp's O accumulator alone is 128 registers a thread, so the
+//     Q fragments (64 more) are not kept in registers across the key loop:
+//     each k-step of QK^T re-reads its fragment from the Q tile in shared
+//     memory with one ldmatrix; the five 64 x 264 tiles take 165 KiB of
+//     shared memory, one CTA per SM;
 //   - a ragged last K/V tile is masked (cross-attention to 77 tokens), ragged
 //     Q rows are zero-filled and not written;
 //   - q, k, v and o are addressed through [B, S, H, D] strides, so the
@@ -59,6 +67,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   constexpr int LD = DP + 8;  // padded row: 8 consecutive rows hit distinct banks
   constexpr int KSTEPS = DP / 16;
   constexpr int NT = DP / 8;  // 8-wide column tiles of O
+  // Q fragments stay in registers across the key loop, but at 256 (see the top)
+  constexpr bool kQInRegs = DP <= 160;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][LD]
   __nv_bfloat16* sK = sQ + kRows * LD;                           // 2 x [kRows][LD]
@@ -84,7 +94,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // log2-domain running max of rows g, g + 8
   float l[2] = {0.f, 0.f};              // this thread's share of the running sums
-  uint32_t qf[KSTEPS][4];
+  uint32_t qf[kQInRegs ? KSTEPS : 1][4];
 
   const int ntiles = (Sk + kRows - 1) / kRows;
   for (int it = 0; it < ntiles; ++it) {
@@ -99,10 +109,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (it == 0) {
-      #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + (mi % 2) * 8 + mr) * LD + kk * 16 + (mi / 2) * 8);
+    const __nv_bfloat16* qrow = sQ + (warp * 16 + (mi % 2) * 8 + mr) * LD + (mi / 2) * 8;
+    if constexpr (kQInRegs) {
+      if (it == 0) {
+        #pragma unroll
+        for (int kk = 0; kk < KSTEPS; ++kk) ldmatrix_x4(qf[kk], qrow + kk * 16);
+      }
     }
     const __nv_bfloat16* tK = sK + buf * kRows * LD;
     const __nv_bfloat16* tV = sV + buf * kRows * LD;
@@ -113,12 +125,18 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     #pragma unroll
     for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQInRegs) {
+        qa[0] = qf[kk][0], qa[1] = qf[kk][1], qa[2] = qf[kk][2], qa[3] = qf[kk][3];
+      } else {
+        ldmatrix_x4(qa, qrow + kk * 16);
+      }
       #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t bk[4];
         ldmatrix_x4(bk, tK + (jp * 16 + (mi / 2) * 8 + mr) * LD + kk * 16 + (mi % 2) * 8);
-        mma_bf16(s[2 * jp], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * jp + 1], qf[kk], bk[2], bk[3]);
+        mma_bf16(s[2 * jp], qa, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], qa, bk[2], bk[3]);
       }
     }
 
@@ -218,7 +236,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
 }  // namespace
 
 // q, k, v, o: bf16 [B, S, H, D] with the given element strides (D contiguous,
-// D % 8 == 0, D <= 160, every stride % 8 == 0, 16-byte aligned pointers).
+// D % 8 == 0, D <= 256, every stride % 8 == 0, 16-byte aligned pointers).
 // lse: f32 [B, H, Sq], contiguous.  scale_log2 = softmax scale * log2(e).
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int dmtpu_flash_attn_fwd_mma(const void* q, const void* k, const void* v, void* o,
@@ -236,6 +254,7 @@ extern "C" int dmtpu_flash_attn_fwd_mma(const void* q, const void* k, const void
   DMTPU_FLASH_CASE(48)
   DMTPU_FLASH_CASE(80)
   DMTPU_FLASH_CASE(160)
+  DMTPU_FLASH_CASE(256)
 #undef DMTPU_FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }

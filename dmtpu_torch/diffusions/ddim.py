@@ -1,17 +1,18 @@
 """DDIM sampler and its classifier-free-guidance variant.
 
-Counterpart of ``dmtpu/diffusions/ddim.py`` (reference: diffusions/ddim.py),
-sampling only: the DDIM variance and direction scalars are precomputed in
-float64 and appended to the tape.  DDIM inversion is not ported yet.
+Counterpart of ``dmtpu/diffusions/ddim.py`` (reference: diffusions/ddim.py):
+the DDIM variance and direction scalars are precomputed in float64 and
+appended to the tape, and DDIM inversion (x_t -> x_{t+1}, eta = 0) runs over
+its own ascending tape; ``DDIMCFG`` inverts with the guided eps.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from dmtpu_torch.diffusions.ddpm import DDPM, DDPMCFG, _randn
+from dmtpu_torch.diffusions.ddpm import DDPM, DDPMCFG, ModelFn, Row, _randn
 
 
 class DDIM(DDPM):
@@ -54,6 +55,64 @@ class DDIM(DDPM):
             "reverse_eps": reverse_eps,
         }
 
+    # ------------------------------------------------------------------
+    # DDIM inversion: x_t -> x_{t+1} (eta = 0 only)
+    # ------------------------------------------------------------------
+    def inversion_tape(self) -> Dict[str, np.ndarray]:
+        """Per-step coefficients of the inversion, ascending: row i is
+        t = seq[i] -> t_next = seq[i + 1] (reference: diffusions/ddim.py:106-123)."""
+        seq, ac = self.respaced_seq, self.alphas_cumprod
+        ac_t, ac_next = ac[seq[:-1]], ac[seq[1:]]
+        return {
+            "t": seq[:-1].astype(np.int32),
+            "sqrt_ac": np.sqrt(ac_t).astype(np.float32),
+            "sqrt_1m_ac": np.sqrt(1.0 - ac_t).astype(np.float32),
+            "sqrt_recip_ac": np.sqrt(1.0 / ac_t).astype(np.float32),
+            "sqrt_recipm1_ac": np.sqrt(1.0 / ac_t - 1.0).astype(np.float32),
+            "sqrt_ac_next": np.sqrt(ac_next).astype(np.float32),
+            "sqrt_1m_ac_next": np.sqrt(1.0 - ac_next).astype(np.float32),
+        }
+
+    def _inversion_model_output(self, model_fn: ModelFn, xt: torch.Tensor, c: Row,
+                                model_kwargs: Dict[str, Any]) -> torch.Tensor:
+        t_batch = torch.full((xt.shape[0],), c["t"], dtype=torch.int64, device=xt.device)
+        return model_fn(xt, t_batch, **model_kwargs)
+
+    def _inversion_objective(self) -> Optional[str]:
+        return None
+
+    def _inversion_step(self, model_fn: ModelFn, xt: torch.Tensor, c: Row,
+                        model_kwargs: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """x_t -> x_{t+1}.  (reference: diffusions/ddim.py:88-104)"""
+        out = self._inversion_model_output(model_fn, xt, c, model_kwargs)
+        p = self.predict(out, xt, c, objective=self._inversion_objective())
+        sample = c["sqrt_ac_next"] * p["pred_x0"] + c["sqrt_1m_ac_next"] * p["pred_eps"]
+        return {"sample": sample, "pred_x0": p["pred_x0"], "pred_eps": p["pred_eps"]}
+
+    def sample_inversion_loop(self, model_fn: ModelFn, img: torch.Tensor,
+                              model_kwargs: Optional[Dict[str, Any]] = None,
+                              collect: Sequence[str] = ()
+                              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Invert ``img`` ([B, C, H, W]) to the noise the sampler maps onto
+        it; ``collect`` stacks per-step ``sample`` / ``pred_x0`` / ``pred_eps``."""
+        if self.eta != 0.0:
+            raise ValueError(f"DDIM inversion is only valid when eta=0, got {self.eta}")
+        model_kwargs = model_kwargs or {}
+        x = img.float()
+        ys: Dict[str, list] = {k: [] for k in collect}
+        for c in self.tape_rows(self.inversion_tape()):
+            out = self._inversion_step(model_fn, x, c, model_kwargs)
+            for k in collect:
+                ys[k].append(out[k])
+            x = out["sample"]
+        return x, {k: torch.stack(v) for k, v in ys.items()}
+
+    def sample_inversion(self, model_fn: ModelFn, img: torch.Tensor,
+                         model_kwargs: Optional[Dict[str, Any]] = None,
+                         **kwargs: Any) -> torch.Tensor:
+        final, _ = self.sample_inversion_loop(model_fn, img, model_kwargs, **kwargs)
+        return final
+
 
 class DDIMCFG(DDIM, DDPMCFG):
     """DDIM with classifier-free guidance (reference: diffusions/ddim.py:135-250):
@@ -64,3 +123,27 @@ class DDIMCFG(DDIM, DDPMCFG):
                  eta: float = 0.0, **kwargs: Any):
         super().__init__(*args, eta=eta, guidance_scale=guidance_scale,
                          cond_kwarg=cond_kwarg, **kwargs)
+
+    def _inversion_objective(self) -> str:
+        return "pred_eps"
+
+    def _inversion_model_output(self, model_fn, xt, c, model_kwargs):
+        pred_eps, _ = self._cfg_model_output(model_fn, xt, c, model_kwargs)
+        return pred_eps
+
+    def sample_inversion_loop(self, model_fn: ModelFn, img: torch.Tensor,
+                              uncond_conditioning: Any = None,
+                              model_kwargs: Optional[Dict[str, Any]] = None, **kwargs: Any):
+        """Guided inversion, with ``uncond_conditioning`` as in ``sample``.
+        (reference: diffusions/ddim.py:141-171)"""
+        mk = dict(model_kwargs or {})
+        mk[self._UNCOND_KEY] = uncond_conditioning
+        return DDIM.sample_inversion_loop(self, model_fn, img, mk, **kwargs)
+
+    def sample_inversion(self, model_fn: ModelFn, img: torch.Tensor,
+                         uncond_conditioning: Any = None,
+                         model_kwargs: Optional[Dict[str, Any]] = None,
+                         **kwargs: Any) -> torch.Tensor:
+        final, _ = self.sample_inversion_loop(model_fn, img, uncond_conditioning, model_kwargs,
+                                              **kwargs)
+        return final

@@ -14,8 +14,9 @@ Images are NCHW; output channels beyond ``xt``'s are a learned variance, so
 the split is on dim 1 (the JAX package splits its last axis).  Noise comes
 from an explicit ``torch.Generator``.
 
-Classes: ``DDPM`` (ancestral sampling, and the training loss
-``loss_func`` over ``diffuse`` / ``get_v``) and ``DDPMCFG`` (classifier-free
+Classes: ``DDPM`` (ancestral sampling, ``set_respaced_seq``, the four
+``pred_*`` conversions, and the training loss ``loss_func`` over
+``diffuse`` / ``get_v``) and ``DDPMCFG`` (classifier-free
 guidance as ONE model call on the doubled batch, with an optional
 ``guidance_interval``).
 """
@@ -80,14 +81,38 @@ class DDPM:
         if self.respaced_seq.ndim != 1:
             raise ValueError("respaced_seq must be 1-D")
 
+    def set_respaced_seq(self, respace_type: str = "uniform", respace_steps: int = 100) -> None:
+        """Respace the sampler to ``respace_steps`` steps (the tapes follow)."""
+        self.respaced_seq = get_respaced_seq(total_steps=self.total_steps,
+                                             respace_type=respace_type,
+                                             respace_steps=respace_steps)
+
     # ------------------------------------------------------------------
     # forward process and training loss (reference: diffusions/ddpm.py:122-172)
     # ------------------------------------------------------------------
     def _gather(self, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         """alphas_cumprod[t] as float32, shaped [B, 1, 1, ...] against ``like``."""
         table = torch.from_numpy(self.alphas_cumprod.astype(np.float32)).to(like.device)
-        ac = table[t.to(like.device).long()]
+        ac = table[torch.as_tensor(t).to(like.device).long()]
         return ac.reshape(ac.shape + (1,) * (like.dim() - ac.dim()))
+
+    def pred_x0_from_eps(self, xt: torch.Tensor, t: torch.Tensor,
+                         eps: torch.Tensor) -> torch.Tensor:
+        ac = self._gather(t, xt)
+        return torch.sqrt(1.0 / ac) * xt - torch.sqrt(1.0 / ac - 1.0) * eps
+
+    def pred_eps_from_x0(self, xt: torch.Tensor, t: torch.Tensor,
+                         x0: torch.Tensor) -> torch.Tensor:
+        ac = self._gather(t, xt)
+        return (torch.sqrt(1.0 / ac) * xt - x0) / torch.sqrt(1.0 / ac - 1.0)
+
+    def pred_x0_from_v(self, xt: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        ac = self._gather(t, xt)
+        return torch.sqrt(ac) * xt - torch.sqrt(1.0 - ac) * v
+
+    def pred_eps_from_v(self, xt: torch.Tensor, t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        ac = self._gather(t, xt)
+        return torch.sqrt(1.0 - ac) * xt + torch.sqrt(ac) * v
 
     def diffuse(self, x0: torch.Tensor, t: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:
         """A sample of q(x_t | x_0): sqrt(ac) x0 + sqrt(1 - ac) eps."""

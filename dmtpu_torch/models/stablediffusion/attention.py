@@ -134,6 +134,8 @@ class SpatialTransformer(nn.Module):
     (``BasicTransformerBlock``).
     """
 
+    takes_context = True  # a UNet block hands it the context
+
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None, disable_self_attn: bool = False,
                  use_linear: bool = False, tome_ratio: float = 0.0, tome_sx: int = 2,

@@ -39,11 +39,14 @@ with them on or off):
   decoder concat; ``set_freeu`` changes it.
 - DeepCache passes (``forward``'s ``dc_skip`` / ``dc_cached``).
 
-Options of the JAX module that are not ported raise ``NotImplementedError``
-naming their ROADMAP.md item: the non-spatial ADM attention path
-(``use_spatial_transformer=False``, ``num_heads_upsample``,
-``use_new_attention_order``; item M) and selective remat (a policy name as
-``use_checkpoint``; item H).
+The ADM-attention path (``use_spatial_transformer=False``): the attention
+layers are guided-diffusion's ``AttentionBlock`` (``dmtpu_torch/models/
+adm.py``; no context) with the JAX module's head rule (``legacy`` takes
+``num_head_channels`` as the head dim), ``num_heads_upsample`` heads in the
+decoder and ``use_new_attention_order``'s qkv layout.
+
+Selective remat (a policy name as ``use_checkpoint``) is not ported and
+raises ``NotImplementedError`` naming ROADMAP.md's item H.
 """
 from __future__ import annotations
 
@@ -53,9 +56,11 @@ import torch
 from torch import nn
 
 from dmtpu_torch.models.adm import (
+    AttentionBlock,
     Conv2d,
     GroupNorm32,
     ResBlock,
+    TimestepEmbedSequential,
     _Downsample,
     _Upsample,
     _zeros_conv,
@@ -64,30 +69,7 @@ from dmtpu_torch.models.adm import (
 )
 from dmtpu_torch.models.stablediffusion.attention import SpatialTransformer
 from dmtpu_torch.ops.freeu import apply_freeu
-from dmtpu_torch.ops.rematerialize import normalize_use_checkpoint, remat_call
-
-# the ADM-attention path's options -> the value that means "off"; anything
-# else is not ported yet
-_ADM_ATTENTION = {"use_spatial_transformer": True, "num_heads_upsample": -1,
-                  "use_new_attention_order": False}
-
-
-class TimestepEmbedSequential(nn.ModuleList):
-    """One UNet block: ResBlocks take the embedding, SpatialTransformers the
-    context, the rest only the features (reference: TimestepEmbedSequential).
-    ``remat`` recomputes the ResBlocks and SpatialTransformers in the
-    backward pass."""
-
-    def forward(self, x: torch.Tensor, emb: torch.Tensor, context: Optional[torch.Tensor],
-                remat: bool = False) -> torch.Tensor:
-        for layer in self:
-            if isinstance(layer, ResBlock):
-                x = remat_call(layer, x, emb) if remat else layer(x, emb)
-            elif isinstance(layer, SpatialTransformer):
-                x = remat_call(layer, x, context) if remat else layer(x, context)
-            else:
-                x = layer(x)
-        return x
+from dmtpu_torch.ops.rematerialize import normalize_use_checkpoint
 
 
 class _Timestep(nn.Module):
@@ -148,8 +130,11 @@ class SDUNetModel(nn.Module):
         num_classes: Optional[Union[int, str]] = None,
         num_heads: int = -1,
         num_head_channels: int = -1,
+        num_heads_upsample: int = -1,
         use_scale_shift_norm: bool = False,
         resblock_updown: bool = False,
+        use_new_attention_order: bool = False,
+        use_spatial_transformer: bool = True,
         transformer_depth: Union[int, Sequence[int]] = 1,
         transformer_depth_middle: Optional[int] = None,
         context_dim: Optional[int] = None,
@@ -172,16 +157,8 @@ class SDUNetModel(nn.Module):
         tome_seed: Optional[int] = None,
         freeu: Optional[Sequence[float]] = None,
         device: Any = None,
-        **adm_attention: Any,
     ):
         super().__init__()
-        for name, value in adm_attention.items():
-            if name not in _ADM_ATTENTION:
-                raise TypeError(f"SDUNetModel got an unexpected argument {name!r}")
-            if value != _ADM_ATTENTION[name]:
-                raise NotImplementedError(
-                    f"SDUNetModel option {name}={value!r} (the ADM-attention path) is not "
-                    "ported yet (ROADMAP.md, Queue 1 item M)")
         levels = len(channel_mult)
         nrb = _per_level(num_res_blocks, levels, "num_res_blocks")
         tdepth = _per_level(transformer_depth, levels, "transformer_depth")
@@ -190,6 +167,7 @@ class SDUNetModel(nn.Module):
         self.torso_dtype = torso_dtype
         self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
         self.num_heads, self.num_head_channels, self.legacy = num_heads, num_head_channels, legacy
+        self.use_spatial_transformer = use_spatial_transformer
         self.in_channels, self.context_dim = in_channels, context_dim
         self.num_classes, self.adm_in_channels = num_classes, adm_in_channels
         ted = model_channels * 4
@@ -207,8 +185,11 @@ class SDUNetModel(nn.Module):
             return ResBlock(ch_in, ted, ch_out, dropout,
                             use_scale_shift_norm=use_scale_shift_norm, **extra, **kw)
 
-        def st(ch, depth, disable_self_attn):
+        def st(ch, depth, disable_self_attn, heads_override=None):
             heads, dim_head = self._dim_head(ch)
+            if not use_spatial_transformer:
+                return AttentionBlock(ch, heads_override or heads, dim_head,
+                                      use_new_attention_order, **kw)
             module = SpatialTransformer(ch, heads, dim_head, depth=depth,
                                         context_dim=context_dim,
                                         disable_self_attn=disable_self_attn,
@@ -253,7 +234,8 @@ class SDUNetModel(nn.Module):
                 layers = [res(ch + chans.pop(), model_channels * mult)]
                 ch = model_channels * mult
                 if attends(level, i):
-                    layers.append(st(ch, tdepth[level], self_off(level)))
+                    layers.append(st(ch, tdepth[level], self_off(level),
+                                     num_heads_upsample if num_heads_upsample != -1 else None))
                 if level and i == nrb[level]:
                     layers.append(res(ch, ch, up=True) if resblock_updown else
                                   _Upsample(ch, ch, conv_resample, **kw))
@@ -288,13 +270,15 @@ class SDUNetModel(nn.Module):
         return self
 
     def _dim_head(self, ch: int):
-        """The reference's head-dim resolution (spatial-transformer branch)."""
+        """The reference's head-dim resolution: with ``legacy`` the
+        SpatialTransformer takes ch // heads, the ADM ``AttentionBlock``
+        ``num_head_channels``."""
         if self.num_head_channels == -1:
             num_heads, dim_head = self.num_heads, ch // self.num_heads
         else:
             num_heads, dim_head = ch // self.num_head_channels, self.num_head_channels
         if self.legacy:
-            dim_head = ch // num_heads
+            dim_head = ch // num_heads if self.use_spatial_transformer else self.num_head_channels
         return num_heads, dim_head
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,

@@ -3,8 +3,9 @@
 Counterpart of ``dmtpu/ops/flash_small_d.py`` (its ``_fwd`` and ``_bwd``
 paths and the ``custom_vjp`` that joins them).  Layout is [B, S, H, D] as
 in ``dmtpu.ops.attention``; unlike the TPU kernels these take S_q != S_k
-(cross-attention), head dims that are multiples of 8 up to 160 (zero-padded
-to 48, 80 or 160 in shared memory) and ragged sequence lengths (masked).
+(cross-attention), head dims that are multiples of 8 up to 256 in the
+forward and 160 in the backward (zero-padded to 48, 80, 160 or 256 in shared
+memory) and ragged sequence lengths (masked).
 
 - ``flash_attention(q, k, v, scale) -> o``: the differentiable op
   (``FlashAttention``, a ``torch.autograd.Function``): its forward runs
@@ -33,10 +34,12 @@ Each wrapper launches its kernel on a CUDA tensor (bf16 only; anything else
 raises) and runs its plain version on a CPU tensor, so on the CPU the
 ``FlashAttention`` function is the plain forward and backward.  Each
 wrapper's ``launches`` counts kernel launches, and its ``launches_by_kernel``
-counts them by the kernel that ran; ``kernel=`` forces one.
+counts them by the kernel that ran (K1's ``launches_by_head_dim`` by head
+dim too); ``kernel=`` forces one.
 """
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional
 
@@ -95,16 +98,31 @@ def _check_bshd(name: str, t: torch.Tensor) -> None:
                          f"strides {t.stride()}")
 
 
-def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raises on what the kernels do not take.  It runs before every launch,
-    so it compares plain ints and builds its messages only on failure."""
+# The widest head dim each kernel pair takes: K1's mma.sync kernel has an
+# instance at 256 (the pixel-space UNets' single head as wide as the
+# channels), K2's stops at 160.
+MAX_HEAD_DIM = 256
+MAX_BWD_HEAD_DIM = 160
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backward: bool = False) -> None:
+    """Raises on what the kernels do not take (K2's when ``backward``).  It
+    runs before every launch, so it compares plain ints and builds its
+    messages only on failure."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
     d = q.shape[3]
-    if d & 7 or d > 160:
-        raise ValueError(f"flash_attention: head dim must be a multiple of 8 up to 160, got {d}")
+    if backward and d > MAX_BWD_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention_bwd: K2 takes head dims that are multiples of 8 up to "
+            f"{MAX_BWD_HEAD_DIM}, got {d}: a gradient through a wider head waits for the "
+            "pixel-space training slice (ROADMAP.md, Queue 1 item M's training half: K2 at "
+            "d=256)")
+    if d & 7 or d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim must be a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
     device = q.get_device()
     if k.get_device() != device or v.get_device() != device:
         raise ValueError("flash_attention: q, k and v must be on one device")
@@ -118,7 +136,7 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 # and 128 keys a tile) is instantiated for head dims 40 and 80 (SD1.5), 72
 # (DiT) and 64 (MMDiT) and needs a positive scale (it takes the running max
 # before scaling); "mma" (csrc/flash_attn_fwd_mma.cu: mma.sync, 64 x 64 tiles)
-# takes every head dim up to 160.
+# takes every head dim up to 256 (the pixel UNets' d=256 runs there).
 WGMMA_HEAD_DIMS = (40, 64, 72, 80)
 # Below this many keys the wgmma kernel is one 128-key tile, mostly masked,
 # and the mma.sync kernel is as fast or faster; see the gate's numbers in
@@ -194,11 +212,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(err, "flash_attention launch")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_kernel[kernel] += 1
+    flash_attention_fwd.launches_by_head_dim[d] += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_kernel = {"mma": 0, "wgmma": 0}
+flash_attention_fwd.launches_by_head_dim = collections.Counter()
 
 
 # K2 is two hand-written kernels with one interface, as K1 is.  "wgmma"
@@ -268,7 +288,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         return flash_attention_backward_reference(q, k, v, o, lse, do, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, backward=True)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     if o.shape != q.shape or do.shape != q.shape:

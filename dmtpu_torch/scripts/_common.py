@@ -302,7 +302,17 @@ def load_model_params(path: str, model: nn.Module,
     """``model`` with the weights of ``path`` loaded: a JAX-package ``.npz``
     export (through the Flax bridge) or a torch file, in ``model``'s keys or
     mapped onto them by ``converter(state_dict, model)`` (``sample_mmdit``
-    passes ``convert_mmdit`` for the SD3 release layout).  Returns the model."""
+    passes ``convert_mmdit`` for the SD3 release layout).  A ``UNetCombined``
+    also takes two upstream files, ``COND,UNCOND`` (guided-diffusion's
+    class-conditional and unconditional releases), combined by
+    ``UNetCombined.combine_state_dicts``.  Returns the model."""
+    from dmtpu_torch.models.adm import UNetCombined
+
+    if isinstance(model, UNetCombined) and "," in path:
+        cond, uncond = path.split(",")
+        model.load_state_dict(UNetCombined.combine_state_dicts(load_torch_weights(cond),
+                                                               load_torch_weights(uncond)))
+        return model
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory: the JAX package's orbax train states are not read here; "

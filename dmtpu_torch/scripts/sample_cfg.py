@@ -22,8 +22,16 @@ decode of a latent model -> PNGs in ``save_dir/class{c}/``.
   dict, and ``--vae_weights`` the VAE's (CompVis or diffusers names).
   Without VAE weights the latents themselves are saved, as the JAX CLI does.
   Any other ported class-conditional model ``(x, t, y)`` samples at the
-  config's image size with weights from ``load_model_params``; the JAX
-  package's pixel-space models are not ported yet and raise.
+  config's image size with weights from ``load_model_params``: the pixel
+  ``UNetCategorialAdaGN`` (``configs/ddpm_cfg_cifar10.yaml``; its null class
+  is its table's last row) and ``UNetCombined`` (guided-diffusion's
+  conditional and unconditional UNets, ``--weights COND,UNCOND`` or one
+  combined file), whose doubled CFG batch goes through ``forward_cfg``: the
+  conditional UNet takes the first half, the unconditional one the second
+  (the JAX CLI hands the whole batch, null labels too, to the conditional
+  UNet).  On the card the attention kernel takes bf16: give an f32 pixel
+  config a bf16 torso (``model.params.dtype=bfloat16``;
+  ``model.params.unet_kwargs.use_fp16=true``).
 
 Noise: the JAX CLI folds (class, batch index) into its key; here each batch
 draws its noise and its sampler steps from a generator on the device seeded
@@ -49,6 +57,7 @@ from dmtpu_torch.diffusions import (
     FlowMatchingCFG,
     PFDiffDDIMCFG,
 )
+from dmtpu_torch.models.adm import UNetCombined
 from dmtpu_torch.models.latent import LatentDiffusionWrapper
 from dmtpu_torch.scripts._common import (
     base_parser,
@@ -118,7 +127,7 @@ def build_model(conf, weights: str, vae_weights: Optional[str], device: torch.de
     except NotImplementedError as e:
         raise NotImplementedError(
             f"{e}: sample_cfg serves the latent DiT / MDT models and the ported "
-            "class-conditional ones; the pixel-space zoo is ROADMAP.md, Queue 1 item M") from e
+            "class-conditional ones (UNetCategorialAdaGN, UNetCombined, DiT)") from e
     if not isinstance(model, LatentDiffusionWrapper):
         return load_model_params(weights, model).eval(), False, False
     if weights.endswith(".npz"):
@@ -148,6 +157,17 @@ def check_flow_model(model: nn.Module) -> None:
             "learn_sigma: false")
 
 
+def pixel_model_fn(model: nn.Module, batch_size: int) -> Callable[..., torch.Tensor]:
+    """The samplers' ``model_fn(x, t, y)`` of a pixel model for batches of
+    ``batch_size``: a ``UNetCombined`` takes the CFG-doubled batch through
+    ``forward_cfg`` and a plain one (a guidance interval's unguided steps)
+    through its conditional UNet."""
+    if isinstance(model, UNetCombined):
+        return lambda x, t, y=None, **kw: (model.forward_cfg(x, t, y)
+                                           if x.shape[0] == 2 * batch_size else model(x, t, y))
+    return lambda x, t, y=None, **kw: model(x, t, y)
+
+
 def batch_seed(seed: int, class_id: int, index: int) -> int:
     """The generator seed of one batch: a function of (seed, class, batch
     index) alone, as the JAX CLI's ``fold_in(fold_in(key, c), i)`` is."""
@@ -168,9 +188,9 @@ def sample_class(model: nn.Module, diffuser: DDPMCFG, class_id: int, n_samples: 
     dev = torch.device(device)
     mark = on_stage or (lambda name: None)
     latent = isinstance(model, LatentDiffusionWrapper)
-    model_fn = model.make_model_fn() if latent else (lambda x, t, y=None, **kw: model(x, t, y))
     out = []
     for i, bs in enumerate(amortize(n_samples, batch_size)):
+        model_fn = model.make_model_fn() if latent else pixel_model_fn(model, bs)
         generator = torch.Generator(device=dev).manual_seed(batch_seed(seed, class_id, i))
         noise = torch.randn(bs, *shape, generator=generator, device=dev)
         y = torch.full((bs,), class_id, dtype=torch.int64, device=dev)

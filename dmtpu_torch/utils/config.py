@@ -175,7 +175,16 @@ _PORTED = {
     "dmtpu.diffusions.guidance.mask_guidance.MaskGuidanceDDIMCFG",
     "dmtpu.diffusions.guidance.BaseGuidance", "dmtpu.diffusions.guidance.MaskGuidance",
     "dmtpu.diffusions.guidance.MaskGuidanceDDIMCFG",
+    "dmtpu.diffusions.euler.EulerSampler", "dmtpu.diffusions.heun.HeunSampler",
+    "dmtpu.diffusions.EulerSampler", "dmtpu.diffusions.HeunSampler",
     "dmtpu.models.ema.EMAState",
+    "dmtpu.models.unet.UNet", "dmtpu.models.unet_categorial_adagn.UNetCategorialAdaGN",
+    "dmtpu.models.pesser.PesserUNet",
+    "dmtpu.models.adm.UNetModel", "dmtpu.models.adm.SuperResModel",
+    "dmtpu.models.adm.EncoderUNetModel", "dmtpu.models.adm.UNetCombined",
+    "dmtpu.models.adm.AttentionBlock", "dmtpu.models.adm.AttentionPool2d",
+    "dmtpu.models.modules.SelfAttentionBlock", "dmtpu.models.modules.AdaGN",
+    "dmtpu.models.modules.FusedGNSiLU",
     "dmtpu.models.dit.DiT", "dmtpu.models.mdt.MDTv2", "dmtpu.models.mmdit.MMDiT",
     "dmtpu.models.latent.LatentDiffusionWrapper", "dmtpu.models.latent.PretrainedVAE",
     "dmtpu.models.stablediffusion.StableDiffusion",

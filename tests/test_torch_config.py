@@ -15,7 +15,11 @@ from dmtpu.utils import image as jimage
 from dmtpu_torch import diffusions as td
 from dmtpu_torch.data import captioned
 from dmtpu_torch.diffusions import guidance as tg
+from dmtpu_torch.models import adm as tadm
+from dmtpu_torch.models import pesser as tpesser
 from dmtpu_torch.models import stablediffusion as tsd
+from dmtpu_torch.models import unet as tunet
+from dmtpu_torch.models import unet_categorial_adagn as tadagn
 from dmtpu_torch.models.dit import DiT
 from dmtpu_torch.models.ema import EMAState
 from dmtpu_torch.models.latent import LatentDiffusionWrapper, PretrainedVAE
@@ -73,6 +77,14 @@ TARGETS = [
     ("dmtpu.data.captioned.SyntheticEmbedded", captioned.SyntheticEmbedded),
     ("models.dit.autoencoder.AutoEncoderKL", PretrainedVAE),
     ("models.mdt.autoencoder.AutoEncoderKL", PretrainedVAE),
+    ("diffusions.euler.EulerSampler", td.EulerSampler),
+    ("diffusions.heun.HeunSampler", td.HeunSampler),
+    ("models.unet.UNet", tunet.UNet),
+    ("models.unet_categorial_adagn.UNetCategorialAdaGN", tadagn.UNetCategorialAdaGN),
+    ("models.adm.unet.UNetModel", tadm.UNetModel),
+    ("models.adm.unet_combined.UNetCombined", tadm.UNetCombined),
+    ("dmtpu.models.pesser.PesserUNet", tpesser.PesserUNet),
+    ("models.pesser.model.Model", tpesser.PesserUNet),
     ("dmtpu_torch.diffusions.ddim.DDIM", td.DDIM),   # this package's own paths
     ("collections.OrderedDict", __import__("collections").OrderedDict),  # any other import
 ]
@@ -88,9 +100,8 @@ def test_reference_table_is_the_jax_package_s():
 
 
 @pytest.mark.parametrize("target", [
-    "diffusions.euler.EulerSampler", "diffusions.heun.HeunSampler", "models.unet.UNet",
-    "diffusions.guidance.ilvr.ILVR", "models.adm.unet.UNetModel",
-    "dmtpu.models.pesser.PesserUNet", "diffusions.ddpm_ip.DDPM_IP", "dmtpu.anything",
+    "diffusions.guidance.ilvr.ILVR", "diffusions.guidance.clip_guidance.CLIPGuidance",
+    "dmtpu.diffusions.ddpm_ip.DDPM_IP", "diffusions.ddpm_ip.DDPM_IP", "dmtpu.anything",
 ])
 def test_unported_target_is_named(target):
     with pytest.raises(NotImplementedError, match="no counterpart in dmtpu_torch") as e:

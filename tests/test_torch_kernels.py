@@ -61,7 +61,8 @@ def assert_k1_close(o: torch.Tensor, want: torch.Tensor) -> None:
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,sq,sk,h,d", [
     (2, 4096, 4096, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 256, 8, 160),
-    (2, 100, 77, 3, 64), (1, 64, 64, 8, 160)])
+    (2, 100, 77, 3, 64), (1, 64, 64, 8, 160), (8, 256, 256, 1, 256), (16, 16, 16, 1, 256),
+    (2, 200, 200, 1, 248)])
 def test_k1_kernel_matches_reference(cuda, b, sq, sk, h, d):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).bfloat16()
@@ -113,8 +114,8 @@ def test_k1_kernel_rejects_unsupported_inputs(cuda):
     q = torch.zeros(1, 64, 1, 40, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention_fwd(q, q, q)
-    q = torch.zeros(1, 64, 1, 192, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 160"):
+    q = torch.zeros(1, 64, 1, 264, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 256"):
         flash_attention_fwd(q, q, q)
 
 
@@ -247,6 +248,19 @@ def test_k2_kernel_rejects_unsupported_inputs(cuda):
         flash_attention_bwd(q, q, q, q, lse, q)
 
 
+@pytest.mark.gpu
+def test_a_gradient_through_head_dim_256_is_refused_naming_the_training_slice(cuda):
+    """K1 takes d=256 (the pixel UNets' one head); K2 does not yet, and the
+    backward raises rather than falling back to the plain version."""
+    q = torch.randn(2, 16, 1, 256, device=cuda).bfloat16().requires_grad_()
+    o = attention(q, q, q)
+    assert torch.isfinite(o).all()
+    before = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="item M's training half"):
+        o.float().sum().backward()
+    assert flash_attention_bwd.launches == before
+
+
 # ---- K1: the wgmma kernel and the dispatch between the two kernels ----------
 
 ATTN_SHAPES = [(4096, 4096, 40), (1024, 1024, 80), (256, 256, 160), (64, 64, 160),
@@ -295,7 +309,7 @@ def test_k1_every_shape_of_the_path_at_the_cfg_doubled_batch(cuda, sq, sk, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [40, 64, 72, 80, 160])
+@pytest.mark.parametrize("d", [40, 64, 72, 80, 160, 256])
 @pytest.mark.parametrize("sq,sk", [(333, 77), (77, 333), (200, 333), (129, 129), (1, 130)])
 def test_k1_ragged_lengths_at_every_head_dim(cuda, sq, sk, d):
     """Lengths that are no multiple of a tile, through every kernel that takes

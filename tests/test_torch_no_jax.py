@@ -30,7 +30,10 @@ def test_the_port_has_its_new_modules():
     for name in ("dmtpu_torch/diffusions/flow.py", "dmtpu_torch/diffusions/flow_dpm.py",
                  "dmtpu_torch/models/mmdit.py", "dmtpu_torch/convert/zoo.py",
                  "dmtpu_torch/scripts/sample_mmdit.py", "dmtpu_torch/scripts/train_mmdit.py",
-                 "dmtpu_torch/models/sdxl.py", "dmtpu_torch/ui/sdxl.py"):
+                 "dmtpu_torch/models/sdxl.py", "dmtpu_torch/ui/sdxl.py",
+                 "dmtpu_torch/models/modules.py", "dmtpu_torch/models/unet.py",
+                 "dmtpu_torch/models/unet_categorial_adagn.py", "dmtpu_torch/diffusions/euler.py",
+                 "dmtpu_torch/diffusions/heun.py", "dmtpu_torch/scripts/sample_uncond.py"):
         assert name in SOURCES
 
 

@@ -5,8 +5,10 @@ DiT: the JAX package's ``.npz`` export of the wrapper's params (with and
 without the VAE's), an upstream DiT state dict with a diffusers-named VAE, the
 VAE-less branch that saves latents, ``--guidance_interval``; ``--sampler
 flow`` against the JAX ``FlowMatchingCFG`` request on a DiT without learned
-variance; the refusals (``flow`` on a learned-variance model, a pixel-space
-target, a guidance interval on a solver, no card);
+variance; the pixel targets (``UNetCategorialAdaGN`` from an ``.npz``,
+``UNetCombined`` from two upstream files through ``forward_cfg``) against the
+JAX DDIMCFG request on the same noise; the refusals (``flow`` on a
+learned-variance model, a guidance interval on a solver, no card);
 and the helpers of ``dmtpu_torch/scripts/_common.py``.
 """
 import argparse
@@ -14,6 +16,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -231,11 +234,82 @@ def test_flow_sampler_matches_the_jax_flow_request(tmp_path, monkeypatch):
     assert files == ["0.png", "1.png"] and ims[0].shape == (8, 8, 3)
 
 
-def test_pixel_target_is_refused_naming_the_roadmap_item(tmp_path, jax_params):
-    conf = _conf(tmp_path, model={"target": "models.unet.UNet", "params": {"dim": 32}})
-    with pytest.raises(NotImplementedError, match="item M") as e:
-        _run(tmp_path, _npz(tmp_path, jax_params), conf=conf)
-    assert "models.unet.UNet" in str(e.value)
+ADAGN = {"target": "models.unet_categorial_adagn.UNetCategorialAdaGN",
+         "params": {"dim": 32, "dim_mults": [1, 2], "use_attn": [False, True],
+                    "num_res_blocks": 1, "num_classes": 5, "attn_head_dims": 32,
+                    "dropout": 0.0}}
+ADM = dict(image_size=8, in_channels=3, model_channels=32, out_channels=3, num_res_blocks=1,
+           attention_resolutions=[2], channel_mult=[1, 2], num_head_channels=16, num_classes=5)
+
+
+def _pixel_conf(tmp_path, model):
+    return write_yaml(tmp_path / "pixel.yaml", {
+        "data": {"params": {"img_size": 8}, "img_channels": 3, "num_classes": 5},
+        "model": model, "diffusion": DIFFUSION})
+
+
+def _jax_pixel_images(jmod, params, class_id, model_fn):
+    """The JAX DDIMCFG request of ``_run``'s flags on the port's noise, as uint8."""
+    from dmtpu.diffusions import DDIMCFG as JaxDDIMCFG
+    from dmtpu.utils.misc import image_norm_to_uint8
+
+    g = torch.Generator().manual_seed(sample_cfg.batch_seed(2022, class_id, 0))
+    noise = torch.randn(2, 3, 8, 8, generator=g).numpy().transpose(0, 2, 3, 1)
+    kw = dict(DIFFUSION["params"], var_type="fixed_small")
+    out = JaxDDIMCFG(guidance_scale=2.0, **kw).sample(
+        model_fn, jnp.asarray(noise), jax.random.PRNGKey(0),
+        uncond_conditioning=jnp.full((2,), 5, jnp.int32),
+        model_kwargs={"y": jnp.full((2,), class_id, jnp.int32)})
+    return image_norm_to_uint8(np.clip(np.asarray(out), -1, 1))
+
+
+def test_pixel_target_is_refused_naming_the_roadmap_item(tmp_path):
+    """The pixel targets are no longer refused (item M's serving half):
+    ``UNetCategorialAdaGN`` from the JAX package's ``.npz`` samples each class
+    as the JAX DDIMCFG request does on the same noise (PNG bytes within one
+    step of 255)."""
+    from dmtpu.models.unet_categorial_adagn import UNetCategorialAdaGN as JaxAdaGN
+
+    jmod = JaxAdaGN(**ADAGN["params"])
+    params = jax_random_params(jmod, jnp.zeros((1, 8, 8, 3)), jnp.zeros((1,), jnp.int32),
+                               jnp.zeros((1,), jnp.int32), seed=4)
+    save_dir = _run(tmp_path, _npz(tmp_path, params), ["--sampler", "ddim", "--var_type",
+                                                       "fixed_small"],
+                    conf=_pixel_conf(tmp_path, ADAGN))
+    for c in (1, 3):
+        files, ims = _images(save_dir, c)
+        want = _jax_pixel_images(jmod, params, c, lambda x, tt, y=None: jmod.apply(params, x, tt, y))
+        assert files == ["0.png", "1.png"] and want.std() > 0
+        assert np.abs(np.stack(ims).astype(int) - want.astype(int)).max() <= 1
+
+
+def test_unet_combined_samples_through_forward_cfg(tmp_path):
+    """Guided-diffusion's two UNets from two upstream files: the doubled CFG
+    batch goes to ``forward_cfg``, as the JAX module's ``forward_cfg`` on the
+    same noise."""
+    from dmtpu.models.adm import UNetCombined as JaxCombined
+    from dmtpu_torch.models.adm import UNetCombined
+
+    jmod = JaxCombined(unet_kwargs=ADM)
+    params = jax_random_params(jmod, jnp.zeros((1, 8, 8, 3)), jnp.zeros((1,), jnp.int32),
+                               jnp.zeros((1,), jnp.int32), seed=5)
+    model = load_flax_params(UNetCombined(ADM), params)
+    sd = model.state_dict()
+    for part in ("cond", "uncond"):
+        torch.save({k[len(part) + 6:]: v for k, v in sd.items()
+                    if k.startswith(f"unet_{part}.")}, tmp_path / f"{part}.pt")
+    conf = _pixel_conf(tmp_path, {"target": "models.adm.unet_combined.UNetCombined",
+                                  "params": {"unet_kwargs": ADM}})
+    save_dir = _run(tmp_path, f"{tmp_path / 'cond.pt'},{tmp_path / 'uncond.pt'}",
+                    ["--sampler", "ddim", "--var_type", "fixed_small"], conf=conf)
+
+    def jax_fn(x, tt, y=None):
+        return jmod.apply(params, x, tt, y, method=JaxCombined.forward_cfg)
+
+    for c in (1, 3):
+        _, ims = _images(save_dir, c)
+        want = _jax_pixel_images(jmod, params, c, jax_fn)
+        assert np.abs(np.stack(ims).astype(int) - want.astype(int)).max() <= 1
 
 
 def test_a_ported_class_conditional_model_samples_at_the_image_size(tmp_path):

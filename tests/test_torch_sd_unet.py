@@ -110,19 +110,39 @@ def test_tiny_unet_ddim_matches():
 
 @pytest.mark.parametrize("opt", [
     {"use_checkpoint": "dots"}, {"use_checkpoint": "attn"}, {"use_checkpoint": "dots_no_batch"},
-    {"use_spatial_transformer": False}, {"num_heads_upsample": 4},
-    {"use_new_attention_order": True}, {"use_checkpoint": "nothing"},
-    {"use_checkpoint": "everything"}, {"use_spatial_transformer": False, "num_heads": 4},
-    {"num_heads_upsample": 2, "use_new_attention_order": True},
+    {"use_checkpoint": "nothing"}, {"use_checkpoint": "everything"},
 ])
 def test_unported_options_raise(opt):
-    """What is still refused names its ROADMAP.md item: the ADM-attention
-    path item M, selective remat item H (the SDXL options are ported:
-    ``tests/test_torch_sdxl.py``)."""
+    """What is still refused names its ROADMAP.md item: selective remat item
+    H (the SDXL options are ported: ``tests/test_torch_sdxl.py``; the
+    ADM-attention path: ``test_adm_attention_options_match_jax``)."""
     cfg = dict(TINY_SD_UNET_CFG, **opt)
-    item = "item H" if "use_checkpoint" in opt else "item M"
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item H"):
         SDUNetModel(**cfg, device="meta")
+
+
+@pytest.mark.parametrize("opt", [
+    {"use_spatial_transformer": False}, {"num_heads_upsample": 4},
+    {"use_new_attention_order": True}, {"use_spatial_transformer": False, "num_heads": 4},
+    {"num_heads_upsample": 2, "use_new_attention_order": True},
+])
+def test_adm_attention_options_match_jax(opt):
+    """The options that were refused before the ADM-attention path was
+    ported (item M) build and run as the JAX module does."""
+    from tests._torch_helpers import jax_random_params
+
+    cfg = dict(TINY_SD_UNET_CFG, **opt)
+    rs = np.random.RandomState(8)
+    x, ctx = rs.randn(2, 4, 8, 8).astype(np.float32), rs.randn(2, 3, 24).astype(np.float32)
+    ts = np.array([3, 700])
+    jmod = JaxUNet(**cfg)
+    params = jax_random_params(jmod, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
+                               jnp.zeros((1, 3, 24)))
+    want = np.asarray(jmod.apply(params, jnp.asarray(nhwc(x)), jnp.asarray(ts), jnp.asarray(ctx)))
+    tmod = load_flax_params(SDUNetModel(**cfg), params).eval()
+    with torch.no_grad():
+        got = tmod(t(x), t(ts), t(ctx)).numpy()
+    np.testing.assert_allclose(nhwc(got), want, **TOL)
 
 
 @pytest.mark.parametrize("opt", [{"tome_ratio": 0.5}, {"freeu": (1.1, 1.2, 0.9, 0.2)}],

@@ -35,7 +35,6 @@ from dmtpu.utils import optim as joptim
 from dmtpu_torch.convert import load_flax_params, state_dict_from_flax
 from dmtpu_torch.diffusions import DDPM
 from dmtpu_torch.models.stablediffusion import SDUNetModel
-from dmtpu_torch.models.stablediffusion import unet as unet_module
 from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step, step_generator
 from dmtpu_torch.utils import optim
 from tests._torch_helpers import TINY_SD_UNET_CFG, nhwc, perturb, t
@@ -147,18 +146,20 @@ def test_tiny_unet_grads_with_and_without_remat_match_jax():
 
 def test_remat_wraps_each_resblock_and_spatial_transformer(monkeypatch):
     """use_checkpoint=True recomputes exactly the ResBlock and
-    SpatialTransformer calls (where the JAX model calls remat_call)."""
+    SpatialTransformer calls (where the JAX model calls remat_call); the
+    UNet's blocks are ``models/adm.py``'s ``TimestepEmbedSequential``."""
+    from dmtpu_torch.models import adm as adm_module
     from dmtpu_torch.models.adm import ResBlock
     from dmtpu_torch.models.stablediffusion.attention import SpatialTransformer
 
     wrapped = []
-    real = unet_module.remat_call
+    real = adm_module.remat_call
 
     def counting(module, *args):
         wrapped.append(type(module))
         return real(module, *args)
 
-    monkeypatch.setattr(unet_module, "remat_call", counting)
+    monkeypatch.setattr(adm_module, "remat_call", counting)
     model = SDUNetModel(**TINY_SD_UNET_CFG, use_checkpoint=True)
     want = [type(m) for m in model.modules() if isinstance(m, (ResBlock, SpatialTransformer))]
     model(torch.randn(1, 4, 8, 8), torch.tensor([5]), torch.randn(1, 7, 24)).sum().backward()
