@@ -22,7 +22,10 @@ dmtpu_torch.scripts.train_mmdit`` (phase 14), and SDXL-base text to image at
 ``bench.py``'s ``sdxl`` extra (phase 15), and pixel-space sampling through
 ``python -m dmtpu_torch.scripts.sample_uncond`` (ADM-256 and the CIFAR-10
 UNet, with DDIM inversion) and the AdaGN UNet through ``sample_cfg`` (phase
-16); for the SD paths the
+16), and pixel-space DDPM training: the CIFAR-10 UNet's train step at the
+config's batch of 128, ``python -m dmtpu_torch.scripts.train_ddpm`` (DDPM and
+DDPM_IP) and the AdaGN UNet through ``train_ddpm_cfg`` (phase 17); for the SD
+paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -292,8 +295,8 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      forward's operations counted on its shapes (``forward_flops``);
  16. pixel-space sampling through ``python -m dmtpu_torch.scripts.sample_uncond``
      (``sample_fold``, ``build_diffuser`` and ``main``) and ``sample_cfg``:
-     (a) a gradient through K1 at head dim 256 raises, naming item M's
-     training half (K2 stops at 160); (b) ADM-256 (``ADM256_CONF``:
+     (a) attention through a head of 512 raises, naming ROADMAP's K1 and K2
+     at d=512 (both stop at 256); (b) ADM-256 (``ADM256_CONF``:
      guided-diffusion's ``256x256_diffusion_uncond`` flags through the
      registry, 552.8M parameters, bf16 torso, learned sigma): a b2 forward
      through the kernels and through the plain ops against an f32 plain run
@@ -315,7 +318,35 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      null class its table's zero last row): the b2 agreement with labels, K1
      at its shapes on the CFG-doubled b20, and ``sample_cfg.main`` in this
      process, DDIMCFG-50, ``CFG_EACH`` images of each of the 10 classes
-     (launches exactly, one d=256 call a step); the directory is removed.
+     (launches exactly, one d=256 call a step); the directory is removed;
+ 17. pixel-space DDPM training (``configs/ddpm_cifar10.yaml``'s UNet with
+     ``PIXEL_OVERRIDES``: 35.7M, dropout 0.1, bf16 torso, one head of 256):
+     (a) K2 at head dim 256 (its mma.sync instance) at the UNet's shapes at
+     the config's batch, b128 h1 S=256 and S=16, at a ragged b8 S=200 and a
+     padded d=248, from K1's outputs and a random dO: against the plain
+     version and f32 autograd through ``mha`` (phase 6's tolerances), timed
+     as in 6 beside the bound, SDPA's backward and the host's time; (b) at
+     b2, dropout off, the loss, the gradient and its norm through the
+     kernels and through the plain ops, each against an f32 plain run (TF32
+     off): within 1.5x the plain bf16 path's relative error, plus 1e-3; the
+     attention calls read off the run (5 at S=256, 1 at S=16) and exactly 6
+     K1, 6 K2 and 51 K3 a step, every K1 and K2 at d=256; (c) the config's
+     train step at b128 (Adam 2e-4, clip 1.0, EMA 0.9999, dropout from the
+     step's stream): a warm-up, 10 timed steps (images per second, ms per
+     step, peak memory, launches exactly 10 x (6, 6, 51), K2 all mma.sync),
+     one profiled step (device time by class, annotated ranges such as
+     ``Optimizer.step`` and ``EMAState.update``, the card's idle share); (d)
+     ``train_ddpm.main`` in this process on ``configs/ddpm_cifar10.yaml``
+     with ``Synthetic`` 32x32x3 data in place of CIFAR-10
+     (``SYNTHETIC_DATA``): 3 steps with a save and a 16-image grid (the
+     config's DDPM respaced to 100 steps), then ``-r latest`` to 5:
+     checkpoints, the grid, the resumed step and EMA count, checkpoint bytes,
+     save and load seconds, launches exactly; then a
+     ``diffusion.target=diffusions.ddpm_ip.DDPM_IP`` run of 2 steps; (e)
+     ``train_ddpm_cfg.main`` on ``configs/ddpm_cfg_cifar10.yaml``'s
+     UNetCategorialAdaGN at b128 for 3 steps: launches exactly, K2 at d=64
+     through wgmma (10 a step) and at d=256 through mma.sync (1); the
+     directory is removed.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -335,10 +366,13 @@ also over the 140 of one SDXL UNet call on 2 samples, ``sdxl_b2``; K3's also
 over the 46 of that call, ``sdxl_unet_b2``, and the 30 of one b1 decode at
 1024x1024, ``sdxl_vae_decode_b1``; K1's and K3's also over one ADM-256 call
 at b16, ``adm256_b16``, and one CIFAR UNet call at b500, ``cifar_b500``, and
-K1's over one AdaGN UNet call on the CFG-doubled b20, ``adagn_b20``), a
+K1's over one AdaGN UNet call on the CFG-doubled b20, ``adagn_b20``; K2's
+also over the 6 of one CIFAR UNet b128 train step, ``cifar_train_b128``), a
 fourth entry for K1's mma.sync instance at head dim 256 (its launches in the
 CIFAR UNet's DDIM-50 request, its columns over the 6 calls of one call
-there), and the card's name and power limit.  The last line is
+there), a fifth for K2's mma.sync instance at head dim 256 (its launches in
+the 10 timed b128 train steps, its columns over the 6 calls of one step),
+the seconds of each phase, and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
 """
@@ -633,6 +667,28 @@ PIXEL_OVERRIDES = ["model.params.dtype=bfloat16"]
 CIFAR_PARAMS, ADAGN_PARAMS = 35_746_307, 44_179_459
 CIFAR_B, CIFAR_STEPS, HEUN_STEPS, RECON_IMAGES, CFG_EACH, CFG_SCALE_PIXEL = 500, 50, 25, 8, 10, 2.0
 
+# phase 17: pixel-space DDPM training: configs/ddpm_cifar10.yaml's UNet (35.7M,
+# dropout 0.1, one head of 256 at 16x16 and in the middle: K1 and K2 at d=256)
+# at the config's batch of 128 with its Adam 2e-4, clip 1.0 and EMA 0.9999, a
+# bf16 torso; train_ddpm in this process on Synthetic 32x32x3 images in place
+# of CIFAR-10 (no dataset files on the card's machine), with a DDPM_IP run;
+# train_ddpm_cfg on configs/ddpm_cfg_cifar10.yaml's UNetCategorialAdaGN (K2 at
+# d=64 through wgmma and at d=256)
+PIXEL_TRAIN_STEPS, PIXEL_TRAIN_CHECK_BATCH = 10, 2
+SYNTHETIC_DATA = ["data.target=datasets.synthetic.Synthetic", "data.params.n=512",
+                  "dataloader.num_workers=4", "train.print_freq=1"]
+# the eval grid: train.n_samples images from the config's DDPM respaced to 100 steps
+PIXEL_CLI_GRID = ["train.n_samples=16", "diffusion.params.respace_type=uniform",
+                  "diffusion.params.respace_steps=100"]
+PIXEL_CLI_STEPS, PIXEL_CLI_RESUMED_STEPS, PIXEL_IP_STEPS, ADAGN_CLI_STEPS = 3, 5, 2, 3
+# K2 at d=256: the pixel UNets' shapes (b, S, d at h1) and a padded head dim
+K2_D256_ROWS = [(128, 256, 256), (128, 16, 256), (8, 200, 256), (8, 256, 248)]
+# the CIFAR UNet's attention calls a step, (S, d) at h1: 5 at 16x16, 1 in the
+# middle (checked against the module tree in (b)); the AdaGN UNet's by head dim
+# and its GroupNorms a call (read off its module tree in phase 16)
+CIFAR_TRAIN_ATTN = {(256, 256): 5, (16, 256): 1}
+ADAGN_ATTN, ADAGN_GN_PER_CALL = {64: 10, 256: 1}, 68
+
 
 def log(*args):
     print(*args, flush=True)
@@ -669,6 +725,15 @@ def main() -> int:
 
     dev = torch.device("cuda")
     failures: list[str] = []
+    started = time.perf_counter()
+    phase_seconds: dict = {}
+
+    def run_phase(name: str, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_seconds[name] = time.perf_counter() - t0
+        return out
 
     def check(ok: bool, what: str) -> None:
         log(("PASS " if ok else "FAIL ") + what)
@@ -1108,45 +1173,54 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. K2 --------------------------------------------------------------
-    k2 = phase_k2(dev, check, time_ms, host_us, gen)
+    phase_seconds["1-5"] = time.perf_counter() - started
+    k2 = run_phase("6", phase_k2, dev, check, time_ms, host_us, gen)
     k2_by_kernel = k2.pop("by_kernel")
 
     # ---- 7. training -----------------------------------------------------------
-    train = phase_train(dev, check, gen, ref_model, card)
+    train = run_phase("7", phase_train, dev, check, gen, ref_model, card)
 
     # ---- 8. text to image --------------------------------------------------------
-    t2i = phase_text_to_image(dev, check, gen, ref_model, card, time_ms)
+    t2i = run_phase("8", phase_text_to_image, dev, check, gen, ref_model, card, time_ms)
 
     # ---- 9. the fine-tuning CLI ----------------------------------------------------
-    ft = phase_finetune_cli(dev, check, gen, ref_model, card)
+    ft = run_phase("9", phase_finetune_cli, dev, check, gen, ref_model, card)
 
     # ---- 10. the serving accelerators ----------------------------------------------
-    serve = phase_serving(dev, check, t2i.pop("sd"), ref_model, card)
+    serve = run_phase("10", phase_serving, dev, check, t2i.pop("sd"), ref_model, card)
 
     # ---- 11. DiT-XL/2 and MDTv2-XL/2 through sample_cfg -------------------------------
     del ref_model
     torch.cuda.empty_cache()
-    dit = phase_dit(dev, check, gen, card, time_ms, host_us)
+    dit = run_phase("11", phase_dit, dev, check, gen, card, time_ms, host_us)
 
     # ---- 12. DiT-XL/2 training and train_ddpm_cfg ------------------------------------
     torch.cuda.empty_cache()
-    dit_train = phase_dit_train(dev, check, gen, card, time_ms, host_us)
+    dit_train = run_phase("12", phase_dit_train, dev, check, gen, card, time_ms, host_us)
 
     # ---- 13. MMDiT through sample_mmdit: SD3-medium and bench's MMDiT-B/2 -----------
     torch.cuda.empty_cache()
-    mmdit = phase_mmdit(dev, check, gen, card, time_ms, host_us)
+    mmdit = run_phase("13", phase_mmdit, dev, check, gen, card, time_ms, host_us)
 
     # ---- 14. MMDiT training: bench's MMDiT-B/2, SD3-medium through train_mmdit ------
     torch.cuda.empty_cache()
-    mmdit_train = phase_mmdit_train(dev, check, gen, card, time_ms, host_us)
+    mmdit_train = run_phase("14", phase_mmdit_train, dev, check, gen, card, time_ms,
+                            host_us)
 
     # ---- 15. SDXL-base text to image through the SDXL page's logic --------------------
     torch.cuda.empty_cache()
-    sdxl = phase_sdxl(dev, check, gen, card, time_ms, host_us, k3_case, add_row, new_totals)
+    sdxl = run_phase("15", phase_sdxl, dev, check, gen, card, time_ms, host_us, k3_case,
+                     add_row, new_totals)
 
     # ---- 16. pixel-space sampling through sample_uncond: ADM-256, the CIFAR UNets ------
     torch.cuda.empty_cache()
-    pixel = phase_pixel(dev, check, gen, card, time_ms, host_us, k3_case, add_row, new_totals)
+    pixel = run_phase("16", phase_pixel, dev, check, gen, card, time_ms, host_us, k3_case,
+                      add_row, new_totals)
+
+    # ---- 17. pixel-space training through train_ddpm and train_ddpm_cfg ----------------
+    torch.cuda.empty_cache()
+    pixel_train = run_phase("17", phase_pixel_train, dev, check, gen, card, time_ms, host_us)
+    log("phase seconds: " + json.dumps(phase_seconds))
     check("jax" not in sys.modules, "no JAX imported")
 
     if failures:
@@ -1164,7 +1238,9 @@ def main() -> int:
                       **{path: counted[name]
                          for path, counted in mmdit_train["launches"].items()},
                       **{path: counted[name] for path, counted in sdxl["launches"].items()},
-                      **{path: counted[name] for path, counted in pixel["launches"].items()}}
+                      **{path: counted[name] for path, counted in pixel["launches"].items()},
+                      **{path: counted[name]
+                         for path, counted in pixel_train["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1220,7 +1296,9 @@ def main() -> int:
              dit_train_launches_by_kernel=dit_train["k2_by_kernel"],
              # and over the joint attention backwards (d=64) of one MMDiT
              # train step: MMDiT-B/2's 12 at b128, SD3-medium's 24 at b32
-             **mmdit_train["k2_per_step"]),
+             **mmdit_train["k2_per_step"],
+             # and over the 6 (d=256, mma.sync) of one CIFAR UNet b128 step
+             **pixel_train["k2_per_step"]),
         dict(entry("group_norm_silu", "dmtpu_torch/csrc/group_norm_silu.cu",
                    "dmtpu/ops/groupnorm.py:44", (main_launches["K3"], by_path["K3"]),
                    f"per b{B} UNet forward: sum over its {GN_PER_FORWARD} GroupNorm calls", k3),
@@ -1246,12 +1324,22 @@ def main() -> int:
               "dmtpu/ops/flash_small_d.py:50", (pixel["d256_launches"], pixel["d256_by_path"]),
               f"per b{CIFAR_B} CIFAR UNet call: sum over its 6 attention calls at d=256",
               pixel["k1_per_call"]["cifar_b500"]),
+        # K2's mma.sync instance at head dim 256: its launches in the CIFAR
+        # UNet's timed b128 train steps, its columns over the 6 calls of one
+        # step there
+        entry("flash_attn_bwd_mma_d256", "dmtpu_torch/csrc/flash_attn_bwd_mma.cu",
+              "dmtpu/ops/flash_small_d.py:118",
+              (pixel_train["d256_launches"], pixel_train["d256_by_path"]),
+              f"per b{pixel_train['metrics']['train_b128']['batch']} CIFAR UNet train step: "
+              "sum over its 6 attention "
+              "backwards at d=256", pixel_train["k2_per_step"]["cifar_train_b128"]),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
         "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
         "dit_b32": dit["metrics"], "dit_train_b32": dit_train["metrics"],
         "mmdit": mmdit["metrics"], "mmdit_train": mmdit_train["metrics"],
-        "sdxl": sdxl["metrics"], "pixel": pixel["metrics"], "card": card}))
+        "sdxl": sdxl["metrics"], "pixel": pixel["metrics"],
+        "pixel_train": pixel_train["metrics"], "phase_seconds": phase_seconds, "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1342,8 +1430,8 @@ def k1_call_row(q, k, v, calls: int, label: str, check, time_ms, host_us, card: 
     return row, per
 
 def k2_call_row(q, k, v, do, calls: int, label: str, check, time_ms, host_us, card: str,
-                reps: int, slice_b: int = 0) -> tuple:
-    """K2 at one call of a path, the dispatch expected on wgmma, from K1's
+                reps: int, slice_b: int = 0, expect: str = "wgmma") -> tuple:
+    """K2 at one call of a path, the dispatch expected on ``expect``, from K1's
     outputs and the given dO: every kernel that takes the shape checked
     against K2's plain version and against f32 autograd through ``mha``
     (phase 6's tolerances) and timed (order first, second, second, first,
@@ -1434,8 +1522,8 @@ def k2_call_row(q, k, v, do, calls: int, label: str, check, time_ms, host_us, ca
     best = {name: min(times) for name, times in ms_by_kernel.items()}
     log(f"K2 at {label}: {ms / bound_t:.2f}x its bound, {ms / library_ms:.3f}x SDPA's "
         f"backward, the faster kernel {min(best, key=best.get)} ({card})")
-    check(chosen == "wgmma" and not_the_slower(ms_by_kernel, chosen, ms, host),
-          f"K2 dispatch b{n} S={sq} d={d}: {chosen} (wgmma) is not the slower kernel")
+    check(chosen == expect and not_the_slower(ms_by_kernel, chosen, ms, host),
+          f"K2 dispatch b{n} S={sq} d={d}: {chosen} ({expect}) is not the slower kernel")
     per = {key: calls * row[key] for key in ("ms", "plain_ms", "bound_ms", "library_ms",
                                              "host_us")}
     per.update(err=max(errs[chosen][f"{x}_max_abs_err"] for x in ("dq", "dk", "dv")),
@@ -4114,16 +4202,19 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
     metrics = {"agreement_b2": {}}
     k1_rows, k1_per_call, k3_per_call, request_launches = {}, {}, {}, {}
 
-    # (a) a gradient through head dim 256 is refused, naming the training slice
-    q = torch.randn(2, 16, 1, 256, generator=g, device=dev).bfloat16().requires_grad_()
+    # (a) a head of 512 (CelebA-HQ's UNet) is past K1 and K2: it raises,
+    # naming the ROADMAP item, and nothing falls back to the plain version
+    q = torch.randn(2, 16, 1, 512, generator=g, device=dev).bfloat16().requires_grad_()
+    zero_counts()
     try:
         attention(q, q, q).float().sum().backward()
         refused = ""
     except ValueError as e:
         refused = str(e)
-    log(f"d=256 gradient: {refused or 'not refused'}")
-    check("item M's training half" in refused and q.grad is None,
-          "a gradient through K1 at d=256 raises ValueError naming item M's training half")
+    log(f"d=512 attention: {refused or 'not refused'}")
+    check("K1 and K2 at d=512" in refused and q.grad is None
+          and counts() == {"K1": 0, "K2": 0, "K3": 0},
+          "attention at d=512 raises ValueError naming ROADMAP's K1 and K2 at d=512")
 
     # (b) ADM-256, unconditional, from the release's flags through the registry
     t0 = time.perf_counter()
@@ -4320,6 +4411,321 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
             "k1_per_call": k1_per_call, "k3_per_call": k3_per_call,
             "d256_launches": d256_launches, "d256_by_path": d256_by_path}
 
+
+
+def phase_pixel_train(dev, check, gen, card, time_ms, host_us) -> dict:
+    """Phase 17 (see the module docstring): pixel-space DDPM training through
+    K1 and K2 at head dim 256, ``train_ddpm`` (DDPM and DDPM_IP) and
+    ``train_ddpm_cfg`` (the AdaGN UNet) in this process."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
+    from dmtpu_torch.scripts import train_ddpm, train_ddpm_cfg
+    from dmtpu_torch.scripts._common import seeded_instance
+    from dmtpu_torch.utils import checkpoint as ckpt_lib
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config, merge_dotlist
+    from dmtpu_torch.utils.image import pil_image
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        for fn in (flash_attention_fwd, flash_attention_bwd):
+            fn.launches_by_kernel.update(mma=0, wgmma=0)
+            fn.launches_by_head_dim.clear()
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def by_dim():
+        return {"K1": dict(flash_attention_fwd.launches_by_head_dim),
+                "K2": dict(flash_attention_bwd.launches_by_head_dim)}
+
+    def times(per_step, n):
+        return {key: n * c for key, c in per_step.items()}
+
+    g = gen(SEED + 70)
+    metrics = {}
+    conf = merge_dotlist(load_config(CIFAR_CONFIG), PIXEL_OVERRIDES)
+    total_steps = int(conf.diffusion.params.total_steps)
+    n = conf.train.batch_size
+    shape = (conf.data.img_channels, conf.data.params.img_size, conf.data.params.img_size)
+
+    # (a) K2 at d=256 at the CIFAR UNet's shapes at the config's batch (one
+    # head: S=256 at 16x16, S=16 in the middle), a ragged length and a padded
+    # head dim, from K1's outputs and a random dO
+    k2_rows = {}
+    k2_per_step = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, host_us=0.0,
+                       err=0.0, bound_ms_by={"bytes": 0.0, "operations": 0.0})
+    for b, s, d in K2_D256_ROWS:
+        q, k, v, do = (torch.randn(b, s, 1, d, generator=g, device=dev).bfloat16()
+                       for _ in range(4))
+        calls = CIFAR_TRAIN_ATTN.get((s, d), 0) if b == n else 0
+        row, per = k2_call_row(q, k, v, do, calls, f"pixel UNet b{b} h1 S={s} d={d}", check,
+                               time_ms, host_us, card, 20, expect="mma")
+        k2_rows[f"b{b}_s{s}_d{d}"] = row
+        if calls:
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us"):
+                k2_per_step[key] += per[key]
+            for by, ms in per["bound_ms_by"].items():
+                k2_per_step["bound_ms_by"][by] += ms
+            k2_per_step["err"] = max(k2_per_step["err"], per["err"])
+        del q, k, v, do
+    log(f"K2 per b{n} CIFAR UNet train step ({sum(CIFAR_TRAIN_ATTN.values())} calls at d=256): "
+        + json.dumps(k2_per_step))
+    torch.cuda.empty_cache()
+
+    # (b) agreement at b2: the loss and the gradient of the CIFAR UNet through
+    # the kernels and through the plain bf16 path, each against an f32 plain
+    # run (TF32 off), seeded random weights; dropout off, so that the three
+    # runs compute one function
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = dict(conf.model.params.to_dict(), dropout=0.0)
+    model = instantiate_from_config({"target": conf.model.target, "params": params}, device=dev)
+    init_random_(model, g)
+    ref = instantiate_from_config({"target": conf.model.target,
+                                   "params": dict(params, dtype=None)}, device=dev)
+    ref.load_state_dict(model.state_dict())
+    diffuser = instantiate_from_config(conf.diffusion)
+    b = PIXEL_TRAIN_CHECK_BATCH
+    fixed = {"x": torch.rand(b, *shape, generator=g, device=dev) * 2 - 1,
+             "eps": torch.randn(b, *shape, generator=g, device=dev),
+             "t": torch.tensor([total_steps - 1, 421 * total_steps // 1000], device=dev)[:b]}
+
+    def loss_and_grads(m, plain: bool):
+        m.zero_grad(set_to_none=True)
+        with plain_ops() if plain else contextlib.nullcontext():
+            loss = diffuser.loss_func(lambda xt, tt: m(xt, tt, train=True), fixed["x"],
+                                      fixed["t"], eps=fixed["eps"])
+            loss.backward()
+        grads = {name: p.grad.detach().clone() for name, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    def grad_err(grads, want) -> float:
+        return (sum((grads[k_] - want[k_]).square().sum() for k_ in want).sqrt()
+                / sum(w.square().sum() for w in want.values()).sqrt()).item()
+
+    def norm(grads) -> float:
+        return sum(x.square().sum() for x in grads.values()).sqrt().item()
+
+    loss_f, grads_f = loss_and_grads(ref, plain=True)
+    del ref
+    zero_counts()
+    with recorded_ops({}) as calls:
+        loss_k, grads_k = loss_and_grads(model, plain=False)
+    torch.cuda.synchronize()
+    step_launches, step_dims = counts(), by_dim()
+    loss_p, grads_p = loss_and_grads(model, plain=True)
+    errs = {"loss": (abs(loss_k.item() - loss_f.item()) / abs(loss_f.item()),
+                     abs(loss_p.item() - loss_f.item()) / abs(loss_f.item())),
+            "gradient": (grad_err(grads_k, grads_f), grad_err(grads_p, grads_f)),
+            "grad_norm": (abs(norm(grads_k) - norm(grads_f)) / norm(grads_f),
+                          abs(norm(grads_p) - norm(grads_f)) / norm(grads_f))}
+    metrics["agreement_b2"] = errs
+    log(f"CIFAR UNet train b{b}: loss f32 {loss_f.item():.6f}, kernels {loss_k.item():.6f}, "
+        f"plain bf16 {loss_p.item():.6f}; grad norm f32 {norm(grads_f):.6f}; rel err vs f32 "
+        "(kernels, plain bf16): " + json.dumps(errs) + f"; launches {step_launches}, by head dim "
+        f"{step_dims}; attention calls {dict(calls['attention'])}")
+    for what, (err_k, err_p) in errs.items():
+        check(math.isfinite(err_k) and err_k <= 1.5 * err_p + 1e-3,
+              f"CIFAR UNet train {what}: err(kernels) <= 1.5 err(plain) + 1e-3")
+    attn = {(sq, d): c for (h, sq, sk, d), c in calls["attention"].items() if h == 1 and sq == sk}
+    per_step = {"K1": sum(calls["attention"].values()), "K2": sum(calls["attention"].values()),
+                "K3": sum(calls["group_norm"].values())}
+    d256 = {"K1": {256: per_step["K1"]}, "K2": {256: per_step["K2"]}}
+    check(attn == CIFAR_TRAIN_ATTN and sum(attn.values()) == per_step["K1"]
+          and step_launches == per_step and step_dims == d256,
+          f"CIFAR UNet forward+backward: attention {attn} == {CIFAR_TRAIN_ATTN}; launches "
+          f"{step_launches} == {per_step}, every K1 and K2 at d=256 {step_dims}")
+    del model, grads_f, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # (c) the config's train step at its batch of 128: its UNet (dropout 0.1)
+    # built as train_ddpm builds it, its Adam, clip and EMA; dropout drawn
+    # from the step's stream; PyTorch's default TF32 settings, as the CLI runs
+    torch.backends.cudnn.allow_tf32 = True
+    model = seeded_instance(conf.model, dev, SEED)
+    state = TrainState.create(model, instantiate_from_config(conf.train.optim,
+                                                             params=model.parameters()),
+                              ema_decay=conf.train.ema_decay,
+                              ema_gradual=conf.train.ema_gradual)
+    step = make_train_step(make_diffusion_loss_fn(
+        diffuser, lambda x, t, **kw: model(x, t, train=True, **kw), total_steps),
+        clip_grad_norm=conf.train.clip_grad_norm, seed=SEED)
+    batch = torch.rand(n, *shape, generator=g, device=dev) * 2 - 1
+    step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    history = [step(state, batch) for _ in range(PIXEL_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, dims = counts(), by_dim()
+    k2_by_kernel = dict(flash_attention_bwd.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in history]
+    norms = [m["grad_norm"].item() for m in history]
+    profile = profile_by_class(lambda: step(state, batch), 2)
+    idle = max(0.0, 1 - profile["classes"]["total"] / profile["wall_ms"])
+    metrics["train_b128"] = {
+        "imgs_per_s": n * PIXEL_TRAIN_STEPS / seconds,
+        "ms_per_step": 1e3 * seconds / PIXEL_TRAIN_STEPS, "peak_bytes": peak, "batch": n,
+        "steps": PIXEL_TRAIN_STEPS, "launches_per_step": per_step,
+        "params": sum(p.numel() for p in model.parameters()),
+        "profile_ms": dict(profile["classes"], wall=profile["wall_ms"], **profile["ranges"]),
+        "idle_share": idle}
+    log(f"CIFAR UNet train b{n}: {PIXEL_TRAIN_STEPS} steps in {seconds:.3f} s, "
+        f"{metrics['train_b128']['imgs_per_s']:.2f} imgs/s, "
+        f"{metrics['train_b128']['ms_per_step']:.3f} ms/step, peak {peak / 2**30:.3f} GiB "
+        f"({card}); launches {launches}, by head dim {dims}, K2 by kernel {k2_by_kernel}; losses "
+        f"{losses}; grad norms {norms}")
+    log(f"CIFAR UNet train b{n} step device time by class (torch.profiler, ms per step over 2; "
+        f"wall {profile['wall_ms']:.3f} ms per step under the profiler, the card idle "
+        f"{idle:.3f} of it): " + json.dumps(profile["classes"]) + "; annotated ranges: "
+        + json.dumps(profile["ranges"]))
+    for name, kernel_ms in profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {name}")
+    check(all(map(math.isfinite, losses + norms)), f"CIFAR UNet train b{n}: finite losses and "
+                                                   "grad norms")
+    check(launches == times(per_step, PIXEL_TRAIN_STEPS)
+          and dims == {key: {256: PIXEL_TRAIN_STEPS * c[256]} for key, c in d256.items()}
+          and k2_by_kernel == {"mma": launches["K2"], "wgmma": 0},
+          f"CIFAR UNet train b{n} launches {launches} == {PIXEL_TRAIN_STEPS} x {per_step}, "
+          f"K1 and K2 all at d=256 {dims}, K2 through mma.sync {k2_by_kernel}")
+    check(profile["classes"]["K2 attention backward"] > 0 and profile["classes"]["K1 attention"]
+          > 0 and profile["classes"]["K3 GroupNorm"] > 0,
+          "profile: the CIFAR UNet train step ran K1, K2 and K3 on the card")
+    d256_launches = dims["K2"].get(256, 0)
+    d256_by_path = {f"pixel_train{PIXEL_TRAIN_STEPS}": d256_launches}
+    del state, step, batch, history, model
+    torch.cuda.empty_cache()
+
+    # (d) train_ddpm in this process on configs/ddpm_cifar10.yaml: a run that
+    # saves and samples a grid, its resume, and a DDPM_IP run
+    root = tempfile.mkdtemp(prefix="chip_smoke_pixel_train_")
+    real_loss_fn, diffusers = train_ddpm.make_diffusion_loss_fn, []
+
+    def recording(diffuser_, *args, **kwargs):
+        diffusers.append(type(diffuser_).__name__)
+        return real_loss_fn(diffuser_, *args, **kwargs)
+
+    train_ddpm.make_diffusion_loss_fn = recording
+    try:
+        exp = os.path.join(root, "exp")
+        base = ["-c", CIFAR_CONFIG, "-e", exp, "-ni", *PIXEL_OVERRIDES, *SYNTHETIC_DATA,
+                *PIXEL_CLI_GRID, "train.save_freq=2"]
+        grid_rows = len(instantiate_from_config(
+            merge_dotlist(load_config(CIFAR_CONFIG), PIXEL_CLI_GRID).diffusion).respaced_seq)
+        zero_counts()
+        first = train_ddpm.main(base + [f"train.n_steps={PIXEL_CLI_STEPS}",
+                                        "train.sample_freq=2"])
+        torch.cuda.synchronize()
+        run1, dims1 = counts(), by_dim()
+        zero_counts()
+        again = train_ddpm.main(base + ["-r", "latest", f"train.n_steps={PIXEL_CLI_RESUMED_STEPS}",
+                                        "train.sample_freq=0"])
+        torch.cuda.synchronize()
+        run2, dims2 = counts(), by_dim()
+        ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
+        ckpt_bytes = os.path.getsize(os.path.join(exp, "ckpt", ckpts[-1], "state.pt"))
+        blob = ckpt_lib.load_checkpoint_host(os.path.join(exp, "ckpt", ckpts[-1]))
+        grids = sorted(os.listdir(os.path.join(exp, "samples")))
+        with pil_image().open(os.path.join(exp, "samples", grids[0])) as im:
+            grid_mode, grid_size, grid_std = im.mode, im.size, float(np.asarray(im).std())
+        log_text = "".join(open(os.path.join(exp, f)).read() for f in os.listdir(exp)
+                           if f.startswith("output-"))
+        zero_counts()
+        ip = train_ddpm.main(["-c", CIFAR_CONFIG, "-e", os.path.join(root, "ip"), "-ni",
+                              *PIXEL_OVERRIDES, *SYNTHETIC_DATA,
+                              "diffusion.target=diffusions.ddpm_ip.DDPM_IP",
+                              "diffusion.params.gamma=0.1", f"train.n_steps={PIXEL_IP_STEPS}",
+                              "train.sample_freq=0", "train.save_freq=0"])
+        torch.cuda.synchronize()
+        run3 = counts()
+        zero_counts()
+
+        # (e) train_ddpm_cfg in this process on configs/ddpm_cfg_cifar10.yaml
+        cfg_run = train_ddpm_cfg.main(["-c", CIFAR_CFG_CONFIG, "-e", os.path.join(root, "cfg"),
+                                       "-ni", *PIXEL_OVERRIDES, *SYNTHETIC_DATA,
+                                       "data.params.num_classes=10",
+                                       f"train.n_steps={ADAGN_CLI_STEPS}", "train.sample_freq=0",
+                                       "train.save_freq=0"])
+        torch.cuda.synchronize()
+        run4, dims4 = counts(), by_dim()
+        k2_by_kernel4 = dict(flash_attention_bwd.launches_by_kernel)
+    finally:
+        train_ddpm.make_diffusion_loss_fn = real_loss_fn
+        shutil.rmtree(root, ignore_errors=True)
+
+    losses = first["losses"] + again["losses"]
+    metrics["cli"] = {
+        "losses": losses, "save_seconds": first["save_seconds"] + again["save_seconds"],
+        "load_seconds": again["load_seconds"], "checkpoint_bytes": ckpt_bytes,
+        "step_seconds": first["step_seconds"] + again["step_seconds"],
+        "launches": {"train": run1, "resume": run2, "ddpm_ip": run3}, "grid_rows": grid_rows,
+        "ddpm_ip_losses": ip["losses"]}
+    log(f"train_ddpm {CIFAR_CONFIG} b{n} (Synthetic data): {PIXEL_CLI_STEPS} steps with a save "
+        f"and a {grid_rows}-step grid of 16, then -r latest to {PIXEL_CLI_RESUMED_STEPS}: step "
+        f"seconds {metrics['cli']['step_seconds']}; checkpoint {ckpt_bytes / 2**20:.1f} MiB, "
+        f"saves {metrics['cli']['save_seconds']} s, load {again['load_seconds']:.3f} s "
+        f"({card}); losses {losses}; launches {run1} (by head dim {dims1}), {run2}; checkpoints "
+        f"{ckpts}, grids {grids} ({grid_mode}, {grid_size}, std {grid_std:.1f}); DDPM_IP run: "
+        f"losses {ip['losses']}, launches {run3}; diffusers {diffusers}")
+    check(ckpts == ["step000001", "step000002", "step000003", "step000004"]
+          and blob["step"] == PIXEL_CLI_RESUMED_STEPS
+          and blob["ema"]["num_updates"] == PIXEL_CLI_RESUMED_STEPS and "Resumed from" in log_text,
+          "train_ddpm: checkpoints at steps 2, 3, 4 and 5, resumed to step 5")
+    check(grids == ["step000001.png"] and grid_mode == "RGB"
+          and grid_size == (4 * (shape[1] + 2) + 2,) * 2 and grid_std > 0,
+          "train_ddpm: one eval grid of 4 x 4 images, RGB")
+    check(len(losses) == PIXEL_CLI_RESUMED_STEPS and len(ip["losses"]) == PIXEL_IP_STEPS
+          and all(map(math.isfinite, losses + ip["losses"]))
+          and diffusers == ["DDPM", "DDPM", "DDPM_IP"],
+          "train_ddpm: finite losses at every step, DDPM then DDPM_IP reaching the loss")
+    want1 = {key: PIXEL_CLI_STEPS * c + (grid_rows * c if key != "K2" else 0)
+             for key, c in per_step.items()}
+    want2 = times(per_step, PIXEL_CLI_RESUMED_STEPS - PIXEL_CLI_STEPS)
+    want3 = times(per_step, PIXEL_IP_STEPS)
+    check(run1 == want1 and run2 == want2 and run3 == want3 and set(dims1["K2"]) == {256},
+          f"train_ddpm launches {run1} == {want1}, resumed {run2} == {want2}, DDPM_IP {run3} == "
+          f"{want3}")
+    cfg_step = {"K1": sum(ADAGN_ATTN.values()), "K2": sum(ADAGN_ATTN.values()),
+                "K3": ADAGN_GN_PER_CALL}
+    want4 = times(cfg_step, ADAGN_CLI_STEPS)
+    want_dims4 = {key: {d: ADAGN_CLI_STEPS * c for d, c in ADAGN_ATTN.items()}
+                  for key in ("K1", "K2")}
+    metrics["adagn_cli"] = {"losses": cfg_run["losses"], "step_seconds": cfg_run["step_seconds"],
+                            "save_seconds": cfg_run["save_seconds"], "launches": run4,
+                            "k2_by_head_dim": dims4["K2"], "k2_by_kernel": k2_by_kernel4}
+    log(f"train_ddpm_cfg {CIFAR_CFG_CONFIG} b{n} (Synthetic data, 10 classes): "
+        f"{ADAGN_CLI_STEPS} steps, step seconds {cfg_run['step_seconds']}, save "
+        f"{cfg_run['save_seconds']} s ({card}); losses {cfg_run['losses']}; launches {run4}, by "
+        f"head dim {dims4}, K2 by kernel {k2_by_kernel4}")
+    check(len(cfg_run["losses"]) == ADAGN_CLI_STEPS and all(map(math.isfinite, cfg_run["losses"]))
+          and run4 == want4 and dims4 == want_dims4
+          and k2_by_kernel4 == {"wgmma": ADAGN_CLI_STEPS * ADAGN_ATTN[64],
+                                "mma": ADAGN_CLI_STEPS * ADAGN_ATTN[256]},
+          f"train_ddpm_cfg AdaGN: finite losses; launches {run4} == {want4}, by head dim "
+          f"{dims4} == {want_dims4}; K2 at d=64 through wgmma, at d=256 through mma.sync")
+    d256_by_path.update(pixel_cli_train=dims1["K2"].get(256, 0),
+                        pixel_cli_resume=dims2["K2"].get(256, 0), pixel_cli_ddpm_ip=run3["K2"],
+                        adagn_cli_train=dims4["K2"].get(256, 0))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    return {"launches": {f"pixel_train{PIXEL_TRAIN_STEPS}": launches, "pixel_cli_train": run1,
+                         "pixel_cli_resume": run2, "pixel_cli_ddpm_ip": run3,
+                         "adagn_cli_train": run4},
+            "metrics": metrics, "k2": k2_rows, "k2_per_step": {"cifar_train_b128": k2_per_step},
+            "d256_launches": d256_launches, "d256_by_path": d256_by_path}
 
 def forward_flops(model, *inputs) -> int:
     """Operations (two a multiply-add) of one forward ``model(*inputs)``,

@@ -5,10 +5,11 @@
 // fused backward for small head dims), the backward role of the stock Pallas
 // TPU flash kernel that dmtpu/ops/attention.py::flash_mha calls, and the probe
 // variant benchmarks/_smalld_variants.py::_bwd_sem (the same function).  It
-// takes every head dim that is a multiple of 8 up to 160 and any strides; head
-// dims 40, 72 and 80 go to the wgmma kernel in flash_attn_bwd.cu (the gate is
-// in dmtpu_torch/ops/flash_attention.py), so on SD1.5's path this one runs the
-// head dim 160 shapes, and on DiT's none.
+// takes every head dim that is a multiple of 8 up to 256 and any strides; head
+// dims 40, 64, 72 and 80 go to the wgmma kernel in flash_attn_bwd.cu (the gate
+// is in dmtpu_torch/ops/flash_attention.py), so on SD1.5's path this one runs
+// the head dim 160 shapes, on the pixel-space UNets' the single head of 256,
+// and on DiT's and MMDiT's none.
 //
 // What it computes, per (batch, head), from K1's saved f32 row logsumexp:
 //   delta = rowsum(dO o O)                      (f32)
@@ -25,7 +26,7 @@
 // S=1024, d=80, replacing the exponentials by a multiply nothing: NVIDIA H100
 // 80GB HBM3, 700 W), which is why those shapes left it.  At head dim 160 the
 // path's sequences are short (S <= 256) and the calls are bound by bytes and
-// by the launch.
+// by the launch; so are the pixel UNets' d = 256 calls (S = 256 and 16).
 //
 // Design:
 //   - one CTA per (b*h, 64-key tile of K/V); K and V stay in shared memory
@@ -45,8 +46,8 @@
 //     recomputes S and dP (seven).  The atomics' order varies from run to
 //     run, so dQ is not bitwise reproducible: it may differ between runs by
 //     a few f32 ulps of its partial sums before the bf16 rounding;
-//   - head dims are zero-padded in shared memory to the instance's 48, 80 or
-//     160 (d = 40 -> 48, the 16-deep MMA step); a ragged last K/V tile
+//   - head dims are zero-padded in shared memory to the instance's 48, 80,
+//     160 or 256 (d = 40 -> 48, the 16-deep MMA step); a ragged last K/V tile
 //     (S_k = 77) gets P = 0 for its missing keys and writes no dK/dV rows
 //     for them; ragged Q rows get lse = +inf, so P = 0, and write no dQ;
 //   - at d = 160 the dK and dV accumulators of 16 keys x 160 columns would
@@ -54,6 +55,13 @@
 //     key group, each accumulating dK and dV for half of the columns (both
 //     recompute the group's S^T and dP^T, which costs two extra products of
 //     the five at the two smallest shapes of the path);
+//   - at d = 256 the same split leaves 128 accumulator registers a thread
+//     for dK and dV, and the S^T and dP^T fragments of 64 rows would take 64
+//     more: that instance walks each 64-row step in four sub-steps of 16
+//     rows (16 fragment registers), re-reading its K and V fragments from
+//     shared memory for each (227 registers, no spills; sub-steps of 32 rows
+//     spill, see dmtpu_torch/dev/k2_probe.py's d256 phase); its tiles take
+//     208 KiB of shared memory (one CTA per SM);
 //   - q, k, v, o, dO, dK and dV are addressed through [B, S, H, D] strides.
 #include <math.h>
 
@@ -66,7 +74,7 @@ using namespace dmtpu;
 constexpr int kRows = 64;  // keys per CTA, and Q rows per step of its loop
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DP, int DSPLIT>
+template <int DP, int DSPLIT, int RS>
 __global__ void __launch_bounds__(4 * DSPLIT * 32)
 flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dO,
@@ -81,7 +89,9 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   constexpr int KSTEPS = DP / 16;
   constexpr int DPS = DP / DSPLIT;  // dK/dV columns a warp owns
   constexpr int NTS = DPS / 8;      // their 8-wide column tiles
+  constexpr int NJ = RS / 8;        // 8-row tiles of S^T and dP^T a sub-step holds
   static_assert(NTS % 2 == 0, "column tiles are taken in pairs");
+  static_assert(kRows % RS == 0 && RS % 16 == 0, "sub-steps of whole 16-row blocks");
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);  // [kRows][LD]
   __nv_bfloat16* sV = sK + kRows * LD;                           // [kRows][LD]
@@ -147,73 +157,83 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
     const float* tL = sL + buf * kRows;
     const float* tD = sD + buf * kRows;
 
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 64 rows, as 8 tiles of 8 rows
-    float s[8][4], dp[8][4];
-    #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    // The step's 64 rows in sub-steps of RS rows (64, or 16 at d = 256,
+    // where the S^T and dP^T fragments of 64 rows would not fit beside the
+    // dK and dV accumulators): each sub-step computes its P^T and dS^T, adds
+    // its rows' share of dV and dK and leaves its dS^T columns in shared
+    // memory for the dQ product below (not unrolled: one sub-step's
+    // fragments are dead before the next one's are live)
+    #pragma unroll 1
+    for (int r0 = 0; r0 < kRows; r0 += RS) {
+      // S^T = K Q^T and dP^T = V dO^T: 16 keys x RS rows, as NJ tiles of 8 rows
+      float s[NJ][4], dp[NJ][4];
       #pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-    }
-    #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t ka[4], va[4];
-      ldmatrix_x4(ka, kA + kk * 16);
-      ldmatrix_x4(va, vA + kk * 16);
-      #pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        const int off = (jp * 16 + (mi / 2) * 8 + mr) * LD + kk * 16 + (mi % 2) * 8;
-        uint32_t bq[4], bo[4];
-        ldmatrix_x4(bq, tQ + off);
-        mma_bf16(s[2 * jp], ka, bq[0], bq[1]);
-        mma_bf16(s[2 * jp + 1], ka, bq[2], bq[3]);
-        ldmatrix_x4(bo, tdO + off);
-        mma_bf16(dp[2 * jp], va, bo[0], bo[1]);
-        mma_bf16(dp[2 * jp + 1], va, bo[2], bo[3]);
-      }
-    }
-
-    // P^T and dS^T in place; element c of tile j is key grp*16 + g + 8*(c/2)
-    // of this CTA's tile and row 8j + 2t + (c&1) of this step
-    #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const bool key_ok = k0 + grp * 16 + g + 8 * (c / 2) < Sk;
-        const int r = j * 8 + 2 * t + (c & 1);
-        const float p = key_ok ? exp2f(s[j][c] * scale_log2 - tL[r]) : 0.f;
-        s[j][c] = p;
-        dp[j][c] = p * (dp[j][c] - tD[r]) * scale;
-      }
-    }
-
-    // dV += P^T dO and dK += dS^T Q over this warp's columns, 16 rows a step
-    #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4], da[4];
-      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
-      pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
-      #pragma unroll
-      for (int np = 0; np < NTS / 2; ++np) {
-        const int off = (kk * 16 + (mi % 2) * 8 + mr) * LD + c0 + np * 16 + (mi / 2) * 8;
-        uint32_t bo[4], bq[4];
-        ldmatrix_x4_trans(bo, tdO + off);
-        mma_bf16(dv_acc[2 * np], pa, bo[0], bo[1]);
-        mma_bf16(dv_acc[2 * np + 1], pa, bo[2], bo[3]);
-        ldmatrix_x4_trans(bq, tQ + off);
-        mma_bf16(dk_acc[2 * np], da, bq[0], bq[1]);
-        mma_bf16(dk_acc[2 * np + 1], da, bq[2], bq[3]);
-      }
-    }
-
-    // dS^T (bf16) to shared memory; with DSPLIT = 2 both warps of a key
-    // group hold the same values and the first writes them
-    if (warp < 4) {
-      #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          *reinterpret_cast<uint32_t*>(sdS + (grp * 16 + g + 8 * r) * LDS + j * 8 + 2 * t) =
-              pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]);
+        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+      }
+      #pragma unroll
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(ka, kA + kk * 16);
+        ldmatrix_x4(va, vA + kk * 16);
+        #pragma unroll
+        for (int jp = 0; jp < NJ / 2; ++jp) {
+          const int off = (r0 + jp * 16 + (mi / 2) * 8 + mr) * LD + kk * 16 + (mi % 2) * 8;
+          uint32_t bq[4], bo[4];
+          ldmatrix_x4(bq, tQ + off);
+          mma_bf16(s[2 * jp], ka, bq[0], bq[1]);
+          mma_bf16(s[2 * jp + 1], ka, bq[2], bq[3]);
+          ldmatrix_x4(bo, tdO + off);
+          mma_bf16(dp[2 * jp], va, bo[0], bo[1]);
+          mma_bf16(dp[2 * jp + 1], va, bo[2], bo[3]);
+        }
+      }
+
+      // P^T and dS^T in place; element c of tile j is key grp*16 + g + 8*(c/2)
+      // of this CTA's tile and row r0 + 8j + 2t + (c&1) of this step
+      #pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        #pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool key_ok = k0 + grp * 16 + g + 8 * (c / 2) < Sk;
+          const int r = r0 + j * 8 + 2 * t + (c & 1);
+          const float p = key_ok ? exp2f(s[j][c] * scale_log2 - tL[r]) : 0.f;
+          s[j][c] = p;
+          dp[j][c] = p * (dp[j][c] - tD[r]) * scale;
+        }
+      }
+
+      // dV += P^T dO and dK += dS^T Q over this warp's columns, 16 rows a step
+      #pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk) {
+        uint32_t pa[4], da[4];
+        pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+        pack_a(da, dp[2 * kk], dp[2 * kk + 1]);
+        #pragma unroll
+        for (int np = 0; np < NTS / 2; ++np) {
+          const int off =
+              (r0 + kk * 16 + (mi % 2) * 8 + mr) * LD + c0 + np * 16 + (mi / 2) * 8;
+          uint32_t bo[4], bq[4];
+          ldmatrix_x4_trans(bo, tdO + off);
+          mma_bf16(dv_acc[2 * np], pa, bo[0], bo[1]);
+          mma_bf16(dv_acc[2 * np + 1], pa, bo[2], bo[3]);
+          ldmatrix_x4_trans(bq, tQ + off);
+          mma_bf16(dk_acc[2 * np], da, bq[0], bq[1]);
+          mma_bf16(dk_acc[2 * np + 1], da, bq[2], bq[3]);
+        }
+      }
+
+      // dS^T (bf16) to shared memory; with DSPLIT = 2 both warps of a key
+      // group hold the same values and the first writes them
+      if (warp < 4) {
+        #pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          #pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<uint32_t*>(sdS + (grp * 16 + g + 8 * r) * LDS + r0 + j * 8 +
+                                         2 * t) = pack_bf16(dp[j][2 * r], dp[j][2 * r + 1]);
+        }
       }
     }
     __syncthreads();
@@ -311,7 +331,7 @@ __global__ void flash_bwd_cast_kernel(const float* __restrict__ src,
   reinterpret_cast<uint4*>(dst)[i] = out;
 }
 
-template <int DP, int DSPLIT>
+template <int DP, int DSPLIT, int RS = kRows>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dO,
                    const void* lse, const void* delta, void* dq_acc, void* dk, void* dv,
                    int B, int H, int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs,
@@ -321,10 +341,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dO,
                           (size_t)4 * kRows * sizeof(float);
   static bool allowed[kMaxDevices] = {};
   const cudaError_t attr =
-      allow_dynamic_smem(flash_bwd_kernel<DP, DSPLIT>, (int)smem, allowed);
+      allow_dynamic_smem(flash_bwd_kernel<DP, DSPLIT, RS>, (int)smem, allowed);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((Sk + kRows - 1) / kRows, B * H);
-  flash_bwd_kernel<DP, DSPLIT><<<grid, 4 * DSPLIT * 32, smem, stream>>>(
+  flash_bwd_kernel<DP, DSPLIT, RS><<<grid, 4 * DSPLIT * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dO),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -337,7 +357,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dO,
 }  // namespace
 
 // q, k, v, o, dO, dk, dv: bf16 [B, S, H, D] with the given element strides
-// (D contiguous, D % 8 == 0, D <= 160, every stride % 8 == 0, 16-byte aligned
+// (D contiguous, D % 8 == 0, D <= 256, every stride % 8 == 0, 16-byte aligned
 // pointers).  lse: f32 [B, H, Sq] from K1, contiguous.  delta: f32 scratch
 // [B, H, Sq]; dq_acc: f32 scratch [B, Sq, H, D]; dq: bf16 [B, Sq, H, D]; all
 // three contiguous.  Launches three kernels in order on the stream; returns
@@ -352,7 +372,7 @@ extern "C" int dmtpu_flash_attn_bwd_mma(
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh},
       dos{dosb, doss, dosh}, dks{dksb, dkss, dksh}, dvs{dvsb, dvss, dvsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D % 8 || D > 160) return (int)cudaErrorInvalidValue;
+  if (D % 8 || D > 256) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)B * Sq * H;
   flash_bwd_prep_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO),
@@ -365,9 +385,12 @@ extern "C" int dmtpu_flash_attn_bwd_mma(
   else if (D <= 80)
     err = launch<80, 1>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks, vs,
                         dos, dks, dvs, scale, st);
-  else
+  else if (D <= 160)
     err = launch<160, 2>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks, vs,
                          dos, dks, dvs, scale, st);
+  else
+    err = launch<256, 2, 16>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks,
+                             vs, dos, dks, dvs, scale, st);
   if (err != cudaSuccess) return (int)err;
   const long long n8 = rows * D / 8;
   flash_bwd_cast_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, st>>>(

@@ -1,6 +1,6 @@
 """Development probe of K2 (attention backward) on one CUDA card.
 
-    python -m dmtpu_torch.dev.k2_probe            # check, then time, then variants
+    python -m dmtpu_torch.dev.k2_probe            # check, then time, then variants, then d256
     python -m dmtpu_torch.dev.k2_probe variants   # one phase
 
 - ``check``: builds the kernels, prints what ``ptxas`` said of the wgmma
@@ -16,6 +16,12 @@
   exponentials replaced by a multiply, and with both; the wgmma kernel without
   its bulk reduce-adds, without its exponentials, and without both.  The
   patched kernels compute wrong values; only their times are read.
+- ``d256``: the mma.sync kernel's head-dim-256 instance with each 64-row
+  step walked in sub-steps of 16 rows (as built) and of 32, built from
+  patched copies side by side: what ``ptxas`` says of each (registers,
+  spills), both against K2's plain version, and their times in turns at the
+  pixel UNets' shapes (b128 h1 S=256 and S=16, a ragged S=200, d=248),
+  beside SDPA's backward in this fresh process.
 
 With no argument each phase runs in a process of its own with a time limit: a
 kernel that hangs on an mbarrier would otherwise never return.
@@ -32,7 +38,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "dmtpu_torch" / "csrc"
 OUT = ROOT / "build" / "dev" / "variants"
-PHASE_LIMITS = {"check": 240, "time": 300, "variants": 300}  # seconds
+PHASE_LIMITS = {"check": 240, "time": 300, "variants": 300, "d256": 180}  # seconds
 
 CHECK_SHAPES = [  # b, sq, sk, h, d
     (1, 64, 128, 1, 40), (1, 128, 256, 1, 40), (2, 256, 512, 2, 40), (1, 64, 128, 1, 80),
@@ -197,27 +203,13 @@ def timing() -> int:
 
 def variants() -> int:
     import torch
-    from dmtpu_torch.ops import _build
     from dmtpu_torch.ops.flash_attention import _BWD_ROWS, flash_attention_fwd
-    OUT.mkdir(parents=True, exist_ok=True)
-    builds = []
-    for source, entry, named in VARIANTS:
-        text = (CSRC / source).read_text()
-        for name, substitutions in named.items():
-            path = OUT / f"{Path(source).stem}.{name}.cu"
-            path.write_text(patched(text, substitutions))
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o",
-                   str(path.with_suffix(".so")), str(path)]
-            builds.append((source, entry, name, path.with_suffix(".so"), subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     entries = {}
-    for source, entry, name, lib, proc in builds:
-        out = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {lib.name}:\n{out[-3000:]}")
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
-        fn.argtypes, fn.restype = _build._SIGNATURES[entry], ctypes.c_int
-        entries.setdefault(source, {})[name] = fn
+    built = _build_variants([(f"{Path(source).stem}.{name}", source, entry, subs)
+                             for source, entry, named in VARIANTS
+                             for name, subs in named.items()])
+    for source, _, named in VARIANTS:
+        entries[source] = {name: built[f"{Path(source).stem}.{name}"][0] for name in named}
     print(_card())
     gen = torch.Generator(device="cuda").manual_seed(0)
     for sq, sk, d in [(4096, 4096, 40), (1024, 1024, 80)]:
@@ -245,7 +237,84 @@ def variants() -> int:
     return 0
 
 
-PHASES = {"check": check, "time": timing, "variants": variants}
+# the d=256 instance's sub-step rows: as built, and the variant that spills
+D256_VARIANTS = {"rows16": [], "rows32": [(r"launch<256, 2, 16>", "launch<256, 2, 32>")]}
+D256_SHAPES = [(128, 256, 256), (128, 16, 256), (8, 200, 256), (8, 256, 248)]  # b, s, d at h1
+
+
+def _build_variants(jobs) -> dict:
+    """{name: the entry point of a patched copy}: ``jobs`` are (name, source
+    file, entry, substitutions), each built into its own library, all nvcc
+    processes started together; the ptxas lines of each build are printed."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    from dmtpu_torch.ops import _build
+    procs = []
+    for name, source, entry, substitutions in jobs:
+        path = OUT / f"{name}.cu"
+        path.write_text(patched((CSRC / source).read_text(), substitutions))
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o",
+               str(path.with_suffix(".so")), str(path)]
+        procs.append((name, entry, path.with_suffix(".so"), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    entries = {}
+    for name, entry, lib, proc in procs:
+        out = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {lib.name}:\n{out[-3000:]}")
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fn.argtypes, fn.restype = _build._SIGNATURES[entry], ctypes.c_int
+        entries[name] = (fn, out.splitlines())
+    return entries
+
+
+def d256() -> int:
+    import torch
+    from dmtpu_torch.ops.flash_attention import (flash_attention_backward_reference,
+                                                 flash_attention_fwd)
+    built = _build_variants([(f"d256.{name}", "flash_attn_bwd_mma.cu",
+                              "dmtpu_flash_attn_bwd_mma", subs)
+                             for name, subs in D256_VARIANTS.items()])
+    print(_card())
+    for name, (_, log) in built.items():
+        for i, line in enumerate(log):
+            if "Compiling entry" in line and "ILi256E" in line:
+                print(f"{name}:", " | ".join(x.strip()[:90] for x in log[i + 2:i + 4]), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    for b, s, d in D256_SHAPES:
+        q, k, v, do = _case(torch, gen, b, s, s, 1, d)
+        o, lse = flash_attention_fwd(q, k, v)
+        want = flash_attention_backward_reference(q, k, v, o, lse, do)
+        n_stat = -(-b * s // 4) * 4  # as the wrapper lays out its scratch
+        scratch = torch.empty(n_stat + b * s * d, device="cuda")
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        strides = [x for t in (q, k, v, o, do, dk, dv) for x in t.stride()[:3]]
+
+        def run(fn):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + 4 * n_stat,
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, 1, s, s, d, *strides,
+                     d ** -0.5, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"CUDA error {err}")
+
+        rel = {}
+        for name, (fn, _) in built.items():
+            run(fn)
+            torch.cuda.synchronize()
+            rel[name] = max(((a.float() - w.float()).norm() / w.float().norm()).item()
+                            for a, w in zip((dq, dk, dv), want))
+            bad += not rel[name] <= 1e-2
+        row = {}
+        for name in [*built, *reversed(list(built))]:
+            row.setdefault(name, []).append(round(_time_ms(torch, lambda: run(built[name][0])), 4))
+        row["sdpa_backward"] = round(_sdpa_backward_ms(torch, q, k, v, do), 4)
+        print(f"K2 d256 b{b} h1 S={s} d={d}: rel L2 {rel}, ms {row}", flush=True)
+    print("d256:", "FAILED" if bad else "all ok")
+    return 1 if bad else 0
+
+
+PHASES = {"check": check, "time": timing, "variants": variants, "d256": d256}
 
 
 def main(argv: list[str]) -> int:

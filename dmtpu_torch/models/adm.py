@@ -186,7 +186,10 @@ class ResBlock(nn.Module):
 
     ``in_layers`` = (GroupNorm32, SiLU, conv), ``emb_layers`` = (SiLU,
     Linear), ``out_layers`` = (GroupNorm32, SiLU, Dropout, zero conv); each
-    GroupNorm+SiLU pair runs as one fused op.
+    GroupNorm+SiLU pair runs as one fused op.  The dropout is active under
+    ``train=True`` and off under ``train=False``, whatever the module's mode,
+    as the JAX module's ``deterministic=not train``; the ADM UNets pass it.
+    Without it (the SD UNet's calls) it follows the module's mode.
     """
 
     def __init__(self, channels: int, emb_channels: int, out_channels: Optional[int] = None,
@@ -221,7 +224,8 @@ class ResBlock(nn.Module):
             return F.avg_pool2d(z, 2)
         return z
 
-    def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emb: torch.Tensor, *, train: Optional[bool] = None
+                ) -> torch.Tensor:
         h = self.in_layers[0](x, silu=True)
         if self.up or self.down:
             h, x = self._updown(h), self._updown(x)
@@ -232,7 +236,8 @@ class ResBlock(nn.Module):
             h = F.silu(self.out_layers[0](h) * (1 + scale) + shift)
         else:
             h = self.out_layers[0](h + emb_out, silu=True)
-        h = self.out_layers[3](self.out_layers[2](h))
+        train = self.training if train is None else train
+        h = self.out_layers[3](F.dropout(h, self.out_layers[2].p, train))
         return self.skip_connection(x) + h
 
 
@@ -304,13 +309,15 @@ class TimestepEmbedSequential(nn.ModuleList):
     the embedding, layers with ``takes_context`` (SpatialTransformer) the
     context, the rest only the features.  ``remat`` recomputes the ResBlocks
     and the attention layers in the backward pass, the calls the JAX modules
-    wrap in ``remat_call``."""
+    wrap in ``remat_call``; ``train``, where given, reaches the ResBlocks'
+    dropout."""
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, context: Optional[torch.Tensor] = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, train: Optional[bool] = None) -> torch.Tensor:
+        kw = {} if train is None else {"train": train}
         for layer in self:
             if isinstance(layer, ResBlock):
-                x = remat_call(layer, x, emb) if remat else layer(x, emb)
+                x = remat_call(layer, x, emb, **kw) if remat else layer(x, emb, **kw)
             elif getattr(layer, "takes_context", False):
                 x = remat_call(layer, x, context) if remat else layer(x, context)
             elif isinstance(layer, AttentionBlock):
@@ -427,7 +434,8 @@ class UNetModel(nn.Module):
                                  _zeros_conv(ch, out_channels, 3, device=device))
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None, *, train: bool = False) -> torch.Tensor:
+        """``train`` turns the ResBlocks' dropout on (the JAX module's keyword)."""
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels))
         if self.num_classes is not None:
             if y is None:
@@ -435,11 +443,11 @@ class UNetModel(nn.Module):
             emb = emb + self.label_emb(y.long())
         h, hs, remat = x, [], self.use_checkpoint
         for block in self.input_blocks:
-            h = block(h, emb, None, remat)
+            h = block(h, emb, None, remat, train)
             hs.append(h)
-        h = self.middle_block(h, emb, None, remat)
+        h = self.middle_block(h, emb, None, remat, train)
         for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb, None, remat)
+            h = block(torch.cat([h, hs.pop()], dim=1), emb, None, remat, train)
         return self.out[2](self.out[0](h.to(x.dtype), silu=True))
 
 
@@ -511,15 +519,17 @@ class EncoderUNetModel(nn.Module):
         else:
             raise NotImplementedError(f"Unexpected {pool} pooling")
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, *,
+                train: bool = False) -> torch.Tensor:
+        """``train`` turns the ResBlocks' dropout on (the JAX module's keyword)."""
         emb = self.time_embed(timestep_embedding(timesteps, self.model_channels))
         spatial = self.pool.startswith("spatial")
         results, h, remat = [], x, self.use_checkpoint
         for block in self.input_blocks:
-            h = block(h, emb, None, remat)
+            h = block(h, emb, None, remat, train)
             if spatial:
                 results.append(h.to(x.dtype).mean(dim=(2, 3)))
-        h = self.middle_block(h, emb, None, remat)
+        h = self.middle_block(h, emb, None, remat, train)
         if spatial:
             results.append(h.to(x.dtype).mean(dim=(2, 3)))
             feats = self.out[0](torch.cat(results, dim=-1))
@@ -563,15 +573,15 @@ class UNetCombined(nn.Module):
         return merged
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+                y: Optional[torch.Tensor] = None, *, train: bool = False) -> torch.Tensor:
         if y is None:
-            return self.unet_uncond(x, timesteps)
-        return self.unet_cond(x, timesteps, y)
+            return self.unet_uncond(x, timesteps, train=train)
+        return self.unet_cond(x, timesteps, y, train=train)
 
-    def forward_cfg(self, x: torch.Tensor, timesteps: torch.Tensor,
-                    y: torch.Tensor) -> torch.Tensor:
+    def forward_cfg(self, x: torch.Tensor, timesteps: torch.Tensor, y: torch.Tensor, *,
+                    train: bool = False) -> torch.Tensor:
         """The first half of the batch conditional (labels ``y``), the second
         unconditional."""
         b = x.shape[0] // 2
-        return torch.cat([self.unet_cond(x[:b], timesteps[:b], y[:b]),
-                          self.unet_uncond(x[b:], timesteps[b:])], dim=0)
+        return torch.cat([self.unet_cond(x[:b], timesteps[:b], y[:b], train=train),
+                          self.unet_uncond(x[b:], timesteps[b:], train=train)], dim=0)

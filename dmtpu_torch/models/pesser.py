@@ -44,7 +44,7 @@ class _ResnetBlock(nn.Module):
         self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, device=device)
         self.temb_proj = nn.Linear(temb_channels, out_channels, device=device)
         self.norm2 = _norm(out_channels, device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, device=device)
         if in_channels != out_channels:
             if conv_shortcut:
@@ -53,10 +53,12 @@ class _ResnetBlock(nn.Module):
             else:
                 self.nin_shortcut = Conv2d(in_channels, out_channels, 1, device=device)
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, temb: torch.Tensor, *, train: bool = False
+                ) -> torch.Tensor:
+        """Dropout only under ``train=True``, whatever the module's mode."""
         h = self.conv1(self.norm1(x, silu=True))
         h = h + self.temb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(self.dropout(self.norm2(h, silu=True)))
+        h = self.conv2(F.dropout(self.norm2(h, silu=True), self.dropout, train))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         elif hasattr(self, "nin_shortcut"):
@@ -173,7 +175,8 @@ class PesserUNet(nn.Module):
         self.norm_out = _norm(block_in, device)
         self.conv_out = Conv2d(block_in, out_ch, 3, padding=1, device=device)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """``train`` turns the ResNet blocks' dropout on (the JAX module's keyword)."""
         if x.shape[2] != self.resolution or x.shape[3] != self.resolution:
             raise ValueError(f"PesserUNet({self.resolution}) got images of {tuple(x.shape[2:])}")
         temb = self.temb.dense[0](self.temb_pos(t))
@@ -181,16 +184,17 @@ class PesserUNet(nn.Module):
         hs = [self.conv_in(x)]
         for level in self.down:
             for j, block in enumerate(level.block):
-                h = block(hs[-1], temb)
+                h = block(hs[-1], temb, train=train)
                 if len(level.attn):
                     h = level.attn[j](h)
                 hs.append(h)
             if hasattr(level, "downsample"):
                 hs.append(level.downsample(hs[-1]))
-        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(hs[-1], temb)), temb)
+        h = self.mid.block_1(hs[-1], temb, train=train)
+        h = self.mid.block_2(self.mid.attn_1(h), temb, train=train)
         for level in reversed(self.up):
             for j, block in enumerate(level.block):
-                h = block(torch.cat([h, hs.pop()], dim=1), temb)
+                h = block(torch.cat([h, hs.pop()], dim=1), temb, train=train)
                 if len(level.attn):
                     h = level.attn[j](h)
             if hasattr(level, "upsample"):

@@ -36,7 +36,9 @@ from dmtpu_torch.models.modules import (
 class ResBlock(nn.Module):
     """GN-SiLU-conv twice with an additive time embedding.
     (reference: models/unet.py:10-43)  ``fused_gn`` is taken and changes
-    nothing: both settings run ``group_norm`` (K3)."""
+    nothing: both settings run ``group_norm`` (K3).  Dropout is active only
+    under ``train=True``, whatever the module's mode, as the JAX module's
+    ``deterministic=not train``."""
 
     def __init__(self, in_channels: int, out_channels: int, dropout: float = 0.1,
                  dtype: Any = None, fused_gn: bool = False, embed_dim: Optional[int] = None,
@@ -50,15 +52,16 @@ class ResBlock(nn.Module):
         if embed_dim is not None:
             self.proj = Dense(embed_dim, out_channels, **kw)
         self.norm2 = GroupNorm(32, out_channels, eps=1e-5, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         self.conv2 = Conv(out_channels, out_channels, 3, 1, 1, **kw)
 
-    def forward(self, x: torch.Tensor, time_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, time_embed: Optional[torch.Tensor] = None, *,
+                train: bool = False) -> torch.Tensor:
         shortcut = self.shortcut(x) if hasattr(self, "shortcut") else x
         h = self.conv1(self.norm1(x, silu=True))
         if time_embed is not None:
             h = h + self.proj(F.silu(time_embed))[:, :, None, None].to(h.dtype)
-        h = self.conv2(self.dropout(self.norm2(h, silu=True)))
+        h = self.conv2(F.dropout(self.norm2(h, silu=True), self.dropout, train))
         return h + shortcut
 
 
@@ -121,11 +124,12 @@ class UNet(nn.Module):
         self.last_norm = GroupNorm(32, ch, eps=1e-5, device=device)
         self.last_conv = Conv(ch, out_channels, 3, 1, 1, device=device)
 
-    def _block(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def _block(self, name: str, h: torch.Tensor, emb: torch.Tensor, train: bool) -> torch.Tensor:
         block = getattr(self, name)
-        return block(h, emb) if isinstance(block, ResBlock) else block(h)
+        return block(h, emb, train=train) if isinstance(block, ResBlock) else block(h)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+        """``train`` turns the ResBlocks' dropout on (the JAX module's keyword)."""
         emb = self.time_embed_1(self.time_pos(t))
         emb = self.time_embed_2(F.silu(emb))
         h = self.first_conv(x if self.dtype is None else x.to(self.dtype))
@@ -134,12 +138,13 @@ class UNet(nn.Module):
             if name is None:
                 skips.append(h)
             else:
-                h = self._block(name, h, emb)
-        h = self.mid_res_2(self.mid_attn(self.mid_res_1(h, emb)), emb)
+                h = self._block(name, h, emb, train)
+        h = self.mid_res_1(h, emb, train=train)
+        h = self.mid_res_2(self.mid_attn(h), emb, train=train)
         for name in self._up:
             if name is None:
                 h = torch.cat([h, skips.pop()], dim=1)
             else:
-                h = self._block(name, h, emb)
+                h = self._block(name, h, emb, train)
         h = self.last_norm(h.float(), silu=True)
         return self.last_conv(h)

@@ -38,7 +38,8 @@ from dmtpu_torch.models.modules import (
 
 
 class ResBlockAdaGN(nn.Module):
-    """(reference: models/unet_categorial_adagn.py:12-72)"""
+    """(reference: models/unet_categorial_adagn.py:12-72)  Dropout is active
+    only under ``train=True``, whatever the module's mode."""
 
     def __init__(self, in_channels: int, out_channels: int, embed_dim: int, dropout: float = 0.1,
                  up: bool = False, down: bool = False, dtype: Any = None, device: Any = None):
@@ -50,7 +51,7 @@ class ResBlockAdaGN(nn.Module):
         self.norm1 = GroupNorm(32, in_channels, eps=1e-5, device=device)
         self.conv1 = Conv(in_channels, out_channels, 3, 1, 1, **kw)
         self.adagn = AdaGN(32, out_channels, embed_dim, device=device)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
         self.conv2 = Conv(out_channels, out_channels, 3, 1, 1, **kw)
         if in_channels != out_channels:
             self.shortcut = Conv(in_channels, out_channels, 1, 1, 0, **kw)
@@ -60,12 +61,13 @@ class ResBlockAdaGN(nn.Module):
             return nearest_up(z)
         return F.avg_pool2d(z, 2) if self.down else z
 
-    def forward(self, x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, embed: torch.Tensor, *, train: bool = False
+                ) -> torch.Tensor:
         h = self.norm1(x, silu=True)
         if self.up or self.down:
             h, x = self._updown(h), self._updown(x)
         h = self.adagn(self.conv1(h), embed, silu=True)
-        h = self.conv2(self.dropout(h))
+        h = self.conv2(F.dropout(h, self.dropout, train))
         return h + (self.shortcut(x) if hasattr(self, "shortcut") else x)
 
 
@@ -151,12 +153,13 @@ class UNetCategorialAdaGN(nn.Module):
             state_dict[key] = torch.cat([table, table.new_zeros(1, table.shape[1])])
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
-    def _block(self, name: str, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def _block(self, name: str, h: torch.Tensor, emb: torch.Tensor, train: bool) -> torch.Tensor:
         block = getattr(self, name)
-        return block(h, emb) if isinstance(block, ResBlockAdaGN) else block(h)
+        return block(h, emb, train=train) if isinstance(block, ResBlockAdaGN) else block(h)
 
-    def forward(self, x: torch.Tensor, t: torch.Tensor,
-                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, t: torch.Tensor, y: Optional[torch.Tensor] = None, *,
+                train: bool = False) -> torch.Tensor:
+        """``train`` turns the ResBlocks' dropout on (the JAX module's keyword)."""
         emb = self.time_embed_2(F.silu(self.time_embed_1(self.time_pos(t))))
         if self.num_classes is not None and y is not None:
             emb = emb + self.class_embed(y.long())
@@ -166,11 +169,12 @@ class UNetCategorialAdaGN(nn.Module):
             if name is None:
                 skips.append(h)
             else:
-                h = self._block(name, h, emb)
-        h = self.mid_res_2(self.mid_attn(self.mid_res_1(h, emb)), emb)
+                h = self._block(name, h, emb, train)
+        h = self.mid_res_1(h, emb, train=train)
+        h = self.mid_res_2(self.mid_attn(h), emb, train=train)
         for name in self._up:
             if name is None:
                 h = torch.cat([h, skips.pop()], dim=1)
             else:
-                h = self._block(name, h, emb)
+                h = self._block(name, h, emb, train)
         return self.last_conv(self.last_norm(h.float(), silu=True))

@@ -3,9 +3,9 @@
 Counterpart of ``dmtpu/ops/flash_small_d.py`` (its ``_fwd`` and ``_bwd``
 paths and the ``custom_vjp`` that joins them).  Layout is [B, S, H, D] as
 in ``dmtpu.ops.attention``; unlike the TPU kernels these take S_q != S_k
-(cross-attention), head dims that are multiples of 8 up to 256 in the
-forward and 160 in the backward (zero-padded to 48, 80, 160 or 256 in shared
-memory) and ragged sequence lengths (masked).
+(cross-attention), head dims that are multiples of 8 up to 256 (zero-padded
+to 48, 80, 160 or 256 in shared memory) and ragged sequence lengths
+(masked).
 
 - ``flash_attention(q, k, v, scale) -> o``: the differentiable op
   (``FlashAttention``, a ``torch.autograd.Function``): its forward runs
@@ -18,13 +18,14 @@ memory) and ragged sequence lengths (masked).
   (mma.sync, everything else); ``select_kernel`` is the gate.
 - ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2).
   Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
-  TMA, head dims 40, 72 and 80; dQ's partial sums leave a CTA as whole f32 tiles
-  by ``cp.reduce.async.bulk``) and ``csrc/flash_attn_bwd_mma.cu`` (mma.sync,
-  dQ by scalar f32 atomics; everything else); ``select_bwd_kernel`` is the
-  gate.  Where several key tiles add to dq, neither gives a bitwise
-  reproducible dq: the f32 adds of different CTAs arrive in an order that
-  varies from run to run.  With one key tile (S_k <= 128) the wgmma kernel
-  writes dq itself, in bf16, and two runs agree bit for bit.
+  TMA, head dims 40, 64, 72 and 80; dQ's partial sums leave a CTA as whole f32
+  tiles by ``cp.reduce.async.bulk``) and ``csrc/flash_attn_bwd_mma.cu``
+  (mma.sync, dQ by scalar f32 atomics; everything else, up to 256);
+  ``select_bwd_kernel`` is the gate.  Where several key tiles add to dq,
+  neither gives a bitwise reproducible dq: the f32 adds of different CTAs
+  arrive in an order that varies from run to run.  With one key tile
+  (S_k <= 128) the wgmma kernel writes dq itself, in bf16, and two runs
+  agree bit for bit.
 - ``flash_attention_reference`` and ``flash_attention_backward_reference``:
   the plain PyTorch versions of the same math in f32 (P cast to V's dtype
   for PV and dV, dS cast to Q's dtype for dK and dQ, as the TPU kernels
@@ -34,8 +35,8 @@ Each wrapper launches its kernel on a CUDA tensor (bf16 only; anything else
 raises) and runs its plain version on a CPU tensor, so on the CPU the
 ``FlashAttention`` function is the plain forward and backward.  Each
 wrapper's ``launches`` counts kernel launches, and its ``launches_by_kernel``
-counts them by the kernel that ran (K1's ``launches_by_head_dim`` by head
-dim too); ``kernel=`` forces one.
+counts them by the kernel that ran and its ``launches_by_head_dim`` by head
+dim; ``kernel=`` forces one.
 """
 from __future__ import annotations
 
@@ -98,31 +99,29 @@ def _check_bshd(name: str, t: torch.Tensor) -> None:
                          f"strides {t.stride()}")
 
 
-# The widest head dim each kernel pair takes: K1's mma.sync kernel has an
-# instance at 256 (the pixel-space UNets' single head as wide as the
-# channels), K2's stops at 160.
+# The widest head dim the kernels take: K1's and K2's mma.sync kernels have
+# an instance at 256 (the pixel-space UNets' single head as wide as the
+# channels).
 MAX_HEAD_DIM = 256
-MAX_BWD_HEAD_DIM = 160
+# CelebA-HQ's UNet (configs/ddpm_celebahq.yaml) has one head of 512, which
+# neither kernel takes yet
+_WIDER = ("a wider head (CelebA-HQ's 512) waits for another design of K1 and K2 "
+          "(ROADMAP.md, \"Next, in order\": K1 and K2 at d=512)")
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backward: bool = False) -> None:
-    """Raises on what the kernels do not take (K2's when ``backward``).  It
-    runs before every launch, so it compares plain ints and builds its
+    """Raises on what the kernels do not take (naming K2 when ``backward``).
+    It runs before every launch, so it compares plain ints and builds its
     messages only on failure."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
     d = q.shape[3]
-    if backward and d > MAX_BWD_HEAD_DIM:
-        raise ValueError(
-            f"flash_attention_bwd: K2 takes head dims that are multiples of 8 up to "
-            f"{MAX_BWD_HEAD_DIM}, got {d}: a gradient through a wider head waits for the "
-            "pixel-space training slice (ROADMAP.md, Queue 1 item M's training half: K2 at "
-            "d=256)")
     if d & 7 or d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim must be a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+        name = "flash_attention_bwd: K2" if backward else "flash_attention: K1"
+        raise ValueError(f"{name} takes head dims that are multiples of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {d}" + (f": {_WIDER}" if d > MAX_HEAD_DIM else ""))
     device = q.get_device()
     if k.get_device() != device or v.get_device() != device:
         raise ValueError("flash_attention: q, k and v must be on one device")
@@ -227,7 +226,8 @@ flash_attention_fwd.launches_by_head_dim = collections.Counter()
 # tiles with cp.reduce.async.bulk) is instantiated for head dims 40 and 80
 # (SD1.5), 72 (DiT) and 64 (MMDiT) and reads q, k, v and dO through tensor maps (positive
 # strides); "mma" (csrc/flash_attn_bwd_mma.cu: mma.sync, 64-key tiles, dQ by
-# scalar f32 atomics) takes every head dim up to 160 and any strides.
+# scalar f32 atomics) takes every head dim up to 256 and any strides (the
+# pixel UNets' d=256 runs there).
 _BWD_ENTRY_POINTS = {"mma": "dmtpu_flash_attn_bwd_mma", "wgmma": "dmtpu_flash_attn_bwd"}
 WGMMA_BWD_HEAD_DIMS = (40, 64, 72, 80)
 # the wgmma kernel pads its f32 scratch to whole steps of rows
@@ -336,11 +336,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     _build.check(err, "flash_attention_bwd launch")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.launches_by_kernel[kernel] += 1
+    flash_attention_bwd.launches_by_head_dim[d] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_kernel = {"mma": 0, "wgmma": 0}
+flash_attention_bwd.launches_by_head_dim = collections.Counter()
 
 
 class FlashAttention(torch.autograd.Function):

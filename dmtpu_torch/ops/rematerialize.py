@@ -24,8 +24,8 @@ def normalize_use_checkpoint(use_checkpoint: Any) -> bool:
     return bool(use_checkpoint)
 
 
-def remat_call(module: torch.nn.Module, *args: Any) -> Any:
-    """``module(*args)``, recomputed in the backward pass instead of keeping
-    its intermediates (non-reentrant ``torch.utils.checkpoint``, which also
-    replays the RNG state, so dropout draws the same mask)."""
-    return checkpoint(module, *args, use_reentrant=False)
+def remat_call(module: torch.nn.Module, *args: Any, **kwargs: Any) -> Any:
+    """``module(*args, **kwargs)``, recomputed in the backward pass instead of
+    keeping its intermediates (non-reentrant ``torch.utils.checkpoint``, which
+    also replays the RNG state, so dropout draws the same mask)."""
+    return checkpoint(module, *args, use_reentrant=False, **kwargs)

@@ -14,7 +14,8 @@ key out of the step's key) and gives back to the caller as it found it.
 
 A loss function is ``loss_fn(batch, generator) -> scalar loss``; the
 diffusion loss draws, in this order, the timesteps, the noise and the
-label-dropout mask from the generator.
+label-dropout mask from the generator, then hands it to the diffuser's
+``loss_func`` for any draw of its own (DDPM_IP's perturbation).
 """
 from __future__ import annotations
 
@@ -157,7 +158,10 @@ def make_diffusion_loss_fn(diffuser, model: Callable[..., torch.Tensor], total_s
     ``batch`` is a dict (``"image"`` and model kwargs), an (image, label)
     pair, or an image tensor.  ``p_uncond`` / ``null_label`` drop each
     sample's label with probability ``p_uncond`` (classifier-free guidance
-    training; reference: scripts/train_ddpm_cfg.py:180-181).
+    training; reference: scripts/train_ddpm_cfg.py:180-181).  The step's
+    generator goes on to ``diffuser.loss_func``, which draws from it what
+    else it needs (DDPM_IP's ``perturb_eps``, after t, eps and the mask);
+    DDPM, DDPMCFG and flow matching draw nothing there.
     """
 
     def loss_fn(batch: Any, generator: torch.Generator) -> torch.Tensor:
@@ -177,6 +181,7 @@ def make_diffusion_loss_fn(diffuser, model: Callable[..., torch.Tensor], total_s
             y = model_kwargs[cond_key]
             drop = drop.reshape((b,) + (1,) * (y.dim() - 1))
             model_kwargs[cond_key] = torch.where(drop, torch.full_like(y, null_label), y)
-        return diffuser.loss_func(model, x0, t, eps=eps, model_kwargs=model_kwargs)
+        return diffuser.loss_func(model, x0, t, eps=eps, generator=generator,
+                                  model_kwargs=model_kwargs)
 
     return loss_fn

@@ -56,8 +56,9 @@ def base_parser(description: Optional[str] = None) -> argparse.ArgumentParser:
     return p
 
 
-def train_parser(doc: str) -> argparse.ArgumentParser:
-    """The flags every training CLI takes: ``-c -e -r -ni`` and ``--device``."""
+def train_parser(doc: str, profile: bool = False) -> argparse.ArgumentParser:
+    """The flags every training CLI takes: ``-c -e -r -ni`` and ``--device``;
+    with ``profile``, ``--profile DIR`` too."""
     p = argparse.ArgumentParser(description=doc.splitlines()[0])
     p.add_argument("-c", "--config", type=str, required=True)
     p.add_argument("-e", "--exp_dir", type=str)
@@ -66,7 +67,37 @@ def train_parser(doc: str) -> argparse.ArgumentParser:
     p.add_argument("-ni", "--no_interaction", action="store_true", default=False)
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; fails without a card) or cpu")
+    if profile:
+        first, last = PROFILE_STEPS
+        p.add_argument("--profile", type=str, default=None,
+                       help=f"write a torch.profiler trace of the run's steps {first}-{last} "
+                            "into this directory")
     return p
+
+
+# the steps of a run (counted from its first, resumed or not) that a
+# ``--profile`` trace covers, first and last
+PROFILE_STEPS = (10, 15)
+
+
+def start_trace(directory: str, device: torch.device) -> torch.profiler.profile:
+    """A running ``torch.profiler`` trace of the host and, on a card, the
+    device, written into ``directory`` as a TensorBoard trace file when it
+    stops."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=activities, on_trace_ready=torch.profiler.tensorboard_trace_handler(directory))
+    prof.start()
+    return prof
+
+
+def stop_trace(prof: torch.profiler.profile, device: torch.device) -> None:
+    """Waits for the card's queued work, then stops and writes the trace."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
 
 
 def parse_overrides(unknown: Sequence[str]) -> List[str]:
@@ -100,8 +131,8 @@ def to_device(images: np.ndarray, device: torch.device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class TrainRun:
-    """One run of a training CLI (``train_sd``, ``train_ddpm_cfg``,
-    ``train_mmdit``): its flags, device, config, experiment directory,
+    """One run of a training CLI (``train_sd``, ``train_ddpm``,
+    ``train_ddpm_cfg``, ``train_mmdit``): its flags, device, config, experiment directory,
     logger and status tracker, and the parts of the reference's train
     scripts that do not depend on the model: the loader, the resume and the
     loop."""
@@ -114,12 +145,14 @@ class TrainRun:
     tracker: StatusTracker
 
     @classmethod
-    def open(cls, argv: Optional[Sequence[str]], doc: str, cli: str) -> "TrainRun":
-        """Parse ``argv`` (``train_parser``'s flags and ``key=value``
-        overrides), resolve the device (``cuda`` without a card exits before
-        anything is written) and create the experiment directory with the
-        run's config, its log file and tensorboard tracker."""
-        args, unknown = train_parser(doc).parse_known_args(argv)
+    def open(cls, argv: Optional[Sequence[str]], doc: str, cli: str,
+             profile: bool = False) -> "TrainRun":
+        """Parse ``argv`` (``train_parser``'s flags, ``--profile`` with
+        ``profile``, and ``key=value`` overrides), resolve the device
+        (``cuda`` without a card exits before anything is written) and
+        create the experiment directory with the run's config, its log file
+        and tensorboard tracker."""
+        args, unknown = train_parser(doc, profile).parse_known_args(argv)
         overrides = parse_overrides(unknown)
         try:
             device = resolve_device(args.device, cli=cli)
@@ -182,14 +215,16 @@ class TrainRun:
         on the device until a print, save or sample boundary or the last
         step; every ``save_freq`` steps, and at the end, a checkpoint; every
         ``sample_freq`` steps ``sample(<exp_dir>/samples/stepNNNNNN.png,
-        generator)``.  Returns what the run measured: the steps' host times
-        between ticks (``step_seconds``, from the second step of the run on),
-        the seconds of each save, the logged losses and the experiment
-        directory (``load_seconds`` is the caller's)."""
+        generator)``; with ``--profile DIR``, a trace of the run's steps
+        ``PROFILE_STEPS`` into DIR.  Returns what the run measured: the
+        steps' host times between ticks (``step_seconds``, from the second
+        step of the run on), the seconds of each save, the logged losses and
+        the experiment directory (``load_seconds`` is the caller's)."""
         train = self.conf.train
         lr_at = lr_fn(train.optim)
         result: Dict[str, Any] = {"exp_dir": self.exp_dir, "save_seconds": [], "losses": []}
-        step = state.step
+        step = run_start = state.step
+        profile_dir, tracer = getattr(self.args, "profile", None), None
 
         def save_ckpt() -> None:
             t0 = time.perf_counter()
@@ -202,8 +237,14 @@ class TrainRun:
         pending = []
         try:
             while step < train.n_steps:
+                if profile_dir and step - run_start == PROFILE_STEPS[0]:
+                    tracer = start_trace(profile_dir, self.device)
                 metrics = train_step(state, to_batch(next(gen)))
                 timer.tick()
+                if tracer is not None and step - run_start == PROFILE_STEPS[1]:
+                    stop_trace(tracer, self.device)
+                    tracer = None
+                    self.logger.info(f"Wrote profiler trace to {profile_dir}")
                 # the throughput is read at tick time, so each logged step
                 # keeps its own reading; the metrics stay on the device until
                 # a print
@@ -225,6 +266,9 @@ class TrainRun:
                 step += 1
         finally:
             gen.close()  # stops the loader's threads
+            if tracer is not None:  # the run ended inside the window
+                stop_trace(tracer, self.device)
+                self.logger.info(f"Wrote profiler trace to {profile_dir}")
         if not check_freq(train.save_freq, step - 1):
             step -= 1
             save_ckpt()

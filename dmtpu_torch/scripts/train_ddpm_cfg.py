@@ -4,8 +4,9 @@
         [-r best|latest|PATH] [-ni] [--device cuda|cpu] [key.sub=value ...]
 
 Counterpart of ``scripts/train_ddpm_cfg.py``.  A class-conditional model
-``(x, t, y)`` of the config (DiT, MDTv2) trains on labelled images from the
-config's dataset: each step draws t, eps and a label-dropout mask from the
+``(x, t, y)`` of the config (DiT, MDTv2 on latents; the pixel-space
+``UNetCategorialAdaGN`` and the class-conditional ADM UNets) trains on
+labelled images from the config's dataset: each step draws t, eps and a label-dropout mask from the
 step's generator, replaces each dropped label by the null class
 ``data.num_classes`` (probability ``train.p_uncond``) and takes the
 diffusion loss (``make_diffusion_loss_fn``); ``make_train_step`` averages
@@ -28,9 +29,7 @@ error.  The metrics stay on the device and are read at the print, save and
 sample boundaries and at the last step.
 
 Not ported: data-parallel and sharded training (one card) and learning-rate
-schedules given as configs.  The pixel-space UNets (``UNetCategorialAdaGN``,
-``UNet``, ADM) sample in the port but are refused here on purpose: their
-training is ROADMAP.md, Queue 1 item M's training half.
+schedules given as configs.
 """
 from __future__ import annotations
 
@@ -43,25 +42,14 @@ from torch import nn
 from dmtpu_torch.diffusions import DDPMCFG
 from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
 from dmtpu_torch.scripts._common import TrainRun, seeded_instance, to_device
-from dmtpu_torch.models.adm import UNetCombined, UNetModel
-from dmtpu_torch.models.unet import UNet
-from dmtpu_torch.models.unet_categorial_adagn import UNetCategorialAdaGN
-from dmtpu_torch.utils.config import instantiate_from_config, resolve_target
+from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image_grid
 
 
 def build_model(conf: Mapping, device: torch.device, seed: int) -> nn.Module:
     """The model of ``conf.model`` on ``device``, its parameters drawn by the
     modules' own initialisation from the device's generator seeded with
-    ``seed`` (the caller's generator state is left as it was).  The
-    pixel-space UNets are refused: their training waits for item M's
-    training half (its attention at head dim 256 has no backward kernel yet)."""
-    cls = resolve_target(conf["model"]["target"])
-    if cls in (UNet, UNetCategorialAdaGN, UNetModel, UNetCombined):
-        raise NotImplementedError(
-            f"train_ddpm_cfg does not train the pixel-space UNets ({cls.__name__}) yet: their "
-            "training is ROADMAP.md, Queue 1 item M's training half (train_ddpm, DDPM_IP, K2 "
-            "at d=256); it trains the ported class-conditional latent models (DiT, MDTv2)")
+    ``seed`` (the caller's generator state is left as it was)."""
     return seeded_instance(conf["model"], device, seed)
 
 

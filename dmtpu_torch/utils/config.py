@@ -161,6 +161,7 @@ _PORTED = {
     "dmtpu.diffusions.ddpm.DDPM", "dmtpu.diffusions.ddpm.DDPMCFG",
     "dmtpu.diffusions.ddim.DDIM", "dmtpu.diffusions.ddim.DDIMCFG",
     "dmtpu.diffusions.DDPM", "dmtpu.diffusions.DDPMCFG",
+    "dmtpu.diffusions.ddpm_ip.DDPM_IP", "dmtpu.diffusions.DDPM_IP",
     "dmtpu.diffusions.DDIM", "dmtpu.diffusions.DDIMCFG",
     "dmtpu.diffusions.dpm_solver.DPMSolverPP", "dmtpu.diffusions.dpm_solver.DPMSolverPPCFG",
     "dmtpu.diffusions.pfdiff.PFDiffDDIM", "dmtpu.diffusions.pfdiff.PFDiffDDIMCFG",

@@ -77,6 +77,9 @@ TARGETS = [
     ("dmtpu.data.captioned.SyntheticEmbedded", captioned.SyntheticEmbedded),
     ("models.dit.autoencoder.AutoEncoderKL", PretrainedVAE),
     ("models.mdt.autoencoder.AutoEncoderKL", PretrainedVAE),
+    ("diffusions.ddpm_ip.DDPM_IP", td.DDPM_IP),
+    ("dmtpu.diffusions.ddpm_ip.DDPM_IP", td.DDPM_IP),
+    ("dmtpu.diffusions.DDPM_IP", td.DDPM_IP),
     ("diffusions.euler.EulerSampler", td.EulerSampler),
     ("diffusions.heun.HeunSampler", td.HeunSampler),
     ("models.unet.UNet", tunet.UNet),
@@ -101,7 +104,7 @@ def test_reference_table_is_the_jax_package_s():
 
 @pytest.mark.parametrize("target", [
     "diffusions.guidance.ilvr.ILVR", "diffusions.guidance.clip_guidance.CLIPGuidance",
-    "dmtpu.diffusions.ddpm_ip.DDPM_IP", "diffusions.ddpm_ip.DDPM_IP", "dmtpu.anything",
+    "dmtpu.diffusions.guidance.ilvr.ILVR", "dmtpu.anything",
 ])
 def test_unported_target_is_named(target):
     with pytest.raises(NotImplementedError, match="no counterpart in dmtpu_torch") as e:

@@ -170,7 +170,10 @@ def _qkv_do(cuda, seed, b, sq, sk, h, d):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,sq,sk,h,d", [
-    (2, 1024, 1024, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 77, 8, 160), (1, 100, 333, 3, 64)])
+    (2, 1024, 1024, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 77, 8, 160), (1, 100, 333, 3, 64),
+    # the pixel UNets' one head of 256 (S = 256 at 16x16, 16 in the middle),
+    # a ragged length and a padded head dim
+    (8, 256, 256, 1, 256), (16, 16, 16, 1, 256), (8, 200, 200, 1, 256), (8, 256, 256, 1, 248)])
 def test_k2_kernel_matches_reference_and_mha(cuda, b, sq, sk, h, d):
     q, k, v, do = _qkv_do(cuda, 4, b, sq, sk, h, d)
     o, lse = flash_attention_fwd(q, k, v)
@@ -243,22 +246,40 @@ def test_k2_kernel_rejects_unsupported_inputs(cuda):
         flash_attention_bwd(q.float(), q.float(), q.float(), q, lse, q)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, q, q, q, lse[..., :32], q)
-    q = torch.zeros(1, 64, 1, 192, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 160"):
+    q = torch.zeros(1, 64, 1, 264, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 256"):
         flash_attention_bwd(q, q, q, q, lse, q)
 
 
 @pytest.mark.gpu
-def test_a_gradient_through_head_dim_256_is_refused_naming_the_training_slice(cuda):
-    """K1 takes d=256 (the pixel UNets' one head); K2 does not yet, and the
-    backward raises rather than falling back to the plain version."""
-    q = torch.randn(2, 16, 1, 256, device=cuda).bfloat16().requires_grad_()
-    o = attention(q, q, q)
-    assert torch.isfinite(o).all()
-    before = flash_attention_bwd.launches
-    with pytest.raises(ValueError, match="item M's training half"):
-        o.float().sum().backward()
-    assert flash_attention_bwd.launches == before
+def test_a_gradient_through_head_dim_256_goes_through_k2(cuda):
+    """The pixel UNets' one head of 256: K1 forward, K2's mma.sync instance
+    backward, against plain autograd on the same bf16 values."""
+    q, k, v, do = _qkv_do(cuda, 19, 2, 256, 256, 1, 256)
+    before = flash_attention_bwd.launches_by_head_dim[256], flash_attention_bwd.launches
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    attention(*leaves).backward(do)
+    assert (flash_attention_bwd.launches_by_head_dim[256], flash_attention_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert select_bwd_kernel(256, 256, 256) == "mma" and k2_kernels_for(256) == ["mma"]
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    with plain_ops():
+        attention(*plain).backward(do)
+    assert_grads_close([x.grad for x in leaves], [x.grad for x in plain], 3e-2)
+
+
+@pytest.mark.gpu
+def test_a_head_dim_of_512_is_refused_naming_the_next_kernel_item(cuda):
+    """CelebA-HQ's one head of 512 is past both kernels: each raises, naming
+    the ROADMAP item, and nothing falls back to the plain version."""
+    q = torch.zeros(1, 16, 1, 512, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 16, device=cuda)
+    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="Next, in order.*K1 and K2 at d=512"):
+        attention(q, q, q)
+    with pytest.raises(ValueError, match="K2 takes head dims .* up to 256.*K1 and K2 at d=512"):
+        flash_attention_bwd(q, q, q, q, lse, q)
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == before
 
 
 # ---- K1: the wgmma kernel and the dispatch between the two kernels ----------
@@ -415,7 +436,7 @@ def test_k2_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, sq,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [40, 64, 72, 80, 160])
+@pytest.mark.parametrize("d", [40, 64, 72, 80, 160, 256])
 @pytest.mark.parametrize("sq,sk", [(333, 77), (77, 333), (200, 333), (129, 129), (1, 130)])
 def test_k2_ragged_lengths_at_every_head_dim(cuda, sq, sk, d):
     """Lengths that are no multiple of a tile, through every kernel that takes

@@ -33,7 +33,8 @@ def test_the_port_has_its_new_modules():
                  "dmtpu_torch/models/sdxl.py", "dmtpu_torch/ui/sdxl.py",
                  "dmtpu_torch/models/modules.py", "dmtpu_torch/models/unet.py",
                  "dmtpu_torch/models/unet_categorial_adagn.py", "dmtpu_torch/diffusions/euler.py",
-                 "dmtpu_torch/diffusions/heun.py", "dmtpu_torch/scripts/sample_uncond.py"):
+                 "dmtpu_torch/diffusions/heun.py", "dmtpu_torch/scripts/sample_uncond.py",
+                 "dmtpu_torch/diffusions/ddpm_ip.py", "dmtpu_torch/scripts/train_ddpm.py"):
         assert name in SOURCES
 
 

@@ -270,18 +270,21 @@ def test_micro_batches_average_loss_and_grads():
 
 def test_diffusion_loss_draws_t_eps_and_label_mask_in_order():
     """One generator per step, seeded from (seed, step); the loss draws t,
-    then eps, then the label-dropout mask from it."""
+    then eps, then the label-dropout mask from it, and hands it on to the
+    diffuser's ``loss_func`` (DDPM_IP draws its perturbation there)."""
     seen = {}
 
     class Recorder:
-        def loss_func(self, model, x0, t, eps=None, model_kwargs=None):
-            seen.update(t=t, eps=eps, y=model_kwargs["y"])
+        def loss_func(self, model, x0, t, eps=None, generator=None, model_kwargs=None):
+            seen.update(t=t, eps=eps, y=model_kwargs["y"], generator=generator)
             return torch.zeros(())
 
     loss_fn = make_diffusion_loss_fn(Recorder(), None, total_steps=1000, p_uncond=0.5,
                                      null_label=10)
     x0, y = torch.zeros(64, 3, 2, 2), torch.arange(64) % 10
-    loss_fn((x0, y), step_generator(7, 3, torch.device("cpu")))
+    handed = step_generator(7, 3, torch.device("cpu"))
+    loss_fn((x0, y), handed)
+    assert seen["generator"] is handed
     g = step_generator(7, 3, torch.device("cpu"))
     t_want = torch.randint(0, 1000, (64,), generator=g)
     eps_want = torch.randn(x0.shape, generator=g)

@@ -3,8 +3,12 @@
 - The CLI end to end on the CPU from a tiny DiT config (depth 2, hidden 64,
   4 heads, ``Synthetic`` 8x8x4 latents of 5 classes): train, save, sample,
   log, resume; the same for MDTv2; without ``--device cpu`` and without a
-  card it refuses to run; a stray non-``key=value`` token raises; the pixel
-  UNets (not ported) name their queue item.
+  card it refuses to run; a stray non-``key=value`` token raises.
+- The pixel-space ``UNetCategorialAdaGN`` (dim 32, 8x8x3 images of 5
+  classes) trains through the CLI, and its loss at fixed t, eps and labels
+  (one of them the null class) is the JAX CLI's: ``DDPMCFG.loss_func`` over
+  the model called with ``train=True`` (dropout 0), on the same params
+  through the bridge, to 1e-5 relative (f32 sums in other orders).
 - ``train.micro_batch`` reaches the train step as its number of splits.
 - The sample grid is the file the JAX package's ``save_image_grid`` writes
   for the same 4-channel array: an RGBA PNG, one row a class.
@@ -18,6 +22,7 @@
 import glob
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,16 +30,20 @@ import yaml
 from PIL import Image
 
 from dmtpu.diffusions import DDPMCFG as JaxDDPMCFG
+from dmtpu.models.unet_categorial_adagn import UNetCategorialAdaGN as JaxAdaGN
 from dmtpu.utils.image import save_image_grid as jax_save_image_grid
-from dmtpu_torch.diffusions import DDPM
+from dmtpu_torch.convert import load_flax_params
+from dmtpu_torch.diffusions import DDPM, DDPMCFG
 from dmtpu_torch.models.dit import DiT
 from dmtpu_torch.models.mdt import MDTv2
+from dmtpu_torch.models.unet_categorial_adagn import UNetCategorialAdaGN
 from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
 from dmtpu_torch.scripts import train_ddpm_cfg
 from dmtpu_torch.utils import checkpoint as ckpt_lib
 from dmtpu_torch.utils import optim
 from dmtpu_torch.utils.config import Config
 from dmtpu_torch.utils.image import save_image_grid
+from tests._torch_helpers import jax_random_params, nhwc, t
 
 CLASSES, SIZE = 5, 8
 DIT = {"target": "models.dit.model.DiT",
@@ -43,6 +52,10 @@ DIT = {"target": "models.dit.model.DiT",
 MDT = {"target": "models.mdt.model.MDTv2",
        "params": dict(input_size=SIZE, patch_size=2, in_channels=4, hidden_size=32, depth=6,
                       num_heads=4, num_classes=CLASSES, decode_layer=2, learn_sigma=False)}
+ADAGN = {"target": "models.unet_categorial_adagn.UNetCategorialAdaGN",
+         "params": dict(in_channels=3, out_channels=3, dim=32, dim_mults=[1, 2],
+                        use_attn=[False, True], num_res_blocks=1, num_classes=CLASSES,
+                        attn_head_dims=32, dropout=0.1)}
 
 
 def _conf(model=DIT, **train):
@@ -158,10 +171,45 @@ def test_build_model_is_seeded_and_names_the_unported_models():
     assert torch.equal(torch.random.get_rng_state(), state)  # the caller's stream is kept
     assert isinstance(train_ddpm_cfg.build_model(Config(_conf(MDT)), torch.device("cpu"), 5),
                       MDTv2)
-    pixel = Config(_conf({"target": "models.unet_categorial_adagn.UNetCategorialAdaGN",
-                          "params": {}}))
-    with pytest.raises(NotImplementedError, match="item M"):
-        train_ddpm_cfg.build_model(pixel, torch.device("cpu"), 5)
+    # the pixel-space UNets are built as well (refused before they trained)
+    assert isinstance(train_ddpm_cfg.build_model(Config(_conf(ADAGN)), torch.device("cpu"), 5),
+                      UNetCategorialAdaGN)
+
+
+def _pixel_conf(**train) -> dict:
+    conf = _conf(ADAGN, **train)
+    conf["data"]["params"]["channels"] = conf["data"]["img_channels"] = 3
+    return conf
+
+
+def test_the_adagn_target_trains_and_its_loss_is_the_jax_cli_s(tmp_path):
+    cfg = _write(tmp_path / "adagn.yaml", _pixel_conf(n_steps=2, save_freq=5, sample_freq=2,
+                                                      n_samples_each_class=1, ema_dtype=None))
+    exp = str(tmp_path / "exp")
+    got = train_ddpm_cfg.main(["-c", cfg, "-e", exp, "-ni", "--device", "cpu"])
+    assert len(got["losses"]) == 2 and np.isfinite(got["losses"]).all()
+    assert os.listdir(os.path.join(exp, "ckpt")) == ["step000001"]
+    with Image.open(os.path.join(exp, "samples", "step000001.png")) as im:
+        assert im.mode == "RGB" and im.size == (SIZE + 4, CLASSES * (SIZE + 2) + 2)
+
+    conf = Config(_pixel_conf())
+    conf.model.params.dropout = 0.0
+    model = train_ddpm_cfg.build_model(conf, torch.device("cpu"), 5)
+    jmod = JaxAdaGN(**conf.model.params.to_dict())
+    zeros = jnp.zeros((1,), jnp.int32)
+    params = jax_random_params(jmod, jnp.zeros((1, SIZE, SIZE, 3)), zeros, zeros, seed=6)
+    load_flax_params(model, params)
+    rs = np.random.RandomState(7)
+    x0, eps = rs.randn(2, 4, 3, SIZE, SIZE).astype(np.float32)
+    ts, y = np.array([3, 25, 61, 99]), np.array([1, CLASSES, 4, CLASSES])
+    kw = conf.diffusion.params.to_dict()
+    want = JaxDDPMCFG(guidance_scale=1.0, **kw).loss_func(
+        lambda xt, tt, y: jmod.apply(params, xt, tt, y, train=True), jnp.asarray(nhwc(x0)),
+        jnp.asarray(ts), eps=jnp.asarray(nhwc(eps)), model_kwargs={"y": jnp.asarray(y)})
+    loss = DDPMCFG(guidance_scale=1.0, **kw).loss_func(
+        lambda xt, tt, y: model(xt, tt, y, train=True), t(x0), t(ts), eps=t(eps),
+        model_kwargs={"y": t(y)})
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
 
 
 def test_grid_is_the_jax_package_s_file(tmp_path):
