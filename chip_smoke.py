@@ -24,8 +24,11 @@ dmtpu_torch.scripts.train_mmdit`` (phase 14), and SDXL-base text to image at
 UNet, with DDIM inversion) and the AdaGN UNet through ``sample_cfg`` (phase
 16), and pixel-space DDPM training: the CIFAR-10 UNet's train step at the
 config's batch of 128, ``python -m dmtpu_torch.scripts.train_ddpm`` (DDPM and
-DDPM_IP) and the AdaGN UNet through ``train_ddpm_cfg`` (phase 17); for the SD
-paths the
+DDPM_IP) and the AdaGN UNet through ``train_ddpm_cfg`` (phase 17), and
+guidance and image editing through ``python -m dmtpu_torch.scripts.sample_sdedit``,
+``sample_mask_guidance`` (with RePaint), ``sample_ilvr``, ``sample_ddib`` and
+``sample_clip_guidance`` on ``configs/ddpm_celebahq.yaml``'s UNet and ADM-256
+(phase 18); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -295,8 +298,9 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      forward's operations counted on its shapes (``forward_flops``);
  16. pixel-space sampling through ``python -m dmtpu_torch.scripts.sample_uncond``
      (``sample_fold``, ``build_diffuser`` and ``main``) and ``sample_cfg``:
-     (a) attention through a head of 512 raises, naming ROADMAP's K1 and K2
-     at d=512 (both stop at 256); (b) ADM-256 (``ADM256_CONF``:
+     (a) a gradient through a head of 512 raises, naming ROADMAP's K2 at
+     d=512 (K2 stops at 256; K1 takes 512 since phase 18's slice); (b)
+     ADM-256 (``ADM256_CONF``:
      guided-diffusion's ``256x256_diffusion_uncond`` flags through the
      registry, 552.8M parameters, bf16 torso, learned sigma): a b2 forward
      through the kernels and through the plain ops against an f32 plain run
@@ -346,7 +350,34 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      ``train_ddpm_cfg.main`` on ``configs/ddpm_cfg_cifar10.yaml``'s
      UNetCategorialAdaGN at b128 for 3 steps: launches exactly, K2 at d=64
      through wgmma (10 a step) and at d=256 through mma.sync (1); the
-     directory is removed.
+     directory is removed;
+ 18. guidance and image editing on the pixel models, through the CLIs
+     ``sample_sdedit``, ``sample_mask_guidance``, ``sample_clip_guidance``
+     (``main`` in this process) and the request functions of ``sample_ilvr``
+     and ``sample_ddib``, on ``EDIT_IMAGES`` seeded smooth 256x256 PNGs in a
+     temporary ``ImageDir``: (a) K1 at head dim 512 (its mma.sync instance in
+     ``csrc/flash_attn_fwd_mma_d512.cu``) at b16 h1 S=256 and S=64 (CelebA-HQ's
+     shapes), a ragged b4 S=200 and a padded d=504, checked and timed as in 2
+     beside the bound, SDPA (its backend named) and the host's time; (b)
+     ``configs/ddpm_celebahq.yaml``'s UNet (113.7M, bf16 torso, one head of
+     512): the b2 agreement as in 16, 5 attention calls at S=256 and 1 at
+     S=64 a call, the timed b16 DDIM-50 request at
+     256x256 (images per second, peak, launches exactly 50 x a call's, every
+     K1 at d=512), one call timed and profiled; (c) ``sample_sdedit.main``:
+     DDPM respaced to 100, ``--edit_steps 50``, exactly 50 UNet calls; (d)
+     ``sample_mask_guidance.main`` (center masks, DDPM-50), then
+     ``inpaint_batch`` with and without RePaint (DDPM-25, r 2, j 5): the known
+     region equals the input within 1e-6, launches exactly; (g) CLIP guidance
+     (ViT-B/32 widths, seeded weights, a character-level tokenizer the phase
+     writes; DDPM-50, weight 100): ``main``, one ``cond_fn_mean`` on the card
+     against the CPU in f32 (1e-4), a guided and an unguided b8 request from
+     the same noise (the output moves; CLIP's share of a step); (e) ILVR on
+     ADM-256 at b8 (DDPM-100, factor 8, cubic): the card's low-pass against
+     float64 numpy (1e-5), ``|phi(out) - phi(ref)| / |phi(ref)|`` against an
+     unguided sample's; (f) DDIB on the class-conditional ADM-256 (1000
+     classes): the b2 agreement over 5 + 5 DDIM steps, then DDIM-50
+     inversion under one class and sampling under another at b8 (99 UNet
+     calls, launches exactly); the directory is removed.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -371,8 +402,11 @@ also over the 6 of one CIFAR UNet b128 train step, ``cifar_train_b128``), a
 fourth entry for K1's mma.sync instance at head dim 256 (its launches in the
 CIFAR UNet's DDIM-50 request, its columns over the 6 calls of one call
 there), a fifth for K2's mma.sync instance at head dim 256 (its launches in
-the 10 timed b128 train steps, its columns over the 6 calls of one step),
-the seconds of each phase, and the card's name and power limit.  The last line is
+the 10 timed b128 train steps, its columns over the 6 calls of one step), a
+sixth for K1's mma.sync instance at head dim 512 (its launches in the
+CelebA-HQ UNet's DDIM-50 request at b16, its columns over the 6 calls of one
+call there; K1's first entry also sums one such call, ``celebahq_b16``), the
+seconds of each phase, and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
 """
@@ -688,6 +722,27 @@ K2_D256_ROWS = [(128, 256, 256), (128, 16, 256), (8, 200, 256), (8, 256, 248)]
 # and its GroupNorms a call (read off its module tree in phase 16)
 CIFAR_TRAIN_ATTN = {(256, 256): 5, (16, 256): 1}
 ADAGN_ATTN, ADAGN_GN_PER_CALL = {64: 10, 256: 1}, 68
+
+# phase 18: guidance and image editing.  configs/ddpm_celebahq.yaml's UNet
+# (113.7M; one head of 512 at 16x16 and in the middle: K1 at d=512) with a bf16
+# torso: DDIM-50 at b16 through sample_uncond, SDEdit (DDPM-100, the last 50
+# rows), mask guidance (DDPM-50) and RePaint (DDPM-25, r 2, j 5), CLIP guidance
+# (ViT-B/32 widths, seeded weights; DDPM-50, weight 100); ADM-256 (ADM256_CONF)
+# for ILVR (DDPM-100, factor 8, cubic) and, with guided-diffusion's 1000
+# classes, for DDIB (DDIM-50 inversion, then DDIM-50 sampling); EDIT_IMAGES
+# seeded 256x256 PNGs in a temporary ImageDir, batches of EDIT_B
+CELEBAHQ_CONFIG, CELEBAHQ_PARAMS = "configs/ddpm_celebahq.yaml", 113_673_219
+CELEBAHQ_ATTN = {(1, 256, 256, 512): 5, (1, 64, 64, 512): 1}  # (h, S_q, S_k, d): calls a call
+CELEBAHQ_B, CELEBAHQ_STEPS = 16, 50
+# K1 at d=512: (b, S, d, calls in a b16 CelebA-HQ call): its two shapes, a
+# ragged length and a padded head dim
+K1_D512_ROWS = [(16, 256, 512, 5), (16, 64, 512, 1), (4, 200, 512, 0), (4, 256, 504, 0)]
+EDIT_IMAGES = EDIT_B = 8
+SDEDIT_RESPACE, SDEDIT_STEPS = 100, 50
+MASK_RESPACE, REPAINT_RESPACE, REPAINT_R, REPAINT_J = 50, 25, 2, 5
+CLIP_RESPACE, CLIP_WEIGHT, CLIP_TEXT = 50, 100.0, "a smiling face"
+ILVR_RESPACE, ILVR_FACTOR = 100, 8
+DDIB_STEPS, DDIB_CHECK_STEPS, DDIB_CLASSES = 50, 5, (207, 360)
 
 
 def log(*args):
@@ -1220,6 +1275,11 @@ def main() -> int:
     # ---- 17. pixel-space training through train_ddpm and train_ddpm_cfg ----------------
     torch.cuda.empty_cache()
     pixel_train = run_phase("17", phase_pixel_train, dev, check, gen, card, time_ms, host_us)
+
+    # ---- 18. guidance and editing: SDEdit, mask guidance, ILVR, DDIB, CLIP guidance -----
+    torch.cuda.empty_cache()
+    guidance = run_phase("18", phase_guidance, dev, check, gen, card, time_ms, host_us,
+                         new_totals)
     log("phase seconds: " + json.dumps(phase_seconds))
     check("jax" not in sys.modules, "no JAX imported")
 
@@ -1240,7 +1300,8 @@ def main() -> int:
                       **{path: counted[name] for path, counted in sdxl["launches"].items()},
                       **{path: counted[name] for path, counted in pixel["launches"].items()},
                       **{path: counted[name]
-                         for path, counted in pixel_train["launches"].items()}}
+                         for path, counted in pixel_train["launches"].items()},
+                      **{path: counted[name] for path, counted in guidance["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1281,7 +1342,9 @@ def main() -> int:
              # and over the attentions of one pixel-space UNet call: ADM-256's
              # 16 (d=64) at b16, the CIFAR UNet's 6 (d=256) at b500, the AdaGN
              # UNet's 11 (d=64 and d=256) on the 20 samples of a CFG batch
-             **pixel["k1_per_call"]),
+             **pixel["k1_per_call"],
+             # and over the 6 (d=512) of one CelebA-HQ UNet call at b16
+             **guidance["k1_per_call"]),
         dict(entry("flash_attn_bwd", "dmtpu_torch/csrc/flash_attn_bwd.cu",
                    "dmtpu/ops/flash_small_d.py:118", (train["launches"]["K2"], by_path["K2"]),
                    f"per b{B} train step: sum over its {ATTN_PER_FORWARD} attention backwards",
@@ -1333,13 +1396,23 @@ def main() -> int:
               f"per b{pixel_train['metrics']['train_b128']['batch']} CIFAR UNet train step: "
               "sum over its 6 attention "
               "backwards at d=256", pixel_train["k2_per_step"]["cifar_train_b128"]),
+        # K1's mma.sync instance at head dim 512 (CelebA-HQ's one head as wide
+        # as its channels; O's columns split over two CTAs): its launches in
+        # the CelebA-HQ UNet's DDIM-50 request at b16, its columns over the 6
+        # calls of one UNet call there
+        entry("flash_attn_fwd_mma_d512", "dmtpu_torch/csrc/flash_attn_fwd_mma_d512.cu",
+              "dmtpu/ops/flash_small_d.py:50",
+              (guidance["d512_launches"], guidance["d512_by_path"]),
+              f"per b{CELEBAHQ_B} CelebA-HQ UNet call: sum over its 6 attention calls at d=512",
+              guidance["k1_per_call"][f"celebahq_b{CELEBAHQ_B}"]),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
         "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
         "dit_b32": dit["metrics"], "dit_train_b32": dit_train["metrics"],
         "mmdit": mmdit["metrics"], "mmdit_train": mmdit_train["metrics"],
         "sdxl": sdxl["metrics"], "pixel": pixel["metrics"],
-        "pixel_train": pixel_train["metrics"], "phase_seconds": phase_seconds, "card": card}))
+        "pixel_train": pixel_train["metrics"], "guidance": guidance["metrics"],
+        "phase_seconds": phase_seconds, "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -4202,8 +4275,9 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
     metrics = {"agreement_b2": {}}
     k1_rows, k1_per_call, k3_per_call, request_launches = {}, {}, {}, {}
 
-    # (a) a head of 512 (CelebA-HQ's UNet) is past K1 and K2: it raises,
-    # naming the ROADMAP item, and nothing falls back to the plain version
+    # (a) a head of 512 (CelebA-HQ's UNet): K1 takes it (phase 18 checks it),
+    # K2 not yet: a gradient raises, naming the ROADMAP item, and nothing
+    # falls back to the plain version
     q = torch.randn(2, 16, 1, 512, generator=g, device=dev).bfloat16().requires_grad_()
     zero_counts()
     try:
@@ -4211,10 +4285,11 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
         refused = ""
     except ValueError as e:
         refused = str(e)
-    log(f"d=512 attention: {refused or 'not refused'}")
-    check("K1 and K2 at d=512" in refused and q.grad is None
-          and counts() == {"K1": 0, "K2": 0, "K3": 0},
-          "attention at d=512 raises ValueError naming ROADMAP's K1 and K2 at d=512")
+    log(f"d=512 attention gradient: {refused or 'not refused'}")
+    check("K2 at d=512" in refused and q.grad is None
+          and counts() == {"K1": 1, "K2": 0, "K3": 0},
+          "attention at d=512: K1 runs, its gradient raises ValueError naming ROADMAP's K2 at "
+          "d=512")
 
     # (b) ADM-256, unconditional, from the release's flags through the registry
     t0 = time.perf_counter()
@@ -4726,6 +4801,438 @@ def phase_pixel_train(dev, check, gen, card, time_ms, host_us) -> dict:
                          "adagn_cli_train": run4},
             "metrics": metrics, "k2": k2_rows, "k2_per_step": {"cifar_train_b128": k2_per_step},
             "d256_launches": d256_launches, "d256_by_path": d256_by_path}
+
+def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals) -> dict:
+    """Phase 18 (see the module docstring): guidance and image editing on the
+    pixel models through ``sample_sdedit``, ``sample_mask_guidance``,
+    ``sample_ilvr``, ``sample_ddib`` and ``sample_clip_guidance``; K1 at
+    head dim 512.  ``new_totals`` is phase 2's sum helper."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from dmtpu_torch.diffusions import DDIM, DDPM
+    from dmtpu_torch.diffusions.guidance import ILVR, MaskGuidance
+    from dmtpu_torch.diffusions.guidance.clip_guidance import CLIPGuidance
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.ops.resize_right import make_resize_matrix
+    from dmtpu_torch.scripts import (
+        sample_clip_guidance,
+        sample_ddib,
+        sample_ilvr,
+        sample_mask_guidance,
+        sample_sdedit,
+        sample_uncond,
+    )
+    from dmtpu_torch.utils.config import Config, instantiate_from_config, load_config, merge_dotlist
+    from dmtpu_torch.utils.mask import MaskGenerator
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
+        flash_attention_fwd.launches_by_head_dim.clear()
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel_err(a, ref) -> float:
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+    def build(conf_model, f32_params=None, twin=True):
+        """(the model of ``conf_model`` on the card with seeded random weights,
+        the same weights in an f32 twin, or None)."""
+        model = instantiate_from_config(conf_model, device=dev).eval()
+        init_random_(model, g)
+        if not twin:
+            return model, None
+        params = dict(conf_model["params"], **(f32_params or {"dtype": None}))
+        ref = instantiate_from_config({"target": conf_model["target"], "params": params},
+                                      device=dev).eval()
+        ref.load_state_dict(model.state_dict())
+        return model, ref
+
+    def agreement(label, run, run_ref):
+        """``run()`` through the kernels and through the plain ops against
+        ``run_ref()`` (the f32 twin, plain ops, TF32 off); returns (launches,
+        the ops' calls by shape) of the kernel run."""
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.no_grad():
+            zero_counts()
+            with recorded_ops({}) as calls:
+                got_k = run()
+            torch.cuda.synchronize()
+            launches = counts()
+            with plain_ops():
+                got_p, want = run(), run_ref()
+        err_k, err_p = rel_err(got_k, want), rel_err(got_p, want)
+        metrics["agreement_b2"][label] = {"kernels": err_k, "plain_bf16": err_p}
+        log(f"{label}: rel L2 err vs f32 plain: kernels {err_k:.3e}, plain bf16 {err_p:.3e}; "
+            f"std {want.std().item():.3f}; launches {launches}; attention calls by shape "
+            f"{dict(calls['attention'])}")
+        want_launches = {"K1": sum(calls["attention"].values()), "K2": 0,
+                         "K3": sum(calls["group_norm"].values())}
+        check(bool(torch.isfinite(got_k).all()) and err_k <= 1.5 * err_p + 1e-3
+              and launches == want_launches,
+              f"{label}: err(kernels) <= 1.5 err(plain) + 1e-3, launches {launches} == "
+              f"{want_launches}")
+        return want_launches, calls
+
+    def timed(label, fn, per_call, calls_n):
+        """A timed run of ``fn`` (the caller warmed its path): seconds, peak,
+        the launches checked exactly against ``calls_n`` UNet calls' worth."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, by_dim = counts(), dict(flash_attention_fwd.launches_by_head_dim)
+        want = {k: calls_n * v for k, v in per_call.items()}
+        check(launches == want, f"{label}: launches {launches} == {calls_n} UNet calls' {want}")
+        request_launches[label] = launches
+        d512_by_path[label] = by_dim.get(512, 0)
+        metrics[label] = {"seconds": seconds, "model_calls": calls_n,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "k1_by_head_dim": by_dim}
+        return out, seconds
+
+    def pngs(path):
+        names = sorted(os.listdir(path))
+        return names, {np.asarray(Image.open(os.path.join(path, n))).shape for n in names}
+
+    def part_done(name):
+        """The seconds since the previous part ended, kept under ``name``."""
+        now = time.perf_counter()
+        metrics["part_seconds"][name] = now - part_start[0]
+        part_start[0] = now
+
+    g = gen(SEED + 80)
+    metrics = {"agreement_b2": {}, "part_seconds": {}}
+    part_start = [time.perf_counter()]
+    request_launches, d512_by_path, k1_per_call = {}, {}, {}
+
+    # (a) K1 at d=512 at CelebA-HQ's shapes (b16: the 16x16 level and the
+    # middle), a ragged length and a padded head dim
+    k1 = new_totals()
+    k1_rows = {}
+    for b, s, d, calls in K1_D512_ROWS:
+        q, kk, v = (torch.randn(b, s, 1, d, generator=g, device=dev).bfloat16()
+                    for _ in range(3))
+        row, per = k1_call_row(q, kk, v, calls, f"K1 d={d} b{b} h1 S={s}", check, time_ms,
+                               host_us, card, 20, expect="mma")
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, kk, v))
+        row["sdpa_backend"] = sdpa_backend(qt, kt, vt)
+        k1_rows[f"b{b}_s{s}_d{d}"] = row
+        if calls:
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us"):
+                k1[key] += per[key]
+            for by, ms in per["bound_ms_by"].items():
+                k1["bound_ms_by"][by] += ms
+            k1["err"] = max(k1["err"], per["err"])
+        del q, kk, v, qt, kt, vt
+    k1_per_call[f"celebahq_b{CELEBAHQ_B}"] = k1
+    log(f"K1 per CelebA-HQ UNet call on {CELEBAHQ_B} samples (6 calls at d=512): "
+        + json.dumps(k1) + "; SDPA's backend at d=512: "
+        + json.dumps({key: row["sdpa_backend"] for key, row in k1_rows.items()}))
+    part_done("a")
+
+    # (b) the CelebA-HQ UNet: b2 agreement, K3 at its shapes, DDIM-50 at b16
+    conf = merge_dotlist(load_config(CELEBAHQ_CONFIG), PIXEL_OVERRIDES)
+    diffusion = conf.diffusion.params.to_dict()
+    unet, unet_ref = build(conf.model)
+    n_params = sum(p.numel() for p in unet.parameters())
+    size = conf.data.params.img_size
+    shape = (conf.data.img_channels, size, size)
+    check(n_params == CELEBAHQ_PARAMS and unet.dtype == torch.bfloat16,
+          f"CelebA-HQ UNet from {CELEBAHQ_CONFIG}: {CELEBAHQ_PARAMS} parameters, bf16 torso")
+    x = torch.randn(2, *shape, generator=g, device=dev)
+    tt = torch.tensor([999, 421], device=dev)
+    per_call, calls = agreement("CelebA-HQ UNet b2 forward", lambda: unet(x, tt),
+                                lambda: unet_ref(x, tt))
+    check(dict(calls["attention"]) == CELEBAHQ_ATTN,
+          f"CelebA-HQ UNet: attention calls {dict(calls['attention'])} == {CELEBAHQ_ATTN}")
+    fn = sample_uncond.model_function(unet)
+
+    def ddim(steps):
+        a, _ = sample_uncond.parse_args(["-c", CELEBAHQ_CONFIG, "--weights", "-", "--save_dir",
+                                         "-", "--n_samples", str(CELEBAHQ_B), "--sampler", "ddim",
+                                         "--respace_steps", str(steps)])
+        return sample_uncond.build_diffuser(a, conf)
+
+    sample_uncond.sample_fold(fn, ddim(2), 0, CELEBAHQ_B, shape, SEED, dev)  # warm-up
+    sam = ddim(CELEBAHQ_STEPS)
+    rows = len(sam.respaced_seq)
+    label = f"celebahq_ddim{rows}_b{CELEBAHQ_B}"
+    images, seconds = timed(label, lambda: sample_uncond.sample_fold(
+        fn, sam, 0, CELEBAHQ_B, shape, SEED, dev)[0], per_call, rows)
+    d512_launches = d512_by_path[label]
+    with torch.no_grad():
+        xb = torch.randn(CELEBAHQ_B, *shape, generator=g, device=dev)
+        tb = torch.full((CELEBAHQ_B,), 500, device=dev)
+        call_ms = time_ms(lambda: unet(xb, tb), 3)
+        profile = profile_by_class(lambda: unet(xb, tb), 2)
+    idle = max(0.0, 1.0 - profile["classes"]["total"] / profile["wall_ms"])
+    metrics[label].update(imgs_per_s=CELEBAHQ_B / seconds, batch=CELEBAHQ_B, params=n_params,
+                          call_ms=call_ms, call_profile_ms=profile["classes"],
+                          call_wall_ms=profile["wall_ms"], host_share=idle)
+    log(f"CelebA-HQ UNet b{CELEBAHQ_B} DDIM-{rows} at {size}x{size} through "
+        f"sample_uncond.sample_fold: {seconds:.3f} s, {CELEBAHQ_B / seconds:.4f} images/s, peak "
+        f"{metrics[label]['peak_bytes'] / 2**30:.3f} GiB ({card}); K1 by head dim "
+        f"{metrics[label]['k1_by_head_dim']}")
+    log(f"CelebA-HQ UNet call on {CELEBAHQ_B} samples: {call_ms:.3f} ms (CUDA events, 3 calls); "
+        f"device time by class (torch.profiler, ms per call over 2; wall {profile['wall_ms']:.3f} "
+        f"ms under the profiler, the card idle {idle:.3f} of it): "
+        + json.dumps(profile["classes"]))
+    for kname, kernel_ms in profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {kname}")
+    check(tuple(images.shape) == (CELEBAHQ_B, *shape) and bool(torch.isfinite(images).all())
+          and metrics[label]["k1_by_head_dim"] == {512: rows * per_call["K1"]}
+          and profile["classes"]["K1 attention"] > 0,
+          f"CelebA-HQ DDIM-{rows} b{CELEBAHQ_B}: finite images, every K1 launch at d=512 "
+          f"({rows} x 5 at S=256 and {rows} x 1 at S=64), the call ran K1")
+    del unet_ref, images, x, xb
+    torch.cuda.empty_cache()
+    part_done("b")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_guidance_")
+    try:
+        # seeded smooth 256x256 PNGs (8x8 noise, upsampled): the inputs, the
+        # references and the images to inpaint
+        images_dir = os.path.join(root, "images")
+        os.makedirs(images_dir)
+        rs = np.random.RandomState(SEED)
+        for i in range(EDIT_IMAGES):
+            Image.fromarray(rs.randint(0, 256, (8, 8, 3), dtype=np.uint8)).resize(
+                (size, size), Image.BICUBIC).save(os.path.join(images_dir, f"{i}.png"))
+        weights = os.path.join(root, "celebahq.pt")
+        torch.save(unet.state_dict(), weights)
+        base = ["-c", CELEBAHQ_CONFIG, "--weights", weights, "--input_dir", images_dir,
+                "--batch_size", str(EDIT_B), *PIXEL_OVERRIDES]
+        batch = np.stack([np.asarray(Image.open(os.path.join(images_dir, f"{i}.png")),
+                                     np.float32) / 127.5 - 1 for i in range(EDIT_B)])
+        refs = torch.from_numpy(batch).permute(0, 3, 1, 2).contiguous().to(dev)
+
+        # (c) SDEdit through the CLI: DDPM respaced to 100, the last 50 rows
+        argv = base + ["--save_dir", os.path.join(root, "sdedit"), "--respace_steps",
+                       str(SDEDIT_RESPACE), "--edit_steps", str(SDEDIT_STEPS)]
+        _, seconds = timed("celebahq_sdedit", lambda: sample_sdedit.main(argv), per_call,
+                           SDEDIT_STEPS)
+        names, shapes = pngs(os.path.join(root, "sdedit"))
+        metrics["celebahq_sdedit"].update(images=len(names),
+                                          imgs_per_s=len(names) / seconds)
+        log(f"sample_sdedit.main, {EDIT_IMAGES} images, DDPM-{SDEDIT_RESPACE} from row "
+            f"{SDEDIT_RESPACE - SDEDIT_STEPS}: {seconds:.3f} s in process ({card}); grids "
+            f"{shapes}")
+        check(len(names) == EDIT_IMAGES and shapes == {(size + 4, 2 * size + 6, 3)},
+              f"SDEdit: {EDIT_IMAGES} input / edit pairs")
+        part_done("c")
+
+        # (d) mask guidance through the CLI, then the request function with
+        # and without RePaint: the known region is the input
+        argv = base + ["--save_dir", os.path.join(root, "mask"), "--respace_steps",
+                       str(MASK_RESPACE), "--mask_type", "center"]
+        mask_rows = len(MaskGuidance(**dict(diffusion, respace_type="uniform",
+                                            respace_steps=MASK_RESPACE)).respaced_seq)
+        _, seconds = timed("celebahq_mask", lambda: sample_mask_guidance.main(argv), per_call,
+                           mask_rows)
+        names, shapes = pngs(os.path.join(root, "mask"))
+        metrics["celebahq_mask"].update(images=len(names), imgs_per_s=len(names) / seconds)
+        check(len(names) == EDIT_IMAGES and shapes == {(size + 4, 3 * size + 8, 3)},
+              f"mask guidance: {EDIT_IMAGES} triptychs")
+        masks = torch.from_numpy(np.stack([MaskGenerator("center").sample(size, size, item=i)
+                                           for i in range(EDIT_B)])).permute(0, 3, 1, 2).to(dev)
+        for resample, respace in ((False, MASK_RESPACE), (True, REPAINT_RESPACE)):
+            guide = MaskGuidance(**dict(diffusion, respace_type="uniform",
+                                        respace_steps=respace))
+            n_calls = (int(guide.resample_tape(REPAINT_R, REPAINT_J)["is_denoise"].sum())
+                       if resample else len(guide.respaced_seq))
+            label = "celebahq_repaint" if resample else "celebahq_mask_request"
+            out, seconds = timed(label, lambda: sample_mask_guidance.inpaint_batch(
+                fn, guide, refs, masks, sample_uncond.fold_generator(SEED, 0, dev), resample,
+                REPAINT_R, REPAINT_J), per_call, n_calls)
+            known = ((out - refs) * masks).abs().max().item()
+            hole = ((out - refs) * (1 - masks)).abs().max().item()
+            metrics[label].update(known_max_abs_err=known, hole_max_abs_diff=hole)
+            log(f"{label}: {n_calls} UNet calls, {seconds:.3f} s ({card}); known region "
+                f"max |out - input| {known:.3e}, hole {hole:.3f}")
+            check(bool(torch.isfinite(out).all()) and known <= 1e-6 and hole > 1e-2,
+                  f"{label}: the known region equals the input within 1e-6, the hole is new")
+            del out
+        part_done("d")
+
+        # (g) CLIP guidance through the CLI: ViT-B/32 widths with seeded weights
+        import transformers
+        from transformers import CLIPConfig, CLIPModel, CLIPTokenizer
+
+        clip_dir = os.path.join(root, "clip")
+        torch.manual_seed(SEED)
+        with torch.device(dev):  # the random init on the card: seconds, not tens
+            CLIPModel(CLIPConfig()).save_pretrained(clip_dir)
+        _, tokenizer = write_finetune_inputs(os.path.join(root, "tokenizer"), 0, 8)
+        CLIPTokenizer.from_pretrained(tokenizer).save_pretrained(clip_dir)
+        argv = ["-c", CELEBAHQ_CONFIG, "--weights", weights, "--save_dir",
+                os.path.join(root, "clip_out"), "--text", CLIP_TEXT, "--n_samples",
+                str(EDIT_B), "--batch_size", str(EDIT_B), "--respace_steps", str(CLIP_RESPACE),
+                "--guidance_weight", str(CLIP_WEIGHT), "--clip_pretrained", clip_dir,
+                *PIXEL_OVERRIDES]
+        clip_kw = dict(diffusion, respace_type="uniform", respace_steps=CLIP_RESPACE)
+        clip_rows = len(DDPM(**clip_kw).respaced_seq)
+        _, seconds = timed("celebahq_clip_cli", lambda: sample_clip_guidance.main(argv),
+                           per_call, clip_rows)
+        names, shapes = pngs(os.path.join(root, "clip_out"))
+        check(len(names) == EDIT_B and shapes == {(size, size, 3)},
+              f"sample_clip_guidance: {EDIT_B} PNGs")
+        guide = CLIPGuidance(guidance_weight=CLIP_WEIGHT, clip_pretrained=clip_dir, device=dev,
+                             **clip_kw)
+        guide.set_text(CLIP_TEXT)
+        # one cond_fn_mean on the card against the CPU, f32 (TF32 off)
+        cpu_guide = CLIPGuidance(guidance_weight=CLIP_WEIGHT, clip_pretrained=clip_dir,
+                                 device="cpu", **clip_kw)
+        cpu_guide.set_text(CLIP_TEXT)
+        x0 = torch.rand(2, *shape, generator=g, device=dev) * 2 - 1
+        c = {"sqrt_recip_ac": 1.3}
+        with torch.no_grad():
+            got = guide.cond_fn_mean({"pred_x0": x0, "var": 0.01}, x0, c, None)
+            want = cpu_guide.cond_fn_mean({"pred_x0": x0.cpu(), "var": 0.01}, x0.cpu(), c, None)
+        err = rel_err(got.cpu(), want)
+        metrics["clip_cond_fn_mean_rel_err_vs_cpu"] = err
+        check(err <= 1e-4 and got.abs().max().item() > 0,
+              f"CLIP cond_fn_mean on the card vs the CPU (f32): rel L2 {err:.3e} <= 1e-4")
+        del cpu_guide
+        xb = torch.rand(EDIT_B, *shape, generator=g, device=dev) * 2 - 1
+        with torch.no_grad():
+            clip_ms = time_ms(lambda: guide.cond_fn_mean({"pred_x0": xb, "var": 0.01}, xb, c,
+                                                          None), 3)
+        plain = DDPM(**clip_kw)
+        sample_uncond.sample_fold(fn, plain, 0, EDIT_B, shape, SEED, dev)  # warm the sizes
+        guided, g_seconds = timed("celebahq_clip", lambda: sample_uncond.sample_fold(
+            fn, guide, 0, EDIT_B, shape, SEED, dev)[0], per_call, clip_rows)
+        unguided, u_seconds = timed("celebahq_unguided_ddpm", lambda: sample_uncond.sample_fold(
+            fn, plain, 0, EDIT_B, shape, SEED, dev)[0], per_call, clip_rows)
+        moved = (guided - unguided).abs().max().item()
+        metrics["celebahq_clip"].update(
+            clip_ms=clip_ms, step_ms=1e3 * g_seconds / clip_rows,
+            unguided_step_ms=1e3 * u_seconds / clip_rows,
+            clip_share_of_step=clip_ms / (1e3 * g_seconds / clip_rows), max_abs_moved=moved)
+        log(f"CLIP guidance (transformers {transformers.__version__}) b{EDIT_B} "
+            f"DDPM-{clip_rows}, weight {CLIP_WEIGHT}: {g_seconds:.3f} s "
+            f"against {u_seconds:.3f} s unguided from the same noise ({card}); CLIP's forward "
+            f"and backward {clip_ms:.3f} ms a step (CUDA events), "
+            f"{metrics['celebahq_clip']['clip_share_of_step']:.3f} of a guided step; the "
+            f"guidance moved the output by up to {moved:.3e}")
+        check(bool(torch.isfinite(guided).all()) and moved > 1e-3,
+              "CLIP guidance: finite, and it moves the output off the unguided one")
+        del guide, guided, unguided, unet, fn, xb
+        torch.cuda.empty_cache()
+        part_done("g")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # (e) ILVR on ADM-256 (unconditional) at b8: DDPM-100, factor 8, cubic
+    adm, _ = build(Config(ADM256_CONF), twin=False)
+    adm_fn = sample_uncond.model_function(adm)
+    ilvr_kw = dict(ADM256_DIFFUSION["params"], respace_type="uniform", respace_steps=ILVR_RESPACE)
+    ilvr = ILVR(downsample_factor=ILVR_FACTOR, interp_method="cubic", **ilvr_kw)
+    lp = ilvr.low_pass_filter(refs)
+    w_down = make_resize_matrix(size, size // ILVR_FACTOR, 1 / ILVR_FACTOR, "cubic")
+    w_up = make_resize_matrix(size // ILVR_FACTOR, size, float(ILVR_FACTOR), "cubic")
+    w = w_up @ w_down
+    lp64 = w @ refs.double().cpu().numpy() @ w.T  # W_h x W_w^T, batched over (b, c)
+    lp_err = float(np.abs(lp.double().cpu().numpy() - lp64).max())
+    metrics["ilvr_low_pass_max_abs_err_vs_f64"] = lp_err
+    check(lp_err <= 1e-5, f"ILVR low-pass on the card vs float64 numpy: {lp_err:.3e} <= 1e-5")
+    with torch.no_grad():
+        zero_counts()
+        with recorded_ops({}) as calls:
+            adm(refs[:1], torch.tensor([500], device=dev))
+    adm_call = {"K1": sum(calls["attention"].values()), "K2": 0,
+                "K3": sum(calls["group_norm"].values())}
+    sample_ilvr.ilvr_batch(adm_fn, ILVR(downsample_factor=ILVR_FACTOR, **dict(
+        ilvr_kw, respace_steps=2)), refs, sample_uncond.fold_generator(SEED, 0, dev))  # warm-up
+    ilvr_rows = len(ilvr.respaced_seq)
+    out, i_seconds = timed("adm256_ilvr", lambda: sample_ilvr.ilvr_batch(
+        adm_fn, ilvr, refs, sample_uncond.fold_generator(SEED, 0, dev)), adm_call, ilvr_rows)
+    unguided, u_seconds = timed("adm256_unguided_ddpm", lambda: sample_uncond.sample_fold(
+        adm_fn, DDPM(**ilvr_kw), 0, EDIT_B, shape, SEED, dev)[0], adm_call, ilvr_rows)
+    phi_ref = ilvr.low_pass_filter(refs)
+    gap = {name: ((ilvr.low_pass_filter(o) - phi_ref).norm() / phi_ref.norm()).item()
+           for name, o in (("ilvr", out), ("unguided", unguided))}
+    metrics["adm256_ilvr"].update(step_ms=1e3 * i_seconds / ilvr_rows,
+                                  unguided_step_ms=1e3 * u_seconds / ilvr_rows,
+                                  low_pass_gap=gap, imgs_per_s=EDIT_B / i_seconds)
+    log(f"ILVR b{EDIT_B} DDPM-{ilvr_rows}, factor {ILVR_FACTOR}, cubic, on ADM-256: "
+        f"{i_seconds:.3f} s against {u_seconds:.3f} s unguided ({card}); "
+        f"|phi(out) - phi(ref)| / |phi(ref)|: ILVR {gap['ilvr']:.4f}, unguided "
+        f"{gap['unguided']:.4f}")
+    check(bool(torch.isfinite(out).all()) and gap["ilvr"] < 0.25 * gap["unguided"],
+          "ILVR: the sample's low frequencies are the reference's (gap < 1/4 of the unguided)")
+    del adm, adm_fn, out, unguided
+    torch.cuda.empty_cache()
+    part_done("e")
+
+    # (f) DDIB on the class-conditional ADM-256: agreement at b2 over 5 + 5
+    # steps, then DDIM-50 inversion under class A and sampling under class B
+    adm_cond_conf = Config({"target": ADM256_CONF["target"],
+                            "params": dict(ADM256_CONF["params"], num_classes=1000)})
+    adm, adm_ref = build(adm_cond_conf, {"use_fp16": False})
+    check_kw = dict(ADM256_DIFFUSION["params"], respace_type="uniform",
+                    respace_steps=DDIB_CHECK_STEPS)
+    pair = refs[:2]
+    ddib_call, _ = agreement(
+        f"DDIB b2 DDIM {DDIB_CHECK_STEPS} + {DDIB_CHECK_STEPS} steps",
+        lambda: sample_ddib.translate_batch(adm, DDIM(**check_kw), pair, DDIB_CLASSES[0],
+                                            DDIB_CLASSES[1]),
+        lambda: sample_ddib.translate_batch(adm_ref, DDIM(**check_kw), pair, DDIB_CLASSES[0],
+                                            DDIB_CLASSES[1]))
+    del adm_ref
+    torch.cuda.empty_cache()
+    ddib = DDIM(**dict(ADM256_DIFFUSION["params"], respace_type="uniform",
+                       respace_steps=DDIB_STEPS))
+    ddib_rows = 2 * len(ddib.respaced_seq) - 1  # the inversion's S - 1 calls, then S
+    check_rows = 2 * len(DDIM(**check_kw).respaced_seq) - 1
+    per_ddib_call = {k: v // check_rows for k, v in ddib_call.items()}
+    check(all(v == per_ddib_call[k] * check_rows for k, v in ddib_call.items())
+          and per_ddib_call == adm_call,
+          f"DDIB: {check_rows} UNet calls of {per_ddib_call} in the check run")
+    sample_ddib.translate_batch(adm, DDIM(**check_kw), refs, *DDIB_CLASSES)  # warm-up
+    out, seconds = timed("adm256_ddib", lambda: sample_ddib.translate_batch(
+        adm, ddib, refs, *DDIB_CLASSES), per_ddib_call, ddib_rows)
+    metrics["adm256_ddib"].update(imgs_per_s=EDIT_B / seconds)
+    log(f"DDIB b{EDIT_B} on the class-conditional ADM-256, DDIM-{DDIB_STEPS} inversion under "
+        f"class {DDIB_CLASSES[0]} then sampling under {DDIB_CLASSES[1]} ({ddib_rows} UNet "
+        f"calls): {seconds:.3f} s ({card})")
+    check(tuple(out.shape) == tuple(refs.shape) and bool(torch.isfinite(out).all()),
+          f"DDIB: finite [{EDIT_B}, 3, {size}, {size}]")
+    del adm, out, refs
+    torch.cuda.empty_cache()
+    part_done("f")
+    log("phase 18 seconds by part: " + json.dumps(metrics["part_seconds"]))
+    return {"launches": request_launches, "metrics": metrics, "k1": k1_rows,
+            "k1_per_call": k1_per_call, "d512_launches": d512_launches,
+            "d512_by_path": d512_by_path}
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for [B, H, S, D]
+    q, k, v (PyTorch's own choice function; "unknown" where this PyTorch has
+    none)."""
+    import torch
+
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "unknown"
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(choose(q, k, v)).name
+
 
 def forward_flops(model, *inputs) -> int:
     """Operations (two a multiply-add) of one forward ``model(*inputs)``,

@@ -40,6 +40,7 @@ _SIGNATURES = {
     # q, k, v, o, lse, B, H, Sq, Sk, D, 12 strides, scale_log2, stream
     "dmtpu_flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
     "dmtpu_flash_attn_fwd_mma": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    "dmtpu_flash_attn_fwd_mma_d512": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
     # q, k, v, o, dO, lse, delta, dq_acc, dq, dk, dv, B, H, Sq, Sk, D, 21 strides,
     # scale, stream
     "dmtpu_flash_attn_bwd": [_P] * 11 + [_I] * 5 + [_L] * 21 + [_F, _P],

@@ -3,9 +3,9 @@
 Counterpart of ``dmtpu/ops/flash_small_d.py`` (its ``_fwd`` and ``_bwd``
 paths and the ``custom_vjp`` that joins them).  Layout is [B, S, H, D] as
 in ``dmtpu.ops.attention``; unlike the TPU kernels these take S_q != S_k
-(cross-attention), head dims that are multiples of 8 up to 256 (zero-padded
-to 48, 80, 160 or 256 in shared memory) and ragged sequence lengths
-(masked).
+(cross-attention), head dims that are multiples of 8 up to 512 forward
+and 256 backward (zero-padded to 48, 80, 160, 256 or 512 in shared memory)
+and ragged sequence lengths (masked).
 
 - ``flash_attention(q, k, v, scale) -> o``: the differentiable op
   (``FlashAttention``, a ``torch.autograd.Function``): its forward runs
@@ -14,13 +14,15 @@ to 48, 80, 160 or 256 in shared memory) and ragged sequence lengths
 - ``flash_attention_fwd(q, k, v, scale) -> (o, lse)`` (K1): ``lse`` is the
   f32 row logsumexp [B, H, S_q] that the backward consumes.  Two kernels
   stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims 40,
-  64, 72 and 80, the long self-attention shapes) and ``csrc/flash_attn_fwd_mma.cu``
-  (mma.sync, everything else); ``select_kernel`` is the gate.
+  64, 72 and 80, the long self-attention shapes) and the mma.sync kernel
+  (everything else): ``csrc/flash_attn_fwd_mma.cu`` up to 256 and
+  ``csrc/flash_attn_fwd_mma_d512.cu`` above; ``select_kernel`` is the gate.
 - ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2).
   Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
   TMA, head dims 40, 64, 72 and 80; dQ's partial sums leave a CTA as whole f32
   tiles by ``cp.reduce.async.bulk``) and ``csrc/flash_attn_bwd_mma.cu``
-  (mma.sync, dQ by scalar f32 atomics; everything else, up to 256);
+  (mma.sync, dQ by scalar f32 atomics; everything else, up to 256: a
+  gradient through a wider head raises);
   ``select_bwd_kernel`` is the gate.  Where several key tiles add to dq,
   neither gives a bitwise reproducible dq: the f32 adds of different CTAs
   arrive in an order that varies from run to run.  With one key tile
@@ -99,14 +101,14 @@ def _check_bshd(name: str, t: torch.Tensor) -> None:
                          f"strides {t.stride()}")
 
 
-# The widest head dim the kernels take: K1's and K2's mma.sync kernels have
-# an instance at 256 (the pixel-space UNets' single head as wide as the
-# channels).
-MAX_HEAD_DIM = 256
-# CelebA-HQ's UNet (configs/ddpm_celebahq.yaml) has one head of 512, which
-# neither kernel takes yet
-_WIDER = ("a wider head (CelebA-HQ's 512) waits for another design of K1 and K2 "
-          "(ROADMAP.md, \"Next, in order\": K1 and K2 at d=512)")
+# The widest head dims the kernels take: K1's mma.sync kernel has an instance
+# at 512 (CelebA-HQ's UNet, configs/ddpm_celebahq.yaml: one head as wide as its
+# 512 channels), K2's at 256 (the CIFAR-10 UNets' single head).
+MAX_FWD_HEAD_DIM = 512
+MAX_BWD_HEAD_DIM = 256
+# a gradient through a head of 512 waits for K2's next instance
+_WIDER = ("a gradient through a wider head (CelebA-HQ's 512) waits for K2 at d=512 "
+          "(ROADMAP.md, \"Next, in order\": K2 at d=512 with CelebA-HQ training)")
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backward: bool = False) -> None:
@@ -118,10 +120,12 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backward: bool
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
     d = q.shape[3]
-    if d & 7 or d > MAX_HEAD_DIM:
+    limit = MAX_BWD_HEAD_DIM if backward else MAX_FWD_HEAD_DIM
+    if d & 7 or d > limit:
         name = "flash_attention_bwd: K2" if backward else "flash_attention: K1"
-        raise ValueError(f"{name} takes head dims that are multiples of 8 up to "
-                         f"{MAX_HEAD_DIM}, got {d}" + (f": {_WIDER}" if d > MAX_HEAD_DIM else ""))
+        wider = f": {_WIDER}" if backward and d > limit else ""
+        raise ValueError(f"{name} takes head dims that are multiples of 8 up to {limit}, "
+                         f"got {d}{wider}")
     device = q.get_device()
     if k.get_device() != device or v.get_device() != device:
         raise ValueError("flash_attention: q, k and v must be on one device")
@@ -134,8 +138,10 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backward: bool
 # (csrc/flash_attn_fwd.cu: TMA loads, a ring of K/V stages, wgmma, 128 Q rows
 # and 128 keys a tile) is instantiated for head dims 40 and 80 (SD1.5), 72
 # (DiT) and 64 (MMDiT) and needs a positive scale (it takes the running max
-# before scaling); "mma" (csrc/flash_attn_fwd_mma.cu: mma.sync, 64 x 64 tiles)
-# takes every head dim up to 256 (the pixel UNets' d=256 runs there).
+# before scaling); "mma" (mma.sync) takes every head dim up to 512: up to 256
+# csrc/flash_attn_fwd_mma.cu (64 x 64 tiles; the CIFAR UNets' d=256 runs
+# there), above it csrc/flash_attn_fwd_mma_d512.cu (64 rows x 32 keys, O's
+# columns split over two CTAs; CelebA-HQ's d=512).
 WGMMA_HEAD_DIMS = (40, 64, 72, 80)
 # Below this many keys the wgmma kernel is one 128-key tile, mostly masked,
 # and the mma.sync kernel is as fast or faster; see the gate's numbers in
@@ -175,6 +181,10 @@ def select_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> st
 
 
 _ENTRY_POINTS = {"mma": "dmtpu_flash_attn_fwd_mma", "wgmma": "dmtpu_flash_attn_fwd"}
+# the mma.sync kernel's instance for head dims above this one lives in its own
+# source, behind its own entry point
+MMA_NARROW_HEAD_DIM = 256
+_WIDE_ENTRY_POINT = "dmtpu_flash_attn_fwd_mma_d512"
 _LOG2E = math.log2(math.e)
 
 
@@ -204,7 +214,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    err = getattr(_build.library(), _ENTRY_POINTS[kernel])(
+    entry = _WIDE_ENTRY_POINT if d > MMA_NARROW_HEAD_DIM else _ENTRY_POINTS[kernel]
+    err = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, h, sq, sk, d, *strides, *out.stride()[:3], scale * _LOG2E,
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -66,6 +66,7 @@ from dmtpu_torch.scripts._common import (
     load_conf,
     load_model_params,
 )
+from dmtpu_torch.scripts._editing import to_nhwc
 from dmtpu_torch.scripts.sample_sd import resolve_device
 from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image, save_image_grid
@@ -193,11 +194,6 @@ def reconstruct(model_fn: Callable, diffuser: Any, images: torch.Tensor) -> torc
     return diffuser.sample(model_fn, inverted, generator)
 
 
-def _nhwc(x: torch.Tensor) -> np.ndarray:
-    """[..., C, H, W] on the device -> clipped [..., H, W, C] numpy."""
-    return np.clip(x.movedim(-3, -1).float().cpu().numpy(), -1, 1)
-
-
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args, unknown = parse_args(argv)
     logger = get_logger()
@@ -221,7 +217,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         idx = 0
         for fold, bs in enumerate(amortize(args.n_samples, args.batch_size)):
             images, _ = sample_fold(model_fn, diffuser, fold, bs, shape, args.seed, device)
-            for img in _nhwc(images):
+            for img in to_nhwc(images):
                 save_image(img, path(idx))
                 idx += 1
             logger.info(f"Sampled {idx}/{args.n_samples}")
@@ -232,7 +228,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         for fold, bs in enumerate(amortize(args.n_samples, args.batch_size)):
             _, ys = sample_fold(model_fn, diffuser, fold, bs, shape, args.seed, device,
                                 collect=(key,))
-            traj = _nhwc(ys[key])[::-1][::freq][::-1]  # every freq-th, ending at the last
+            traj = to_nhwc(ys[key])[::-1][::freq][::-1]  # every freq-th, ending at the last
             for b in range(bs):
                 save_image_grid(traj[:, b], path(idx), nrow=len(traj))
                 idx += 1
@@ -241,7 +237,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         for i in range(args.n_samples):
             out = interpolate_row(model_fn, diffuser, i, args.n_interpolate, shape, args.seed,
                                   device)
-            save_image_grid(_nhwc(out), path(i), nrow=args.n_interpolate)
+            save_image_grid(to_nhwc(out), path(i), nrow=args.n_interpolate)
             logger.info(f"Sampled {i + 1}/{args.n_samples}")
     else:  # reconstruction
         if not args.input_dir:
@@ -251,7 +247,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         for i in range(0, n, args.batch_size):
             batch = np.stack([dataset[j] for j in range(i, min(i + args.batch_size, n))])
             images = torch.from_numpy(batch).permute(0, 3, 1, 2).to(device)
-            recon = _nhwc(reconstruct(model_fn, diffuser, images))
+            recon = to_nhwc(reconstruct(model_fn, diffuser, images))
             for b in range(len(batch)):
                 save_image_grid(np.stack([batch[b], recon[b]]), path(i + b), nrow=2)
             logger.info(f"Reconstructed {min(i + args.batch_size, n)}/{n}")

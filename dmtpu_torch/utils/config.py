@@ -176,6 +176,9 @@ _PORTED = {
     "dmtpu.diffusions.guidance.mask_guidance.MaskGuidanceDDIMCFG",
     "dmtpu.diffusions.guidance.BaseGuidance", "dmtpu.diffusions.guidance.MaskGuidance",
     "dmtpu.diffusions.guidance.MaskGuidanceDDIMCFG",
+    "dmtpu.diffusions.guidance.ilvr.ILVR", "dmtpu.diffusions.guidance.ILVR",
+    "dmtpu.diffusions.guidance.clip_guidance.CLIPGuidance",
+    "dmtpu.diffusions.guidance.CLIPGuidance",
     "dmtpu.diffusions.euler.EulerSampler", "dmtpu.diffusions.heun.HeunSampler",
     "dmtpu.diffusions.EulerSampler", "dmtpu.diffusions.HeunSampler",
     "dmtpu.models.ema.EMAState",

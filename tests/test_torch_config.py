@@ -80,6 +80,10 @@ TARGETS = [
     ("diffusions.ddpm_ip.DDPM_IP", td.DDPM_IP),
     ("dmtpu.diffusions.ddpm_ip.DDPM_IP", td.DDPM_IP),
     ("dmtpu.diffusions.DDPM_IP", td.DDPM_IP),
+    ("diffusions.guidance.ilvr.ILVR", tg.ILVR),
+    ("dmtpu.diffusions.guidance.ILVR", tg.ILVR),
+    ("diffusions.guidance.clip_guidance.CLIPGuidance", tg.CLIPGuidance),
+    ("dmtpu.diffusions.guidance.CLIPGuidance", tg.CLIPGuidance),
     ("diffusions.euler.EulerSampler", td.EulerSampler),
     ("diffusions.heun.HeunSampler", td.HeunSampler),
     ("models.unet.UNet", tunet.UNet),
@@ -103,8 +107,9 @@ def test_reference_table_is_the_jax_package_s():
 
 
 @pytest.mark.parametrize("target", [
-    "diffusions.guidance.ilvr.ILVR", "diffusions.guidance.clip_guidance.CLIPGuidance",
-    "dmtpu.diffusions.guidance.ilvr.ILVR", "dmtpu.anything",
+    "dmtpu.models.stablediffusion.FrozenT5Embedder",
+    "dmtpu.models.stablediffusion.text_encoders.FrozenCLIPT5Encoder",
+    "dmtpu.models.stablediffusion.text_encoders.FrozenT5Embedder", "dmtpu.anything",
 ])
 def test_unported_target_is_named(target):
     with pytest.raises(NotImplementedError, match="no counterpart in dmtpu_torch") as e:

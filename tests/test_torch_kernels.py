@@ -1,7 +1,9 @@
 """dmtpu_torch's CUDA kernels against their plain versions, on the card.
 
-Every test is marked ``gpu`` and skips without a CUDA device.  The file
-imports no JAX, so it also runs on a machine that has only PyTorch:
+Every test that launches a kernel is marked ``gpu`` and skips without a CUDA
+device; the few unmarked ones check the kernels' gates and the shapes a
+model hands them, on the CPU.  The file imports no JAX, so it also runs on a
+machine that has only PyTorch:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
@@ -36,6 +38,7 @@ from dmtpu_torch.ops import (
     mha,
     plain_ops,
 )
+from dmtpu_torch.ops.flash_attention import MAX_BWD_HEAD_DIM, MAX_FWD_HEAD_DIM, _check_qkv
 from dmtpu_torch.ops.flash_attention import bwd_kernels_for as k2_kernels_for
 from dmtpu_torch.ops.flash_attention import kernels_for as k1_kernels_for
 from dmtpu_torch.ops.flash_attention import select_bwd_kernel, select_kernel
@@ -62,7 +65,8 @@ def assert_k1_close(o: torch.Tensor, want: torch.Tensor) -> None:
 @pytest.mark.parametrize("b,sq,sk,h,d", [
     (2, 4096, 4096, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 256, 8, 160),
     (2, 100, 77, 3, 64), (1, 64, 64, 8, 160), (8, 256, 256, 1, 256), (16, 16, 16, 1, 256),
-    (2, 200, 200, 1, 248)])
+    (2, 200, 200, 1, 248), (16, 256, 256, 1, 512), (16, 64, 64, 1, 512), (4, 200, 200, 1, 512),
+    (4, 256, 256, 1, 504), (2, 77, 333, 2, 512), (1, 1, 33, 1, 264)])
 def test_k1_kernel_matches_reference(cuda, b, sq, sk, h, d):
     g = torch.Generator(device=cuda).manual_seed(0)
     q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).bfloat16()
@@ -114,8 +118,8 @@ def test_k1_kernel_rejects_unsupported_inputs(cuda):
     q = torch.zeros(1, 64, 1, 40, device=cuda)
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention_fwd(q, q, q)
-    q = torch.zeros(1, 64, 1, 264, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 256"):
+    q = torch.zeros(1, 64, 1, 520, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 512"):
         flash_attention_fwd(q, q, q)
 
 
@@ -270,16 +274,80 @@ def test_a_gradient_through_head_dim_256_goes_through_k2(cuda):
 
 @pytest.mark.gpu
 def test_a_head_dim_of_512_is_refused_naming_the_next_kernel_item(cuda):
-    """CelebA-HQ's one head of 512 is past both kernels: each raises, naming
-    the ROADMAP item, and nothing falls back to the plain version."""
+    """CelebA-HQ's one head of 512: K1 takes it (its d=512 instance), K2 does
+    not yet: a gradient raises, naming the ROADMAP item, and nothing falls
+    back to the plain version."""
     q = torch.zeros(1, 16, 1, 512, device=cuda, dtype=torch.bfloat16)
     lse = torch.zeros(1, 1, 16, device=cuda)
-    before = flash_attention_fwd.launches, flash_attention_bwd.launches
-    with pytest.raises(ValueError, match="Next, in order.*K1 and K2 at d=512"):
-        attention(q, q, q)
-    with pytest.raises(ValueError, match="K2 takes head dims .* up to 256.*K1 and K2 at d=512"):
+    before = (flash_attention_fwd.launches, flash_attention_fwd.launches_by_head_dim[512],
+              flash_attention_bwd.launches)
+    attention(q, q, q)
+    leaf = q.clone().requires_grad_()
+    out = attention(leaf, q, q)
+    with pytest.raises(ValueError, match="Next, in order.*K2 at d=512"):
+        out.float().sum().backward()
+    with pytest.raises(ValueError, match="K2 takes head dims .* up to 256.*K2 at d=512"):
         flash_attention_bwd(q, q, q, q, lse, q)
-    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == before
+    assert leaf.grad is None
+    assert (flash_attention_fwd.launches, flash_attention_fwd.launches_by_head_dim[512],
+            flash_attention_bwd.launches) == (before[0] + 2, before[1] + 2, before[2])
+    q = torch.zeros(1, 16, 1, 520, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="K1 takes head dims .* up to 512, got 520"):
+        attention(q, q, q)
+
+
+# ---- the gates, on the CPU ----------------------------------------------------
+
+def test_the_forward_takes_head_dims_to_512_and_the_backward_to_256():
+    """K1's limit is 512 (its mma.sync kernel's widest instance), K2's 256; a
+    gradient through a wider head names ROADMAP's "K2 at d=512"."""
+    assert (MAX_FWD_HEAD_DIM, MAX_BWD_HEAD_DIM) == (512, 256)
+    assert k1_kernels_for(512) == ["mma"] and k1_kernels_for(504) == ["mma"]
+    assert select_kernel(256, 256, 512) == "mma" and select_kernel(4096, 4096, 512) == "mma"
+    assert k2_kernels_for(256) == ["mma"]
+    for d in (264, 504, 512):
+        q = torch.zeros(2, 16, 1, d, dtype=torch.bfloat16)
+        _check_qkv(q, q, q)
+        with pytest.raises(ValueError, match=f"K2 takes head dims .* up to 256, got {d}: .*"
+                                             "Next, in order.*K2 at d=512"):
+            _check_qkv(q, q, q, backward=True)
+    for d in (520, 1024, 500):
+        q = torch.zeros(2, 16, 1, d, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=f"K1 takes head dims that are multiples of 8 up "
+                                             f"to 512, got {d}$"):
+            _check_qkv(q, q, q)
+
+
+def test_the_celebahq_unet_hands_k1_one_head_of_512():
+    """configs/ddpm_celebahq.yaml's UNet (113.7M parameters, built on the
+    meta device, its forward traced there at 256x256): 5 attention calls at
+    S=256 (the 16x16 level) and 1 at S=64 (the middle), one head of 512."""
+    import collections
+    import os
+
+    from dmtpu_torch.models import modules
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config
+
+    config = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs", "ddpm_celebahq.yaml")
+    model = instantiate_from_config(load_config(config).model, device="meta")
+    assert sum(p.numel() for p in model.parameters()) == 113_673_219
+    calls = collections.Counter()
+    attention_fn = modules.attention
+
+    def recorded(q, k, v, *args, **kwargs):
+        calls[(q.shape[2], q.shape[1], k.shape[1], q.shape[3])] += 1
+        return attention_fn(q, k, v, *args, **kwargs)
+
+    modules.attention = recorded
+    try:
+        with torch.no_grad(), plain_ops():
+            out = model(torch.zeros(1, 3, 256, 256, device="meta"),
+                        torch.zeros(1, dtype=torch.long, device="meta"))
+    finally:
+        modules.attention = attention_fn
+    assert tuple(out.shape) == (1, 3, 256, 256)
+    assert dict(calls) == {(1, 256, 256, 512): 5, (1, 64, 64, 512): 1}
 
 
 # ---- K1: the wgmma kernel and the dispatch between the two kernels ----------

@@ -34,7 +34,14 @@ def test_the_port_has_its_new_modules():
                  "dmtpu_torch/models/modules.py", "dmtpu_torch/models/unet.py",
                  "dmtpu_torch/models/unet_categorial_adagn.py", "dmtpu_torch/diffusions/euler.py",
                  "dmtpu_torch/diffusions/heun.py", "dmtpu_torch/scripts/sample_uncond.py",
-                 "dmtpu_torch/diffusions/ddpm_ip.py", "dmtpu_torch/scripts/train_ddpm.py"):
+                 "dmtpu_torch/diffusions/ddpm_ip.py", "dmtpu_torch/scripts/train_ddpm.py",
+                 "dmtpu_torch/ops/resize_right.py", "dmtpu_torch/diffusions/guidance/ilvr.py",
+                 "dmtpu_torch/diffusions/guidance/clip_guidance.py", "dmtpu_torch/utils/mask.py",
+                 "dmtpu_torch/scripts/_editing.py", "dmtpu_torch/scripts/sample_sdedit.py",
+                 "dmtpu_torch/scripts/sample_ilvr.py",
+                 "dmtpu_torch/scripts/sample_mask_guidance.py",
+                 "dmtpu_torch/scripts/sample_ddib.py",
+                 "dmtpu_torch/scripts/sample_clip_guidance.py"):
         assert name in SOURCES
 
 

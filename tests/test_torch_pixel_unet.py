@@ -9,6 +9,9 @@ no layer is zero) carried by the param bridge, which maps the JAX dense
 q / k / v / proj onto the port's 1x1 convolutions.  Sizes are narrow (32
 and 64 channels, 8x8 or 16x16 images).  Tolerance: f32 relative L2 1e-5.
 """
+import os
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -67,6 +70,28 @@ def test_unet_matches_jax(fused_gn, n_heads):
     jmod = JaxUNet(**cfg)
     params, tmod = _pair(jmod, UNet(**cfg), jnp.zeros((1, 8, 8, 3)), jnp.zeros((1,), jnp.int32))
     _check(jmod, params, tmod, x, jnp.asarray(TS), targs=(t(TS),))
+
+
+def test_celebahq_unet_structure_matches_jax_at_a_narrow_width():
+    """configs/ddpm_celebahq.yaml's UNet (six levels, attention at the fifth
+    and in the middle, one head as wide as the channels) at dim 32, the
+    narrowest its 32 GroupNorm groups take: one head of 128, on 32x32 images
+    (attention at 2x2 and 1x1)."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs", "ddpm_celebahq.yaml")) as f:
+        cfg = dict(yaml.safe_load(f)["model"]["params"], dim=32)
+    assert cfg["n_heads"] == 1 and cfg["use_attn"].index(True) == 4
+    x = _x(3, 32, seed=4)
+    jmod = JaxUNet(**cfg)
+    params, tmod = _pair(jmod, UNet(**cfg), jnp.zeros((1, 32, 32, 3)), jnp.zeros((1,), jnp.int32))
+    assert tmod.down_4_attn_0.q.weight.shape[0] == 128
+    # jitted: six levels op by op would compile for 20 s
+    want = np.asarray(jax.jit(jmod.apply)(params, jnp.asarray(nhwc(x)), jnp.asarray(TS)))
+    with torch.no_grad():
+        got = nhwc(tmod(t(x), t(TS)).numpy())
+    assert np.isfinite(got).all() and _rel_l2(got, want) <= F32, _rel_l2(got, want)
 
 
 def test_unet_keys_and_the_two_gn_settings_share_parameters():
