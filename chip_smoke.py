@@ -28,7 +28,9 @@ DDPM_IP) and the AdaGN UNet through ``train_ddpm_cfg`` (phase 17), and
 guidance and image editing through ``python -m dmtpu_torch.scripts.sample_sdedit``,
 ``sample_mask_guidance`` (with RePaint), ``sample_ilvr``, ``sample_ddib`` and
 ``sample_clip_guidance`` on ``configs/ddpm_celebahq.yaml``'s UNet and ADM-256
-(phase 18); for the SD paths the
+(phase 18), and that UNet's training through ``python -m
+dmtpu_torch.scripts.train_ddpm`` with the T5 text path through ``python -m
+dmtpu_torch.scripts.encode_prompts`` (phase 19); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -135,21 +137,22 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      encoder: no remat in the config), a preview row and a decode, checked
      exactly in (a) and in every CLI run below; then a step of each mode
      (the CLI's loss, and the optimizer and EMA of each config) on one fixed
-     batch of 8 without the loader, timed (5 steps, host clock) and profiled
+     batch of 8 without the loader, timed (3 steps, host clock) and profiled
      (device time by class, annotated ranges, the card's idle share of the
      wall time under the profiler); (c) ``train_sd.main`` in this
      process, full fine-tune at batch 8 on 16 seeded-noise 512x512 PNGs with
      sidecar captions and a character-level CLIPTokenizer that the phase
      writes into a temporary directory (``CaptionedImageDir``, 4 loader
-     workers): 4 steps with a save and an EMA preview (DDIMCFG, 10 steps),
-     then ``-r latest`` to 6 steps: finite losses, both checkpoints, the
-     resume, the preview, the bf16 EMA's count; ms per step and images per
-     second (host clock between the loop's steps, from each run's second
-     step on: the loop reads each step's loss, so it waits for the card),
-     peak memory, the checkpoint's size and its save and load seconds; (d)
-     LoRA (``configs/sd15_lora.yaml``, rank 16) for 3 steps: adapters-only
-     checkpoints, a bit-identical base UNet, the adapters moved; then
-     ``merge_lora.main`` on its checkpoint and the same-seed base, whose
+     workers): 3 steps with one save (5.2 GB) and an EMA preview (DDIMCFG,
+     10 steps): finite losses, the checkpoint, the preview, the bf16 EMA's
+     count; ms per step and images per second (host clock between the
+     loop's steps, from the run's second step on: the loop reads each
+     step's loss, so it waits for the card), peak memory, the checkpoint's
+     size and its save seconds; (d) LoRA (``configs/sd15_lora.yaml``, rank
+     16) for 2 steps, then ``-r latest`` to 3: adapters-only checkpoints,
+     the resume and the EMA's count, a bit-identical base UNet, the
+     adapters moved; then ``merge_lora.main`` on its last checkpoint and the
+     same-seed base, whose
      merged UNet's b2 forward (loaded through ``load_weights``) agrees with
      the base run with the EMA adapters within 1e-3 relative L2 (plain
      path).  Both CLIs run with this script's non-zero random init in place
@@ -259,11 +262,12 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      on its shapes (``forward_flops``) times three; (d) ``train_mmdit.main``
      in this process on ``configs/sd3_medium.yaml`` with
      ``SD3_TRAIN_OVERRIDES`` (MMDiT-L/2 computing and stored in bf16, remat,
-     the config's batch of 32, adafactor 5e-5 and bf16 EMA 0.9999,
-     ``SyntheticEmbedded`` cut to 64 items, no eval grid): 3 steps and ``-r
-     latest`` to 5: ms per step, peak memory, checkpoint seconds and bytes,
-     finite losses, bf16 storage and EMA, launches exactly (48, 24, 0) a
-     step, all wgmma, and one more step of the loop profiled (idle share);
+     12 of its 24 blocks, the config's batch of 32, adafactor 5e-5 and bf16
+     EMA 0.9999, ``SyntheticEmbedded`` cut to 64 items, no eval grid): 2
+     steps and ``-r latest`` to 3: ms per step, peak memory, checkpoint
+     seconds and bytes, finite losses, bf16 storage and EMA, launches
+     exactly (24, 12, 0) a step, all wgmma, and one more step of the loop
+     profiled (idle share);
      (e) ``sample_cfg --sampler flow``: ``make_diffuser`` and
      ``sample_class`` on phase 11's DiT-XL/2 with ``learn_sigma`` off and the
      SD VAE, b4, FlowMatchingCFG-4: finite images, launches 4 x 28 K1 and 30
@@ -298,8 +302,9 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      forward's operations counted on its shapes (``forward_flops``);
  16. pixel-space sampling through ``python -m dmtpu_torch.scripts.sample_uncond``
      (``sample_fold``, ``build_diffuser`` and ``main``) and ``sample_cfg``:
-     (a) a gradient through a head of 512 raises, naming ROADMAP's K2 at
-     d=512 (K2 stops at 256; K1 takes 512 since phase 18's slice); (b)
+     (a) a gradient through a head of 512: one K1 and one K2 launch (their
+     d=512 instances), dq, dk and dv within 2e-2 of f32 autograd through
+     ``mha`` on the same bf16 values (phase 6's rule); (b)
      ADM-256 (``ADM256_CONF``:
      guided-diffusion's ``256x256_diffusion_uncond`` flags through the
      registry, 552.8M parameters, bf16 torso, learned sigma): a b2 forward
@@ -320,7 +325,7 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      inversion, then DDIM-50; launches exactly 99 calls' worth); (d)
      ``configs/ddpm_cfg_cifar10.yaml``'s UNetCategorialAdaGN (bf16 torso, the
      null class its table's zero last row): the b2 agreement with labels, K1
-     at its shapes on the CFG-doubled b20, and ``sample_cfg.main`` in this
+     and K3 at its shapes on the CFG-doubled b20, and ``sample_cfg.main`` in this
      process, DDIMCFG-50, ``CFG_EACH`` images of each of the 10 classes
      (launches exactly, one d=256 call a step); the directory is removed;
  17. pixel-space DDPM training (``configs/ddpm_cifar10.yaml``'s UNet with
@@ -350,7 +355,9 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      ``train_ddpm_cfg.main`` on ``configs/ddpm_cfg_cifar10.yaml``'s
      UNetCategorialAdaGN at b128 for 3 steps: launches exactly, K2 at d=64
      through wgmma (10 a step) and at d=256 through mma.sync (1); the
-     directory is removed;
+     directory is removed; (f) K2 at the AdaGN UNet's attention shapes (read
+     off a forward on the meta device) at its config's batch of 128, as in
+     (a);
  18. guidance and image editing on the pixel models, through the CLIs
      ``sample_sdedit``, ``sample_mask_guidance``, ``sample_clip_guidance``
      (``main`` in this process) and the request functions of ``sample_ilvr``
@@ -361,7 +368,8 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      beside the bound, SDPA (its backend named) and the host's time; (b)
      ``configs/ddpm_celebahq.yaml``'s UNet (113.7M, bf16 torso, one head of
      512): the b2 agreement as in 16, 5 attention calls at S=256 and 1 at
-     S=64 a call, the timed b16 DDIM-50 request at
+     S=64 a call, K3 at its 71 GroupNorms' shapes at b16 as in 3, the timed
+     b16 DDIM-50 request at
      256x256 (images per second, peak, launches exactly 50 x a call's, every
      K1 at d=512), one call timed and profiled; (c) ``sample_sdedit.main``:
      DDPM respaced to 100, ``--edit_steps 50``, exactly 50 UNet calls; (d)
@@ -377,7 +385,36 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      unguided sample's; (f) DDIB on the class-conditional ADM-256 (1000
      classes): the b2 agreement over 5 + 5 DDIM steps, then DDIM-50
      inversion under one class and sampling under another at b8 (99 UNet
-     calls, launches exactly); the directory is removed.
+     calls, launches exactly); the directory is removed;
+ 19. CelebA-HQ DDPM training and the T5 text path: (a) K2 at head dim 512
+     (its mma.sync instance in ``csrc/flash_attn_bwd_mma_d512.cu``; ptxas'
+     registers and spills and its shared memory printed) at b16 h1 S=256
+     and S=64 (CelebA-HQ's shapes), a ragged b4 S=200 and a padded d=504,
+     from K1's outputs and a random dO: against the plain version and f32
+     autograd through ``mha`` (phase 6's tolerances), timed as in 6 beside
+     the bound, SDPA's backward (its backend named) and the host's time;
+     (b) ``configs/ddpm_celebahq.yaml``'s UNet (113.7M, bf16 torso, one head
+     of 512) at b2: the loss, the gradient and its norm through the kernels
+     and through the plain ops against an f32 plain run (TF32 off), within
+     1.5x the plain bf16 path's relative error plus 1e-3, the attention
+     calls read off the run and exactly 6 K1, 6 K2 (all at d=512) and 71 K3
+     a step; the config's train step at b16 256x256 (Adam 2e-5, clip 1.0,
+     gradual EMA 0.9999): a warm-up, 10 timed steps (images per second, ms
+     per step, peak, launches exactly 10 x (6, 6, 71), K2 all mma.sync), one
+     profiled step (device time by class, the card's idle share); then
+     ``train_ddpm.main`` in this process on that config with ``Synthetic``
+     256x256x3 data (``CELEBAHQ_CLI``): 2 steps with a save and a 4-image
+     grid, then ``-r latest`` to 3, launches exactly; (c) a T5 encoder of
+     ``google/t5-v1_1-xxl``'s published shape (``T5_XXL``: 4.76B
+     parameters) built on the card with seeded random weights, beside CLIP-L
+     and OpenCLIP bigG at full width (f32), through ``encode_real`` at b4:
+     context [4, 154, 4096] and pooled [4, 2048], finite, timed, the T5 in
+     bf16 within 5e-2 relative L2 of its f32 run; (d) ``encode_prompts.main``
+     in this process: real mode from tower files the phase writes (the CLIP
+     towers as torch files with their configs), once with ``--no_t5`` and
+     once with ``--t5_dir`` (a T5 of XXL widths at 2 of its 24 layers, saved
+     with a character-level tokenizer), and demo mode, whose rows are
+     ``sample_mmdit --prompt``'s byte for byte; the directories are removed.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -405,7 +442,10 @@ there), a fifth for K2's mma.sync instance at head dim 256 (its launches in
 the 10 timed b128 train steps, its columns over the 6 calls of one step), a
 sixth for K1's mma.sync instance at head dim 512 (its launches in the
 CelebA-HQ UNet's DDIM-50 request at b16, its columns over the 6 calls of one
-call there; K1's first entry also sums one such call, ``celebahq_b16``), the
+call there; K1's first entry also sums one such call, ``celebahq_b16``), a
+seventh for K2's mma.sync instance at head dim 512 (its launches in the 10
+timed b16 CelebA-HQ train steps, its columns over the 6 calls of one step
+there; K2's first entry also sums one such step, ``celebahq_train_b16``), the
 seconds of each phase, and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
@@ -524,7 +564,8 @@ SHALLOW_ATTN, SHALLOW_GN = 10, 16
 # tokenizer that the phase writes for itself
 FT_CONFIG, LORA_CONFIG = "configs/sd15_finetune.yaml", "configs/sd15_lora.yaml"
 FT_SIZE, FT_IMAGES, FT_BATCH, FT_CHECK_BATCH = 512, 16, 8, 2
-FT_STEPS, FT_RESUMED_STEPS, LORA_STEPS, FT_PREVIEW_STEPS, FT_TIMED_STEPS = 4, 6, 3, 10, 5
+# the full fine-tune: one multi-GB save; the resume is the LoRA run's (small saves)
+FT_STEPS, LORA_STEPS, LORA_RESUMED_STEPS, FT_PREVIEW_STEPS, FT_TIMED_STEPS = 3, 2, 3, 10, 3
 FT_CAPTIONS = ("a photo of object {}", "a drawing of thing {}", "an image number {}", "")
 
 # phase 11: DiT-XL/2 class-conditional sampling through ``sample_cfg``'s request
@@ -595,13 +636,16 @@ SD3_DECODE_GN = {(c, 4 * hw, silu): n for (c, hw, silu), n in VAE_DECODE_GN.item
 # 1e-4, clip 1.0, no EMA, b128) through ``train_mmdit``'s loss, and ``python -m
 # dmtpu_torch.scripts.train_mmdit -c configs/sd3_medium.yaml`` with the torso
 # computing and stored in bf16 (``configs/sd3_medium.yaml:60-65``) and remat on,
+# its depth cut from 24 blocks to SD3_CLI_DEPTH (its widths kept),
 # ``SyntheticEmbedded`` cut to 64 items, no eval grid (16-channel latents make
 # no PNG); ``sample_cfg --sampler flow`` on DiT-XL/2 without learned variance
 MMDIT_TRAIN_B, MMDIT_TRAIN_STEPS, MMDIT_TRAIN_CHECK_BATCH = 128, 10, 2
+SD3_CLI_DEPTH = 12
 SD3_TRAIN_OVERRIDES = ["model.params.dtype=bfloat16", "model.params.param_dtype=bfloat16",
-                       "model.params.use_checkpoint=true", "data.params.n=64",
-                       "dataloader.num_workers=4", "train.print_freq=1", "train.sample_freq=0"]
-SD3_TRAIN_STEPS, SD3_TRAIN_RESUMED_STEPS = 3, 5
+                       "model.params.use_checkpoint=true", f"model.params.depth={SD3_CLI_DEPTH}",
+                       "data.params.n=64", "dataloader.num_workers=4", "train.print_freq=1",
+                       "train.sample_freq=0"]
+SD3_TRAIN_STEPS, SD3_TRAIN_RESUMED_STEPS = 2, 3
 # the joint attention of a train step, (b, h, S), and its calls a step: K1 in
 # the forward (and again in the recompute under remat), K2 in the backward
 MMDIT_TRAIN_ATTN = {"mmdit_train_b128": (MMDIT_TRAIN_B, 12, MMDIT_B2_CTX + 256),
@@ -743,6 +787,32 @@ MASK_RESPACE, REPAINT_RESPACE, REPAINT_R, REPAINT_J = 50, 25, 2, 5
 CLIP_RESPACE, CLIP_WEIGHT, CLIP_TEXT = 50, 100.0, "a smiling face"
 ILVR_RESPACE, ILVR_FACTOR = 100, 8
 DDIB_STEPS, DDIB_CHECK_STEPS, DDIB_CLASSES = 50, 5, (207, 360)
+
+# phase 19: CelebA-HQ DDPM training and the T5 text path.
+# configs/ddpm_celebahq.yaml's UNet (113.7M, one head of 512: K1 and K2 at
+# d=512) with a bf16 torso at b16 256x256 and the config's Adam 2e-5, clip
+# 1.0 and gradual EMA 0.9999; train_ddpm on Synthetic 256x256x3 images in
+# place of CelebA-HQ (no dataset files on the card's machine); a T5 encoder
+# of google/t5-v1_1-xxl's published shape (random weights built on the card)
+# beside CLIP-L and OpenCLIP bigG at full width through encode_prompts
+# K2 at d=512: (b, S, d, calls in a b16 CelebA-HQ train step): its two
+# shapes, a ragged length and a padded head dim
+K2_D512_ROWS = [(16, 256, 512, 5), (16, 64, 512, 1), (4, 200, 512, 0), (4, 256, 504, 0)]
+# its shared memory: K, V and two buffers of Q and dO, 32 rows of 520 bf16
+# each, the dS^T tile of 32 x 40 and two buffers of lse and delta
+K2_D512_SMEM = (6 * 32 * 520 + 32 * 40) * 2 + 4 * 32 * 4
+CELEBAHQ_TRAIN_B, CELEBAHQ_TRAIN_STEPS, CELEBAHQ_TRAIN_CHECK_BATCH = 16, 10, 2
+CELEBAHQ_TRAIN_STEP = {"K1": 6, "K2": 6, "K3": 71}  # launches a train step
+CELEBAHQ_CLI = ["data.target=datasets.synthetic.Synthetic", "data.params.n=64",
+                "dataloader.num_workers=4", "train.print_freq=1",
+                f"train.batch_size={CELEBAHQ_TRAIN_B}", "train.n_samples=4",
+                "diffusion.params.respace_type=uniform", "diffusion.params.respace_steps=10"]
+CELEBAHQ_CLI_STEPS, CELEBAHQ_CLI_RESUMED_STEPS = 2, 3
+T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240, num_layers=24,
+              num_heads=64, feed_forward_proj="gated-gelu")
+T5_XXL_PARAMS = 4_762_310_656
+T5_CLI_LAYERS = 2  # the T5 that encode_prompts --t5_dir loads: XXL widths, 2 of 24 layers
+ENCODE_PROMPTS = ("a smiling face", "a red car on a hill", "two dogs", "an image number 4")
 
 
 def log(*args):
@@ -1279,7 +1349,11 @@ def main() -> int:
     # ---- 18. guidance and editing: SDEdit, mask guidance, ILVR, DDIB, CLIP guidance -----
     torch.cuda.empty_cache()
     guidance = run_phase("18", phase_guidance, dev, check, gen, card, time_ms, host_us,
-                         new_totals)
+                         new_totals, k3_case, add_row)
+
+    # ---- 19. CelebA-HQ training through K2 at d=512; T5 and encode_prompts ------------
+    torch.cuda.empty_cache()
+    celebahq = run_phase("19", phase_celebahq_t5, dev, check, gen, card, time_ms, host_us)
     log("phase seconds: " + json.dumps(phase_seconds))
     check("jax" not in sys.modules, "no JAX imported")
 
@@ -1301,7 +1375,8 @@ def main() -> int:
                       **{path: counted[name] for path, counted in pixel["launches"].items()},
                       **{path: counted[name]
                          for path, counted in pixel_train["launches"].items()},
-                      **{path: counted[name] for path, counted in guidance["launches"].items()}}
+                      **{path: counted[name] for path, counted in guidance["launches"].items()},
+                      **{path: counted[name] for path, counted in celebahq["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1361,7 +1436,9 @@ def main() -> int:
              # train step: MMDiT-B/2's 12 at b128, SD3-medium's 24 at b32
              **mmdit_train["k2_per_step"],
              # and over the 6 (d=256, mma.sync) of one CIFAR UNet b128 step
-             **pixel_train["k2_per_step"]),
+             **pixel_train["k2_per_step"],
+             # and over the 6 (d=512, mma.sync) of one CelebA-HQ UNet b16 step
+             **celebahq["k2_per_step"]),
         dict(entry("group_norm_silu", "dmtpu_torch/csrc/group_norm_silu.cu",
                    "dmtpu/ops/groupnorm.py:44", (main_launches["K3"], by_path["K3"]),
                    f"per b{B} UNet forward: sum over its {GN_PER_FORWARD} GroupNorm calls", k3),
@@ -1377,9 +1454,12 @@ def main() -> int:
              # and over the 46 calls of one SDXL UNet call on 2 samples, and
              # the 30 of one b1 SD VAE decode at 1024x1024
              sdxl_unet_b2=sdxl["k3_unet"], sdxl_vae_decode_b1=sdxl["k3_vae"],
-             # and over the GroupNorms of one ADM-256 call at b16 and one CIFAR
-             # UNet call at b500
-             **pixel["k3_per_call"]),
+             # and over the GroupNorms of one ADM-256 call at b16, one CIFAR
+             # UNet call at b500 and one AdaGN UNet call on the 20 samples of
+             # a CFG batch
+             **pixel["k3_per_call"],
+             # and over the 71 of one CelebA-HQ UNet call at b16
+             **guidance["k3_per_call"]),
         # K1's mma.sync instance at head dim 256 (the pixel UNets' one head as
         # wide as the channels): its launches in the CIFAR UNet's DDIM-50
         # request at b500, its columns over the 6 calls of one UNet call there
@@ -1405,6 +1485,14 @@ def main() -> int:
               (guidance["d512_launches"], guidance["d512_by_path"]),
               f"per b{CELEBAHQ_B} CelebA-HQ UNet call: sum over its 6 attention calls at d=512",
               guidance["k1_per_call"][f"celebahq_b{CELEBAHQ_B}"]),
+        # K2's mma.sync instance at head dim 512 (dK, dV and dQ's columns
+        # split over two CTAs): its launches in the CelebA-HQ UNet's 10 timed
+        # b16 train steps, its columns over the 6 calls of one step there
+        entry("flash_attn_bwd_mma_d512", "dmtpu_torch/csrc/flash_attn_bwd_mma_d512.cu",
+              "dmtpu/ops/flash_small_d.py:118",
+              (celebahq["d512_launches"], celebahq["d512_by_path"]),
+              f"per b{CELEBAHQ_TRAIN_B} CelebA-HQ UNet train step: sum over its 6 attention "
+              "backwards at d=512", celebahq["k2_per_step"][f"celebahq_train_b{CELEBAHQ_TRAIN_B}"]),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
         "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
@@ -1412,6 +1500,7 @@ def main() -> int:
         "mmdit": mmdit["metrics"], "mmdit_train": mmdit_train["metrics"],
         "sdxl": sdxl["metrics"], "pixel": pixel["metrics"],
         "pixel_train": pixel_train["metrics"], "guidance": guidance["metrics"],
+        "celebahq_t5": celebahq["metrics"],
         "phase_seconds": phase_seconds, "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2336,29 +2425,54 @@ def write_finetune_inputs(root: str, n: int, size: int) -> tuple:
     0-9), under ``root``: (image directory, tokenizer directory)."""
     import numpy as np
     from PIL import Image
-    from transformers import CLIPTokenizer
 
     images, tokenizer = os.path.join(root, "images"), os.path.join(root, "tokenizer")
     os.makedirs(images)
-    os.makedirs(tokenizer)
     rs = np.random.RandomState(SEED)
     for i in range(n):
         Image.fromarray(rs.randint(0, 256, (size, size, 3), np.uint8)).save(
             os.path.join(images, f"{i:03d}.png"))
         with open(os.path.join(images, f"{i:03d}.txt"), "w") as f:
             f.write(FT_CAPTIONS[i % len(FT_CAPTIONS)].format(i))
+    return images, write_char_clip_tokenizer(tokenizer)
+
+
+def write_char_clip_tokenizer(path: str) -> str:
+    """A local CLIPTokenizer directory at ``path`` with a character-level
+    vocabulary (a-z, 0-9)."""
+    from transformers import CLIPTokenizer
+
+    os.makedirs(path, exist_ok=True)
     vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
     for ch in "abcdefghijklmnopqrstuvwxyz0123456789":
         vocab[ch] = len(vocab)
         vocab[ch + "</w>"] = len(vocab)
-    vocab_file, merges_file = (os.path.join(tokenizer, name) for name in ("vocab.json",
-                                                                          "merges.txt"))
+    vocab_file, merges_file = (os.path.join(path, name) for name in ("vocab.json", "merges.txt"))
     with open(vocab_file, "w") as f:
         json.dump(vocab, f)
     with open(merges_file, "w") as f:
         f.write("#version: 0.2\n")
-    CLIPTokenizer(vocab_file, merges_file).save_pretrained(tokenizer)
-    return images, tokenizer
+    CLIPTokenizer(vocab_file, merges_file).save_pretrained(path)
+    return path
+
+
+def write_char_t5_tokenizer(path: str) -> str:
+    """A local fast tokenizer at ``path`` of single characters (a-z, 0-9,
+    space) with T5's special tokens (<pad> 0, </s> 1 after every text, <unk>
+    2): ``AutoTokenizer`` loads it without ``sentencepiece``."""
+    from tokenizers import Regex, Tokenizer, models, pre_tokenizers, processors
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {"<pad>": 0, "</s>": 1, "<unk>": 2}
+    for ch in "abcdefghijklmnopqrstuvwxyz0123456789 ":
+        vocab[ch] = len(vocab)
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Split(Regex("."), "isolated")
+    tok.post_processor = processors.TemplateProcessing(single="$A </s>",
+                                                       special_tokens=[("</s>", 1)])
+    PreTrainedTokenizerFast(tokenizer_object=tok, pad_token="<pad>", eos_token="</s>",
+                            unk_token="<unk>").save_pretrained(path)
+    return path
 
 
 def phase_finetune_cli(dev, check, gen, ref_model, card) -> dict:
@@ -2516,14 +2630,14 @@ def phase_finetune_cli(dev, check, gen, ref_model, card) -> dict:
             step(state, batch)
         torch.cuda.synchronize()
         bare_ms = 1e3 * (time.perf_counter() - t0) / FT_TIMED_STEPS
-        prof = profile_by_class(lambda: step(state, batch), 2)
+        prof = profile_by_class(lambda: step(state, batch), 1)
         device_ms = prof["classes"]["total"]
         profiles[mode] = dict(prof["classes"], wall_under_profiler=prof["wall_ms"],
                               bare_step_ms=bare_ms, **prof["ranges"])
         log(f"fine-tuning step ({mode}) b{FT_BATCH} {FT_SIZE}x{FT_SIZE}, fixed batch, no loader: "
             f"{bare_ms:.3f} ms/step over {FT_TIMED_STEPS} (host clock); device time by class "
-            f"(torch.profiler, ms per step over 2; wall {prof['wall_ms']:.3f} ms per step under "
-            f"the profiler, the card idle {1 - device_ms / prof['wall_ms']:.3f} of it): "
+            f"(torch.profiler, one step; wall {prof['wall_ms']:.3f} ms under the profiler, the "
+            f"card idle {1 - device_ms / prof['wall_ms']:.3f} of it): "
             + json.dumps(prof["classes"]) + "; annotated ranges: " + json.dumps(prof["ranges"]))
         for name, ms in prof["top"]:
             log(f"  {ms:9.4f} ms  {name}")
@@ -2585,16 +2699,14 @@ def phase_finetune_cli(dev, check, gen, ref_model, card) -> dict:
                           peak_bytes=torch.cuda.max_memory_allocated())
             return result
 
-        # (c) full fine-tune: 4 steps, a save, a preview; then resume to 6
+        # (c) full fine-tune: FT_STEPS steps, one save (5.2 GB), a preview
         first = run(FT_CONFIG, FT_STEPS, FT_STEPS, "-e", exp)
-        again = run(FT_CONFIG, FT_RESUMED_STEPS, FT_STEPS, "-e", exp, "-r", "latest")
         ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
         last = os.path.join(exp, "ckpt", ckpts[-1])
         size = sum(os.path.getsize(os.path.join(last, f)) for f in os.listdir(last))
         blob = load_checkpoint_host(last)
-        ema_ok = (blob["ema"]["num_updates"] == FT_RESUMED_STEPS and blob["step"] ==
-                  FT_RESUMED_STEPS and all(s.dtype == torch.bfloat16
-                                           for s in blob["ema"]["shadow"].values()))
+        ema_ok = (blob["ema"]["num_updates"] == FT_STEPS and blob["step"] == FT_STEPS
+                  and all(s.dtype == torch.bfloat16 for s in blob["ema"]["shadow"].values()))
         del blob
         text = "\n".join(open(os.path.join(exp, f)).read() for f in os.listdir(exp)
                          if f.startswith("output-"))
@@ -2602,77 +2714,87 @@ def phase_finetune_cli(dev, check, gen, ref_model, card) -> dict:
         ms = sum(step_ms) / len(step_ms)
         metrics["full"] = {
             "ms_per_step": ms, "imgs_per_s": 1e3 * FT_BATCH / ms, "step_ms": step_ms,
-            "resumed_step_ms": [1e3 * s for s in again["step_seconds"]],
-            "peak_bytes": max(first["peak_bytes"], again["peak_bytes"]),
-            "checkpoint_bytes": size, "save_seconds": first["save_seconds"]
-            + again["save_seconds"], "load_seconds": again["load_seconds"],
-            "run_seconds": [first["seconds"], again["seconds"]],
-            "losses": first["losses"] + again["losses"]}
+            "peak_bytes": first["peak_bytes"], "checkpoint_bytes": size,
+            "save_seconds": first["save_seconds"], "run_seconds": first["seconds"],
+            "losses": first["losses"]}
         launches["train_sd_full"] = first["launches"]
         log(f"train_sd full fine-tune b{FT_BATCH} {FT_SIZE}x{FT_SIZE}: {ms:.3f} ms/step "
             f"({step_ms}), {metrics['full']['imgs_per_s']:.4f} imgs/s, peak "
             f"{metrics['full']['peak_bytes'] / 2**30:.3f} GiB ({card}); checkpoint "
-            f"{size / 1e9:.3f} GB, saves {metrics['full']['save_seconds']} s, load "
-            f"{again['load_seconds']:.3f} s; runs {first['seconds']:.1f} + {again['seconds']:.1f} "
-            f"s; losses {metrics['full']['losses']}; launches {first['launches']} then "
-            f"{again['launches']}; checkpoints {ckpts}")
+            f"{size / 1e9:.3f} GB, save {metrics['full']['save_seconds']} s; run "
+            f"{first['seconds']:.1f} s; losses {metrics['full']['losses']}; launches "
+            f"{first['launches']}; checkpoints {ckpts}")
         check(all(map(math.isfinite, metrics["full"]["losses"]))
-              and len(metrics["full"]["losses"]) == FT_RESUMED_STEPS,
-              "train_sd: finite losses at every step of both runs")
-        check(ckpts == [f"step{FT_STEPS - 1:06d}", f"step{FT_RESUMED_STEPS - 1:06d}"]
-              and "Resumed from" in text and "RANDOM-INIT" in text,
-              "train_sd: two checkpoints, resumed from the first")
+              and len(metrics["full"]["losses"]) == FT_STEPS,
+              "train_sd: finite losses at every step")
+        check(ckpts == [f"step{FT_STEPS - 1:06d}"] and "RANDOM-INIT" in text,
+              "train_sd: one checkpoint, at the end of the run")
         check(os.path.isfile(os.path.join(exp, "samples", f"step{FT_STEPS - 1:06d}.png")),
               "train_sd: the EMA preview was written")
-        check(ema_ok, "train_sd: after the resume the checkpoint's EMA counts every step and its "
-                      "shadow is bf16 (ema_dtype: bfloat16 from the config)")
+        check(ema_ok, "train_sd: the checkpoint's EMA counts every step and its shadow is bf16 "
+                      "(ema_dtype: bfloat16 from the config)")
         check(first["launches"] == want_launches(FT_STEPS, 1)
-              and first["k2_by_kernel"] == {k: FT_STEPS * n for k, n in k2_per_step.items()}
-              and again["launches"] == want_launches(FT_RESUMED_STEPS - FT_STEPS, 0),
-              f"train_sd launches {first['launches']}, {again['launches']} == "
-              f"{want_launches(FT_STEPS, 1)}, {want_launches(FT_RESUMED_STEPS - FT_STEPS, 0)} "
-              f"({FT_STEPS} steps and a {rows}-row preview; then {FT_RESUMED_STEPS - FT_STEPS} "
-              f"steps)")
+              and first["k2_by_kernel"] == {k: FT_STEPS * n for k, n in k2_per_step.items()},
+              f"train_sd launches {first['launches']} == {want_launches(FT_STEPS, 1)} "
+              f"({FT_STEPS} steps and a {rows}-row preview)")
         shutil.rmtree(exp)
         torch.cuda.empty_cache()
 
-        # (d) LoRA: a few steps, adapters-only checkpoints, a frozen base; the merge
+        # (d) LoRA: a few steps, adapters-only checkpoints, a frozen base; then
+        # -r latest for one more step (the CLI's resume); the merge
         exp = os.path.join(root, "lora")
         train_sd.build_model = capturing_build
         try:
             lora = run(LORA_CONFIG, LORA_STEPS, LORA_STEPS, "-e", exp)
+            resumed = run(LORA_CONFIG, LORA_RESUMED_STEPS, LORA_STEPS, "-e", exp, "-r", "latest")
         finally:
             train_sd.build_model = real_build
-        sd = captured.pop("sd")
+        sd = captured.pop("sd")  # the resumed run's stack
         base_same = all(torch.equal(v, sd.unet.state_dict()[k].cpu())
                         for k, v in captured.pop("unet_at_build").items())
-        ckpt = os.path.join(exp, "ckpt", f"step{LORA_STEPS - 1:06d}")
+        ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
+        ckpt = os.path.join(exp, "ckpt", f"step{LORA_RESUMED_STEPS - 1:06d}")
         size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
         blob = load_checkpoint_host(ckpt)
         n_adapter = sum(v.numel() for v in blob["model"].values())
         adapters_only = all(k.endswith((".a", ".b")) for k in blob["model"]) and \
             blob["ema"]["shadow"].keys() == blob["model"].keys()
         moved = max(v.abs().max().item() for k, v in blob["model"].items() if k.endswith(".b"))
+        text = "\n".join(open(os.path.join(exp, f)).read() for f in os.listdir(exp)
+                         if f.startswith("output-"))
         step_ms = [1e3 * s for s in lora["step_seconds"]]
         ms = sum(step_ms) / len(step_ms)
+        losses = lora["losses"] + resumed["losses"]
         metrics["lora"] = {"ms_per_step": ms, "imgs_per_s": 1e3 * FT_BATCH / ms,
                            "step_ms": step_ms, "peak_bytes": lora["peak_bytes"],
                            "checkpoint_bytes": size, "adapter_params": n_adapter,
-                           "save_seconds": lora["save_seconds"], "losses": lora["losses"],
-                           "run_seconds": lora["seconds"]}
+                           "save_seconds": lora["save_seconds"] + resumed["save_seconds"],
+                           "load_seconds": resumed["load_seconds"], "losses": losses,
+                           "run_seconds": [lora["seconds"], resumed["seconds"]]}
         launches["train_sd_lora"] = lora["launches"]
+        launches["train_sd_lora_resume"] = resumed["launches"]
         log(f"train_sd LoRA (rank 16) b{FT_BATCH} {FT_SIZE}x{FT_SIZE}: {ms:.3f} ms/step "
             f"({step_ms}), {metrics['lora']['imgs_per_s']:.4f} imgs/s, peak "
             f"{lora['peak_bytes'] / 2**30:.3f} GiB ({card}); checkpoint {size / 1e6:.3f} MB, "
-            f"{n_adapter} adapter parameters, largest |b| {moved:.3e}; losses {lora['losses']}; "
-            f"launches {lora['launches']}")
-        check(adapters_only and size < 1e8 and all(map(math.isfinite, lora["losses"])),
-              "train_sd LoRA: finite losses; the checkpoint holds the adapters only")
+            f"{n_adapter} adapter parameters, largest |b| {moved:.3e}; then -r latest to "
+            f"{LORA_RESUMED_STEPS}, load {resumed['load_seconds']:.3f} s; losses {losses}; "
+            f"launches {lora['launches']} then {resumed['launches']}; checkpoints {ckpts}")
+        check(adapters_only and size < 1e8 and all(map(math.isfinite, losses))
+              and len(losses) == LORA_RESUMED_STEPS,
+              "train_sd LoRA: finite losses at every step of both runs; the checkpoint holds the "
+              "adapters only")
+        check(ckpts == [f"step{LORA_STEPS - 1:06d}", f"step{LORA_RESUMED_STEPS - 1:06d}"]
+              and "Resumed from" in text and blob["step"] == LORA_RESUMED_STEPS
+              and blob["ema"]["num_updates"] == LORA_RESUMED_STEPS,
+              "train_sd LoRA: two checkpoints, resumed from the first; the EMA counts every step")
         check(base_same and moved > 0, "train_sd LoRA: the base UNet is bit-identical after "
                                        "training, the adapters moved")
         check(lora["launches"] == want_launches(LORA_STEPS, 1)
-              and lora["k2_by_kernel"] == {k: LORA_STEPS * n for k, n in k2_per_step.items()},
-              f"train_sd LoRA launches {lora['launches']} == {want_launches(LORA_STEPS, 1)}")
+              and lora["k2_by_kernel"] == {k: LORA_STEPS * n for k, n in k2_per_step.items()}
+              and resumed["launches"] == want_launches(LORA_RESUMED_STEPS - LORA_STEPS, 0),
+              f"train_sd LoRA launches {lora['launches']}, {resumed['launches']} == "
+              f"{want_launches(LORA_STEPS, 1)}, "
+              f"{want_launches(LORA_RESUMED_STEPS - LORA_STEPS, 0)}")
 
         merged_path = os.path.join(root, "merged.pt")
         t0 = time.perf_counter()
@@ -3692,7 +3814,9 @@ def phase_mmdit_train(dev, check, gen, card, time_ms, host_us) -> dict:
     # in this process: the model initialised the CLI's way (adaLN-Zero), bf16
     # storage, remat, adafactor 5e-5, the config's bf16 EMA; the loop's step is
     # kept for one profiled step after the run
-    sd3_calls = MMDIT_TRAIN_CALLS["sd3_train_b32"]
+    # the CLI's model has SD3_CLI_DEPTH of SD3-medium's 24 blocks
+    sd3_calls = {key: c * SD3_CLI_DEPTH // 24
+                 for key, c in MMDIT_TRAIN_CALLS["sd3_train_b32"].items()}
     kept = {}
     real_make_train_step = train_mmdit.make_train_step
 
@@ -3757,7 +3881,8 @@ def phase_mmdit_train(dev, check, gen, card, time_ms, host_us) -> dict:
         "profile_ms": dict(sd3_profile["classes"], wall=sd3_profile["wall_ms"],
                            **sd3_profile["ranges"]),
         "idle_share": sd3_idle, "launches": {"train": run1, "resume": run2}}
-    log(f"train_mmdit SD3-medium (MMDiT-L/2, bf16 storage {dtypes}, remat, EMA {ema_dtypes}) "
+    log(f"train_mmdit SD3-medium at depth {SD3_CLI_DEPTH} (MMDiT-L/2 widths, bf16 storage "
+        f"{dtypes}, remat, EMA {ema_dtypes}) "
         f"b{sd3_batch}: {SD3_TRAIN_STEPS} steps, then -r latest to {SD3_TRAIN_RESUMED_STEPS}: ms "
         f"per step (host clock between the loop's steps) {sd3_ms:.3f}, each "
         f"{metrics['sd3_medium_cli_b32']['step_ms']}; peak {sd3_peak / 2**30:.3f} GiB "
@@ -4152,7 +4277,7 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
     import torch
     from dmtpu_torch.diffusions import DDIM
     from dmtpu_torch.ops import plain_ops
-    from dmtpu_torch.ops.attention import attention
+    from dmtpu_torch.ops.attention import attention, mha
     from dmtpu_torch.ops.flash_attention import (
         flash_attention_bwd,
         flash_attention_fwd,
@@ -4275,21 +4400,28 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
     metrics = {"agreement_b2": {}}
     k1_rows, k1_per_call, k3_per_call, request_launches = {}, {}, {}, {}
 
-    # (a) a head of 512 (CelebA-HQ's UNet): K1 takes it (phase 18 checks it),
-    # K2 not yet: a gradient raises, naming the ROADMAP item, and nothing
-    # falls back to the plain version
-    q = torch.randn(2, 16, 1, 512, generator=g, device=dev).bfloat16().requires_grad_()
+    # (a) a head of 512 (CelebA-HQ's UNet): K1 forward and K2 backward, their
+    # d=512 instances (phases 18 and 19 hold them at CelebA-HQ's shapes),
+    # against f32 autograd through mha on the same bf16 values (phase 6's rule)
+    q, k, v, do = (torch.randn(2, 16, 1, 512, generator=g, device=dev).bfloat16()
+                   for _ in range(4))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     zero_counts()
-    try:
-        attention(q, q, q).float().sum().backward()
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    log(f"d=512 attention gradient: {refused or 'not refused'}")
-    check("K2 at d=512" in refused and q.grad is None
-          and counts() == {"K1": 1, "K2": 0, "K3": 0},
-          "attention at d=512: K1 runs, its gradient raises ValueError naming ROADMAP's K2 at "
-          "d=512")
+    attention(*leaves).backward(do)
+    torch.cuda.synchronize()
+    launched = counts()
+    f32 = [x.float().requires_grad_() for x in (q, k, v)]
+    mha(*f32).backward(do.float())
+    errs = {name: (rel_err(a.grad, b.grad),
+                   (a.grad.float() - b.grad).abs().max().item() / b.grad.abs().max().item())
+            for name, a, b in zip(("dq", "dk", "dv"), leaves, f32)}
+    log(f"d=512 attention gradient: launches {launched}; (rel L2, max err / max) vs f32 mha "
+        f"autograd: {errs}")
+    check(launched == {"K1": 1, "K2": 1, "K3": 0}
+          and all(rel <= 2e-2 and top <= 2e-2 for rel, top in errs.values()),
+          "attention at d=512: one K1 and one K2 launch; dq, dk, dv within 2e-2 of f32 mha "
+          "autograd")
+    del q, k, v, do, leaves, f32
 
     # (b) ADM-256, unconditional, from the release's flags through the registry
     t0 = time.perf_counter()
@@ -4455,7 +4587,8 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
             "AdaGN UNet", adagn, adagn_ref,
             (x, torch.tensor([999, 421], device=dev), torch.tensor([3, num_classes], device=dev)))
         del adagn_ref
-        kernel_rows("AdaGN UNet", adagn_calls, 2 * CFG_EACH, f"adagn_b{2 * CFG_EACH}")
+        kernel_rows("AdaGN UNet", adagn_calls, 2 * CFG_EACH, f"adagn_b{2 * CFG_EACH}",
+                    f"adagn_b{2 * CFG_EACH}")
         torch.save(adagn.state_dict(), os.path.join(root, "adagn.pt"))
         argv = ["-c", CIFAR_CFG_CONFIG, "--weights", os.path.join(root, "adagn.pt"),
                 "--save_dir", os.path.join(root, "cfg"), "--sampler", "ddim", "--respace_steps",
@@ -4498,7 +4631,11 @@ def phase_pixel_train(dev, check, gen, card, time_ms, host_us) -> dict:
     import numpy as np
     import torch
     from dmtpu_torch.ops import plain_ops
-    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_fwd,
+        select_bwd_kernel,
+    )
     from dmtpu_torch.ops.groupnorm import group_norm_silu
     from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
     from dmtpu_torch.scripts import train_ddpm, train_ddpm_cfg
@@ -4796,17 +4933,50 @@ def phase_pixel_train(dev, check, gen, card, time_ms, host_us) -> dict:
                         adagn_cli_train=dims4["K2"].get(256, 0))
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.empty_cache()
+
+    # (f) K2 at the AdaGN UNet's attention shapes (read off a forward on the
+    # meta device) at its config's batch: 10 calls at d=64 (wgmma) and 1 at
+    # d=256 (mma.sync) a train step
+    cfg_conf = merge_dotlist(load_config(CIFAR_CFG_CONFIG), PIXEL_OVERRIDES)
+    side, nb = cfg_conf.data.params.img_size, cfg_conf.train.batch_size
+    meta_t = torch.zeros(1, dtype=torch.long, device="meta")
+    with recorded_ops({}) as adagn_calls, plain_ops(), torch.no_grad():
+        instantiate_from_config(cfg_conf.model, device="meta")(
+            torch.zeros(1, cfg_conf.data.img_channels, side, side, device="meta"), meta_t, meta_t)
+    k2_adagn = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, host_us=0.0, err=0.0,
+                    bound_ms_by={"bytes": 0.0, "operations": 0.0})
+    by_d = {}
+    for (h, sq, sk, d), calls in sorted(adagn_calls["attention"].items()):
+        q, k, v, do = (torch.randn(nb, s_, h, d, generator=g, device=dev).bfloat16()
+                       for s_ in (sq, sk, sk, sq))
+        row, per = k2_call_row(q, k, v, do, calls, f"AdaGN UNet b{nb} h{h} S={sq} d={d}", check,
+                               time_ms, host_us, card, 20, expect=select_bwd_kernel(sq, sk, d))
+        k2_rows[f"adagn_b{nb}_h{h}_s{sq}_d{d}"] = row
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us"):
+            k2_adagn[key] += per[key]
+        for by, ms in per["bound_ms_by"].items():
+            k2_adagn["bound_ms_by"][by] += ms
+        k2_adagn["err"] = max(k2_adagn["err"], per["err"])
+        by_d[d] = by_d.get(d, 0) + calls
+        del q, k, v, do
+    log(f"K2 per b{nb} AdaGN UNet train step ({sum(by_d.values())} calls, by head dim {by_d}): "
+        + json.dumps(k2_adagn))
+    check(by_d == ADAGN_ATTN, f"AdaGN UNet: attention calls by head dim {by_d} == {ADAGN_ATTN}")
+    torch.cuda.empty_cache()
     return {"launches": {f"pixel_train{PIXEL_TRAIN_STEPS}": launches, "pixel_cli_train": run1,
                          "pixel_cli_resume": run2, "pixel_cli_ddpm_ip": run3,
                          "adagn_cli_train": run4},
-            "metrics": metrics, "k2": k2_rows, "k2_per_step": {"cifar_train_b128": k2_per_step},
+            "metrics": metrics, "k2": k2_rows,
+            "k2_per_step": {"cifar_train_b128": k2_per_step, f"adagn_train_b{nb}": k2_adagn},
             "d256_launches": d256_launches, "d256_by_path": d256_by_path}
 
-def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals) -> dict:
+def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals, k3_row,
+                   add_row) -> dict:
     """Phase 18 (see the module docstring): guidance and image editing on the
     pixel models through ``sample_sdedit``, ``sample_mask_guidance``,
     ``sample_ilvr``, ``sample_ddib`` and ``sample_clip_guidance``; K1 at
-    head dim 512.  ``new_totals`` is phase 2's sum helper."""
+    head dim 512.  ``new_totals``, ``k3_row`` and ``add_row`` are phases 2
+    and 3's row helpers."""
     import shutil
     import tempfile
 
@@ -4917,7 +5087,7 @@ def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals) -> dict:
     g = gen(SEED + 80)
     metrics = {"agreement_b2": {}, "part_seconds": {}}
     part_start = [time.perf_counter()]
-    request_launches, d512_by_path, k1_per_call = {}, {}, {}
+    request_launches, d512_by_path, k1_per_call, k3_per_call = {}, {}, {}, {}
 
     # (a) K1 at d=512 at CelebA-HQ's shapes (b16: the 16x16 level and the
     # middle), a ragged length and a padded head dim
@@ -4959,6 +5129,15 @@ def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals) -> dict:
                                 lambda: unet_ref(x, tt))
     check(dict(calls["attention"]) == CELEBAHQ_ATTN,
           f"CelebA-HQ UNet: attention calls {dict(calls['attention'])} == {CELEBAHQ_ATTN}")
+    # K3 at the UNet's GroupNorm shapes (as the b2 run hands them) at b16
+    k3 = new_totals()
+    for (c, hw, dname, silu, eps, layout), k in sorted(calls["group_norm"].items()):
+        fmt = torch.channels_last if layout == "cl" else torch.contiguous_format
+        add_row(k3, k3_row(c, hw, dname, silu, eps, fmt, k, n=CELEBAHQ_B), k)
+        torch.cuda.empty_cache()
+    k3_per_call[f"celebahq_b{CELEBAHQ_B}"] = k3
+    log(f"K3 per CelebA-HQ UNet call on {CELEBAHQ_B} samples "
+        f"({sum(calls['group_norm'].values())} calls): " + json.dumps(k3))
     fn = sample_uncond.model_function(unet)
 
     def ddim(steps):
@@ -5076,7 +5255,7 @@ def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals) -> dict:
         torch.manual_seed(SEED)
         with torch.device(dev):  # the random init on the card: seconds, not tens
             CLIPModel(CLIPConfig()).save_pretrained(clip_dir)
-        _, tokenizer = write_finetune_inputs(os.path.join(root, "tokenizer"), 0, 8)
+        tokenizer = write_char_clip_tokenizer(os.path.join(root, "tokenizer"))
         CLIPTokenizer.from_pretrained(tokenizer).save_pretrained(clip_dir)
         argv = ["-c", CELEBAHQ_CONFIG, "--weights", weights, "--save_dir",
                 os.path.join(root, "clip_out"), "--text", CLIP_TEXT, "--n_samples",
@@ -5216,8 +5395,404 @@ def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals) -> dict:
     part_done("f")
     log("phase 18 seconds by part: " + json.dumps(metrics["part_seconds"]))
     return {"launches": request_launches, "metrics": metrics, "k1": k1_rows,
-            "k1_per_call": k1_per_call, "d512_launches": d512_launches,
-            "d512_by_path": d512_by_path}
+            "k1_per_call": k1_per_call, "k3_per_call": k3_per_call,
+            "d512_launches": d512_launches, "d512_by_path": d512_by_path}
+
+
+def phase_celebahq_t5(dev, check, gen, card, time_ms, host_us) -> dict:
+    """Phase 19 (see the module docstring): CelebA-HQ DDPM training through
+    K2 at head dim 512 (``train_ddpm``), and the T5 text path
+    (``FrozenT5Embedder``, ``encode_prompts``) at full width."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dmtpu_torch.models.stablediffusion.text_encoders import (
+        CLIP_TEXT_CONFIGS,
+        FrozenCLIPEmbedder,
+        FrozenOpenCLIPEmbedder,
+        FrozenT5Embedder,
+    )
+    from dmtpu_torch.ops import _build, plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
+    from dmtpu_torch.scripts import encode_prompts, sample_mmdit, train_ddpm
+    from dmtpu_torch.scripts._common import seeded_instance
+    from dmtpu_torch.utils import checkpoint as ckpt_lib
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config, merge_dotlist
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        for fn in (flash_attention_fwd, flash_attention_bwd):
+            fn.launches_by_kernel.update(mma=0, wgmma=0)
+            fn.launches_by_head_dim.clear()
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def by_dim():
+        return {"K1": dict(flash_attention_fwd.launches_by_head_dim),
+                "K2": dict(flash_attention_bwd.launches_by_head_dim)}
+
+    def times(per_step, n):
+        return {key: n * c for key, c in per_step.items()}
+
+    def rel(a, ref) -> float:
+        return ((a.float() - ref.float()).norm() / ref.float().norm()).item()
+
+    def part_done(name):
+        now = time.perf_counter()
+        metrics["part_seconds"][name] = now - part_start[0]
+        part_start[0] = now
+
+    g = gen(SEED + 90)
+    metrics = {"part_seconds": {}}
+    part_start = [time.perf_counter()]
+
+    # (a) K2 at d=512 (csrc/flash_attn_bwd_mma_d512.cu) at CelebA-HQ's shapes
+    # at b16, a ragged length and a padded head dim, from K1's outputs and a
+    # random dO
+    log_lines = (_build.build().parent / "build.log").read_text().splitlines()
+    for i, line in enumerate(log_lines):
+        if "Compiling entry" in line and "flash_bwd_d512_kernel" in line:
+            log("K2 d=512 ptxas: " + " | ".join(x.strip() for x in log_lines[i + 1:i + 4])
+                + f"; {K2_D512_SMEM} bytes of dynamic shared memory")
+    k2 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, host_us=0.0, err=0.0,
+              bound_ms_by={"bytes": 0.0, "operations": 0.0})
+    k2_rows = {}
+    for b, s, d, calls in K2_D512_ROWS:
+        q, k, v, do = (torch.randn(b, s, 1, d, generator=g, device=dev).bfloat16()
+                       for _ in range(4))
+        row, per = k2_call_row(q, k, v, do, calls, f"K2 d={d} b{b} h1 S={s}", check, time_ms,
+                               host_us, card, 20, expect="mma")
+        row["sdpa_backend"] = sdpa_backend(*(z.transpose(1, 2) for z in (q, k, v)))
+        k2_rows[f"b{b}_s{s}_d{d}"] = row
+        if calls:
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us"):
+                k2[key] += per[key]
+            for by, ms in per["bound_ms_by"].items():
+                k2["bound_ms_by"][by] += ms
+            k2["err"] = max(k2["err"], per["err"])
+        del q, k, v, do
+    log(f"K2 per b{CELEBAHQ_TRAIN_B} CelebA-HQ UNet train step (6 calls at d=512): "
+        + json.dumps(k2) + "; SDPA's backend at d=512: "
+        + json.dumps({key: row["sdpa_backend"] for key, row in k2_rows.items()}))
+    torch.cuda.empty_cache()
+    part_done("a")
+
+    # (b) the CelebA-HQ UNet at full width: b2 loss and gradient through the
+    # kernels and the plain bf16 path against an f32 plain run (TF32 off),
+    # seeded random weights (the config's dropout is 0)
+    conf = merge_dotlist(load_config(CELEBAHQ_CONFIG), PIXEL_OVERRIDES)
+    total_steps = int(conf.diffusion.params.total_steps)
+    size = conf.data.params.img_size
+    shape = (conf.data.img_channels, size, size)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = instantiate_from_config(conf.model, device=dev)
+    init_random_(model, g)
+    ref = instantiate_from_config({"target": conf.model.target,
+                                   "params": dict(conf.model.params.to_dict(), dtype=None)},
+                                  device=dev)
+    ref.load_state_dict(model.state_dict())
+    diffuser = instantiate_from_config(conf.diffusion)
+    b = CELEBAHQ_TRAIN_CHECK_BATCH
+    fixed = {"x": torch.rand(b, *shape, generator=g, device=dev) * 2 - 1,
+             "eps": torch.randn(b, *shape, generator=g, device=dev),
+             "t": torch.tensor([total_steps - 1, 421 * total_steps // 1000], device=dev)[:b]}
+
+    def loss_and_grads(m, plain: bool):
+        m.zero_grad(set_to_none=True)
+        with plain_ops() if plain else contextlib.nullcontext():
+            loss = diffuser.loss_func(lambda xt, tt: m(xt, tt, train=True), fixed["x"],
+                                      fixed["t"], eps=fixed["eps"])
+            loss.backward()
+        grads = {name: p.grad.detach().clone() for name, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.detach(), grads
+
+    def grad_err(grads, want) -> float:
+        return (sum((grads[k_] - want[k_]).square().sum() for k_ in want).sqrt()
+                / sum(w.square().sum() for w in want.values()).sqrt()).item()
+
+    def norm(grads) -> float:
+        return sum(x.square().sum() for x in grads.values()).sqrt().item()
+
+    loss_f, grads_f = loss_and_grads(ref, plain=True)
+    del ref
+    zero_counts()
+    with recorded_ops({}) as calls:
+        loss_k, grads_k = loss_and_grads(model, plain=False)
+    torch.cuda.synchronize()
+    step_launches, step_dims = counts(), by_dim()
+    loss_p, grads_p = loss_and_grads(model, plain=True)
+    errs = {"loss": (abs(loss_k.item() - loss_f.item()) / abs(loss_f.item()),
+                     abs(loss_p.item() - loss_f.item()) / abs(loss_f.item())),
+            "gradient": (grad_err(grads_k, grads_f), grad_err(grads_p, grads_f)),
+            "grad_norm": (abs(norm(grads_k) - norm(grads_f)) / norm(grads_f),
+                          abs(norm(grads_p) - norm(grads_f)) / norm(grads_f))}
+    metrics["agreement_b2"] = errs
+    log(f"CelebA-HQ UNet train b{b}: loss f32 {loss_f.item():.6f}, kernels {loss_k.item():.6f}, "
+        f"plain bf16 {loss_p.item():.6f}; grad norm f32 {norm(grads_f):.6f}; rel err vs f32 "
+        "(kernels, plain bf16): " + json.dumps(errs) + f"; launches {step_launches}, by head dim "
+        f"{step_dims}; attention calls {dict(calls['attention'])}")
+    for what, (err_k, err_p) in errs.items():
+        check(math.isfinite(err_k) and err_k <= 1.5 * err_p + 1e-3,
+              f"CelebA-HQ UNet train {what}: err(kernels) <= 1.5 err(plain) + 1e-3")
+    per_step = {"K1": sum(calls["attention"].values()), "K2": sum(calls["attention"].values()),
+                "K3": sum(calls["group_norm"].values())}
+    d512 = {"K1": {512: per_step["K1"]}, "K2": {512: per_step["K2"]}}
+    check(dict(calls["attention"]) == CELEBAHQ_ATTN and per_step == CELEBAHQ_TRAIN_STEP
+          and step_launches == per_step and step_dims == d512,
+          f"CelebA-HQ UNet forward+backward: attention {dict(calls['attention'])} == "
+          f"{CELEBAHQ_ATTN}; launches {step_launches} == {CELEBAHQ_TRAIN_STEP}, every K1 and K2 "
+          f"at d=512 {step_dims}")
+    del model, grads_f, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    # the config's train step at b16 256x256: its UNet built as train_ddpm
+    # builds it, its Adam, clip and gradual EMA; PyTorch's default TF32
+    # settings, as the CLI runs
+    torch.backends.cudnn.allow_tf32 = True
+    model = seeded_instance(conf.model, dev, SEED)
+    state = TrainState.create(model, instantiate_from_config(conf.train.optim,
+                                                             params=model.parameters()),
+                              ema_decay=conf.train.ema_decay,
+                              ema_gradual=conf.train.ema_gradual)
+    step = make_train_step(make_diffusion_loss_fn(
+        diffuser, lambda x, t, **kw: model(x, t, train=True, **kw), total_steps),
+        clip_grad_norm=conf.train.clip_grad_norm, seed=SEED)
+    n = CELEBAHQ_TRAIN_B
+    batch = torch.rand(n, *shape, generator=g, device=dev) * 2 - 1
+    step(state, batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    history = [step(state, batch) for _ in range(CELEBAHQ_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, dims = counts(), by_dim()
+    k2_by_kernel = dict(flash_attention_bwd.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"].item() for m in history]
+    norms = [m["grad_norm"].item() for m in history]
+    profile = profile_by_class(lambda: step(state, batch), 1)
+    idle = max(0.0, 1 - profile["classes"]["total"] / profile["wall_ms"])
+    label = f"train_b{n}"
+    metrics[label] = {
+        "imgs_per_s": n * CELEBAHQ_TRAIN_STEPS / seconds,
+        "ms_per_step": 1e3 * seconds / CELEBAHQ_TRAIN_STEPS, "peak_bytes": peak, "batch": n,
+        "steps": CELEBAHQ_TRAIN_STEPS, "launches_per_step": per_step,
+        "params": sum(p.numel() for p in model.parameters()),
+        "profile_ms": dict(profile["classes"], wall=profile["wall_ms"], **profile["ranges"]),
+        "idle_share": idle}
+    log(f"CelebA-HQ UNet train b{n} {size}x{size}: {CELEBAHQ_TRAIN_STEPS} steps in "
+        f"{seconds:.3f} s, {metrics[label]['imgs_per_s']:.2f} imgs/s, "
+        f"{metrics[label]['ms_per_step']:.3f} ms/step, peak {peak / 2**30:.3f} GiB ({card}); "
+        f"launches {launches}, by head dim {dims}, K2 by kernel {k2_by_kernel}; losses {losses}; "
+        f"grad norms {norms}")
+    log(f"CelebA-HQ UNet train b{n} step device time by class (torch.profiler, one step; wall "
+        f"{profile['wall_ms']:.3f} ms under the profiler, the card idle {idle:.3f} of it): "
+        + json.dumps(profile["classes"]) + "; annotated ranges: " + json.dumps(profile["ranges"]))
+    for name, kernel_ms in profile["top"]:
+        log(f"  {kernel_ms:9.4f} ms  {name}")
+    check(all(map(math.isfinite, losses + norms)),
+          f"CelebA-HQ UNet train b{n}: finite losses and grad norms")
+    check(launches == times(per_step, CELEBAHQ_TRAIN_STEPS)
+          and dims == {key: {512: CELEBAHQ_TRAIN_STEPS * c[512]} for key, c in d512.items()}
+          and k2_by_kernel == {"mma": launches["K2"], "wgmma": 0},
+          f"CelebA-HQ UNet train b{n} launches {launches} == {CELEBAHQ_TRAIN_STEPS} x "
+          f"{per_step}, K1 and K2 all at d=512 {dims}, K2 through mma.sync {k2_by_kernel}")
+    check(profile["classes"]["K2 attention backward"] > 0 and profile["classes"]["K1 attention"]
+          > 0 and profile["classes"]["K3 GroupNorm"] > 0,
+          "profile: the CelebA-HQ UNet train step ran K1, K2 and K3 on the card")
+    d512_launches = dims["K2"].get(512, 0)
+    d512_by_path = {f"celebahq_train{CELEBAHQ_TRAIN_STEPS}": d512_launches}
+    del state, step, batch, history, model
+    torch.cuda.empty_cache()
+    part_done("b_step")
+
+    # train_ddpm in this process on configs/ddpm_celebahq.yaml: a run that
+    # saves and samples a small grid, then its resume
+    root = tempfile.mkdtemp(prefix="chip_smoke_celebahq_train_")
+    try:
+        exp = os.path.join(root, "exp")
+        base = ["-c", CELEBAHQ_CONFIG, "-e", exp, "-ni", *PIXEL_OVERRIDES, *CELEBAHQ_CLI,
+                f"train.save_freq={CELEBAHQ_CLI_STEPS}"]
+        grid_rows = len(instantiate_from_config(
+            merge_dotlist(load_config(CELEBAHQ_CONFIG), CELEBAHQ_CLI).diffusion).respaced_seq)
+        zero_counts()
+        first = train_ddpm.main(base + [f"train.n_steps={CELEBAHQ_CLI_STEPS}",
+                                        f"train.sample_freq={CELEBAHQ_CLI_STEPS}"])
+        torch.cuda.synchronize()
+        run1, dims1 = counts(), by_dim()
+        zero_counts()
+        again = train_ddpm.main(base + ["-r", "latest",
+                                        f"train.n_steps={CELEBAHQ_CLI_RESUMED_STEPS}",
+                                        "train.sample_freq=0"])
+        torch.cuda.synchronize()
+        run2, dims2 = counts(), by_dim()
+        ckpts = sorted(os.listdir(os.path.join(exp, "ckpt")))
+        ckpt_bytes = os.path.getsize(os.path.join(exp, "ckpt", ckpts[-1], "state.pt"))
+        blob = ckpt_lib.load_checkpoint_host(os.path.join(exp, "ckpt", ckpts[-1]))
+        blob_step, blob_ema = blob["step"], blob["ema"]["num_updates"]
+        del blob
+        grids = sorted(os.listdir(os.path.join(exp, "samples")))
+        log_text = "".join(open(os.path.join(exp, f)).read() for f in os.listdir(exp)
+                           if f.startswith("output-"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    losses = first["losses"] + again["losses"]
+    metrics["cli"] = {
+        "losses": losses, "save_seconds": first["save_seconds"] + again["save_seconds"],
+        "load_seconds": again["load_seconds"], "checkpoint_bytes": ckpt_bytes,
+        "step_seconds": first["step_seconds"] + again["step_seconds"],
+        "launches": {"train": run1, "resume": run2}, "grid_rows": grid_rows}
+    log(f"train_ddpm {CELEBAHQ_CONFIG} b{n} (Synthetic {size}x{size} data): "
+        f"{CELEBAHQ_CLI_STEPS} steps with a save and a {grid_rows}-step grid of 4, then -r latest "
+        f"to {CELEBAHQ_CLI_RESUMED_STEPS}: step seconds {metrics['cli']['step_seconds']}; "
+        f"checkpoint {ckpt_bytes / 2**20:.1f} MiB, saves {metrics['cli']['save_seconds']} s, "
+        f"load {again['load_seconds']:.3f} s ({card}); losses {losses}; launches {run1} (by head "
+        f"dim {dims1}), {run2}; checkpoints {ckpts}, grids {grids}")
+    check(ckpts == [f"step{n_ - 1:06d}" for n_ in (CELEBAHQ_CLI_STEPS, CELEBAHQ_CLI_RESUMED_STEPS)]
+          and blob_step == blob_ema == CELEBAHQ_CLI_RESUMED_STEPS and "Resumed from" in log_text
+          and grids == [f"step{CELEBAHQ_CLI_STEPS - 1:06d}.png"],
+          f"train_ddpm CelebA-HQ: checkpoints at the ends of both runs, resumed to step "
+          f"{CELEBAHQ_CLI_RESUMED_STEPS}, one eval grid")
+    check(len(losses) == CELEBAHQ_CLI_RESUMED_STEPS and all(map(math.isfinite, losses)),
+          "train_ddpm CelebA-HQ: finite losses at every step")
+    want1 = {key: CELEBAHQ_CLI_STEPS * c + (grid_rows * c if key != "K2" else 0)
+             for key, c in per_step.items()}
+    want2 = times(per_step, CELEBAHQ_CLI_RESUMED_STEPS - CELEBAHQ_CLI_STEPS)
+    check(run1 == want1 and run2 == want2 and set(dims1["K2"]) == set(dims2["K2"]) == {512},
+          f"train_ddpm CelebA-HQ launches {run1} == {want1}, resumed {run2} == {want2}, K2 at "
+          "d=512")
+    d512_by_path.update(celebahq_cli_train=dims1["K2"].get(512, 0),
+                        celebahq_cli_resume=dims2["K2"].get(512, 0))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    part_done("b_cli")
+
+    # (c) T5 at full width: google/t5-v1_1-xxl's published shape with random
+    # weights from a seed, built on the card (f32, then cast in place to
+    # bf16; nothing written to disk), beside CLIP-L and OpenCLIP bigG at full
+    # width (f32) through encode_real at b4
+    from transformers import AutoTokenizer, CLIPTokenizer, T5Config, T5EncoderModel
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_t5_")
+    try:
+        clip_tok_dir = write_char_clip_tokenizer(os.path.join(root, "clip_tokenizer"))
+        clip_tok = CLIPTokenizer.from_pretrained(clip_tok_dir)
+        t5_tok = AutoTokenizer.from_pretrained(write_char_t5_tokenizer(
+            os.path.join(root, "t5_tokenizer")))
+        torch.manual_seed(SEED + 91)
+        t0 = time.perf_counter()
+        with torch.device(dev):  # the random init on the card
+            t5 = T5EncoderModel(T5Config(**T5_XXL)).eval()
+        clip_l = FrozenCLIPEmbedder("clip-vit-l", tokenizer=clip_tok, device=dev).eval()
+        clip_g = FrozenOpenCLIPEmbedder("open-clip-vit-bigg", tokenizer=clip_tok,
+                                        device=dev).eval()
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        n_t5 = sum(p.numel() for p in t5.parameters())
+        embedder = FrozenT5Embedder(None, module=t5, tokenizer=t5_tok)
+        prompts = list(ENCODE_PROMPTS)
+        ctx32, pool32 = encode_prompts.encode_real(prompts, clip_l, clip_g, embedder)
+        t5.to(torch.bfloat16)
+        encode_prompts.encode_real(prompts, clip_l, clip_g, embedder)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ctx, pool = encode_prompts.encode_real(prompts, clip_l, clip_g, embedder)
+        torch.cuda.synchronize()
+        encode_ms = 1e3 * (time.perf_counter() - t0)
+        t5_ms = time_ms(lambda: embedder.encode(prompts), 3)
+        t5_peak = torch.cuda.max_memory_allocated()
+        tokens = clip_l.max_length
+        t5_err = rel(ctx[:, tokens:], ctx32[:, tokens:])
+        metrics["t5_xxl"] = {
+            "params": n_t5, "build_seconds": build_s, "encode_real_b4_ms": encode_ms,
+            "t5_b4_ms": t5_ms, "peak_bytes": t5_peak, "bf16_vs_f32_rel_l2": t5_err,
+            "context_shape": list(ctx.shape), "pooled_shape": list(pool.shape)}
+        log(f"T5-XXL-shaped encoder ({n_t5} parameters, bf16) with CLIP-L and bigG (f32) built on "
+            f"the card in {build_s:.1f} s; encode_real b{len(prompts)}: {encode_ms:.2f} ms (host "
+            f"clock), the T5 alone {t5_ms:.2f} ms (CUDA events), peak {t5_peak / 2**30:.3f} GiB "
+            f"({card}); context {tuple(ctx.shape)}, pooled {tuple(pool.shape)}; bf16 T5 vs f32: "
+            f"rel L2 {t5_err:.3e}")
+        check(n_t5 == T5_XXL_PARAMS and tuple(ctx.shape) == (len(prompts), 2 * tokens, 4096)
+              and tuple(pool.shape) == (len(prompts), 2048) and bool(torch.isfinite(ctx).all())
+              and bool(torch.isfinite(pool).all()) and ctx.dtype == torch.float32,
+              f"encode_real with a T5-XXL-shaped encoder ({T5_XXL_PARAMS} parameters): context "
+              f"[{len(prompts)}, 154, 4096], pooled [{len(prompts)}, 2048], finite")
+        check(t5_err <= 5e-2 and rel(ctx[:, :tokens], ctx32[:, :tokens]) <= 1e-6
+              and rel(pool, pool32) <= 1e-6,
+              "T5-XXL in bf16 within 5e-2 relative L2 of f32 on the card; the CLIP half unchanged")
+        clip_half = ctx32[:, :tokens].cpu()
+        del t5, embedder, ctx, ctx32, pool
+        torch.cuda.empty_cache()
+        part_done("c")
+
+        # (d) python -m dmtpu_torch.scripts.encode_prompts in this process:
+        # real mode from tower files written here (the CLIP towers as torch
+        # files with their configs; a T5 of XXL widths at reduced depth saved
+        # with its tokenizer), once with --no_t5 and once with --t5_dir; then
+        # demo mode
+        l_path, g_path = os.path.join(root, "clip_l.pt"), os.path.join(root, "clip_g.pt")
+        for path, emb, preset in ((l_path, clip_l, "clip-vit-l"),
+                                  (g_path, clip_g, "open-clip-vit-bigg")):
+            torch.save({"state_dict": emb.model.state_dict(),
+                        "config": dict(CLIP_TEXT_CONFIGS[preset], max_length=tokens)}, path)
+        del clip_l, clip_g
+        t5_dir = os.path.join(root, "t5")
+        with torch.device(dev):
+            small = T5EncoderModel(T5Config(**dict(T5_XXL, num_layers=T5_CLI_LAYERS)))
+        small.to(torch.bfloat16).save_pretrained(t5_dir)
+        write_char_t5_tokenizer(t5_dir)
+        del small
+        torch.cuda.empty_cache()
+        real = ["--prompts", *prompts, "--clip_l_weights", l_path, "--clip_g_weights", g_path,
+                "--clip_tokenizer", clip_tok_dir, "--device", "cuda"]
+        outs = {}
+        for name, extra in (("no_t5", ["--no_t5"]), ("t5_dir", ["--t5_dir", t5_dir]),
+                            ("demo", None)):
+            out = os.path.join(root, f"{name}.npz")
+            t0 = time.perf_counter()
+            encode_prompts.main(["--out", out, *(real + extra if extra else
+                                                 ["--prompts", *prompts, "--device", "cuda"])])
+            with np.load(out) as data:
+                outs[name] = (dict(data), time.perf_counter() - t0)
+        metrics["encode_prompts_seconds"] = {k: v[1] for k, v in outs.items()}
+        (no_t5, _), (with_t5, _), (demo, _) = outs["no_t5"], outs["t5_dir"], outs["demo"]
+        log("encode_prompts.main on the card: " + json.dumps(
+            {k: {"context": list(v[0]["context"].shape), "pooled": list(v[0]["pooled"].shape),
+                 "seconds": v[1]} for k, v in outs.items()}))
+        want_ctx, want_pool = (len(prompts), 2 * tokens, 4096), (len(prompts), 2048)
+        check(all(d["context"].shape == want_ctx and d["pooled"].shape == want_pool
+                  and np.isfinite(d["context"]).all() for d in (no_t5, with_t5))
+              and not no_t5["context"][:, tokens:].any() and with_t5["context"][:, tokens:].any()
+              and np.allclose(no_t5["context"][:, :tokens], clip_half.numpy(), rtol=1e-5,
+                              atol=1e-5)
+              and np.array_equal(no_t5["context"][:, :tokens], with_t5["context"][:, :tokens]),
+              "encode_prompts real mode from tower files: [4, 154, 4096] / [4, 2048]; --no_t5 "
+              "zero-fills the T5 half, --t5_dir fills it; the CLIP half is the towers' of (c)")
+        rows = [sample_mmdit.demo_embeddings(p, 154, 4096, 2048) for p in prompts]
+        check(demo["context"].tobytes() == np.concatenate([c for c, _ in rows]).tobytes()
+              and demo["pooled"].tobytes() == np.concatenate([p for _, p in rows]).tobytes(),
+              "encode_prompts demo mode: the rows of sample_mmdit --prompt, byte for byte")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    part_done("d")
+    log("phase 19 seconds by part: " + json.dumps(metrics["part_seconds"]))
+    return {"launches": {f"celebahq_train{CELEBAHQ_TRAIN_STEPS}": launches,
+                         "celebahq_cli_train": run1, "celebahq_cli_resume": run2},
+            "metrics": metrics, "k2": k2_rows, "k2_per_step": {f"celebahq_train_b{n}": k2},
+            "d512_launches": d512_launches, "d512_by_path": d512_by_path}
 
 
 def sdpa_backend(q, k, v) -> str:

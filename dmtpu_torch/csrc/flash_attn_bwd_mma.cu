@@ -5,11 +5,13 @@
 // fused backward for small head dims), the backward role of the stock Pallas
 // TPU flash kernel that dmtpu/ops/attention.py::flash_mha calls, and the probe
 // variant benchmarks/_smalld_variants.py::_bwd_sem (the same function).  It
-// takes every head dim that is a multiple of 8 up to 256 and any strides; head
-// dims 40, 64, 72 and 80 go to the wgmma kernel in flash_attn_bwd.cu (the gate
-// is in dmtpu_torch/ops/flash_attention.py), so on SD1.5's path this one runs
-// the head dim 160 shapes, on the pixel-space UNets' the single head of 256,
-// and on DiT's and MMDiT's none.
+// takes every head dim that is a multiple of 8 up to 256 and any strides (the
+// wider heads, up to 512, have their own instance in
+// flash_attn_bwd_mma_d512.cu); head dims 40, 64, 72 and 80 go to the wgmma
+// kernel in flash_attn_bwd.cu (the gate is in
+// dmtpu_torch/ops/flash_attention.py), so on SD1.5's path this one runs the
+// head dim 160 shapes, on the pixel-space UNets' the single head of 256, and
+// on DiT's and MMDiT's none.
 //
 // What it computes, per (batch, head), from K1's saved f32 row logsumexp:
 //   delta = rowsum(dO o O)                      (f32)
@@ -65,6 +67,7 @@
 //   - q, k, v, o, dO, dK and dV are addressed through [B, S, H, D] strides.
 #include <math.h>
 
+#include "flash_attn_bwd_prep.cuh"
 #include "mma_common.cuh"
 
 namespace {
@@ -289,48 +292,6 @@ flash_bwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   }
 }
 
-// delta[b, h, s] = sum_d dO * O in f32, and zeroes the matching row of the
-// f32 dQ buffer ([B, Sq, H, D], contiguous).  One thread per (b, s, h) row.
-__global__ void flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
-                                      const __nv_bfloat16* __restrict__ dO,
-                                      float* __restrict__ delta, float* __restrict__ dq_acc,
-                                      int B, int H, int Sq, int D, Strides os, Strides dos) {
-  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= (long long)B * Sq * H) return;
-  const int h = row % H;
-  const int s = (row / H) % Sq;
-  const int b = row / ((long long)H * Sq);
-  const __nv_bfloat16* orow = o + b * os.b + (long long)s * os.s + h * os.h;
-  const __nv_bfloat16* drow = dO + b * dos.b + (long long)s * dos.s + h * dos.h;
-  float acc = 0.f;
-  for (int c = 0; c < D; c += 8) {
-    const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-    const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
-    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-    const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-    #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 a = __bfloat1622float2(o2[i]), e = __bfloat1622float2(d2[i]);
-      acc += a.x * e.x + a.y * e.y;
-    }
-  }
-  delta[((long long)b * H + h) * Sq + s] = acc;
-  float4* zero = reinterpret_cast<float4*>(dq_acc + row * D);
-  for (int c = 0; c < D / 4; ++c) zero[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// dq = bf16(dq_acc), 8 values a thread; both contiguous, n8 = elements / 8.
-__global__ void flash_bwd_cast_kernel(const float* __restrict__ src,
-                                      __nv_bfloat16* __restrict__ dst, long long n8) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n8) return;
-  const float4 a = reinterpret_cast<const float4*>(src)[2 * i];
-  const float4 c = reinterpret_cast<const float4*>(src)[2 * i + 1];
-  const uint4 out{pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(c.x, c.y),
-                  pack_bf16(c.z, c.w)};
-  reinterpret_cast<uint4*>(dst)[i] = out;
-}
-
 template <int DP, int DSPLIT, int RS = kRows>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dO,
                    const void* lse, const void* delta, void* dq_acc, void* dk, void* dv,
@@ -373,27 +334,17 @@ extern "C" int dmtpu_flash_attn_bwd_mma(
       dos{dosb, doss, dosh}, dks{dksb, dkss, dksh}, dvs{dvsb, dvss, dvsh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D % 8 || D > 256) return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)B * Sq * H;
-  flash_bwd_prep_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO),
-      static_cast<float*>(delta), static_cast<float*>(dq_acc), B, H, Sq, D, os, dos);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (D <= 48)
-    err = launch<48, 1>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks, vs,
-                        dos, dks, dvs, scale, st);
-  else if (D <= 80)
-    err = launch<80, 1>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks, vs,
-                        dos, dks, dvs, scale, st);
-  else if (D <= 160)
-    err = launch<160, 2>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks, vs,
-                         dos, dks, dvs, scale, st);
-  else
-    err = launch<256, 2, 16>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks,
-                             vs, dos, dks, dvs, scale, st);
-  if (err != cudaSuccess) return (int)err;
-  const long long n8 = rows * D / 8;
-  flash_bwd_cast_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(dq_acc), static_cast<__nv_bfloat16*>(dq), n8);
-  return (int)cudaGetLastError();
+  return run_flash_bwd_mma(o, dO, delta, dq_acc, dq, B, H, Sq, D, os, dos, st, [&] {
+    if (D <= 48)
+      return launch<48, 1>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks, vs,
+                           dos, dks, dvs, scale, st);
+    if (D <= 80)
+      return launch<80, 1>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks, vs,
+                           dos, dks, dvs, scale, st);
+    if (D <= 160)
+      return launch<160, 2>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks,
+                            vs, dos, dks, dvs, scale, st);
+    return launch<256, 2, 16>(q, k, v, dO, lse, delta, dq_acc, dk, dv, B, H, Sq, Sk, D, qs, ks,
+                              vs, dos, dks, dvs, scale, st);
+  });
 }

@@ -1,6 +1,6 @@
 """Development probe of K2 (attention backward) on one CUDA card.
 
-    python -m dmtpu_torch.dev.k2_probe            # check, then time, then variants, then d256
+    python -m dmtpu_torch.dev.k2_probe            # check, time, variants, d256, then d512
     python -m dmtpu_torch.dev.k2_probe variants   # one phase
 
 - ``check``: builds the kernels, prints what ``ptxas`` said of the wgmma
@@ -22,6 +22,11 @@
   spills), both against K2's plain version, and their times in turns at the
   pixel UNets' shapes (b128 h1 S=256 and S=16, a ragged S=200, d=248),
   beside SDPA's backward in this fresh process.
+- ``d512``: the mma.sync kernel's head-dim-512 instance
+  (``csrc/flash_attn_bwd_mma_d512.cu``): what ``ptxas`` says of it
+  (registers, spills, shared memory), against K2's plain version at
+  CelebA-HQ's shapes (b16 h1 S=256 and S=64), ragged lengths, d=504 and a
+  strided dO, and its time beside SDPA's backward in this fresh process.
 
 With no argument each phase runs in a process of its own with a time limit: a
 kernel that hangs on an mbarrier would otherwise never return.
@@ -38,7 +43,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "dmtpu_torch" / "csrc"
 OUT = ROOT / "build" / "dev" / "variants"
-PHASE_LIMITS = {"check": 240, "time": 300, "variants": 300, "d256": 180}  # seconds
+PHASE_LIMITS = {"check": 240, "time": 300, "variants": 300, "d256": 180,
+                "d512": 180}  # seconds
 
 CHECK_SHAPES = [  # b, sq, sk, h, d
     (1, 64, 128, 1, 40), (1, 128, 256, 1, 40), (2, 256, 512, 2, 40), (1, 64, 128, 1, 80),
@@ -314,7 +320,53 @@ def d256() -> int:
     return 1 if bad else 0
 
 
-PHASES = {"check": check, "time": timing, "variants": variants, "d256": d256}
+# b, sq, sk, h, d: CelebA-HQ's two shapes, ragged lengths (a last key tile of
+# 8 keys, a last row step of 8 rows), a padded head dim, two heads
+D512_SHAPES = [(16, 256, 256, 1, 512), (16, 64, 64, 1, 512), (4, 200, 200, 1, 512),
+               (4, 256, 256, 1, 504), (2, 77, 333, 2, 512), (2, 333, 40, 1, 264)]
+
+
+def d512() -> int:
+    import torch
+    from dmtpu_torch.ops import _build
+    from dmtpu_torch.ops.flash_attention import (flash_attention_backward_reference,
+                                                 flash_attention_bwd, flash_attention_fwd)
+    lib = _build.build()
+    _build.library()
+    print(_card())
+    log = (lib.parent / "build.log").read_text().splitlines()
+    for i, line in enumerate(log):
+        if "Compiling entry" in line and "flash_bwd_d512_kernel" in line:
+            print("d512 ptxas:", " | ".join(x.strip()[:120] for x in log[i + 1:i + 4]), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    for b, sq, sk, h, d in D512_SHAPES:
+        q, k, v, do = _case(torch, gen, b, sq, sk, h, d)
+        if (b, sq) == (2, 77):  # dO as a view of a wider tensor
+            do = torch.randn(b, sq, h, 2 * d, generator=gen, device="cuda").bfloat16()[..., d:]
+        o, lse = flash_attention_fwd(q, k, v)
+        want = flash_attention_backward_reference(q, k, v, o, lse, do)
+        before = flash_attention_bwd.launches_by_head_dim[d]
+        got = flash_attention_bwd(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+        line = f"K2 d512 b{b} sq{sq} sk{sk} h{h} d{d}:"
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            a, w = a.float(), w.float()
+            err, rel = (a - w).abs().max().item(), ((a - w).norm() / w.norm()).item()
+            ok = err <= 1e-2 * w.abs().max().item() and rel <= 1e-2 and \
+                bool(torch.isfinite(a).all())
+            bad += not ok
+            line += f" {name} max err {err:.2e} rel L2 {rel:.2e} {'ok' if ok else 'BAD'};"
+        bad += flash_attention_bwd.launches_by_head_dim[d] != before + 1
+        ms = [round(_time_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do)), 4)
+              for _ in range(2)]
+        line += f" ms {ms}, SDPA backward {_sdpa_backward_ms(torch, q, k, v, do):.4f}"
+        print(line, flush=True)
+    print("d512:", "FAILED" if bad else "all ok")
+    return 1 if bad else 0
+
+
+PHASES = {"check": check, "time": timing, "variants": variants, "d256": d256, "d512": d512}
 
 
 def main(argv: list[str]) -> int:

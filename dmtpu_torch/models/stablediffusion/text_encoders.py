@@ -22,11 +22,13 @@ arithmetic are f32.
 Tokenisation is the host's (a ``transformers`` CLIPTokenizer from a local
 path); the encoders take token ids.
 
-``FrozenT5Embedder`` and ``FrozenCLIPT5Encoder`` are not ported yet
-(ROADMAP.md, Queue 1 item K) and raise ``NotImplementedError``.
+``FrozenT5Embedder`` (reference :25-54) wraps ``transformers``' torch
+``T5EncoderModel`` as the JAX package's wraps ``FlaxT5EncoderModel``, and
+``FrozenCLIPT5Encoder`` (reference :167-182) returns ``[clip_z, t5_z]``.
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -229,17 +231,101 @@ class FrozenOpenCLIPEmbedder(FrozenCLIPEmbedder):
         return "penultimate" if self.layer == "penultimate" else "last"
 
 
+# the files a local transformers checkpoint keeps torch weights in
+_TORCH_WEIGHTS = ("pytorch_model.bin", "model.safetensors", "pytorch_model.bin.index.json",
+                  "model.safetensors.index.json")
+
+
 class FrozenT5Embedder:
-    """Not ported yet (``dmtpu/models/stablediffusion/text_encoders.py:216``)."""
+    """T5 text conditioning through ``transformers``' torch ``T5EncoderModel``
+    (reference: models/stablediffusion/text_encoders.py:25-54, which likewise
+    delegates to HF ``T5EncoderModel``).
 
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "FrozenT5Embedder is not ported to dmtpu_torch yet (ROADMAP.md, Queue 1 item K)")
+    ``version`` is a LOCAL checkpoint / tokenizer directory (files only: no
+    download is tried) with torch weights; a directory with Flax weights
+    alone is refused, since converting them needs JAX.  ``module`` (a
+    ``T5EncoderModel``), ``params`` (a state dict for it) and ``tokenizer``
+    can be injected instead; none of them is replaced by what the checkpoint
+    holds.  The model is loaded at first use, in ``dtype`` (a torch dtype or
+    its name; the checkpoint's own by default), on ``device``, frozen.
+    """
+
+    def __init__(self, version: str = "google/t5-v1_1-large", max_length: int = 77,
+                 module: Any = None, params: Any = None, tokenizer: Any = None,
+                 dtype: Any = None, device=None, **_: Any):
+        self.max_length = max_length
+        self.module, self.params, self.tokenizer = module, params, tokenizer
+        self._version, self._dtype, self._device = version, dtype, device
+        self._ready = False
+
+    def _load(self) -> nn.Module:
+        from transformers import T5EncoderModel
+
+        path = self._version
+        if path is not None and os.path.isdir(path):
+            files = set(os.listdir(path))
+            if not files & set(_TORCH_WEIGHTS) and any(f.startswith("flax_model") for f in files):
+                raise ValueError(
+                    f"{path} holds Flax weights only; dmtpu_torch reads torch weights "
+                    "(pytorch_model.bin or model.safetensors) and does not import JAX to "
+                    "convert them: save the model with transformers' T5EncoderModel "
+                    "(from_pretrained(..., from_flax=True) where Flax is installed) first")
+        dtype = getattr(torch, self._dtype) if isinstance(self._dtype, str) else self._dtype
+        return T5EncoderModel.from_pretrained(path, local_files_only=True,
+                                              **({"dtype": dtype} if dtype else {}))
+
+    def _ensure_loaded(self) -> nn.Module:
+        """The model, loaded, given ``params``, moved to ``device`` and frozen
+        in eval mode (no dropout) on first use."""
+        if not self._ready:
+            if self.module is None:
+                self.module = self._load()
+            if self.params is not None:
+                self.module.load_state_dict(self.params)
+            if self._device is not None:
+                self.module.to(self._device)
+            self.module.eval().requires_grad_(False)
+            self._ready = True
+        return self.module
+
+    def tokenize(self, texts) -> np.ndarray:
+        if self.tokenizer is None:
+            from transformers import AutoTokenizer
+
+            self.tokenizer = AutoTokenizer.from_pretrained(self._version, local_files_only=True)
+        enc = self.tokenizer(texts, truncation=True, max_length=self.max_length,
+                             padding="max_length", return_tensors="np")
+        return enc["input_ids"]
+
+    def encode_tokens(self, input_ids) -> torch.Tensor:
+        """The last hidden state [B, T, d_model] of the token ids."""
+        module = self._ensure_loaded()
+        device = next(module.parameters()).device
+        ids = torch.as_tensor(input_ids, dtype=torch.long, device=device)
+        with torch.no_grad():
+            return module(input_ids=ids).last_hidden_state
+
+    def encode(self, texts) -> torch.Tensor:
+        return self.encode_tokens(self.tokenize(texts))
 
 
-class FrozenCLIPT5Encoder:
-    """Not ported yet (``dmtpu/models/stablediffusion/text_encoders.py:271``)."""
+class FrozenCLIPT5Encoder(nn.Module):
+    """CLIP + T5 dual conditioning, returned as ``[clip_z, t5_z]``
+    (reference: models/stablediffusion/text_encoders.py:167-182)."""
 
-    def __init__(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError(
-            "FrozenCLIPT5Encoder is not ported to dmtpu_torch yet (ROADMAP.md, Queue 1 item K)")
+    def __init__(self, clip_version: str = "clip-vit-l", t5_version: str = "google/t5-v1_1-xl",
+                 clip_max_length: int = 77, t5_max_length: int = 77,
+                 clip_tokenizer: Any = None, t5_module: Any = None,
+                 t5_params: Any = None, t5_tokenizer: Any = None, device=None, **_: Any):
+        super().__init__()
+        self.clip_encoder = FrozenCLIPEmbedder(clip_version, max_length=clip_max_length,
+                                               tokenizer=clip_tokenizer, device=device)
+        self.t5_encoder = FrozenT5Embedder(t5_version, max_length=t5_max_length,
+                                           module=t5_module, params=t5_params,
+                                           tokenizer=t5_tokenizer, device=device)
+
+    def encode(self, texts) -> list:
+        device = next(self.clip_encoder.parameters()).device
+        clip_ids = torch.as_tensor(self.clip_encoder.tokenize(texts), device=device)
+        clip_z = self.clip_encoder.encode_tokens(clip_ids)
+        return [clip_z, self.t5_encoder.encode(texts)]

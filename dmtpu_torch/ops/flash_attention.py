@@ -3,9 +3,9 @@
 Counterpart of ``dmtpu/ops/flash_small_d.py`` (its ``_fwd`` and ``_bwd``
 paths and the ``custom_vjp`` that joins them).  Layout is [B, S, H, D] as
 in ``dmtpu.ops.attention``; unlike the TPU kernels these take S_q != S_k
-(cross-attention), head dims that are multiples of 8 up to 512 forward
-and 256 backward (zero-padded to 48, 80, 160, 256 or 512 in shared memory)
-and ragged sequence lengths (masked).
+(cross-attention), head dims that are multiples of 8 up to 512 (zero-padded
+to 48, 80, 160, 256 or 512 in shared memory) and ragged sequence lengths
+(masked).
 
 - ``flash_attention(q, k, v, scale) -> o``: the differentiable op
   (``FlashAttention``, a ``torch.autograd.Function``): its forward runs
@@ -21,11 +21,11 @@ and ragged sequence lengths (masked).
   Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
   TMA, head dims 40, 64, 72 and 80; dQ's partial sums leave a CTA as whole f32
   tiles by ``cp.reduce.async.bulk``) and ``csrc/flash_attn_bwd_mma.cu``
-  (mma.sync, dQ by scalar f32 atomics; everything else, up to 256: a
-  gradient through a wider head raises);
-  ``select_bwd_kernel`` is the gate.  Where several key tiles add to dq,
-  neither gives a bitwise reproducible dq: the f32 adds of different CTAs
-  arrive in an order that varies from run to run.  With one key tile
+  (mma.sync, dQ by scalar f32 atomics; everything else: up to 256 there,
+  above it ``csrc/flash_attn_bwd_mma_d512.cu``, dK, dV and dQ split by
+  column halves over two CTAs); ``select_bwd_kernel`` is the gate.  Where
+  several key tiles add to dq, neither gives a bitwise reproducible dq: the
+  f32 adds of different CTAs arrive in an order that varies from run to run.  With one key tile
   (S_k <= 128) the wgmma kernel writes dq itself, in bf16, and two runs
   agree bit for bit.
 - ``flash_attention_reference`` and ``flash_attention_backward_reference``:
@@ -101,31 +101,25 @@ def _check_bshd(name: str, t: torch.Tensor) -> None:
                          f"strides {t.stride()}")
 
 
-# The widest head dims the kernels take: K1's mma.sync kernel has an instance
-# at 512 (CelebA-HQ's UNet, configs/ddpm_celebahq.yaml: one head as wide as its
-# 512 channels), K2's at 256 (the CIFAR-10 UNets' single head).
-MAX_FWD_HEAD_DIM = 512
-MAX_BWD_HEAD_DIM = 256
-# a gradient through a head of 512 waits for K2's next instance
-_WIDER = ("a gradient through a wider head (CelebA-HQ's 512) waits for K2 at d=512 "
-          "(ROADMAP.md, \"Next, in order\": K2 at d=512 with CelebA-HQ training)")
+# The widest head dim the kernels take: K1's and K2's mma.sync kernels have an
+# instance at 512 (CelebA-HQ's UNet, configs/ddpm_celebahq.yaml: one head as
+# wide as its 512 channels).
+MAX_HEAD_DIM = 512
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backward: bool = False) -> None:
     """Raises on what the kernels do not take (naming K2 when ``backward``).
     It runs before every launch, so it compares plain ints and builds its
-    messages only on failure."""
+    message only on failure."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] \
             or k.shape[2:] != q.shape[2:]:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
     d = q.shape[3]
-    limit = MAX_BWD_HEAD_DIM if backward else MAX_FWD_HEAD_DIM
-    if d & 7 or d > limit:
+    if d & 7 or d > MAX_HEAD_DIM:
         name = "flash_attention_bwd: K2" if backward else "flash_attention: K1"
-        wider = f": {_WIDER}" if backward and d > limit else ""
-        raise ValueError(f"{name} takes head dims that are multiples of 8 up to {limit}, "
-                         f"got {d}{wider}")
+        raise ValueError(f"{name} takes head dims that are multiples of 8 up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
     device = q.get_device()
     if k.get_device() != device or v.get_device() != device:
         raise ValueError("flash_attention: q, k and v must be on one device")
@@ -236,10 +230,13 @@ flash_attention_fwd.launches_by_head_dim = collections.Counter()
 # stages, wgmma for the five products, dQ added into an f32 buffer by whole
 # tiles with cp.reduce.async.bulk) is instantiated for head dims 40 and 80
 # (SD1.5), 72 (DiT) and 64 (MMDiT) and reads q, k, v and dO through tensor maps (positive
-# strides); "mma" (csrc/flash_attn_bwd_mma.cu: mma.sync, 64-key tiles, dQ by
-# scalar f32 atomics) takes every head dim up to 256 and any strides (the
-# pixel UNets' d=256 runs there).
+# strides); "mma" (mma.sync, dQ by scalar f32 atomics) takes every head dim
+# up to 512 and any strides: up to 256 csrc/flash_attn_bwd_mma.cu (64-key
+# tiles; the pixel UNets' d=256 runs there), above it
+# csrc/flash_attn_bwd_mma_d512.cu (32-key tiles, dK, dV and dQ's columns split
+# over two CTAs; CelebA-HQ's d=512).
 _BWD_ENTRY_POINTS = {"mma": "dmtpu_flash_attn_bwd_mma", "wgmma": "dmtpu_flash_attn_bwd"}
+_BWD_WIDE_ENTRY_POINT = "dmtpu_flash_attn_bwd_mma_d512"
 WGMMA_BWD_HEAD_DIMS = (40, 64, 72, 80)
 # the wgmma kernel pads its f32 scratch to whole steps of rows
 _BWD_ROWS = {40: 128, 64: 64, 72: 64, 80: 64}
@@ -338,7 +335,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=dev)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=dev)
-    err = getattr(_build.library(), _BWD_ENTRY_POINTS[kernel])(
+    entry = _BWD_WIDE_ENTRY_POINT if d > MMA_NARROW_HEAD_DIM else _BWD_ENTRY_POINTS[kernel]
+    err = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         scratch.data_ptr(), scratch.data_ptr() + 4 * n_stat, dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, h, sq, sk, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],

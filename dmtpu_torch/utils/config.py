@@ -200,6 +200,10 @@ _PORTED = {
     "dmtpu.models.stablediffusion.FrozenOpenCLIPEmbedder",
     "dmtpu.models.stablediffusion.text_encoders.FrozenCLIPEmbedder",
     "dmtpu.models.stablediffusion.text_encoders.FrozenOpenCLIPEmbedder",
+    "dmtpu.models.stablediffusion.FrozenT5Embedder",
+    "dmtpu.models.stablediffusion.FrozenCLIPT5Encoder",
+    "dmtpu.models.stablediffusion.text_encoders.FrozenT5Embedder",
+    "dmtpu.models.stablediffusion.text_encoders.FrozenCLIPT5Encoder",
     "dmtpu.models.sdxl.StableDiffusionXL", "dmtpu.models.sdxl.SDXLConditioner",
     "dmtpu.utils.optim.adam", "dmtpu.utils.optim.adamw", "dmtpu.utils.optim.adafactor",
     "dmtpu.utils.optim.sgd",

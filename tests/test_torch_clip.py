@@ -21,9 +21,7 @@ from dmtpu_torch.models.stablediffusion.text_encoders import (
     CLIP_TEXT_CONFIGS,
     CLIPTextTransformer,
     FrozenCLIPEmbedder,
-    FrozenCLIPT5Encoder,
     FrozenOpenCLIPEmbedder,
-    FrozenT5Embedder,
     quick_gelu,
 )
 from tests._torch_helpers import perturb
@@ -129,12 +127,6 @@ def test_tokenize_needs_a_tokenizer_and_uses_it():
         emb.tokenize(["a"])
     emb.tokenizer = lambda texts, **kw: {"input_ids": np.full((len(texts), kw["max_length"]), 3)}
     assert emb.tokenize(["a", "b"]).shape == (2, 5)
-
-
-@pytest.mark.parametrize("cls", [FrozenT5Embedder, FrozenCLIPT5Encoder])
-def test_t5_embedders_wait(cls):
-    with pytest.raises(NotImplementedError, match="Queue 1 item K"):
-        cls()
 
 
 def test_hf_clip_text_model_loads_strictly_and_agrees():

@@ -87,6 +87,9 @@ TARGETS = [
     ("diffusions.euler.EulerSampler", td.EulerSampler),
     ("diffusions.heun.HeunSampler", td.HeunSampler),
     ("models.unet.UNet", tunet.UNet),
+    ("dmtpu.models.stablediffusion.FrozenT5Embedder", tsd.FrozenT5Embedder),
+    ("dmtpu.models.stablediffusion.text_encoders.FrozenCLIPT5Encoder", tsd.FrozenCLIPT5Encoder),
+    ("dmtpu.models.stablediffusion.text_encoders.FrozenT5Embedder", tsd.FrozenT5Embedder),
     ("models.unet_categorial_adagn.UNetCategorialAdaGN", tadagn.UNetCategorialAdaGN),
     ("models.adm.unet.UNetModel", tadm.UNetModel),
     ("models.adm.unet_combined.UNetCombined", tadm.UNetCombined),
@@ -107,9 +110,8 @@ def test_reference_table_is_the_jax_package_s():
 
 
 @pytest.mark.parametrize("target", [
-    "dmtpu.models.stablediffusion.FrozenT5Embedder",
-    "dmtpu.models.stablediffusion.text_encoders.FrozenCLIPT5Encoder",
-    "dmtpu.models.stablediffusion.text_encoders.FrozenT5Embedder", "dmtpu.anything",
+    "dmtpu.eval.fid.CLIPFeatureExtractor", "dmtpu.eval.inception.FIDInceptionV3",
+    "dmtpu.eval.inception.InceptionFeatureExtractor", "dmtpu.anything",
 ])
 def test_unported_target_is_named(target):
     with pytest.raises(NotImplementedError, match="no counterpart in dmtpu_torch") as e:

@@ -38,7 +38,7 @@ from dmtpu_torch.ops import (
     mha,
     plain_ops,
 )
-from dmtpu_torch.ops.flash_attention import MAX_BWD_HEAD_DIM, MAX_FWD_HEAD_DIM, _check_qkv
+from dmtpu_torch.ops.flash_attention import MAX_HEAD_DIM, _check_qkv
 from dmtpu_torch.ops.flash_attention import bwd_kernels_for as k2_kernels_for
 from dmtpu_torch.ops.flash_attention import kernels_for as k1_kernels_for
 from dmtpu_torch.ops.flash_attention import select_bwd_kernel, select_kernel
@@ -177,7 +177,11 @@ def _qkv_do(cuda, seed, b, sq, sk, h, d):
     (2, 1024, 1024, 8, 40), (2, 1024, 77, 8, 80), (2, 256, 77, 8, 160), (1, 100, 333, 3, 64),
     # the pixel UNets' one head of 256 (S = 256 at 16x16, 16 in the middle),
     # a ragged length and a padded head dim
-    (8, 256, 256, 1, 256), (16, 16, 16, 1, 256), (8, 200, 200, 1, 256), (8, 256, 256, 1, 248)])
+    (8, 256, 256, 1, 256), (16, 16, 16, 1, 256), (8, 200, 200, 1, 256), (8, 256, 256, 1, 248),
+    # CelebA-HQ's one head of 512 (S = 256 at 16x16, 64 in the middle), a
+    # ragged length, a padded head dim and cross-attention over two heads
+    (4, 256, 256, 1, 512), (4, 64, 64, 1, 512), (4, 200, 200, 1, 512), (4, 256, 256, 1, 504),
+    (2, 77, 333, 2, 512)])
 def test_k2_kernel_matches_reference_and_mha(cuda, b, sq, sk, h, d):
     q, k, v, do = _qkv_do(cuda, 4, b, sq, sk, h, d)
     o, lse = flash_attention_fwd(q, k, v)
@@ -250,8 +254,8 @@ def test_k2_kernel_rejects_unsupported_inputs(cuda):
         flash_attention_bwd(q.float(), q.float(), q.float(), q, lse, q)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, q, q, q, lse[..., :32], q)
-    q = torch.zeros(1, 64, 1, 264, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="up to 256"):
+    q = torch.zeros(1, 64, 1, 520, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 512, got 520"):
         flash_attention_bwd(q, q, q, q, lse, q)
 
 
@@ -273,49 +277,60 @@ def test_a_gradient_through_head_dim_256_goes_through_k2(cuda):
 
 
 @pytest.mark.gpu
-def test_a_head_dim_of_512_is_refused_naming_the_next_kernel_item(cuda):
-    """CelebA-HQ's one head of 512: K1 takes it (its d=512 instance), K2 does
-    not yet: a gradient raises, naming the ROADMAP item, and nothing falls
-    back to the plain version."""
-    q = torch.zeros(1, 16, 1, 512, device=cuda, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 1, 16, device=cuda)
-    before = (flash_attention_fwd.launches, flash_attention_fwd.launches_by_head_dim[512],
-              flash_attention_bwd.launches)
-    attention(q, q, q)
-    leaf = q.clone().requires_grad_()
-    out = attention(leaf, q, q)
-    with pytest.raises(ValueError, match="Next, in order.*K2 at d=512"):
-        out.float().sum().backward()
-    with pytest.raises(ValueError, match="K2 takes head dims .* up to 256.*K2 at d=512"):
-        flash_attention_bwd(q, q, q, q, lse, q)
-    assert leaf.grad is None
-    assert (flash_attention_fwd.launches, flash_attention_fwd.launches_by_head_dim[512],
-            flash_attention_bwd.launches) == (before[0] + 2, before[1] + 2, before[2])
+@pytest.mark.parametrize("b,s,d", [(16, 256, 512), (16, 64, 512), (4, 200, 512), (4, 256, 504)])
+def test_a_gradient_through_head_dim_512_goes_through_k2(cuda, b, s, d):
+    """CelebA-HQ's one head of 512 (S = 256 and 64 at b16), a ragged length
+    and a padded head dim: K1's and K2's d=512 instances, one launch each,
+    against K2's plain version on K1's outputs and against plain autograd on
+    the same bf16 values; a wider head raises in both directions."""
+    q, k, v, do = _qkv_do(cuda, 23, b, s, s, 1, d)
+    def counts():
+        return (flash_attention_fwd.launches_by_head_dim[d],
+                flash_attention_bwd.launches_by_head_dim[d],
+                flash_attention_bwd.launches_by_kernel["mma"])
+
+    before = counts()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    attention(*leaves).backward(do)
+    assert counts() == tuple(x + 1 for x in before)
+    assert select_bwd_kernel(s, s, d) == "mma" and k2_kernels_for(d) == ["mma"]
+    o, lse = flash_attention_fwd(q, k, v)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(x.dtype == torch.bfloat16 and torch.isfinite(x).all() for x in got)
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    with plain_ops():
+        attention(*plain).backward(do)
+    assert_grads_close([x.grad for x in leaves], [x.grad for x in plain], 3e-2)
     q = torch.zeros(1, 16, 1, 520, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="K1 takes head dims .* up to 512, got 520"):
         attention(q, q, q)
+    with pytest.raises(ValueError, match="K2 takes head dims .* up to 512, got 520"):
+        flash_attention_bwd(q, q, q, q, torch.zeros(1, 1, 16, device=cuda), q)
 
 
 # ---- the gates, on the CPU ----------------------------------------------------
 
 def test_the_forward_takes_head_dims_to_512_and_the_backward_to_256():
-    """K1's limit is 512 (its mma.sync kernel's widest instance), K2's 256; a
-    gradient through a wider head names ROADMAP's "K2 at d=512"."""
-    assert (MAX_FWD_HEAD_DIM, MAX_BWD_HEAD_DIM) == (512, 256)
-    assert k1_kernels_for(512) == ["mma"] and k1_kernels_for(504) == ["mma"]
-    assert select_kernel(256, 256, 512) == "mma" and select_kernel(4096, 4096, 512) == "mma"
-    assert k2_kernels_for(256) == ["mma"]
-    for d in (264, 504, 512):
+    """Both directions take every multiple of 8 up to 512 (the mma.sync
+    kernels' widest instances, CelebA-HQ's one head; the backward's limit was
+    256 until its d=512 instance came) and refuse anything else, naming the
+    kernel and the limit."""
+    assert MAX_HEAD_DIM == 512
+    for d in (8, 256, 264, 504, 512):
+        assert k1_kernels_for(d)[0] == "mma" and k2_kernels_for(d)[0] == "mma"
         q = torch.zeros(2, 16, 1, d, dtype=torch.bfloat16)
         _check_qkv(q, q, q)
-        with pytest.raises(ValueError, match=f"K2 takes head dims .* up to 256, got {d}: .*"
-                                             "Next, in order.*K2 at d=512"):
-            _check_qkv(q, q, q, backward=True)
+        _check_qkv(q, q, q, backward=True)
+    assert k1_kernels_for(512) == k2_kernels_for(512) == ["mma"]
+    assert select_kernel(4096, 4096, 512) == select_bwd_kernel(4096, 4096, 512) == "mma"
     for d in (520, 1024, 500):
         q = torch.zeros(2, 16, 1, d, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match=f"K1 takes head dims that are multiples of 8 up "
-                                             f"to 512, got {d}$"):
-            _check_qkv(q, q, q)
+        for backward, name in ((False, "K1"), (True, "K2")):
+            with pytest.raises(ValueError, match=f"{name} takes head dims that are multiples of "
+                                                 f"8 up to 512, got {d}$"):
+                _check_qkv(q, q, q, backward=backward)
 
 
 def test_the_celebahq_unet_hands_k1_one_head_of_512():
@@ -504,7 +519,7 @@ def test_k2_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, sq,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [40, 64, 72, 80, 160, 256])
+@pytest.mark.parametrize("d", [40, 64, 72, 80, 160, 256, 512])
 @pytest.mark.parametrize("sq,sk", [(333, 77), (77, 333), (200, 333), (129, 129), (1, 130)])
 def test_k2_ragged_lengths_at_every_head_dim(cuda, sq, sk, d):
     """Lengths that are no multiple of a tile, through every kernel that takes

@@ -41,7 +41,8 @@ def test_the_port_has_its_new_modules():
                  "dmtpu_torch/scripts/sample_ilvr.py",
                  "dmtpu_torch/scripts/sample_mask_guidance.py",
                  "dmtpu_torch/scripts/sample_ddib.py",
-                 "dmtpu_torch/scripts/sample_clip_guidance.py"):
+                 "dmtpu_torch/scripts/sample_clip_guidance.py",
+                 "dmtpu_torch/scripts/encode_prompts.py"):
         assert name in SOURCES
 
 

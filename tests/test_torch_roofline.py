@@ -420,3 +420,42 @@ def test_forward_flops_counts_every_product_of_an_mmdit_forward():
             + depth * 4 * (t_img + length) ** 2 * d
             + 2 * d * 2 * d + 2 * t_img * d * p * p * c)
     assert got == want
+
+
+def test_celebahq_train_step_launch_plan_and_k2_bound_at_head_dim_512():
+    """``configs/ddpm_celebahq.yaml``'s UNet at full width (113.7M, bf16 torso,
+    256x256), its loss and backward traced on the meta device (chip_smoke
+    phase 19): the attention's 5 calls at S=256 and 1 at S=64, one head of
+    512 each, and 71 GroupNorms give 6 K1 + 6 K2 + 71 K3 a step, K2 on its
+    mma.sync instance; at b16 K2's call at S=256 moves 33.6 MB (q, k, v, o,
+    dO and the lse read, dq, dk, dv written) for 5.4 GFLOP and is bound by
+    its bytes, 0.0100 ms; the one at S=64 by 8.4 MB, 0.0025 ms."""
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config, merge_dotlist
+
+    conf = merge_dotlist(load_config(str(Path(__file__).resolve().parents[1]
+                                         / chip_smoke.CELEBAHQ_CONFIG)),
+                         chip_smoke.PIXEL_OVERRIDES)
+    model = instantiate_from_config(conf.model, device="meta")
+    assert sum(p.numel() for p in model.parameters()) == chip_smoke.CELEBAHQ_PARAMS
+    x = torch.zeros(1, 3, 256, 256, device="meta")
+    with chip_smoke.recorded_ops({}) as calls, plain_ops():
+        out = model(x, torch.zeros(1, dtype=torch.long, device="meta"), train=True)
+        out.float().square().mean().backward()
+    assert dict(calls["attention"]) == chip_smoke.CELEBAHQ_ATTN
+    plan = {"K1": sum(calls["attention"].values()), "K2": 0,
+            "K3": sum(calls["group_norm"].values())}
+    for (h, sq, sk, d), n in calls["attention"].items():
+        assert fa.bwd_kernels_for(d) == ["mma"] and fa.select_bwd_kernel(sq, sk, d) == "mma"
+        assert fa.MMA_NARROW_HEAD_DIM < d <= fa.MAX_HEAD_DIM
+        plan["K2"] += n
+    assert plan == chip_smoke.CELEBAHQ_TRAIN_STEP == {"K1": 6, "K2": 6, "K3": 71}
+    rows = {(b, s, d): n for b, s, d, n in chip_smoke.K2_D512_ROWS}
+    assert {(s, d): n for (b, s, d), n in rows.items() if n} == {(256, 512): 5, (64, 512): 1}
+    ops, nbytes = roofline.attention_bwd_work(16, 1, 256, 256, 512)
+    assert (ops, nbytes) == (5_368_709_120, 33_570_816)
+    assert roofline.bound_ms(ops, nbytes) == (pytest.approx(0.0100212, rel=1e-5), "bytes")
+    ops, nbytes = roofline.attention_bwd_work(16, 1, 64, 64, 512)
+    assert nbytes == 8_392_704 and roofline.bound_ms(ops, nbytes)[1] == "bytes"
+    step = sum(n * roofline.bound_ms(*roofline.attention_bwd_work(b, 1, s, s, d))[0]
+               for (b, s, d), n in rows.items())
+    assert step == pytest.approx(0.052611, rel=1e-4)
