@@ -30,7 +30,10 @@ guidance and image editing through ``python -m dmtpu_torch.scripts.sample_sdedit
 ``sample_clip_guidance`` on ``configs/ddpm_celebahq.yaml``'s UNet and ADM-256
 (phase 18), and that UNet's training through ``python -m
 dmtpu_torch.scripts.train_ddpm`` with the T5 text path through ``python -m
-dmtpu_torch.scripts.encode_prompts`` (phase 19); for the SD paths the
+dmtpu_torch.scripts.encode_prompts`` (phase 19), and FID / IS / KID evaluation
+through ``python -m dmtpu_torch.scripts.accept`` (the CIFAR-10 UNet's DDIM-10
+samples through the FID InceptionV3) and ``python -m
+dmtpu_torch.scripts.evaluate`` (with CLIP-FID) (phase 20); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -415,6 +418,22 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      once with ``--t5_dir`` (a T5 of XXL widths at 2 of its 24 layers, saved
      with a character-level tokenizer), and demo mode, whose rows are
      ``sample_mmdit --prompt``'s byte for byte; the directories are removed.
+ 20. FID / IS / KID (``EVAL_*``), in a temporary directory of files the
+     phase writes (a pt_inception-layout ``.pth`` of a seeded full-width
+     ``FIDInceptionV3``, five seeded ``data_batch`` pickles of 500 images, a
+     seeded checkpoint of ``configs/ddpm_cifar10.yaml``'s UNet): (a)
+     ``accept.main`` in this process: ``--self_test`` exits 0, a run without
+     artifacts exits 2 naming all three, then row ``ddim_10`` at 2500 samples
+     a side, b500, features at b250, a bf16 torso: exit 1 (random weights
+     miss the published row), finite FID > 0, IS >= 1, a FAIL row, exactly
+     300 K1 (all d=256), 2550 K3 and 0 K2; the sampling, feature and host
+     ``sqrtm`` seconds; (b) the Inception forward on the card (TF32 off)
+     within 1e-4 relative L2 of the CPU's on 16 of the samples, the same
+     with TF32 on, and the FID that TF32 would give on accept's sets; its
+     b250 299x299 images/s in f32 and TF32; (c) ``evaluate.main`` on PNG
+     directories of 256 images a side with KID and CLIP-FID (a CLIP of
+     ViT-B/32's widths, seeded): finite, and FID / IS / KID within 1e-4 of
+     the same images through the CPU extractor; the phase within 150 s.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -445,7 +464,8 @@ CelebA-HQ UNet's DDIM-50 request at b16, its columns over the 6 calls of one
 call there; K1's first entry also sums one such call, ``celebahq_b16``), a
 seventh for K2's mma.sync instance at head dim 512 (its launches in the 10
 timed b16 CelebA-HQ train steps, its columns over the 6 calls of one step
-there; K2's first entry also sums one such step, ``celebahq_train_b16``), the
+there; K2's first entry also sums one such step, ``celebahq_train_b16``; the
+launches of all three in phase 20's ``accept`` run, ``eval_accept_ddim_10_n2500``), the
 seconds of each phase, and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
@@ -813,6 +833,20 @@ T5_XXL = dict(vocab_size=32128, d_model=4096, d_kv=64, d_ff=10240, num_layers=24
 T5_XXL_PARAMS = 4_762_310_656
 T5_CLI_LAYERS = 2  # the T5 that encode_prompts --t5_dir loads: XXL widths, 2 of 24 layers
 ENCODE_PROMPTS = ("a smiling face", "a red car on a hill", "two dogs", "an image number 4")
+
+# phase 20: FID / IS / KID.  accept's row EVAL_ROW (DDIM-10) on
+# configs/ddpm_cifar10.yaml's UNet (35.7M, full width, seeded weights, bf16
+# torso) at its batch of 500: EVAL_N samples a side (>= 2048, so that the
+# pool3 covariance has full rank), the FID InceptionV3 (seeded weights in the
+# pt_inception layout, 299², f32) at EVAL_FEATURE_B, against five seeded
+# data_batch pickles of EVAL_PER_BATCH images in place of CIFAR-10 (no dataset,
+# Inception or trained weights on the card's machine); evaluate on
+# EVAL_DIR_IMAGES of each side written as PNGs, with KID and a CLIP of
+# ViT-B/32's widths (seeded weights)
+EVAL_ROW, EVAL_N, EVAL_B, EVAL_FEATURE_B, EVAL_PER_BATCH = "ddim_10", 2500, 500, 250, 500
+EVAL_CALL = {"K1": 6, "K2": 0, "K3": 51}  # launches a CIFAR UNet call (phase 16's tree)
+EVAL_CHECK_IMAGES, EVAL_DIR_IMAGES = 16, 256
+EVAL_KID_SUBSETS, EVAL_KID_SIZE = 10, 200
 
 
 def log(*args):
@@ -1354,6 +1388,10 @@ def main() -> int:
     # ---- 19. CelebA-HQ training through K2 at d=512; T5 and encode_prompts ------------
     torch.cuda.empty_cache()
     celebahq = run_phase("19", phase_celebahq_t5, dev, check, gen, card, time_ms, host_us)
+
+    # ---- 20. FID / IS / KID: accept on the CIFAR UNet, evaluate -----------------------
+    torch.cuda.empty_cache()
+    evals = run_phase("20", phase_eval, dev, check, gen, card, time_ms)
     log("phase seconds: " + json.dumps(phase_seconds))
     check("jax" not in sys.modules, "no JAX imported")
 
@@ -1376,7 +1414,8 @@ def main() -> int:
                       **{path: counted[name]
                          for path, counted in pixel_train["launches"].items()},
                       **{path: counted[name] for path, counted in guidance["launches"].items()},
-                      **{path: counted[name] for path, counted in celebahq["launches"].items()}}
+                      **{path: counted[name] for path, counted in celebahq["launches"].items()},
+                      **{path: counted[name] for path, counted in evals["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1500,7 +1539,7 @@ def main() -> int:
         "mmdit": mmdit["metrics"], "mmdit_train": mmdit_train["metrics"],
         "sdxl": sdxl["metrics"], "pixel": pixel["metrics"],
         "pixel_train": pixel_train["metrics"], "guidance": guidance["metrics"],
-        "celebahq_t5": celebahq["metrics"],
+        "celebahq_t5": celebahq["metrics"], "eval": evals["metrics"],
         "phase_seconds": phase_seconds, "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5793,6 +5832,305 @@ def phase_celebahq_t5(dev, check, gen, card, time_ms, host_us) -> dict:
                          "celebahq_cli_train": run1, "celebahq_cli_resume": run2},
             "metrics": metrics, "k2": k2_rows, "k2_per_step": {f"celebahq_train_b{n}": k2},
             "d512_launches": d512_launches, "d512_by_path": d512_by_path}
+
+
+def init_inception_(model, generator) -> None:
+    """Seeded weights for the FID InceptionV3, as ``tests/test_accept.py``
+    fabricates them: convolutions and ``fc`` N(0, 1 / fan_in), batch-norm
+    scales 1 + 0.5|N|, biases and running means 0.5 N, variances 1 (random
+    weights alone collapse the features through ~95 conv + BN layers)."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.state_dict().items():
+            noise = torch.randn(p.shape, generator=generator, device=p.device)
+            if name.endswith("bn.weight"):
+                p.copy_(1 + 0.5 * noise.abs())
+            elif name.endswith(("bn.bias", "running_mean")):
+                p.copy_(0.5 * noise)
+            elif name.endswith("running_var"):
+                p.fill_(1.0)
+            elif name == "fc.bias":
+                p.zero_()
+            else:
+                p.copy_(noise * p[0].numel() ** -0.5)
+
+
+def phase_eval(dev, check, gen, card, time_ms) -> dict:
+    """Phase 20 (see the module docstring): FID / IS / KID through ``python
+    -m dmtpu_torch.scripts.accept`` on the CIFAR-10 UNet and ``python -m
+    dmtpu_torch.scripts.evaluate`` (classic FID + IS + KID, and CLIP-FID)."""
+    import contextlib
+    import io
+    import multiprocessing
+    import pickle
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from dmtpu_torch.eval import InceptionFeatureExtractor, fid_from_features, inception_score
+    from dmtpu_torch.eval import fid as fid_module
+    from dmtpu_torch.eval.fid import kid_from_features
+    from dmtpu_torch.eval.inception import FIDInceptionV3, exact_f32
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.scripts import accept, evaluate
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config
+
+    def rel(a, ref) -> float:
+        a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+        return float(np.linalg.norm(a - ref) / np.linalg.norm(ref))
+
+    def close(a, b) -> bool:  # the CPU tests' parity tolerance
+        return abs(a - b) <= max(1e-4 * abs(b), 1e-4)
+
+    def run_cli(main, argv):
+        """(exit code or None, stdout) of ``main(argv)`` in this process."""
+        out, code = io.StringIO(), None
+        with contextlib.redirect_stdout(out):
+            try:
+                main(argv)
+            except SystemExit as e:
+                code = e.code
+        return code, out.getvalue()
+
+    g = gen(SEED + 100)
+    started = time.perf_counter()
+    metrics = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    try:
+        # (a) the files: a pt_inception .pth, five data_batch pickles, a UNet
+        torch.manual_seed(SEED)
+        with torch.device(dev):
+            inception = FIDInceptionV3()
+        init_inception_(inception, g)
+        inception_pth = os.path.join(root, "pt_inception-2015-12-05-52768-1.pth")
+        torch.save({k: v.cpu() for k, v in inception.state_dict().items()}, inception_pth)
+        cifar = os.path.join(root, "cifar-10-batches-py")
+        os.makedirs(cifar)
+        rs = np.random.RandomState(SEED)
+        for i in range(1, 6):
+            with open(os.path.join(cifar, f"data_batch_{i}"), "wb") as f:
+                pickle.dump({b"data": rs.randint(0, 256, (EVAL_PER_BATCH, 3072), dtype=np.uint8),
+                             b"labels": list(rs.randint(0, 10, EVAL_PER_BATCH))}, f)
+        unet = instantiate_from_config(load_config(CIFAR_CONFIG)["model"], device=dev)
+        init_random_(unet, g)
+        unet_pt = os.path.join(root, "unet.pt")
+        torch.save(unet.state_dict(), unet_pt)
+        del unet
+        torch.cuda.empty_cache()
+        metrics["files_seconds"] = time.perf_counter() - started
+
+        # (b) accept: the machinery, the missing-artifact path, then the row
+        code, out = run_cli(accept.main, ["--self_test"])
+        check(code == 0 and "machinery OK" in out, "accept --self_test exits 0")
+        saved_env = {k: os.environ.pop(k, None) for k in
+                     ("DMTPU_INCEPTION_WEIGHTS", "DMTPU_DATA_DIR", "DMTPU_ACCEPT_WEIGHTS")}
+        try:
+            code, out = run_cli(accept.main, ["--rows", EVAL_ROW])
+        finally:
+            os.environ.update({k: v for k, v in saved_env.items() if v is not None})
+        check(code == 2 and all(w in out for w in ("inception weights", "CIFAR-10", "checkpoint")),
+              "accept without artifacts exits 2 and names the Inception weights, CIFAR-10 and "
+              "the checkpoint")
+        spent = {"sample": 0.0, "features": 0.0, "sqrtm": []}
+        seen = {}
+
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                seconds = time.perf_counter() - t0
+                if name == "sqrtm":
+                    spent[name].append(seconds)
+                else:
+                    spent[name] += seconds
+                if name == "features":
+                    seen.setdefault("sets", []).append(args[1])
+                return out
+            return run
+
+        patched = [(accept, "sample_row"), (InceptionFeatureExtractor, "_batched"),
+                   (fid_module, "frechet_distance")]
+        originals = [getattr(obj, name) for obj, name in patched]
+        for (obj, name), fn, label in zip(patched, originals, ("sample", "features", "sqrtm")):
+            setattr(obj, name, timed(label, fn))
+        out_json = os.path.join(root, "accept.json")
+        argv = ["--rows", EVAL_ROW, "--config", CIFAR_CONFIG, "--weights", unet_pt,
+                "--inception_weights", inception_pth,
+                "--cifar10_dir", root, "--n_samples", str(EVAL_N), "--batch_size", str(EVAL_B),
+                "--eval_batch_size", str(EVAL_FEATURE_B), "--out", out_json, *PIXEL_OVERRIDES]
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+        flash_attention_fwd.launches_by_head_dim.clear()
+        t0 = time.perf_counter()
+        try:
+            code, out = run_cli(accept.main, argv)
+        finally:
+            for (obj, name), fn in zip(patched, originals):
+                setattr(obj, name, fn)
+        accept_seconds = time.perf_counter() - t0
+        launches = {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                    "K3": group_norm_silu.launches}
+        by_dim = dict(flash_attention_fwd.launches_by_head_dim)
+        for line in out.strip().splitlines():
+            log("  accept:", line)
+        row = json.loads(open(out_json).read())["rows"][EVAL_ROW]
+        calls = len(accept.build_diffuser(accept.ROWS[EVAL_ROW]).respaced_seq) * (EVAL_N // EVAL_B)
+        want = {k: calls * v for k, v in EVAL_CALL.items()}
+        metrics["accept"] = dict(row, exit_code=code, seconds=accept_seconds,
+                                 sample_seconds=spent["sample"],
+                                 feature_seconds=spent["features"],
+                                 sqrtm_seconds=spent["sqrtm"], launches=launches,
+                                 k1_by_head_dim=by_dim, n_samples=EVAL_N, batch=EVAL_B)
+        log(f"accept --rows {EVAL_ROW} on {CIFAR_CONFIG} (seeded weights, bf16 torso), "
+            f"{EVAL_N} samples a side at b{EVAL_B}: exit {code}, FID {row['fid']:.4f}, IS "
+            f"{row['is_mean']:.4f} +- {row['is_std']:.4f}; {accept_seconds:.3f} s in all: "
+            f"sampling {spent['sample']:.3f} s ({EVAL_N / spent['sample']:.1f} images/s), "
+            f"Inception features {spent['features']:.3f} s for {2 * EVAL_N} images, the host's "
+            f"sqrtm {spent['sqrtm']} s ({card}); launches {launches}, K1 by head dim {by_dim}")
+        check(code == 1 and np.isfinite(row["fid"]) and row["fid"] > 0 and row["is_mean"] >= 1.0
+              and any(ln.startswith(EVAL_ROW) and "FAIL" in ln for ln in out.splitlines()),
+              f"accept {EVAL_ROW} on seeded weights: exit 1 (out of tolerance), finite FID > 0, "
+              "IS >= 1, a FAIL row")
+        check(launches == want and by_dim == {256: want["K1"]},
+              f"accept launches: exactly {want['K1']} K1 (all d=256), {want['K3']} K3, 0 K2 "
+              f"({calls} UNet calls)")
+        real_u8, fake_u8 = seen["sets"]
+        check(len(real_u8) == len(fake_u8) == EVAL_N and real_u8.dtype == fake_u8.dtype == np.uint8,
+              f"accept's sets: {EVAL_N} uint8 images a side")
+
+        # (c) the Inception forward on the card against the CPU's, f32.  The
+        # two FIDs of (c) and (d) that no CLI computes run their host sqrtm in
+        # a pool of two spawned processes, beside the card's work and the CPU
+        # extractor: each takes as long as the whole card side of the phase
+        ext = InceptionFeatureExtractor(inception_pth, batch_size=EVAL_FEATURE_B, device=dev)
+        cpu_ext = InceptionFeatureExtractor(inception_pth, batch_size=64, device="cpu")
+        check_u8 = np.ascontiguousarray(fake_u8[:EVAL_CHECK_IMAGES])
+        cpu_pool3, cpu_probs = cpu_ext.features_and_probs(check_u8)
+        card_pool3, card_probs = ext.features_and_probs(check_u8)
+
+        def tf32_sweep(images):
+            """(pool3, probabilities) of the card's forward with TF32 on."""
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+            feats, probs = [], []
+            with torch.no_grad():
+                for i in range(0, len(images), EVAL_FEATURE_B):
+                    x = torch.from_numpy(np.ascontiguousarray(images[i:i + EVAL_FEATURE_B]))
+                    f, logits = ext.module(x.to(dev).permute(0, 3, 1, 2).float() / 255.0)
+                    feats.append(f.cpu().numpy())
+                    probs.append(torch.softmax(logits, -1).cpu().numpy())
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            return np.concatenate(feats), np.concatenate(probs)
+
+        tf32_pool3, tf32_probs = tf32_sweep(check_u8)
+        errs = {"f32": {"pool3": rel(card_pool3, cpu_pool3), "probs": rel(card_probs, cpu_probs)},
+                "tf32": {"pool3": rel(tf32_pool3, cpu_pool3), "probs": rel(tf32_probs, cpu_probs)}}
+        check(errs["f32"]["pool3"] <= 1e-4 and errs["f32"]["probs"] <= 1e-4,
+              f"Inception on the card (TF32 off) vs the CPU, {EVAL_CHECK_IMAGES} images: pool3 "
+              f"{errs['f32']['pool3']:.3e}, probabilities {errs['f32']['probs']:.3e} relative L2 "
+              "(<= 1e-4)")
+        # one BLAS thread each: sqrtm's Schur steps barely use more, and
+        # spinning BLAS threads of three processes would crowd the host
+        blas = ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS", "MKL_NUM_THREADS")
+        saved_env = {k: os.environ.get(k) for k in blas}
+        os.environ.update(dict.fromkeys(blas, "1"))
+        try:
+            pool = multiprocessing.get_context("spawn").Pool(2)
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        try:
+            fid_tf32_job = pool.apply_async(fid_from_features, (tf32_sweep(real_u8)[0],
+                                                                tf32_sweep(fake_u8)[0]))
+            x = torch.rand(EVAL_FEATURE_B, 3, 299, 299, generator=g, device=dev)
+            with torch.no_grad():
+                with exact_f32():
+                    f32_ms = time_ms(lambda: ext.module(x), 3)
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+                tf32_ms = time_ms(lambda: ext.module(x), 3)
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            del x
+
+            # (d) evaluate on PNG directories of accept's images, with CLIP-FID,
+            # and the same images through the CPU extractor
+            from transformers import CLIPConfig, CLIPModel
+
+            dirs = []
+            for side, images in (("real", real_u8), ("fake", fake_u8)):
+                os.makedirs(os.path.join(root, side))
+                for i in range(EVAL_DIR_IMAGES):
+                    Image.fromarray(images[i]).save(os.path.join(root, side, f"{i:04d}.png"))
+                dirs += [f"--{side}_dir", os.path.join(root, side)]
+            t0 = time.perf_counter()
+            real = evaluate.load_images_u8(os.path.join(root, "real"))
+            fake = evaluate.load_images_u8(os.path.join(root, "fake"))
+            c_fake, c_probs = cpu_ext.features_and_probs(fake)
+            c_real = cpu_ext(real)
+            cpu_seconds = time.perf_counter() - t0
+            cpu_fid_job = pool.apply_async(fid_from_features, (c_real, c_fake))
+            cpu = {}
+            cpu["is_mean"], cpu["is_std"] = inception_score(c_probs)
+            cpu["kid_mean"], cpu["kid_std"] = kid_from_features(
+                c_real, c_fake, subsets=EVAL_KID_SUBSETS, subset_size=EVAL_KID_SIZE)
+            clip_dir = os.path.join(root, "clip")
+            torch.manual_seed(SEED)
+            with torch.device(dev):
+                CLIPModel(CLIPConfig()).save_pretrained(clip_dir)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                results = evaluate.main([*dirs, "--inception_weights", inception_pth, "--kid",
+                                         "--kid_subsets", str(EVAL_KID_SUBSETS),
+                                         "--kid_subset_size", str(EVAL_KID_SIZE),
+                                         "--clip_pretrained", clip_dir,
+                                         "--batch_size", str(EVAL_FEATURE_B)])
+            evaluate_seconds = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fid_tf32 = fid_tf32_job.get(timeout=600)
+            cpu["fid"] = cpu_fid_job.get(timeout=600)
+            waited = time.perf_counter() - t0
+        finally:
+            pool.terminate()
+            pool.join()
+        fid_f32 = row["fid"]
+        metrics["inception"] = {
+            "card_vs_cpu_rel_l2": errs, "fid_f32": fid_f32, "fid_tf32": fid_tf32,
+            "fid_tf32_minus_f32": fid_tf32 - fid_f32,
+            "b250_ms": {"f32": f32_ms, "tf32": tf32_ms},
+            "images_per_s": {"f32": EVAL_FEATURE_B / f32_ms * 1e3,
+                             "tf32": EVAL_FEATURE_B / tf32_ms * 1e3}}
+        log(f"Inception b{EVAL_FEATURE_B} 299x299 forward: f32 {f32_ms:.3f} ms "
+            f"({EVAL_FEATURE_B / f32_ms * 1e3:.1f} images/s), TF32 {tf32_ms:.3f} ms "
+            f"({EVAL_FEATURE_B / tf32_ms * 1e3:.1f} images/s) ({card}); against the CPU's f32 "
+            f"forward on {EVAL_CHECK_IMAGES} images: {json.dumps(errs)}; FID of accept's sets "
+            f"with TF32 {fid_tf32:.6f} against {fid_f32:.6f} in f32 "
+            f"({fid_tf32 - fid_f32:+.6f})")
+        line = json.loads(out.getvalue().strip().splitlines()[-1])
+        log(f"evaluate, {EVAL_DIR_IMAGES} PNGs a side: {json.dumps(line)} in "
+            f"{evaluate_seconds:.3f} s ({card}); the same images through the CPU extractor "
+            f"({cpu_seconds:.3f} s for the features; {waited:.3f} s more waiting for the "
+            f"pool's two sqrtm): {json.dumps(cpu)}")
+        check(sorted(line) == ["clip_fid", "fid", "is_mean", "is_std", "kid_mean", "kid_std"]
+              and all(np.isfinite(v) for v in line.values()),
+              "evaluate prints finite FID, IS, KID and CLIP-FID")
+        check(all(close(results[k], v) for k, v in cpu.items()),
+              "evaluate's FID / IS / KID on the card equal the CPU path's within 1e-4")
+        metrics["evaluate"] = {"printed": line, "results": results, "cpu": cpu,
+                               "seconds": evaluate_seconds, "cpu_feature_seconds": cpu_seconds,
+                               "pool_wait_seconds": waited, "images": EVAL_DIR_IMAGES}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    metrics["seconds"] = time.perf_counter() - started
+    log(f"phase 20 wall {metrics['seconds']:.3f} s ({card})")
+    check(metrics["seconds"] <= 150, f"phase 20 within 150 s ({metrics['seconds']:.1f} s)")
+    return {"launches": {f"eval_accept_{EVAL_ROW}_n{EVAL_N}": launches},
+            "metrics": metrics}
 
 
 def sdpa_backend(q, k, v) -> str:

@@ -23,7 +23,12 @@ converts torch tensors onto Flax leaves by fixed rules
 so parameters made by the JAX package load into the port's modules, whose
 keys are the upstream torch keys.  The params tree is nested dicts of numpy
 arrays (``jax.device_get`` of a Flax params tree), with or without the
-top-level ``"params"`` wrapper.
+top-level ``"params"`` wrapper.  Variables with a ``batch_stats`` collection
+beside ``params`` (the FID InceptionV3's batch norms) give their running
+statistics too:
+
+  batch_stats/.../bn/mean -> ....bn.running_mean
+  batch_stats/.../bn/var  -> ....bn.running_var
 
 The JAX MMDiT names its modules otherwise (``t_mlp0``, ``blocks__i/x_qkv``,
 ...): ``mmdit_key`` maps those keys onto SD3's upstream ones, the inverse of
@@ -57,13 +62,21 @@ _RAW = {"text_projection", "pos_embed", "decoder_pos_embed", "mask_token",
         "rel_pos_bias__relative_position_bias_table", "positional_embedding"}
 # a Flax ``Dense`` wrapper's leaf whose port counterpart is a 1x1 conv
 _DENSE_LEAF = re.compile(r"(.*)\.dense\.(weight|bias)")
+# a leaf of the ``batch_stats`` collection -> the batch norm's buffer
+_STATS_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 
-def torch_name(path: Tuple[str, ...], ndim: int) -> Tuple[str, Optional[Tuple[int, ...]]]:
-    """(torch key, axis permutation or None) for the Flax leaf at ``path``."""
+def torch_name(path: Tuple[str, ...], ndim: int, collection: str = "params"
+               ) -> Tuple[str, Optional[Tuple[int, ...]]]:
+    """(torch key, axis permutation or None) for the Flax leaf at ``path`` of
+    the variable ``collection`` ("params" or "batch_stats")."""
     *mods, leaf = path
     base = ".".join(m.replace("__", ".") for m in mods)
-    if leaf == "kernel":
+    if collection == "batch_stats":
+        if leaf not in _STATS_LEAF:
+            raise ValueError(f"unknown batch_stats leaf {leaf!r} at {'/'.join(path)}")
+        name, perm = _STATS_LEAF[leaf], None
+    elif leaf == "kernel":
         if ndim == 4:
             perm = (3, 2, 0, 1)
         elif ndim == 2:
@@ -119,14 +132,17 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
 def state_dict_from_flax(params: Mapping[str, Any],
                          rename: Optional[Callable[[str], str]] = None
                          ) -> dict[str, torch.Tensor]:
-    """Torch state_dict (f32 CPU tensors) from a JAX-package params tree;
-    ``rename`` maps each key once converted (``mmdit_key``)."""
-    if set(params) == {"params"}:
-        params = params["params"]
+    """Torch state_dict (f32 CPU tensors) from a JAX-package params tree, or
+    from variables ``{"params", "batch_stats"}``; ``rename`` maps each key
+    once converted (``mmdit_key``)."""
+    collections = {"params": params}
+    if set(params) in ({"params"}, {"params", "batch_stats"}):
+        collections = dict(params)
     out: dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(params):
+    for collection, path, leaf in ((c, p, x) for c, tree in collections.items()
+                                   for p, x in _flatten(tree)):
         arr = np.asarray(leaf)
-        key, perm = torch_name(path, arr.ndim)
+        key, perm = torch_name(path, arr.ndim, collection)
         if rename is not None:
             key = rename(key)
         if perm is not None:

@@ -213,6 +213,12 @@ _PORTED = {
     "dmtpu.data.datasets.CelebAHQ", "dmtpu.data.datasets.ImageNet",
     "dmtpu.data.datasets.Synthetic", "dmtpu.data.image_dir.ImageDir", "dmtpu.data.mnist.MNIST",
     "dmtpu.data.cifar10.CIFAR10", "dmtpu.data.celebahq.CelebAHQ", "dmtpu.data.imagenet.ImageNet",
+    "dmtpu.eval.CLIPFeatureExtractor", "dmtpu.eval.FIDInceptionV3",
+    "dmtpu.eval.InceptionFeatureExtractor", "dmtpu.eval.fid.CLIPFeatureExtractor",
+    "dmtpu.eval.inception.FIDInceptionV3", "dmtpu.eval.inception.InceptionFeatureExtractor",
+    "dmtpu.eval.inception.BasicConv2d", "dmtpu.eval.inception.InceptionA",
+    "dmtpu.eval.inception.InceptionB", "dmtpu.eval.inception.InceptionC",
+    "dmtpu.eval.inception.InceptionD", "dmtpu.eval.inception.InceptionE",
 }
 
 

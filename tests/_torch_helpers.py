@@ -113,3 +113,39 @@ def jax_random_params(module, *args, seed: int = 0) -> dict:
         return ((1.0 if name == "scale" else 0.0) + 0.05 * noise).astype(tree.dtype)
 
     return {"params": go(shapes["params"])}
+
+
+
+def fake_inception_pth(tmp_path) -> str:
+    """The fabricated pt_inception ``.pth`` of ``tests/test_accept.py::
+    _fake_inception_pth`` (upstream keys and layouts, batch-norm statistics
+    and scales perturbed so that random features do not collapse), with the
+    JAX ``FIDInceptionV3.init`` it starts from replaced for the call by the
+    init's own values drawn without running it: kernels N(0, 1 / fan_in),
+    batch-norm scales and variances 1, biases and means 0 (the init runs the
+    299² forward op by op, ~30 s on the CPU)."""
+    from unittest import mock
+
+    import jax
+
+    from dmtpu.eval.inception import FIDInceptionV3
+    from tests.test_accept import _fake_inception_pth
+
+    flax_init = FIDInceptionV3.init
+
+    def init(self, key, x):
+        shapes = jax.eval_shape(lambda k, y: flax_init(self, k, y), key, x)
+        rs = np.random.RandomState(3)
+
+        def go(tree, name=""):
+            if hasattr(tree, "items"):
+                return {k: go(v, k) for k, v in tree.items()}
+            if name == "kernel":
+                fan_in = np.prod(tree.shape[:-1])
+                return (rs.randn(*tree.shape) / np.sqrt(fan_in)).astype(np.float32)
+            return np.full(tree.shape, 1.0 if name in ("scale", "var") else 0.0, np.float32)
+
+        return go(shapes)
+
+    with mock.patch.object(FIDInceptionV3, "init", init):
+        return _fake_inception_pth(tmp_path)

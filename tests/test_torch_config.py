@@ -15,6 +15,8 @@ from dmtpu.utils import image as jimage
 from dmtpu_torch import diffusions as td
 from dmtpu_torch.data import captioned
 from dmtpu_torch.diffusions import guidance as tg
+from dmtpu_torch.eval import fid as tfid
+from dmtpu_torch.eval import inception as tinception
 from dmtpu_torch.models import adm as tadm
 from dmtpu_torch.models import pesser as tpesser
 from dmtpu_torch.models import stablediffusion as tsd
@@ -95,6 +97,9 @@ TARGETS = [
     ("models.adm.unet_combined.UNetCombined", tadm.UNetCombined),
     ("dmtpu.models.pesser.PesserUNet", tpesser.PesserUNet),
     ("models.pesser.model.Model", tpesser.PesserUNet),
+    ("dmtpu.eval.fid.CLIPFeatureExtractor", tfid.CLIPFeatureExtractor),
+    ("dmtpu.eval.inception.FIDInceptionV3", tinception.FIDInceptionV3),
+    ("dmtpu.eval.inception.InceptionFeatureExtractor", tinception.InceptionFeatureExtractor),
     ("dmtpu_torch.diffusions.ddim.DDIM", td.DDIM),   # this package's own paths
     ("collections.OrderedDict", __import__("collections").OrderedDict),  # any other import
 ]
@@ -110,8 +115,8 @@ def test_reference_table_is_the_jax_package_s():
 
 
 @pytest.mark.parametrize("target", [
-    "dmtpu.eval.fid.CLIPFeatureExtractor", "dmtpu.eval.inception.FIDInceptionV3",
-    "dmtpu.eval.inception.InceptionFeatureExtractor", "dmtpu.anything",
+    "dmtpu.parallel.mesh.make_mesh", "dmtpu.parallel.sp.sp_attention",
+    "dmtpu.parallel.pp.pipeline_apply", "dmtpu.anything",
 ])
 def test_unported_target_is_named(target):
     with pytest.raises(NotImplementedError, match="no counterpart in dmtpu_torch") as e:

@@ -42,7 +42,9 @@ def test_the_port_has_its_new_modules():
                  "dmtpu_torch/scripts/sample_mask_guidance.py",
                  "dmtpu_torch/scripts/sample_ddib.py",
                  "dmtpu_torch/scripts/sample_clip_guidance.py",
-                 "dmtpu_torch/scripts/encode_prompts.py"):
+                 "dmtpu_torch/scripts/encode_prompts.py", "dmtpu_torch/eval/__init__.py",
+                 "dmtpu_torch/eval/fid.py", "dmtpu_torch/eval/inception.py",
+                 "dmtpu_torch/scripts/evaluate.py", "dmtpu_torch/scripts/accept.py"):
         assert name in SOURCES
 
 
