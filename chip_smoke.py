@@ -33,7 +33,9 @@ dmtpu_torch.scripts.train_ddpm`` with the T5 text path through ``python -m
 dmtpu_torch.scripts.encode_prompts`` (phase 19), and FID / IS / KID evaluation
 through ``python -m dmtpu_torch.scripts.accept`` (the CIFAR-10 UNet's DDIM-10
 samples through the FID InceptionV3) and ``python -m
-dmtpu_torch.scripts.evaluate`` (with CLIP-FID) (phase 20); for the SD paths the
+dmtpu_torch.scripts.evaluate`` (with CLIP-FID) (phase 20), and the selective
+remat policies, LoRA under remat, a learning-rate schedule, the data-parallel
+path of the CLIs and the ring attention fold (phase 21); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -434,6 +436,41 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      directories of 256 images a side with KID and CLIP-FID (a CLIP of
      ViT-B/32's widths, seeded): finite, and FID / IS / KID within 1e-4 of
      the same images through the CPU extractor; the phase within 150 s.
+ 21. selective remat and the parallelism layer (``REMAT_*``, ``RING_*``):
+     (a) the SD1.5 UNet (bf16 torso, seeded weights) at b4, one forward and
+     backward under each ``use_checkpoint`` of ``REMAT_POLICIES``: the
+     gradient within twice the run-to-run noise of two runs without remat
+     plus 1e-3 (relative L2), the peak memory ordered as the policies keep
+     (``nothing`` <= ``attn`` <= ``dots_no_batch`` <= ``dots`` <=
+     ``everything`` ~ no remat, with 5% and 256 MiB of slack), the step's ms
+     (3 steps a run, the policies in turn and then in reverse order), and
+     K1 / K2 / K3 launches exactly as the module tree gives them: under
+     ``"attn"`` 32 K1 a step, where full remat launches 64; then the step's
+     time and peak under no remat, full remat, ``attn`` and ``dots`` at the
+     SD1.5 configs' batch of 8 and at 16; (b) LoRA with the
+     UNet's ``use_checkpoint`` on ``configs/sd15_lora.yaml``'s stack at b2
+     512x512: the adapters' gradients against the run without remat (the
+     same bound), launches exact; then ``train_sd.main`` with
+     ``use_checkpoint=true`` for 2 steps, launches exact; (c)
+     ``train_ddpm.main`` on ``configs/ddpm_cifar10.yaml`` (synthetic data)
+     for 3 steps under a ``warmup_cosine_decay_schedule`` given as a config:
+     the logged lr is the schedule's at each update; (d) the same run with
+     ``torchrun``'s variables set for one rank, so the CLI starts a NCCL
+     group of one and goes through the data-parallel path: the first loss
+     exactly the run's without a group, the parameters within 1e-3 relative
+     L2 after 3 steps (K2's dQ sums vary between runs), the same launches;
+     and one ``sample_uncond`` request through ``DataParallelSampler`` in
+     that group, its PNGs those of the run without one (to one level); (e)
+     the ring attention of 4 ranks on one card (``parallel/sp.py``:
+     ``fold_attention`` and ``fold_attention_backward`` run the ring's own
+     hop functions, ``ring_forward`` and ``ring_backward``, with all 4 ranks
+     held on the card, dK / dV summed in f32 as they travel) at SD1.5's
+     S=4096 h8 d=40 and S=1024 h8 d=80 at b16 (K1 / K2 wgmma) and the CIFAR
+     UNet's S=256 h1 d=256 at b128 (mma.sync): 16 K1 and 16 K2 launches, O,
+     dQ, dK and dV within 2e-2 of the largest entry of K1 / K2 on the whole
+     sequence, and against f32 autograd through ``mha`` on the first sample
+     within 1.5x the whole sequence's error plus 1e-3; the fold's and the
+     whole sequence's times.
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -847,6 +884,27 @@ EVAL_ROW, EVAL_N, EVAL_B, EVAL_FEATURE_B, EVAL_PER_BATCH = "ddim_10", 2500, 500,
 EVAL_CALL = {"K1": 6, "K2": 0, "K3": 51}  # launches a CIFAR UNet call (phase 16's tree)
 EVAL_CHECK_IMAGES, EVAL_DIR_IMAGES = 16, 256
 EVAL_KID_SUBSETS, EVAL_KID_SIZE = 10, 200
+
+# phase 21: selective remat, LoRA under remat, a schedule, data parallelism at
+# world size 1 and the ring attention fold.  (a) the SD1.5 UNet (bf16 torso,
+# seeded weights) at b4 under each use_checkpoint; the gradient bound is twice
+# the run-to-run noise of two runs without remat plus REMAT_GRAD_TOL
+REMAT_B, REMAT_GRAD_TOL, REMAT_TIMED_STEPS = 4, 1e-3, 3
+REMAT_POLICIES = [False, True, "nothing", "dots", "dots_no_batch", "attn", "everything"]
+# the step timed at configs/sd15_finetune.yaml's batch (8) and at 16
+REMAT_TIMED_BATCHES, REMAT_TIMED_POLICIES = (8, 16), [False, True, "attn", "dots"]
+# (b) configs/sd15_lora.yaml with use_checkpoint; (c) and (d)
+# configs/ddpm_cifar10.yaml under a warmup-cosine schedule, then through a
+# one-rank NCCL group
+REMAT_LORA_BATCH, REMAT_LORA_STEPS = 2, 2
+SCHEDULE_STEPS, DP_SAMPLES, DP_PARAM_TOL = 3, 4, 1e-3
+# (e) the ring's arithmetic over RING_CHUNKS K/V chunks on one card: SD1.5's
+# 64x64 and 32x32 self-attention (K1 / K2 wgmma) and the CIFAR UNet's d=256
+# (mma.sync); O and the gradients within RING_TOL of the largest entry of the
+# whole sequence's
+RING_CHUNKS, RING_TOL = 4, 2e-2
+RING_SHAPES = {"sd15_s4096_d40": (16, 4096, 8, 40), "sd15_s1024_d80": (16, 1024, 8, 80),
+               "cifar_s256_d256": (128, 256, 1, 256)}
 
 
 def log(*args):
@@ -1392,6 +1450,10 @@ def main() -> int:
     # ---- 20. FID / IS / KID: accept on the CIFAR UNet, evaluate -----------------------
     torch.cuda.empty_cache()
     evals = run_phase("20", phase_eval, dev, check, gen, card, time_ms)
+
+    # ---- 21. remat policies, LoRA under remat, a schedule, DP, the ring fold -------
+    torch.cuda.empty_cache()
+    remat_parallel = run_phase("21", phase_remat_parallel, dev, check, gen, card, time_ms)
     log("phase seconds: " + json.dumps(phase_seconds))
     check("jax" not in sys.modules, "no JAX imported")
 
@@ -1415,7 +1477,9 @@ def main() -> int:
                          for path, counted in pixel_train["launches"].items()},
                       **{path: counted[name] for path, counted in guidance["launches"].items()},
                       **{path: counted[name] for path, counted in celebahq["launches"].items()},
-                      **{path: counted[name] for path, counted in evals["launches"].items()}}
+                      **{path: counted[name] for path, counted in evals["launches"].items()},
+                      **{path: counted[name]
+                         for path, counted in remat_parallel["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1540,6 +1604,7 @@ def main() -> int:
         "sdxl": sdxl["metrics"], "pixel": pixel["metrics"],
         "pixel_train": pixel_train["metrics"], "guidance": guidance["metrics"],
         "celebahq_t5": celebahq["metrics"], "eval": evals["metrics"],
+        "remat_parallel": remat_parallel["metrics"],
         "phase_seconds": phase_seconds, "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -6237,6 +6302,422 @@ def profile_by_class(fn, calls: int) -> dict:
     classes["total"] = sum(classes.values())
     return {"classes": classes, "top": sorted(kernels, key=lambda kv: -kv[1])[:12],
             "ranges": ranges, "wall_ms": wall_ms}
+
+
+def phase_remat_parallel(dev, check, gen, card, time_ms) -> dict:
+    """Phase 21 (see the module docstring): the remat policies, LoRA under
+    remat, a learning-rate schedule, data parallelism at world size 1 and
+    the ring attention fold."""
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import yaml
+    from dmtpu_torch.diffusions import DDPM
+    from dmtpu_torch.models.lora import init_lora, lora_scale
+    from dmtpu_torch.models.stablediffusion import SDUNetModel, StableDiffusion
+    from dmtpu_torch.ops import roofline
+    from dmtpu_torch.ops.attention import mha
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.ops.rematerialize import normalize_use_checkpoint
+    from dmtpu_torch.parallel.sp import fold_attention, fold_attention_backward
+    from dmtpu_torch.scripts import sample_uncond, train_ddpm, train_sd
+    from dmtpu_torch.utils import checkpoint as ckpt_lib
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config, merge_dotlist
+    from dmtpu_torch.utils.optim import build_schedule
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    metrics: dict = {"card": card}
+    launches: dict = {}
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel_l2(got, want) -> float:
+        num = sum((got[n].float() - want[n].float()).square().sum() for n in want)
+        den = sum(want[n].float().square().sum() for n in want)
+        return float((num / den).sqrt())
+
+    # (a) the policies on the SD1.5 UNet at b4
+    from dmtpu_torch.models.adm import GroupNorm32, ResBlock
+    from dmtpu_torch.models.stablediffusion.attention import CrossAttention, SpatialTransformer
+
+    model = SDUNetModel(**SD15, torso_dtype=torch.bfloat16, device=dev).train()
+    init_random_(model, gen(SEED + 21))
+    blocks = [m for m in model.modules() if isinstance(m, (ResBlock, SpatialTransformer))]
+    n_attn = sum(isinstance(m, CrossAttention) for m in model.modules())
+    n_gn = sum(isinstance(m, GroupNorm32) for m in model.modules())
+    gn_in_blocks = sum(isinstance(m, GroupNorm32) for b in blocks for m in b.modules())
+    g = gen(SEED + 22)
+    x0 = torch.randn(REMAT_B, 4, 64, 64, generator=g, device=dev)
+    eps = torch.randn(REMAT_B, 4, 64, 64, generator=g, device=dev)
+    ctx = torch.randn(REMAT_B, 77, 768, generator=g, device=dev)
+    t = torch.randint(0, 1000, (REMAT_B,), generator=g, device=dev)
+    diffuser = DDPM(total_steps=1000)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = diffuser.loss_func(model, x0, t, eps=eps, model_kwargs={"context": ctx})
+        loss.backward()
+        return loss
+
+    def with_policy(policy):
+        model.use_checkpoint, model.remat_policy = normalize_use_checkpoint(policy)
+
+    with_policy(False)
+    step()  # cuBLAS / cuDNN set-up
+    # the gradients' run-to-run noise: K2's dQ sums and cuDNN's weight
+    # gradients add in an order that varies between runs
+    first = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    step()
+    floor = rel_l2({n: p.grad for n, p in model.named_parameters()}, first)
+    grad_tol = 2 * floor + REMAT_GRAD_TOL
+    del first
+    log(f"remat: two runs without remat differ by {floor:.3e} rel L2; bound {grad_tol:.3e}")
+    rows, grads0 = {}, None
+    for policy in REMAT_POLICIES:
+        with_policy(policy)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        loss = step()
+        torch.cuda.synchronize()
+        got = counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        if grads0 is None:
+            grads0 = grads
+        recomputes = model.use_checkpoint and str(policy) != "everything"
+        want = {"K1": n_attn * (1 + (recomputes and policy != "attn")), "K2": n_attn,
+                "K3": n_gn + (gn_in_blocks if recomputes else 0)}
+        err = rel_l2(grads, grads0)
+        rows[str(policy)] = {"peak_bytes": peak, "launches": got, "grad_rel_l2": err,
+                             "loss": loss.item()}
+        launches[f"remat_{policy}_b{REMAT_B}"] = got
+        log(f"remat use_checkpoint={policy!r} b{REMAT_B}: peak {peak / 2**30:.3f} GiB above the "
+            f"weights, launches {got} (want {want}), grad rel L2 vs no remat {err:.3e} ({card})")
+        check(got == want, f"remat {policy!r}: launches {got} == {want}")
+        check(bool(torch.isfinite(loss)) and err <= grad_tol,
+              f"remat {policy!r}: gradient within {grad_tol:.3e} rel L2 of no remat")
+        del grads
+    # the step's time: the policies in turn, then in the reverse order
+    for order in (REMAT_POLICIES, REMAT_POLICIES[::-1]):
+        for policy in order:
+            with_policy(policy)
+            rows[str(policy)].setdefault("ms_runs", []).append(time_ms(step, REMAT_TIMED_STEPS))
+    for name, row in rows.items():
+        row["ms"] = sum(row["ms_runs"]) / len(row["ms_runs"])
+        log(f"remat use_checkpoint={name} b{REMAT_B}: {row['ms']:.3f} ms a forward+backward "
+            f"({row['ms_runs']}, {REMAT_TIMED_STEPS} steps a run; {card})")
+    metrics["remat_b4"] = {"policies": rows, "grad_noise_rel_l2": floor}
+    peaks = {k: r["peak_bytes"] for k, r in rows.items()}
+    slack = lambda a: 1.05 * a + 2**28  # noqa: E731  (allocator rounding)
+    order = ["nothing", "attn", "dots_no_batch", "dots", "everything"]
+    check(all(peaks[a] <= slack(peaks[b]) for a, b in zip(order, order[1:]))
+          and peaks["True"] <= slack(peaks["nothing"]) and peaks["nothing"] <= slack(peaks["True"])
+          and peaks["everything"] <= slack(peaks["False"]) and peaks["True"] < peaks["False"],
+          f"remat peaks ordered as the policies keep: {peaks}")
+    check(rows["attn"]["launches"]["K1"] == n_attn and rows["True"]["launches"]["K1"] == 2 * n_attn,
+          f"attn launches {n_attn} K1 a step where full remat launches {2 * n_attn}")
+    del grads0, x0, eps, ctx
+    # the step's time and peak at the SD1.5 configs' own batch and at twice it
+    timed = {}
+    for b in REMAT_TIMED_BATCHES:
+        g = gen(SEED + 28)
+        xb, eb = (torch.randn(b, 4, 64, 64, generator=g, device=dev) for _ in range(2))
+        cb = torch.randn(b, 77, 768, generator=g, device=dev)
+        tb = torch.randint(0, 1000, (b,), generator=g, device=dev)
+
+        def step_b():
+            model.zero_grad(set_to_none=True)
+            loss = diffuser.loss_func(model, xb, tb, eps=eb, model_kwargs={"context": cb})
+            loss.backward()
+            return loss
+
+        rows_b: dict = {}
+        for order in (REMAT_TIMED_POLICIES, REMAT_TIMED_POLICIES[::-1]):
+            for policy in order:
+                with_policy(policy)
+                model.zero_grad(set_to_none=True)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ms = time_ms(step_b, REMAT_TIMED_STEPS)
+                row = rows_b.setdefault(str(policy), {"ms_runs": [], "peak_bytes": 0})
+                row["ms_runs"].append(ms)
+                row["peak_bytes"] = max(row["peak_bytes"],
+                                        torch.cuda.max_memory_allocated() - base)
+                row["loss"] = step_b().item()
+        for name, row in rows_b.items():
+            row["ms"] = sum(row["ms_runs"]) / len(row["ms_runs"])
+            log(f"remat use_checkpoint={name} b{b}: {row['ms']:.3f} ms a forward+backward "
+                f"({row['ms_runs']}, {REMAT_TIMED_STEPS} steps a run), peak "
+                f"{row['peak_bytes'] / 2**30:.3f} GiB above the weights ({card})")
+        check(all(math.isfinite(row["loss"]) for row in rows_b.values()),
+              f"remat at b{b}: finite losses under every timed policy")
+        timed[f"b{b}"] = rows_b
+        del xb, eb, cb, tb
+    metrics["remat_timed"] = timed
+    model.zero_grad(set_to_none=True)
+    del model
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_remat_parallel_")
+    try:
+        # (b) LoRA under remat: the adapters' gradients, then the CLI
+        images, tokenizer = write_finetune_inputs(root, REMAT_LORA_BATCH, FT_SIZE)
+        conf = merge_dotlist(load_config(os.path.join(here, LORA_CONFIG)),
+                             [f"tokenizer={tokenizer}"])
+        real_init = StableDiffusion.init_params
+        StableDiffusion.init_params = lambda self, generator=None, img_size=64: (
+            init_random_(self, generator), self)[1]
+        try:
+            sd = train_sd.build_model(conf, dev, get_quiet_logger())
+        finally:
+            StableDiffusion.init_params = real_init
+        sd.vae.requires_grad_(False).eval()
+        sd.text_encoder.requires_grad_(False).eval()
+        sd.unet.requires_grad_(False).train()
+        rank = int(conf.train.lora.rank)
+        scale = lora_scale(rank, conf.train.lora.get("alpha"))
+        lora = init_lora(sd.unet, gen(SEED + 23), rank=rank)
+        with torch.no_grad():  # b is zero at init: a gets no gradient then
+            for name, p in lora.named_parameters():
+                if name.endswith(".b"):
+                    p.normal_(0.0, 0.02, generator=gen(SEED + 24))
+        adapters = dict(lora.named_parameters())
+        unet_fn = train_sd.lora_unet(sd, adapters, scale)
+        g = gen(SEED + 25)
+        batch = {"image": torch.rand(REMAT_LORA_BATCH, 3, FT_SIZE, FT_SIZE, generator=g,
+                                     device=dev) * 2 - 1,
+                 "input_ids": torch.randint(2, 40, (REMAT_LORA_BATCH, sd.text_encoder.max_length),
+                                            generator=g, device=dev)}
+        lora_grads = {}
+        for remat in (False, True):
+            sd.unet.use_checkpoint, sd.unet.remat_policy = normalize_use_checkpoint(remat)
+            loss_fn = train_sd.make_sd_loss_fn(sd, DDPM(total_steps=1000), batch["input_ids"][:1],
+                                               0.0, 1000, unet_fn)
+            for p in adapters.values():
+                p.grad = None
+            zero_counts()
+            loss_fn(batch, gen(SEED + 26)).backward()
+            torch.cuda.synchronize()
+            lora_grads[remat] = ({n: p.grad.clone() for n, p in adapters.items()}, counts())
+        err = rel_l2(lora_grads[True][0], lora_grads[False][0])
+        # with the base frozen, nothing upstream of the first adapter needs a
+        # gradient: the ResBlocks ahead of the first SpatialTransformer are
+        # not recomputed, and their GroupNorms not launched again
+        ahead = []
+        for m in sd.unet.modules():
+            if isinstance(m, SpatialTransformer):
+                break
+            ahead.append(m)
+        not_recomputed = sum(isinstance(m, GroupNorm32) for r in ahead if isinstance(r, ResBlock)
+                             for m in r.modules())
+        per_step = {"K1": 2 * n_attn, "K2": n_attn,
+                    "K3": n_gn + gn_in_blocks - not_recomputed + GN_PER_ENCODE}
+        log(f"LoRA under remat b{REMAT_LORA_BATCH} {FT_SIZE}x{FT_SIZE}: adapter grad rel L2 vs "
+            f"no remat {err:.3e}; launches remat {lora_grads[True][1]}, none "
+            f"{lora_grads[False][1]}")
+        check(err <= grad_tol and all(float(v.abs().max()) > 0
+                                      for v in lora_grads[True][0].values()),
+              f"LoRA under remat: the adapters' gradients within {grad_tol:.3e} of no remat")
+        check(lora_grads[True][1] == per_step,
+              f"LoRA under remat: launches {lora_grads[True][1]} == {per_step}")
+        metrics["lora_remat"] = {"grad_rel_l2": err, "launches": lora_grads[True][1]}
+        del sd, lora, adapters, unet_fn, lora_grads, batch
+        torch.cuda.empty_cache()
+        zero_counts()
+        result = train_sd.main(["-c", os.path.join(here, LORA_CONFIG), "-e",
+                                os.path.join(root, "lora"), "-ni", "--device", "cuda",
+                                f"data.params.root={images}", f"tokenizer={tokenizer}",
+                                f"train.batch_size={REMAT_LORA_BATCH}",
+                                "dataloader.num_workers=2", f"seed={SEED}",
+                                f"train.n_steps={REMAT_LORA_STEPS}", "train.sample_freq=0",
+                                f"train.save_freq={REMAT_LORA_STEPS}",
+                                "model.params.unet_config.params.use_checkpoint=true"])
+        torch.cuda.synchronize()
+        got = counts()
+        want = {k: REMAT_LORA_STEPS * v for k, v in per_step.items()}
+        launches["train_sd_lora_remat"] = got
+        log(f"train_sd LoRA with use_checkpoint, {REMAT_LORA_STEPS} steps b{REMAT_LORA_BATCH}: "
+            f"losses {result['losses']}, launches {got}")
+        check(all(map(math.isfinite, result["losses"])) and got == want,
+              f"train_sd LoRA with use_checkpoint: finite losses, launches {got} == {want}")
+        metrics["lora_remat"]["cli_losses"] = result["losses"]
+        torch.cuda.empty_cache()
+
+        # (c) a schedule, and (d) the same run through the data-parallel path
+        schedule = {"target": "optax.warmup_cosine_decay_schedule",
+                    "params": {"init_value": 0.0, "peak_value": 2e-4, "warmup_steps": 1,
+                               "decay_steps": SCHEDULE_STEPS, "end_value": 1e-5}}
+        lr = yaml.safe_dump(schedule, default_flow_style=True).strip()  # YAML floats
+
+        def pixel_run(name):
+            exp = os.path.join(root, name)
+            zero_counts()
+            out = train_ddpm.main(["-c", CIFAR_CONFIG, "-e", exp, "-ni", "--device", "cuda",
+                                   *PIXEL_OVERRIDES,
+                                   *SYNTHETIC_DATA, f"train.n_steps={SCHEDULE_STEPS}",
+                                   "train.sample_freq=0", f"train.save_freq={SCHEDULE_STEPS}",
+                                   f"train.optim.params.lr={lr}"])
+            torch.cuda.synchronize()
+            text = "".join(open(os.path.join(exp, f)).read() for f in os.listdir(exp)
+                           if f.startswith("output-"))
+            logged = [float(line.split("lr: ")[1].split(",")[0]) for line in text.splitlines()
+                      if "[Train]" in line]
+            ckpt = ckpt_lib.load_checkpoint_host(os.path.join(exp, "ckpt",
+                                                              sorted(os.listdir(
+                                                                  os.path.join(exp, "ckpt")))[-1]))
+            return out, logged, ckpt, counts()
+
+        plain_run, logged, ckpt_plain, plain_launches = pixel_run("schedule")
+        want_lr = [build_schedule(schedule)(k) for k in range(SCHEDULE_STEPS)]
+        log(f"train_ddpm with {schedule['target']}: logged lr {logged}, the schedule's "
+            f"{want_lr}; losses {plain_run['losses']}; launches {plain_launches}")
+        check(len(logged) == SCHEDULE_STEPS and all(abs(a - b) <= 5e-7 for a, b in
+                                                    zip(logged, want_lr)),
+              "train_ddpm: the logged lr is the schedule's value at each update")
+        check(all(g.get("lr_updates") == SCHEDULE_STEPS
+                  for g in ckpt_plain["optimizer"]["param_groups"]),
+              "train_ddpm: the checkpoint's optimizer counts the scheduled updates")
+        metrics["schedule"] = {"logged_lr": logged, "want_lr": want_lr,
+                               "losses": plain_run["losses"]}
+        launches["train_ddpm_schedule"] = plain_launches
+        # (d) world size 1: a NCCL group of one rank, as torchrun starts it
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        env = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+               "MASTER_PORT": str(port)}
+        weights = os.path.join(root, "cifar.pt")
+        torch.save({k: v for k, v in ckpt_plain["model"].items()}, weights)
+        sample_args = ["-c", CIFAR_CONFIG, "--weights", weights, "--device", "cuda",
+                       "--sampler", "ddpm", "--n_samples", str(DP_SAMPLES), "--batch_size",
+                       str(DP_SAMPLES), "--respace_steps", "5", *PIXEL_OVERRIDES]
+        sample_uncond.main([*sample_args, "--save_dir", os.path.join(root, "samples_plain")])
+        os.environ.update(env)
+        try:
+            dp_run, dp_logged, ckpt_dp, dp_launches = pixel_run("schedule_dp")
+            world = dist.get_world_size() if dist.is_initialized() else 0
+            zero_counts()
+            sample_uncond.main([*sample_args, "--save_dir", os.path.join(root, "samples_dp")])
+            torch.cuda.synchronize()
+            sample_launches = counts()
+        finally:
+            for key in env:
+                os.environ.pop(key, None)
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        first_loss_same = dp_run["losses"][0] == plain_run["losses"][0]
+        err = rel_l2({k: v for k, v in ckpt_dp["model"].items() if v.is_floating_point()},
+                     {k: v for k, v in ckpt_plain["model"].items() if v.is_floating_point()})
+        pngs = {name: [np.asarray(__import__("PIL.Image").Image.open(
+            os.path.join(root, name, f))).astype(np.int16)
+            for f in sorted(os.listdir(os.path.join(root, name)))]
+            for name in ("samples_plain", "samples_dp")}
+        png_diff = max(int(np.abs(a - b).max()) for a, b in zip(*pngs.values()))
+        log(f"data-parallel path at world size {world} (NCCL): losses {dp_run['losses']} vs "
+            f"{plain_run['losses']}, parameters rel L2 {err:.3e} after {SCHEDULE_STEPS} steps, "
+            f"lr {dp_logged}; sample_uncond through DataParallelSampler: "
+            f"{len(pngs['samples_dp'])} images, max diff {png_diff} levels, launches "
+            f"{sample_launches}")
+        check(world == 1 and first_loss_same and dp_logged == logged and err <= DP_PARAM_TOL
+              and dp_launches == plain_launches,
+              f"train_ddpm through the data-parallel path (world size 1) equals the run without "
+              f"a group (first loss exact, parameters within {DP_PARAM_TOL}, same launches)")
+        check(len(pngs["samples_dp"]) == DP_SAMPLES and png_diff <= 1,
+              "sample_uncond through DataParallelSampler equals the run without a group")
+        metrics["data_parallel_world1"] = {"losses": dp_run["losses"], "param_rel_l2": err,
+                                           "png_max_diff": png_diff}
+        launches["train_ddpm_dp_world1"] = dp_launches
+        launches["sample_uncond_dp_world1"] = sample_launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # (e) the ring fold: n chunks of K/V on one card against the whole sequence
+    ring = {}
+    for label, (b, s, h, d) in RING_SHAPES.items():
+        g = gen(SEED + 27)
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev).bfloat16()
+                       for _ in range(4))
+        zero_counts()
+        o, lse = fold_attention(q, k, v, RING_CHUNKS)
+        dq, dk, dv = fold_attention_backward(q, k, v, o, lse, do, RING_CHUNKS)
+        torch.cuda.synchronize()
+        fold_launches = counts()
+        o_w, lse_w = flash_attention_fwd(q, k, v)
+        dq_w, dk_w, dv_w = flash_attention_bwd(q, k, v, o_w, lse_w, do)
+        # the plain f32 version on the first sample: f32 autograd through mha
+        leaves = [x[:1].float().requires_grad_() for x in (q, k, v)]
+        o_f = mha(*leaves)
+        o_f.backward(do[:1].float())
+        err_w = {name: (a.float() - w.float()).abs().max().item()
+                 for name, a, w in (("o", o, o_w), ("dq", dq, dq_w), ("dk", dk, dk_w),
+                                    ("dv", dv, dv_w))}
+        err_lse = (lse - lse_w).abs().max().item()
+        rel_f = {name: ((a[:1].float() - w).norm() / w.norm()).item()
+                 for name, a, w in (("o", o, o_f.detach()), ("dq", dq, leaves[0].grad),
+                                    ("dk", dk, leaves[1].grad), ("dv", dv, leaves[2].grad))}
+        rel_w = {name: ((a[:1].float() - w).norm() / w.norm()).item()
+                 for name, a, w in (("o", o_w, o_f.detach()), ("dq", dq_w, leaves[0].grad),
+                                    ("dk", dk_w, leaves[1].grad), ("dv", dv_w, leaves[2].grad))}
+        fold_fwd_ms = time_ms(lambda: fold_attention(q, k, v, RING_CHUNKS), 10)
+        fold_bwd_ms = time_ms(lambda: fold_attention_backward(q, k, v, o, lse, do, RING_CHUNKS),
+                              10)
+        whole_fwd_ms = time_ms(lambda: flash_attention_fwd(q, k, v), 10)
+        whole_bwd_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o_w, lse_w, do), 10)
+        bound_fwd = roofline.bound_ms(*roofline.attention_fwd_work(b, h, s, s, d))[0]
+        row = {"shape": [b, s, h, d], "chunks": RING_CHUNKS, "launches": fold_launches,
+               "fold_fwd_ms": fold_fwd_ms, "fold_bwd_ms": fold_bwd_ms,
+               "whole_fwd_ms": whole_fwd_ms, "whole_bwd_ms": whole_bwd_ms,
+               "whole_fwd_bound_ms": bound_fwd, "max_abs_err_vs_whole": err_w,
+               "lse_max_abs_err_vs_whole": err_lse, "rel_l2_vs_f32": rel_f,
+               "whole_rel_l2_vs_f32": rel_w}
+        ring[label] = row
+        launches[f"ring_fold_{label}"] = fold_launches
+        log(f"ring fold {label} b{b} S={s} h{h} d={d}, {RING_CHUNKS} chunks: fwd {fold_fwd_ms:.3f} "
+            f"ms (whole K1 {whole_fwd_ms:.3f}, bound {bound_fwd:.3f}), bwd {fold_bwd_ms:.3f} ms "
+            f"(whole K2 {whole_bwd_ms:.3f}); max |fold - whole| {err_w}, lse {err_lse:.2e}; "
+            f"rel L2 vs f32 (first sample) fold {rel_f}, whole {rel_w}; launches "
+            f"{fold_launches} ({card})")
+        top = {name: max(w.float().abs().max().item(), 1e-6)
+               for name, w in (("o", o_w), ("dq", dq_w), ("dk", dk_w), ("dv", dv_w))}
+        check(fold_launches == {"K1": RING_CHUNKS ** 2, "K2": RING_CHUNKS ** 2, "K3": 0},
+              f"ring fold {label}: {RING_CHUNKS ** 2} K1 and {RING_CHUNKS ** 2} K2 launches "
+              f"({RING_CHUNKS} ranks, {RING_CHUNKS} hops)")
+        check(all(err_w[n] <= RING_TOL * top[n] for n in err_w) and err_lse <= 1e-3,
+              f"ring fold {label}: O, dQ, dK, dV within {RING_TOL} of the largest entry of "
+              "K1 / K2 on the whole sequence, lse within 1e-3")
+        check(all(rel_f[n] <= 1.5 * rel_w[n] + 1e-3 for n in rel_f),
+              f"ring fold {label}: against the plain f32 version within 1.5x the whole "
+              "sequence's error, plus 1e-3")
+        del q, k, v, do, o, lse, dq, dk, dv, o_w, lse_w, dq_w, dk_w, dv_w, leaves, o_f
+        torch.cuda.empty_cache()
+    metrics["ring_fold"] = ring
+    return {"metrics": metrics, "launches": launches}
+
+
+def get_quiet_logger():
+    """A logger for the builders that take one, writing nothing."""
+    import logging
+
+    logger = logging.getLogger("chip_smoke_quiet")
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    return logger
 
 
 def init_random_(model, generator) -> None:

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from dmtpu_torch.diffusions.schedule import get_beta_schedule, get_respaced_seq
+from dmtpu_torch.utils import rows
 
 ModelFn = Callable[..., torch.Tensor]
 Row = Dict[str, float]
@@ -37,8 +38,7 @@ _VAR_TYPES = ("fixed_small", "fixed_large", "learned_range")
 
 
 def _randn(like: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    return torch.randn(like.shape, generator=generator, device=like.device,
-                       dtype=torch.float32)
+    return rows.randn(like.shape, generator, like.device, torch.float32)
 
 
 class DDPM:
@@ -131,7 +131,7 @@ class DDPM:
         """f32 MSE of the model output against eps, x0 or v (``objective``).
         ``eps`` defaults to a standard normal drawn from ``generator``."""
         if eps is None:
-            eps = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+            eps = rows.randn(x0.shape, generator, x0.device, x0.dtype)
         xt = self.diffuse(x0, t, eps)
         pred = model_fn(xt, t, **(model_kwargs or {}))
         if self.objective == "pred_eps":

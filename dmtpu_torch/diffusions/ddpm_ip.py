@@ -12,6 +12,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from dmtpu_torch.diffusions.ddpm import DDPM, ModelFn
+from dmtpu_torch.utils import rows
 
 
 class DDPM_IP(DDPM):
@@ -29,10 +30,9 @@ class DDPM_IP(DDPM):
         missing ``perturb_eps``, is drawn from ``generator`` in that order:
         standard normals of ``x0``'s shape and dtype."""
         if eps is None:
-            eps = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+            eps = rows.randn(x0.shape, generator, x0.device, x0.dtype)
         if perturb_eps is None:
-            perturb_eps = torch.randn(x0.shape, generator=generator, device=x0.device,
-                                      dtype=x0.dtype)
+            perturb_eps = rows.randn(x0.shape, generator, x0.device, x0.dtype)
         xt = self.diffuse(x0, t, eps + self.gamma * perturb_eps)
         pred = model_fn(xt, t, **(model_kwargs or {}))
         if self.objective == "pred_eps":

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from dmtpu_torch.diffusions.ddpm import cfg_double_merge
+from dmtpu_torch.utils import rows
 
 ModelFn = Callable[..., torch.Tensor]
 Row = Dict[str, float]
@@ -101,7 +102,7 @@ class FlowMatching:
         timesteps ``t`` [B] in [0, total_steps) (the DDPM ``loss_func``
         contract); ``eps`` defaults to a standard normal from ``generator``."""
         if eps is None:
-            eps = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+            eps = rows.randn(x0.shape, generator, x0.device, x0.dtype)
         u = _bcast(self._u_of_t(t.to(x0.device)), x0.dim())
         xu = (1.0 - u) * x0 + u * eps
         # the model sees the SHIFTED time, as in sampling

@@ -35,7 +35,7 @@ from torch import nn
 
 from dmtpu_torch.ops.attention import attention
 from dmtpu_torch.ops.groupnorm import group_norm, group_norm_silu_reference
-from dmtpu_torch.ops.rematerialize import normalize_use_checkpoint, remat_call
+from dmtpu_torch.ops.rematerialize import Policy, normalize_use_checkpoint, remat_call
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -308,20 +308,22 @@ class TimestepEmbedSequential(nn.ModuleList):
     """One UNet block (reference: TimestepEmbedSequential): ResBlocks take
     the embedding, layers with ``takes_context`` (SpatialTransformer) the
     context, the rest only the features.  ``remat`` recomputes the ResBlocks
-    and the attention layers in the backward pass, the calls the JAX modules
-    wrap in ``remat_call``; ``train``, where given, reaches the ResBlocks'
-    dropout."""
+    and the attention layers in the backward pass under ``policy``, the calls
+    the JAX modules wrap in ``remat_call``; ``train``, where given, reaches
+    the ResBlocks' dropout."""
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor, context: Optional[torch.Tensor] = None,
-                remat: bool = False, train: Optional[bool] = None) -> torch.Tensor:
+                remat: bool = False, train: Optional[bool] = None,
+                policy: Optional[Policy] = None) -> torch.Tensor:
         kw = {} if train is None else {"train": train}
         for layer in self:
             if isinstance(layer, ResBlock):
-                x = remat_call(layer, x, emb, **kw) if remat else layer(x, emb, **kw)
+                x = remat_call(layer, x, emb, policy=policy, **kw) if remat else \
+                    layer(x, emb, **kw)
             elif getattr(layer, "takes_context", False):
-                x = remat_call(layer, x, context) if remat else layer(x, context)
+                x = remat_call(layer, x, context, policy=policy) if remat else layer(x, context)
             elif isinstance(layer, AttentionBlock):
-                x = remat_call(layer, x) if remat else layer(x)
+                x = remat_call(layer, x, policy=policy) if remat else layer(x)
             else:
                 x = layer(x)
         return x
@@ -408,7 +410,7 @@ class UNetModel(nn.Module):
         dt = resolve_torso_dtype(torso_dtype, use_fp16)
         self.torso_dtype, self.in_channels, self.out_channels = dt, in_channels, out_channels
         self.model_channels, self.num_classes = model_channels, num_classes
-        self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
+        self.use_checkpoint, self.remat_policy = normalize_use_checkpoint(use_checkpoint)
         ted = model_channels * 4
         self.time_embed = _time_embed(model_channels, ted, device)
         if num_classes is not None:
@@ -443,11 +445,12 @@ class UNetModel(nn.Module):
             emb = emb + self.label_emb(y.long())
         h, hs, remat = x, [], self.use_checkpoint
         for block in self.input_blocks:
-            h = block(h, emb, None, remat, train)
+            h = block(h, emb, None, remat, train, self.remat_policy)
             hs.append(h)
-        h = self.middle_block(h, emb, None, remat, train)
+        h = self.middle_block(h, emb, None, remat, train, self.remat_policy)
         for block in self.output_blocks:
-            h = block(torch.cat([h, hs.pop()], dim=1), emb, None, remat, train)
+            h = block(torch.cat([h, hs.pop()], dim=1), emb, None, remat, train,
+                      self.remat_policy)
         return self.out[2](self.out[0](h.to(x.dtype), silu=True))
 
 
@@ -493,7 +496,7 @@ class EncoderUNetModel(nn.Module):
         super().__init__()
         dt = resolve_torso_dtype(torso_dtype, use_fp16)
         self.torso_dtype, self.model_channels, self.pool = dt, model_channels, pool
-        self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
+        self.use_checkpoint, self.remat_policy = normalize_use_checkpoint(use_checkpoint)
         ted = model_channels * 4
         self.time_embed = _time_embed(model_channels, ted, device)
         b = _BlockFactory(ted, dropout, use_scale_shift_norm, resblock_updown, conv_resample,
@@ -526,10 +529,10 @@ class EncoderUNetModel(nn.Module):
         spatial = self.pool.startswith("spatial")
         results, h, remat = [], x, self.use_checkpoint
         for block in self.input_blocks:
-            h = block(h, emb, None, remat, train)
+            h = block(h, emb, None, remat, train, self.remat_policy)
             if spatial:
                 results.append(h.to(x.dtype).mean(dim=(2, 3)))
-        h = self.middle_block(h, emb, None, remat, train)
+        h = self.middle_block(h, emb, None, remat, train, self.remat_policy)
         if spatial:
             results.append(h.to(x.dtype).mean(dim=(2, 3)))
             feats = self.out[0](torch.cat(results, dim=-1))

@@ -216,7 +216,7 @@ class DiT(nn.Module):
         self.hidden_size, self.num_heads = hidden_size, num_heads
         self.class_dropout_prob, self.num_classes = float(class_dropout_prob), num_classes
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
-        self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
+        self.use_checkpoint, self.remat_policy = normalize_use_checkpoint(use_checkpoint)
         self.dtype = as_dtype(dtype)
         p, dt = patch_size, self.dtype
         self.x_embedder = nn.Module()
@@ -267,7 +267,8 @@ class DiT(nn.Module):
                 ) -> torch.Tensor:
         tokens, c = self.embed(x, t, y, train=train, drop_generator=drop_generator)
         for blk in self.blocks:
-            tokens = remat_call(blk, tokens, c) if self.use_checkpoint else blk(tokens, c)
+            tokens = (remat_call(blk, tokens, c, policy=self.remat_policy) if self.use_checkpoint
+                      else blk(tokens, c))
         return self.head(tokens, c)
 
     def load_upstream(self, state_dict: Mapping[str, Any], strict: bool = True) -> "DiT":

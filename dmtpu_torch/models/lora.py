@@ -15,9 +15,11 @@ arrays of one carry over to the other unchanged.  A flat mapping of adapter
 tensors (``LoRA.state_dict()``, its EMA shadow, a checkpoint's ``model``) has
 the keys ``<path>.a`` and ``<path>.b``.
 
-Full rematerialisation (``use_checkpoint``) does not compose with
-``functional_call``: the recompute in the backward pass would read the base
-weights, not the merged ones.
+The UNet's ``use_checkpoint`` composes with this: ``remat_call``
+(``dmtpu_torch/ops/rematerialize.py``) holds the tensors a block ran with
+inside ``functional_call``, the merged weights, and recomputes the block
+with them in the backward pass, after ``functional_call`` has put the base
+weights back.
 """
 from __future__ import annotations
 

@@ -201,7 +201,7 @@ class MDTv2(nn.Module):
         self.class_dropout_prob, self.num_classes = float(class_dropout_prob), num_classes
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.mask_ratio, self.decode_layer = mask_ratio, decode_layer
-        self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
+        self.use_checkpoint, self.remat_policy = normalize_use_checkpoint(use_checkpoint)
         self.dtype = dt = as_dtype(dtype)
         p, t = patch_size, self.num_patches
         half = (depth - decode_layer) // 2
@@ -254,7 +254,7 @@ class MDTv2(nn.Module):
 
         def run(blk, z, skip=None, ids_keep=None):
             if self.use_checkpoint:
-                return remat_call(blk, z, c, skip, ids_keep)
+                return remat_call(blk, z, c, skip, ids_keep, policy=self.remat_policy)
             return blk(z, c, skip=skip, ids_keep=ids_keep)
 
         masked = self.mask_ratio is not None and enable_mask

@@ -185,7 +185,7 @@ class MMDiT(nn.Module):
         self.context_dim, self.pooled_dim = context_dim, pooled_dim
         self.cond_dropout_prob = float(cond_dropout_prob)
         self.qk_norm, self.pos_embed_max_size = bool(qk_norm), pos_embed_max_size
-        self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
+        self.use_checkpoint, self.remat_policy = normalize_use_checkpoint(use_checkpoint)
         self.dtype, self.param_dtype = as_dtype(dtype), as_dtype(param_dtype)
         p, dt, pdt = patch_size, self.dtype, self.param_dtype
         self.x_embedder = nn.Module()
@@ -260,7 +260,8 @@ class MMDiT(nn.Module):
         tokens = tokens + self.pos_embed.to(tokens.dtype)
         ctx, c = self._condition(t, y, train=train, drop_generator=drop_generator)
         for blk in self.joint_blocks:
-            ctx, tokens = (remat_call(blk, ctx, tokens, c) if self.use_checkpoint
+            ctx, tokens = (remat_call(blk, ctx, tokens, c, policy=self.remat_policy)
+                           if self.use_checkpoint
                            else blk(ctx, tokens, c))
         return unpatchify(self.final_layer(tokens, c), self.grid, self.patch_size,
                           self.in_channels)

@@ -23,6 +23,7 @@ from torch import nn
 
 from dmtpu_torch.models.adm import Conv2d
 from dmtpu_torch.models.pesser import _AttnBlock, _Downsample, _Upsample, _norm
+from dmtpu_torch.utils import rows
 
 
 class _VAEResnetBlock(nn.Module):
@@ -162,8 +163,7 @@ class DiagonalGaussianDistribution:
         """mean + std * noise, the noise drawn from ``generator``."""
         if self.deterministic:
             return self.mean
-        noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
-                            dtype=self.mean.dtype)
+        noise = rows.randn(self.mean.shape, generator, self.mean.device, self.mean.dtype)
         return self.mean + self.std * noise
 
     def mode(self) -> torch.Tensor:

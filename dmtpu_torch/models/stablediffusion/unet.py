@@ -27,7 +27,9 @@ does: every attention goes through ``dmtpu_torch.ops.attention``.
 
 ``use_checkpoint=True`` rematerialises every ResBlock and every
 SpatialTransformer call in the backward pass, the calls the JAX module wraps
-in ``remat_call``; dropout follows ``model.train()``.
+in ``remat_call``; a policy name (``"dots"``, ``"attn"``, ...) keeps what
+that policy keeps (``dmtpu_torch/ops/rematerialize.py``); dropout follows
+``model.train()``.
 
 The serving accelerators add no parameters (the ``state_dict`` is the same
 with them on or off):
@@ -44,9 +46,6 @@ layers are guided-diffusion's ``AttentionBlock`` (``dmtpu_torch/models/
 adm.py``; no context) with the JAX module's head rule (``legacy`` takes
 ``num_head_channels`` as the head dim), ``num_heads_upsample`` heads in the
 decoder and ``use_new_attention_order``'s qkv layout.
-
-Selective remat (a policy name as ``use_checkpoint``) is not ported and
-raises ``NotImplementedError`` naming ROADMAP.md's item H.
 """
 from __future__ import annotations
 
@@ -165,7 +164,7 @@ class SDUNetModel(nn.Module):
         tdepth_mid = transformer_depth_middle or tdepth[-1]
         torso_dtype = resolve_torso_dtype(torso_dtype, use_fp16, use_bf16)
         self.torso_dtype = torso_dtype
-        self.use_checkpoint = normalize_use_checkpoint(use_checkpoint)
+        self.use_checkpoint, self.remat_policy = normalize_use_checkpoint(use_checkpoint)
         self.num_heads, self.num_head_channels, self.legacy = num_heads, num_head_channels, legacy
         self.use_spatial_transformer = use_spatial_transformer
         self.in_channels, self.context_dim = in_channels, context_dim
@@ -324,10 +323,10 @@ class SDUNetModel(nn.Module):
         hs = []
         remat = self.use_checkpoint
         for block in self.input_blocks[:dc_skip] if shallow else self.input_blocks:
-            h = block(h, emb, context, remat)
+            h = block(h, emb, context, remat, policy=self.remat_policy)
             hs.append(h)
         if not shallow:
-            h = self.middle_block(h, emb, context, remat)
+            h = self.middle_block(h, emb, context, remat, policy=self.remat_policy)
         u = dc_cached
         for i, block in enumerate(self.output_blocks):
             if i < boundary and shallow:
@@ -340,7 +339,7 @@ class SDUNetModel(nn.Module):
             skip = hs.pop()
             if self.freeu is not None:
                 h, skip = apply_freeu(h, skip, self.model_channels, *self.freeu)
-            h = block(torch.cat([h, skip], dim=1), emb, context, remat)
+            h = block(torch.cat([h, skip], dim=1), emb, context, remat, policy=self.remat_policy)
         h = self.out[0](h.to(x.dtype), silu=True)
         out = self.out[2](h)
         return out if dc_skip is None else (out, u)

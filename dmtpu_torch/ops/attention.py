@@ -7,13 +7,24 @@ Counterpart of ``dmtpu/ops/attention.py``.  All shapes are **[B, S, H, D]**
   q and k pre-scaled by ``sqrt(scale)``, logits in the input dtype when
   ``S_q * S_k <= 2**21`` and in f32 otherwise, f32 softmax, weights cast to
   v's dtype.
-- ``attention``: the one dispatch every model calls.  A CPU tensor, or any
-  tensor inside ``dispatch.plain_ops()``, goes to ``mha``, whose gradient is
-  ordinary autograd; a CUDA tensor goes to ``flash_attention``
-  (``dmtpu_torch.ops.flash_attention``), the differentiable op whose
-  forward is the K1 kernel and whose backward is the K2 kernel, which raise
-  on what they do not take.  The TPU dispatch gates of the JAX package are
-  not carried over.
+- ``attention``: the one dispatch every model calls.  Inside
+  ``dispatch.plain_ops()`` it is ``mha`` under ordinary autograd, on any
+  device.  Elsewhere, where autograd records it, it is the operator
+  ``torch.ops.dmtpu.attention``; where it does not (no gradient mode, or no
+  input that needs a gradient: sampling), it is the operator's forward
+  called directly, K1 or ``mha``, without the operator's host cost.
+- ``torch.ops.dmtpu.attention(q, k, v, scale) -> (o, lse)``: one
+  ``torch.library.custom_op`` with its backward registered beside it.  On a
+  CUDA tensor its forward is K1 (``flash_attention_fwd``) and its backward
+  K2 (``flash_attention_bwd``), which raise on what they do not take; on a
+  CPU tensor its forward is ``mha`` (``lse`` is empty) and its backward is
+  ``mha``'s autograd, recomputed from the saved q, k and v, so the CPU
+  numbers are those of plain autograd through ``mha``.  Being an operator,
+  it is what the dispatcher sees of a kernel launch, so a selective
+  checkpoint can save its outputs: the ``"attn"`` remat policy
+  (``dmtpu_torch.ops.rematerialize``) keeps ``o`` and ``lse`` and the
+  recompute does not launch K1 again.  The TPU dispatch gates of the JAX
+  package are not carried over.
 """
 from __future__ import annotations
 
@@ -22,7 +33,7 @@ from typing import Optional
 import torch
 
 from dmtpu_torch.ops.dispatch import kernels_enabled
-from dmtpu_torch.ops.flash_attention import flash_attention
+from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,10 +52,51 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+@torch.library.custom_op("dmtpu::attention", mutates_args=())
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: Optional[float]) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o [B, S_q, H, D], lse [B, H, S_q] f32; empty on the CPU)."""
+    if q.device.type == "cpu":
+        return mha(q, k, v, scale), q.new_empty(0, dtype=torch.float32)
+    return flash_attention_fwd(q, k, v, scale)
+
+
+@attention_op.register_fake
+def _(q, k, v, scale):
+    b, sq, h, _ = q.shape
+    lse_shape = (0,) if q.device.type == "cpu" else (b, h, sq)
+    return torch.empty_like(q), q.new_empty(lse_shape, dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    q, k, v, scale = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.scale = scale
+
+
+def _backward(ctx, do: torch.Tensor, _dlse: Optional[torch.Tensor]):
+    q, k, v, o, lse = ctx.saved_tensors
+    if q.device.type != "cpu":
+        return (*flash_attention_bwd(q, k, v, o, lse, do, ctx.scale), None)
+    with torch.enable_grad():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = mha(*leaves, ctx.scale)
+        return (*torch.autograd.grad(out, leaves, do), None)
+
+
+attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               scale: Optional[float] = None) -> torch.Tensor:
-    """[B, S, H, D] attention: ``mha`` on the CPU, K1 (forward) and K2
-    (backward) on CUDA."""
-    if q.device.type == "cpu" or not kernels_enabled():
+    """[B, S, H, D] attention: ``torch.ops.dmtpu.attention`` (``mha`` on the
+    CPU, K1 forward and K2 backward on CUDA) where autograd records it, its
+    forward alone where it does not, or ``mha`` inside ``plain_ops()``."""
+    if not kernels_enabled():
         return mha(q, k, v, scale)
-    return flash_attention(q, k, v, scale)
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        if q.device.type == "cpu":
+            return mha(q, k, v, scale)
+        return flash_attention_fwd(q, k, v, scale)[0]
+    return attention_op(q, k, v, scale)[0]

@@ -7,10 +7,6 @@ in ``dmtpu.ops.attention``; unlike the TPU kernels these take S_q != S_k
 to 48, 80, 160, 256 or 512 in shared memory) and ragged sequence lengths
 (masked).
 
-- ``flash_attention(q, k, v, scale) -> o``: the differentiable op
-  (``FlashAttention``, a ``torch.autograd.Function``): its forward runs
-  ``flash_attention_fwd`` and saves q, k, v, o and the lse; its backward runs
-  ``flash_attention_bwd``.
 - ``flash_attention_fwd(q, k, v, scale) -> (o, lse)`` (K1): ``lse`` is the
   f32 row logsumexp [B, H, S_q] that the backward consumes.  Two kernels
   stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims 40,
@@ -34,11 +30,11 @@ to 48, 80, 160, 256 or 512 in shared memory) and ragged sequence lengths
   cast them).
 
 Each wrapper launches its kernel on a CUDA tensor (bf16 only; anything else
-raises) and runs its plain version on a CPU tensor, so on the CPU the
-``FlashAttention`` function is the plain forward and backward.  Each
-wrapper's ``launches`` counts kernel launches, and its ``launches_by_kernel``
-counts them by the kernel that ran and its ``launches_by_head_dim`` by head
-dim; ``kernel=`` forces one.
+raises) and runs its plain version on a CPU tensor.  The differentiable
+attention that joins them is the operator ``torch.ops.dmtpu.attention``
+(``dmtpu_torch.ops.attention``).  Each wrapper's ``launches`` counts kernel
+launches, and its ``launches_by_kernel`` counts them by the kernel that ran
+and its ``launches_by_head_dim`` by head dim; ``kernel=`` forces one.
 """
 from __future__ import annotations
 
@@ -353,27 +349,3 @@ flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_kernel = {"mma": 0, "wgmma": 0}
 flash_attention_bwd.launches_by_head_dim = collections.Counter()
 
-
-class FlashAttention(torch.autograd.Function):
-    """Attention whose forward is K1 and whose backward is K2 (their plain
-    versions on the CPU); the port of ``flash_small_d``'s ``custom_vjp``."""
-
-    @staticmethod
-    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                scale: Optional[float]) -> torch.Tensor:
-        o, lse = flash_attention_fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
-        return o
-
-    @staticmethod
-    def backward(ctx, do: torch.Tensor):
-        q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.scale)
-        return dq, dk, dv, None
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Differentiable attention through K1 and K2, [B, S, H, D] -> [B, S_q, H, D]."""
-    return FlashAttention.apply(q, k, v, scale)

@@ -1,21 +1,36 @@
-"""The train step: gradient accumulation, clipping, optimizer and EMA.
+"""The train step: gradient accumulation, data parallelism, clipping, the
+optimizer and the EMA.
 
 Counterpart of ``dmtpu/parallel/train.py`` (``TrainState``,
-``make_train_step``, ``make_diffusion_loss_fn``; reference:
-scripts/train_ddpm.py:171-192), on one card: there is no mesh, and
-data-parallel or sharded training (DDP / FSDP) is not ported.  The JAX step
-is one pure compiled function of (state, batch, rng); here the state holds
-the model, whose parameters the optimizer updates in place, and a step's
-randomness is one ``torch.Generator`` seeded from (seed, step), as the JAX
-callers fold the step into their key.  Dropout inside the model draws from
-the device's default generator, which the step seeds from (seed, step) too
-(a stream apart from the loss's generator, as the JAX loss folds a dropout
-key out of the step's key) and gives back to the caller as it found it.
+``make_train_step``, ``shard_train_state``, ``make_diffusion_loss_fn``;
+reference: scripts/train_ddpm.py:171-192).  The JAX step is one pure
+compiled function of (state, batch, rng) over a mesh; here the state holds
+the model, whose parameters the optimizer updates in place, each rank of the
+(data, fsdp) mesh (``parallel/mesh.py``) runs the step on its rows of the
+global batch, and a step's randomness is one ``torch.Generator`` seeded from
+(seed, step), as the JAX callers fold the step into their key.  Over n
+ranks the loss gets it as a ``RowGenerator`` of the rank's rows
+(``dmtpu_torch.utils.rows``): each per-row draw is the global batch's draw
+at those rows, so a run over n ranks is the one-rank run.
+Dropout inside the model draws from the device's default generator, which
+the step seeds from (seed, step) too (a stream apart from the loss's
+generator, as the JAX loss folds a dropout key out of the step's key; rank
+r > 0 on a stream of its own) and gives back to the caller as it found it.
 
-A loss function is ``loss_fn(batch, generator) -> scalar loss``; the
-diffusion loss draws, in this order, the timesteps, the noise and the
-label-dropout mask from the generator, then hands it to the diffuser's
-``loss_func`` for any draw of its own (DDPM_IP's perturbation).
+Over a mesh the gradients are averaged over every rank after the
+micro-batches and before the clipping.  ``shard_train_state`` with
+``fsdp > 1`` shards each parameter by the JAX package's rule
+(``mesh.shard_dim``) with FSDP2's ``fully_shard`` over the fsdp dim,
+replicated over data (HSDP): the parameters, the optimizer's moments and
+the EMA shadow become sharded ``DTensor``s, FSDP2 gathers the parameters
+before use and reduce-scatters their gradients; a parameter the rule leaves
+replicated stays a plain tensor whose gradient the step all-reduces.
+
+A loss function is ``loss_fn(batch, generator) -> scalar loss`` (over
+ranks, ``generator`` is the ``RowGenerator``); the diffusion loss draws, in
+this order, the timesteps, the noise and the label-dropout mask from the
+generator, then hands it to the diffuser's ``loss_func`` for any draw of
+its own (DDPM_IP's perturbation).
 """
 from __future__ import annotations
 
@@ -25,9 +40,15 @@ from typing import Any, Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from dmtpu_torch.models.ema import EMAState
+from dmtpu_torch.parallel.mesh import FSDP_AXIS, mesh_rank, mesh_size, shard_dim
+from dmtpu_torch.utils import rows
+from dmtpu_torch.utils.rows import RowGenerator
 
 LossFn = Callable[[Any, torch.Generator], torch.Tensor]
 
@@ -38,6 +59,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: Optional[EMAState] = None
     step: int = 0
+    mesh: Optional[DeviceMesh] = None
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -74,14 +96,16 @@ def default_generator(device: torch.device) -> torch.Generator:
 
 
 @contextlib.contextmanager
-def dropout_rng(seed: int, step: int, device: torch.device) -> Iterator[None]:
+def dropout_rng(seed: int, step: int, device: torch.device, rank: int = 0) -> Iterator[None]:
     """Within the block the default generator of ``device`` is seeded from
-    (seed, step), on a stream apart from ``step_generator``'s; the caller's
-    state is restored afterwards.  Seeding a CUDA generator sets its
-    host-side seed and offset: no synchronisation."""
+    (seed, step), on a stream apart from ``step_generator``'s (and, for
+    ``rank`` > 0, apart from the other ranks'); the caller's state is
+    restored afterwards.  Seeding a CUDA generator sets its host-side seed
+    and offset: no synchronisation."""
     devices = [_cuda_index(device)] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=devices, device_type="cuda"):
-        default_generator(device).manual_seed(_mixed_seed(seed, step, 1))
+        entropy = (seed, step, 1, rank) if rank else (seed, step, 1)
+        default_generator(device).manual_seed(_mixed_seed(*entropy))
         yield
 
 
@@ -99,50 +123,110 @@ def _split(batch: Any, n: int) -> list:
     raise TypeError(f"cannot split a batch of type {type(batch).__name__}")
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     """The 2-norm of all the tensors together, whatever their dtypes, as an
     f32 scalar.  Each tensor's squares are summed in f64: bf16 gradients are
     not rounded to bf16 norms first, and PyTorch's CPU kernel, which sums a
     tensor's squares in f32 one after another, is 1e-4 off at a 512x1024x3x3
     convolution's gradient (the JAX package's f32 tree sums are within
-    1e-7)."""
-    norms = torch._foreach_norm(tensors, 2.0, dtype=torch.float64)
-    return torch.linalg.vector_norm(torch.stack(norms)).float()
+    1e-7).  A ``DTensor`` sharded over fsdp adds its shard's squares, summed
+    over the fsdp ranks."""
+    norms = torch._foreach_norm([_local(t) for t in tensors], 2.0, dtype=torch.float64)
+    sharded = [n for n, t in zip(norms, tensors) if isinstance(t, DTensor)]
+    if not sharded:
+        return torch.linalg.vector_norm(torch.stack(norms)).float()
+    squares = torch.stack(sharded).square().sum()
+    mesh = next(t for t in tensors if isinstance(t, DTensor)).device_mesh
+    dist.all_reduce(squares, group=mesh.get_group(FSDP_AXIS))
+    replicated = [n for n, t in zip(norms, tensors) if not isinstance(t, DTensor)]
+    if replicated:
+        squares = squares + torch.stack(replicated).square().sum()
+    return squares.sqrt().float()
+
+
+def _all_reduce_mean(tensors: list[torch.Tensor]) -> None:
+    """Each tensor replaced by its mean over every rank, one all-reduce per
+    dtype."""
+    n = dist.get_world_size()
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for group in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in group])
+        dist.all_reduce(flat)
+        flat.div_(n)
+        for t, part in zip(group, flat.split([t.numel() for t in group])):
+            t.copy_(part.view_as(t))
+
+
+def _clip(params: list[torch.Tensor], max_norm: float, total_norm: torch.Tensor) -> None:
+    """``clip_grads_with_norm_``'s scaling of the parameters' gradients, on
+    the local shards of DTensors."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not any(isinstance(g, DTensor) for g in grads):
+        torch.nn.utils.clip_grads_with_norm_(params, max_norm, total_norm)
+        return
+    coef = torch.clamp(max_norm / (total_norm + 1e-6), max=1.0)
+    for g in grads:
+        _local(g).mul_(coef.to(g.device))
+
+
+def _row_generator(generator: torch.Generator, part: Any, n: int, rank: int) -> Any:
+    """``generator`` for this rank's ``k`` rows of a micro-batch: rows
+    ``[rank * k, (rank + 1) * k)`` of the draws for its ``n * k``."""
+    if n == 1:
+        return generator
+    lead = part if isinstance(part, torch.Tensor) else next(
+        iter(part.values() if isinstance(part, dict) else part))
+    k = lead.shape[0]
+    return RowGenerator(generator, n * k, torch.arange(rank * k, (rank + 1) * k))
 
 
 def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
-                    micro_batches: int = 1, seed: int = 0
+                    micro_batches: int = 1, seed: int = 0, mesh: Optional[DeviceMesh] = None
                     ) -> Callable[[TrainState, Any], Dict[str, torch.Tensor]]:
     """Build ``step(state, batch) -> {"loss", "grad_norm"}``, which:
 
     1. averages the loss and the gradients over ``micro_batches`` leading-axis
        splits of the batch (the reference's gradient accumulation);
-    2. takes the f32 global norm of the gradients;
-    3. scales them by min(1, clip_grad_norm / (norm + 1e-6)) when clipping;
-    4. steps the optimizer, then updates the EMA with the new parameters;
-    5. advances ``state.step``.
+    2. over a ``mesh``, averages them over every rank (``batch`` is this
+       rank's rows of the global batch, micro-batch by micro-batch:
+       ``mesh.shard_batch(..., micro_batches=)``);
+    3. takes the f32 global norm of the gradients;
+    4. scales them by min(1, clip_grad_norm / (norm + 1e-6)) when clipping;
+    5. steps the optimizer, then updates the EMA with the new parameters;
+    6. advances ``state.step``.
 
     The loss draws from ``step_generator(seed, step)``, dropout from the
     device's default generator under ``dropout_rng(seed, step)``.
 
     The metrics stay on the device, so a step does not wait for the card.
     """
+    n, rank = mesh_size(mesh), mesh_rank(mesh)
 
     def step_fn(state: TrainState, batch: Any) -> Dict[str, torch.Tensor]:
         params = [p for p in state.model.parameters() if p.requires_grad]
-        generator = step_generator(seed, state.step, params[0].device)
+        device = _local(params[0]).device
+        generator = step_generator(seed, state.step, device)
         state.optimizer.zero_grad(set_to_none=True)
         parts = _split(batch, micro_batches) if micro_batches > 1 else [batch]
-        loss = torch.zeros((), device=params[0].device)
-        with dropout_rng(seed, state.step, params[0].device):
+        loss = torch.zeros((), device=device)
+        with dropout_rng(seed, state.step, device, rank):
             for part in parts:
-                part_loss = loss_fn(part, generator)
+                part_loss = loss_fn(part, _row_generator(generator, part, n, rank))
                 (part_loss / len(parts)).backward()
                 loss += part_loss.detach()
         loss /= len(parts)
-        grad_norm = global_norm([p.grad for p in params if p.grad is not None])
+        grads = [p.grad for p in params if p.grad is not None]
+        if n > 1:  # FSDP2 has reduced the sharded parameters' gradients
+            _all_reduce_mean([g for g in grads if not isinstance(g, DTensor)] + [loss])
+        grad_norm = global_norm(grads)
         if clip_grad_norm is not None:
-            torch.nn.utils.clip_grads_with_norm_(params, clip_grad_norm, grad_norm)
+            _clip(params, clip_grad_norm, grad_norm)
         state.optimizer.step()
         if state.ema is not None:
             with torch.profiler.record_function("EMAState.update"):
@@ -151,6 +235,39 @@ def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
         return {"loss": loss, "grad_norm": grad_norm}
 
     return step_fn
+
+
+def shard_train_state(state: TrainState, mesh: DeviceMesh) -> TrainState:
+    """Place ``state`` on ``mesh`` (before its first step or load).  With
+    fsdp = 1 the parameters stay replicated; with fsdp > 1 each parameter
+    that ``mesh.shard_dim`` shards is sharded over fsdp (FSDP2
+    ``fully_shard``, replicated over data), the optimizer takes the sharded
+    parameters (its moments are made sharded at its first step) and the EMA
+    shadow is sharded as its parameter."""
+    state.mesh = mesh
+    fsdp = mesh_size(mesh, FSDP_AXIS)
+    if fsdp == 1:
+        return state
+    from torch.distributed.fsdp import fully_shard
+
+    model = state.model
+    names = {id(p): name for name, p in model.named_parameters()}
+    dims = {id(p): shard_dim(tuple(p.shape), fsdp) for p in model.parameters()}
+    ignored = {p for p in model.parameters() if dims[id(p)] is None}
+    if len(ignored) == len(dims):
+        return state
+    fully_shard(model, mesh=mesh, shard_placement_fn=lambda p: Shard(dims[id(p)]),
+                ignored_params=ignored or None)
+    new = dict(model.named_parameters())
+    for group in state.optimizer.param_groups:
+        group["params"] = [new[names[id(p)]] for p in group["params"]]
+    state.optimizer.state.clear()
+    if state.ema is not None:
+        for name, shadow in state.ema.shadow.items():
+            p = new.get(name)
+            if isinstance(p, DTensor):
+                state.ema.shadow[name] = distribute_tensor(shadow, p.device_mesh, p.placements)
+    return state
 
 
 def make_diffusion_loss_fn(diffuser, model: Callable[..., torch.Tensor], total_steps: int,
@@ -177,10 +294,10 @@ def make_diffusion_loss_fn(diffuser, model: Callable[..., torch.Tensor], total_s
         else:
             x0, model_kwargs = batch, {}
         b = x0.shape[0]
-        t = torch.randint(0, total_steps, (b,), generator=generator, device=x0.device)
-        eps = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+        t = rows.randint(0, total_steps, (b,), generator, x0.device)
+        eps = rows.randn(x0.shape, generator, x0.device, x0.dtype)
         if p_uncond is not None and cond_key in model_kwargs:
-            drop = torch.rand(b, generator=generator, device=x0.device) < p_uncond
+            drop = rows.rand(b, generator, x0.device) < p_uncond
             y = model_kwargs[cond_key]
             drop = drop.reshape((b,) + (1,) * (y.dim() - 1))
             model_kwargs[cond_key] = torch.where(drop, torch.full_like(y, null_label), y)

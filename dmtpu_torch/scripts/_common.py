@@ -5,11 +5,17 @@ Counterpart of ``scripts/_common.py``: ``base_parser``, ``load_conf``,
 branches of ``load_model_params``, with ``load_torch_weights`` (the JAX
 package's ``dmtpu.convert.load_torch_weights``) beside them.  The orbax
 train-state directory of the JAX loader has no counterpart (the port's
-checkpoints are torch files), and the data-parallel sampler is not ported:
-one device.  The training CLIs share ``TrainRun`` (their flags, experiment
-directory, loader, resume and loop; overrides are ``key=value`` items only:
-the JAX package's ``train_dotlist`` pairs a stray token with its neighbour,
-which is not carried over), ``seeded_instance`` and ``to_device``.
+checkpoints are torch files).  The training CLIs share ``TrainRun`` (their
+flags, experiment directory, loader, mesh, resume and loop; overrides are
+``key=value`` items only: the JAX package's ``train_dotlist`` pairs a stray
+token with its neighbour, which is not carried over), ``seeded_instance``
+and ``to_device``.  The sampling CLIs share ``DataParallelSampler``.
+
+Under ``torchrun --nproc_per_node N`` every CLI runs on N ranks (one card
+each; gloo with ``--device cpu``): a training CLI's ranks read the same
+data order and each takes its rows of every batch (``TrainRun``), a
+sampling CLI's ranks each sample their rows of every batch
+(``DataParallelSampler``); rank 0 alone writes files and logs.
 """
 from __future__ import annotations
 
@@ -22,12 +28,15 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from dmtpu_torch.data import DataLoader
-from dmtpu_torch.parallel import step_generator
+from dmtpu_torch.parallel import make_mesh, shard_batch, shard_train_state, step_generator
+from dmtpu_torch.parallel.mesh import all_gather_cat, init_distributed, is_main, launched
 from dmtpu_torch.scripts.sample_sd import resolve_device
 from dmtpu_torch.utils import checkpoint as ckpt_lib
+from dmtpu_torch.utils.rows import RowGenerator
 from dmtpu_torch.utils.config import Config, instantiate_from_config, load_config, merge_dotlist
 from dmtpu_torch.utils.logger import StatusTracker, get_logger
 from dmtpu_torch.utils.misc import (
@@ -120,6 +129,99 @@ def seeded_instance(conf: Mapping, device: torch.device, seed: int) -> Any:
         return instantiate_from_config(conf, device=device)
 
 
+def open_device(requested: str, cli: str) -> torch.device:
+    """The device of a CLI's ``--device`` (``cuda`` without a card exits
+    before anything is written); under ``torchrun`` the process group is
+    started and the device is this rank's (``cuda:LOCAL_RANK``)."""
+    try:
+        device = resolve_device(requested, cli=cli)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
+    return init_distributed(device) if launched() else device
+
+
+class DataParallelSampler:
+    """Data-parallel sampling over the ranks of a ``torchrun`` launch
+    (reference: scripts/sample_uncond.py:183-190's amortize and
+    ``accelerator.gather``), as the JAX package's ``DataParallelSampler``
+    shards a batch over its devices.  A batch is padded by wrapping its rows
+    to a multiple of the rank count; each rank samples its block of the
+    padded rows; the rows are gathered on every rank and trimmed.  The
+    sampling gets ``row_generator(generator, batch)`` in place of its
+    generator: its per-row draws are the one-rank run's draws for the whole
+    batch, at the rank's rows (``utils/rows.py``), so a padded row draws
+    what its original draws and the result is the one-rank result.  One
+    rank (no launch): everything is the identity.  Only ``is_main`` writes
+    files.
+
+    Usage::
+
+        dp = DataParallelSampler()
+        out = dp.run(lambda noise, generator: sampler.sample(model_fn, noise, generator),
+                     noise, generator=generator)
+    """
+
+    def __init__(self):
+        self.world = dist.get_world_size() if dist.is_initialized() else 1
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+        self.is_main = self.rank == 0
+
+    def rows(self, batch: int) -> np.ndarray:
+        """This rank's rows (indices into ``batch``) of the batch padded by
+        wrapping to a multiple of the rank count."""
+        padded = batch + (-batch) % self.world
+        per = padded // self.world
+        return np.arange(self.rank * per, (self.rank + 1) * per) % batch
+
+    def pad_shard(self, batch_tree: Any) -> Tuple[Any, int]:
+        """(this rank's padded rows of every tensor of ``batch_tree`` (a
+        tensor, or a tuple / list / dict of them), the true batch size)."""
+        leaves = (list(batch_tree.values()) if isinstance(batch_tree, dict) else
+                  list(batch_tree) if isinstance(batch_tree, (tuple, list)) else [batch_tree])
+        b = leaves[0].shape[0]
+        if self.world == 1:
+            return batch_tree, b
+        idx = self.rows(b)
+
+        def one(x):
+            if x.shape[0] != b:
+                raise ValueError(f"batch-axis mismatch: {x.shape[0]} != {b}")
+            return x[torch.as_tensor(idx, device=x.device) if torch.is_tensor(x) else idx]
+
+        if isinstance(batch_tree, dict):
+            return {k: one(v) for k, v in batch_tree.items()}, b
+        if isinstance(batch_tree, (tuple, list)):
+            return type(batch_tree)(one(v) for v in batch_tree), b
+        return one(batch_tree), b
+
+    def row_generator(self, generator: Optional[torch.Generator], batch: int) -> Any:
+        """``generator`` for this rank's rows of a batch of ``batch``: a
+        ``RowGenerator`` over ranks, the generator itself on one."""
+        if self.world == 1 or generator is None:
+            return generator
+        return RowGenerator(generator, batch, torch.as_tensor(self.rows(batch)))
+
+    def gather(self, out: torch.Tensor, true_bs: int, dim: int = 0) -> torch.Tensor:
+        """The rows of every rank along ``dim``, on every rank, trimmed to
+        ``true_bs``."""
+        if self.world == 1:
+            return out
+        return all_gather_cat(out, dim).narrow(dim, 0, true_bs)
+
+    def run(self, fn: Callable[..., Any], *batch: torch.Tensor,
+            generator: Optional[torch.Generator] = None) -> Any:
+        """``fn(*batch)`` for the whole batch, each rank computing its rows
+        (with ``generator``: ``fn(*batch, generator=...)``, handed the
+        rank's ``row_generator``); ``fn``'s output (a tensor or a tuple of
+        them, batch first) gathered."""
+        local, b = self.pad_shard(tuple(batch))
+        kw = {} if generator is None else {"generator": self.row_generator(generator, b)}
+        out = fn(*local, **kw)
+        if isinstance(out, tuple):
+            return tuple(self.gather(o, b) for o in out)
+        return self.gather(out, b)
+
+
 def to_device(images: np.ndarray, device: torch.device) -> torch.Tensor:
     """A loader's [B, H, W, C] float32 batch -> contiguous [B, C, H, W] on
     ``device``, through pinned memory on a card."""
@@ -127,6 +229,16 @@ def to_device(images: np.ndarray, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         x = x.pin_memory().to(device, non_blocking=True)
     return x.permute(0, 3, 1, 2).contiguous()
+
+
+class _QuietTracker:
+    """A rank's tracker other than rank 0's: it writes and logs nothing."""
+
+    def track_status(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 @dataclasses.dataclass
@@ -142,7 +254,8 @@ class TrainRun:
     conf: Config
     exp_dir: str
     logger: logging.Logger
-    tracker: StatusTracker
+    tracker: Any
+    mesh: Any = None
 
     @classmethod
     def open(cls, argv: Optional[Sequence[str]], doc: str, cli: str,
@@ -151,26 +264,43 @@ class TrainRun:
         ``profile``, and ``key=value`` overrides), resolve the device
         (``cuda`` without a card exits before anything is written) and
         create the experiment directory with the run's config, its log file
-        and tensorboard tracker."""
+        and tensorboard tracker.  Under ``torchrun`` the ranks form a
+        data-parallel mesh (fsdp 1, as the JAX CLIs' ``make_mesh()``), share
+        rank 0's experiment directory, and only rank 0 writes it."""
         args, unknown = train_parser(doc, profile).parse_known_args(argv)
         overrides = parse_overrides(unknown)
-        try:
-            device = resolve_device(args.device, cli=cli)
-        except RuntimeError as e:
-            raise SystemExit(str(e)) from None
+        device = open_device(args.device, cli)
+        main = is_main()
         time_str = get_time_str()
+        if dist.is_initialized():  # every rank takes rank 0's name for the run
+            shared = [time_str]
+            dist.broadcast_object_list(shared, src=0)
+            time_str = shared[0]
         exp_dir = args.exp_dir or os.path.join("runs", f"exp-{time_str}")
         conf = merge_dotlist(load_config(args.config), overrides)
         import yaml
 
-        create_exp_dir(exp_dir, yaml.safe_dump(conf.to_dict()), exist_ok=args.resume is not None,
-                       time_str=time_str, no_interaction=args.no_interaction)
-        logger = get_logger(log_file=os.path.join(exp_dir, f"output-{time_str}.log"))
-        tracker = StatusTracker(logger, exp_dir, print_freq=conf.train.print_freq)
+        if main:
+            create_exp_dir(exp_dir, yaml.safe_dump(conf.to_dict()),
+                           exist_ok=args.resume is not None, time_str=time_str,
+                           no_interaction=args.no_interaction)
+        if dist.is_initialized():
+            dist.barrier()
+        logger = get_logger(log_file=os.path.join(exp_dir, f"output-{time_str}.log"),
+                            is_main_process=main)
+        tracker = (StatusTracker(logger, exp_dir, print_freq=conf.train.print_freq) if main
+                   else _QuietTracker())
+        mesh = make_mesh(device.type) if launched() else None
         logger.info(f"Experiment directory: {exp_dir}")
         logger.info("Device: " + (torch.cuda.get_device_name(device) if device.type == "cuda"
-                                  else str(device)))
-        return cls(args, device, conf, exp_dir, logger, tracker)
+                                  else str(device))
+                    + (f" x {mesh.size()} ranks, mesh {tuple(mesh.shape)}" if mesh else ""))
+        return cls(args, device, conf, exp_dir, logger, tracker, mesh)
+
+    def place(self, state):
+        """``state`` placed on the run's mesh (``shard_train_state``; as it
+        is without one).  Call before ``resume``."""
+        return state if self.mesh is None else shard_train_state(state, self.mesh)
 
     @property
     def seed(self) -> int:
@@ -211,11 +341,13 @@ class TrainRun:
               to_batch: Callable[[Any], Any],
               sample: Callable[[str, torch.Generator], None]) -> Dict[str, Any]:
         """The loop from ``state.step`` to ``train.n_steps``: each loader
-        batch goes through ``to_batch`` into ``train_step``; the metrics stay
+        batch (this rank's rows of it, micro-batch by micro-batch, under a
+        mesh) goes through ``to_batch`` into ``train_step``; the metrics stay
         on the device until a print, save or sample boundary or the last
         step; every ``save_freq`` steps, and at the end, a checkpoint; every
         ``sample_freq`` steps ``sample(<exp_dir>/samples/stepNNNNNN.png,
-        generator)``; with ``--profile DIR``, a trace of the run's steps
+        generator)`` on rank 0; with
+        ``--profile DIR``, a trace of the run's steps
         ``PROFILE_STEPS`` into DIR.  Returns what the run measured: the
         steps' host times between ticks (``step_seconds``, from the second
         step of the run on), the seconds of each save, the logged losses and
@@ -239,7 +371,8 @@ class TrainRun:
             while step < train.n_steps:
                 if profile_dir and step - run_start == PROFILE_STEPS[0]:
                     tracer = start_trace(profile_dir, self.device)
-                metrics = train_step(state, to_batch(next(gen)))
+                metrics = train_step(state, to_batch(
+                    shard_batch(next(gen), self.mesh, self.micro_batches)))
                 timer.tick()
                 if tracer is not None and step - run_start == PROFILE_STEPS[1]:
                     stop_trace(tracer, self.device)
@@ -260,7 +393,7 @@ class TrainRun:
                     pending.clear()
                 if check_freq(train.save_freq, step):
                     save_ckpt()
-                if check_freq(train.sample_freq, step):
+                if check_freq(train.sample_freq, step) and is_main():
                     sample(os.path.join(self.exp_dir, "samples", f"step{step:0>6d}.png"),
                            step_generator(self.seed, 2 ** 30 + step, self.device))
                 step += 1

@@ -7,8 +7,9 @@ images.
 Each CLI takes ``base_parser``'s flags (``--device`` defaults to ``cuda``:
 without a card it exits unless ``--device cpu`` is given) and ``key=value``
 config overrides; the model is the config's, with ``--weights`` loaded by
-``load_model_params`` (a JAX-package ``.npz`` export or a torch file).  One
-device: the JAX package's data-parallel sampler is not ported.
+``load_model_params`` (a JAX-package ``.npz`` export or a torch file).
+Under ``torchrun`` each rank edits its rows of every batch
+(``DataParallelSampler``) and rank 0 writes the files.
 """
 from __future__ import annotations
 
@@ -20,8 +21,7 @@ import torch
 from torch import nn
 
 from dmtpu_torch.data.image_dir import ImageDir
-from dmtpu_torch.scripts._common import image_shape, load_conf, load_model_params
-from dmtpu_torch.scripts.sample_sd import resolve_device
+from dmtpu_torch.scripts._common import image_shape, load_conf, load_model_params, open_device
 from dmtpu_torch.utils.config import Config, instantiate_from_config
 
 
@@ -29,10 +29,7 @@ def open_cli(parser: argparse.ArgumentParser, argv: Optional[Sequence[str]], cli
              ) -> Tuple[argparse.Namespace, torch.device, Config, Tuple[int, int, int]]:
     """(flags, device, config with its overrides, (C, H, W) of its images)."""
     args, unknown = parser.parse_known_args(argv)
-    try:
-        device = resolve_device(args.device, cli=cli)
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
+    device = open_device(args.device, cli)
     conf = load_conf(args, unknown)
     return args, device, conf, image_shape(conf)
 

@@ -36,9 +36,11 @@ decode of a latent model -> PNGs in ``save_dir/class{c}/``.
 Noise: the JAX CLI folds (class, batch index) into its key; here each batch
 draws its noise and its sampler steps from a generator on the device seeded
 from (seed, class, batch index), so the draws differ from the JAX package's
-(the tests compare the two on the same arrays).  The data-parallel sampler is
-not ported: one device.  ``sample_class`` is one class's request as a
-function; it takes a ready model and sampler and needs no file.
+(the tests compare the two on the same arrays).  Under ``torchrun`` each rank
+samples its rows of every batch (``DataParallelSampler``: the one-rank
+samples) and rank 0 writes the files.  ``sample_class`` is one class's
+request as a function; it takes a ready model and sampler and needs no
+file.
 """
 from __future__ import annotations
 
@@ -60,6 +62,7 @@ from dmtpu_torch.diffusions import (
 from dmtpu_torch.models.adm import UNetCombined
 from dmtpu_torch.models.latent import LatentDiffusionWrapper
 from dmtpu_torch.scripts._common import (
+    DataParallelSampler,
     base_parser,
     diffusion_params,
     image_shape,
@@ -67,8 +70,8 @@ from dmtpu_torch.scripts._common import (
     load_model_params,
     load_npz_params,
     load_torch_weights,
+    open_device,
 )
-from dmtpu_torch.scripts.sample_sd import resolve_device
 from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image
 from dmtpu_torch.utils.logger import get_logger
@@ -178,40 +181,44 @@ def batch_seed(seed: int, class_id: int, index: int) -> int:
 def sample_class(model: nn.Module, diffuser: DDPMCFG, class_id: int, n_samples: int, *,
                  shape: Sequence[int], num_classes: int, batch_size: int = 64, seed: int = 2022,
                  decode: bool = True, device: Any = "cuda",
-                 on_stage: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+                 on_stage: Optional[Callable[[str], None]] = None,
+                 dp: Optional[DataParallelSampler] = None) -> torch.Tensor:
     """``n_samples`` samples of class ``class_id`` in [-1, 1], [N, C, H, W]
     on the device: noise of ``shape`` (C, H, W) -> ``diffuser`` with the null
     class ``num_classes`` as the unconditional branch -> the VAE decode
     (``decode``, latent models only).  ``on_stage(name)`` is called as the
     work of each stage has been enqueued ("sample", then "decode", for each
-    batch)."""
+    batch).  ``dp`` shares each batch's rows out over the ranks."""
     dev = torch.device(device)
+    dp = dp or DataParallelSampler()
     mark = on_stage or (lambda name: None)
     latent = isinstance(model, LatentDiffusionWrapper)
     out = []
     for i, bs in enumerate(amortize(n_samples, batch_size)):
-        model_fn = model.make_model_fn() if latent else pixel_model_fn(model, bs)
         generator = torch.Generator(device=dev).manual_seed(batch_seed(seed, class_id, i))
         noise = torch.randn(bs, *shape, generator=generator, device=dev)
         y = torch.full((bs,), class_id, dtype=torch.int64, device=dev)
         uncond = torch.full((bs,), num_classes, dtype=torch.int64, device=dev)
-        z = diffuser.sample(model_fn, noise, generator, uncond_conditioning=uncond,
-                            model_kwargs=dict(y=y))
-        mark("sample")
-        if latent and decode:
-            z = model.decode_latent(z)
-            mark("decode")
-        out.append(z.clamp(-1.0, 1.0))
+
+        def one(noise, y, uncond, generator):
+            model_fn = model.make_model_fn() if latent else pixel_model_fn(model, len(noise))
+            z = diffuser.sample(model_fn, noise, generator, uncond_conditioning=uncond,
+                                model_kwargs=dict(y=y))
+            mark("sample")
+            if latent and decode:
+                z = model.decode_latent(z)
+                mark("decode")
+            return z
+
+        out.append(dp.run(one, noise, y, uncond, generator=generator).clamp(-1.0, 1.0))
     return torch.cat(out)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args, unknown = parse_args(argv)
     logger = get_logger()
-    try:
-        device = resolve_device(args.device, cli="sample_cfg")
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
+    device = open_device(args.device, "sample_cfg")
+    dp = DataParallelSampler()
     conf = load_conf(args, unknown)
     diffuser = make_diffuser(args, conf)
     model, is_latent, has_vae = build_model(conf, args.weights, args.vae_weights, device)
@@ -227,9 +234,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for c in args.class_ids or list(range(num_classes)):
         images = sample_class(model, diffuser, c, args.n_samples_each_class, shape=shape,
                               num_classes=num_classes, batch_size=args.batch_size,
-                              seed=args.seed, decode=has_vae, device=device)
+                              seed=args.seed, decode=has_vae, device=device, dp=dp)
         images = images.permute(0, 2, 3, 1).float().cpu().numpy()
-        for idx, img in enumerate(images):
+        for idx, img in enumerate(images if dp.is_main else []):
             save_image(img, os.path.join(args.save_dir, f"class{c}", f"{idx}.png"))
         logger.info(f"class {c}: {len(images)} samples")
     logger.info("Done")

@@ -25,7 +25,7 @@ import os
 from typing import Any, Optional, Sequence
 
 from dmtpu_torch.diffusions.guidance.clip_guidance import CLIPGuidance
-from dmtpu_torch.scripts._common import base_parser, diffusion_params
+from dmtpu_torch.scripts._common import DataParallelSampler, base_parser, diffusion_params
 from dmtpu_torch.scripts._editing import load_model, open_cli, to_nhwc
 from dmtpu_torch.scripts.sample_uncond import model_function, sample_fold
 from dmtpu_torch.utils.image import save_image
@@ -54,13 +54,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     diffuser.set_text(args.text)
     model_fn = model_function(load_model(args, conf, device))
     logger.info(f"Loaded weights from {args.weights} on {device}; text: {args.text!r}")
+    dp = DataParallelSampler()
     os.makedirs(args.save_dir, exist_ok=True)
     idx = 0
     for fold, bs in enumerate(amortize(args.n_samples, args.batch_size)):
-        images, _ = sample_fold(model_fn, diffuser, fold, bs, shape, args.seed, device)
-        for img in to_nhwc(images):
-            save_image(img, os.path.join(args.save_dir, f"{idx}.png"))
-            idx += 1
+        images, _ = sample_fold(model_fn, diffuser, fold, bs, shape, args.seed, device, dp=dp)
+        if dp.is_main:
+            for b, img in enumerate(to_nhwc(images)):
+                save_image(img, os.path.join(args.save_dir, f"{idx + b}.png"))
+        idx += bs
         logger.info(f"Sampled {idx}/{args.n_samples}")
     logger.info("Done")
 

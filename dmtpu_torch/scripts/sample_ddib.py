@@ -24,7 +24,12 @@ import numpy as np
 import torch
 
 from dmtpu_torch.diffusions import DDIM
-from dmtpu_torch.scripts._common import base_parser, diffusion_params, to_device
+from dmtpu_torch.scripts._common import (
+    DataParallelSampler,
+    base_parser,
+    diffusion_params,
+    to_device,
+)
 from dmtpu_torch.scripts._editing import image_batches, load_model, open_cli, to_nhwc
 from dmtpu_torch.utils.image import save_image_grid
 from dmtpu_torch.utils.logger import get_logger
@@ -62,11 +67,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     diffuser = DDIM(**diffusion_params(args, conf))
     model = load_model(args, conf, device)
     logger.info(f"Loaded weights from {args.weights} on {device}")
+    dp = DataParallelSampler()
     os.makedirs(args.save_dir, exist_ok=True)
     for i, n, batch in image_batches(args.input_dir, shape[1], args.n_samples, args.batch_size):
-        out = to_nhwc(translate_batch(model, diffuser, to_device(batch, device), args.class_A,
-                                      args.class_B))
-        for b in range(len(batch)):
+        out = to_nhwc(dp.run(lambda x: translate_batch(model, diffuser, x, args.class_A,
+                                                       args.class_B), to_device(batch, device)))
+        for b in range(len(batch) if dp.is_main else 0):
             save_image_grid(np.stack([batch[b], out[b]]),
                             os.path.join(args.save_dir, f"{i + b}.png"), nrow=2)
         logger.info(f"Translated {i + len(batch)}/{n}")

@@ -28,9 +28,15 @@ import torch
 
 from dmtpu_torch.diffusions.guidance import ILVR
 from dmtpu_torch.ops.resize_right import INTERP_METHODS
-from dmtpu_torch.scripts._common import base_parser, diffusion_params, to_device
+from dmtpu_torch.scripts._common import (
+    DataParallelSampler,
+    base_parser,
+    diffusion_params,
+    to_device,
+)
 from dmtpu_torch.scripts._editing import image_batches, load_model, open_cli, to_nhwc
 from dmtpu_torch.scripts.sample_uncond import fold_generator, model_function
+from dmtpu_torch.utils import rows
 from dmtpu_torch.utils.image import save_image_grid
 from dmtpu_torch.utils.logger import get_logger
 
@@ -51,7 +57,7 @@ def ilvr_batch(model_fn: Callable, diffuser: ILVR, refs: torch.Tensor,
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """One sample per reference ``refs`` [B, C, H, W] in [-1, 1], from noise
     drawn from ``generator`` (the sampler's draws follow); unclipped."""
-    noise = torch.randn(refs.shape, generator=generator, device=refs.device)
+    noise = rows.randn(refs.shape, generator, refs.device)
     diffuser.set_ref_images(refs)
     return diffuser.sample(model_fn, noise, generator)
 
@@ -64,11 +70,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     **diffusion_params(args, conf, **extra))
     model_fn = model_function(load_model(args, conf, device))
     logger.info(f"Loaded weights from {args.weights} on {device}")
+    dp = DataParallelSampler()
     os.makedirs(args.save_dir, exist_ok=True)
     for i, n, refs in image_batches(args.input_dir, shape[1], args.n_samples, args.batch_size):
-        out = to_nhwc(ilvr_batch(model_fn, diffuser, to_device(refs, device),
-                                 fold_generator(args.seed, i, device)))
-        for b in range(len(refs)):
+        generator = fold_generator(args.seed, i, device)
+        out = to_nhwc(dp.run(lambda x, generator: ilvr_batch(model_fn, diffuser, x, generator),
+                             to_device(refs, device), generator=generator))
+        for b in range(len(refs) if dp.is_main else 0):
             save_image_grid(np.stack([refs[b], out[b]]),
                             os.path.join(args.save_dir, f"{i + b}.png"), nrow=2)
         logger.info(f"Sampled {i + len(refs)}/{n}")

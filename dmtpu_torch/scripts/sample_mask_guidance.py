@@ -30,9 +30,15 @@ import torch
 
 from dmtpu_torch.data.image_dir import ImageDir
 from dmtpu_torch.diffusions.guidance import MaskGuidance
-from dmtpu_torch.scripts._common import base_parser, diffusion_params, to_device
+from dmtpu_torch.scripts._common import (
+    DataParallelSampler,
+    base_parser,
+    diffusion_params,
+    to_device,
+)
 from dmtpu_torch.scripts._editing import load_model, open_cli, to_nhwc
 from dmtpu_torch.scripts.sample_uncond import fold_generator, model_function
+from dmtpu_torch.utils import rows
 from dmtpu_torch.utils.image import save_image_grid
 from dmtpu_torch.utils.logger import get_logger
 from dmtpu_torch.utils.mask import DatasetWithMask
@@ -58,7 +64,7 @@ def inpaint_batch(model_fn: Callable, diffuser: MaskGuidance, images: torch.Tens
     """``images`` [B, C, H, W] in [-1, 1] inpainted where ``masks``
     [B, 1, H, W] is 0, from noise drawn from ``generator`` (the sampler's
     draws follow); unclipped."""
-    noise = torch.randn(images.shape, generator=generator, device=images.device)
+    noise = rows.randn(images.shape, generator, images.device)
     diffuser.set_mask_and_image(images * masks, masks)
     if resample:
         return diffuser.resample(model_fn, noise, generator, resample_r=resample_r,
@@ -76,16 +82,19 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     dataset = DatasetWithMask(ImageDir(args.input_dir, img_size=shape[1]),
                               mask_type=args.mask_type)
     n = min(args.n_samples or len(dataset), len(dataset))
+    dp = DataParallelSampler()
     os.makedirs(args.save_dir, exist_ok=True)
     for i in range(0, n, args.batch_size):
         items = [dataset[j] for j in range(i, min(i + args.batch_size, n))]
         imgs = np.stack([it[0] for it in items])
         masks = np.stack([it[1] for it in items])
-        out = to_nhwc(inpaint_batch(model_fn, diffuser, to_device(imgs, device),
-                                    to_device(masks, device), fold_generator(args.seed, i, device),
-                                    args.resample, args.resample_r, args.resample_j))
+        generator = fold_generator(args.seed, i, device)
+        out = to_nhwc(dp.run(lambda x, m, generator: inpaint_batch(
+            model_fn, diffuser, x, m, generator, args.resample, args.resample_r,
+            args.resample_j), to_device(imgs, device), to_device(masks, device),
+            generator=generator))
         masked = imgs * masks
-        for b in range(len(imgs)):
+        for b in range(len(imgs) if dp.is_main else 0):
             trip = np.stack([imgs[b], masked[b] + (1 - masks[b]) * 1.0, out[b]])
             save_image_grid(trip, os.path.join(args.save_dir, f"{i + b}.png"), nrow=3)
         logger.info(f"Inpainted {i + len(imgs)}/{n}")

@@ -31,8 +31,9 @@ Differences from the JAX CLI: ``--guidance_scale`` defaults to the config's
 ``diffusion.params.guidance_scale``, then 4.0 (the JAX CLI drops the
 config's value); each batch draws its noise from a generator seeded by
 (seed, batch index), other draws than the JAX CLI's ``fold_in``; the
-orbax train-state directory and the data-parallel sampler are not ported
-(one device).  ``sample_mmdit`` is the request as a function; it takes a
+orbax train-state directory is not ported.  Under ``torchrun`` each rank
+samples its rows of every batch (``DataParallelSampler``) and rank 0 writes
+the files.  ``sample_mmdit`` is the request as a function; it takes a
 ready model and sampler and needs no file.
 """
 from __future__ import annotations
@@ -48,8 +49,13 @@ from torch import nn
 
 from dmtpu_torch.convert.zoo import convert_mmdit, convert_sd3_vae
 from dmtpu_torch.diffusions import FlowDPMSolver, FlowDPMSolverCFG, FlowMatching, FlowMatchingCFG
-from dmtpu_torch.scripts._common import diffusion_params, load_conf, load_model_params
-from dmtpu_torch.scripts.sample_sd import resolve_device
+from dmtpu_torch.scripts._common import (
+    DataParallelSampler,
+    diffusion_params,
+    load_conf,
+    load_model_params,
+    open_device,
+)
 from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image
 from dmtpu_torch.utils.logger import get_logger
@@ -214,15 +220,18 @@ def _noise(batch: int, shape: Sequence[int], generator: torch.Generator,
 def sample_mmdit(model: nn.Module, diffuser: FlowMatching, context: Any, pooled: Any,
                  n_samples: int, *, shape: Sequence[int], batch_size: int = 4, seed: int = 2022,
                  decode: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
-                 device: Any = "cuda") -> Tuple[torch.Tensor, Dict[str, float]]:
+                 device: Any = "cuda", dp: Optional[DataParallelSampler] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """One request: ``n_samples`` images in [-1, 1], [N, C, H, W] on the
     device, and on a card the stages' times in ms by CUDA events
     (``{"sample": ..., "decode": ...}`` summed over the batches; empty on the
     CPU).  ``context`` [R, L, Dc] and ``pooled`` [R, Dp] rows cycle over the
     samples; noise of ``shape`` (C, H, W) from a generator seeded by (seed,
     batch index); with a CFG sampler the unconditional branch is
-    ``model.null_conditioning``."""
+    ``model.null_conditioning``; ``dp`` shares each batch's rows out over the
+    ranks."""
     dev = torch.device(device)
+    dp = dp or DataParallelSampler()
     context = torch.as_tensor(context, dtype=torch.float32, device=dev)
     pooled = torch.as_tensor(pooled, dtype=torch.float32, device=dev)
     guided = isinstance(diffuser, FlowMatchingCFG)
@@ -239,20 +248,24 @@ def sample_mmdit(model: nn.Module, diffuser: FlowMatching, context: Any, pooled:
     for i, bs in enumerate(amortize(n_samples, batch_size)):
         rows = torch.arange(start, start + bs, device=dev) % context.shape[0]
         start += bs
-        y = {"context": context[rows], "pooled": pooled[rows]}
         generator = torch.Generator(device=dev).manual_seed(batch_seed(seed, i))
         noise = _noise(bs, shape, generator, dev)
-        kwargs = dict(model_kwargs={"y": y})
-        if guided:
-            kwargs["uncond_conditioning"] = model.null_conditioning(bs, context.shape[1],
-                                                                    device=dev)
-        z = diffuser.sample(lambda x, t, y=None, **kw: model(x, t, y), noise, generator,
-                            **kwargs)
-        mark("sample")
-        if decode is not None:
-            z = decode(z)
-            mark("decode")
-        out.append(z.float().clamp(-1.0, 1.0))
+
+        def one(noise, ctx, pool, generator):
+            kwargs = dict(model_kwargs={"y": {"context": ctx, "pooled": pool}})
+            if guided:
+                kwargs["uncond_conditioning"] = model.null_conditioning(
+                    len(noise), context.shape[1], device=dev)
+            z = diffuser.sample(lambda x, t, y=None, **kw: model(x, t, y), noise, generator,
+                                **kwargs)
+            mark("sample")
+            if decode is not None:
+                z = decode(z)
+                mark("decode")
+            return z
+
+        out.append(dp.run(one, noise, context[rows], pooled[rows], generator=generator)
+                   .float().clamp(-1.0, 1.0))
     stage_ms: Dict[str, float] = {}
     if events:
         events[-1][1].synchronize()
@@ -264,10 +277,8 @@ def sample_mmdit(model: nn.Module, diffuser: FlowMatching, context: Any, pooled:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args, unknown = build_parser().parse_known_args(argv)
     logger = get_logger()
-    try:
-        device = resolve_device(args.device, cli="sample_mmdit")
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
+    device = open_device(args.device, "sample_mmdit")
+    dp = DataParallelSampler()
     conf = load_conf(args, unknown)
     size = conf.data.params.img_size
     shape = (conf.data.get("img_channels", conf.model.params.get("in_channels", 3)), size, size)
@@ -279,9 +290,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 f"{len(diffuser.respaced_seq)} steps")
     images, stage_ms = sample_mmdit(model, diffuser, context, pooled, args.n_samples,
                                     shape=shape, batch_size=args.batch_size, seed=args.seed,
-                                    decode=decode, device=device)
+                                    decode=decode, device=device, dp=dp)
     os.makedirs(args.save_dir, exist_ok=True)
-    for idx, img in enumerate(images.permute(0, 2, 3, 1).cpu().numpy()):
+    for idx, img in enumerate(images.permute(0, 2, 3, 1).cpu().numpy() if dp.is_main else []):
         save_image(img, os.path.join(args.save_dir, f"{idx}.png"))
     logger.info(f"Sampled {len(images)} -> {args.save_dir}"
                 + (f"; stages (ms) {stage_ms}" if stage_ms else ""))

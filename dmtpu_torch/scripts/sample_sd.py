@@ -20,7 +20,8 @@ decode -> PNGs.
 - ``--init_image`` / ``--strength``: img2img (SDEdit in latent space);
 - ``--inpaint_image`` / ``--inpaint_mask``: latent inpainting (ddim).
 
-The data-parallel sampler of the JAX CLI is not ported: one device.
+Under ``torchrun`` each rank samples and decodes its rows of every batch
+(``DataParallelSampler``: the one-rank images) and rank 0 writes the files.
 
 Weights: a CompVis ``.ckpt`` / ``.safetensors`` via ``--weights``; without it
 the pipeline runs with seeded random parameters (demo mode: wiring and
@@ -334,8 +335,11 @@ def sample_images(
     ``build_model``); its ToMe and FreeU settings are as before when the call
     returns.  ``on_stage(name)`` is called as the work of each stage has been
     enqueued ("begin", "text_encode", then "sample" and "decode" for each
-    batch).
+    batch).  Under a ``torchrun`` launch each rank computes its rows of each
+    batch (``DataParallelSampler``) and every rank returns all the images.
     """
+    from dmtpu_torch.scripts._common import DataParallelSampler
+
     if sampler not in _SAMPLERS:
         raise ValueError(f"unknown sampler {sampler!r}: one of {sorted(_SAMPLERS)}")
     conflict = flag_conflict(
@@ -369,11 +373,14 @@ def sample_images(
         lat_h, lat_w = height // 8, width // 8
         generator = torch.Generator(device=dev).manual_seed(seed)
 
-        span, t_edit, init_lat = {}, None, None
+        span, t_edit, init_lat, inpaint = {}, None, None, None
         if deepcache is not None:
             interval, skip = deepcache
             diffuser = (PFDiffDDIM if sampler == "pfdiff" else DDIM)(**dp)
-            run = deepcache_sampler(diffuser, sd, ce, ue, guidance_scale, interval, skip, generator)
+
+            def run(x, c, u, generator):
+                return deepcache_sampler(diffuser, sd, c, u, guidance_scale, interval, skip,
+                                         generator)(x)
         else:
             if inpaint_image is not None:
                 # latent inpainting: the known region is overwritten each step
@@ -385,8 +392,7 @@ def sample_images(
                 if lat_mask.shape != (lat_h, lat_w):
                     raise ValueError(f"inpaint_mask must be [{lat_h}, {lat_w}], got "
                                      f"{tuple(lat_mask.shape)}")
-                diffuser.set_mask_and_image(
-                    z_known, lat_mask[None, None].expand(batch_size, -1, -1, -1).contiguous())
+                inpaint = (z_known, lat_mask[None, None].expand(batch_size, -1, -1, -1))
             else:
                 diffuser = _SAMPLERS[sampler](**dp, **extra)
             if init_image is not None:
@@ -400,10 +406,20 @@ def sample_images(
                                             torch.Generator(device=dev).manual_seed(seed + 2))
             model_fn = sd.make_model_fn()
 
-            def run(x):
-                return diffuser.sample(model_fn, x, generator, uncond_conditioning=ue,
-                                       model_kwargs=dict(text_embed=ce), **span)
+            def run(x, c, u, generator):
+                return diffuser.sample(model_fn, x, generator, uncond_conditioning=u,
+                                       model_kwargs=dict(text_embed=c), **span)
 
+        def one(x, c, u, *known, generator):  # a rank's rows of a batch
+            if known:
+                diffuser.set_mask_and_image(known[0], known[1].contiguous())
+            z = run(x, c, u, generator)
+            mark("sample")
+            decoded = sd.decode_latent(z).clamp(-1.0, 1.0)
+            mark("decode")
+            return decoded
+
+        data_parallel = DataParallelSampler()
         images = []
         done = 0
         while done < n_samples:
@@ -412,10 +428,7 @@ def sample_images(
             if init_lat is not None:
                 t = torch.full((batch_size,), t_edit, dtype=torch.int64, device=dev)
                 x = diffuser.diffuse(init_lat, t, x)
-            z = run(x)
-            mark("sample")
-            decoded = sd.decode_latent(z).clamp(-1.0, 1.0)
-            mark("decode")
+            decoded = data_parallel.run(one, x, ce, ue, *(inpaint or ()), generator=generator)
             take = min(batch_size, n_samples - done)
             images.append(image_norm_to_uint8(decoded[:take].permute(0, 2, 3, 1).cpu().numpy()))
             done += take
@@ -423,12 +436,11 @@ def sample_images(
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
+    from dmtpu_torch.scripts._common import is_main, open_device
+
     args = parse_args(argv)
     logger = get_logger()
-    try:
-        resolve_device(args.device)
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
+    open_device(args.device, "sample_sd")
     conf = load_config(args.config)
     if not args.weights:
         logger.warning("no --weights: RANDOM init (demo mode)")
@@ -451,7 +463,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         weights=args.weights, device=args.device)
     os.makedirs(args.save_dir, exist_ok=True)
     Image = pil_image()
-    for i, image in enumerate(images):
+    for i, image in enumerate(images if is_main() else []):
         Image.fromarray(image).save(os.path.join(args.save_dir, f"{i}.png"))
     logger.info(f"saved {len(images)}/{args.n_samples} to {args.save_dir}")
 

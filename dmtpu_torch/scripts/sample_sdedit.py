@@ -27,9 +27,15 @@ import numpy as np
 import torch
 
 from dmtpu_torch.diffusions import DDPM
-from dmtpu_torch.scripts._common import base_parser, diffusion_params, to_device
+from dmtpu_torch.scripts._common import (
+    DataParallelSampler,
+    base_parser,
+    diffusion_params,
+    to_device,
+)
 from dmtpu_torch.scripts._editing import image_batches, load_model, open_cli, to_nhwc
 from dmtpu_torch.scripts.sample_uncond import fold_generator, model_function
+from dmtpu_torch.utils import rows
 from dmtpu_torch.utils.image import save_image_grid
 from dmtpu_torch.utils.logger import get_logger
 
@@ -61,7 +67,7 @@ def edit_batch(model_fn: Callable, diffuser: DDPM, images: torch.Tensor, edit_st
     from ``generator``, then denoised over the last ``edit_steps`` rows
     (the sampler's draws from the same generator); unclipped."""
     t_edit, start_row = edit_rows(diffuser, edit_steps)
-    eps = torch.randn(images.shape, generator=generator, device=images.device)
+    eps = rows.randn(images.shape, generator, images.device)
     xt = diffuser.diffuse(images, torch.full((images.shape[0],), t_edit, device=images.device),
                           eps)
     return diffuser.sample(model_fn, xt, generator, start_step=start_row)
@@ -75,11 +81,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     edit_rows(diffuser, args.edit_steps)  # refuse a bad --edit_steps before any work
     model_fn = model_function(load_model(args, conf, device))
     logger.info(f"Loaded weights from {args.weights} on {device}")
+    dp = DataParallelSampler()
     os.makedirs(args.save_dir, exist_ok=True)
     for i, n, batch in image_batches(args.input_dir, shape[1], args.n_samples, args.batch_size):
-        edited = to_nhwc(edit_batch(model_fn, diffuser, to_device(batch, device), args.edit_steps,
-                                    fold_generator(args.seed, i, device)))
-        for b in range(len(batch)):
+        generator = fold_generator(args.seed, i, device)
+        edited = to_nhwc(dp.run(lambda x, generator: edit_batch(
+            model_fn, diffuser, x, args.edit_steps, generator), to_device(batch, device),
+            generator=generator))
+        for b in range(len(batch) if dp.is_main else 0):
             save_image_grid(np.stack([batch[b], edited[b]]),
                             os.path.join(args.save_dir, f"{i + b}.png"), nrow=2)
         logger.info(f"Edited {i + len(batch)}/{n}")

@@ -33,9 +33,10 @@ Noise: the JAX CLI folds the batch index into its key; here each batch (a
 fold of ``amortize(n_samples, batch_size)``, or a row of ``interpolate``)
 draws its noise and then its sampler steps from one generator on the device
 seeded from (seed, fold), so the draws differ from the JAX package's (the
-tests compare the two on the same arrays).  The data-parallel sampler is not
-ported: one device.  ``sample_fold``, ``interpolate_row`` and
-``reconstruct`` are the modes' work as functions, with a ready model and
+tests compare the two on the same arrays).  Under ``torchrun`` each rank
+samples its rows of every batch (``DataParallelSampler``: the one-rank
+samples) and rank 0 writes the files.  ``sample_fold``, ``interpolate_row``
+and ``reconstruct`` are the modes' work as functions, with a ready model and
 sampler and no file.
 """
 from __future__ import annotations
@@ -60,14 +61,15 @@ from dmtpu_torch.diffusions import (
     PFDiffDDIM,
 )
 from dmtpu_torch.scripts._common import (
+    DataParallelSampler,
     base_parser,
     diffusion_params,
     image_shape,
     load_conf,
     load_model_params,
+    open_device,
 )
 from dmtpu_torch.scripts._editing import to_nhwc
-from dmtpu_torch.scripts.sample_sd import resolve_device
 from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image, save_image_grid
 from dmtpu_torch.utils.logger import get_logger
@@ -165,24 +167,31 @@ def model_function(model: nn.Module) -> Callable[..., torch.Tensor]:
 @torch.no_grad()
 def sample_fold(model_fn: Callable, diffuser: Any, fold: int, batch_size: int,
                 shape: Sequence[int], seed: int = 2022, device: Any = "cuda",
-                collect: Sequence[str] = ()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                collect: Sequence[str] = (), dp: Optional[DataParallelSampler] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One fold: ``batch_size`` noises of ``shape`` (C, H, W) through the
     sampler; returns (the samples [B, C, H, W], the ``collect``ed per-step
-    values [S, B, C, H, W]), on the device, unclipped."""
+    values [S, B, C, H, W]), on the device, unclipped; ``dp`` shares the
+    rows out over the ranks."""
     generator = fold_generator(seed, fold, device)
     noise = torch.randn(batch_size, *shape, generator=generator, device=torch.device(device))
-    return diffuser.sample_loop(model_fn, noise, generator, collect=collect)
+    dp = dp or DataParallelSampler()
+    local, b = dp.pad_shard(noise)
+    x, ys = diffuser.sample_loop(model_fn, local, dp.row_generator(generator, b), collect=collect)
+    return dp.gather(x, b), {k: dp.gather(v, b, dim=1) for k, v in ys.items()}
 
 
 @torch.no_grad()
 def interpolate_row(model_fn: Callable, diffuser: Any, index: int, n_interpolate: int,
-                    shape: Sequence[int], seed: int = 2022, device: Any = "cuda") -> torch.Tensor:
+                    shape: Sequence[int], seed: int = 2022, device: Any = "cuda",
+                    dp: Optional[DataParallelSampler] = None) -> torch.Tensor:
     """``n_interpolate`` samples along the slerp between two noises of row ``index``."""
     generator = fold_generator(seed, index, device)
     z1, z2 = (torch.randn(*shape, generator=generator, device=torch.device(device))
               for _ in range(2))
     noise = torch.stack([slerp(float(t), z1, z2) for t in np.linspace(0, 1, n_interpolate)])
-    return diffuser.sample(model_fn, noise, generator)
+    return (dp or DataParallelSampler()).run(lambda x, generator: diffuser.sample(
+        model_fn, x, generator), noise, generator=generator)
 
 
 @torch.no_grad()
@@ -197,10 +206,8 @@ def reconstruct(model_fn: Callable, diffuser: Any, images: torch.Tensor) -> torc
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args, unknown = parse_args(argv)
     logger = get_logger()
-    try:
-        device = resolve_device(args.device, cli="sample_uncond")
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from None
+    device = open_device(args.device, "sample_uncond")
+    dp = DataParallelSampler()
     conf = load_conf(args, unknown)
     shape = image_shape(conf)
     diffuser = build_diffuser(args, conf)
@@ -216,10 +223,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.mode == "sample":
         idx = 0
         for fold, bs in enumerate(amortize(args.n_samples, args.batch_size)):
-            images, _ = sample_fold(model_fn, diffuser, fold, bs, shape, args.seed, device)
-            for img in to_nhwc(images):
-                save_image(img, path(idx))
-                idx += 1
+            images, _ = sample_fold(model_fn, diffuser, fold, bs, shape, args.seed, device, dp=dp)
+            if dp.is_main:
+                for b, img in enumerate(to_nhwc(images)):
+                    save_image(img, path(idx + b))
+            idx += bs
             logger.info(f"Sampled {idx}/{args.n_samples}")
     elif args.mode in ("denoise", "progressive"):
         key = "sample" if args.mode == "denoise" else "pred_x0"
@@ -227,17 +235,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         idx = 0
         for fold, bs in enumerate(amortize(args.n_samples, args.batch_size)):
             _, ys = sample_fold(model_fn, diffuser, fold, bs, shape, args.seed, device,
-                                collect=(key,))
+                                collect=(key,), dp=dp)
             traj = to_nhwc(ys[key])[::-1][::freq][::-1]  # every freq-th, ending at the last
-            for b in range(bs):
+            for b in range(bs if dp.is_main else 0):
                 save_image_grid(traj[:, b], path(idx), nrow=len(traj))
                 idx += 1
             logger.info(f"Sampled {idx}/{args.n_samples}")
     elif args.mode == "interpolate":
         for i in range(args.n_samples):
             out = interpolate_row(model_fn, diffuser, i, args.n_interpolate, shape, args.seed,
-                                  device)
-            save_image_grid(to_nhwc(out), path(i), nrow=args.n_interpolate)
+                                  device, dp=dp)
+            if dp.is_main:
+                save_image_grid(to_nhwc(out), path(i), nrow=args.n_interpolate)
             logger.info(f"Sampled {i + 1}/{args.n_samples}")
     else:  # reconstruction
         if not args.input_dir:
@@ -247,8 +256,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         for i in range(0, n, args.batch_size):
             batch = np.stack([dataset[j] for j in range(i, min(i + args.batch_size, n))])
             images = torch.from_numpy(batch).permute(0, 3, 1, 2).to(device)
-            recon = to_nhwc(reconstruct(model_fn, diffuser, images))
-            for b in range(len(batch)):
+            recon = to_nhwc(dp.run(lambda x: reconstruct(model_fn, diffuser, x), images))
+            for b in range(len(batch) if dp.is_main else 0):
                 save_image_grid(np.stack([batch[b], recon[b]]), path(i + b), nrow=2)
             logger.info(f"Reconstructed {min(i + args.batch_size, n)}/{n}")
     logger.info("Done")

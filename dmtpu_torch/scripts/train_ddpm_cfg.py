@@ -28,8 +28,10 @@ without a card the CLI fails unless ``--device cpu`` is given.  Overrides are
 error.  The metrics stay on the device and are read at the print, save and
 sample boundaries and at the last step.
 
-Not ported: data-parallel and sharded training (one card) and learning-rate
-schedules given as configs.
+Under ``torchrun --nproc_per_node N`` the run is data-parallel over N ranks
+(``TrainRun``: each rank takes its rows of every batch, the gradients are
+averaged over the ranks, as the JAX CLIs' mesh of fsdp 1) and equals the
+one-rank run of a model without dropout.
 """
 from __future__ import annotations
 
@@ -86,13 +88,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     state = TrainState.create(model, optimizer, ema_decay=conf.train.ema_decay,
                               ema_gradual=conf.train.get("ema_gradual", True),
                               ema_dtype=conf.train.get("ema_dtype"))
+    state = run.place(state)
     load_seconds = run.resume(state)
     loss_fn = make_diffusion_loss_fn(
         diffuser, lambda x, t, **kw: model(x, t, train=True, **kw),
         int(conf.diffusion.params.total_steps), p_uncond=conf.train.p_uncond,
         null_label=num_classes)
     train_step = make_train_step(loss_fn, clip_grad_norm=conf.train.clip_grad_norm,
-                                 micro_batches=run.micro_batches, seed=seed)
+                                 micro_batches=run.micro_batches, seed=seed,
+                                 mesh=run.mesh)
 
     sampler = eval_sampler(conf)
     shape = (conf.data.get("img_channels", 3),) + (conf.data.params.img_size,) * 2

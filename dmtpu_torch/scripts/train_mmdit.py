@@ -25,8 +25,10 @@ resume, overrides and ``--device`` are ``train_ddpm_cfg``'s
 optimizer state and a ``train.ema_dtype: bfloat16`` shadow follow it), as
 ``configs/sd3_medium.yaml`` advises for SD3-medium.
 
-Not ported: data-parallel and sharded training (one card), learning-rate
-schedules given as configs.
+Under ``torchrun --nproc_per_node N`` the run is data-parallel over N ranks
+(``TrainRun``: each rank takes its rows of every batch, the gradients are
+averaged over the ranks, as the JAX CLIs' mesh of fsdp 1) and equals the
+one-rank run of a model without dropout.
 """
 from __future__ import annotations
 
@@ -132,11 +134,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     state = TrainState.create(model, optimizer, ema_decay=conf.train.ema_decay,
                               ema_gradual=conf.train.get("ema_gradual", True),
                               ema_dtype=conf.train.get("ema_dtype"))
+    state = run.place(state)
     load_seconds = run.resume(state)
     loss_fn = make_diffusion_loss_fn(diffuser, train_apply(model),
                                      int(conf.diffusion.params.total_steps))
     train_step = make_train_step(loss_fn, clip_grad_norm=conf.train.clip_grad_norm,
-                                 micro_batches=run.micro_batches, seed=seed)
+                                 micro_batches=run.micro_batches, seed=seed,
+                                 mesh=run.mesh)
 
     sampler = eval_sampler(conf)
     n_samples = conf.train.n_samples

@@ -31,9 +31,10 @@ Config keys beside the model, diffusion, data and dataloader blocks:
                towers, only the adapters train, and the checkpoints hold
                only them
 
-Not ported: learning-rate schedules given as configs, data-parallel and
-sharded training (one card), and LoRA together with the UNet's
-``use_checkpoint`` (the recompute would not see the merged weights).
+Under ``torchrun --nproc_per_node N`` the run is data-parallel over N ranks
+(``TrainRun``: each rank takes its rows of every batch, the gradients are
+averaged over the ranks, as the JAX CLIs' mesh of fsdp 1) and equals the
+one-rank run of a model without dropout.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from dmtpu_torch.scripts._common import TrainRun, to_device
 from dmtpu_torch.scripts.sample_sd import LATENT_CHANNELS
 from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image_grid
+from dmtpu_torch.utils import rows
 
 UNetFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -69,11 +71,11 @@ def make_sd_loss_fn(sd, diffuser, empty_ids: torch.Tensor, p_uncond: float, tota
         with torch.no_grad():
             z0 = sd.encode_latent(images, generator)
             if p_uncond > 0:
-                drop = torch.rand(b, generator=generator, device=ids.device) < p_uncond
+                drop = rows.rand(b, generator, ids.device) < p_uncond
                 ids = torch.where(drop[:, None], empty_ids, ids)
             context = sd.text_encoder_encode_tokens(ids)
-        t = torch.randint(0, total_steps, (b,), generator=generator, device=z0.device)
-        eps = torch.randn(z0.shape, generator=generator, device=z0.device, dtype=z0.dtype)
+        t = rows.randint(0, total_steps, (b,), generator, z0.device)
+        eps = rows.randn(z0.shape, generator, z0.device, z0.dtype)
         return diffuser.loss_func(lambda x, tt: unet(x, tt, context), z0, t, eps=eps)
 
     return loss_fn
@@ -146,9 +148,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
             lora_scale,
         )
 
-        if sd.unet.use_checkpoint:
-            raise NotImplementedError("LoRA with the UNet's use_checkpoint is not ported: the "
-                                      "recompute would not see the merged weights")
         rank = int(lora_conf["rank"])
         scale = lora_scale(rank, lora_conf.get("alpha"))
         sd.unet.requires_grad_(False)
@@ -181,9 +180,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     state = TrainState.create(trainable, optimizer, ema_decay=conf.train.ema_decay,
                               ema_gradual=conf.train.get("ema_gradual", True),
                               ema_dtype=conf.train.get("ema_dtype"))
+    state = run.place(state)
     load_seconds = run.resume(state)
     train_step = make_train_step(loss_fn, clip_grad_norm=conf.train.clip_grad_norm,
-                                 micro_batches=run.micro_batches, seed=seed)
+                                 micro_batches=run.micro_batches, seed=seed,
+                                 mesh=run.mesh)
 
     # the periodic CFG preview through the EMA weights
     dp = dict(conf.diffusion.get("params", None) or {})

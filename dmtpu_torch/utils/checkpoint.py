@@ -8,6 +8,12 @@ trainable module's ``state_dict``, the optimizer's, the EMA's shadow with
 its ``num_updates``, ``decay`` and ``gradual``, and the step.  The JAX package
 writes orbax trees instead: the two packages' checkpoints do not read each
 other.
+
+A train state sharded over ranks (``parallel.shard_train_state``) is saved
+in the same one-card format: every rank gathers the full tensors of its
+sharded ``DTensor``s (a collective, so every rank calls ``save_checkpoint``)
+and rank 0 writes the file.  Loading reads the full file on every rank and
+shards each tensor as the state's own is sharded.
 """
 from __future__ import annotations
 
@@ -15,8 +21,39 @@ import os
 from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 STATE_FILE = "state.pt"
+
+
+def _full(tree: Any) -> Any:
+    """``tree`` with each ``DTensor`` gathered to its full tensor."""
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_full(v) for v in tree]
+    return tree
+
+
+def _like(value: torch.Tensor, current: Any) -> torch.Tensor:
+    """A full loaded tensor placed as ``current`` is (sharded when it is a
+    ``DTensor``)."""
+    if isinstance(current, DTensor) and not isinstance(value, DTensor):
+        return distribute_tensor(value.to(current.dtype), current.device_mesh, current.placements)
+    return value
+
+
+def _optimizer_state_like(blob: Dict[str, Any], optimizer) -> Dict[str, Any]:
+    """A loaded optimizer state dict with each tensor of a parameter's shape
+    sharded as that (sharded) parameter."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    state = {i: {k: _like(v, params[i]) if torch.is_tensor(v) and v.shape == params[i].shape
+                 else v for k, v in entry.items()}
+             for i, entry in blob["state"].items()}
+    return {**blob, "state": state}
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
@@ -24,17 +61,20 @@ def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
     file and a rename, so a cut-off save leaves no half file) and return the
     step directory."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"step{step:0>6d}")
-    os.makedirs(path, exist_ok=True)
     ema = state.ema
     blob = {"step": int(state.step),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
+            "model": _full(state.model.state_dict()),
+            "optimizer": _full(state.optimizer.state_dict()),
             "ema": None if ema is None else {
-                "shadow": ema.shadow, "num_updates": int(ema.num_updates),
+                "shadow": _full(ema.shadow), "num_updates": int(ema.num_updates),
                 "decay": float(ema.decay), "gradual": bool(ema.gradual)}}
-    tmp = os.path.join(path, STATE_FILE + ".tmp")
-    torch.save(blob, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, STATE_FILE + ".tmp")
+        torch.save(blob, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+    if dist.is_initialized():
+        dist.barrier()
     return path
 
 
@@ -49,8 +89,9 @@ def load_checkpoint(path: str, state):
     must have the checkpoint's keys; the EMA shadow keeps its dtype."""
     device = next(state.model.parameters()).device
     blob = _load(path, device)
-    state.model.load_state_dict(blob["model"])
-    state.optimizer.load_state_dict(blob["optimizer"])
+    current = state.model.state_dict()
+    state.model.load_state_dict({k: _like(v, current.get(k)) for k, v in blob["model"].items()})
+    state.optimizer.load_state_dict(_optimizer_state_like(blob["optimizer"], state.optimizer))
     if (blob["ema"] is None) != (state.ema is None):
         raise ValueError(f"{path}: the checkpoint and the train state disagree on keeping "
                          "an EMA")
@@ -61,7 +102,7 @@ def load_checkpoint(path: str, state):
                              "train state's")
         with torch.no_grad():
             for name, s in state.ema.shadow.items():
-                s.copy_(shadow[name])
+                s.copy_(_like(shadow[name], s))
         state.ema.num_updates = blob["ema"]["num_updates"]
         state.ema.decay = blob["ema"]["decay"]
         state.ema.gradual = blob["ema"]["gradual"]

@@ -14,11 +14,18 @@ given parameters, computing what the optax chain computes:
 - ``sgd``: ``torch.optim.SGD``, whose coupled weight decay and momentum
   buffer compute ``optax.chain(add_decayed_weights, sgd(momentum, nesterov))``.
 
+Each factory's ``lr`` is a number or a ``{target:, params:}`` schedule
+config naming one of optax's schedules (``SCHEDULES``: the same formulas,
+computed in f32 as optax computes them, without importing optax; any other
+target raises ``ValueError``).  A scheduled optimizer sets every param
+group's ``lr`` to ``schedule(k)`` before its update k, counting applied
+updates from 0 as optax's ``count`` does (not micro-batches), and keeps k in
+its param groups (``lr_updates``), so a resumed run goes on where it stopped.
+
 ``lr_fn`` gives the learning rate of a config's optimizer for logging.
 
 Not ported, since no caller of the JAX factories sets them: a bf16 first
-moment (``mu_dtype``), adafactor's momentum and parameter scaling, and
-learning-rate schedules given as configs.
+moment (``mu_dtype``) and adafactor's momentum and parameter scaling.
 """
 from __future__ import annotations
 
@@ -28,12 +35,145 @@ import numpy as np
 import torch
 
 
+Schedule = Callable[[int], float]
+_f32 = np.float32
+
+
+def constant_schedule(value: float) -> Schedule:
+    return lambda count: float(value)
+
+
+def polynomial_schedule(init_value: float, end_value: float, power: float,
+                        transition_steps: int, transition_begin: int = 0) -> Schedule:
+    if transition_steps <= 0:
+        return constant_schedule(init_value)
+    transition_begin = max(transition_begin, 0)
+
+    def schedule(count: int) -> float:
+        frac = _f32(1) - _f32(min(max(count - transition_begin, 0), transition_steps)) \
+            / _f32(transition_steps)
+        return float(_f32(init_value - end_value) * frac ** _f32(power)
+                     + _f32(end_value))
+
+    return schedule
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int,
+                    transition_begin: int = 0) -> Schedule:
+    return polynomial_schedule(init_value, end_value, 1, transition_steps, transition_begin)
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0,
+                          exponent: float = 1.0) -> Schedule:
+    if not decay_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive decay_steps, got "
+                         f"decay_steps={decay_steps}.")
+
+    def schedule(count: int) -> float:
+        cosine = _f32(0.5) * (_f32(1) + np.cos(_f32(np.pi) * _f32(min(count, decay_steps))
+                                               / _f32(decay_steps)))
+        return float(_f32(init_value) * ((_f32(1) - _f32(alpha)) * cosine ** _f32(exponent)
+                                         + _f32(alpha)))
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0,
+                                 exponent: float = 1.0) -> Schedule:
+    """A linear warmup to ``peak_value``, then a cosine decay over the steps
+    up to ``decay_steps`` (optax joins the two at ``warmup_steps``)."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    warmup = linear_schedule(init_value, peak_value, warmup_steps)
+    decay = cosine_decay_schedule(peak_value, decay_steps - warmup_steps, alpha, exponent)
+    return lambda count: warmup(count) if count < warmup_steps else decay(count - warmup_steps)
+
+
+def exponential_decay(init_value: float, transition_steps: int, decay_rate: float,
+                      transition_begin: int = 0, staircase: bool = False,
+                      end_value: Optional[float] = None) -> Schedule:
+    if transition_steps <= 0 or decay_rate == 0:
+        return constant_schedule(init_value)
+    transition_begin = max(transition_begin, 0)
+    clip = max if decay_rate < 1.0 else min
+
+    def schedule(count: int) -> float:
+        decreased = count - transition_begin
+        if decreased <= 0:
+            value = _f32(init_value)
+        else:
+            p = _f32(decreased) / _f32(transition_steps)
+            value = _f32(init_value) * _f32(decay_rate) ** (np.floor(p) if staircase else p)
+        return float(value if end_value is None else clip(value, _f32(end_value)))
+
+    return schedule
+
+
+def piecewise_constant_schedule(init_value: float,
+                                boundaries_and_scales: Optional[Mapping] = None) -> Schedule:
+    pairs = sorted((int(b), float(s)) for b, s in (boundaries_and_scales or {}).items())
+    if any(scale < 0.0 for _, scale in pairs):
+        raise ValueError("`piecewise_constant_schedule` expects non-negative scale factors")
+
+    def schedule(count: int) -> float:
+        value = _f32(init_value)
+        for boundary, scale in pairs:
+            if count >= boundary:
+                value = _f32(scale) * value
+        return float(value)
+
+    return schedule
+
+
+# the schedule targets a config may name, as the JAX factories instantiate them
+SCHEDULES = {f"optax.{fn.__name__}": fn for fn in (
+    constant_schedule, linear_schedule, polynomial_schedule, cosine_decay_schedule,
+    warmup_cosine_decay_schedule, exponential_decay, piecewise_constant_schedule)}
+
+
+def build_schedule(conf: Mapping) -> Schedule:
+    """The step -> lr function of a ``{target:, params:}`` schedule config."""
+    target = str(conf["target"]).replace("optax.schedules.", "optax.")
+    if target not in SCHEDULES:
+        raise ValueError(f"learning-rate schedule {conf['target']!r} is not one of the "
+                         f"supported optax schedules: {sorted(SCHEDULES)}")
+    return SCHEDULES[target](**dict(conf.get("params", None) or {}))
+
+
+def _resolve_lr(lr) -> tuple[Optional[float], Optional[Schedule]]:
+    """(the lr of update 0, the schedule) of a number or a schedule config."""
+    if isinstance(lr, Mapping):
+        schedule = build_schedule(lr)
+        return schedule(0), schedule
+    return (None if lr is None else float(lr)), None
+
+
+def scheduled(optimizer: torch.optim.Optimizer,
+              schedule: Optional[Schedule]) -> torch.optim.Optimizer:
+    """``optimizer`` with each param group's lr set to ``schedule(k)`` before
+    its update k (k kept in the group as ``lr_updates``); unchanged when
+    ``schedule`` is None.  ``optimizer.lr_schedule`` is the schedule."""
+    optimizer.lr_schedule = schedule
+    if schedule is None:
+        return optimizer
+    for group in optimizer.param_groups:
+        group.setdefault("lr_updates", 0)
+
+    def set_lr(opt, args, kwargs) -> None:
+        for group in opt.param_groups:
+            group["lr"] = schedule(group["lr_updates"])
+            group["lr_updates"] += 1
+
+    optimizer.register_step_pre_hook(set_lr)
+    return optimizer
+
+
 def lr_fn(optim_conf: Mapping) -> Callable[[int], float]:
     """step -> the learning rate the optimizer of ``optim_conf`` applies, for
-    logging, by the JAX function's rules: a config without ``lr`` logs 1e-3
-    for the repo's factories (their default) and NaN for adafactor (no fixed
-    step size) or an unknown target.  A schedule given as a config raises:
-    schedules are not ported."""
+    logging, by the JAX function's rules: a schedule config gives its value
+    at the step (one update a step); a config without ``lr`` logs 1e-3 for
+    the repo's factories (their default) and NaN for adafactor (no fixed
+    step size) or an unknown target."""
     params = dict(optim_conf.get("params", None) or {})
     lr = params.get("lr", params.get("learning_rate"))
     if lr is None:
@@ -43,34 +183,40 @@ def lr_fn(optim_conf: Mapping) -> Callable[[int], float]:
             return lambda step: 1e-3
         return lambda step: float("nan")
     if isinstance(lr, Mapping):
-        raise NotImplementedError("learning-rate schedules given as configs are not ported")
+        return build_schedule(lr)
     return lambda step: float(lr)
 
 
-def adam(params: Iterable, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+def adam(params: Iterable, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
          weight_decay: float = 0.0) -> torch.optim.Optimizer:
+    lr, schedule = _resolve_lr(lr)
     if weight_decay:
-        return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
-    return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+        return scheduled(torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
+                                           weight_decay=weight_decay), schedule)
+    return scheduled(torch.optim.Adam(params, lr=lr, betas=betas, eps=eps), schedule)
 
 
-def adamw(params: Iterable, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+def adamw(params: Iterable, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
           weight_decay: float = 0.01) -> torch.optim.Optimizer:
-    return torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+    lr, schedule = _resolve_lr(lr)
+    return scheduled(torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
+                                       weight_decay=weight_decay), schedule)
 
 
-def sgd(params: Iterable, lr: float, momentum: float = 0.0, weight_decay: float = 0.0,
+def sgd(params: Iterable, lr, momentum: float = 0.0, weight_decay: float = 0.0,
         nesterov: bool = False) -> torch.optim.Optimizer:
-    return torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay,
-                           nesterov=nesterov)
+    lr, schedule = _resolve_lr(lr)
+    return scheduled(torch.optim.SGD(params, lr=lr, momentum=momentum,
+                                     weight_decay=weight_decay, nesterov=nesterov), schedule)
 
 
-def adafactor(params: Iterable, lr: Optional[float] = None, min_dim_size_to_factor: int = 128,
+def adafactor(params: Iterable, lr=None, min_dim_size_to_factor: int = 128,
               decay_rate: float = 0.8, clipping_threshold: Optional[float] = 1.0,
               weight_decay: float = 0.0, eps: float = 1e-30) -> "Adafactor":
-    return Adafactor(params, lr=lr, min_dim_size_to_factor=min_dim_size_to_factor,
-                     decay_rate=decay_rate, clipping_threshold=clipping_threshold,
-                     weight_decay=weight_decay, eps=eps)
+    lr, schedule = _resolve_lr(lr)
+    return scheduled(Adafactor(params, lr=lr, min_dim_size_to_factor=min_dim_size_to_factor,
+                               decay_rate=decay_rate, clipping_threshold=clipping_threshold,
+                               weight_decay=weight_decay, eps=eps), schedule)
 
 
 def factored_dims(shape: torch.Size, min_dim_size_to_factor: int) -> Optional[tuple[int, int]]:

@@ -163,8 +163,10 @@ def test_remat_gives_the_same_output_and_gradients():
         grads.append([p.grad for p in m.parameters()])
     for ga, gb in zip(*grads):
         torch.testing.assert_close(ga, gb, rtol=1e-5, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tdit.DiT(**DIT_SMALL, use_checkpoint="dots")
+    # a policy name is ported (tests/test_torch_remat.py); an unknown one raises
+    assert tdit.DiT(**DIT_SMALL, use_checkpoint="dots").use_checkpoint is True
+    with pytest.raises(ValueError, match="unknown checkpoint policy"):
+        tdit.DiT(**DIT_SMALL, use_checkpoint="dot")
 
 
 def test_dit_configs_and_factory():

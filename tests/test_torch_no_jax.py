@@ -44,7 +44,10 @@ def test_the_port_has_its_new_modules():
                  "dmtpu_torch/scripts/sample_clip_guidance.py",
                  "dmtpu_torch/scripts/encode_prompts.py", "dmtpu_torch/eval/__init__.py",
                  "dmtpu_torch/eval/fid.py", "dmtpu_torch/eval/inception.py",
-                 "dmtpu_torch/scripts/evaluate.py", "dmtpu_torch/scripts/accept.py"):
+                 "dmtpu_torch/scripts/evaluate.py", "dmtpu_torch/scripts/accept.py",
+                 "dmtpu_torch/parallel/mesh.py", "dmtpu_torch/parallel/sp.py",
+                 "dmtpu_torch/parallel/tp.py", "dmtpu_torch/parallel/pp.py",
+                 "dmtpu_torch/utils/rows.py"):
         assert name in SOURCES
 
 

@@ -28,7 +28,6 @@ from dmtpu.ops import flash_small_d as jfsd
 from dmtpu.ops import groupnorm as jgn
 from dmtpu_torch.ops import (
     attention,
-    flash_attention,
     flash_attention_backward_reference,
     flash_attention_bwd,
     flash_attention_fwd,
@@ -145,9 +144,9 @@ def _torch_grads(fn, arrays, do):
 @pytest.mark.parametrize("s,d,block_q,block_k", [(256, 40, 128, 128), (512, 80, 128, 256),
                                                  (512, 40, 128, 256), (256, 80, 128, 128)])
 def test_flash_backward_matches_pallas_interpret(s, d, block_q, block_k):
-    """K2's plain version, and the FlashAttention function on the CPU (whose
-    bodies are the plain versions), against jax.grad of the Pallas
-    flash_small_d (forward and fused backward kernels) in interpret mode."""
+    """K2's plain version, and the attention operator on the CPU (``mha``
+    and its autograd there), against jax.grad of the Pallas flash_small_d
+    (forward and fused backward kernels) in interpret mode."""
     b, h = 2, 2
     q, k, v = _qkv(5, b, s, s, h, d)
     do = np.random.RandomState(6).randn(b, s, h, d).astype(np.float32)
@@ -161,7 +160,7 @@ def test_flash_backward_matches_pallas_interpret(s, d, block_q, block_k):
         want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
     o, lse = flash_attention_fwd(t(q), t(k), t(v), scale)
     ref = flash_attention_backward_reference(t(q), t(k), t(v), o, lse, t(do), scale)
-    got = _torch_grads(lambda *a: flash_attention(*a, scale), (q, k, v), do)
+    got = _torch_grads(lambda *a: torch.ops.dmtpu.attention(*a, scale)[0], (q, k, v), do)
     for name, w, r, g in zip("qkv", want, ref, got):
         np.testing.assert_allclose(r.numpy(), np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
         np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
@@ -169,8 +168,8 @@ def test_flash_backward_matches_pallas_interpret(s, d, block_q, block_k):
 
 @pytest.mark.parametrize("sq,d", [(256, 160), (64, 40), (128, 80)])
 def test_cross_attention_grads_match_jax_mha(sq, d):
-    """S_k=77 at SD's head dims: the FlashAttention function's gradients on
-    the CPU (K2's plain version) against jax.grad of the JAX package's mha."""
+    """S_k=77 at SD's head dims: the attention operator's gradients on the
+    CPU against jax.grad of the JAX package's mha."""
     q, k, v = _qkv(7, 2, sq, 77, 2, d)
     do = np.random.RandomState(8).randn(2, sq, 2, d).astype(np.float32)
 
@@ -178,33 +177,34 @@ def test_cross_attention_grads_match_jax_mha(sq, d):
         return jnp.sum(jattn.mha(qq, kk, vv) * jnp.asarray(do))
 
     want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
-    got = _torch_grads(flash_attention, (q, k, v), do)
+    got = _torch_grads(lambda *a: torch.ops.dmtpu.attention(*a, None)[0], (q, k, v), do)
     for name, w, g in zip("qkv", want, got):
         np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
 
 
 def test_flash_attention_function_wiring():
-    """What the autograd function saves and hands back, on the CPU: the
-    plain forward's output and f32 lse, its inputs' dtypes for the
-    gradients, the backward reference's exact values, and the head-dim
-    default for ``scale``."""
-    q, k, v = (t(a).bfloat16().requires_grad_() for a in _qkv(9, 2, 64, 77, 2, 40))
+    """What the attention operator hands back on the CPU: ``mha``'s output
+    and an empty f32 lse, the head-dim default for ``scale``, gradients in
+    the inputs' dtypes equal to ``mha``'s autograd; and K2's wrapper there
+    is the backward reference exactly."""
+    arrays = _qkv(9, 2, 64, 77, 2, 40)
+    q, k, v = (t(a).bfloat16().requires_grad_() for a in arrays)
     do = torch.from_numpy(np.random.RandomState(10).randn(2, 64, 2, 40).astype(np.float32))
-    o = flash_attention(q, k, v)
-    saved = o.grad_fn.saved_tensors
-    assert [tuple(x.shape) for x in saved] == [(2, 64, 2, 40), (2, 77, 2, 40), (2, 77, 2, 40),
-                                               (2, 64, 2, 40), (2, 2, 64)]
-    assert [x.dtype for x in saved] == [torch.bfloat16] * 4 + [torch.float32]
-    want_o, want_lse = flash_attention_reference(q, k, v, 40 ** -0.5)
-    assert torch.equal(o, want_o) and torch.equal(saved[4], want_lse)
+    o, lse = torch.ops.dmtpu.attention(q, k, v, None)
+    assert lse.dtype == torch.float32 and lse.numel() == 0
+    leaves = [t(a).bfloat16().requires_grad_() for a in arrays]
+    want_o = mha(*leaves, 40 ** -0.5)
+    assert o.dtype == torch.bfloat16 and torch.equal(o, want_o)
     o.backward(do.bfloat16())
-    want = flash_attention_backward_reference(q.detach(), k.detach(), v.detach(), want_o,
-                                              want_lse, do.bfloat16(), 40 ** -0.5)
-    for leaf, w in zip((q, k, v), want):
+    want_o.backward(do.bfloat16())
+    for leaf, w in zip((q, k, v), leaves):
         assert leaf.grad.dtype == torch.bfloat16
-        assert torch.equal(leaf.grad, w)
+        assert torch.equal(leaf.grad, w.grad)
+    ref_o, ref_lse = flash_attention_reference(q.detach(), k.detach(), v.detach(), 40 ** -0.5)
+    want = flash_attention_backward_reference(q.detach(), k.detach(), v.detach(), ref_o,
+                                              ref_lse, do.bfloat16(), 40 ** -0.5)
     assert all(torch.equal(a, b) for a, b in zip(
-        flash_attention_bwd(q.detach(), k.detach(), v.detach(), want_o, want_lse,
+        flash_attention_bwd(q.detach(), k.detach(), v.detach(), ref_o, ref_lse,
                             do.bfloat16()), want))
 
 

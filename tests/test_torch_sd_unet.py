@@ -113,11 +113,17 @@ def test_tiny_unet_ddim_matches():
     {"use_checkpoint": "nothing"}, {"use_checkpoint": "everything"},
 ])
 def test_unported_options_raise(opt):
-    """What is still refused names its ROADMAP.md item: selective remat item
-    H (the SDXL options are ported: ``tests/test_torch_sdxl.py``; the
+    """The selective remat policies, once refused naming ROADMAP.md's item
+    H, are ported (their gradients: ``tests/test_torch_remat.py``): each
+    name builds the model with remat on under that policy, and a name that
+    is not a policy raises as the JAX package's ``normalize_use_checkpoint``
+    does (the SDXL options are ported: ``tests/test_torch_sdxl.py``; the
     ADM-attention path: ``test_adm_attention_options_match_jax``)."""
     cfg = dict(TINY_SD_UNET_CFG, **opt)
-    with pytest.raises(NotImplementedError, match="item H"):
+    model = SDUNetModel(**cfg, device="meta")
+    assert model.use_checkpoint is True and model.remat_policy is not None
+    cfg["use_checkpoint"] += "_unknown"
+    with pytest.raises(ValueError, match="unknown checkpoint policy"):
         SDUNetModel(**cfg, device="meta")
 
 

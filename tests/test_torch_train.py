@@ -155,9 +155,9 @@ def test_remat_wraps_each_resblock_and_spatial_transformer(monkeypatch):
     wrapped = []
     real = adm_module.remat_call
 
-    def counting(module, *args):
+    def counting(module, *args, **kwargs):
         wrapped.append(type(module))
-        return real(module, *args)
+        return real(module, *args, **kwargs)
 
     monkeypatch.setattr(adm_module, "remat_call", counting)
     model = SDUNetModel(**TINY_SD_UNET_CFG, use_checkpoint=True)

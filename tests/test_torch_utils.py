@@ -129,9 +129,19 @@ def test_lr_fn_matches_jax(conf):
 
 
 def test_lr_schedule_config_is_not_ported():
-    with pytest.raises(NotImplementedError, match="schedules"):
-        toptim.lr_fn({"target": "dmtpu.utils.optim.adamw", "params": {
-            "lr": {"target": "optax.cosine_decay_schedule", "params": {"init_value": 1.0}}}})
+    """Schedules given as configs, once refused, are ported
+    (``tests/test_torch_schedules.py``): the named optax schedules log their
+    values as the JAX ``lr_fn`` does, and any other target raises, listing
+    the supported names."""
+    conf = {"target": "dmtpu.utils.optim.adamw", "params": {
+        "lr": {"target": "optax.cosine_decay_schedule",
+               "params": {"init_value": 1.0, "decay_steps": 10}}}}
+    got, want = toptim.lr_fn(conf), joptim.lr_fn(conf)
+    for step in (0, 3, 12):
+        assert got(step) == pytest.approx(want(step), rel=1e-6, abs=1e-7)
+    conf["params"]["lr"]["target"] = "optax.sgdr_schedule"
+    with pytest.raises(ValueError, match="optax.warmup_cosine_decay_schedule"):
+        toptim.lr_fn(conf)
 
 
 def test_checkpoint_layout_and_host_load(tmp_path):
