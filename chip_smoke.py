@@ -35,7 +35,9 @@ through ``python -m dmtpu_torch.scripts.accept`` (the CIFAR-10 UNet's DDIM-10
 samples through the FID InceptionV3) and ``python -m
 dmtpu_torch.scripts.evaluate`` (with CLIP-FID) (phase 20), and the selective
 remat policies, LoRA under remat, a learning-rate schedule, the data-parallel
-path of the CLIs and the ring attention fold (phase 21); for the SD paths the
+path of the CLIs and the ring attention fold (phase 21), and the UIs: the web
+UI's server over the CIFAR-10 UNets and the Stable Diffusion page's logic on
+SD1.5 (phase 22); for the SD paths the
 full-width SD1.5 UNet (``model_channels`` 320, ``context_dim`` 768, 8 heads,
 ``channel_mult`` (1, 2, 4, 4)) with f32 parameters, a bf16 torso and f32
 GroupNorm / softmax, random weights from a seed, on 64x64x4 latents with a
@@ -470,7 +472,27 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      dQ, dK and dV within 2e-2 of the largest entry of K1 / K2 on the whole
      sequence, and against f32 autograd through ``mha`` on the first sample
      within 1.5x the whole sequence's error plus 1e-3; the fold's and the
-     whole sequence's times.
+     whole sequence's times;
+ 22. the UIs: (a) the web UI (``dmtpu_torch.webui.app``: ``App`` and
+     ``make_handler``) served in a thread on 127.0.0.1 at a free port over
+     ``configs/ddpm_cifar10.yaml`` and ``configs/ddpm_cfg_cifar10.yaml`` at
+     full width with a bf16 torso, seeded random weights in a temporary
+     torch file: ``/health`` names the card; one warm-up, then the timed
+     ``/sample?sampler=ddim&steps=50&n=16&seed=0`` (the AdaGN UNet's with
+     ``&y=3&gs=3``): exact K1 / K3 launches (per UNet call 6 / 51, the AdaGN
+     UNet's 11 / 68 on the doubled batch), a PNG grid of 16 32x32 samples
+     that is the direct ``App.sample`` call's grid to one level; the
+     request's time over HTTP beside the direct call's and the PNG
+     encoding's, the card's idle share of a request under the profiler; the
+     request's images through the kernels and through the plain ops against
+     the same request on the f32 model (TF32 off): the kernel path within
+     1.5x the plain bf16 path's error plus 1e-3; (b) page 3's logic
+     (``dmtpu_torch.ui.sd.generate_sd``) on phase 8's SD1.5 stack (kept on
+     the host from phase 10 on): b1 512x512 DDIM-20 at s = 7.5, ToMe 0.5,
+     FreeU at SD1.5's scales, offset noise 0.1: exact launches (32 K1 and 61
+     K3 a UNet call on 2 samples, 30 K3 a decode), the time and idle share,
+     the images through the kernels and the plain ops against the f32 UNet's
+     as in (a).
 
 Before the last line it prints one JSON object with each kernel's launches in
 the timed main-path runs (K1 and K3 in DDIM-50, K2 in the 10 train steps,
@@ -502,8 +524,8 @@ call there; K1's first entry also sums one such call, ``celebahq_b16``), a
 seventh for K2's mma.sync instance at head dim 512 (its launches in the 10
 timed b16 CelebA-HQ train steps, its columns over the 6 calls of one step
 there; K2's first entry also sums one such step, ``celebahq_train_b16``; the
-launches of all three in phase 20's ``accept`` run, ``eval_accept_ddim_10_n2500``), the
-seconds of each phase, and the card's name and power limit.  The last line is
+launches of all three in phase 20's ``accept`` run, ``eval_accept_ddim_10_n2500``, and
+in phase 22's three UI requests, ``ui_*``), the seconds of each phase, and the card's name and power limit.  The last line is
 ``{"ok": true, "device": {...}}``.  It needs no network and leaves no
 process behind.
 """
@@ -905,6 +927,23 @@ SCHEDULE_STEPS, DP_SAMPLES, DP_PARAM_TOL = 3, 4, 1e-3
 RING_CHUNKS, RING_TOL = 4, 2e-2
 RING_SHAPES = {"sd15_s4096_d40": (16, 4096, 8, 40), "sd15_s1024_d80": (16, 1024, 8, 80),
                "cifar_s256_d256": (128, 256, 1, 256)}
+
+# phase 22: the UIs.  The web UI (``python -m dmtpu_torch.webui.app``) served in
+# a thread on 127.0.0.1 over CIFAR_CONFIG and CIFAR_CFG_CONFIG at full width with
+# a bf16 torso (PIXEL_OVERRIDES), seeded random weights in a temporary torch
+# file; one /sample request each: DDIM-50 at b16 (the form's defaults), the
+# AdaGN UNet's class UI_CFG_CLASS at guidance scale UI_CFG_SCALE.  Page 3's
+# logic (``dmtpu_torch.ui.sd``) on phase 8's SD1.5 stack: b1 512x512 DDIM-20,
+# ToMe 0.5, FreeU at SD1.5's scales, offset noise 0.1
+UI_QUERY = "sampler=ddim&steps=50&n=16&seed=0"
+UI_N, UI_STEPS, UI_CFG_CLASS, UI_CFG_SCALE = 16, 50, 3, 3.0
+UI_CALL = {"cifar": {"K1": 6, "K3": 51}, "adagn": {"K1": 11, "K3": ADAGN_GN_PER_CALL}}
+UI_SD = dict(sampler="ddim", steps=20, scale=7.5, height=512, width=512, tome_ratio=0.5,
+             freeu=True, offset_noise=0.1, batch_size=1, batch_count=1)
+UI_SD_PROMPT, UI_SD_NEGATIVE = "a photograph of an astronaut riding a horse", "blurry"
+# the card's idle share is read off a request of UI_IDLE_STEPS (page 3: UI_SD_IDLE_STEPS)
+# steps: the same work a step, and a trace the profiler reads in seconds, not tens
+UI_IDLE_STEPS, UI_SD_IDLE_STEPS = 10, 5
 
 
 def log(*args):
@@ -1404,10 +1443,13 @@ def main() -> int:
     ft = run_phase("9", phase_finetune_cli, dev, check, gen, ref_model, card)
 
     # ---- 10. the serving accelerators ----------------------------------------------
-    serve = run_phase("10", phase_serving, dev, check, t2i.pop("sd"), ref_model, card)
+    sd = t2i.pop("sd")
+    serve = run_phase("10", phase_serving, dev, check, sd, ref_model, card)
 
     # ---- 11. DiT-XL/2 and MDTv2-XL/2 through sample_cfg -------------------------------
-    del ref_model
+    # the SD1.5 stack and its f32 UNet wait on the host for phase 22
+    sd.to("cpu")
+    ref_model.to("cpu")
     torch.cuda.empty_cache()
     dit = run_phase("11", phase_dit, dev, check, gen, card, time_ms, host_us)
 
@@ -1454,6 +1496,11 @@ def main() -> int:
     # ---- 21. remat policies, LoRA under remat, a schedule, DP, the ring fold -------
     torch.cuda.empty_cache()
     remat_parallel = run_phase("21", phase_remat_parallel, dev, check, gen, card, time_ms)
+
+    # ---- 22. the UIs: the web UI over HTTP, page 3's logic on the SD1.5 stack ---------
+    torch.cuda.empty_cache()
+    ui = run_phase("22", phase_ui, dev, check, card, sd, ref_model)
+    del sd, ref_model
     log("phase seconds: " + json.dumps(phase_seconds))
     check("jax" not in sys.modules, "no JAX imported")
 
@@ -1479,7 +1526,8 @@ def main() -> int:
                       **{path: counted[name] for path, counted in celebahq["launches"].items()},
                       **{path: counted[name] for path, counted in evals["launches"].items()},
                       **{path: counted[name]
-                         for path, counted in remat_parallel["launches"].items()}}
+                         for path, counted in remat_parallel["launches"].items()},
+                      **{path: counted[name] for path, counted in ui["launches"].items()}}
                for name in ("K1", "K2", "K3")}
     def entry(name, source, replaces, launches, per, r):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1604,7 +1652,7 @@ def main() -> int:
         "sdxl": sdxl["metrics"], "pixel": pixel["metrics"],
         "pixel_train": pixel_train["metrics"], "guidance": guidance["metrics"],
         "celebahq_t5": celebahq["metrics"], "eval": evals["metrics"],
-        "remat_parallel": remat_parallel["metrics"],
+        "remat_parallel": remat_parallel["metrics"], "ui": ui["metrics"],
         "phase_seconds": phase_seconds, "card": card}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -6270,17 +6318,20 @@ KERNEL_CLASSES = (
 )
 
 
-def profile_by_class(fn, calls: int) -> dict:
+def profile_by_class(fn, calls: int, host_ops: bool = True) -> dict:
     """Device time per call of ``fn`` by class of kernel (``KERNEL_CLASSES``,
     else "other"), the twelve costliest kernels, the device span of each
     annotated range (such as ``Optimizer.step``; not a kernel, so not in the
-    classes) and the wall time per call, from ``torch.profiler``."""
+    classes) and the wall time per call, from ``torch.profiler``.  Without
+    ``host_ops`` the profiler traces the device alone: no annotated ranges,
+    and seconds instead of tens to read a trace of some ten thousand kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -6708,6 +6759,246 @@ def phase_remat_parallel(dev, check, gen, card, time_ms) -> dict:
         torch.cuda.empty_cache()
     metrics["ring_fold"] = ring
     return {"metrics": metrics, "launches": launches}
+
+
+def phase_ui(dev, check, card, sd, ref_model) -> dict:
+    """Phase 22 (see the module docstring): the web UI over the CIFAR-10 UNet
+    and the AdaGN UNet, served over HTTP, and page 3's logic on phase 8's
+    SD1.5 stack ``sd`` (bf16 UNet torso); ``ref_model`` is its f32 UNet with
+    the same weights."""
+    import base64
+    import io
+    import re
+    import shutil
+    import tempfile
+    import threading
+    import urllib.request
+    from http.server import HTTPServer
+
+    import numpy as np
+    import torch
+    import yaml
+    from PIL import Image
+    from dmtpu_torch.diffusions import DDIM
+    from dmtpu_torch.ops import plain_ops
+    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    from dmtpu_torch.ui import sd as sd_ui
+    from dmtpu_torch.ui import uncond
+    from dmtpu_torch.utils.config import instantiate_from_config, load_config, merge_dotlist
+    from dmtpu_torch.utils.image import make_grid, to_pil
+    from dmtpu_torch.webui import app as webui
+
+    def zero_counts():
+        flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+        group_norm_silu.launches = 0
+
+    def counts():
+        return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
+                "K3": group_norm_silu.launches}
+
+    def rel_err(a, ref) -> float:
+        a, ref = (torch.as_tensor(np.asarray(x, np.float32)) for x in (a, ref))
+        return ((a - ref).norm() / ref.norm()).item()
+
+    def f32_run(fn):
+        """``fn()`` through the plain ops with TF32 off (the f32 reference)."""
+        matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            with plain_ops():
+                return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+
+    metrics, launches = {}, {}
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ui_")
+    try:
+        # (a) the web UI: one server a config, each in a thread on a free port
+        for label, path, extra in (("cifar", CIFAR_CONFIG, ""),
+                                   ("adagn", CIFAR_CFG_CONFIG,
+                                    f"&y={UI_CFG_CLASS}&gs={UI_CFG_SCALE}")):
+            conf = merge_dotlist(load_config(path), PIXEL_OVERRIDES)
+            model = instantiate_from_config(conf["model"], device=dev)
+            init_random_(model, torch.Generator(device=dev).manual_seed(SEED + 22))
+            weights = os.path.join(tmp, f"{label}.pt")
+            torch.save(model.state_dict(), weights)
+            del model
+            paths = {}
+            for dtype in ("bfloat16", None):
+                d = conf.to_dict()
+                d["model"]["params"]["dtype"] = dtype
+                paths[dtype] = os.path.join(tmp, f"{label}_{dtype or 'float32'}.yaml")
+                with open(paths[dtype], "w") as f:
+                    yaml.safe_dump(d, f)
+            mark(f"{label}_weights")
+            t0 = time.perf_counter()
+            app = webui.App(paths["bfloat16"], weights, device=dev)
+            load_s = time.perf_counter() - t0
+            server = HTTPServer(("127.0.0.1", 0), webui.make_handler(app))
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            port = server.server_address[1]
+
+            def get(route):
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                            timeout=300) as r:
+                    return r.status, r.read().decode()
+
+            try:
+                status, body = get("/health")
+                health = json.loads(body)
+                log(f"ui {label}: /health {health}")
+                check(status == 200 and health["ok"] and health["device"] == str(dev)
+                      and health["device_name"] == torch.cuda.get_device_name(0),
+                      f"ui {label}: /health names the card")
+                route = f"/sample?{UI_QUERY}{extra}"
+                y, gs = (UI_CFG_CLASS, UI_CFG_SCALE) if extra else (-1, 3.0)
+                request = ("ddim", UI_STEPS, "fixed_small", UI_N, 0, y, gs)
+                # the card's busy share of a shorter request (after a warm-up one)
+                short = route.replace(f"steps={UI_STEPS}", f"steps={UI_IDLE_STEPS}")
+                profile = profile_by_class(lambda: get(short), 1, host_ops=False)
+                idle = max(0.0, 1.0 - profile["classes"]["total"] / profile["wall_ms"])
+                mark(f"{label}_profile")
+                zero_counts()
+                t0 = time.perf_counter()
+                status, body = get(route)
+                http_s = time.perf_counter() - t0
+                got = counts()
+                steps = len(DDIM(**uncond.sampler_params(
+                    app.conf, "ddim", UI_STEPS, "fixed_small", "uniform")).respaced_seq)
+                want = {"K1": steps * UI_CALL[label]["K1"], "K2": 0,
+                        "K3": steps * UI_CALL[label]["K3"]}
+                launches[f"ui_webui_{label}_ddim{UI_STEPS}_b{UI_N}"] = got
+                check(got == want, f"ui {label} /sample launches {got} == {want}")
+                found = re.search(r"data:image/png;base64,([A-Za-z0-9+/=]+)", body)
+                grid = (np.asarray(Image.open(io.BytesIO(base64.b64decode(found.group(1)))))
+                        if found else None)
+                # 16 samples of 32x32: 4x4 with 2-pixel padding
+                cols = int(math.ceil(math.sqrt(UI_N)))
+                side = 2 + cols * (app.shape[1] + 2)
+                check(status == 200 and grid is not None and grid.shape == (side, side, 3),
+                      f"ui {label} /sample: a PNG grid of {side}x{side}x3")
+                # the same sampling called directly, and the PNG encoding alone
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                images = app.sample(*request)
+                direct_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                webui.png_grid(images)
+                png_s = time.perf_counter() - t0
+                same = np.asarray(to_pil(make_grid(images, nrow=cols)))
+                check(grid is not None and np.abs(grid.astype(int) - same.astype(int)).max() <= 1,
+                      f"ui {label}: the PNG is the direct call's grid (to one level)")
+                mark(f"{label}_timed")
+                # the request's images through the kernels and the plain ops
+                # against the f32 model's (TF32 off)
+                with plain_ops():
+                    plain = app.sample(*request)
+                mark(f"{label}_plain")
+                ref_app = webui.App(paths[None], weights, device=dev)
+                want_images = f32_run(lambda: ref_app.sample(*request))
+                del ref_app
+                mark(f"{label}_f32")
+                err_k, err_p = rel_err(images, want_images), rel_err(plain, want_images)
+                metrics[f"webui_{label}"] = {
+                    "http_s": http_s, "direct_s": direct_s, "png_s": png_s,
+                    "png_share": png_s / http_s, "idle_share": idle, "idle_steps": UI_IDLE_STEPS,
+                    "load_s": load_s,
+                    "profile_device_ms": profile["classes"], "profile_wall_ms": profile["wall_ms"],
+                    "err_vs_f32": {"kernels": err_k, "plain_bf16": err_p}, "launches": got,
+                    "steps": steps, "batch": UI_N}
+                log(f"ui {label} /sample?{UI_QUERY}{extra}: {http_s:.4f} s over HTTP, "
+                    f"{direct_s:.4f} s for App.sample called directly, PNG grid {png_s:.4f} s "
+                    f"({png_s / http_s:.4f} of the request); card idle {idle:.4f} of a "
+                    f"{UI_IDLE_STEPS}-step request under the profiler ({profile['wall_ms']:.3f} "
+                    f"ms); images vs "
+                    f"the f32 model: rel L2 kernels {err_k:.3e}, plain bf16 {err_p:.3e}; "
+                    f"launches {got} ({card})")
+                check(bool(np.isfinite(images).all()) and images.std() > 0.05
+                      and err_k <= 1.5 * err_p + 1e-3,
+                      f"ui {label}: images vary, err(kernels) <= 1.5 err(plain) + 1e-3")
+                check(profile["classes"]["total"] > 0,
+                      f"ui {label}: the profiled request ran on the card")
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join()
+            del app
+            torch.cuda.empty_cache()
+
+        # (b) page 3's logic on phase 8's SD1.5 stack
+        sd.to(dev)
+        ref_model.to(dev)
+        mark("sd_to_card")
+        kw = dict(UI_SD, seed=SEED, device=dev)
+
+        def page3():
+            out = sd_ui.generate_sd(SD15_CONF, sd, UI_SD_PROMPT, UI_SD_NEGATIVE, **kw)
+            torch.cuda.synchronize()
+            return out
+
+        page3()  # warm-up
+        short = dict(kw, steps=UI_SD_IDLE_STEPS)
+        profile = profile_by_class(
+            lambda: sd_ui.generate_sd(SD15_CONF, sd, UI_SD_PROMPT, UI_SD_NEGATIVE, **short), 1,
+            host_ops=False)
+        idle = max(0.0, 1.0 - profile["classes"]["total"] / profile["wall_ms"])
+        mark("sd_profile")
+        zero_counts()
+        t0 = time.perf_counter()
+        images = page3()
+        sd_s = time.perf_counter() - t0
+        mark("sd_timed")
+        got = counts()
+        dp = dict(SD15_CONF["diffusion"]["params"], respace_type="uniform-linspace",
+                  respace_steps=UI_SD["steps"])
+        steps = len(DDIM(**dp).respaced_seq)
+        want = {"K1": steps * ATTN_PER_FORWARD, "K2": 0,
+                "K3": steps * GN_PER_FORWARD + GN_PER_DECODE}
+        launches[f"ui_page3_sd15_ddim{UI_SD['steps']}_b1"] = got
+        check(got == want, f"ui page 3 launches {got} == {want}")
+        with plain_ops():
+            plain = page3()
+        mark("sd_plain")
+        bf16_unet = sd.unet
+        sd.unet = ref_model
+        try:
+            want_images = f32_run(page3)
+        finally:
+            sd.unet = bf16_unet
+        mark("sd_f32")
+        err_k, err_p = rel_err(images.cpu(), want_images.cpu()), rel_err(plain.cpu(),
+                                                                         want_images.cpu())
+        metrics["page3_sd15"] = {"seconds": sd_s, "idle_share": idle,
+                                 "idle_steps": UI_SD_IDLE_STEPS, "steps": steps,
+                                 "profile_device_ms": profile["classes"],
+                                 "err_vs_f32": {"kernels": err_k, "plain_bf16": err_p},
+                                 "launches": got, **{k: v for k, v in UI_SD.items()}}
+        log(f"ui page 3 (SD1.5, b{UI_SD['batch_size']} {UI_SD['height']}x{UI_SD['width']} "
+            f"DDIM-{UI_SD['steps']}, ToMe {UI_SD['tome_ratio']}, FreeU sd15, offset noise "
+            f"{UI_SD['offset_noise']}): {sd_s:.4f} s; card idle {idle:.4f} of a "
+            f"{UI_SD_IDLE_STEPS}-step request under the profiler "
+            f"({profile['wall_ms']:.3f} ms); images vs the f32 UNet's: rel L2 kernels "
+            f"{err_k:.3e}, plain bf16 {err_p:.3e}; launches {got} ({card})")
+        size = (UI_SD["batch_size"], 3, UI_SD["height"], UI_SD["width"])
+        check(tuple(images.shape) == size and bool(torch.isfinite(images).all())
+              and images.std().item() > 0.05 and err_k <= 1.5 * err_p + 1e-3,
+              f"ui page 3: {list(size)}, images vary, err(kernels) <= 1.5 err(plain) + 1e-3")
+        check(profile["classes"]["total"] > 0, "ui page 3: the profiled request ran on the card")
+        check(sd.unet.freeu is None and sd.unet.tome_ratio == 0.0,
+              "ui page 3: the model's ToMe and FreeU settings are back")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    metrics["part_seconds"] = {name: t - before
+                               for (_, before), (name, t) in zip(marks, marks[1:])}
+    log("ui: seconds by part " + json.dumps(metrics["part_seconds"]))
+    return {"launches": launches, "metrics": metrics}
 
 
 def get_quiet_logger():

@@ -192,7 +192,9 @@ def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
     """Build ``step(state, batch) -> {"loss", "grad_norm"}``, which:
 
     1. averages the loss and the gradients over ``micro_batches`` leading-axis
-       splits of the batch (the reference's gradient accumulation);
+       splits of the batch (the reference's gradient accumulation): the
+       gradients are summed in the parameters' dtype, then divided, in the
+       JAX step's order;
     2. over a ``mesh``, averages them over every rank (``batch`` is this
        rank's rows of the global batch, micro-batch by micro-batch:
        ``mesh.shard_batch(..., micro_batches=)``);
@@ -218,10 +220,12 @@ def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
         with dropout_rng(seed, state.step, device, rank):
             for part in parts:
                 part_loss = loss_fn(part, _row_generator(generator, part, n, rank))
-                (part_loss / len(parts)).backward()
+                part_loss.backward()
                 loss += part_loss.detach()
         loss /= len(parts)
         grads = [p.grad for p in params if p.grad is not None]
+        if len(parts) > 1:  # the sum in the parameters' dtype, then the mean, as JAX
+            torch._foreach_div_([_local(g) for g in grads], float(len(parts)))
         if n > 1:  # FSDP2 has reduced the sharded parameters' gradients
             _all_reduce_mean([g for g in grads if not isinstance(g, DTensor)] + [loss])
         grad_norm = global_norm(grads)

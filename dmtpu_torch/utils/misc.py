@@ -1,8 +1,9 @@
-"""Small host-side utilities.  Counterpart of ``dmtpu/utils/misc.py`` but
-for ``list_weight_files`` (the web UIs'; reference: utils/misc.py)."""
+"""Small host-side utilities.  Counterpart of ``dmtpu/utils/misc.py``
+(reference: utils/misc.py)."""
 from __future__ import annotations
 
 import datetime
+import glob
 import os
 import shutil
 import sys
@@ -113,3 +114,14 @@ def create_exp_dir(exp_dir: str, conf_yaml: str, exist_ok: bool = False,
     os.makedirs(os.path.join(exp_dir, "samples"), exist_ok=True)
     with open(os.path.join(exp_dir, f"config-{time_str}.yaml"), "w") as f:
         f.write(conf_yaml)
+
+
+def list_weight_files(root: Optional[str]) -> List[str]:
+    """The loadable weight files under ``root``, recursively and sorted (the
+    UI pages' Model dropdown); empty when ``root`` is empty or missing."""
+    if not root:
+        return []
+    out: List[str] = []
+    for ext in ("pt", "pth", "ckpt", "safetensors", "npz"):
+        out += glob.glob(os.path.join(root, f"**/*.{ext}"), recursive=True)
+    return sorted(out)

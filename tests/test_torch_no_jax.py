@@ -47,7 +47,13 @@ def test_the_port_has_its_new_modules():
                  "dmtpu_torch/scripts/evaluate.py", "dmtpu_torch/scripts/accept.py",
                  "dmtpu_torch/parallel/mesh.py", "dmtpu_torch/parallel/sp.py",
                  "dmtpu_torch/parallel/tp.py", "dmtpu_torch/parallel/pp.py",
-                 "dmtpu_torch/utils/rows.py"):
+                 "dmtpu_torch/utils/rows.py", "dmtpu_torch/webui/app.py",
+                 "dmtpu_torch/ui/uncond.py", "dmtpu_torch/ui/cfg.py", "dmtpu_torch/ui/sd.py",
+                 "dmtpu_torch/ui/Hello.py",
+                 "dmtpu_torch/ui/pages/1_Unconditional_Image_Generation.py",
+                 "dmtpu_torch/ui/pages/2_Class_Conditional_CFG.py",
+                 "dmtpu_torch/ui/pages/3_Stable_Diffusion.py",
+                 "dmtpu_torch/ui/pages/4_Stable_Diffusion_XL.py"):
         assert name in SOURCES
 
 

@@ -33,7 +33,13 @@ entries (0.18% seen) and 3% of adafactor's statistics (0.97% seen) off by
 more than one spacing of the larger of their values before and after the
 step, none by more than 16 (7.5 seen; a skipped step is some 5 spacings of
 every entry), leaving out, as for f32, the entries whose gradient is below
-1e-5 of the largest (their first step is the rounding of g); f32
+1e-5 of the largest (their first step is the rounding of g; for a
+statistic, those whose root-mean-square gradient is); with micro-batches a
+statistic's spacing is that of the larger of its value and the value the
+largest micro-batch gradient alone would give (both packages sum the
+micro-batches in bf16, so where they cancel the sum keeps the rounding of
+its terms: one term's gradient one bf16 ulp apart was 24 spacings of the
+cancelled sum's g^2); f32
 statistics to 1e-4 relative L2, or 2e-3 beside bf16 leaves (the clip
 scale follows optax's norm, below); adam's moments to 1e-2 relative L2 (optax computes them in the
 parameter's dtype, torch in f32 and rounds once); the grad norm to 1e-3
@@ -236,6 +242,15 @@ def _state_by_name(tree, params) -> dict:
     return out
 
 
+def _port_statistics(g_sq: torch.Tensor, st: dict) -> list:
+    """Adafactor's first-step statistics of ``g_sq`` in the port's layout:
+    ``[v]``, or ``[v_row, v_col]`` (the means over the factored dims)."""
+    if "v" in st:
+        return [g_sq.numpy()]
+    d1, d0 = optim.factored_dims(g_sq.shape, 128)
+    return [g_sq.mean(d0).numpy(), g_sq.mean(d1).numpy()]
+
+
 def _factored_pairs(st: dict, jax_row: np.ndarray, jax_col: np.ndarray, shape) -> list:
     """(port, JAX) pairs of adafactor's statistics of one 2-D weight, matched
     by the axis they reduce: a torch [out, in] weight is the JAX [in, out]
@@ -273,10 +288,15 @@ def test_mmdit_train_step_matches_jax(monkeypatch, opt, param_dtype, micro):
     draws = [_jax_draws(k, 4 // micro) for k in keys]
     assert all(0 < d[2].sum() < 4 // micro for d in draws)
     queue = _feed_draws(monkeypatch, draws)
+    terms = {}  # per entry, the largest micro-batch gradient (before the mean)
+    for name, p in model.named_parameters():
+        p.register_hook(lambda g, name=name: terms.__setitem__(
+            name, torch.maximum(terms.get(name, torch.zeros(())), g.detach().float().abs())))
     loss_fn = make_diffusion_loss_fn(FlowMatching(total_steps=TOTAL), train_apply(model), TOTAL)
     m = make_train_step(loss_fn, clip_grad_norm=0.1, micro_batches=micro)(
         state, _torch_batch(batch))
     assert not queue
+    clip = min(1.0, 0.1 / (m["grad_norm"].item() + 1e-6))
     np.testing.assert_allclose(m["loss"].item(), float(jm["loss"]), rtol=F32)
     assert m["grad_norm"].dtype == torch.float32 and float(jm["grad_norm"]) > 0.1
     np.testing.assert_allclose(m["grad_norm"].item(), float(jm["grad_norm"]),
@@ -312,11 +332,15 @@ def test_mmdit_train_step_matches_jax(monkeypatch, opt, param_dtype, micro):
             pairs = ([(st["v"], jax_state["v"][name])] if "v" in st else
                      _factored_pairs(st, jax_state["v_row"][name], jax_state["v_col"][name],
                                      tuple(p.shape)))
-            for a, b in pairs:
+            # the statistics the largest micro-batch term alone would give
+            term_stats = _port_statistics((terms[name] / micro * clip).square(), st)
+            for (a, b), term_stat in zip(pairs, term_stats):
                 assert a.dtype == p.dtype and a.shape == b.shape, name
                 a = a.float().numpy()
                 if torso:
-                    offs["stats"].append((np.abs(a - b) / _spacing(b)).ravel())
+                    kept = np.sqrt(b) > 1e-5 * top
+                    ref = np.maximum(b, term_stat)
+                    offs["stats"].append((np.abs(a - b) / _spacing(ref))[kept].ravel())
                 else:
                     # with bf16 leaves optax's norm, hence the clip scale, is
                     # 1e-3 off, and g^2 twice that
@@ -338,6 +362,45 @@ def test_mmdit_train_step_matches_jax(monkeypatch, opt, param_dtype, micro):
             spacings = np.concatenate(spacings)
             share, most = bounds[what]
             assert (spacings > 1).mean() <= share and spacings.max() <= most, what
+
+
+@pytest.mark.parametrize("micro", [2, 3])
+def test_micro_batch_gradients_sum_in_the_parameter_dtype_then_divide(micro):
+    """The port's gradient accumulation is the JAX step's, bit for bit: the
+    micro-batch gradients of a bf16 parameter summed in bf16, then divided
+    by the count.  Each micro-batch's gradient is its row of ``c`` (bf16
+    values): a sum that bf16 rounds away (1 + 3 * 2^-10 + 3 * 2^-10), one
+    that cancels, and others; dividing each term before the sum (by 3)
+    rounds another way.  SGD at learning rate 1 from zero makes the
+    parameter the gradient."""
+    import optax
+
+    c = np.zeros((micro, 4), np.float32)
+    c[:, 0] = [1.0] + [3 * 2.0 ** -10] * (micro - 1)
+    c[:2, 1] = [0.006072998046875, -0.00543212890625]
+    c[:, 2] = np.arange(1, micro + 1) * 0.1015625
+    c[:, 3] = [3.0] + [-1.0] * (micro - 1)
+    assert np.array_equal(c, c.astype(jnp.bfloat16).astype(np.float32))
+
+    def jax_loss(params, batch, rng):
+        return jnp.sum(params["w"].astype(jnp.float32) * batch["c"].sum(0))
+
+    tx = optax.sgd(-1.0)
+    jstate = JaxTrainState.create({"w": jnp.zeros((4,), jnp.bfloat16)}, tx)
+    jstate, _ = jax_make_train_step(jax_loss, tx, micro_batches=micro)(
+        jstate, {"c": jnp.asarray(c)}, jax.random.PRNGKey(0))
+    want = np.asarray(jstate.params["w"].astype(jnp.float32))
+
+    model = torch.nn.Module()
+    model.w = torch.nn.Parameter(torch.zeros(4, dtype=torch.bfloat16))
+    state = TrainState.create(model, torch.optim.SGD(model.parameters(), lr=1.0, maximize=True))
+    make_train_step(lambda batch, generator: (model.w.float() * batch["c"].sum(0)).sum(),
+                    micro_batches=micro)(state, {"c": torch.from_numpy(c)})
+    np.testing.assert_array_equal(model.w.detach().float().numpy(), want)
+    divided_first = torch.zeros(4, dtype=torch.bfloat16)
+    for row in torch.from_numpy(c / micro).bfloat16():
+        divided_first += row
+    assert np.array_equal(divided_first.float().numpy(), want) == (micro == 2)
 
 
 def test_global_norm_is_f32_over_mixed_dtypes():
