@@ -1,8 +1,12 @@
-// K1, the mma.sync kernel: non-causal attention forward, bf16 in and out, for
-// the shapes the wgmma kernel (flash_attn_fwd.cu) does not take or is no
-// faster at: head dims 160 and 256, cross-attention to 77 tokens, short
-// sequences.
-// The gate is in dmtpu_torch/ops/flash_attention.py.
+// K1, the mma.sync kernel: non-causal attention forward, bf16 in and out, up
+// to head dim 256.  Since the wgmma kernel (flash_attn_fwd.cu) gained its
+// instances at head dims 160 and 256, its short-key tile and its persistent
+// CTAs, the gate (dmtpu_torch/ops/flash_attention.py::select_kernel) sends no
+// call of the repository's paths here: it serves what the wgmma kernel does
+// not take, a non-positive scale and a q, k or v broadcast over batch, rows or
+// heads (a zero stride has no tensor map), and runs when forced
+// (``kernel="mma"``).  Until then it carried head dims 160 and 256, the
+// cross-attention to 77 tokens and the short sequences.
 //
 // Replaces dmtpu/ops/flash_small_d.py::_fwd_kernel / _fwd (the Pallas TPU
 // flash kernel for small head dims) and the forward role of the stock Pallas
@@ -13,10 +17,13 @@
 // rounded to bf16 for the PV product, as the TPU kernel casts P to V's dtype),
 // plus the row logsumexp m + log(l) in f32 for the backward kernel.
 //
-// What bounds it on this card: at the shapes it serves (S_k=77, or S <= 256)
+// What bounds it on this card: at the shapes it served (S_k=77, or S <= 256)
 // it reads Q and writes O once and is bound by bytes, or by the time the
-// host takes to launch it.  The TPU kernel kept a whole K/V row in VMEM;
-// here tiles of 64 keys go through shared memory:
+// host takes to launch it; it reached neither (CIFAR's b500 S=256 d=256 at
+// 3.2x its bytes bound, NVIDIA H100 80GB HBM3, 700 W): an Ampere design,
+// four warps a CTA and one CTA per SM at d=256, with nothing in flight while
+// a CTA starts and ends.  The TPU kernel kept a whole K/V row in VMEM; here
+// tiles of 64 keys go through shared memory:
 //   - one CTA of 4 warps per (b*h, 64-row Q tile); each warp owns 16 rows;
 //   - a loop over 64-key K/V tiles in shared memory, double-buffered: the
 //     next tile's cp.async copies run while the current tile is computed;

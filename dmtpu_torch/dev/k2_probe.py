@@ -1,6 +1,6 @@
 """Development probe of K2 (attention backward) on one CUDA card.
 
-    python -m dmtpu_torch.dev.k2_probe            # check, time, variants, d256, then d512
+    python -m dmtpu_torch.dev.k2_probe            # check, time, variants, d256, d512, fresh
     python -m dmtpu_torch.dev.k2_probe variants   # one phase
 
 - ``check``: builds the kernels, prints what ``ptxas`` said of the wgmma
@@ -27,6 +27,12 @@
   (registers, spills, shared memory), against K2's plain version at
   CelebA-HQ's shapes (b16 h1 S=256 and S=64), ragged lengths, d=504 and a
   strided dO, and its time beside SDPA's backward in this fresh process.
+- ``fresh``: the mma.sync kernel at the head dims that have no wgmma
+  instance in K2, at their paths' shapes (SD1.5's d=160 at b16 h8 S=256,
+  the CIFAR UNet's d=256 at b128 h1 S=256 and S=16), against K2's plain
+  version and beside SDPA's backward, in a process that has run nothing
+  else (late in ``chip_smoke.py`` SDPA's backward reads several times
+  slower than here).
 
 With no argument each phase runs in a process of its own with a time limit: a
 kernel that hangs on an mbarrier would otherwise never return.
@@ -44,7 +50,7 @@ ROOT = Path(__file__).resolve().parents[2]
 CSRC = ROOT / "dmtpu_torch" / "csrc"
 OUT = ROOT / "build" / "dev" / "variants"
 PHASE_LIMITS = {"check": 240, "time": 300, "variants": 300, "d256": 180,
-                "d512": 180}  # seconds
+                "d512": 180, "fresh": 120}  # seconds
 
 CHECK_SHAPES = [  # b, sq, sk, h, d
     (1, 64, 128, 1, 40), (1, 128, 256, 1, 40), (2, 256, 512, 2, 40), (1, 64, 128, 1, 80),
@@ -77,11 +83,11 @@ VARIANTS = [
 ]
 
 
-def patched(source: str, substitutions) -> str:
+def patched(source: str, substitutions, flags: int = 0) -> str:
     """``source`` with every (pattern, replacement) applied; a pattern that
     matches nothing raises, so an edited kernel cannot silently go unpatched."""
     for pattern, replacement in substitutions:
-        source, n = re.subn(pattern, replacement, source)
+        source, n = re.subn(pattern, replacement, source, flags=flags)
         if n == 0:
             raise ValueError(f"pattern matches nothing: {pattern}")
     return source
@@ -248,16 +254,17 @@ D256_VARIANTS = {"rows16": [], "rows32": [(r"launch<256, 2, 16>", "launch<256, 2
 D256_SHAPES = [(128, 256, 256), (128, 16, 256), (8, 200, 256), (8, 256, 248)]  # b, s, d at h1
 
 
-def _build_variants(jobs) -> dict:
+def _build_variants(jobs, flags: int = 0) -> dict:
     """{name: the entry point of a patched copy}: ``jobs`` are (name, source
     file, entry, substitutions), each built into its own library, all nvcc
-    processes started together; the ptxas lines of each build are printed."""
+    processes started together; the ptxas lines of each build are printed.
+    ``flags`` go to ``re.subn`` (``re.S`` for a pattern across lines)."""
     OUT.mkdir(parents=True, exist_ok=True)
     from dmtpu_torch.ops import _build
     procs = []
     for name, source, entry, substitutions in jobs:
         path = OUT / f"{name}.cu"
-        path.write_text(patched((CSRC / source).read_text(), substitutions))
+        path.write_text(patched((CSRC / source).read_text(), substitutions, flags))
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o",
                str(path.with_suffix(".so")), str(path)]
         procs.append((name, entry, path.with_suffix(".so"), subprocess.Popen(
@@ -366,7 +373,38 @@ def d512() -> int:
     return 1 if bad else 0
 
 
-PHASES = {"check": check, "time": timing, "variants": variants, "d256": d256, "d512": d512}
+FRESH_SHAPES = [(16, 256, 8, 160), (128, 256, 1, 256), (128, 16, 1, 256)]  # b, s, h, d
+
+
+def fresh() -> int:
+    import torch
+    from dmtpu_torch.ops.flash_attention import (flash_attention_backward_reference,
+                                                 flash_attention_bwd, flash_attention_fwd,
+                                                 select_bwd_kernel)
+    print(_card(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    for b, s, h, d in FRESH_SHAPES:
+        q, k, v, do = _case(torch, gen, b, s, s, h, d)
+        o, lse = flash_attention_fwd(q, k, v)
+        want = flash_attention_backward_reference(q, k, v, o, lse, do)
+        got = flash_attention_bwd(q, k, v, o, lse, do, kernel="mma")
+        torch.cuda.synchronize()
+        rel = max(((a.float() - w.float()).norm() / w.float().norm()).item()
+                  for a, w in zip(got, want))
+        bad += not rel <= 1e-2
+        ms = [round(_time_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                                 kernel="mma"), 20), 4)
+              for _ in range(2)]
+        sdpa = [round(_sdpa_backward_ms(torch, q, k, v, do), 4) for _ in range(2)]
+        print(f"K2 mma.sync b{b} h{h} S={s} d={d} (gate {select_bwd_kernel(s, s, d)}): rel L2 "
+              f"{rel:.2e}, ms {ms}, SDPA backward {sdpa}", flush=True)
+    print("fresh:", "FAILED" if bad else "all ok")
+    return 1 if bad else 0
+
+
+PHASES = {"check": check, "time": timing, "variants": variants, "d256": d256, "d512": d512,
+          "fresh": fresh}
 
 
 def main(argv: list[str]) -> int:

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "dmtpu_flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
     "dmtpu_flash_attn_fwd_mma": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
     "dmtpu_flash_attn_fwd_mma_d512": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _P],
+    # D, Sk: the wgmma forward's dynamic shared memory for such a call, in bytes
+    "dmtpu_flash_attn_fwd_smem": [_I, _I],
     # q, k, v, o, dO, lse, delta, dq_acc, dq, dk, dv, B, H, Sq, Sk, D, 21 strides,
     # scale, stream
     "dmtpu_flash_attn_bwd": [_P] * 11 + [_I] * 5 + [_L] * 21 + [_F, _P],

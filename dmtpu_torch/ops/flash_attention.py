@@ -9,9 +9,11 @@ to 48, 80, 160, 256 or 512 in shared memory) and ragged sequence lengths
 
 - ``flash_attention_fwd(q, k, v, scale) -> (o, lse)`` (K1): ``lse`` is the
   f32 row logsumexp [B, H, S_q] that the backward consumes.  Two kernels
-  stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims 40,
-  64, 72 and 80, the long self-attention shapes) and the mma.sync kernel
-  (everything else): ``csrc/flash_attn_fwd_mma.cu`` up to 256 and
+  stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims up
+  to 256 on instances of 40, 64, 72, 80, 160 and 256: every call of the
+  repository's paths below 512) and the mma.sync kernel (a non-positive
+  scale, a broadcast q, k or v, and head dims above 256):
+  ``csrc/flash_attn_fwd_mma.cu`` up to 256 and
   ``csrc/flash_attn_fwd_mma_d512.cu`` above; ``select_kernel`` is the gate.
 - ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2).
   Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
@@ -126,48 +128,62 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backward: bool
 
 # K1 is two hand-written kernels with one interface.  "wgmma"
 # (csrc/flash_attn_fwd.cu: TMA loads, a ring of K/V stages, wgmma, 128 Q rows
-# and 128 keys a tile) is instantiated for head dims 40 and 80 (SD1.5), 72
-# (DiT) and 64 (MMDiT) and needs a positive scale (it takes the running max
-# before scaling); "mma" (mma.sync) takes every head dim up to 512: up to 256
-# csrc/flash_attn_fwd_mma.cu (64 x 64 tiles; the CIFAR UNets' d=256 runs
-# there), above it csrc/flash_attn_fwd_mma_d512.cu (64 rows x 32 keys, O's
-# columns split over two CTAs; CelebA-HQ's d=512).
-WGMMA_HEAD_DIMS = (40, 64, 72, 80)
-# Below this many keys the wgmma kernel is one 128-key tile, mostly masked,
-# and the mma.sync kernel is as fast or faster; see the gate's numbers in
-# ``select_kernel``.
-WGMMA_MIN_KEYS = 129
+# a CTA) is instantiated for head dims 40 and 80 (SD1.5), 72 (DiT), 64
+# (MMDiT, SDXL, ADM), 160 (SD1.5) and 256 (the CIFAR UNets); a head dim
+# between two instances runs on the wider one, its columns past the head dim
+# zero-filled.  It needs a positive scale (it takes the running max before
+# scaling) and tensor maps (no zero strides).  "mma" (mma.sync) takes every
+# head dim up to 512 and any strides and scale: up to 256
+# csrc/flash_attn_fwd_mma.cu (64 x 64 tiles), above it
+# csrc/flash_attn_fwd_mma_d512.cu (64 rows x 32 keys, O's columns split over
+# two CTAs; CelebA-HQ's d=512).
+WGMMA_HEAD_DIMS = (40, 64, 72, 80, 160, 256)
+
+
+def wgmma_instance(d: int) -> Optional[int]:
+    """The wgmma kernel's instance that runs head dim ``d``: the narrowest at
+    least as wide, or None above the widest."""
+    return next((width for width in WGMMA_HEAD_DIMS if width >= d), None)
 
 
 def kernels_for(d: int, scale: Optional[float] = None) -> list[str]:
     """The K1 kernels that take head dim ``d`` (and ``scale``), the general one first."""
     names = ["mma"]
-    if d in WGMMA_HEAD_DIMS and (scale is None or scale > 0):
+    if wgmma_instance(d) is not None and (scale is None or scale > 0):
         names.append("wgmma")
     return names
 
 
 def select_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> str:
-    """The K1 kernel a call is dispatched to.
+    """The K1 kernel a call is dispatched to: "wgmma" wherever it takes the
+    call (head dims up to 256, a positive scale), whatever the lengths;
+    ``flash_attention_fwd`` also leaves a broadcast (zero-stride) q, k or v to
+    "mma".
 
-    Measured on an NVIDIA H100 80GB HBM3 (700 W) by ``chip_smoke.py`` phase 2,
-    b16 h8 bf16, both kernels in one call, ms (mma.sync / wgmma): S=4096 d=40
-    2.44-2.48 / 1.18; S=1024 d=80 0.257 / 0.118; S_q=4096 S_k=77 d=40 0.110 /
-    0.123; S_q=1024 S_k=77 d=80 0.051 / 0.048, both within the 0.047 ms the
-    host takes to launch one.  So the wgmma kernel takes what has more than
-    one 128-key tile; with 77 keys its one tile is 40% masked keys and the
-    shape stays on mma.sync.  DiT-XL/2's self-attention (phase 11, b64 h16
-    S=256 d=72, two key tiles, q/k/v strided views of one projection), two
-    timings each: mma.sync 0.1465 and 0.1463 ms, wgmma 0.1055 and 0.1052; so
-    d=72 takes the same rule.  MMDiT's joint attention at d=64 (phase 13, q,
-    k and v concatenated from the two streams, a masked last key tile): b4
-    h24 S=4250, mma.sync 2.967 and 2.951 ms, wgmma 1.058 and 1.061; b64 h12
-    S=333 (77 of its third key tile's 128 keys valid), mma.sync 0.2178 and
-    0.2139, wgmma 0.1220 and 0.1214; so d=64 takes it too.
+    Measured on an NVIDIA H100 80GB HBM3 (700 W) by ``python -m
+    dmtpu_torch.dev.k1_probe time``, device time of one call
+    (``torch.profiler``), ms, mma.sync / wgmma, at every shape of the
+    repository's paths whose head dim has a wgmma instance.  SD1.5 at b16 h8
+    (b32 in brackets): S=4096 d=40 2.450 / 1.187 (4.814 / 2.321); S=1024
+    d=80 0.2535 / 0.1095 (0.4841 / 0.2085); S=256 d=160 0.0395 / 0.0215
+    (0.0707 / 0.0410); S=64 d=160 0.0070 / 0.0067 (0.0113 / 0.0102);
+    S_q=4096 S_k=77 d=40 0.1073 / 0.0857 (0.2084 / 0.1743); S_q=1024 S_k=77
+    d=80 0.0473 / 0.0301 (0.0876 / 0.0563); S_q=256 S_k=77 d=160 0.0234 /
+    0.0121 (0.0452 / 0.0257); S_q=64 S_k=77 d=160 0.0086 / 0.0074 (0.0132 /
+    0.0109).  SDXL's cross-attention at b2, h10 S_q=4096 and h20 S_q=1024,
+    S_k=77 d=64: 0.0288 / 0.0140 and 0.0162 / 0.0099.  ADM-256's 8x8 level,
+    b16 h8 S=64 d=64: 0.0043 / 0.0045.  The CIFAR UNet at b500 h1 d=256:
+    S=256 0.2505 / 0.1195; S=16 0.0200 / 0.0158; S=200 0.2335 / 0.1110; at
+    b20 (the AdaGN UNet's CFG batch) S=256 0.0180 / 0.0140, S=16 0.0054 /
+    0.0053; at b128 (a train step) S=256 0.0689 / 0.0358, and a ring hop of
+    S=64 0.0101 / 0.0096.  The wgmma kernel is the faster or level (ADM's
+    S=64 row, 5%) at every shape; below 0.05 ms both are within the 0.05-0.06
+    ms the host takes to launch one through this wrapper.  Until head dims
+    160 and 256 had instances and the wgmma kernel its short-key tile and
+    persistent CTAs, every call with at most 128 keys, and head dims 160 and
+    256, stayed on mma.sync.
     """
-    if "wgmma" in kernels_for(d, scale) and sk >= WGMMA_MIN_KEYS:
-        return "wgmma"
-    return "mma"
+    return "wgmma" if "wgmma" in kernels_for(d, scale) else "mma"
 
 
 _ENTRY_POINTS = {"mma": "dmtpu_flash_attn_fwd_mma", "wgmma": "dmtpu_flash_attn_fwd"}

@@ -13,7 +13,7 @@ import textwrap
 
 import pytest
 
-from dmtpu_torch.dev import k2_probe
+from dmtpu_torch.dev import k1_probe, k2_probe
 from dmtpu_torch.ops import _build
 
 FAKE_NVCC = textwrap.dedent("""\
@@ -117,6 +117,29 @@ def test_both_attention_backward_kernels_have_one_interface():
         _build._SIGNATURES["dmtpu_flash_attn_bwd_mma"]
     assert _build._SIGNATURES["dmtpu_flash_attn_fwd"] == \
         _build._SIGNATURES["dmtpu_flash_attn_fwd_mma"]
+
+
+@pytest.mark.parametrize("variant", sorted(k1_probe.VARIANTS))
+def test_k1_probe_patch_still_matches_the_kernel_source(variant):
+    """The K1 probe times the wgmma forward without its short-key tile and
+    with one work item a CTA, from patched copies of the source: each
+    pattern must still find its line."""
+    source = (_build.CSRC / "flash_attn_fwd.cu").read_text()
+    pattern, replacement = k1_probe.VARIANTS[variant]
+    patched = k2_probe.patched(source, [(pattern, replacement)])
+    assert patched != source and replacement in patched
+
+
+@pytest.mark.parametrize("name", sorted(k1_probe.DIAGNOSTICS))
+def test_k1_probe_diagnostic_patches_still_match_the_kernel_source(name):
+    """The K1 probe's ``variants`` phase times copies of the wgmma forward
+    without its O stores and without its products: each pattern must still
+    find what it leaves out."""
+    import re
+
+    source = (_build.CSRC / "flash_attn_fwd.cu").read_text()
+    patched = k2_probe.patched(source, k1_probe.DIAGNOSTICS[name], re.S)
+    assert (patched == source) == (not k1_probe.DIAGNOSTICS[name])
 
 
 @pytest.mark.parametrize("source,variant", [

@@ -428,6 +428,28 @@ def test_k1_ragged_lengths_at_every_head_dim(cuda, sq, sk, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 333, 200, 3, 160), (2, 200, 333, 3, 152), (2, 64, 77, 8, 160), (2, 100, 65, 2, 160),
+    (8, 200, 200, 1, 256), (4, 256, 256, 1, 248), (2, 77, 333, 2, 248), (8, 16, 16, 1, 256),
+    (2, 100, 80, 2, 80), (2, 100, 81, 2, 80), (2, 300, 1, 2, 40), (2, 130, 150, 2, 96)])
+def test_k1_wide_instances_and_the_short_key_tile(cuda, b, sq, sk, h, d):
+    """The wgmma kernel's instances of 160 and 256 at ragged lengths and at
+    head dims between instances (152, 248 and 96 run on the next wider one),
+    and its short-key tile on either side of 80 keys: the dispatch launches
+    wgmma, whose output and logsumexp agree with the plain version."""
+    q, k, v = _k1_case(cuda, 15, b, sq, sk, h, d)
+    assert select_kernel(sq, sk, d) == "wgmma"
+    before = dict(flash_attention_fwd.launches_by_kernel)
+    o, lse = flash_attention_fwd(q, k, v)
+    assert flash_attention_fwd.launches_by_kernel == {"mma": before["mma"],
+                                                      "wgmma": before["wgmma"] + 1}
+    want_o, want_lse = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert_k1_close(o, want_o)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["mma", "wgmma"])
 def test_k1_each_kernel_reads_strided_projections(cuda, kernel):
     """q/k/v as views of one [B, S, 3*H*D] projection: the wgmma kernel's

@@ -98,6 +98,24 @@ def test_cross_attention_matches_jax_mha(sq, d):
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("sq,sk,d", [(256, 256, 160), (64, 64, 160), (64, 77, 160),
+                                     (256, 256, 256), (16, 16, 256), (40, 77, 256)])
+def test_k1_reference_at_the_wide_wgmma_head_dims_matches_jax_mha(sq, sk, d):
+    """Head dims 160 and 256, which K1 runs on its wgmma kernel's instances of
+    those widths: its plain version against the JAX package's mha, output and
+    logsumexp, self- and cross-attention, in f32.  The JAX package runs these
+    head dims through plain XLA (flash_small_d takes D <= 128), so its mha is
+    the reference here, not the Pallas ``_fwd``."""
+    q, k, v = _qkv(14, 2, sq, sk, 2, d)
+    want = np.asarray(jattn.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got_o, got_lse = flash_attention_reference(t(q), t(k), t(v))
+    np.testing.assert_allclose(got_o.numpy(), want, rtol=2e-5, atol=2e-5)
+    logits = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), jnp.asarray(k)) * d ** -0.5
+    want_lse = np.asarray(jax.nn.logsumexp(logits, axis=-1))
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(attention(t(q), t(k), t(v)).numpy(), want, rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("silu", [True, False])
 @pytest.mark.parametrize("eps", [1e-5, 1e-6])
 def test_group_norm_matches_pallas_interpret(silu, eps):

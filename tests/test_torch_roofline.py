@@ -99,12 +99,12 @@ def test_bound_says_which_side_is_larger():
 
 @pytest.mark.parametrize("sq,sk,d", ATTN)
 def test_attention_dispatch_of_the_path(sq, sk, d):
-    """The wgmma kernel takes the two long self-attention shapes; everything
-    with 77 keys, a short sequence or head dim 160 stays on mma.sync."""
-    want = "wgmma" if (sq, sk, d) in BIG_SELF_ATTENTION else "mma"
-    assert fa.select_kernel(sq, sk, d) == want
-    assert fa.select_kernel(sq, sk, d, scale=d ** -0.5) == want
-    assert fa.kernels_for(d) == (["mma", "wgmma"] if d in (40, 80) else ["mma"])
+    """The wgmma kernel takes every shape of the path: the long
+    self-attentions, the 77-key cross-attentions (its short-key tile) and
+    head dim 160 (its instance of that width), as measured on the card."""
+    assert fa.select_kernel(sq, sk, d) == "wgmma"
+    assert fa.select_kernel(sq, sk, d, scale=d ** -0.5) == "wgmma"
+    assert fa.kernels_for(d) == ["mma", "wgmma"] and fa.wgmma_instance(d) == d
     # a scale that is not positive never reaches the kernel that takes the
     # running max before scaling
     assert fa.select_kernel(sq, sk, d, scale=-1.0) == "mma"
@@ -113,12 +113,59 @@ def test_attention_dispatch_of_the_path(sq, sk, d):
 
 @pytest.mark.parametrize("d", [8, 32, 48, 56, 96, 160])
 def test_other_head_dims_stay_on_mma(d):
-    assert fa.kernels_for(d) == ["mma"] and fa.select_kernel(4096, 4096, d) == "mma"
+    """A head dim without an instance of its own runs on the wgmma kernel's
+    next wider instance, its columns past d zero-filled (as the mma.sync
+    kernel pads to 48, 80, 160 and 256); the dispatch sends it there too."""
+    assert fa.kernels_for(d) == ["mma", "wgmma"] and fa.select_kernel(4096, 4096, d) == "wgmma"
+    assert fa.wgmma_instance(d) == {8: 40, 32: 40, 48: 64, 56: 64, 96: 160, 160: 160}[d]
 
 
 def test_attention_dispatch_threshold_is_one_key_tile():
-    assert fa.select_kernel(4096, 128, 40) == "mma"
-    assert fa.select_kernel(64, 129, 40) == "wgmma"
+    """No key threshold any more: one key tile, or none but a short one, goes
+    to wgmma too (its 80-key tile at S_k <= 80)."""
+    for sk in (1, 64, 77, 80, 81, 128, 129, 4096):
+        assert fa.select_kernel(4096, sk, 40) == fa.select_kernel(64, sk, 40) == "wgmma"
+    assert not hasattr(fa, "WGMMA_MIN_KEYS")
+
+
+@pytest.mark.parametrize("d", [160, 256])
+def test_new_wgmma_instances_take_their_head_dims(d):
+    """Head dims 160 (SD1.5's 16x16 and 8x8 levels) and 256 (the CIFAR UNets'
+    one head) have wgmma instances of their own; only what has no tensor map
+    or a non-positive scale stays on mma.sync."""
+    assert d in fa.WGMMA_HEAD_DIMS and fa.kernels_for(d) == ["mma", "wgmma"]
+    assert fa.wgmma_instance(d) == d and fa.kernels_for(d, scale=-0.5) == ["mma"]
+    for sq, sk in ((256, 256), (64, 64), (256, 77), (16, 16), (1, 1)):
+        assert fa.select_kernel(sq, sk, d) == "wgmma"
+
+
+@pytest.mark.parametrize("d", range(8, 520, 8))
+def test_every_head_dim_maps_to_its_wgmma_instance(d):
+    """Up to 256 the narrowest instance at least as wide; above it none (the
+    mma.sync d=512 kernel)."""
+    want = next((w for w in (40, 64, 72, 80, 160, 256) if w >= d), None)
+    assert fa.wgmma_instance(d) == want
+    assert fa.kernels_for(d) == (["mma", "wgmma"] if d <= 256 else ["mma"])
+    assert fa.select_kernel(1024, 1024, d) == ("wgmma" if d <= 256 else "mma")
+
+
+def test_k1_launch_splits_of_the_paths_follow_the_gate():
+    """What phases 5, 15 and 16 count on the card: every K1 call of an SD1.5
+    UNet forward (32), an SDXL call (140) and a CIFAR UNet call (6) goes to
+    wgmma; CelebA-HQ's d=512 (6) stays on mma.sync."""
+    def split(calls):
+        plan = {"mma": 0, "wgmma": 0}
+        for (sq, sk, d), n in calls:
+            plan[fa.select_kernel(sq, sk, d)] += n
+        return plan
+
+    assert split(chip_smoke.ATTN_CALLS.items()) == {"mma": 0, "wgmma": 32}
+    assert split(((sq, sk, 64), n) for (sq, sk, _), n in chip_smoke.SDXL_ATTN.items()) == \
+        {"mma": 0, "wgmma": 140}
+    assert split(((s, s, 256), n) for (s, _), n in chip_smoke.CIFAR_TRAIN_ATTN.items()) == \
+        {"mma": 0, "wgmma": 6}
+    assert split(((sq, sk, d), n) for (_, sq, sk, d), n in chip_smoke.CELEBAHQ_ATTN.items()) == \
+        {"mma": 6, "wgmma": 0}
 
 
 @pytest.mark.parametrize("sq,sk,d", ATTN)
@@ -355,7 +402,7 @@ MMDIT_ATTN = {"sd3_medium_b4": (4, 24, 4250, 24), "mmdit_b2_b64": (64, 12, 333, 
 def test_mmdit_attention_goes_to_wgmma_and_its_bound(name):
     b, h, s, calls = MMDIT_ATTN[name]
     assert fa.kernels_for(64) == ["mma", "wgmma"] and fa.select_kernel(s, s, 64) == "wgmma"
-    assert s % 128 and s > fa.WGMMA_MIN_KEYS  # a masked last key tile, more than one tile
+    assert s % 128 and s > 128  # a masked last key tile, more than one tile
     ops, nbytes = roofline.attention_fwd_work(b, h, s, s, 64)
     assert ops == 4 * b * h * s * s * 64
     assert nbytes == 2 * b * h * 64 * 4 * s + 4 * b * h * s
