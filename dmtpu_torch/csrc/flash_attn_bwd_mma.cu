@@ -7,11 +7,13 @@
 // variant benchmarks/_smalld_variants.py::_bwd_sem (the same function).  It
 // takes every head dim that is a multiple of 8 up to 256 and any strides (the
 // wider heads, up to 512, have their own instance in
-// flash_attn_bwd_mma_d512.cu); head dims 40, 64, 72 and 80 go to the wgmma
-// kernel in flash_attn_bwd.cu (the gate is in
-// dmtpu_torch/ops/flash_attention.py), so on SD1.5's path this one runs the
-// head dim 160 shapes, on the pixel-space UNets' the single head of 256, and
-// on DiT's and MMDiT's none.
+// flash_attn_bwd_mma_d512.cu).  Every head dim with a wgmma instance (40, 64,
+// 72, 80, and every multiple of 8 in (80, 256] on the column-split instances
+// of 160 and 256) goes to the wgmma kernel in flash_attn_bwd.cu (the gate is
+// in dmtpu_torch/ops/flash_attention.py), so no path of the repository runs
+// this one: it takes head dims below 40, 48 and 56, a broadcast q, k, v or
+// dO, and kernel="mma"; chip_smoke.py still checks and times it beside the
+// wgmma kernel at SD1.5's d=160 and the pixel UNets' d=256.
 //
 // What it computes, per (batch, head), from K1's saved f32 row logsumexp:
 //   delta = rowsum(dO o O)                      (f32)
@@ -26,9 +28,11 @@
 // shared-memory reads (every warp re-reads the whole Q and dO tile for its 16
 // keys; compiling the dQ atomics out saves 17% at S=4096, d=40 and 38% at
 // S=1024, d=80, replacing the exponentials by a multiply nothing: NVIDIA H100
-// 80GB HBM3, 700 W), which is why those shapes left it.  At head dim 160 the
-// path's sequences are short (S <= 256) and the calls are bound by bytes and
-// by the launch; so are the pixel UNets' d = 256 calls (S = 256 and 16).
+// 80GB HBM3, 700 W), which is why those shapes left it.  So did SD1.5's
+// d = 160 calls and the pixel UNets' d = 256 calls (S = 256 and 16), where
+// the wgmma kernel's column-split instances took 0.11 against 0.22 ms (b16
+// h8 S=256 d=160) and 0.17 against 0.35 ms (b128 h1 S=256 d=256) of device
+// time (dmtpu_torch/dev/k2_probe.py fresh).
 //
 // Design:
 //   - one CTA per (b*h, 64-key tile of K/V); K and V stay in shared memory

@@ -1,13 +1,13 @@
 // K1: non-causal attention forward for Hopper (sm_90a), bf16 in and out: the
-// kernel of every K1 call with a head dim up to 256 (SD1.5's 40, 80 and 160,
-// DiT's 72, MMDiT's, SDXL's and ADM's 64, the CIFAR UNets' 256), self- and
-// cross-attention alike.
+// kernel of every K1 call of the repository's paths (SD1.5's head dims 40, 80
+// and 160, DiT's 72, MMDiT's, SDXL's and ADM's 64, the CIFAR UNets' 256,
+// CelebA-HQ's 512), self- and cross-attention alike.
 //
 // Replaces dmtpu/ops/flash_small_d.py::_fwd_kernel / _fwd (the Pallas TPU
 // flash kernel for small head dims) and the forward role of the stock Pallas
 // TPU flash kernel that dmtpu/ops/attention.py::flash_mha calls.  What it does
-// not take (a non-positive scale, a broadcast q, k or v: no tensor map, head
-// dims above 256) goes to the mma.sync kernels in flash_attn_fwd_mma.cu and
+// not take (a non-positive scale, a broadcast q, k or v: no tensor map) goes
+// to the mma.sync kernels in flash_attn_fwd_mma.cu and, above head dim 256,
 // flash_attn_fwd_mma_d512.cu; the gate is in dmtpu_torch/ops/flash_attention.py.
 //
 // What it computes, per (batch, head): O = softmax(Q K^T * scale) V by online
@@ -34,17 +34,35 @@
 //     on "empty" ones.  The [B, S, H, D] strides become a rank-4 tensor map
 //     (D, H, S, B), so projection outputs are read in place.  setmaxnreg moves
 //     the producer's registers to the consumers (24 / 240);
-//   - one instance per head dim of the paths: 40, 64, 72, 80, 160 and 256; a
-//     head dim between two runs on the wider one.  Columns past D cost
+//   - one instance per head dim of the paths: 40, 64, 72, 80, 160, 256 and
+//     512; a head dim between two runs on the wider one.  Columns past D cost
 //     nothing in device memory: the box is 64 columns wide and columns past D
 //     are out of bounds, which TMA zero-fills without reading, and they are
 //     not written.  Q K^T runs over ceil(D / 16) k16 steps, P V is a single
-//     wgmma of the instance's width (n40 ... n160, n256);
+//     wgmma of the instance's width (n40 ... n160, n256; at d=512 n256 for
+//     each half of the columns);
 //   - the key tile N follows the head dim, so that Q (128 rows) and at least
 //     two K/V stages fit the 227 KB a block may use: 128 keys up to d=80,
 //     64 keys at d=160 (Q 48 KB, three 48 KB stages) and d=256 (Q 64 KB, two
 //     64 KB stages).  At d=256 a consumer thread holds O (128 f32), S (32)
 //     and P (16 registers);
+//   - head dim 512 (CelebA-HQ's one head; 264-504 zero-padded): O alone
+//     would take 256 registers a thread, past the 255 a thread may have.  So
+//     a work item is 64 Q rows, and both consumer warpgroups take all of
+//     them: each computes the whole S = Q K^T (m64n32k16 over 32 k16 steps)
+//     and the same online softmax, and P V for its half of V's and O's
+//     columns (n256): O 128, S 16 and P 8 registers a thread, as at d=256.
+//     Q K^T runs twice (1.5x the products of one pass), as it did in the
+//     mma.sync kernel's two CTAs a tile, but K is read once a tile.  Q (64
+//     rows, 64 KB) and two stages of 32 keys (K and V 32 KB each) fill
+//     196 KB; both warpgroups hold the same m and l bit for bit, and the
+//     first writes the lse.  What holds it back (NVIDIA H100 80GB HBM3,
+//     700 W; k1_probe, b128 h1 S=256, 0.104 ms of device time against a
+//     bound of 0.040): its loads.  Built without the products it still takes
+//     0.069 ms: each 64-row item reads its (b, h)'s whole K and V from L2
+//     (295 MB at b128).  Clusters of two CTAs on neighbouring Q tiles, each
+//     loading half of every K/V stage for both by TMA multicast, were built
+//     and measured slower (0.129 ms; 60 bytes of spills) and taken out;
 //   - a short-key tile of 80 keys for calls of at most 80 keys where N's
 //     tiles would give them more slots (d = 40, 64 and 80 with their 128-key
 //     tile, d=160 with 65 to 80 keys): the cross-attention to 77 CLIP tokens
@@ -77,8 +95,8 @@
 // chip_smoke.py phase 1 prints them): every instance 168 registers at launch
 // (24 / 240 after setmaxnreg), no spills; shared memory, bytes: d=40 and
 // d=64 148,592 (80-key tile 99,440), d=72 230,488, d=80 230,488 (80-key tile
-// 197,744), d=160 197,720 (80-key tile 173,120), d=256 197,696; one CTA per
-// SM in every case (the registers).
+// 197,744), d=160 197,720 (80-key tile 173,120), d=256 and d=512 197,696;
+// one CTA per SM in every case (the registers).
 #include <math.h>
 
 #include "hopper.cuh"
@@ -87,7 +105,6 @@ namespace {
 
 using namespace dmtpu;
 
-constexpr int kBlockM = 128;        // Q rows per CTA: two consumer warpgroups x 64
 constexpr int kThreads = 384;       // producer warpgroup + two consumer warpgroups
 constexpr int kRowBytes = 128;      // one row of a 64-column tile: 64 bf16
 constexpr int kAtomBytes = 1024;    // 8 rows x 128 bytes: the swizzle's period
@@ -97,15 +114,21 @@ constexpr bool kPersistent = true;  // one CTA per SM walks the work items (see 
 constexpr int kWholeBlockMinD = 160;  // from this head dim O goes by 16-byte stores (store_words)
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Head-dim instance D with N keys a K/V tile.
+// Head-dim instance D with N keys a K/V tile.  Up to d=256 the two consumer
+// warpgroups take 64 Q rows each, every column of O; above it (kSplit) both
+// take the same 64 rows, each computes the whole S = Q K^T and P V for its
+// half of V's and O's columns (see the top).
 template <int D, int N>
 struct Config {
+  static constexpr bool kSplit = D > 256;
+  static constexpr int kRowsCTA = kSplit ? 64 : 128;  // Q rows of a work item (a CTA's tile)
+  static constexpr int kDV = kSplit ? D / 2 : D;      // O columns of one consumer warpgroup
   static constexpr int kColTiles = (D + 63) / 64;  // 64-column tiles per row
   static constexpr int kSteps = (D + 15) / 16;     // k16 steps of Q K^T
   static constexpr int kKeySteps = N / 16;         // k16 steps of P V
   static constexpr int kS = N / 2;                 // f32 logits of one tile per thread
-  static constexpr int kAcc = D / 2;               // f32 registers of O per thread
-  static constexpr int kQTile = kBlockM * kRowBytes;  // one 64-column tile of Q
+  static constexpr int kAcc = kDV / 2;             // f32 registers of O per thread
+  static constexpr int kQTile = kRowsCTA * kRowBytes;  // one 64-column tile of Q
   static constexpr int kKVTile = N * kRowBytes;       // one 64-column tile of K or V
   static constexpr int kQBytes = kColTiles * kQTile;
   static constexpr int kStageBytes = kColTiles * kKVTile;  // one K or one V stage
@@ -134,20 +157,22 @@ inline int sm_count() {
 template <int N>
 __device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t desc_a, uint64_t desc_b,
                                          int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(s, desc_a, desc_b, scale_d);
   if constexpr (N == 64) wgmma_ss_n64(s, desc_a, desc_b, scale_d);
   if constexpr (N == 80) wgmma_ss_n80(s, desc_a, desc_b, scale_d);
   if constexpr (N == 128) wgmma_ss_n128(s, desc_a, desc_b, scale_d);
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t desc,
-                                         int scale_d) {
-  if constexpr (D == 40) wgmma_rs_n40(o, a, desc, scale_d);
-  if constexpr (D == 64) wgmma_rs_n64(o, a, desc, scale_d);
-  if constexpr (D == 72) wgmma_rs_n72(o, a, desc, scale_d);
-  if constexpr (D == 80) wgmma_rs_n80(o, a, desc, scale_d);
-  if constexpr (D == 160) wgmma_rs_n160(o, a, desc, scale_d);
-  if constexpr (D == 256) wgmma_rs_n256(o, a, desc, scale_d);
+// P V into DV columns of O (the head dim, or half of it above 256)
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2], const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  if constexpr (DV == 40) wgmma_rs_n40(o, a, desc, scale_d);
+  if constexpr (DV == 64) wgmma_rs_n64(o, a, desc, scale_d);
+  if constexpr (DV == 72) wgmma_rs_n72(o, a, desc, scale_d);
+  if constexpr (DV == 80) wgmma_rs_n80(o, a, desc, scale_d);
+  if constexpr (DV == 160) wgmma_rs_n160(o, a, desc, scale_d);
+  if constexpr (DV == 256) wgmma_rs_n256(o, a, desc, scale_d);
 }
 
 // S = Q K^T for this warpgroup's 64 rows and one N-key tile (not committed).
@@ -162,15 +187,17 @@ __device__ __forceinline__ void issue_qk(float (&s)[N / 2], const unsigned char*
                 kk > 0);
 }
 
-// O (+)= P V for one N-key tile (not committed).
+// O (+)= P V for one N-key tile (not committed); v_tile is the first
+// 64-column tile of this warpgroup's columns of V.
 template <int D, int N>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&p)[N / 16][4],
+__device__ __forceinline__ void issue_pv(float (&o)[Config<D, N>::kAcc],
+                                         const uint32_t (&p)[N / 16][4],
                                          const unsigned char* v_tile, bool accumulate) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
-    wgmma_pv<D>(o, p[kk],
-                wgmma_desc(v_tile + kk * 16 * kRowBytes, Config<D, N>::kKVTile, kAtomBytes),
-                accumulate || kk > 0);
+    wgmma_pv<Config<D, N>::kDV>(
+        o, p[kk], wgmma_desc(v_tile + kk * 16 * kRowBytes, Config<D, N>::kKVTile, kAtomBytes),
+        accumulate || kk > 0);
 }
 
 // Online softmax of one tile of raw logits, in place: s becomes
@@ -296,7 +323,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       int stage = 0, local = 0;
       uint32_t phase = 0;
       for (int item = blockIdx.x; item < items; item += gridDim.x, ++local) {
-        const int bh = item / q_tiles, q0 = (item % q_tiles) * kBlockM;
+        const int bh = item / q_tiles, q0 = (item % q_tiles) * Cfg::kRowsCTA;
         const int b = bh / H, h = bh % H;
         // the next Q tile overwrites the last only once both consumer
         // warpgroups have issued their last Q K^T of it and seen it complete
@@ -322,12 +349,17 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
   } else {
-    // ---- two consumer warpgroups, 64 Q rows each ----
+    // ---- two consumer warpgroups: 64 Q rows each, or (kSplit) the same 64
+    // rows and half of O's columns each ----
     setmaxnreg_inc<240>();
     const int wg = threadIdx.x / 128 - 1;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int g = lane / 4, t = lane % 4;
-    const unsigned char* q_rows = sQ + wg * 64 * kRowBytes;  // rows 64 wg.. of each col tile
+    const int wg_row = Cfg::kSplit ? 0 : wg * 64;        // its first row of the Q tile
+    const int wg_col = Cfg::kSplit ? wg * Cfg::kDV : 0;  // its first column of V and O
+    const unsigned char* q_rows = sQ + wg_row * kRowBytes;  // its rows of each col tile
+    // its columns of V: whole 64-column tiles from this one on, in each stage
+    const unsigned char* v_cols = sV + wg_col / 64 * Cfg::kKVTile;
 
     float s[Cfg::kS];
     float acc[Cfg::kAcc] = {};  // each item's first P V overwrites it (scale_d 0)
@@ -337,7 +369,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
     uint32_t phase = 0;
     if (wg == 1) turn_pass(1);  // warpgroup 0 goes first
     for (int item = blockIdx.x; item < items; item += gridDim.x, ++local) {
-      const int bh = item / q_tiles, q0 = (item % q_tiles) * kBlockM;
+      const int bh = item / q_tiles, q0 = (item % q_tiles) * Cfg::kRowsCTA;
       float m[2] = {-INFINITY, -INFINITY};  // running max of the raw logits, rows g and g + 8
       float l[2] = {0.f, 0.f};
 
@@ -363,7 +395,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         wgmma_fence();
         issue_qk<D, N>(s, q_rows, sK + next * Cfg::kStageBytes);
         wgmma_commit();
-        issue_pv<D, N>(acc, p, sV + stage * Cfg::kStageBytes, it > 1);
+        issue_pv<D, N>(acc, p, v_cols + stage * Cfg::kStageBytes, it > 1);
         wgmma_commit();
         turn_pass(wg);
         wgmma_wait<1>();  // the logits of tile `it`; P V of tile it - 1 still runs
@@ -383,7 +415,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       turn_wait(wg);
       fence_regs(acc);
       wgmma_fence();
-      issue_pv<D, N>(acc, p, sV + stage * Cfg::kStageBytes, ntiles > 1);
+      issue_pv<D, N>(acc, p, v_cols + stage * Cfg::kStageBytes, ntiles > 1);
       wgmma_commit();
       turn_pass(wg);
       wgmma_wait<0>();
@@ -401,36 +433,38 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       }
       const int b = bh / H, h = bh % H;
-      if (q0 + wg * 64 + warp * 16 >= Sq) continue;  // this warp's 16 rows are all past S_q
+      if (q0 + wg_row + warp * 16 >= Sq) continue;  // this warp's 16 rows are all past S_q
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int row = q0 + wg * 64 + warp * 16 + g + 8 * r;
+        const int row = q0 + wg_row + warp * 16 + g + 8 * r;
         const float inv_l = 1.f / l[r];
-        __nv_bfloat16* orow = o + b * o_sb + (long long)row * o_ss + h * o_sh;
-        if (Cfg::kWholeBlockStores && Sq >= kBlockM) {  // the same in every lane
+        __nv_bfloat16* orow = o + b * o_sb + (long long)row * o_ss + h * o_sh + wg_col;
+        if (Cfg::kWholeBlockStores && Sq >= Cfg::kRowsCTA) {  // the same in every lane
           // four 8-column blocks at a time, each thread stores one whole
           // block (see store_words); the shuffles run in every lane, rows
           // past S_q and columns past the head dim are not written
 #pragma unroll
-          for (int n0 = 0; n0 < D / 8; n0 += 4) {
+          for (int n0 = 0; n0 < Cfg::kDV / 8; n0 += 4) {
             uint32_t v[4];
 #pragma unroll
             for (int j = 0; j < 4; ++j)
-              v[j] = n0 + j < D / 8 ? pack_bf16(acc[4 * (n0 + j) + 2 * r] * inv_l,
+              v[j] = n0 + j < Cfg::kDV / 8 ? pack_bf16(acc[4 * (n0 + j) + 2 * r] * inv_l,
                                                 acc[4 * (n0 + j) + 2 * r + 1] * inv_l)
                                     : 0u;
             const uint4 w = store_words(v, t);
-            if (row < Sq && (n0 + t) * 8 < d)
+            if (row < Sq && wg_col + (n0 + t) * 8 < d)
               *reinterpret_cast<uint4*>(orow + (n0 + t) * 8) = w;
           }
         } else {
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n)
-            if (row < Sq && n * 8 < d)
+          for (int n = 0; n < Cfg::kDV / 8; ++n)
+            if (row < Sq && wg_col + n * 8 < d)
               *reinterpret_cast<uint32_t*>(orow + n * 8 + 2 * t) =
                   pack_bf16(acc[4 * n + 2 * r] * inv_l, acc[4 * n + 2 * r + 1] * inv_l);
         }
-        if (t == 0 && row < Sq)
+        // with the columns split both warpgroups hold the same m and l: the
+        // first writes the lse
+        if (t == 0 && row < Sq && wg_col == 0)
           lse[(long long)bh * Sq + row] = (m[r] * scale_log2 + log2f(l[r])) * kLn2;
       }
     }
@@ -446,10 +480,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
       allow_dynamic_smem(flash_fwd_wgmma_kernel<D, N>, Config<D, N>::kSmem, allowed);
   if (attr != cudaSuccess) return attr;
   alignas(64) CUtensorMap mq, mk, mv;
-  if (!make_bshd_map(&mq, q, B, H, Sq, d, qs, kBlockM) ||
+  if (!make_bshd_map(&mq, q, B, H, Sq, d, qs, Config<D, N>::kRowsCTA) ||
       !make_bshd_map(&mk, k, B, H, Sk, d, ks, N) || !make_bshd_map(&mv, v, B, H, Sk, d, vs, N))
     return cudaErrorInvalidValue;
-  const int q_tiles = (Sq + kBlockM - 1) / kBlockM;
+  const int q_tiles = (Sq + Config<D, N>::kRowsCTA - 1) / Config<D, N>::kRowsCTA;
   const long long items = (long long)q_tiles * B * H;
   if (items > 0x7fffffff) return cudaErrorInvalidValue;
   int ctas = (int)items;
@@ -497,14 +531,14 @@ int smem_instance(int Sk) {
 // ADM-256's 64-token level).
 #define DMTPU_WGMMA_INSTANCES(X) \
   X(40, 128, true) X(64, 128, true) X(72, 128, false) X(80, 128, true) X(160, 64, true) \
-  X(256, 64, false)
+  X(256, 64, false) X(512, 32, false)
 
 }  // namespace
 
 // q, k, v, o: bf16 [B, S, H, D] with the given element strides (D contiguous,
-// D a multiple of 8 up to 256, every stride a positive multiple of 8, 16-byte
+// D a multiple of 8 up to 512, every stride a positive multiple of 8, 16-byte
 // aligned pointers).  A head dim runs on the narrowest instance at least as
-// wide: 40, 64, 72, 80, 160 or 256.  lse: f32 [B, H, Sq], contiguous.
+// wide: 40, 64, 72, 80, 160, 256 or 512.  lse: f32 [B, H, Sq], contiguous.
 // scale_log2 = softmax scale * log2(e), positive.  Returns the CUDA error code
 // of the launch (0 on success; cudaErrorInvalidValue for a head dim, scale or
 // strides it does not take).
@@ -517,7 +551,7 @@ extern "C" int dmtpu_flash_attn_fwd(const void* q, const void* k, const void* v,
                                     float scale_log2, void* stream) {
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 0 || D % 8 || D > 256 || !(scale_log2 > 0.f)) return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D % 8 || D > 512 || !(scale_log2 > 0.f)) return (int)cudaErrorInvalidValue;
 #define DMTPU_LAUNCH(WIDTH, N, SHORT)                                                       \
   if (D <= WIDTH)                                                                           \
     return (int)launch_instance<WIDTH, N, SHORT>(q, k, v, o, lse, B, H, Sq, Sk, D, qs, ks, \

@@ -1,9 +1,10 @@
 // K1 at head dims 264-512, the mma.sync kernel's widest instance: non-causal
-// attention forward, bf16 in and out.  It serves CelebA-HQ's UNet
+// attention forward, bf16 in and out, at the head dims of CelebA-HQ's UNet
 // (configs/ddpm_celebahq.yaml), whose single attention head is as wide as its
-// 512 channels.  The gate is in dmtpu_torch/ops/flash_attention.py: every
-// head dim above 256 comes here, every other one to flash_attn_fwd_mma.cu or
-// flash_attn_fwd.cu.
+// 512 channels.  The wgmma kernel (flash_attn_fwd.cu) has a d=512 instance
+// that the gate in dmtpu_torch/ops/flash_attention.py prefers: only a
+// non-positive scale, a broadcast q, k or v (no tensor map) and kernel="mma"
+// come here; chip_smoke.py checks and times it beside the wgmma instance.
 //
 // Replaces dmtpu/ops/flash_small_d.py::_fwd_kernel / _fwd (the Pallas TPU
 // flash kernel) and the forward role of the stock Pallas TPU flash kernel

@@ -313,6 +313,18 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// d[64 x 32] (+)= a[64 x 16] (shared, K-major) * b[32 x 16]^T (shared, K-major).
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : DMTPU_F16("+f", d, 0)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // d[64 x 64] (+)= a[64 x 16] (shared, K-major) * b[64 x 16]^T (shared, K-major).
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                              int scale_d) {
@@ -368,6 +380,45 @@ __device__ __forceinline__ void wgmma_ss_n128_first(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(0));
 }
 
+// d[64 x N] (+)= a[64 x 16] (shared, K-major) * b[16 x N] (shared, MN-major: transposed),
+// N = 64, 96 (b's columns 64..95 the first 32 of the next 64-column block,
+// LBO bytes on) or 128.
+__device__ __forceinline__ void wgmma_ss_nt_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_ss_nt_n96(float (&d)[48], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 1;\n}\n"
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16), DMTPU_F16("+f", d, 32)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_ss_nt_n128(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16), DMTPU_F16("+f", d, 32),
+        DMTPU_F16("+f", d, 48)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
 // d[64 x 40] (+)= a[16 x 64]^T (shared, MN-major) * b[16 x 40] (shared, MN-major): both
 // operands are stored [k][m] and [k][n] and read through the transposing descriptors.
 __device__ __forceinline__ void wgmma_ss_tt_n40(float (&d)[20], uint64_t desc_a, uint64_t desc_b,
@@ -421,6 +472,21 @@ __device__ __forceinline__ void wgmma_ss_tt_n80(float (&d)[40], uint64_t desc_a,
       "%32, %33, %34, %35, %36, %37, %38, %39"
       "}, %40, %41, p, 1, 1, 1, 1;\n}\n"
       : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16), DMTPU_F4("+f", d, 32), DMTPU_F4("+f", d, 36)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d[64 x 96] (+)= a[16 x 64]^T (shared, MN-major) * b[16 x 96] (shared, MN-major): b's
+// columns 64..95 are the first 32 of the next 64-column block, LBO bytes on.
+__device__ __forceinline__ void wgmma_ss_tt_n96(float (&d)[48], uint64_t desc_a, uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 1, 1;\n}\n"
+      : DMTPU_F16("+f", d, 0), DMTPU_F16("+f", d, 16), DMTPU_F16("+f", d, 32)
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

@@ -6,7 +6,7 @@
 - ``check``: builds the kernels, prints what ``ptxas`` said of each instance
   of the wgmma kernel (registers, spills, shared memory, any C75xx remark),
   and holds the wgmma kernel against K1's plain version at every instance
-  (head dims 40, 64, 72, 80, 160, 256), at head dims between them (run on
+  (head dims 40, 64, 72, 80, 160, 256, 512), at head dims between them (run on
   the next wider instance), at ragged lengths, at key counts on either side
   of the short-key tile, and on strided q/k/v views.
 - ``time``: at every K1 shape of the repository's paths whose head dim has a
@@ -22,8 +22,13 @@
   The gate in ``dmtpu_torch/ops/flash_attention.py::select_kernel`` is read
   off these rows.
 
-- ``variants``: what the wgmma kernel's time is made of, at CIFAR's d=256
-  and three SD1.5 rows: patched copies built side by side and timed in
+- ``d512``: the d=512 instance against the mma.sync kernel's
+  (``csrc/flash_attn_fwd_mma_d512.cu``) at CelebA-HQ's shapes (b16 h1
+  S=256 and S=64), a ragged b4 S=200, d=504 and b128 S=256 (where the card,
+  not the host, sets the pace): both in turns by CUDA events over 20 calls
+  and alone by device time, beside SDPA (its backend named) and the bound.
+- ``variants``: what the wgmma kernel's time is made of, at CIFAR's d=256,
+  three SD1.5 rows and CelebA-HQ's d=512 at b128 and b16: patched copies built side by side and timed in
   turns, as built, without the O stores and without the products (loads,
   softmax and stores only).  The patched kernels compute wrong values; only
   their times are read.
@@ -39,11 +44,12 @@ import sys
 import time
 from pathlib import Path
 
-from dmtpu_torch.dev.k2_probe import _build_variants, _card, _time_ms
+from dmtpu_torch.dev.k2_probe import (_build_variants, _card, _device_ms, _time_ms,
+                                      sdpa_backend)
 
 ROOT = Path(__file__).resolve().parents[2]
 _CSRC = ROOT / "dmtpu_torch" / "csrc"
-PHASE_LIMITS = {"check": 240, "time": 420, "variants": 300}  # seconds
+PHASE_LIMITS = {"check": 240, "time": 420, "d512": 180, "variants": 300}  # seconds
 
 CHECK_SHAPES = [  # b, sq, sk, h, d
     # the new instances at SD1.5's shapes (b2), ragged lengths, padded head dims
@@ -59,8 +65,15 @@ CHECK_SHAPES = [  # b, sq, sk, h, d
     (2, 100, 80, 2, 80), (2, 100, 81, 2, 80), (2, 300, 1, 2, 40), (2, 77, 77, 3, 72),
     # the earlier instances at their paths' shapes
     (2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (4, 256, 256, 16, 72), (2, 333, 333, 3, 64),
+    # the d=512 instance: CelebA-HQ's shapes (b16 h1 S=256 and S=64), ragged
+    # lengths, padded head dims (504, 384, 264: the second half of the columns
+    # partly or wholly zero-filled), one key and one row
+    (16, 256, 256, 1, 512), (16, 64, 64, 1, 512), (4, 200, 200, 1, 512), (4, 256, 256, 1, 504),
+    (2, 77, 333, 2, 512), (2, 333, 40, 1, 264), (2, 100, 65, 2, 384), (1, 1, 1, 1, 512),
+    (128, 256, 256, 1, 512),
 ]
-STRIDED_SHAPES = [(2, 256, 8, 160), (4, 256, 1, 256), (4, 256, 16, 72)]  # b, s, h, d
+STRIDED_SHAPES = [(2, 256, 8, 160), (4, 256, 1, 256), (4, 256, 16, 72),
+                  (4, 256, 1, 512)]  # b, s, h, d
 
 # b, h, sq, sk, d: K1's calls on the repository's paths at head dims with a
 # wgmma instance (chip_smoke.py's rows)
@@ -133,22 +146,6 @@ def check() -> int:
     return 1 if bad else 0
 
 
-def _device_ms(torch, fn, reps: int = 20) -> float:
-    """The card's time of one call of ``fn``: the device time of every kernel
-    it launched (``torch.profiler``), over ``reps`` calls.  Unlike CUDA events
-    around the calls this leaves out the host's time between launches, which
-    at small shapes is the larger."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
-
-
 def timing() -> int:
     import torch
     from dmtpu_torch.ops import roofline
@@ -195,10 +192,51 @@ def timing() -> int:
         device = {name: round(_device_ms(torch, fn), 4) for name, fn in fns.items()}
         bound, by = roofline.bound_ms(*roofline.attention_fwd_work(b, h, sq, sk, d))
         print(f"K1 b{b} h{h} S_q={sq} S_k={sk} d={d}: ms {row}, device ms {device}, bound "
-              f"{bound:.4f} ({by}), gate {select_kernel(sq, sk, d)}", flush=True)
+              f"{bound:.4f} ({by}), gate {select_kernel(d)}", flush=True)
         del q, k, v, out, lse
         torch.cuda.empty_cache()
     print("time:", f"{bad} variant outputs differ" if bad else "the variants agree")
+    return 1 if bad else 0
+
+
+# b, h, sq, sk, d: CelebA-HQ's two shapes, a ragged length, a padded head
+# dim, and a batch where the card sets the pace
+D512_SHAPES = [(16, 1, 256, 256, 512), (16, 1, 64, 64, 512), (4, 1, 200, 200, 512),
+               (4, 1, 256, 256, 504), (128, 1, 256, 256, 512)]
+
+
+def d512() -> int:
+    import torch
+    from dmtpu_torch.ops import roofline
+    from dmtpu_torch.ops.flash_attention import (flash_attention_fwd, flash_attention_reference,
+                                                 select_kernel)
+    print(_card(), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bad = 0
+    for b, h, sq, sk, d in D512_SHAPES:
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+                   for s in (sq, sk, sk))
+        want = flash_attention_reference(q, k, v)[0].float()
+        fns = {name: (lambda name=name: flash_attention_fwd(q, k, v, kernel=name))
+               for name in ("mma", "wgmma")}
+        err = {}
+        for name, fn in fns.items():
+            err[name] = (fn()[0].float() - want).abs().max().item()
+            bad += not err[name] <= 1e-2 * want.abs().max().item()
+        ms = {}
+        for name in ("mma", "wgmma", "wgmma", "mma"):
+            ms.setdefault(name, []).append(round(_time_ms(torch, fns[name], 20), 4))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fns["sdpa"] = lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt)
+        ms["sdpa"] = round(_time_ms(torch, fns["sdpa"], 20), 4)
+        device = {name: round(_device_ms(torch, fn), 4) for name, fn in fns.items()}
+        bound, by = roofline.bound_ms(*roofline.attention_fwd_work(b, h, sq, sk, d))
+        print(f"K1 b{b} h{h} S_q={sq} S_k={sk} d={d} (gate {select_kernel(d)}): max err "
+              f"{err}, ms {ms}, device ms {device}, SDPA backend "
+              f"{sdpa_backend(torch, qt, kt, vt)}, bound {bound:.4f} ({by})", flush=True)
+        del q, k, v, qt, kt, vt, want
+        torch.cuda.empty_cache()
+    print("d512:", "FAILED" if bad else "all ok")
     return 1 if bad else 0
 
 
@@ -208,7 +246,8 @@ _NO_O_STORE = (r"\*reinterpret_cast<uint4\*>\(orow \+ \(n0 \+ t\) \* 8\) = w;",
 _NO_PRODUCTS = (r"(__device__ __forceinline__ void wgmma_(?:qk|pv)\(.*?\) \{).*?\n\}", r"\1\n}")
 DIAGNOSTICS = {"as_it_is": [], "no_o_store": [_NO_O_STORE], "no_products": [_NO_PRODUCTS]}
 DIAGNOSTIC_SHAPES = [(500, 1, 256, 256, 256), (16, 8, 256, 256, 160), (16, 8, 4096, 77, 40),
-                     (16, 8, 1024, 77, 80)]  # b, h, sq, sk, d
+                     (16, 8, 1024, 77, 80), (128, 1, 256, 256, 512),
+                     (16, 1, 256, 256, 512)]  # b, h, sq, sk, d
 
 
 def variants() -> int:
@@ -255,7 +294,7 @@ def variants() -> int:
     return 0
 
 
-PHASES = {"check": check, "time": timing, "variants": variants}
+PHASES = {"check": check, "time": timing, "d512": d512, "variants": variants}
 
 
 def main(argv: list[str]) -> int:

@@ -10,9 +10,10 @@
   backward of ``scaled_dot_product_attention`` (forward and backward less the
   forward alone), b16 h8 bf16, and the wgmma path's three kernels apart
   (``torch.profiler``).
-- ``variants``: what each kernel's time is made of.  Patched copies of the two
-  sources are built beside each other (``build/dev/variants/``) and timed in
-  turns: the mma.sync kernel with its dQ atomics compiled out, with its
+- ``variants``: what each kernel's time is made of, at SD1.5's S=4096 d=40,
+  S=1024 d=80 and S=256 d=160 and the CIFAR UNet's b128 S=256 d=256.
+  Patched copies of the two sources are built beside each other
+  (``build/dev/variants/``) and timed in turns: the mma.sync kernel with its dQ atomics compiled out, with its
   exponentials replaced by a multiply, and with both; the wgmma kernel without
   its bulk reduce-adds, without its exponentials, and without both.  The
   patched kernels compute wrong values; only their times are read.
@@ -27,12 +28,16 @@
   (registers, spills, shared memory), against K2's plain version at
   CelebA-HQ's shapes (b16 h1 S=256 and S=64), ragged lengths, d=504 and a
   strided dO, and its time beside SDPA's backward in this fresh process.
-- ``fresh``: the mma.sync kernel at the head dims that have no wgmma
-  instance in K2, at their paths' shapes (SD1.5's d=160 at b16 h8 S=256,
-  the CIFAR UNet's d=256 at b128 h1 S=256 and S=16), against K2's plain
-  version and beside SDPA's backward, in a process that has run nothing
-  else (late in ``chip_smoke.py`` SDPA's backward reads several times
-  slower than here).
+- ``fresh``: both kernels at the shapes of the column-split instances'
+  paths (SD1.5's four d=160 shapes at b16 h8; the CIFAR UNet's d=256 at
+  b128 h1 S=256 and S=16, a ragged b8 S=200 and d=248), against K2's plain
+  version, in turns (mma, wgmma, wgmma, mma) by CUDA events over 20 calls
+  and alone by device time (``torch.profiler``), beside SDPA's backward
+  (forward and backward less the forward, by events and by device time,
+  its backend named) and the bound, and the wgmma call's device time by
+  kernel (first pass, main kernel, cast), in a process that has run nothing else
+  (late in ``chip_smoke.py`` SDPA's backward reads several times slower
+  than here).
 
 With no argument each phase runs in a process of its own with a time limit: a
 kernel that hangs on an mbarrier would otherwise never return.
@@ -58,10 +63,17 @@ CHECK_SHAPES = [  # b, sq, sk, h, d
     (2, 100, 77, 2, 80), (2, 333, 128, 3, 40), (2, 4096, 77, 8, 40), (2, 1024, 77, 8, 80),
     (2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (1, 64, 128, 1, 72), (2, 200, 333, 3, 72),
     (2, 100, 77, 2, 72), (4, 256, 256, 16, 72), (1, 64, 128, 1, 64), (2, 333, 333, 3, 64),
-    (2, 100, 77, 2, 64), (2, 4250, 4250, 2, 64), (8, 333, 333, 12, 64)]
+    (2, 100, 77, 2, 64), (2, 4250, 4250, 2, 64), (8, 333, 333, 12, 64),
+    # the column-split instances: SD1.5's d=160 shapes (b2 h8), the pixel
+    # UNets' d=256 (b8 h1), ragged lengths, padded head dims on both (96 and
+    # 152 on 160, 168 and 248 on 256), one row, one key tile
+    (2, 256, 256, 8, 160), (2, 64, 64, 8, 160), (2, 256, 77, 8, 160), (2, 64, 77, 8, 160),
+    (2, 200, 333, 3, 152), (2, 333, 200, 2, 160), (1, 1, 130, 1, 96), (2, 100, 50, 2, 160),
+    (8, 256, 256, 1, 256), (8, 16, 16, 1, 256), (8, 200, 200, 1, 256), (4, 256, 256, 1, 248),
+    (2, 77, 333, 2, 256), (2, 333, 40, 1, 168), (1, 64, 64, 1, 256), (128, 256, 256, 1, 256)]
 # DiT-XL/2's self-attention: q, k and v strided views of one [B, S, 3, H, D]
 # projection (b, s, h, d)
-STRIDED_SHAPES = [(4, 256, 16, 72), (32, 256, 16, 72)]
+STRIDED_SHAPES = [(4, 256, 16, 72), (32, 256, 16, 72), (4, 256, 2, 160), (4, 256, 1, 256)]
 TIMED_SHAPES = [(4096, 4096, 40), (1024, 1024, 80), (4096, 77, 40), (1024, 77, 80),
                 (256, 256, 40), (4096, 256, 40), (256, 256, 72), (333, 333, 64),
                 (4250, 4250, 64)]  # sq, sk, d at b16 h8
@@ -111,6 +123,32 @@ def _time_ms(torch, fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(torch, fn, reps: int = 20) -> float:
+    """The card's time of one call of ``fn``: the device time of every kernel
+    it launched (``torch.profiler``), over ``reps`` calls.  Unlike CUDA events
+    around the calls this leaves out the host's time between launches, which
+    at small shapes is the larger."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
+
+
+def sdpa_backend(torch, q, k, v) -> str:
+    """The backend ``F.scaled_dot_product_attention`` picks for [B, H, S, D]
+    q, k, v ("unknown" where this PyTorch has no choice function)."""
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "unknown"
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(choose(q, k, v)).name
+
+
 def _case(torch, gen, b, sq, sk, h, d):
     return [torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
             for s in (sq, sk, sk, sq)]
@@ -125,9 +163,9 @@ def _strided_case(torch, gen, b, s, h, d):
 def check() -> int:
     import torch
     from dmtpu_torch.ops import _build
-    from dmtpu_torch.ops.flash_attention import (WGMMA_BWD_KEY_TILE,
-                                                 flash_attention_backward_reference,
-                                                 flash_attention_bwd, flash_attention_reference)
+    from dmtpu_torch.ops.flash_attention import (flash_attention_backward_reference,
+                                                 flash_attention_bwd, flash_attention_reference,
+                                                 wgmma_bwd_key_tile)
     t0 = time.time()
     lib = _build.build()
     _build.library()
@@ -136,7 +174,7 @@ def check() -> int:
     for i, line in enumerate(log):
         if "C75" in line or "error" in line.lower():
             print("  ", line.strip()[:300])
-        if "flash_bwd_wgmma_kernel" in line and "Compiling" in line:
+        if re.search("flash_bwd_(wgmma|split)_kernel", line) and "Compiling" in line:
             print("  ", "\n   ".join(x.strip()[:160] for x in log[i:i + 5]))
     gen = torch.Generator(device="cuda").manual_seed(0)
     bad = 0
@@ -162,7 +200,7 @@ def check() -> int:
                 rows = diff.amax(-1)[:diff.shape[0] // 16 * 16].reshape(-1, 16).amax(-1)
                 print("   ", name, "rows:", [round(x, 3) for x in rows[:16].tolist()],
                       "columns:", [round(x, 3) for x in diff.amax(0).tolist()])
-        if sk <= WGMMA_BWD_KEY_TILE:
+        if sk <= wgmma_bwd_key_tile(d):
             again = flash_attention_bwd(q, k, v, o, lse, do, kernel="wgmma")
             same = all(torch.equal(x, y) for x, y in zip(got, again))
             bad += not same
@@ -172,7 +210,10 @@ def check() -> int:
     return 1 if bad else 0
 
 
-def _sdpa_backward_ms(torch, q, k, v, do) -> float:
+def _sdpa_backward_ms(torch, q, k, v, do, device: bool = False) -> float:
+    """SDPA's backward: forward and backward of one call on [B, H, S, D]
+    views less the forward alone, by CUDA events or (``device``) by device
+    time."""
     lq, lk, lv = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     ldo = do.transpose(1, 2)
 
@@ -185,7 +226,8 @@ def _sdpa_backward_ms(torch, q, k, v, do) -> float:
         with torch.no_grad():
             torch.nn.functional.scaled_dot_product_attention(lq, lk, lv)
 
-    return _time_ms(torch, fwd_bwd) - _time_ms(torch, fwd)
+    clock = _device_ms if device else _time_ms
+    return clock(torch, fwd_bwd) - clock(torch, fwd)
 
 
 def timing() -> int:
@@ -213,6 +255,12 @@ def timing() -> int:
     return 0
 
 
+# b, h, sq, sk, d: SD1.5's two long self-attentions, its d=160 S=256 and the
+# CIFAR UNet's b128 d=256 S=256 (the column-split instances)
+VARIANT_SHAPES = [(16, 8, 4096, 4096, 40), (16, 8, 1024, 1024, 80), (16, 8, 256, 256, 160),
+                  (128, 1, 256, 256, 256)]
+
+
 def variants() -> int:
     import torch
     from dmtpu_torch.ops.flash_attention import _BWD_ROWS, flash_attention_fwd
@@ -224,8 +272,7 @@ def variants() -> int:
         entries[source] = {name: built[f"{Path(source).stem}.{name}"][0] for name in named}
     print(_card())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for sq, sk, d in [(4096, 4096, 40), (1024, 1024, 80)]:
-        b, h = 16, 8
+    for b, h, sq, sk, d in VARIANT_SHAPES:
         q, k, v, do = _case(torch, gen, b, sq, sk, h, d)
         o, lse = flash_attention_fwd(q, k, v)
         rows = b * h * -(-sq // _BWD_ROWS[d]) * _BWD_ROWS[d]  # enough for either kernel
@@ -245,7 +292,7 @@ def variants() -> int:
             for name in [*named, *reversed(named)]:
                 row.setdefault(name, []).append(
                     round(_time_ms(torch, lambda: run(named[name])), 4))
-            print(f"{source} b16 h8 ms", (sq, sk, d), row, flush=True)
+            print(f"{source} b{b} h{h} ms", (sq, sk, d), row, flush=True)
     return 0
 
 
@@ -373,32 +420,58 @@ def d512() -> int:
     return 1 if bad else 0
 
 
-FRESH_SHAPES = [(16, 256, 8, 160), (128, 256, 1, 256), (128, 16, 1, 256)]  # b, s, h, d
+# b, sq, sk, h, d: the column-split instances' shapes on the paths
+FRESH_SHAPES = [(16, 256, 256, 8, 160), (16, 64, 64, 8, 160), (16, 256, 77, 8, 160),
+                (16, 64, 77, 8, 160), (128, 256, 256, 1, 256), (128, 16, 16, 1, 256),
+                (8, 200, 200, 1, 256), (8, 256, 256, 1, 248)]
 
 
 def fresh() -> int:
     import torch
+    from dmtpu_torch.ops import roofline
     from dmtpu_torch.ops.flash_attention import (flash_attention_backward_reference,
                                                  flash_attention_bwd, flash_attention_fwd,
                                                  select_bwd_kernel)
     print(_card(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bad = 0
-    for b, s, h, d in FRESH_SHAPES:
-        q, k, v, do = _case(torch, gen, b, s, s, h, d)
+    for b, sq, sk, h, d in FRESH_SHAPES:
+        q, k, v, do = _case(torch, gen, b, sq, sk, h, d)
         o, lse = flash_attention_fwd(q, k, v)
         want = flash_attention_backward_reference(q, k, v, o, lse, do)
-        got = flash_attention_bwd(q, k, v, o, lse, do, kernel="mma")
-        torch.cuda.synchronize()
-        rel = max(((a.float() - w.float()).norm() / w.float().norm()).item()
-                  for a, w in zip(got, want))
-        bad += not rel <= 1e-2
-        ms = [round(_time_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                                 kernel="mma"), 20), 4)
-              for _ in range(2)]
-        sdpa = [round(_sdpa_backward_ms(torch, q, k, v, do), 4) for _ in range(2)]
-        print(f"K2 mma.sync b{b} h{h} S={s} d={d} (gate {select_bwd_kernel(s, s, d)}): rel L2 "
-              f"{rel:.2e}, ms {ms}, SDPA backward {sdpa}", flush=True)
+        fns = {name: (lambda name=name: flash_attention_bwd(q, k, v, o, lse, do, kernel=name))
+               for name in ("mma", "wgmma")}
+        rel = {}
+        for name, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            rel[name] = max(((a.float() - w.float()).norm() / w.float().norm()).item()
+                            for a, w in zip(got, want))
+            bad += not rel[name] <= 1e-2
+        ms = {}
+        for name in ("mma", "wgmma", "wgmma", "mma"):
+            ms.setdefault(name, []).append(round(_time_ms(torch, fns[name], 20), 4))
+        device = {name: round(_device_ms(torch, fn), 4) for name, fn in fns.items()}
+        sdpa = round(_sdpa_backward_ms(torch, q, k, v, do), 4)
+        sdpa_device = round(_sdpa_backward_ms(torch, q, k, v, do, device=True), 4)
+        backend = sdpa_backend(torch, *(x.transpose(1, 2) for x in (q, k, v)))
+        bound, by = roofline.bound_ms(*roofline.attention_bwd_work(b, h, sq, sk, d))
+        print(f"K2 b{b} h{h} S_q={sq} S_k={sk} d={d} (gate {select_bwd_kernel(d)}): rel L2 "
+              f"{rel}, ms {ms}, device ms {device}, SDPA backward ({backend}) ms {sdpa}, "
+              f"device ms {sdpa_device}, bound {bound:.4f} ({by})", flush=True)
+        # the wgmma call's kernels apart: the first pass, the main kernel, the cast
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fns["wgmma"]()
+            torch.cuda.synchronize()
+        print("    wgmma by kernel, device ms:", {
+            re.search(r"flash_bwd_\w+", e.key)[0]: round(e.self_device_time_total / 1e4, 4)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "flash_bwd_" in e.key},
+            flush=True)
+        del q, k, v, do, o, lse, want
+        torch.cuda.empty_cache()
     print("fresh:", "FAILED" if bad else "all ok")
     return 1 if bad else 0
 

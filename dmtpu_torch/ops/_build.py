@@ -48,6 +48,8 @@ _SIGNATURES = {
     "dmtpu_flash_attn_bwd": [_P] * 11 + [_I] * 5 + [_L] * 21 + [_F, _P],
     "dmtpu_flash_attn_bwd_mma": [_P] * 11 + [_I] * 5 + [_L] * 21 + [_F, _P],
     "dmtpu_flash_attn_bwd_mma_d512": [_P] * 11 + [_I] * 5 + [_L] * 21 + [_F, _P],
+    # D: the wgmma backward's dynamic shared memory for that head dim, in bytes
+    "dmtpu_flash_attn_bwd_smem": [_I],
     # x, weight, bias, y, N, C, HW, G, eps, silu, is_bf16, kernel, cluster, rows, threads,
     # stream
     "dmtpu_group_norm_silu": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 6 + [_P],

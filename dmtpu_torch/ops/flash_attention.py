@@ -10,22 +10,26 @@ to 48, 80, 160, 256 or 512 in shared memory) and ragged sequence lengths
 - ``flash_attention_fwd(q, k, v, scale) -> (o, lse)`` (K1): ``lse`` is the
   f32 row logsumexp [B, H, S_q] that the backward consumes.  Two kernels
   stand behind it: ``csrc/flash_attn_fwd.cu`` (wgmma and TMA, head dims up
-  to 256 on instances of 40, 64, 72, 80, 160 and 256: every call of the
-  repository's paths below 512) and the mma.sync kernel (a non-positive
-  scale, a broadcast q, k or v, and head dims above 256):
-  ``csrc/flash_attn_fwd_mma.cu`` up to 256 and
+  to 512 on instances of 40, 64, 72, 80, 160, 256 and 512: every call of the
+  repository's paths) and the mma.sync kernel (a non-positive scale, a
+  broadcast q, k or v): ``csrc/flash_attn_fwd_mma.cu`` up to 256 and
   ``csrc/flash_attn_fwd_mma_d512.cu`` above; ``select_kernel`` is the gate.
 - ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2).
   Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
-  TMA, head dims 40, 64, 72 and 80; dQ's partial sums leave a CTA as whole f32
-  tiles by ``cp.reduce.async.bulk``) and ``csrc/flash_attn_bwd_mma.cu``
-  (mma.sync, dQ by scalar f32 atomics; everything else: up to 256 there,
-  above it ``csrc/flash_attn_bwd_mma_d512.cu``, dK, dV and dQ split by
+  TMA, head dims 40, 64, 72 and 80 on instances of their own, every multiple
+  of 8 in (80, 256] on the column-split instances of 160 and 256; dQ's
+  partial sums leave a CTA as whole f32 rows by ``cp.reduce.async.bulk``)
+  and the mma.sync kernel (dQ by scalar f32 atomics: head dims below 40, 48
+  and 56, a broadcast q, k, v or dO, in ``csrc/flash_attn_bwd_mma.cu``;
+  above 256 ``csrc/flash_attn_bwd_mma_d512.cu``, dK, dV and dQ split by
   column halves over two CTAs); ``select_bwd_kernel`` is the gate.  Where
   several key tiles add to dq, neither gives a bitwise reproducible dq: the
-  f32 adds of different CTAs arrive in an order that varies from run to run.  With one key tile
-  (S_k <= 128) the wgmma kernel writes dq itself, in bf16, and two runs
-  agree bit for bit.
+  f32 adds of different CTAs arrive in an order that varies from run to run.
+  With one key tile the wgmma kernel writes dq itself, in bf16, and two runs
+  agree bit for bit: S_k <= 128 at head dims up to 80, S_k <= 64 above
+  (``wgmma_bwd_key_tile``).  So SD1.5's d=160 cross-attention to 77 keys,
+  two 64-key tiles, adds f32 partial sums and is not reproducible bit for
+  bit, while its S=64 self-attention at d=160 is.
 - ``flash_attention_reference`` and ``flash_attention_backward_reference``:
   the plain PyTorch versions of the same math in f32 (P cast to V's dtype
   for PV and dV, dS cast to Q's dtype for dK and dQ, as the TPU kernels
@@ -99,9 +103,9 @@ def _check_bshd(name: str, t: torch.Tensor) -> None:
                          f"strides {t.stride()}")
 
 
-# The widest head dim the kernels take: K1's and K2's mma.sync kernels have an
-# instance at 512 (CelebA-HQ's UNet, configs/ddpm_celebahq.yaml: one head as
-# wide as its 512 channels).
+# The widest head dim the kernels take: K1's wgmma and mma.sync kernels and
+# K2's mma.sync kernel have an instance at 512 (CelebA-HQ's UNet,
+# configs/ddpm_celebahq.yaml: one head as wide as its 512 channels).
 MAX_HEAD_DIM = 512
 
 
@@ -129,15 +133,16 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, backward: bool
 # K1 is two hand-written kernels with one interface.  "wgmma"
 # (csrc/flash_attn_fwd.cu: TMA loads, a ring of K/V stages, wgmma, 128 Q rows
 # a CTA) is instantiated for head dims 40 and 80 (SD1.5), 72 (DiT), 64
-# (MMDiT, SDXL, ADM), 160 (SD1.5) and 256 (the CIFAR UNets); a head dim
-# between two instances runs on the wider one, its columns past the head dim
-# zero-filled.  It needs a positive scale (it takes the running max before
-# scaling) and tensor maps (no zero strides).  "mma" (mma.sync) takes every
-# head dim up to 512 and any strides and scale: up to 256
+# (MMDiT, SDXL, ADM), 160 (SD1.5), 256 (the CIFAR UNets) and 512 (CelebA-HQ:
+# 64 Q rows a CTA, O's columns split over its two consumer warpgroups); a
+# head dim between two instances runs on the wider one, its columns past the
+# head dim zero-filled.  It needs a positive scale (it takes the running max
+# before scaling) and tensor maps (no zero strides).  "mma" (mma.sync) takes
+# every head dim up to 512 and any strides and scale: up to 256
 # csrc/flash_attn_fwd_mma.cu (64 x 64 tiles), above it
 # csrc/flash_attn_fwd_mma_d512.cu (64 rows x 32 keys, O's columns split over
-# two CTAs; CelebA-HQ's d=512).
-WGMMA_HEAD_DIMS = (40, 64, 72, 80, 160, 256)
+# two CTAs).
+WGMMA_HEAD_DIMS = (40, 64, 72, 80, 160, 256, 512)
 
 
 def wgmma_instance(d: int) -> Optional[int]:
@@ -154,9 +159,9 @@ def kernels_for(d: int, scale: Optional[float] = None) -> list[str]:
     return names
 
 
-def select_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> str:
+def select_kernel(d: int, scale: Optional[float] = None) -> str:
     """The K1 kernel a call is dispatched to: "wgmma" wherever it takes the
-    call (head dims up to 256, a positive scale), whatever the lengths;
+    call (every head dim up to 512, a positive scale), whatever the lengths;
     ``flash_attention_fwd`` also leaves a broadcast (zero-stride) q, k or v to
     "mma".
 
@@ -182,13 +187,21 @@ def select_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> st
     160 and 256 had instances and the wgmma kernel its short-key tile and
     persistent CTAs, every call with at most 128 keys, and head dims 160 and
     256, stayed on mma.sync.
+
+    Head dim 512 (``python -m dmtpu_torch.dev.k1_probe d512``, the same card,
+    device time, mma.sync / wgmma, SDPA's memory-efficient backend in
+    brackets): CelebA-HQ's b16 h1 S=256 0.0278 / 0.0244 (0.0232) and S=64
+    0.0099 / 0.0098 (0.0109); a ragged b4 S=200 0.0225 / 0.0218 (0.0223);
+    b4 S=256 d=504 0.0258 / 0.0255 (0.0265); b128 S=256, where the card sets
+    the pace, 0.1974 / 0.1055 (0.1327).  The wgmma instance is the faster or
+    level at each, so it takes head dims 264 to 512 too.
     """
     return "wgmma" if "wgmma" in kernels_for(d, scale) else "mma"
 
 
 _ENTRY_POINTS = {"mma": "dmtpu_flash_attn_fwd_mma", "wgmma": "dmtpu_flash_attn_fwd"}
-# the mma.sync kernel's instance for head dims above this one lives in its own
-# source, behind its own entry point
+# the mma.sync kernels' instances for head dims above this one live in their
+# own sources, behind their own entry points (K1's and K2's)
 MMA_NARROW_HEAD_DIM = 256
 _WIDE_ENTRY_POINT = "dmtpu_flash_attn_fwd_mma_d512"
 _LOG2E = math.log2(math.e)
@@ -211,7 +224,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk = k.shape[1]
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     if kernel is None:
-        kernel = select_kernel(sq, sk, d, scale)
+        kernel = select_kernel(d, scale)
         if kernel == "wgmma" and min(strides) <= 0:  # a broadcast view: no tensor map
             kernel = "mma"
     elif kernel not in kernels_for(d, scale) or (kernel == "wgmma" and min(strides) <= 0):
@@ -220,7 +233,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    entry = _WIDE_ENTRY_POINT if d > MMA_NARROW_HEAD_DIM else _ENTRY_POINTS[kernel]
+    entry = (_WIDE_ENTRY_POINT if kernel == "mma" and d > MMA_NARROW_HEAD_DIM
+             else _ENTRY_POINTS[kernel])
     err = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, h, sq, sk, d, *strides, *out.stride()[:3], scale * _LOG2E,
@@ -238,36 +252,62 @@ flash_attention_fwd.launches_by_head_dim = collections.Counter()
 
 
 # K2 is two hand-written kernels with one interface, as K1 is.  "wgmma"
-# (csrc/flash_attn_bwd.cu: a CTA per 128-key tile, TMA loads, a ring of Q / dO
-# stages, wgmma for the five products, dQ added into an f32 buffer by whole
-# tiles with cp.reduce.async.bulk) is instantiated for head dims 40 and 80
-# (SD1.5), 72 (DiT) and 64 (MMDiT) and reads q, k, v and dO through tensor maps (positive
-# strides); "mma" (mma.sync, dQ by scalar f32 atomics) takes every head dim
-# up to 512 and any strides: up to 256 csrc/flash_attn_bwd_mma.cu (64-key
-# tiles; the pixel UNets' d=256 runs there), above it
-# csrc/flash_attn_bwd_mma_d512.cu (32-key tiles, dK, dV and dQ's columns split
-# over two CTAs; CelebA-HQ's d=512).
+# (csrc/flash_attn_bwd.cu: TMA loads, a ring of Q / dO stages, wgmma for the
+# five products, dQ added into an f32 buffer by whole rows with
+# cp.reduce.async.bulk) reads q, k, v and dO through tensor maps (positive
+# strides).  Its instances: head dims 40 and 80 (SD1.5), 72 (DiT) and 64
+# (MMDiT), a CTA per 128-key tile, two consumer warpgroups of 64 keys each;
+# and 160 (SD1.5) and 256 (the pixel UNets), a CTA per 64-key tile, both
+# consumer warpgroups on all 64 keys and each on its share of dK's, dV's and
+# dQ's columns.  Every multiple of 8 in (80, 256] runs on the narrower of
+# those two that is at least as wide, its columns past the head dim
+# zero-filled.  "mma" (mma.sync, dQ by scalar f32 atomics) takes every head
+# dim up to 512 and any strides: up to 256 csrc/flash_attn_bwd_mma.cu (64-key
+# tiles; the head dims below 40, 48 and 56, and zero strides, run there),
+# above it csrc/flash_attn_bwd_mma_d512.cu (32-key tiles, dK, dV and dQ's
+# columns split over two CTAs; CelebA-HQ's d=512).
 _BWD_ENTRY_POINTS = {"mma": "dmtpu_flash_attn_bwd_mma", "wgmma": "dmtpu_flash_attn_bwd"}
 _BWD_WIDE_ENTRY_POINT = "dmtpu_flash_attn_bwd_mma_d512"
-WGMMA_BWD_HEAD_DIMS = (40, 64, 72, 80)
-# the wgmma kernel pads its f32 scratch to whole steps of rows
-_BWD_ROWS = {40: 128, 64: 64, 72: 64, 80: 64}
-# Its key tile.  With no more keys than this a CTA holds every contribution to
-# its dq rows: it writes them in bf16 itself, the same bits in every run, and
-# needs no f32 sums.
+WGMMA_BWD_HEAD_DIMS = (40, 64, 72, 80, 160, 256)
+# the instances whose two consumer warpgroups split the columns (64-key tiles)
+WGMMA_BWD_SPLIT_HEAD_DIMS = (160, 256)
+# the wgmma kernel pads its f32 scratch to whole steps of rows, by instance
+_BWD_ROWS = {40: 128, 64: 64, 72: 64, 80: 64, 160: 64, 256: 64}
+# Its key tile up to head dim 80.  With no more keys than its instance's tile
+# (wgmma_bwd_key_tile) a CTA holds every contribution to its dq rows: it
+# writes them in bf16 itself, the same bits in every run, and needs no f32
+# sums.
 WGMMA_BWD_KEY_TILE = 128
+WGMMA_BWD_SPLIT_KEY_TILE = 64
+
+
+def wgmma_bwd_instance(d: int) -> Optional[int]:
+    """K2's wgmma instance that runs head dim ``d``: 40, 64, 72 and 80 their
+    own; a multiple of 8 in (80, 256] the narrower of 160 and 256 that is at
+    least as wide; None for the rest (mma.sync)."""
+    if d in (40, 64, 72, 80):
+        return d
+    if 80 < d <= 256 and not d & 7:
+        return 160 if d <= 160 else 256
+    return None
+
+
+def wgmma_bwd_key_tile(d: int) -> int:
+    """The keys of one CTA of K2's wgmma instance for head dim ``d``."""
+    split = wgmma_bwd_instance(d) in WGMMA_BWD_SPLIT_HEAD_DIMS
+    return WGMMA_BWD_SPLIT_KEY_TILE if split else WGMMA_BWD_KEY_TILE
 
 
 def bwd_kernels_for(d: int) -> list[str]:
     """The K2 kernels that take head dim ``d``, the general one first."""
-    return ["mma", "wgmma"] if d in WGMMA_BWD_HEAD_DIMS else ["mma"]
+    return ["mma", "wgmma"] if wgmma_bwd_instance(d) else ["mma"]
 
 
-def select_bwd_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -> str:
-    """The K2 kernel a call is dispatched to: "wgmma" wherever it is
-    instantiated (head dims 40, 64, 72 and 80), whatever the lengths.  ``scale``
-    does not matter to K2, which reads the saved lse; the argument mirrors
-    ``select_kernel``.
+def select_bwd_kernel(d: int) -> str:
+    """The K2 kernel a call is dispatched to: "wgmma" wherever it has an
+    instance (head dims 40, 64, 72, 80 and every multiple of 8 in (80, 256]),
+    whatever the lengths; ``flash_attention_bwd`` also leaves a broadcast
+    (zero-stride) q, k, v or dO to "mma".
 
     Measured on an NVIDIA H100 80GB HBM3 (700 W) by ``chip_smoke.py`` phase 6,
     b16 h8 bf16, both kernels in one call, ms (mma.sync / wgmma): S=4096 d=40
@@ -279,8 +319,17 @@ def select_bwd_kernel(sq: int, sk: int, d: int, scale: Optional[float] = None) -
     tiles, q/k/v strided views of one projection), two timings each:
     mma.sync 0.3573 and 0.3567 ms, wgmma 0.1868 and 0.1867; d=72 takes the
     same rule.
+
+    The column-split instances (``python -m dmtpu_torch.dev.k2_probe fresh``,
+    the same card, device time, mma.sync / wgmma, cuDNN's backward in
+    brackets): SD1.5 at b16 h8 d=160, S=256 0.2182 / 0.1146 (0.1122), S=64
+    0.0402 / 0.0179 (0.0240), S_q=256 S_k=77 0.1328 / 0.0698 (0.0783), S_q=64
+    S_k=77 0.0529 / 0.0280 (0.0252); the CIFAR UNet at b128 h1 d=256, S=256
+    0.3523 / 0.1675 (0.1461), S=16 0.0440 / 0.0119 (0.0244); b8 S=200 d=256
+    0.0848 / 0.0319 and S=256 d=248 0.0872 / 0.0330.  The wgmma kernel is
+    the faster at every one, so it takes head dims 88 to 256 too.
     """
-    return "wgmma" if "wgmma" in bwd_kernels_for(d) else "mma"
+    return "wgmma" if wgmma_bwd_instance(d) else "mma"
 
 
 def _round_up(n: int, to: int) -> int:
@@ -297,10 +346,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     head dim is contiguous and its rows 16-byte aligned; a ``do`` that is not
     (autograd hands a gradient of all-zero strides for a ``sum()``) is copied
     with ``.contiguous()`` first.  ``kernel`` forces "mma" or "wgmma" (it
-    raises if that kernel does not take the call: a head dim other than 40,
-    72 or 80, or a q, k, v or ``do`` broadcast over batch, rows or heads, whose zero
-    stride has no tensor map); by default ``select_bwd_kernel`` chooses and
-    leaves such a call to "mma".
+    raises if that kernel does not take the call: for "wgmma" a head dim
+    without an instance (``wgmma_bwd_instance``: below 40, 48, 56 or above
+    256), or a q, k, v or ``do`` broadcast over batch, rows or heads, whose
+    zero stride has no tensor map); by default ``select_bwd_kernel`` chooses
+    and leaves a broadcast call to "mma".
     """
     if kernel is not None and kernel not in _BWD_ENTRY_POINTS:
         raise ValueError(f"flash_attention_bwd: unknown kernel {kernel!r}")
@@ -326,7 +376,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     _check_bshd("do", do)
     mapped = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3])
     if kernel is None:
-        kernel = select_bwd_kernel(sq, sk, d, scale)
+        kernel = select_bwd_kernel(d)
         if kernel == "wgmma" and min(mapped) <= 0:  # a broadcast view: no tensor map
             kernel = "mma"
     elif kernel not in bwd_kernels_for(d) or (kernel == "wgmma" and min(mapped) <= 0):
@@ -336,9 +386,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dev = q.device
     # one f32 scratch for both kernels' per-row statistics and f32 dQ sums
     if kernel == "wgmma":
-        rows = b * h * _round_up(sq, _BWD_ROWS[d])
+        width = wgmma_bwd_instance(d)  # the f32 sums' row width
+        rows = b * h * _round_up(sq, _BWD_ROWS[width])
         n_stat = 2 * rows  # lse * log2(e) and delta
-        n_sums = 0 if sk <= WGMMA_BWD_KEY_TILE else rows * d  # one key tile writes dq itself
+        # one key tile writes dq itself
+        n_sums = 0 if sk <= wgmma_bwd_key_tile(d) else rows * width
     else:
         rows = b * h * sq
         n_stat = _round_up(rows, 4)  # delta; the sums that follow stay 16-byte aligned
@@ -347,7 +399,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=dev)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=dev)
-    entry = _BWD_WIDE_ENTRY_POINT if d > MMA_NARROW_HEAD_DIM else _BWD_ENTRY_POINTS[kernel]
+    entry = (_BWD_WIDE_ENTRY_POINT if kernel == "mma" and d > MMA_NARROW_HEAD_DIM
+             else _BWD_ENTRY_POINTS[kernel])
     err = getattr(_build.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         scratch.data_ptr(), scratch.data_ptr() + 4 * n_stat, dq.data_ptr(), dk.data_ptr(),

@@ -261,15 +261,15 @@ def test_k2_kernel_rejects_unsupported_inputs(cuda):
 
 @pytest.mark.gpu
 def test_a_gradient_through_head_dim_256_goes_through_k2(cuda):
-    """The pixel UNets' one head of 256: K1 forward, K2's mma.sync instance
-    backward, against plain autograd on the same bf16 values."""
+    """The pixel UNets' one head of 256: K1 forward, K2's wgmma column-split
+    instance backward, against plain autograd on the same bf16 values."""
     q, k, v, do = _qkv_do(cuda, 19, 2, 256, 256, 1, 256)
     before = flash_attention_bwd.launches_by_head_dim[256], flash_attention_bwd.launches
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     attention(*leaves).backward(do)
     assert (flash_attention_bwd.launches_by_head_dim[256], flash_attention_bwd.launches) == \
         (before[0] + 1, before[1] + 1)
-    assert select_bwd_kernel(256, 256, 256) == "mma" and k2_kernels_for(256) == ["mma"]
+    assert select_bwd_kernel(256) == "wgmma" and k2_kernels_for(256) == ["mma", "wgmma"]
     plain = [x.clone().requires_grad_() for x in (q, k, v)]
     with plain_ops():
         attention(*plain).backward(do)
@@ -280,9 +280,10 @@ def test_a_gradient_through_head_dim_256_goes_through_k2(cuda):
 @pytest.mark.parametrize("b,s,d", [(16, 256, 512), (16, 64, 512), (4, 200, 512), (4, 256, 504)])
 def test_a_gradient_through_head_dim_512_goes_through_k2(cuda, b, s, d):
     """CelebA-HQ's one head of 512 (S = 256 and 64 at b16), a ragged length
-    and a padded head dim: K1's and K2's d=512 instances, one launch each,
-    against K2's plain version on K1's outputs and against plain autograd on
-    the same bf16 values; a wider head raises in both directions."""
+    and a padded head dim: K1's d=512 instance (wgmma) and K2's (mma.sync),
+    one launch each, against K2's plain version on K1's outputs and against
+    plain autograd on the same bf16 values; a wider head raises in both
+    directions."""
     q, k, v, do = _qkv_do(cuda, 23, b, s, s, 1, d)
     def counts():
         return (flash_attention_fwd.launches_by_head_dim[d],
@@ -293,7 +294,7 @@ def test_a_gradient_through_head_dim_512_goes_through_k2(cuda, b, s, d):
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     attention(*leaves).backward(do)
     assert counts() == tuple(x + 1 for x in before)
-    assert select_bwd_kernel(s, s, d) == "mma" and k2_kernels_for(d) == ["mma"]
+    assert select_bwd_kernel(d) == "mma" and k2_kernels_for(d) == ["mma"]
     o, lse = flash_attention_fwd(q, k, v)
     got = flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
@@ -310,21 +311,108 @@ def test_a_gradient_through_head_dim_512_goes_through_k2(cuda, b, s, d):
         flash_attention_bwd(q, q, q, q, torch.zeros(1, 1, 16, device=cuda), q)
 
 
+# ---- K1's d=512 wgmma instance and K2's column-split instances -------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (16, 256, 256, 1, 512), (16, 64, 64, 1, 512), (4, 200, 200, 1, 512), (4, 256, 256, 1, 504),
+    (2, 77, 333, 2, 512), (2, 333, 40, 1, 264), (2, 100, 77, 2, 384)])
+def test_k1_d512_wgmma_instance_and_its_mma_sync_twin(cuda, b, sq, sk, h, d):
+    """K1's d=512 instance (O's columns split over its two consumer
+    warpgroups) at CelebA-HQ's shapes, ragged lengths, S_q != S_k, 77 keys
+    and padded head dims (504, 384, 264): the dispatch launches wgmma, and it
+    and the mma.sync instance, forced, agree with the plain version."""
+    q, k, v = _k1_case(cuda, 31, b, sq, sk, h, d)
+    assert select_kernel(d) == "wgmma" and k1_kernels_for(d) == ["mma", "wgmma"]
+    before = dict(flash_attention_fwd.launches_by_kernel)
+    o, lse = flash_attention_fwd(q, k, v)
+    assert flash_attention_fwd.launches_by_kernel == {"mma": before["mma"],
+                                                      "wgmma": before["wgmma"] + 1}
+    o_mma, lse_mma = flash_attention_fwd(q, k, v, kernel="mma")
+    want_o, want_lse = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    for got_o, got_lse in ((o, lse), (o_mma, lse_mma)):
+        assert_k1_close(got_o, want_o)
+        torch.testing.assert_close(got_lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (2, 256, 256, 8, 160), (2, 64, 64, 8, 160), (2, 256, 77, 8, 160), (2, 64, 77, 8, 160),
+    (2, 200, 333, 3, 152), (2, 333, 200, 2, 160), (2, 100, 50, 2, 96), (8, 256, 256, 1, 256),
+    (8, 16, 16, 1, 256), (8, 200, 200, 1, 256), (4, 256, 256, 1, 248), (2, 77, 333, 2, 256)])
+def test_k2_split_instances_against_plain_and_f32_autograd(cuda, b, sq, sk, h, d):
+    """K2's column-split instances (160 and 256; 96, 152 and 248 padded) at
+    SD1.5's d=160 shapes, the pixel UNets' d=256, ragged lengths, S_q != S_k
+    and 77 keys: the dispatch launches wgmma, whose gradients agree with K2's
+    plain version (1e-2) and with f32 autograd through ``mha`` on the same
+    bf16 values (2e-2); with one key tile two runs agree bit for bit; the
+    mma.sync kernel, forced, agrees too."""
+    from dmtpu_torch.ops.flash_attention import wgmma_bwd_instance, wgmma_bwd_key_tile
+    q, k, v, do = _qkv_do(cuda, 33, b, sq, sk, h, d)
+    assert select_bwd_kernel(d) == "wgmma" and wgmma_bwd_instance(d) in (160, 256)
+    o, lse = flash_attention_fwd(q, k, v)
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    assert flash_attention_bwd.launches_by_kernel == {"mma": before["mma"],
+                                                      "wgmma": before["wgmma"] + 1}
+    torch.cuda.synchronize()
+    assert all(x.dtype == torch.bfloat16 and torch.isfinite(x).all() for x in got)
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    mha(*leaves).backward(do.float())
+    assert_grads_close(got, [x.grad for x in leaves], 2e-2)
+    if sk <= wgmma_bwd_key_tile(d):  # the CTA writes dq itself
+        again = flash_attention_bwd(q, k, v, o, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    forced = flash_attention_bwd(q, k, v, o, lse, do, kernel="mma")
+    assert_grads_close(forced, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [160, 256, 512])
+def test_a_broadcast_q_falls_to_mma_at_the_new_head_dims(cuda, d):
+    """A q broadcast over the batch (stride 0: no tensor map) goes to
+    mma.sync in both directions, where K1 at d=512 and K2 at 160 and 256
+    otherwise take wgmma; forcing wgmma on it raises."""
+    g = torch.Generator(device=cuda).manual_seed(35)
+    q = torch.randn(1, 64, 1, d, generator=g, device=cuda).bfloat16().expand(2, 64, 1, d)
+    k, v, do = (torch.randn(2, 64, 1, d, generator=g, device=cuda).bfloat16() for _ in range(3))
+    assert q.stride()[0] == 0
+    before = dict(flash_attention_fwd.launches_by_kernel)
+    o, lse = flash_attention_fwd(q, k, v)
+    assert flash_attention_fwd.launches_by_kernel["mma"] == before["mma"] + 1
+    with pytest.raises(ValueError, match="does not take"):
+        flash_attention_fwd(q, k, v, kernel="wgmma")
+    want_o, _ = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert_k1_close(o, want_o)
+    if d > 256:  # K2 at 512 is mma.sync either way
+        return
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    assert flash_attention_bwd.launches_by_kernel["mma"] == before["mma"] + 1
+    with pytest.raises(ValueError, match="does not take"):
+        flash_attention_bwd(q, k, v, o, lse, do, kernel="wgmma")
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+
+
 # ---- the gates, on the CPU ----------------------------------------------------
 
 def test_the_forward_takes_head_dims_to_512_and_the_backward_to_256():
     """Both directions take every multiple of 8 up to 512 (the mma.sync
     kernels' widest instances, CelebA-HQ's one head; the backward's limit was
     256 until its d=512 instance came) and refuse anything else, naming the
-    kernel and the limit."""
+    kernel and the limit.  At 512 the forward has a wgmma instance too, and
+    the dispatch takes it; the backward stays on mma.sync."""
     assert MAX_HEAD_DIM == 512
     for d in (8, 256, 264, 504, 512):
         assert k1_kernels_for(d)[0] == "mma" and k2_kernels_for(d)[0] == "mma"
         q = torch.zeros(2, 16, 1, d, dtype=torch.bfloat16)
         _check_qkv(q, q, q)
         _check_qkv(q, q, q, backward=True)
-    assert k1_kernels_for(512) == k2_kernels_for(512) == ["mma"]
-    assert select_kernel(4096, 4096, 512) == select_bwd_kernel(4096, 4096, 512) == "mma"
+    assert k1_kernels_for(512) == ["mma", "wgmma"] and k2_kernels_for(512) == ["mma"]
+    assert select_kernel(512) == "wgmma" and select_bwd_kernel(512) == "mma"
     for d in (520, 1024, 500):
         q = torch.zeros(2, 16, 1, d, dtype=torch.bfloat16)
         for backward, name in ((False, "K1"), (True, "K2")):
@@ -389,7 +477,7 @@ def test_k1_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, sq,
         return
     before = dict(flash_attention_fwd.launches_by_kernel)
     o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
-    took = kernel or select_kernel(sq, sk, d)
+    took = kernel or select_kernel(d)
     assert flash_attention_fwd.launches_by_kernel[took] == before[took] + 1
     want_o, want_lse = flash_attention_reference(q, k, v)
     torch.cuda.synchronize()
@@ -438,7 +526,7 @@ def test_k1_wide_instances_and_the_short_key_tile(cuda, b, sq, sk, h, d):
     and its short-key tile on either side of 80 keys: the dispatch launches
     wgmma, whose output and logsumexp agree with the plain version."""
     q, k, v = _k1_case(cuda, 15, b, sq, sk, h, d)
-    assert select_kernel(sq, sk, d) == "wgmma"
+    assert select_kernel(d) == "wgmma"
     before = dict(flash_attention_fwd.launches_by_kernel)
     o, lse = flash_attention_fwd(q, k, v)
     assert flash_attention_fwd.launches_by_kernel == {"mma": before["mma"],
@@ -473,7 +561,7 @@ def test_k1_at_dit_xl2_shape_through_every_kernel(cuda, kernel):
     g = torch.Generator(device=cuda).manual_seed(14)
     qkv = torch.randn(4, 256, 3, 16, 72, generator=g, device=cuda).bfloat16()
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    assert select_kernel(256, 256, 72) == "wgmma" and k1_kernels_for(72) == ["mma", "wgmma"]
+    assert select_kernel(72) == "wgmma" and k1_kernels_for(72) == ["mma", "wgmma"]
     before = dict(flash_attention_fwd.launches_by_kernel)
     o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
     took = kernel or "wgmma"
@@ -533,7 +621,7 @@ def test_k2_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, sq,
         return
     before = dict(flash_attention_bwd.launches_by_kernel)
     got = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
-    took = kernel or select_bwd_kernel(sq, sk, d)
+    took = kernel or select_bwd_kernel(d)
     assert flash_attention_bwd.launches_by_kernel[took] == before[took] + 1
     torch.cuda.synchronize()
     assert all(x.dtype == torch.bfloat16 and torch.isfinite(x).all() for x in got)
@@ -589,7 +677,7 @@ def test_k2_at_dit_xl2_shape_through_every_kernel(cuda, kernel, layout):
     else:
         q, k, v = (torch.randn(b, s, h, d, generator=g, device=cuda).bfloat16() for _ in range(3))
     do = torch.randn(b, s, h, d, generator=g, device=cuda).bfloat16()
-    assert select_bwd_kernel(s, s, d) == "wgmma" and k2_kernels_for(d) == ["mma", "wgmma"]
+    assert select_bwd_kernel(d) == "wgmma" and k2_kernels_for(d) == ["mma", "wgmma"]
     o, lse = flash_attention_fwd(q, k, v)
     before = dict(flash_attention_bwd.launches_by_kernel)
     got = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)
@@ -849,7 +937,7 @@ def test_k1_at_mmdit_shapes_through_every_kernel(cuda, b, h, s, kernel):
     q, k, v = (torch.cat([torch.randn(b, lc, h, 64, generator=g, device=cuda),
                           torch.randn(b, s - lc, h, 64, generator=g, device=cuda)], 1).bfloat16()
                for _ in range(3))
-    assert select_kernel(s, s, 64) == "wgmma" and k1_kernels_for(64) == ["mma", "wgmma"]
+    assert select_kernel(64) == "wgmma" and k1_kernels_for(64) == ["mma", "wgmma"]
     before = dict(flash_attention_fwd.launches_by_kernel)
     o, lse = flash_attention_fwd(q, k, v, kernel=kernel)
     took = kernel or "wgmma"
@@ -909,7 +997,7 @@ def test_k2_at_mmdit_shapes_through_every_kernel(cuda, b, h, s, kernel):
                           torch.randn(b, s - lc, h, 64, generator=g, device=cuda)], 1).bfloat16()
                for _ in range(3))
     do = torch.randn(b, s, h, 64, generator=g, device=cuda).bfloat16()
-    assert select_bwd_kernel(s, s, 64) == "wgmma" and k2_kernels_for(64) == ["mma", "wgmma"]
+    assert select_bwd_kernel(64) == "wgmma" and k2_kernels_for(64) == ["mma", "wgmma"]
     o, lse = flash_attention_fwd(q, k, v)
     before = dict(flash_attention_bwd.launches_by_kernel)
     got = flash_attention_bwd(q, k, v, o, lse, do, kernel=kernel)

@@ -8,6 +8,7 @@ and the launch shape of the channels-last GroupNorm kernel.
 """
 import importlib
 import importlib.util
+import inspect
 import math
 from pathlib import Path
 
@@ -102,12 +103,12 @@ def test_attention_dispatch_of_the_path(sq, sk, d):
     """The wgmma kernel takes every shape of the path: the long
     self-attentions, the 77-key cross-attentions (its short-key tile) and
     head dim 160 (its instance of that width), as measured on the card."""
-    assert fa.select_kernel(sq, sk, d) == "wgmma"
-    assert fa.select_kernel(sq, sk, d, scale=d ** -0.5) == "wgmma"
+    assert fa.select_kernel(d) == "wgmma"
+    assert fa.select_kernel(d, scale=d ** -0.5) == "wgmma"
     assert fa.kernels_for(d) == ["mma", "wgmma"] and fa.wgmma_instance(d) == d
     # a scale that is not positive never reaches the kernel that takes the
     # running max before scaling
-    assert fa.select_kernel(sq, sk, d, scale=-1.0) == "mma"
+    assert fa.select_kernel(d, scale=-1.0) == "mma"
     assert fa.kernels_for(d, scale=0.0) == ["mma"]
 
 
@@ -116,15 +117,16 @@ def test_other_head_dims_stay_on_mma(d):
     """A head dim without an instance of its own runs on the wgmma kernel's
     next wider instance, its columns past d zero-filled (as the mma.sync
     kernel pads to 48, 80, 160 and 256); the dispatch sends it there too."""
-    assert fa.kernels_for(d) == ["mma", "wgmma"] and fa.select_kernel(4096, 4096, d) == "wgmma"
+    assert fa.kernels_for(d) == ["mma", "wgmma"] and fa.select_kernel(d) == "wgmma"
     assert fa.wgmma_instance(d) == {8: 40, 32: 40, 48: 64, 56: 64, 96: 160, 160: 160}[d]
 
 
 def test_attention_dispatch_threshold_is_one_key_tile():
     """No key threshold any more: one key tile, or none but a short one, goes
-    to wgmma too (its 80-key tile at S_k <= 80)."""
-    for sk in (1, 64, 77, 80, 81, 128, 129, 4096):
-        assert fa.select_kernel(4096, sk, 40) == fa.select_kernel(64, sk, 40) == "wgmma"
+    to wgmma too (its 80-key tile at S_k <= 80), so the gate reads the head
+    dim and the scale and no length."""
+    assert list(inspect.signature(fa.select_kernel).parameters) == ["d", "scale"]
+    assert fa.select_kernel(40) == fa.select_kernel(40, 0.5) == "wgmma"
     assert not hasattr(fa, "WGMMA_MIN_KEYS")
 
 
@@ -135,28 +137,27 @@ def test_new_wgmma_instances_take_their_head_dims(d):
     or a non-positive scale stays on mma.sync."""
     assert d in fa.WGMMA_HEAD_DIMS and fa.kernels_for(d) == ["mma", "wgmma"]
     assert fa.wgmma_instance(d) == d and fa.kernels_for(d, scale=-0.5) == ["mma"]
-    for sq, sk in ((256, 256), (64, 64), (256, 77), (16, 16), (1, 1)):
-        assert fa.select_kernel(sq, sk, d) == "wgmma"
+    assert fa.select_kernel(d) == "wgmma" and fa.select_kernel(d, scale=-0.5) == "mma"
 
 
 @pytest.mark.parametrize("d", range(8, 520, 8))
 def test_every_head_dim_maps_to_its_wgmma_instance(d):
-    """Up to 256 the narrowest instance at least as wide; above it none (the
-    mma.sync d=512 kernel)."""
-    want = next((w for w in (40, 64, 72, 80, 160, 256) if w >= d), None)
+    """Up to 512 the narrowest instance at least as wide (264-504 on the d=512
+    instance, O's columns split over its two consumer warpgroups)."""
+    want = next(w for w in (40, 64, 72, 80, 160, 256, 512) if w >= d)
     assert fa.wgmma_instance(d) == want
-    assert fa.kernels_for(d) == (["mma", "wgmma"] if d <= 256 else ["mma"])
-    assert fa.select_kernel(1024, 1024, d) == ("wgmma" if d <= 256 else "mma")
+    assert fa.kernels_for(d) == ["mma", "wgmma"]
+    assert fa.select_kernel(d) == "wgmma"
 
 
 def test_k1_launch_splits_of_the_paths_follow_the_gate():
-    """What phases 5, 15 and 16 count on the card: every K1 call of an SD1.5
-    UNet forward (32), an SDXL call (140) and a CIFAR UNet call (6) goes to
-    wgmma; CelebA-HQ's d=512 (6) stays on mma.sync."""
+    """What phases 5, 15, 16 and 18 count on the card: every K1 call of an
+    SD1.5 UNet forward (32), an SDXL call (140), a CIFAR UNet call (6) and a
+    CelebA-HQ call (6 at d=512) goes to wgmma."""
     def split(calls):
         plan = {"mma": 0, "wgmma": 0}
         for (sq, sk, d), n in calls:
-            plan[fa.select_kernel(sq, sk, d)] += n
+            plan[fa.select_kernel(d)] += n
         return plan
 
     assert split(chip_smoke.ATTN_CALLS.items()) == {"mma": 0, "wgmma": 32}
@@ -165,23 +166,29 @@ def test_k1_launch_splits_of_the_paths_follow_the_gate():
     assert split(((s, s, 256), n) for (s, _), n in chip_smoke.CIFAR_TRAIN_ATTN.items()) == \
         {"mma": 0, "wgmma": 6}
     assert split(((sq, sk, d), n) for (_, sq, sk, d), n in chip_smoke.CELEBAHQ_ATTN.items()) == \
-        {"mma": 6, "wgmma": 0}
+        {"mma": 0, "wgmma": 6}
 
 
 @pytest.mark.parametrize("sq,sk,d", ATTN)
 def test_attention_backward_dispatch_of_the_path(sq, sk, d):
-    """K2's wgmma kernel takes every shape of head dim 40 or 80, the
-    cross-attention shapes with their single key tile too; head dim 160
-    stays on mma.sync.  The scale does not matter to K2."""
-    want = "wgmma" if d in (40, 80) else "mma"
-    assert fa.select_bwd_kernel(sq, sk, d) == want
-    assert fa.select_bwd_kernel(sq, sk, d, scale=-1.0) == want
-    assert fa.bwd_kernels_for(d) == (["mma", "wgmma"] if d in (40, 80) else ["mma"])
+    """K2's wgmma kernel takes every shape of the path: head dims 40 and 80 on
+    their own instances, 160 on its column-split instance, the
+    cross-attention shapes too.  The gate reads the head dim only (K2 reads
+    the saved lse: the scale does not matter to it)."""
+    assert fa.select_bwd_kernel(d) == "wgmma"
+    assert list(inspect.signature(fa.select_bwd_kernel).parameters) == ["d"]
+    assert fa.bwd_kernels_for(d) == ["mma", "wgmma"] and fa.wgmma_bwd_instance(d) == d
 
 
 @pytest.mark.parametrize("d", [8, 32, 48, 56, 96, 160])
 def test_other_head_dims_stay_on_mma_in_the_backward(d):
-    assert fa.bwd_kernels_for(d) == ["mma"] and fa.select_bwd_kernel(4096, 4096, d) == "mma"
+    """Head dims without a wgmma instance (below 40, 48 and 56) stay on
+    mma.sync; 96 and 160 run on the column-split instance of 160 (96's
+    columns past the head dim zero-filled)."""
+    want = {8: None, 32: None, 48: None, 56: None, 96: 160, 160: 160}[d]
+    assert fa.wgmma_bwd_instance(d) == want
+    assert fa.bwd_kernels_for(d) == (["mma", "wgmma"] if want else ["mma"])
+    assert fa.select_bwd_kernel(d) == ("wgmma" if want else "mma")
 
 
 def test_attention_backward_at_dit_xl2_shape():
@@ -189,7 +196,7 @@ def test_attention_backward_at_dit_xl2_shape():
     tiles) go to K2's wgmma kernel; at b32 the call moves 151.5 MB (q, k, v,
     o, dO read, dq, dk, dv written, the f32 lse read) and is bound by bytes."""
     assert fa.bwd_kernels_for(72) == ["mma", "wgmma"]
-    assert fa.select_bwd_kernel(256, 256, 72) == "wgmma" and 256 > fa.WGMMA_BWD_KEY_TILE
+    assert fa.select_bwd_kernel(72) == "wgmma" and 256 > fa.WGMMA_BWD_KEY_TILE
     ops, nbytes = roofline.attention_bwd_work(32, 16, 256, 256, 72)
     assert nbytes == 2 * 32 * 16 * 72 * 8 * 256 + 4 * 32 * 16 * 256 == 151_519_232
     assert ops == 10 * 32 * 16 * 256 * 256 * 72
@@ -199,22 +206,26 @@ def test_attention_backward_at_dit_xl2_shape():
 
 @pytest.mark.parametrize("sk", [1, 64, 77, 128, 129, 4096])
 def test_attention_backward_dispatch_has_no_key_threshold(sk):
-    """Unlike K1's, K2's wgmma kernel is the faster one with a single key tile
-    as well (a CTA still walks every Q row), so the gate reads the head dim only."""
-    assert fa.select_bwd_kernel(4096, sk, 40) == "wgmma"
-    assert fa.select_bwd_kernel(64, sk, 80) == "wgmma"
-    assert fa.select_bwd_kernel(4096, sk, 160) == "mma"
+    """Unlike K1's once, K2's wgmma kernel is the faster one with a single key
+    tile as well (a CTA still walks every Q row), so the gate reads the head
+    dim only; the key count decides only whether a CTA holds every key and
+    writes dq itself (128 keys up to d=80, 64 on the column-split instances)."""
+    assert fa.select_bwd_kernel(40) == fa.select_bwd_kernel(80) == "wgmma"
+    assert fa.select_bwd_kernel(160) == fa.select_bwd_kernel(256) == "wgmma"
+    assert (sk <= fa.wgmma_bwd_key_tile(80)) == (sk <= 128)
+    assert (sk <= fa.wgmma_bwd_key_tile(160)) == (sk <= fa.wgmma_bwd_key_tile(256)) == (sk <= 64)
 
 
 def test_attention_backward_launch_plan_of_a_train_step():
-    """32 K2 launches a step: the 20 of head dims 40 and 80 through wgmma, the
-    12 of head dim 160 through mma.sync; the wgmma kernel's f32 scratch is padded
-    to whole steps of 128 (d=40) or 64 (d=64, d=72, d=80) rows."""
+    """32 K2 launches a step, all through wgmma: the 20 of head dims 40 and 80
+    and the 12 of head dim 160 (its column-split instance); the wgmma
+    kernel's f32 scratch is padded to whole steps of 128 (d=40) or 64 (every
+    other instance) rows."""
     plan = {"mma": 0, "wgmma": 0}
     for (sq, sk, d), calls in chip_smoke.ATTN_CALLS.items():
-        plan[fa.select_bwd_kernel(sq, sk, d)] += calls
-    assert plan == {"wgmma": 20, "mma": 12}
-    assert fa._BWD_ROWS == {40: 128, 64: 64, 72: 64, 80: 64}
+        plan[fa.select_bwd_kernel(d)] += calls
+    assert plan == {"wgmma": 32, "mma": 0}
+    assert fa._BWD_ROWS == {40: 128, 64: 64, 72: 64, 80: 64, 160: 64, 256: 64}
     assert set(fa._BWD_ROWS) == set(fa.WGMMA_BWD_HEAD_DIMS)
     # the cross-attention shapes have one key tile: dq written once, in bf16
     assert fa.WGMMA_BWD_KEY_TILE == 128
@@ -401,7 +412,7 @@ MMDIT_ATTN = {"sd3_medium_b4": (4, 24, 4250, 24), "mmdit_b2_b64": (64, 12, 333, 
 @pytest.mark.parametrize("name", sorted(MMDIT_ATTN))
 def test_mmdit_attention_goes_to_wgmma_and_its_bound(name):
     b, h, s, calls = MMDIT_ATTN[name]
-    assert fa.kernels_for(64) == ["mma", "wgmma"] and fa.select_kernel(s, s, 64) == "wgmma"
+    assert fa.kernels_for(64) == ["mma", "wgmma"] and fa.select_kernel(64) == "wgmma"
     assert s % 128 and s > 128  # a masked last key tile, more than one tile
     ops, nbytes = roofline.attention_fwd_work(b, h, s, s, 64)
     assert ops == 4 * b * h * s * s * 64
@@ -429,7 +440,7 @@ def test_mmdit_train_attention_backward_goes_to_wgmma_and_its_bound(name):
     bytes (8 tensors of 65.5 MB and the lse), SD3-medium's b32 call by its
     8.9e12 operations."""
     b, h, s = chip_smoke.MMDIT_TRAIN_ATTN[name]
-    assert fa.bwd_kernels_for(64) == ["mma", "wgmma"] and fa.select_bwd_kernel(s, s, 64) == "wgmma"
+    assert fa.bwd_kernels_for(64) == ["mma", "wgmma"] and fa.select_bwd_kernel(64) == "wgmma"
     assert s % 128 and s > fa.WGMMA_BWD_KEY_TILE and fa._BWD_ROWS[64] == 64
     ops, nbytes = roofline.attention_bwd_work(b, h, s, s, 64)
     assert ops == 10 * b * h * s * s * 64
@@ -492,7 +503,7 @@ def test_celebahq_train_step_launch_plan_and_k2_bound_at_head_dim_512():
     plan = {"K1": sum(calls["attention"].values()), "K2": 0,
             "K3": sum(calls["group_norm"].values())}
     for (h, sq, sk, d), n in calls["attention"].items():
-        assert fa.bwd_kernels_for(d) == ["mma"] and fa.select_bwd_kernel(sq, sk, d) == "mma"
+        assert fa.bwd_kernels_for(d) == ["mma"] and fa.select_bwd_kernel(d) == "mma"
         assert fa.MMA_NARROW_HEAD_DIM < d <= fa.MAX_HEAD_DIM
         plan["K2"] += n
     assert plan == chip_smoke.CELEBAHQ_TRAIN_STEP == {"K1": 6, "K2": 6, "K3": 71}
