@@ -81,7 +81,11 @@ Phases (any failure exits non-zero, and the last line is then not printed):
   3. K3 (GroupNorm+SiLU) against its plain version at every GroupNorm shape
      of the path, bf16 and f32, SiLU on and off, eps 1e-5 and 1e-6,
      channels-last (both kernels, "rows" and the per-group one, as in 2) and
-     NCHW; two runs must agree bit for bit; the same columns, ``library_ms``
+     NCHW (both kernels too: "team", a slab spread over a team of CTAs or
+     held by one CTA or warp, and the old one-CTA-a-slab "nchw"; the same at
+     every NCHW shape of phases 15, 16 and 18, and each timed run's K3
+     launches by kernel show none through "nchw"); two runs must agree bit
+     for bit; the same columns, ``library_ms``
      being ``F.group_norm`` (weight and bias cast to x's dtype in the call, as
      a caller with f32 parameters has to) followed by ``F.silu``; then the
      UNet's 19 on-path calls again on 32 samples (the CFG-doubled batch, where
@@ -134,7 +138,7 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      K1 and K3 in every request here, derived from the module trees (32 and
      61 a UNet call, 30 a decode, 22 an encode) and checked exactly, K2 0;
      (c) the timed request: prompt and negative prompt -> DDIMCFG-50 at batch
-     16, 512x512, one warm-up and one timed run (images per second, the
+     16, 512x512, a 5-step warm-up and one timed run (images per second, the
      stages' times by CUDA events, peak memory), with TF32 in the VAE's f32
      convolutions as cuDNN runs them by PyTorch's default, which the CLI
      leaves alone; then the VAE decode alone with and without TF32 and a
@@ -184,7 +188,7 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      ops against an f32 plain run (TF32 off): within 1.5x the plain bf16
      path's relative L2 error, plus 1e-3, with exact launches; DeepCache at
      interval 1 gives the plain DDIM and PFDiff requests' images within 1e-5;
-     (b) each at b16, 512x512, one warm-up and one timed request: images per
+     (b) each at b16, 512x512, a 5-step warm-up and one timed request: images per
      second, the stages' times, peak memory, and the launches of K1 and K3
      checked exactly against the UNet calls by kind (32 and 61 a full call,
      10 and 16 a shallow one, read off the module tree) plus 30 K3 a decode,
@@ -202,7 +206,7 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      (b) K1 at the request's shape, b64 h16 S=256 d=72 with q, k and v
      strided views of one projection: both kernels against the plain
      versions, timed as in 2 beside the bound, SDPA's time and the host's;
-     (c) the timed request: b32, class 207, DDIMCFG-50, s = 4 (one warm-up,
+     (c) the timed request: b32, class 207, DDIMCFG-50, s = 4 (a 5-step warm-up,
      one timed: images per second, the stages' times by CUDA events, peak
      memory, launches exactly 1400 K1 through wgmma, 30 K3, no K2), the
      forward on 64 samples timed and profiled by class, and the decode
@@ -310,7 +314,7 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      against an f32 plain run (TF32 off): within 1.5x the plain bf16 path's
      relative L2 error, plus 1e-3, launches exactly (140, 0, 46); (f) the
      timed request through ``generate_sdxl``: b1, DDIMCFG-50, s = 5,
-     1024x1024, seeded token ids, empty negative (one warm-up, one timed:
+     1024x1024, seeded token ids, empty negative (a 5-step warm-up, one timed:
      images per second, the stages by CUDA events, peak memory, launches
      exactly 50 x 140 K1 (all wgmma), no K2, 50 x 46 + 30
      K3), one UNet call on 2 samples timed and profiled, the decode
@@ -406,13 +410,15 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      classes): the b2 agreement over 5 + 5 DDIM steps, then DDIM-50
      inversion under one class and sampling under another at b8 (99 UNet
      calls, launches exactly); the directory is removed;
- 19. CelebA-HQ DDPM training and the T5 text path: (a) K2 at head dim 512
-     (its mma.sync instance in ``csrc/flash_attn_bwd_mma_d512.cu``; ptxas'
-     registers and spills and its shared memory printed) at b16 h1 S=256
-     and S=64 (CelebA-HQ's shapes), a ragged b4 S=200 and a padded d=504,
-     from K1's outputs and a random dO: against the plain version and f32
-     autograd through ``mha`` (phase 6's tolerances), timed as in 6 beside
-     the bound, SDPA's backward (its backend named) and the host's time;
+ 19. CelebA-HQ DDPM training and the T5 text path: (a) K2 at head dim 512,
+     both instances (the wgmma CTA pair of ``csrc/flash_attn_bwd.cu``, which
+     the gate takes, and mma.sync's in ``csrc/flash_attn_bwd_mma_d512.cu``;
+     ptxas' registers and spills and the shared memory printed) at b16 h1
+     S=256 and S=64 (CelebA-HQ's shapes), a ragged b4 S=200, a padded d=504
+     and b128 S=256, from K1's outputs and a random dO: against the plain
+     version and f32 autograd through ``mha`` (phase 6's tolerances), the
+     pair's bits twice at S=64 (one key tile), timed as in 6 beside the
+     bound, SDPA's backward (its backend named) and the host's time;
      (b) ``configs/ddpm_celebahq.yaml``'s UNet (113.7M, bf16 torso, one head
      of 512) at b2: the loss, the gradient and its norm through the kernels
      and through the plain ops against an f32 plain run (TF32 off), within
@@ -420,8 +426,8 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      calls read off the run and exactly 6 K1, 6 K2 (all at d=512) and 71 K3
      a step; the config's train step at b16 256x256 (Adam 2e-5, clip 1.0,
      gradual EMA 0.9999): a warm-up, 10 timed steps (images per second, ms
-     per step, peak, launches exactly 10 x (6, 6, 71), K1 all wgmma, K2 all
-     mma.sync), one
+     per step, peak, launches exactly 10 x (6, 6, 71), K1 and K2 all
+     wgmma), one
      profiled step (device time by class, the card's idle share); then
      ``train_ddpm.main`` in this process on that config with ``Synthetic``
      256x256x3 data (``CELEBAHQ_CLI``): 2 steps with a save and a 4-image
@@ -463,7 +469,7 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      K1 / K2 / K3 launches exactly as the module tree gives them: under
      ``"attn"`` 32 K1 a step, where full remat launches 64; then the step's
      time and peak under no remat, full remat, ``attn`` and ``dots`` at the
-     SD1.5 configs' batch of 8 and at 16; (b) LoRA with the
+     SD1.5 configs' batch of 8 (b16 was cut for the time limit); (b) LoRA with the
      UNet's ``use_checkpoint`` on ``configs/sd15_lora.yaml``'s stack at b2
      512x512: the adapters' gradients against the run without remat (the
      same bound), launches exact; then ``train_sd.main`` with
@@ -618,6 +624,12 @@ K2_WGMMA_SMEM = {
     80: 1024 + 2 * 32768 + 2 * 2 * 16384 + 4 * 8192 + 2 * 64 * 80 * 4 + 2 * 512 + 40,
     160: 1024 + 2 * 3 * 8192 + 2 * 6 * 8192 + 2 * 8192 + 2 * 512 + 40,
     256: 1024 + 2 * 4 * 8192 + 2 * 66 * 1024 + 2 * 8192 + 2 * 512 + 40,
+    # 512 (PairConfig), each CTA of a cluster of two on a column half: K and V
+    # of 64 keys over 256 columns, two stages of Q and dO over them (the f32
+    # dQ rows staged over a stage in 64-column chunks), the P^T and dS^T
+    # tiles, the 16 KiB the two CTAs' partial S^T and dP^T of 32 rows cross
+    # in, the stats, 9 barriers
+    512: 1024 + 2 * 4 * 8192 + 2 * 8 * 8192 + 2 * 8192 + 16384 + 2 * 512 + 8 * 9,
 }
 # and K1's d=512 instance: Q of 64 rows, two stages of 32-key K and V tiles
 K1_D512_SMEM = 1024 + 64 * 1024 + 2 * 2 * 32 * 1024 + 8 * 8
@@ -925,10 +937,13 @@ DDIB_STEPS, DDIB_CHECK_STEPS, DDIB_CLASSES = 50, 5, (207, 360)
 # of google/t5-v1_1-xxl's published shape (random weights built on the card)
 # beside CLIP-L and OpenCLIP bigG at full width through encode_prompts
 # K2 at d=512: (b, S, d, calls in a b16 CelebA-HQ train step): its two
-# shapes, a ragged length and a padded head dim
-K2_D512_ROWS = [(16, 256, 512, 5), (16, 64, 512, 1), (4, 200, 512, 0), (4, 256, 504, 0)]
-# its shared memory: K, V and two buffers of Q and dO, 32 rows of 520 bf16
-# each, the dS^T tile of 32 x 40 and two buffers of lse and delta
+# shapes, a ragged length, a padded head dim, and b128, where the card and
+# not the host sets the pace
+K2_D512_ROWS = [(16, 256, 512, 5), (16, 64, 512, 1), (4, 200, 512, 0), (4, 256, 504, 0),
+                (128, 256, 512, 0)]
+# the mma.sync d=512 instance's shared memory (csrc/flash_attn_bwd_mma_d512.cu):
+# K, V and two buffers of Q and dO, 32 rows of 520 bf16 each, the dS^T tile of
+# 32 x 40 and two buffers of lse and delta
 K2_D512_SMEM = (6 * 32 * 520 + 32 * 40) * 2 + 4 * 32 * 4
 CELEBAHQ_TRAIN_B, CELEBAHQ_TRAIN_STEPS, CELEBAHQ_TRAIN_CHECK_BATCH = 16, 10, 2
 CELEBAHQ_TRAIN_STEP = {"K1": 6, "K2": 6, "K3": 71}  # launches a train step
@@ -963,8 +978,8 @@ EVAL_KID_SUBSETS, EVAL_KID_SIZE = 10, 200
 # the run-to-run noise of two runs without remat plus REMAT_GRAD_TOL
 REMAT_B, REMAT_GRAD_TOL, REMAT_TIMED_STEPS = 4, 1e-3, 3
 REMAT_POLICIES = [False, True, "nothing", "dots", "dots_no_batch", "attn", "everything"]
-# the step timed at configs/sd15_finetune.yaml's batch (8) and at 16
-REMAT_TIMED_BATCHES, REMAT_TIMED_POLICIES = (8, 16), [False, True, "attn", "dots"]
+# the step timed at configs/sd15_finetune.yaml's batch (8); b16 was cut for the time limit
+REMAT_TIMED_BATCHES, REMAT_TIMED_POLICIES = (8,), [False, True, "attn", "dots"]
 # (b) configs/sd15_lora.yaml with use_checkpoint; (c) and (d)
 # configs/ddpm_cifar10.yaml under a warmup-cosine schedule, then through a
 # one-rank NCCL group
@@ -994,6 +1009,22 @@ UI_SD_PROMPT, UI_SD_NEGATIVE = "a photograph of an astronaut riding a horse", "b
 # the card's idle share is read off a request of UI_IDLE_STEPS (page 3: UI_SD_IDLE_STEPS)
 # steps: the same work a step, and a trace the profiler reads in seconds, not tens
 UI_IDLE_STEPS, UI_SD_IDLE_STEPS = 10, 5
+
+
+# path -> launches of K3's NCHW "team" kernel in its timed run, as the phases record them
+K3_TEAM_BY_PATH: dict = {}
+
+
+def k3_team_launches(check, label: str) -> int:
+    """K3's launches by kernel since the phase zeroed its counts: the path's
+    contiguous NCHW GroupNorms all went to the "team" kernel, none to the
+    one-CTA-a-(sample, group) "nchw" kernel that it replaced on every path."""
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    by_kernel = dict(group_norm_silu.launches_by_kernel)
+    check(by_kernel["nchw"] == 0,
+          f"{label}: K3 by kernel {by_kernel}: the NCHW GroupNorms through the team kernel")
+    K3_TEAM_BY_PATH[label] = by_kernel["team"]
+    return by_kernel["team"]
 
 
 def log(*args):
@@ -1107,6 +1138,13 @@ def main() -> int:
               f"K2 wgmma d={inst['d']} one key tile {inst['one_tile']}: no spills, "
               f"{inst['registers']} registers at launch, {inst['smem_bytes']} bytes of shared "
               "memory as reckoned (a block may use 232448)")
+    k3_team = k3_team_instances(lib_path)
+    for inst in k3_team:
+        log("K3 team instance " + json.dumps(inst))
+    check(len(k3_team) == 12 and all(inst["spill_stores"] == inst["spill_loads"] == 0
+                                     for inst in k3_team),
+          "K3 team kernels (warp, cta and stream forms; f32 and bf16; SiLU or not) built, "
+          "no spills")
 
     # ---- 2. K1 ------------------------------------------------------------
     log("SDPA backends enabled: " + json.dumps({
@@ -1229,6 +1267,9 @@ def main() -> int:
     def add_row(totals, row, calls):
         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us"):
             totals[key] += calls * row[key]
+        for name, times in row["ms_by_kernel"].items():  # each kernel's best time, summed
+            totals.setdefault("ms_by_kernel", {}).setdefault(name, 0.0)
+            totals["ms_by_kernel"][name] += calls * min(times)
         totals["bound_ms_by"][row["bound_by"]] += calls * row["bound_ms"]
         if calls:
             totals["err"] = max(totals["err"], row["max_abs_err"])
@@ -1278,7 +1319,8 @@ def main() -> int:
         row = dict(
             b=n, c=c, hw=hw, dtype=dname, silu=silu, eps=eps,
             layout="NHWC" if layout == cl else "NCHW", calls=calls, kernel=chosen,
-            cluster=planned.get("cluster"),
+            cluster=planned.get("cluster"), form=planned.get("form"), team=planned.get("team"),
+            ctas=planned.get("ctas"),
             max_abs_err=errs[chosen], ms=ms, ms_by_kernel=by_kernel, plain_ms=plain_ms,
             bound_ms=bound_t, bound_by=bound_by, library_ms=library_ms, host_us=host,
             host_bound=ms <= 1.2 * host / 1e3)
@@ -1441,6 +1483,7 @@ def main() -> int:
         torch.cuda.synchronize()
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         t0 = time.perf_counter()
         out = sampler.sample(unet, noise)
@@ -1673,7 +1716,7 @@ def main() -> int:
              **mmdit_train["k2_per_step"],
              # and over the 6 (d=256, wgmma) of one CIFAR UNet b128 step
              **pixel_train["k2_per_step"],
-             # and over the 6 (d=512, mma.sync) of one CelebA-HQ UNet b16 step
+             # and over the 6 (d=512, the wgmma pair) of one CelebA-HQ UNet b16 step
              **celebahq["k2_per_step"]),
         dict(entry("group_norm_silu", "dmtpu_torch/csrc/group_norm_silu.cu",
                    "dmtpu/ops/groupnorm.py:44", (main_launches["K3"], by_path["K3"]),
@@ -1695,6 +1738,22 @@ def main() -> int:
              # a CFG batch
              **pixel["k3_per_call"],
              # and over the 71 of one CelebA-HQ UNet call at b16
+             **guidance["k3_per_call"]),
+        # K3's NCHW route, the "team" kernel (a (sample, group) slab spread over
+        # a team of CTAs, or held by one CTA or one warp) since it took
+        # contiguous NCHW over from the one-CTA-a-slab kernel: its launches in
+        # the b16 text-to-image request (the VAE decode's) and in the timed
+        # runs of the other paths, its columns summed over one b16 VAE decode
+        # at 512x512, the same over the other decodes and the pixel UNets'
+        # calls (each with both NCHW kernels' times, ms_by_kernel)
+        dict(entry("group_norm_silu_nchw_team", "dmtpu_torch/csrc/group_norm_silu.cu",
+                   "dmtpu/ops/groupnorm.py:44",
+                   (K3_TEAM_BY_PATH[f"txt2img_b{B}"], dict(K3_TEAM_BY_PATH)),
+                   f"per b{B} VAE decode at {T2I_SIZE}x{T2I_SIZE}: sum over its {GN_PER_DECODE} "
+                   "GroupNorm calls", k3_vae["decode"]),
+             other_sources=["dmtpu_torch/csrc/hopper.cuh"],
+             dit_vae_decode_b32=k3_dit, sd3_vae_decode_b2=k3_sd3,
+             sdxl_vae_decode_b1=sdxl["k3_vae"], **pixel["k3_per_call"],
              **guidance["k3_per_call"]),
         # K1 at head dim 256 (the pixel UNets' one head as wide as the
         # channels), the wgmma kernel's d=256 instance since it took the shape
@@ -1750,14 +1809,21 @@ def main() -> int:
              other_sources=["dmtpu_torch/csrc/flash_attn_fwd_mma_d512.cu",
                             "dmtpu_torch/csrc/hopper.cuh"],
              mma_sync={"ms": guidance["k1_mma_per_call"]}),
-        # K2's mma.sync instance at head dim 512 (dK, dV and dQ's columns
-        # split over two CTAs): its launches in the CelebA-HQ UNet's 10 timed
-        # b16 train steps, its columns over the 6 calls of one step there
-        entry("flash_attn_bwd_mma_d512", "dmtpu_torch/csrc/flash_attn_bwd_mma_d512.cu",
-              "dmtpu/ops/flash_small_d.py:118",
-              (celebahq["d512_launches"], celebahq["d512_by_path"]),
-              f"per b{CELEBAHQ_TRAIN_B} CelebA-HQ UNet train step: sum over its 6 attention "
-              "backwards at d=512", celebahq["k2_per_step"][f"celebahq_train_b{CELEBAHQ_TRAIN_B}"]),
+        # K2 at head dim 512, the wgmma kernel's CTA-pair instance (a cluster
+        # of two CTAs on the column halves, their partial S^T and dP^T summed
+        # through distributed shared memory) since it took the shape over from
+        # the mma.sync kernel's: its launches in the CelebA-HQ UNet's 10 timed
+        # b16 train steps, its columns over the 6 calls of one step there, and
+        # the mma.sync instance's time over the same calls
+        dict(entry("flash_attn_bwd_wgmma_d512", "dmtpu_torch/csrc/flash_attn_bwd.cu",
+                   "dmtpu/ops/flash_small_d.py:118",
+                   (celebahq["d512_launches"], celebahq["d512_by_path"]),
+                   f"per b{CELEBAHQ_TRAIN_B} CelebA-HQ UNet train step: sum over its 6 attention "
+                   "backwards at d=512",
+                   celebahq["k2_per_step"][f"celebahq_train_b{CELEBAHQ_TRAIN_B}"]),
+             other_sources=["dmtpu_torch/csrc/flash_attn_bwd_mma_d512.cu",
+                            "dmtpu_torch/csrc/hopper.cuh"],
+             mma_sync={"ms": celebahq["k2_mma_per_step"]}),
     ], "ddim50_b16_samples_per_s": sps, "unet_b16_forward_ms": fwd_ms,
         "train_b16": train["metrics"], "txt2img_b16": t2i["metrics"],
         "finetune_cli_b8": ft["metrics"], "serving_b16": serve["metrics"],
@@ -1804,7 +1870,7 @@ def wgmma_bwd_instances(lib_path, lib) -> list:
     log_lines = (lib_path.parent / "build.log").read_text().splitlines()
     found = []
     for i, line in enumerate(log_lines):
-        inst = re.search(r"flash_bwd_(?:wgmma|split)_kernelILi(\d+)ELb([01])E", line)
+        inst = re.search(r"flash_bwd_(?:wgmma|split|pair)_kernelILi(\d+)ELb([01])E", line)
         if not (inst and "Compiling entry" in line):
             continue
         d = int(inst[1])
@@ -1815,6 +1881,24 @@ def wgmma_bwd_instances(lib_path, lib) -> list:
                       "spill_stores": int(spills[1]), "spill_loads": int(spills[2]),
                       "smem_bytes": lib.dmtpu_flash_attn_bwd_smem(d)})
     return sorted(found, key=lambda x: (x["d"], x["one_tile"]))
+
+
+def k3_team_instances(lib_path) -> list:
+    """Each instance of K3's NCHW "team" kernels (group_norm_held_kernel,
+    group_norm_stream_kernel) as ptxas reported it in ``build.log``: its
+    mangled name, registers, spill stores and loads."""
+    log_lines = (lib_path.parent / "build.log").read_text().splitlines()
+    found = []
+    for i, line in enumerate(log_lines):
+        inst = re.search(r"group_norm_(?:held|stream)_kernelI\w+", line)
+        if not (inst and "Compiling entry" in line):
+            continue
+        after = " ".join(log_lines[i + 1:i + 5])
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", after)
+        regs = re.search(r"Used (\d+) registers", after)
+        found.append({"kernel": inst[0][:60], "registers": int(regs[1]),
+                      "spill_stores": int(spills[1]), "spill_loads": int(spills[2])})
+    return found
 
 
 def timed_ms(fn, reps: int) -> tuple:
@@ -2220,6 +2304,7 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_bwd.launches_by_head_dim.clear()
 
@@ -2393,6 +2478,7 @@ def phase_text_to_image(dev, check, gen, ref_model, card, time_ms) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
 
     def counts():
         return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
@@ -2567,7 +2653,8 @@ def phase_text_to_image(dev, check, gen, ref_model, card, time_ms) -> dict:
     timed = dict(request, n_samples=B, batch_size=B, respace_steps=T2I_STEPS)
     rows = len(instantiate_from_config(
         SD15_CONF["diffusion"], respace_type="uniform", respace_steps=T2I_STEPS).respaced_seq)
-    sample_images(SD15_CONF, prompt, **timed)  # warm-up
+    # a short warm-up (the shapes and kernels of the timed request)
+    sample_images(SD15_CONF, prompt, **dict(timed, respace_steps=T2I_CHECK_STEPS))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -2591,6 +2678,11 @@ def phase_text_to_image(dev, check, gen, ref_model, card, time_ms) -> dict:
           and images.std() > 1.0, "text to image b16: uint8 [16, 512, 512, 3]")
     check(launches == want_launches(rows),
           f"text to image b16 launches {launches} == {want_launches(rows)}")
+    team = k3_team_launches(check, f"txt2img_b{B}")
+    metrics["k3_team_launches"] = team
+    check(team >= per["decode_gn"],
+          f"text to image b16: K3's team kernel ran the decode's {per['decode_gn']} GroupNorms "
+          f"(and any other NCHW one): {team}")
     # the VAE decode alone at b16, with and without TF32 in its convolutions,
     # and where its device time goes
     z = torch.randn(B, 4, T2I_SIZE // 8, T2I_SIZE // 8, generator=g, device=dev)
@@ -2633,6 +2725,7 @@ def phase_serving(dev, check, sd, ref_model, card) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
 
     def counts():
         return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
@@ -2730,7 +2823,8 @@ def phase_serving(dev, check, sd, ref_model, card) -> dict:
             event.record()
             events.append((stage, event))
 
-        sample_images(SD15_CONF, prompt, **timed)  # warm-up
+        # a short warm-up (the shapes and kernels of the timed request)
+        sample_images(SD15_CONF, prompt, **dict(timed, respace_steps=SERVE_CHECK_STEPS))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -2875,6 +2969,7 @@ def phase_finetune_cli(dev, check, gen, ref_model, card) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
 
     def counts():
@@ -3222,6 +3317,7 @@ def phase_dit(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
 
     def counts():
@@ -3338,7 +3434,7 @@ def phase_dit(dev, check, gen, card, time_ms, host_us) -> dict:
     timed = dict(shape=shape, num_classes=num_classes, batch_size=DIT_B, seed=SEED, device=dev)
     sampler = diffuser(DIT_STEPS)
     rows = len(sampler.respaced_seq)
-    sample_class(model, sampler, DIT_CLASS, DIT_B, **timed)  # warm-up
+    sample_class(model, diffuser(DIT_CHECK_STEPS), DIT_CLASS, DIT_B, **timed)  # a short warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -3348,6 +3444,7 @@ def phase_dit(dev, check, gen, card, time_ms, host_us) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, by_kernel = counts(), dict(flash_attention_fwd.launches_by_kernel)
+    k3_team_launches(check, f"dit_ddimcfg{rows}")
     peak = torch.cuda.max_memory_allocated()
     stage_ms = {name: before.elapsed_time(after)
                 for (_, before), (name, after) in zip(events, events[1:])}
@@ -3456,6 +3553,7 @@ def phase_dit_train(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
 
@@ -3755,6 +3853,7 @@ def phase_mmdit(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
 
     def counts():
@@ -4007,6 +4106,7 @@ def phase_mmdit_train(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
 
@@ -4353,6 +4453,7 @@ def phase_sdxl(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_tot
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
 
     def counts():
@@ -4500,7 +4601,7 @@ def phase_sdxl(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_tot
     dp = dict(conf.diffusion.params, respace_type="uniform-linspace", respace_steps=SDXL_STEPS,
               guidance_scale=SDXL_SCALE, cond_kwarg="cond")
     rows = len(ui.SAMPLERS["DDIM"](**dp).respaced_seq)
-    ui.generate_sdxl(conf, model, ids, "", **request)  # warm-up
+    ui.generate_sdxl(conf, model, ids, "", **dict(request, steps=5))  # a short warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -4509,6 +4610,7 @@ def phase_sdxl(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_tot
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, by_kernel = counts(), dict(flash_attention_fwd.launches_by_kernel)
+    k3_team_launches(check, f"sdxl_ddimcfg{rows}")
     peak = torch.cuda.max_memory_allocated()
     params_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     wgmma_calls = sum(calls for (sq, sk, h), calls in SDXL_ATTN.items()
@@ -4661,6 +4763,7 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_fwd.launches_by_head_dim.clear()
 
@@ -4755,6 +4858,7 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
         launches, by_kernel = counts(), dict(flash_attention_fwd.launches_by_kernel)
         by_dim = dict(flash_attention_fwd.launches_by_head_dim)
         check(launches == want, f"{label} launches {launches} == {want}")
+        k3_team_launches(check, label)
         if by_kernel_want is not None:
             check(by_kernel == by_kernel_want, f"{label} K1 by kernel {by_kernel} == "
                                                f"{by_kernel_want}")
@@ -5018,6 +5122,7 @@ def phase_pixel_train(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         for fn in (flash_attention_fwd, flash_attention_bwd):
             fn.launches_by_kernel.update(mma=0, wgmma=0)
             fn.launches_by_head_dim.clear()
@@ -5377,6 +5482,7 @@ def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals, k3_row,
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_fwd.launches_by_head_dim.clear()
 
@@ -5439,6 +5545,7 @@ def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals, k3_row,
         seconds = time.perf_counter() - t0
         launches, by_dim = counts(), dict(flash_attention_fwd.launches_by_head_dim)
         by_kernel = dict(flash_attention_fwd.launches_by_kernel)
+        k3_team_launches(check, label)
         want = {k: calls_n * v for k, v in per_call.items()}
         check(launches == want and by_kernel == {"mma": 0, "wgmma": launches["K1"]},
               f"{label}: launches {launches} == {calls_n} UNet calls' {want}, K1 all through "
@@ -5794,7 +5901,8 @@ def phase_celebahq_t5(dev, check, gen, card, time_ms, host_us) -> dict:
         FrozenT5Embedder,
     )
     from dmtpu_torch.ops import _build, plain_ops
-    from dmtpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_fwd
+    from dmtpu_torch.ops.flash_attention import (flash_attention_bwd, flash_attention_fwd,
+                                                 wgmma_bwd_key_tile)
     from dmtpu_torch.ops.groupnorm import group_norm_silu
     from dmtpu_torch.parallel import TrainState, make_diffusion_loss_fn, make_train_step
     from dmtpu_torch.scripts import encode_prompts, sample_mmdit, train_ddpm
@@ -5805,6 +5913,7 @@ def phase_celebahq_t5(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         for fn in (flash_attention_fwd, flash_attention_bwd):
             fn.launches_by_kernel.update(mma=0, wgmma=0)
             fn.launches_by_head_dim.clear()
@@ -5832,24 +5941,40 @@ def phase_celebahq_t5(dev, check, gen, card, time_ms, host_us) -> dict:
     metrics = {"part_seconds": {}}
     part_start = [time.perf_counter()]
 
-    # (a) K2 at d=512 (csrc/flash_attn_bwd_mma_d512.cu) at CelebA-HQ's shapes
-    # at b16, a ragged length and a padded head dim, from K1's outputs and a
-    # random dO
+    # (a) K2 at d=512, both kernels (the wgmma CTA pair of csrc/flash_attn_bwd.cu,
+    # which the gate takes, and csrc/flash_attn_bwd_mma_d512.cu) at
+    # CelebA-HQ's shapes at b16, a ragged length, a padded head dim and b128,
+    # from K1's outputs and a random dO; the pair's bits twice where the
+    # cluster holds every key
     log_lines = (_build.build().parent / "build.log").read_text().splitlines()
     for i, line in enumerate(log_lines):
         if "Compiling entry" in line and "flash_bwd_d512_kernel" in line:
-            log("K2 d=512 ptxas: " + " | ".join(x.strip() for x in log_lines[i + 1:i + 4])
+            log("K2 d=512 mma.sync ptxas: " + " | ".join(x.strip() for x in log_lines[i + 1:i + 4])
                 + f"; {K2_D512_SMEM} bytes of dynamic shared memory")
+        if "Compiling entry" in line and "flash_bwd_pair_kernel" in line:
+            log("K2 d=512 wgmma pair ptxas: "
+                + " | ".join(x.strip() for x in log_lines[i + 1:i + 4])
+                + f"; {K2_WGMMA_SMEM[512]} bytes of dynamic shared memory a CTA")
     k2 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, host_us=0.0, err=0.0,
               bound_ms_by={"bytes": 0.0, "operations": 0.0})
     k2_rows = {}
+    k2_mma = 0.0  # the mma.sync instance's time over the same calls
     for b, s, d, calls in K2_D512_ROWS:
         q, k, v, do = (torch.randn(b, s, 1, d, generator=g, device=dev).bfloat16()
                        for _ in range(4))
         row, per = k2_call_row(q, k, v, do, calls, f"K2 d={d} b{b} h1 S={s}", check, time_ms,
-                               host_us, card, 20, expect="mma")
+                               host_us, card, 20, expect="wgmma")
         row["sdpa_backend"] = sdpa_backend(*(z.transpose(1, 2) for z in (q, k, v)))
+        if s <= wgmma_bwd_key_tile(d):
+            o, lse = flash_attention_fwd(q, k, v)
+            first, again = (flash_attention_bwd(q, k, v, o, lse, do, kernel="wgmma")
+                            for _ in range(2))
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(first, again)),
+                  f"K2[wgmma] b{b} S={s} d={d}: one key tile, the same bits in two runs")
+            del o, lse, first, again
         k2_rows[f"b{b}_s{s}_d{d}"] = row
+        k2_mma += calls * min(row["ms_by_kernel"]["mma"])
         if calls:
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "host_us"):
                 k2[key] += per[key]
@@ -5958,6 +6083,7 @@ def phase_celebahq_t5(dev, check, gen, card, time_ms, host_us) -> dict:
     launches, dims = counts(), by_dim()
     k1_by_kernel = dict(flash_attention_fwd.launches_by_kernel)
     k2_by_kernel = dict(flash_attention_bwd.launches_by_kernel)
+    k3_team_launches(check, f"celebahq_train{CELEBAHQ_TRAIN_STEPS}")
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"].item() for m in history]
     norms = [m["grad_norm"].item() for m in history]
@@ -5986,10 +6112,10 @@ def phase_celebahq_t5(dev, check, gen, card, time_ms, host_us) -> dict:
     check(launches == times(per_step, CELEBAHQ_TRAIN_STEPS)
           and dims == {key: {512: CELEBAHQ_TRAIN_STEPS * c[512]} for key, c in d512.items()}
           and k1_by_kernel == {"mma": 0, "wgmma": launches["K1"]}
-          and k2_by_kernel == {"mma": launches["K2"], "wgmma": 0},
+          and k2_by_kernel == {"mma": 0, "wgmma": launches["K2"]},
           f"CelebA-HQ UNet train b{n} launches {launches} == {CELEBAHQ_TRAIN_STEPS} x "
           f"{per_step}, K1 and K2 all at d=512 {dims}, K1 through wgmma {k1_by_kernel}, K2 "
-          f"through mma.sync {k2_by_kernel}")
+          f"through wgmma {k2_by_kernel}")
     check(profile["classes"]["K2 attention backward"] > 0 and profile["classes"]["K1 attention"]
           > 0 and profile["classes"]["K3 GroupNorm"] > 0,
           "profile: the CelebA-HQ UNet train step ran K1, K2 and K3 on the card")
@@ -6174,6 +6300,7 @@ def phase_celebahq_t5(dev, check, gen, card, time_ms, host_us) -> dict:
     return {"launches": {f"celebahq_train{CELEBAHQ_TRAIN_STEPS}": launches,
                          "celebahq_cli_train": run1, "celebahq_cli_resume": run2},
             "metrics": metrics, "k2": k2_rows, "k2_per_step": {f"celebahq_train_b{n}": k2},
+            "k2_mma_per_step": k2_mma,
             "d512_launches": d512_launches, "d512_by_path": d512_by_path}
 
 
@@ -6307,6 +6434,7 @@ def phase_eval(dev, check, gen, card, time_ms) -> dict:
                 "--eval_batch_size", str(EVAL_FEATURE_B), "--out", out_json, *PIXEL_OVERRIDES]
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
         flash_attention_fwd.launches_by_head_dim.clear()
         t0 = time.perf_counter()
         try:
@@ -6618,6 +6746,7 @@ def phase_remat_parallel(dev, check, gen, card, time_ms) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
 
     def counts():
         return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
@@ -6712,7 +6841,7 @@ def phase_remat_parallel(dev, check, gen, card, time_ms) -> dict:
     check(rows["attn"]["launches"]["K1"] == n_attn and rows["True"]["launches"]["K1"] == 2 * n_attn,
           f"attn launches {n_attn} K1 a step where full remat launches {2 * n_attn}")
     del grads0, x0, eps, ctx
-    # the step's time and peak at the SD1.5 configs' own batch and at twice it
+    # the step's time and peak at the SD1.5 configs' own batch
     timed = {}
     for b in REMAT_TIMED_BATCHES:
         g = gen(SEED + 28)
@@ -7028,6 +7157,7 @@ def phase_ui(dev, check, card, sd, ref_model) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
 
     def counts():
         return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,

@@ -1,13 +1,13 @@
 // K2: fused non-causal attention backward for Hopper (sm_90a), bf16 in and out:
-// the kernel of every K2 call of the repository's paths up to head dim 256
-// (SD1.5's 40, 80 and 160, DiT's 72, MMDiT's 64, the pixel UNets' 256).
+// the kernel of every K2 call of the repository's paths (SD1.5's 40, 80 and
+// 160, DiT's 72, MMDiT's 64, the pixel UNets' 256, CelebA-HQ's 512).
 //
 // Replaces dmtpu/ops/flash_small_d.py::_bwd_kernel / _bwd (the Pallas TPU
 // fused backward for small head dims), the backward role of the stock Pallas
 // TPU flash kernel that dmtpu/ops/attention.py::flash_mha calls, and the probe
 // variant benchmarks/_smalld_variants.py::_bwd_sem (the same function).  Shapes
-// it does not take (head dims below 40, 48, 56 and above 256, a broadcast q,
-// k, v or dO) go to the mma.sync kernels in flash_attn_bwd_mma.cu and
+// it does not take (head dims below 40, 48 and 56, a broadcast q, k, v or
+// dO) go to the mma.sync kernels in flash_attn_bwd_mma.cu and
 // flash_attn_bwd_mma_d512.cu; the gate is in dmtpu_torch/ops/flash_attention.py.
 //
 // What it computes, per (batch, head), from K1's saved f32 row logsumexp:
@@ -118,6 +118,43 @@
 // last passes (0.024 and 0.018 ms: zeroing, delta, the cast).  Issuing the
 // next step's S^T and dP^T under this step's dQ spilled 300 bytes at d=256
 // and measured slower.
+//
+// Head dims 264 to 512 (CelebA-HQ's one head of 512) run on a third kernel,
+// flash_bwd_pair_kernel, instantiated at 512.  One CTA cannot hold them: dK
+// and dV of 64 keys over 512 columns are 256 registers a thread in each of
+// two warpgroups, and full-depth 64-row tiles of K, V, Q and dO are 256 KB.
+// So a cluster of two CTAs takes each 64-key tile, each CTA the split
+// instance's layout over its half of the columns (K, V, Q and dO tiles of
+// 256 columns; its two warpgroups on 128 columns each of dK, dV and dQ):
+//   - S^T = K Q^T and dP^T = V dO^T run over 512 columns, so each CTA
+//     computes the partial products over its 256: warpgroup 0 those of the
+//     32 rows of the step that its CTA finishes (rows 32 rank..), warpgroup
+//     1 those of the other CTA's 32, which it writes into that CTA's 16 KB
+//     exchange buffer through distributed shared memory (st.shared::cluster,
+//     the same register layout on both sides, f32);
+//   - warpgroup 0 adds the other CTA's partials to its own (the same two
+//     f32 values in the same order: both CTAs would compute the same bits),
+//     forms P^T and dS^T (bf16) for its 32 rows and writes them into both
+//     CTAs' [key][row] tiles; so each row's P^T and dS^T are computed once
+//     in the cluster and both CTAs run dV, dK and dQ on the same bits;
+//   - mbarriers in the CTA that waits, arrived on from the other one
+//     (release / acquire at cluster scope): xfull / xempty for the exchange
+//     buffer, tfull (both halves of a step's tiles are in) and tempty (both
+//     CTAs' warps are done with the last step's tiles); the generic writes
+//     into the other CTA's tiles are fenced for the asynchronous proxy
+//     before wgmma reads them;
+//   - dQ's f32 partial sums leave by cp.reduce.async.bulk as at 256, staged
+//     over the step's Q and dO in two 64-column chunks a warpgroup (17 KB,
+//     not the split instance's 66 KB stage), so that the exchange buffer
+//     fits: 231,496 bytes of shared memory a CTA; with one key tile (S_k <=
+//     64: CelebA-HQ's 8x8 level) each CTA writes its columns of dq in bf16,
+//     the same bits in every run;
+//   - a cluster barrier after the barriers' initialisation and one before
+//     either CTA leaves, since each writes the other's shared memory.
+// Measured (k2_probe d512, device time, NVIDIA H100 80GB HBM3 at 700 W):
+// b16 h1 S=256 0.037 ms against mma.sync's 0.196 (bound 0.010); b128 0.43
+// against 1.21 (bound 0.080): the exchange and its waits on top of the split
+// instance's per-CTA time.
 #include <math.h>
 
 #include "hopper.cuh"
@@ -872,6 +909,382 @@ flash_bwd_split_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ---- head dims 264-512: a cluster of two CTAs on the column halves ---------
+
+// The pair instance (W = 512): each CTA of a cluster of two holds its half of
+// the head's columns (256) of the CTA pair's 64 keys and of each 64-row step,
+// and is laid out as the split instance at 256 is, with the f32 dQ rows
+// staged in 64-column chunks (17,408 bytes a warpgroup, over the step's Q and
+// dO) so that the partial sums exchanged between the two CTAs fit beside.
+struct PairConfig {
+  static constexpr int kKeys = 64;                     // keys per cluster (and per CTA)
+  static constexpr int kRows = 64;                     // Q rows per step
+  static constexpr int kHalf = 256;                    // columns of one CTA
+  static constexpr int kColTiles = kHalf / 64;         // 64-column tiles of a half
+  static constexpr int kStages = 2;
+  static constexpr int kTile = 64 * 128;               // [64 keys or rows][64 bf16], swizzled
+  static constexpr int kKvBytes = kColTiles * kTile;   // K, or V: the CTA's half
+  static constexpr int kStageBytes = 2 * kColTiles * kTile;  // Q, then dO, of one step
+  static constexpr int kStatBytes = 2 * kRows * 4;     // lse * log2(e) and delta of a step
+  static constexpr int kChunk = 64;                    // dQ columns staged at a time
+  static constexpr int kStagedRow = kChunk * 4 + 16;   // bytes a staged row, padded
+  static constexpr int kStaged = kRows * kStagedRow;   // one warpgroup's staged chunk
+  // a warpgroup's partial S^T and dP^T of 64 keys x 32 rows, f32, as
+  // [16 pairs][128 threads] float2
+  static constexpr int kXBytes = 2 * 64 * 32 * 4;
+  // kv_full, full and empty a stage, xfull, xempty, tfull, tempty
+  static constexpr int kBarriers = 1 + 2 * kStages + 4;
+  static constexpr int kSmem = kAtomBytes + 2 * kKvBytes + kStages * kStageBytes + 2 * kTile +
+                               kXBytes + kStages * kStatBytes + 8 * kBarriers;
+  static_assert(2 * kStaged <= kStageBytes, "K2 pair: staged dQ chunks over a stage");
+  static_assert(kSmem <= 232448, "K2 pair: shared memory");
+};
+
+// One consumer warpgroup of the pair kernel.  Of each step it computes the
+// partial S^T = K Q^T and dP^T = V dO^T of 32 rows over its CTA's 256
+// columns: warpgroup 0 those of the rows its CTA finishes (32 rank..), 1
+// those of the rows the other CTA finishes, which it writes into that CTA's
+// exchange buffer.  Warpgroup 0 adds the other CTA's partials of its rows,
+// computes P^T and dS^T (bf16) and writes them into both CTAs' [key][row]
+// tiles.  Then each warpgroup runs dV += P^T dO, dK += dS^T Q and dQ = dS K
+// over all 64 rows and its 128 columns of the CTA's half, as the split
+// instance does.  The barriers, each in the CTA that waits on it: xfull (the
+// other CTA's warpgroup 1 has written this CTA's exchange buffer), xempty
+// (the other CTA's warpgroup 0 has read what this CTA's warpgroup 1 wrote
+// it), tfull (both halves of this step's tiles are in), tempty (both CTAs'
+// warps are done with the last step's tiles).
+template <bool ONE_TILE, int kWg>
+__device__ __forceinline__ void pair_consumer(
+    const unsigned char* sK, const unsigned char* sV, unsigned char* sQ, unsigned char* pt,
+    unsigned char* ds, const float2* xbuf, const float* sStat, uint64_t* kv_full,
+    uint64_t* full, uint64_t* empty, uint64_t* xfull, uint64_t* xempty, uint64_t* tfull,
+    uint64_t* tempty, uint32_t rank, float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int b, int h, int bh, int H,
+    int Sq, int Sp, int Sk, int d, int k0, Strides dks, Strides dvs, float scale,
+    float scale_log2) {
+  using Cfg = PairConfig;
+  constexpr int kRows = Cfg::kRows;
+  constexpr int NC = Cfg::kHalf / 2;  // this warpgroup's columns of the half
+  constexpr int kAcc = NC / 2;
+  constexpr int kTile0 = kWg * NC / 64;
+  const int C0 = (int)rank * Cfg::kHalf + kWg * NC;  // its first column of the head
+  const uint32_t peer = rank ^ 1;
+  const int kRow0 = 32 * (int)(kWg == 0 ? rank : peer);  // its rows of a step for S^T, dP^T
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key0 = k0 + warp * 16 + g;
+  const int tile_row = (warp * 16 + g) * 128 + 4 * t;
+  float* dq_out = dq_acc + (long long)bh * Sp * 512 + C0;
+  const uint32_t x_peer = map_to_rank(xbuf, peer) + tid * 8;
+  const uint32_t pt_peer = map_to_rank(pt, peer), ds_peer = map_to_rank(ds, peer);
+  const uint32_t xfull_peer = map_to_rank(xfull, peer), xempty_peer = map_to_rank(xempty, peer);
+  const uint32_t tfull_peer = map_to_rank(tfull, peer), tempty_peer = map_to_rank(tempty, peer);
+
+  float dk_acc[kAcc], dv_acc[kAcc];
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  float s[16], dp[16];
+
+  mbar_wait(kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < Sp / kRows; ++it) {
+    unsigned char* q_tile = sQ + stage * Cfg::kStageBytes;
+    const unsigned char* do_tile = q_tile + Cfg::kColTiles * Cfg::kTile;
+    const float2* lse2 = reinterpret_cast<const float2*>(sStat + stage * 2 * kRows);
+    const float2* delta2 = lse2 + kRows / 2;
+    const uint32_t par = it & 1;
+
+    // partial S^T and dP^T, 64 keys x this warpgroup's 32 rows, over the half
+    mbar_wait(full + stage, phase);
+    wgmma_fence();
+    issue_transposed_half<Cfg::kHalf>(s, sK, q_tile + kRow0 * 128);
+    issue_transposed_half<Cfg::kHalf>(dp, sV, do_tile + kRow0 * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    if constexpr (kWg == 1) {
+      // to the other CTA, whose warpgroup 0 holds these rows in the same places
+      mbar_wait_cluster(xempty, par ^ 1);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        st_cluster_f32x2(x_peer + m * 128 * 8, s[2 * m], s[2 * m + 1]);
+        st_cluster_f32x2(x_peer + (8 + m) * 128 * 8, dp[2 * m], dp[2 * m + 1]);
+      }
+      mbar_arrive_cluster(xfull_peer);
+    } else {
+      // the whole head's S^T and dP^T of this CTA's rows
+      mbar_wait_cluster(xfull, par);
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const float2 xs = xbuf[m * 128 + tid], xd = xbuf[(8 + m) * 128 + tid];
+        s[2 * m] += xs.x;
+        s[2 * m + 1] += xs.y;
+        dp[2 * m] += xd.x;
+        dp[2 * m + 1] += xd.y;
+      }
+      mbar_arrive_cluster(xempty_peer);
+      // P^T and dS^T in place; element 4j + 2r + c is key key0 + 8r, row
+      // kRow0 + 8j + 2t + c of the step
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 l = lse2[kRow0 / 2 + 4 * j + t];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          s[4 * j + 2 * r] = ex2(fmaf(s[4 * j + 2 * r], scale_log2, -l.x));
+          s[4 * j + 2 * r + 1] = ex2(fmaf(s[4 * j + 2 * r + 1], scale_log2, -l.y));
+        }
+      }
+      if (k0 + Cfg::kKeys > Sk) {  // the last key tile: P = 0 for the keys past S_k
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          if (key0 + 8 * ((i / 2) & 1) >= Sk) s[i] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 dl = delta2[kRow0 / 2 + 4 * j + t];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          dp[4 * j + 2 * r] = s[4 * j + 2 * r] * (dp[4 * j + 2 * r] - dl.x) * scale;
+          dp[4 * j + 2 * r + 1] = s[4 * j + 2 * r + 1] * (dp[4 * j + 2 * r + 1] - dl.y) * scale;
+        }
+      }
+      // into both CTAs' tiles as [key][row], the 16-byte chunk c of key row
+      // k at chunk c ^ (k % 8): the 128-byte swizzle
+      mbar_wait_cluster(tempty, par ^ 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int at = tile_row + r * 8 * 128 + (((kRow0 / 8 + j) ^ g) << 4);
+          const uint32_t p2 = pack_bf16(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]);
+          const uint32_t d2 = pack_bf16(dp[4 * j + 2 * r], dp[4 * j + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(pt + at) = p2;
+          *reinterpret_cast<uint32_t*>(ds + at) = d2;
+          st_cluster_u32(pt_peer + at, p2);
+          st_cluster_u32(ds_peer + at, d2);
+        }
+      }
+      fence_proxy_async();
+      fence_proxy_async_cluster();
+      mbar_arrive(tfull);
+      mbar_arrive_cluster(tfull_peer);
+    }
+    mbar_wait_cluster(tfull, par);
+    fence_proxy_async();
+
+    // dV += P^T dO and dK += dS^T Q over all 64 rows and this warpgroup's columns
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_nt_cols<NC>(dv_acc, wgmma_desc(pt + kk * 32, 16, kAtomBytes),
+                        wgmma_desc(do_tile + kTile0 * Cfg::kTile + kk * 2048, Cfg::kTile,
+                                   kAtomBytes));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_nt_cols<NC>(dk_acc, wgmma_desc(ds + kk * 32, 16, kAtomBytes),
+                        wgmma_desc(q_tile + kTile0 * Cfg::kTile + kk * 2048, Cfg::kTile,
+                                   kAtomBytes));
+    wgmma_commit();
+
+    // dQ = dS K over this warpgroup's columns and the cluster's 64 keys, in
+    // chunks of 64 columns; once both warpgroups are done with the step's Q
+    // and dO, each chunk's f32 sums are staged over them and each of a
+    // warp's first 16 lanes adds one row into the dQ buffer
+    unsigned char* staged = q_tile + kWg * Cfg::kStaged;
+#pragma unroll
+    for (int c = 0; c < NC / Cfg::kChunk; ++c) {
+      float dq_part[Cfg::kChunk / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tt_cols<Cfg::kChunk>(
+            dq_part, wgmma_desc(ds + kk * 2048, Cfg::kTile, kAtomBytes),
+            wgmma_desc(sK + (kTile0 + c) * Cfg::kTile + kk * 2048, Cfg::kTile, kAtomBytes),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();  // with the first chunk, dV and dK too
+      fence_regs(dq_part);
+      if (c == NC / Cfg::kChunk - 1 && lane == 0) {  // this warp is done with the tiles
+        mbar_arrive(tempty);
+        mbar_arrive_cluster(tempty_peer);
+      }
+      const int col = C0 + c * Cfg::kChunk;
+      if constexpr (ONE_TILE) {
+        // the cluster holds every key: write the rows in bf16
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = it * kRows + warp * 16 + g + 8 * r;
+          if (row >= Sq) continue;
+          __nv_bfloat16* dq_row = dq + (((long long)b * Sq + row) * H + h) * d + col + 2 * t;
+#pragma unroll
+          for (int j = 0; j < Cfg::kChunk / 8; ++j)
+            if (col + 8 * j < d)
+              *reinterpret_cast<uint32_t*>(dq_row + 8 * j) =
+                  pack_bf16(dq_part[4 * j + 2 * r], dq_part[4 * j + 2 * r + 1]);
+        }
+      } else {
+        if (c == 0) named_sync(4, 256);
+        if (c > 0) {  // the last chunk's adds have read the staged rows
+          if (lane < 16) bulk_wait_read();
+          __syncwarp();
+        }
+        float* my_row = reinterpret_cast<float*>(staged + (warp * 16 + g) * Cfg::kStagedRow) + 2 * t;
+#pragma unroll
+        for (int j = 0; j < Cfg::kChunk / 8; ++j) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            *reinterpret_cast<float2*>(my_row + r * 8 * (Cfg::kStagedRow / 4) + 8 * j) =
+                make_float2(dq_part[4 * j + 2 * r], dq_part[4 * j + 2 * r + 1]);
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane < 16) {
+          const int row = warp * 16 + lane;
+          bulk_reduce_add_f32(dq_out + ((long long)it * kRows + row) * 512 + c * Cfg::kChunk,
+                              staged + row * Cfg::kStagedRow, Cfg::kChunk * 4);
+          bulk_commit();
+        }
+      }
+    }
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    if constexpr (!ONE_TILE) {
+      if (lane < 16) bulk_wait_read();  // the buffers go back to the producer below
+      __syncwarp();
+    }
+    if (lane == 0) mbar_arrive(empty + stage);  // this warp is done with the stage
+    if (++stage == Cfg::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    if (key >= Sk) continue;
+    __nv_bfloat16* krow = dk + b * dks.b + (long long)key * dks.s + h * dks.h + C0 + 2 * t;
+    __nv_bfloat16* vrow = dv + b * dvs.b + (long long)key * dvs.s + h * dvs.h + C0 + 2 * t;
+#pragma unroll
+    for (int n = 0; n < NC / 8; ++n) {
+      if (C0 + 8 * n >= d) continue;
+      *reinterpret_cast<uint32_t*>(krow + 8 * n) =
+          pack_bf16(dk_acc[4 * n + 2 * r], dk_acc[4 * n + 2 * r + 1]);
+      *reinterpret_cast<uint32_t*>(vrow + 8 * n) =
+          pack_bf16(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+    }
+  }
+  // the last adds are complete before the CTA ends
+  if (!ONE_TILE && lane < 16) bulk_wait();
+}
+
+// A cluster of two CTAs (ranks 0 and 1 along x) per (b*h, 64-key tile); W =
+// 512, the f32 dQ rows [B*H, Sp, 512].  ONE_TILE: S_k <= 64, the cluster
+// holds every key and writes dq in bf16 itself.
+template <int W, bool ONE_TILE>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_pair_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do,
+                      const float* __restrict__ stat, float* __restrict__ dq_acc,
+                      __nv_bfloat16* __restrict__ dq, __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int H, int Sq, int Sp, int Sk, int d,
+                      long long stat_rows, Strides dks, Strides dvs, float scale,
+                      float scale_log2) {
+  static_assert(W == 2 * PairConfig::kHalf, "K2 pair: the head's width");
+  using Cfg = PairConfig;
+  constexpr int kStages = Cfg::kStages;
+  constexpr int kRows = Cfg::kRows;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((kAtomBytes - smem_addr(smem_raw) % kAtomBytes) % kAtomBytes);
+  unsigned char* sK = smem;                  // [col tile][64 keys][128 B], this CTA's half
+  unsigned char* sV = sK + Cfg::kKvBytes;    // the same
+  unsigned char* sQ = sV + Cfg::kKvBytes;    // [stage][Q col tiles, dO col tiles][64 rows][128 B]
+  unsigned char* pt = sQ + kStages * Cfg::kStageBytes;  // P^T: [64 keys][128 B]
+  unsigned char* ds = pt + Cfg::kTile;                  // dS^T: the same
+  float2* xbuf = reinterpret_cast<float2*>(ds + Cfg::kTile);
+  float* sStat = reinterpret_cast<float*>(ds + Cfg::kTile + Cfg::kXBytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sStat + kStages * 2 * kRows);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
+  uint64_t* xfull = empty + kStages;
+  uint64_t* xempty = xfull + 1;
+  uint64_t* tfull = xempty + 1;
+  uint64_t* tempty = tfull + 1;
+
+  const uint32_t rank = cluster_ctarank();
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int k0 = (blockIdx.x / 2) * Cfg::kKeys;
+  const int col0 = (int)rank * Cfg::kHalf;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);  // one arrival per consumer warp
+    }
+    mbar_init(xfull, 128);   // the other CTA's warpgroup 1, a thread each
+    mbar_init(xempty, 128);  // the other CTA's warpgroup 0, a thread each
+    mbar_init(tfull, 256);   // both CTAs' warpgroup 0, a thread each
+    mbar_init(tempty, 16);   // both CTAs' consumer warps
+    mbar_fence_init();
+  }
+  cluster_sync_all();  // both CTAs' barriers exist before any arrival from the other
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load of this CTA's half ----
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * Cfg::kKvBytes);
+      for (int c = 0; c < Cfg::kColTiles; ++c) {
+        tma_load_4d(sK + c * Cfg::kTile, &map_k, kv_full, col0 + c * 64, h, k0, b);
+        tma_load_4d(sV + c * Cfg::kTile, &map_v, kv_full, col0 + c * 64, h, k0, b);
+      }
+      const float* lrow = stat + (long long)bh * Sp;
+      const float* drow = lrow + stat_rows;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < Sp / kRows; ++it) {
+        mbar_wait(empty + stage, phase ^ 1);  // passes at once the first time round
+        unsigned char* q_tile = sQ + stage * Cfg::kStageBytes;
+        mbar_arrive_expect_tx(full + stage, Cfg::kStageBytes + Cfg::kStatBytes);
+        for (int c = 0; c < Cfg::kColTiles; ++c) {
+          tma_load_4d(q_tile + c * Cfg::kTile, &map_q, full + stage, col0 + c * 64, h,
+                      it * kRows, b);
+          tma_load_4d(q_tile + (Cfg::kColTiles + c) * Cfg::kTile, &map_do, full + stage,
+                      col0 + c * 64, h, it * kRows, b);
+        }
+        bulk_load(sStat + stage * 2 * kRows, lrow + it * kRows, kRows * 4, full + stage);
+        bulk_load(sStat + stage * 2 * kRows + kRows, drow + it * kRows, kRows * 4, full + stage);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- two consumer warpgroups: the same 64 keys, a quarter of the head's columns each ----
+    setmaxnreg_inc<240>();
+    if (threadIdx.x < 256)
+      pair_consumer<ONE_TILE, 0>(sK, sV, sQ, pt, ds, xbuf, sStat, kv_full, full, empty, xfull,
+                                 xempty, tfull, tempty, rank, dq_acc, dq, dk, dv, b, h, bh, H, Sq,
+                                 Sp, Sk, d, k0, dks, dvs, scale, scale_log2);
+    else
+      pair_consumer<ONE_TILE, 1>(sK, sV, sQ, pt, ds, xbuf, sStat, kv_full, full, empty, xfull,
+                                 xempty, tfull, tempty, rank, dq_acc, dq, dk, dv, b, h, bh, H, Sq,
+                                 Sp, Sk, d, k0, dks, dvs, scale, scale_log2);
+  }
+  cluster_sync_all();  // neither CTA leaves while the other may still write its shared memory
+}
+
 // First pass, one thread per (b, s, h) row of the padded length Sp (a
 // multiple of the rows of a step): stat[0][b, h, s] = lse * log2(e) and stat[1][b, h, s] =
 // delta = sum_d dO * O in f32, or +inf and 0 for the rows past Sq; and every
@@ -926,9 +1339,9 @@ __global__ void flash_bwd_wgmma_prep_kernel(const __nv_bfloat16* __restrict__ o,
     dq_acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// The same first pass for the column-split instances, one warp per row: the
-// row's 16-byte loads of O and dO spread over the lanes (a row of 320 or 512
-// bytes in one coalesced load) and summed by shuffles.
+// The same first pass for the column-split and pair instances, one warp per
+// row: the row's 16-byte loads of O and dO spread over the lanes (a row of
+// 320 or 512 bytes in one coalesced load, 1024 in two) and summed by shuffles.
 template <int W>
 __global__ void flash_bwd_split_prep_kernel(const __nv_bfloat16* __restrict__ o,
                                             const __nv_bfloat16* __restrict__ dO,
@@ -936,7 +1349,6 @@ __global__ void flash_bwd_split_prep_kernel(const __nv_bfloat16* __restrict__ o,
                                             float* __restrict__ stat, float4* __restrict__ dq_acc,
                                             long long acc_vec4, int B, int H, int Sq, int Sp,
                                             int d, Strides os, Strides dos) {
-  static_assert(W / 8 <= 32, "one 16-byte load a lane");
   const long long row = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x % 32;
   const long long stat_rows = (long long)B * H * Sp;
@@ -946,11 +1358,13 @@ __global__ void flash_bwd_split_prep_kernel(const __nv_bfloat16* __restrict__ o,
     const int b = row / ((long long)H * Sp);
     float l = INFINITY, acc = 0.f;
     if (s < Sq) {
-      if (lane < W / 8 && lane * 8 < d) {
+#pragma unroll
+      for (int c = lane; c < W / 8; c += 32) {
+        if (c * 8 >= d) break;
         const uint4 ov = reinterpret_cast<const uint4*>(o + b * os.b + (long long)s * os.s +
-                                                        h * os.h)[lane];
+                                                        h * os.h)[c];
         const uint4 dv = reinterpret_cast<const uint4*>(dO + b * dos.b + (long long)s * dos.s +
-                                                        h * dos.h)[lane];
+                                                        h * dos.h)[c];
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
         const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
@@ -1043,23 +1457,58 @@ cudaError_t launch_split(const void* q, const void* k, const void* v, const void
   return cudaGetLastError();
 }
 
+template <bool ONE_TILE>
+cudaError_t launch_pair(const void* q, const void* k, const void* v, const void* dO,
+                        const float* stat, float* dq_acc, void* dq, void* dk, void* dv, int B,
+                        int H, int Sq, int Sp, int Sk, int D, Strides qs, Strides ks, Strides vs,
+                        Strides dos, Strides dks, Strides dvs, float scale, cudaStream_t stream) {
+  using Cfg = PairConfig;
+  static bool allowed[kMaxDevices] = {};
+  const cudaError_t attr =
+      allow_dynamic_smem(flash_bwd_pair_kernel<512, ONE_TILE>, Cfg::kSmem, allowed);
+  if (attr != cudaSuccess) return attr;
+  alignas(64) CUtensorMap mq, mk, mv, mdo;
+  if (!make_bshd_map(&mq, q, B, H, Sq, D, qs, Cfg::kRows) ||
+      !make_bshd_map(&mk, k, B, H, Sk, D, ks, Cfg::kKeys) ||
+      !make_bshd_map(&mv, v, B, H, Sk, D, vs, Cfg::kKeys) ||
+      !make_bshd_map(&mdo, dO, B, H, Sq, D, dos, Cfg::kRows))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(2 * ((Sk + Cfg::kKeys - 1) / Cfg::kKeys), B * H);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = Cfg::kSmem;
+  config.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 2;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  config.attrs = attrs;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, flash_bwd_pair_kernel<512, ONE_TILE>, mq, mk, mv, mdo, stat,
+                            dq_acc, static_cast<__nv_bfloat16*>(dq),
+                            static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H,
+                            Sq, Sp, Sk, D, (long long)B * H * Sp, dks, dvs, scale,
+                            scale * kLog2e);
+}
+
 // The instance that takes head dim D (0 for none): 40, 64, 72 and 80 their
-// own; every other multiple of 8 in (80, 256] the narrower of 160 and 256
-// that is at least as wide.
+// own; every other multiple of 8 in (80, 512] the narrowest of 160, 256 and
+// 512 that is at least as wide.
 int bwd_instance(int D) {
   if (D == 40 || D == 64 || D == 72 || D == 80) return D;
-  if (D > 80 && D <= 256 && D % 8 == 0) return D <= 160 ? 160 : 256;
+  if (D > 80 && D <= 512 && D % 8 == 0) return D <= 160 ? 160 : D <= 256 ? 256 : 512;
   return 0;
 }
 
 }  // namespace
 
 // q, k, v, o, dO, dk, dv: bf16 [B, S, H, D] with the given element strides
-// (D contiguous, D 40, 64, 72, 80 or a multiple of 8 in (80, 256], every
+// (D contiguous, D 40, 64, 72, 80 or a multiple of 8 in (80, 512], every
 // stride a positive multiple of 8, 16-byte aligned pointers).  lse: f32
 // [B, H, Sq] from K1, contiguous.  W is the instance's width (bwd_instance:
-// D itself up to 80, else 160 or 256), its key tile 128 keys up to 80 and 64
-// above.  With Sp = Sq rounded up to a multiple of 128 (D 40) or 64 (every
+// D itself up to 80, else 160, 256 or 512), its key tile 128 keys up to 80
+// and 64 above.  With Sp = Sq rounded up to a multiple of 128 (D 40) or 64 (every
 // other): stat: f32 scratch [2, B, H, Sp]; dq_acc: f32 scratch [B, H, Sp, W],
 // 16-byte aligned, not touched when Sk fits one key tile; dq: bf16
 // [B, Sq, H, D], contiguous.  Launches three kernels in order on the stream
@@ -1077,7 +1526,7 @@ extern "C" int dmtpu_flash_attn_bwd(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = bwd_instance(D);
   if (!W) return (int)cudaErrorInvalidValue;
-  const bool split = W > 80;
+  const bool split = W > 80;  // the column-split and pair instances: 64 keys, 64 rows a step
   const bool one_tile = Sk <= (split ? SplitConfig<160>::kKeys : kKeys);
   const int step = split ? SplitConfig<160>::kRows : rows_per_step(W);
   const int Sp = (Sq + step - 1) / step * step;
@@ -1087,7 +1536,8 @@ extern "C" int dmtpu_flash_attn_bwd(
                     : W == 72  ? flash_bwd_wgmma_prep_kernel<72>
                     : W == 80  ? flash_bwd_wgmma_prep_kernel<80>
                     : W == 160 ? flash_bwd_split_prep_kernel<160>
-                               : flash_bwd_split_prep_kernel<256>;
+                    : W == 256 ? flash_bwd_split_prep_kernel<256>
+                               : flash_bwd_split_prep_kernel<512>;
   const long long prep_threads = split ? 32 * rows : rows;  // a warp a row for the split ones
   prep<<<(unsigned)((prep_threads + 255) / 256), 256, 0, st>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dO),
@@ -1097,7 +1547,11 @@ extern "C" int dmtpu_flash_attn_bwd(
   if (err != cudaSuccess) return (int)err;
   const float* st_in = static_cast<const float*>(stat);
   float* acc = static_cast<float*>(dq_acc);
-  if (split) {
+  if (W == 512) {
+    err = (one_tile ? launch_pair<true> : launch_pair<false>)(
+        q, k, v, dO, st_in, acc, dq, dk, dv, B, H, Sq, Sp, Sk, D, qs, ks, vs, dos, dks, dvs, scale,
+        st);
+  } else if (split) {
     const auto main_kernel =
         W == 160 ? (one_tile ? launch_split<160, true> : launch_split<160, false>)
                  : (one_tile ? launch_split<256, true> : launch_split<256, false>);
@@ -1128,6 +1582,7 @@ extern "C" int dmtpu_flash_attn_bwd_smem(int D) {
     case 80: return Config<80>::kSmem;
     case 160: return SplitConfig<160>::kSmem;
     case 256: return SplitConfig<256>::kSmem;
+    case 512: return PairConfig::kSmem;
     default: return 0;
   }
 }

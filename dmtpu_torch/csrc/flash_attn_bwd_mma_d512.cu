@@ -1,9 +1,9 @@
 // K2 at head dims 264-512, the mma.sync kernel's widest instance: fused
-// non-causal attention backward, bf16 in and out.  It serves CelebA-HQ's UNet
+// non-causal attention backward, bf16 in and out.  It served CelebA-HQ's UNet
 // (configs/ddpm_celebahq.yaml), whose single attention head is as wide as its
-// 512 channels, in training.  The gate is in dmtpu_torch/ops/flash_attention.py:
-// every head dim above 256 comes here, every other one to flash_attn_bwd_mma.cu
-// or flash_attn_bwd.cu.
+// 512 channels, in training, until flash_attn_bwd.cu's CTA-pair instance took
+// those head dims over; the gate in dmtpu_torch/ops/flash_attention.py now
+// sends here only a broadcast (zero-stride) q, k, v or dO and kernel="mma".
 //
 // Replaces dmtpu/ops/flash_small_d.py::_bwd_kernel / _bwd (the Pallas TPU
 // fused backward) and the backward role of the stock Pallas TPU flash kernel

@@ -11,10 +11,11 @@
 // element, far below the ~295 operations per byte at which the tensor cores
 // would become the limit; the least it can move is x once in and y once out.
 // The TPU kernel held a whole [H*W, C] sample in VMEM and read it once; here
-// a sample is up to 7.9 MB, far beyond one SM's shared memory, so every
-// kernel below makes two passes over x, statistics first, and the second
-// pass's reads come partly out of the 50 MB L2 cache.  Three kernels, chosen
-// by dmtpu_torch/ops/groupnorm.py::plan:
+// a sample is up to 268 MB (SDXL's 1024x1024 decode in f32), far beyond one
+// SM's shared memory, so the kernels below read x for the statistics and
+// then normalise it from registers or shared memory where it fits, or read
+// it again, the second read coming partly out of the 50 MB L2 cache.  Four
+// kernels, chosen by dmtpu_torch/ops/groupnorm.py::plan:
 //   - "rows", for channels-last (N, H, W, C in memory; cuDNN returns the
 //     UNet's bf16 convolutions so): a group is only C/G contiguous values at
 //     each pixel (20 bytes at a 640-byte stride for C=320), so a CTA takes
@@ -22,8 +23,13 @@
 //     sample form a thread block cluster that merges the per-group
 //     statistics through distributed shared memory, in a fixed order and
 //     without atomics.  See the comment at group_norm_rows_kernel;
+//   - "team", for contiguous NCHW (every VAE decode, the pixel UNets): the
+//     (sample, group) slab is contiguous, so it is spread over a team of
+//     CTAs, held by one CTA, or held by one warp, by its size; see the
+//     comment at group_norm_held_kernel;
 //   - one CTA per (sample, group) over contiguous NCHW (the group is one
-//     slab, read 16 bytes at a time);
+//     slab, read 16 bytes at a time): the first port, which "team" replaced
+//     on every path; kept for comparison (kernel="nchw");
 //   - one CTA per (sample, group) over channels-last, two values at a time:
 //     for the shapes "rows" does not take (C no multiple of 8, fewer than 8
 //     channels a group).
@@ -37,6 +43,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers and bulk copies ("stream")
 
 namespace {
 
@@ -420,6 +428,392 @@ group_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ weight
   }
 }
 
+// ---- contiguous NCHW, a slab spread over a team of CTAs ("team") ----------
+// The (sample, group) slab is (C/G) * HW contiguous values: from 64 bytes
+// (the CIFAR UNet's 4x4 maps) to 32 MB (SDXL's 1024x1024 decode in f32).  A
+// "worker" takes one slab at a time and walks its slabs in order (slab w, w
+// + workers, ...), in one of three forms, by the slab's size:
+//   - "warp": a warp a slab, eight at once in a CTA, for slabs of at most 32
+//     lanes' batches (4 KB);
+//   - "cta": a CTA a slab, of at most 256 threads' batches (32 KB);
+//   - "stream": a team of `team` CTAs a slab, each CTA on one contiguous
+//     share of it, larger slabs (the VAE decodes, the pixel UNets' large maps).
+// In the first two a thread holds its batch (kDepth vectors, 128 bytes: 32
+// registers) from the statistics to the normalisation, so x is read once.  In
+// "stream" one producer warp copies each share of x into a ring of kSlots
+// shared-memory slots of 64 KB by cp.async.bulk, running up to kSlots slabs
+// ahead, and copies y out of them once the CTA has written it there, so that
+// the next slabs' bytes arrive while the team merges this slab's statistics;
+// a share of one slot is normalised in shared memory (x read once), a larger
+// one streams its pieces again for the normalisation, while few slabs are in
+// flight, so that the second read comes out of the L2 cache.  The statistics: a thread's (count, mean, M2) from sums of x -
+// shift and (x - shift)^2 with the shift at its first vector's mean, merged
+// with Chan's formula across the warp (a fixed butterfly), the CTA's warps
+// (in order) and the team's CTAs: a CTA publishes its state in global memory
+// (slot j % 2 of the worker's j-th slab) and then a flag (epoch + j + 1, a
+// release store); every CTA of the team watches the team's flags (each
+// thread a few, the loads in flight together, then one fence) and merges all
+// the states in a fixed order, so every CTA of a team holds the same
+// statistics, bit for bit, and two runs give the same bits: no atomics.  The
+// waits need every CTA of the grid resident at once: a team of more than one
+// CTA launches cooperatively, one CTA an SM.  The epoch, a count of launches
+// kept by the caller, makes the flags of earlier launches read as not yet set.
+constexpr int kTeamThreads = 256;  // the threads that normalise ("stream": + a producer warp)
+constexpr int kTeamWarps = kTeamThreads / 32;
+constexpr int kRegBlocks = 3;      // "warp" and "cta" CTAs an SM holds at once
+constexpr int kSlots = 3;          // "stream": shared-memory slots of a share of x
+constexpr int kSlotBytes = 64 * 1024;
+constexpr int kStreamSmem = kSlots * kSlotBytes + 2 * kSlots * 8;
+constexpr int kMaxTeamCtas = 4096;  // flags, then two slots of states, in the scratch
+
+template <typename T>
+struct TeamDepth {  // 8-value vectors a thread holds: 128 bytes, 32 registers
+  static constexpr int value = 128 / (8 * sizeof(T));
+};
+
+__device__ __forceinline__ void st_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+// Named barrier 1 over the 256 threads that normalise; with `pred`: true
+// when it is true in every one of them.
+__device__ __forceinline__ void team_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ bool team_sync_and(bool pred) {
+  uint32_t all;
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\nbar.red.and.pred q, 1, 256, p;\n"
+      "selp.u32 %0, 1, 0, q;\n}\n"
+      : "=r"(all)
+      : "r"((uint32_t)pred)
+      : "memory");
+  return all != 0;
+}
+
+__device__ __forceinline__ void warp_merge(float& n, float& mean, float& m2) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float nb = __shfl_xor_sync(0xffffffffu, n, off);
+    const float mb = __shfl_xor_sync(0xffffffffu, mean, off);
+    const float m2b = __shfl_xor_sync(0xffffffffu, m2, off);
+    merge(n, mean, m2, nb, mb, m2b);
+  }
+}
+
+// The thread's shifted sums of 8 values into (shift, sum, sq); the first
+// vector of the slab sets the shift.
+__device__ __forceinline__ void accumulate(const float* v, bool first, float& shift, float& sum,
+                                           float& sq) {
+  if (first) shift = (v[0] + v[1] + v[2] + v[3] + v[4] + v[5] + v[6] + v[7]) * 0.125f;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float d = v[e] - shift;
+    sum += d;
+    sq = fmaf(d, d, sq);
+  }
+}
+
+// y of one vector of channel c's values
+__device__ __forceinline__ void normalise(float* v, float sc, float sh, bool silu) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const float yv = fmaf(v[e], sc, sh);
+    v[e] = silu ? yv * rcp_approx(1.f + ex2_approx(-kLog2e * yv)) : yv;
+  }
+}
+
+// The CTA's statistics from its threads' shifted sums over `count` values
+// (threads 0..255; named barrier 1), merged with the team's when team > 1:
+// (mean, rstd) in s_stats.
+__device__ __forceinline__ void cta_statistics(float count, float shift, float sum, float sq,
+                                               int team, int rank, int j, float eps,
+                                               unsigned long long* flags, float4* parts,
+                                               unsigned long long epoch, float* s_n,
+                                               float* s_mean, float* s_m2, float* s_stats) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float n = count, mean = 0.f, m2 = 0.f;
+  if (count > 0.f) {
+    mean = shift + sum / count;
+    m2 = fmaxf(sq - sum * sum / count, 0.f);
+  }
+  warp_merge(n, mean, m2);
+  if (lane == 0) {
+    s_n[warp] = n;
+    s_mean[warp] = mean;
+    s_m2[warp] = m2;
+  }
+  team_sync();
+  float tn = 0.f, tmean = 0.f, tm2 = 0.f;
+  if (tid == 0)
+    for (int w = 0; w < kTeamWarps; ++w) merge(tn, tmean, tm2, s_n[w], s_mean[w], s_m2[w]);
+  if (team > 1) {
+    // publish this CTA's state; each thread watches the flags of the ranks
+    // it merges; then the team's states in a fixed tree: a thread's ranks in
+    // order, the warp's butterfly, the warps in order
+    const int slot = (j & 1) * kMaxTeamCtas;
+    const int first = blockIdx.x - rank;
+    const unsigned long long want = epoch + (unsigned long long)j + 1;
+    if (tid == 0) {
+      parts[slot + blockIdx.x] = make_float4(tn, tmean, tm2, 0.f);
+      st_release(flags + blockIdx.x, want);
+    }
+    bool ready;
+    do {
+      ready = true;
+      for (int r = tid; r < team; r += kTeamThreads) ready &= ld_relaxed(flags + first + r) >= want;
+    } while (!team_sync_and(ready));
+    __threadfence();
+    tn = tmean = tm2 = 0.f;
+    for (int r = tid; r < team; r += kTeamThreads) {
+      const float4 p = parts[slot + first + r];
+      merge(tn, tmean, tm2, p.x, p.y, p.z);
+    }
+    warp_merge(tn, tmean, tm2);
+    if (lane == 0) {
+      s_n[warp] = tn;
+      s_mean[warp] = tmean;
+      s_m2[warp] = tm2;
+    }
+    team_sync();
+    tn = tmean = tm2 = 0.f;
+    if (tid == 0)
+      for (int w = 0; w < kTeamWarps; ++w) merge(tn, tmean, tm2, s_n[w], s_mean[w], s_m2[w]);
+  }
+  if (tid == 0) {
+    s_stats[0] = tmean;
+    s_stats[1] = rsqrtf(tm2 / tn + eps);
+  }
+  team_sync();
+}
+
+// "warp" (kWarp) and "cta": a slab in the registers of a warp, or of a CTA.
+template <typename T, bool kSilu, bool kWarp>
+__global__ void __launch_bounds__(kTeamThreads, kRegBlocks)
+group_norm_held_kernel(const T* __restrict__ x, const float* __restrict__ weight,
+                       const float* __restrict__ bias, T* __restrict__ y, int C, int HW, int G,
+                       int slabs, float eps) {
+  constexpr int kDepth = TeamDepth<T>::value;
+  constexpr int nthr = kWarp ? 32 : kTeamThreads;  // threads of a worker
+  __shared__ float s_n[kTeamWarps], s_mean[kTeamWarps], s_m2[kTeamWarps], s_stats[2];
+  const int warp = threadIdx.x / 32;
+  const int t = kWarp ? threadIdx.x % 32 : threadIdx.x;
+  const int worker = kWarp ? blockIdx.x * kTeamWarps + warp : blockIdx.x;
+  const int workers = kWarp ? gridDim.x * kTeamWarps : gridDim.x;
+  const int cg = C / G;
+  const int nvec = cg * HW / 8;  // 8-value vectors of a slab (HW % 8 == 0: each in one channel)
+  const int mine = nvec > t ? (nvec - t + nthr - 1) / nthr : 0;  // at most kDepth
+
+  for (int s = worker; s < slabs; s += workers) {
+    const long long base = (long long)s * nvec * 8;
+    Chunk<T> buf[kDepth];
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u)
+      if (u < mine) buf[u].load(x + base + (long long)(t + u * nthr) * 8);
+    float shift = 0.f, sum = 0.f, sq = 0.f;
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) {
+      if (u >= mine) break;
+      float v[8];
+      buf[u].unpack(v);
+      accumulate(v, u == 0, shift, sum, sq);
+    }
+    float gmean, rstd;
+    if constexpr (kWarp) {
+      float n = (float)(mine * 8), mean = 0.f, m2 = 0.f;
+      if (mine > 0) {
+        mean = shift + sum / n;
+        m2 = fmaxf(sq - sum * sum / n, 0.f);
+      }
+      warp_merge(n, mean, m2);
+      gmean = __shfl_sync(0xffffffffu, mean, 0);
+      rstd = rsqrtf(__shfl_sync(0xffffffffu, m2, 0) / __shfl_sync(0xffffffffu, n, 0) + eps);
+    } else {
+      cta_statistics((float)(mine * 8), shift, sum, sq, 1, 0, 0, eps, nullptr, nullptr, 0, s_n,
+                     s_mean, s_m2, s_stats);
+      gmean = s_stats[0];
+      rstd = s_stats[1];
+    }
+    const int c_first = (s % G) * cg;
+#pragma unroll
+    for (int u = 0; u < kDepth; ++u) {
+      if (u >= mine) break;
+      const int vec = t + u * nthr;
+      const int c = c_first + vec * 8 / HW;
+      const float sc = weight[c] * rstd;
+      float v[8];
+      buf[u].unpack(v);
+      normalise(v, sc, bias[c] - gmean * sc, kSilu);
+      store8(y + base + (long long)vec * 8, v);
+    }
+  }
+}
+
+// "stream": teams of CTAs, a ring of shares of x in shared memory.  The
+// producer warp's one thread runs every copy: a share (or a piece of one)
+// into its slot, and, once the CTA has normalised it there in place, back out
+// to y; so the threads that normalise touch no device memory but their
+// CTA's published state, and the memory system has the next slots' loads and
+// the last slots' stores in flight while the team merges its statistics.
+template <typename T, bool kSilu>
+__global__ void __launch_bounds__(kTeamThreads + 32, 1)
+group_norm_stream_kernel(const T* __restrict__ x, const float* __restrict__ weight,
+                         const float* __restrict__ bias, T* __restrict__ y, int C, int HW, int G,
+                         int slabs, int team, float eps, unsigned long long* __restrict__ flags,
+                         float4* __restrict__ parts, unsigned long long epoch) {
+  constexpr int kVecBytes = 8 * sizeof(T);
+  constexpr int kSlotVecs = kSlotBytes / kVecBytes;
+  extern __shared__ __align__(128) unsigned char ring[];  // [kSlots][kSlotBytes]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kSlots * kSlotBytes);
+  uint64_t* done = full + kSlots;  // the CTA is done with the slot (and has written y there)
+  __shared__ float s_n[kTeamWarps], s_mean[kTeamWarps], s_m2[kTeamWarps], s_stats[2];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int worker = blockIdx.x / team, workers = gridDim.x / team, rank = blockIdx.x % team;
+  const int cg = C / G;
+  const int nvec = cg * HW / 8;
+  const int v0 = (int)((long long)rank * nvec / team);
+  const int v1 = (int)((long long)(rank + 1) * nvec / team);
+  const int pieces = (v1 - v0 + kSlotVecs - 1) / kSlotVecs;
+  const bool resident = pieces == 1;  // the share is normalised in its slot
+  const int loads = resident ? 1 : 2 * pieces;  // copies a slab: pass 1's, then pass 2's
+
+  if (tid == 0) {
+    for (int i = 0; i < kSlots; ++i) {
+      dmtpu::mbar_init(full + i, 1);
+      dmtpu::mbar_init(done + i, kTeamWarps);  // one arrival per normalising warp
+    }
+    dmtpu::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kTeamWarps) {
+    // ---- producer warp: one thread runs the copies in the order they are used ----
+    if (lane != 0 || pieces == 0) return;
+    // the last kSlots uses: where y goes (nullptr for a pass-1 piece) and its bytes
+    T* out[kSlots] = {};
+    int out_bytes[kSlots] = {};
+    int k = 0;
+    auto retire = [&](int use) {  // wait for the CTA to be done with the use's slot, store y
+      const int slot = use % kSlots;
+      dmtpu::mbar_wait(done + slot, (use / kSlots) & 1);
+      if (out[slot]) {
+        dmtpu::bulk_store(out[slot], ring + slot * kSlotBytes, out_bytes[slot]);
+        dmtpu::bulk_commit();
+        dmtpu::bulk_wait_read();  // the slot may be written again
+      }
+    };
+    for (int s = worker; s < slabs; s += workers) {
+      const long long base = (long long)s * nvec * 8;
+      for (int q = 0; q < loads; ++q, ++k) {
+        const int slot = k % kSlots;
+        if (k >= kSlots) retire(k - kSlots);
+        const int p0 = v0 + (q % pieces) * kSlotVecs;
+        const int bytes = (min(v1, p0 + kSlotVecs) - p0) * kVecBytes;
+        dmtpu::mbar_arrive_expect_tx(full + slot, bytes);
+        dmtpu::bulk_load(ring + slot * kSlotBytes, x + base + (long long)p0 * 8, bytes,
+                         full + slot);
+        out[slot] = resident || q >= pieces ? y + base + (long long)p0 * 8 : nullptr;
+        out_bytes[slot] = bytes;
+      }
+    }
+    for (int use = k > kSlots ? k - kSlots : 0; use < k; ++use) retire(use);
+    dmtpu::bulk_wait();  // y is written before the CTA ends
+    return;
+  }
+
+  int k = 0;  // the copies used so far, in the producer's order
+  for (int s = worker, j = 0; s < slabs; s += workers, ++j) {
+    // pass 1: the thread's shifted sums over the pieces of the share
+    float shift = 0.f, sum = 0.f, sq = 0.f;
+    int count = 0, held = 0;
+    for (int p = 0; p < pieces; ++p, ++k) {
+      const int slot = k % kSlots;
+      dmtpu::mbar_wait(full + slot, (k / kSlots) & 1);
+      const T* piece = reinterpret_cast<const T*>(ring + slot * kSlotBytes);
+      const int nv = min(v1 - v0 - p * kSlotVecs, kSlotVecs);
+#pragma unroll 4
+      for (int i = tid; i < nv; i += kTeamThreads) {
+        Chunk<T> c;
+        c.load(piece + i * 8);
+        float v[8];
+        c.unpack(v);
+        accumulate(v, count == 0, shift, sum, sq);
+        count += 8;
+      }
+      if (resident) {
+        held = slot;
+      } else {
+        __syncwarp();
+        if (lane == 0) dmtpu::mbar_arrive(done + slot);
+      }
+    }
+    cta_statistics((float)count, shift, sum, sq, team, rank, j, eps, flags, parts, epoch, s_n,
+                   s_mean, s_m2, s_stats);
+    const float gmean = s_stats[0], rstd = s_stats[1];
+    // pass 2: y in place of x, in the share's slot or in its pieces copied anew
+    const int c_first = (s % G) * cg;
+    for (int p = 0; p < pieces; ++p) {
+      int slot = held;
+      if (!resident) {
+        slot = k % kSlots;
+        dmtpu::mbar_wait(full + slot, (k / kSlots) & 1);
+        ++k;
+      }
+      T* piece = reinterpret_cast<T*>(ring + slot * kSlotBytes);
+      const int pv0 = v0 + p * kSlotVecs;
+      const int nv = min(v1 - pv0, kSlotVecs);
+#pragma unroll 4
+      for (int i = tid; i < nv; i += kTeamThreads) {
+        const int c = c_first + (pv0 + i) * 8 / HW;
+        const float sc = weight[c] * rstd;
+        Chunk<T> ch;
+        ch.load(piece + i * 8);
+        float v[8];
+        ch.unpack(v);
+        normalise(v, sc, bias[c] - gmean * sc, kSilu);
+        store8(piece + i * 8, v);
+      }
+      dmtpu::fence_proxy_async();  // the bulk store reads these writes
+      __syncwarp();
+      if (lane == 0) dmtpu::mbar_arrive(done + slot);
+    }
+  }
+}
+
+template <typename T, bool kSilu>
+cudaError_t launch_team_instance(const T* x, const float* w, const float* b, T* y, int C, int HW,
+                                 int G, int slabs, int form, int team, int ctas, float eps,
+                                 unsigned long long* flags, float4* parts,
+                                 unsigned long long epoch, cudaStream_t stream) {
+  if (form == 0)
+    group_norm_held_kernel<T, kSilu, true><<<ctas, kTeamThreads, 0, stream>>>(x, w, b, y, C, HW,
+                                                                             G, slabs, eps);
+  else if (form == 1)
+    group_norm_held_kernel<T, kSilu, false><<<ctas, kTeamThreads, 0, stream>>>(x, w, b, y, C, HW,
+                                                                              G, slabs, eps);
+  if (form < 2) return cudaGetLastError();
+  static bool allowed[dmtpu::kMaxDevices] = {};
+  const cudaError_t attr =
+      dmtpu::allow_dynamic_smem(group_norm_stream_kernel<T, kSilu>, kStreamSmem, allowed);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(ctas);
+  config.blockDim = dim3(kTeamThreads + 32);
+  config.dynamicSmemBytes = kStreamSmem;
+  config.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeCooperative;
+  attrs[0].val.cooperative = 1;
+  config.attrs = attrs;
+  config.numAttrs = team > 1 ? 1 : 0;  // the flag waits need every CTA resident
+  return cudaLaunchKernelEx(&config, group_norm_stream_kernel<T, kSilu>, x, w, b, y, C, HW, G,
+                            slabs, team, eps, flags, parts, epoch);
+}
+
 template <typename T, bool kNhwc>
 cudaError_t launch(const void* x, const void* w, const void* b, void* y, int N, int C, int HW,
                    int G, float eps, bool silu, cudaStream_t stream) {
@@ -506,4 +900,49 @@ extern "C" int dmtpu_group_norm_silu(const void* x, const void* weight, const vo
   if (channels_last)
     return (int)launch<float, true>(x, weight, bias, y, N, C, HW, G, eps, s, st);
   return (int)launch<float, false>(x, weight, bias, y, N, C, HW, G, eps, s, st);
+}
+
+// The "team" kernels over contiguous NCHW (see the comment above
+// group_norm_held_kernel): x, y f32 (is_bf16 = 0) or bf16, 16-byte aligned;
+// weight, bias f32 [C]; needs C % G == 0, HW % 8 == 0 and (C / G) * HW <
+// 2^31.  form 0 ("warp"): a warp a slab of at most 32 * kDepth 8-value
+// vectors (kDepth = 4 in f32, 8 in bf16), `ctas` CTAs; form 1 ("cta"): a CTA
+// a slab of at most 256 * kDepth vectors; form 2 ("stream"): `ctas` CTAs (a
+// multiple of team, at most one an SM when team > 1, at most 4096) in teams
+// of `team`.  scratch ("stream" with team > 1): 4096 u64 flags (zeroed once,
+// never reset) then 2 x 4096 float4 states, 160 KiB; epoch: above every flag
+// an earlier launch on this scratch wrote (the caller's launch count times
+// 2^32).  Returns the CUDA error code of the launch (0 on success).
+extern "C" int dmtpu_group_norm_team(const void* x, const void* weight, const void* bias, void* y,
+                                     int N, int C, int HW, int G, float eps, int silu,
+                                     int is_bf16, int form, int team, int ctas, void* scratch,
+                                     long long epoch, void* stream) {
+  const long long slab = C % G ? 0 : (long long)(C / G) * HW;
+  const int depth = is_bf16 ? TeamDepth<__nv_bfloat16>::value : TeamDepth<float>::value;
+  const long long held = (form == 0 ? 32 : kTeamThreads) * depth * 8;  // values a form holds
+  if (!slab || HW % 8 || slab >= (1ll << 31) || ctas < 1 || ctas > kMaxTeamCtas || form < 0 ||
+      form > 2 || (form < 2 && slab > held) ||
+      (form == 2 && (team < 1 || ctas % team || (team > 1 && !scratch))))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* flags = static_cast<unsigned long long*>(scratch);
+  float4* parts = reinterpret_cast<float4*>(flags + kMaxTeamCtas);
+  const unsigned long long ep = (unsigned long long)epoch;
+  const float* w = static_cast<const float*>(weight);
+  const float* b = static_cast<const float*>(bias);
+  const int slabs = N * G;
+  if (is_bf16) {
+    const auto* xt = static_cast<const __nv_bfloat16*>(x);
+    auto* yt = static_cast<__nv_bfloat16*>(y);
+    return silu ? (int)launch_team_instance<__nv_bfloat16, true>(
+                      xt, w, b, yt, C, HW, G, slabs, form, team, ctas, eps, flags, parts, ep, st)
+                : (int)launch_team_instance<__nv_bfloat16, false>(
+                      xt, w, b, yt, C, HW, G, slabs, form, team, ctas, eps, flags, parts, ep, st);
+  }
+  const auto* xt = static_cast<const float*>(x);
+  auto* yt = static_cast<float*>(y);
+  return silu ? (int)launch_team_instance<float, true>(xt, w, b, yt, C, HW, G, slabs, form, team,
+                                                       ctas, eps, flags, parts, ep, st)
+              : (int)launch_team_instance<float, false>(xt, w, b, yt, C, HW, G, slabs, form,
+                                                        team, ctas, eps, flags, parts, ep, st);
 }

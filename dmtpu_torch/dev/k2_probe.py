@@ -23,11 +23,15 @@
   spills), both against K2's plain version, and their times in turns at the
   pixel UNets' shapes (b128 h1 S=256 and S=16, a ragged S=200, d=248),
   beside SDPA's backward in this fresh process.
-- ``d512``: the mma.sync kernel's head-dim-512 instance
-  (``csrc/flash_attn_bwd_mma_d512.cu``): what ``ptxas`` says of it
-  (registers, spills, shared memory), against K2's plain version at
-  CelebA-HQ's shapes (b16 h1 S=256 and S=64), ragged lengths, d=504 and a
-  strided dO, and its time beside SDPA's backward in this fresh process.
+- ``d512``: the head-dim-512 instances, the wgmma pair
+  (``flash_bwd_pair_kernel`` in ``csrc/flash_attn_bwd.cu``) and mma.sync's
+  (``csrc/flash_attn_bwd_mma_d512.cu``): what ``ptxas`` says of them
+  (registers, spills, shared memory), both against K2's plain version at
+  CelebA-HQ's shapes (b16 h1 S=256 and S=64), ragged lengths, padded head
+  dims (504, 384, 264), a strided dO and b128 S=256, the pair's bits twice
+  where one key tile holds every key, and both in turns by CUDA events and
+  alone by device time (``torch.profiler``), beside SDPA's backward by
+  device time (its backend named) and the bound.
 - ``fresh``: both kernels at the shapes of the column-split instances'
   paths (SD1.5's four d=160 shapes at b16 h8; the CIFAR UNet's d=256 at
   b128 h1 S=256 and S=16, a ragged b8 S=200 and d=248), against K2's plain
@@ -375,23 +379,29 @@ def d256() -> int:
 
 
 # b, sq, sk, h, d: CelebA-HQ's two shapes, ragged lengths (a last key tile of
-# 8 keys, a last row step of 8 rows), a padded head dim, two heads
+# 8 keys, a last row step of 8 rows), padded head dims (504; 264 and 384: the
+# second CTA of the wgmma pair's columns wholly or partly zero-filled), two
+# heads, and b128 S=256, where the card and not the host sets the pace
 D512_SHAPES = [(16, 256, 256, 1, 512), (16, 64, 64, 1, 512), (4, 200, 200, 1, 512),
-               (4, 256, 256, 1, 504), (2, 77, 333, 2, 512), (2, 333, 40, 1, 264)]
+               (4, 256, 256, 1, 504), (2, 77, 333, 2, 512), (2, 333, 40, 1, 264),
+               (2, 100, 77, 2, 384), (128, 256, 256, 1, 512)]
 
 
 def d512() -> int:
     import torch
-    from dmtpu_torch.ops import _build
+    from dmtpu_torch.ops import _build, roofline
     from dmtpu_torch.ops.flash_attention import (flash_attention_backward_reference,
-                                                 flash_attention_bwd, flash_attention_fwd)
+                                                 flash_attention_bwd, flash_attention_fwd,
+                                                 select_bwd_kernel, wgmma_bwd_key_tile)
     lib = _build.build()
     _build.library()
     print(_card())
     log = (lib.parent / "build.log").read_text().splitlines()
     for i, line in enumerate(log):
-        if "Compiling entry" in line and "flash_bwd_d512_kernel" in line:
-            print("d512 ptxas:", " | ".join(x.strip()[:120] for x in log[i + 1:i + 4]), flush=True)
+        if "C75" in line:
+            print("  ", line.strip()[:300])
+        if "Compiling entry" in line and re.search("flash_bwd_(d512|pair)_kernel", line):
+            print("d512 ptxas:", " | ".join(x.strip()[:120] for x in log[i:i + 4]), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bad = 0
     for b, sq, sk, h, d in D512_SHAPES:
@@ -400,22 +410,35 @@ def d512() -> int:
             do = torch.randn(b, sq, h, 2 * d, generator=gen, device="cuda").bfloat16()[..., d:]
         o, lse = flash_attention_fwd(q, k, v)
         want = flash_attention_backward_reference(q, k, v, o, lse, do)
-        before = flash_attention_bwd.launches_by_head_dim[d]
-        got = flash_attention_bwd(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-        line = f"K2 d512 b{b} sq{sq} sk{sk} h{h} d{d}:"
-        for name, a, w in zip(("dq", "dk", "dv"), got, want):
-            a, w = a.float(), w.float()
-            err, rel = (a - w).abs().max().item(), ((a - w).norm() / w.norm()).item()
-            ok = err <= 1e-2 * w.abs().max().item() and rel <= 1e-2 and \
-                bool(torch.isfinite(a).all())
-            bad += not ok
-            line += f" {name} max err {err:.2e} rel L2 {rel:.2e} {'ok' if ok else 'BAD'};"
-        bad += flash_attention_bwd.launches_by_head_dim[d] != before + 1
-        ms = [round(_time_ms(torch, lambda: flash_attention_bwd(q, k, v, o, lse, do)), 4)
-              for _ in range(2)]
-        line += f" ms {ms}, SDPA backward {_sdpa_backward_ms(torch, q, k, v, do):.4f}"
+        line = f"K2 d512 b{b} sq{sq} sk{sk} h{h} d{d} (gate {select_bwd_kernel(d)}):"
+        fns = {name: (lambda name=name: flash_attention_bwd(q, k, v, o, lse, do, kernel=name))
+               for name in ("mma", "wgmma")}
+        for name, fn in fns.items():
+            got = fn()
+            torch.cuda.synchronize()
+            for part, a, w in zip(("dq", "dk", "dv"), got, want):
+                a, w = a.float(), w.float()
+                err, rel = (a - w).abs().max().item(), ((a - w).norm() / w.norm()).item()
+                ok = err <= 1e-2 * w.abs().max().item() and rel <= 1e-2 and \
+                    bool(torch.isfinite(a).all())
+                bad += not ok
+                line += f" {name} {part} max err {err:.2e} rel L2 {rel:.2e} {'ok' if ok else 'BAD'};"
+            if name == "wgmma" and sk <= wgmma_bwd_key_tile(d):
+                same = all(torch.equal(x, y) for x, y in zip(got, fn()))
+                bad += not same
+                line += f" same bits again: {same};"
+        ms = {}
+        for name in ("mma", "wgmma", "wgmma", "mma"):
+            ms.setdefault(name, []).append(round(_time_ms(torch, fns[name], 20), 4))
+        device = {name: round(_device_ms(torch, fn), 4) for name, fn in fns.items()}
+        sdpa = round(_sdpa_backward_ms(torch, q, k, v, do.contiguous(), device=True), 4)
+        backend = sdpa_backend(torch, *(x.transpose(1, 2) for x in (q, k, v)))
+        bound, by = roofline.bound_ms(*roofline.attention_bwd_work(b, h, sq, sk, d))
+        line += (f" ms {ms}, device ms {device}, SDPA backward ({backend}) device ms {sdpa}, "
+                 f"bound {bound:.4f} ({by})")
         print(line, flush=True)
+        del q, k, v, do, o, lse, want
+        torch.cuda.empty_cache()
     print("d512:", "FAILED" if bad else "all ok")
     return 1 if bad else 0
 

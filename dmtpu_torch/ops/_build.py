@@ -53,6 +53,9 @@ _SIGNATURES = {
     # x, weight, bias, y, N, C, HW, G, eps, silu, is_bf16, kernel, cluster, rows, threads,
     # stream
     "dmtpu_group_norm_silu": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 6 + [_P],
+    # x, weight, bias, y, N, C, HW, G, eps, silu, is_bf16, form, team, ctas, scratch, epoch,
+    # stream
+    "dmtpu_group_norm_team": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 5 + [_P, _L, _P],
 }
 
 

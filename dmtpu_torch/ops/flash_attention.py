@@ -17,17 +17,19 @@ to 48, 80, 160, 256 or 512 in shared memory) and ragged sequence lengths
 - ``flash_attention_bwd(q, k, v, o, lse, do, scale) -> (dq, dk, dv)`` (K2).
   Two kernels stand behind it as well: ``csrc/flash_attn_bwd.cu`` (wgmma and
   TMA, head dims 40, 64, 72 and 80 on instances of their own, every multiple
-  of 8 in (80, 256] on the column-split instances of 160 and 256; dQ's
-  partial sums leave a CTA as whole f32 rows by ``cp.reduce.async.bulk``)
-  and the mma.sync kernel (dQ by scalar f32 atomics: head dims below 40, 48
-  and 56, a broadcast q, k, v or dO, in ``csrc/flash_attn_bwd_mma.cu``;
-  above 256 ``csrc/flash_attn_bwd_mma_d512.cu``, dK, dV and dQ split by
-  column halves over two CTAs); ``select_bwd_kernel`` is the gate.  Where
+  of 8 in (80, 256] on the column-split instances of 160 and 256, and in
+  (256, 512] on the instance of 512, a cluster of two CTAs on the column
+  halves; dQ's partial sums leave a CTA as whole f32 rows by
+  ``cp.reduce.async.bulk``) and the mma.sync kernel (dQ by scalar f32
+  atomics: head dims below 40, 48 and 56, a broadcast q, k, v or dO, in
+  ``csrc/flash_attn_bwd_mma.cu``; above 256 ``csrc/flash_attn_bwd_mma_d512.cu``,
+  dK, dV and dQ split by column halves over two CTAs);
+  ``select_bwd_kernel`` is the gate.  Where
   several key tiles add to dq, neither gives a bitwise reproducible dq: the
   f32 adds of different CTAs arrive in an order that varies from run to run.
   With one key tile the wgmma kernel writes dq itself, in bf16, and two runs
   agree bit for bit: S_k <= 128 at head dims up to 80, S_k <= 64 above
-  (``wgmma_bwd_key_tile``).  So SD1.5's d=160 cross-attention to 77 keys,
+  (``wgmma_bwd_key_tile``; CelebA-HQ's S=64 at d=512 among them).  So SD1.5's d=160 cross-attention to 77 keys,
   two 64-key tiles, adds f32 partial sums and is not reproducible bit for
   bit, while its S=64 self-attention at d=160 is.
 - ``flash_attention_reference`` and ``flash_attention_backward_reference``:
@@ -257,22 +259,27 @@ flash_attention_fwd.launches_by_head_dim = collections.Counter()
 # cp.reduce.async.bulk) reads q, k, v and dO through tensor maps (positive
 # strides).  Its instances: head dims 40 and 80 (SD1.5), 72 (DiT) and 64
 # (MMDiT), a CTA per 128-key tile, two consumer warpgroups of 64 keys each;
-# and 160 (SD1.5) and 256 (the pixel UNets), a CTA per 64-key tile, both
+# 160 (SD1.5) and 256 (the pixel UNets), a CTA per 64-key tile, both
 # consumer warpgroups on all 64 keys and each on its share of dK's, dV's and
-# dQ's columns.  Every multiple of 8 in (80, 256] runs on the narrower of
-# those two that is at least as wide, its columns past the head dim
-# zero-filled.  "mma" (mma.sync, dQ by scalar f32 atomics) takes every head
-# dim up to 512 and any strides: up to 256 csrc/flash_attn_bwd_mma.cu (64-key
-# tiles; the head dims below 40, 48 and 56, and zero strides, run there),
-# above it csrc/flash_attn_bwd_mma_d512.cu (32-key tiles, dK, dV and dQ's
-# columns split over two CTAs; CelebA-HQ's d=512).
+# dQ's columns; and 512 (CelebA-HQ), a cluster of two such CTAs per 64-key
+# tile, each on half of the columns, their partial S^T and dP^T summed
+# through distributed shared memory.  Every multiple of 8 in (80, 512] runs
+# on the narrowest of 160, 256 and 512 that is at least as wide, its columns
+# past the head dim zero-filled.  "mma" (mma.sync, dQ by scalar f32 atomics)
+# takes every head dim up to 512 and any strides: up to 256
+# csrc/flash_attn_bwd_mma.cu (64-key tiles; the head dims below 40, 48 and
+# 56, and zero strides, run there), above it csrc/flash_attn_bwd_mma_d512.cu
+# (32-key tiles, dK, dV and dQ's columns split over two CTAs).
 _BWD_ENTRY_POINTS = {"mma": "dmtpu_flash_attn_bwd_mma", "wgmma": "dmtpu_flash_attn_bwd"}
 _BWD_WIDE_ENTRY_POINT = "dmtpu_flash_attn_bwd_mma_d512"
-WGMMA_BWD_HEAD_DIMS = (40, 64, 72, 80, 160, 256)
+WGMMA_BWD_HEAD_DIMS = (40, 64, 72, 80, 160, 256, 512)
 # the instances whose two consumer warpgroups split the columns (64-key tiles)
 WGMMA_BWD_SPLIT_HEAD_DIMS = (160, 256)
+# the instance of a cluster of two CTAs on the column halves, each laid out as
+# the split instance at 256 (64-key tiles)
+WGMMA_BWD_PAIR_HEAD_DIMS = (512,)
 # the wgmma kernel pads its f32 scratch to whole steps of rows, by instance
-_BWD_ROWS = {40: 128, 64: 64, 72: 64, 80: 64, 160: 64, 256: 64}
+_BWD_ROWS = {40: 128, 64: 64, 72: 64, 80: 64, 160: 64, 256: 64, 512: 64}
 # Its key tile up to head dim 80.  With no more keys than its instance's tile
 # (wgmma_bwd_key_tile) a CTA holds every contribution to its dq rows: it
 # writes them in bf16 itself, the same bits in every run, and needs no f32
@@ -283,19 +290,20 @@ WGMMA_BWD_SPLIT_KEY_TILE = 64
 
 def wgmma_bwd_instance(d: int) -> Optional[int]:
     """K2's wgmma instance that runs head dim ``d``: 40, 64, 72 and 80 their
-    own; a multiple of 8 in (80, 256] the narrower of 160 and 256 that is at
-    least as wide; None for the rest (mma.sync)."""
+    own; a multiple of 8 in (80, 512] the narrowest of 160, 256 and 512 that
+    is at least as wide; None for the rest (mma.sync)."""
     if d in (40, 64, 72, 80):
         return d
-    if 80 < d <= 256 and not d & 7:
-        return 160 if d <= 160 else 256
+    if 80 < d <= 512 and not d & 7:
+        return next(w for w in (160, 256, 512) if w >= d)
     return None
 
 
 def wgmma_bwd_key_tile(d: int) -> int:
-    """The keys of one CTA of K2's wgmma instance for head dim ``d``."""
-    split = wgmma_bwd_instance(d) in WGMMA_BWD_SPLIT_HEAD_DIMS
-    return WGMMA_BWD_SPLIT_KEY_TILE if split else WGMMA_BWD_KEY_TILE
+    """The keys of one CTA (of a CTA pair at 512) of K2's wgmma instance for
+    head dim ``d``."""
+    wide = wgmma_bwd_instance(d) in WGMMA_BWD_SPLIT_HEAD_DIMS + WGMMA_BWD_PAIR_HEAD_DIMS
+    return WGMMA_BWD_SPLIT_KEY_TILE if wide else WGMMA_BWD_KEY_TILE
 
 
 def bwd_kernels_for(d: int) -> list[str]:
@@ -305,7 +313,7 @@ def bwd_kernels_for(d: int) -> list[str]:
 
 def select_bwd_kernel(d: int) -> str:
     """The K2 kernel a call is dispatched to: "wgmma" wherever it has an
-    instance (head dims 40, 64, 72, 80 and every multiple of 8 in (80, 256]),
+    instance (head dims 40, 64, 72, 80 and every multiple of 8 in (80, 512]),
     whatever the lengths; ``flash_attention_bwd`` also leaves a broadcast
     (zero-stride) q, k, v or dO to "mma".
 
@@ -328,6 +336,15 @@ def select_bwd_kernel(d: int) -> str:
     0.3523 / 0.1675 (0.1461), S=16 0.0440 / 0.0119 (0.0244); b8 S=200 d=256
     0.0848 / 0.0319 and S=256 d=248 0.0872 / 0.0330.  The wgmma kernel is
     the faster at every one, so it takes head dims 88 to 256 too.
+
+    The CTA-pair instance of 512 (``python -m dmtpu_torch.dev.k2_probe
+    d512``, the same card, device time, mma.sync / wgmma, SDPA's
+    memory-efficient backward in brackets): CelebA-HQ's b16 h1 S=256 0.1960 /
+    0.0372 (0.4077) and S=64 0.0758 / 0.0216 (0.1236); b4 S=200 0.1113 /
+    0.0437; b4 S=256 d=504 0.1154 / 0.0456; b2 S_q=77 S_k=333 h2 0.0888 /
+    0.0296; b2 S_q=333 S_k=40 d=264 0.1235 / 0.0502; b2 S_q=100 S_k=77 h2
+    d=384 0.0743 / 0.0267; b128 S=256 1.2069 / 0.4290 (1.1058).  The wgmma
+    instance is the faster at every one, so it takes head dims 264 to 512.
     """
     return "wgmma" if wgmma_bwd_instance(d) else "mma"
 
@@ -347,8 +364,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     (autograd hands a gradient of all-zero strides for a ``sum()``) is copied
     with ``.contiguous()`` first.  ``kernel`` forces "mma" or "wgmma" (it
     raises if that kernel does not take the call: for "wgmma" a head dim
-    without an instance (``wgmma_bwd_instance``: below 40, 48, 56 or above
-    256), or a q, k, v or ``do`` broadcast over batch, rows or heads, whose
+    without an instance (``wgmma_bwd_instance``: below 40, 48 and 56), or a
+    q, k, v or ``do`` broadcast over batch, rows or heads, whose
     zero stride has no tensor map); by default ``select_bwd_kernel`` chooses
     and leaves a broadcast call to "mma".
     """

@@ -7,9 +7,11 @@ normalisation are computed in f32; the output has the input's dtype.
   it launches the kernel (f32 or bf16, contiguous NCHW or channels-last,
   f32 weight and bias; anything else raises), on a CPU tensor it runs the
   reference.
-- ``plan`` and ``kernels_for``: which of the source's three kernels a call
+- ``plan`` and ``kernels_for``: which of the source's four kernels a call
   takes (channels-last goes by whole pixel rows with a thread block cluster
-  per sample, where C and C/groups allow) and the launch shape.
+  per sample, where C and C/groups allow; contiguous NCHW by teams of CTAs
+  that each hold a share of a (sample, group) slab in registers, or a warp
+  a slab where slabs are small) and the launch shape.
 - ``group_norm_silu_reference``: the plain PyTorch version (two-pass
   statistics, as ``dmtpu.ops.groupnorm.group_norm_silu_reference``).
 - ``GroupNormSiLU``: the differentiable op, a ``torch.autograd.Function``
@@ -20,7 +22,8 @@ normalisation are computed in f32; the output has the input's dtype.
   backward is the faithful port; only the forward is a kernel.
 - ``group_norm``: the one dispatch every model calls: ``GroupNormSiLU``, or
   the reference (plain autograd) inside ``dispatch.plain_ops()``.
-- ``group_norm_silu.launches`` counts kernel launches.
+- ``group_norm_silu.launches`` counts kernel launches, and
+  ``group_norm_silu.launches_by_kernel`` counts them by the kernel that ran.
 """
 from __future__ import annotations
 
@@ -50,11 +53,14 @@ def group_norm_silu_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch
     return xn.to(x.dtype)
 
 
-# The three K3 kernels of ``csrc/group_norm_silu.cu`` (the C interface's
-# ``kernel`` argument): one CTA per (sample, group) over contiguous NCHW
-# ("nchw") or over channels-last ("groups", C/G values a pixel, two at a
-# time), and "rows": channels-last by whole pixel rows, 16 bytes a thread, a
-# thread block cluster per sample.
+# The four K3 kernels of ``csrc/group_norm_silu.cu``: one CTA per (sample,
+# group) over contiguous NCHW ("nchw") or over channels-last ("groups", C/G
+# values a pixel, two at a time), and "rows": channels-last by whole pixel
+# rows, 16 bytes a thread, a thread block cluster per sample (these three
+# through ``dmtpu_group_norm_silu``'s ``kernel`` argument); and "team"
+# (``dmtpu_group_norm_team``): contiguous NCHW, a (sample, group) slab spread
+# over a team of CTAs that merge their statistics through global memory, or
+# a warp a slab where slabs are small.
 _KERNEL_IDS = {"nchw": 0, "groups": 1, "rows": 2}
 ROWS_THREADS = 512         # the rows kernel's largest CTA
 ROWS_CLUSTER = 8           # most CTAs per sample (the portable cluster size)
@@ -64,15 +70,71 @@ ROWS_CLUSTER = 8           # most CTAs per sample (the portable cluster size)
 ROWS_TARGET_CTAS = 64
 ROWS_MAX_GROUPS = 128
 
+# The "team" kernels (contiguous NCHW), by the (sample, group) slab's size:
+# "warp", a warp a slab (eight a CTA), and "cta", a CTA of 256 threads a slab,
+# each thread holding a batch of 128 bytes of x in registers (slabs of at
+# most 4 KB and 32 KB), 3 CTAs an SM; "stream", a team of CTAs a slab, one
+# CTA an SM (256 threads and a producer warp that copies x into three 64 KB
+# shared-memory slots), each CTA on a share of at most one slot where the
+# card has the CTAs for it.  A team of more than one CTA launches
+# cooperatively: at most one CTA an SM.
+TEAM_THREADS = 256
+TEAM_WARPS = TEAM_THREADS // 32
+TEAM_BATCH_BYTES = 128     # a thread's batch in "warp" and "cta"
+TEAM_HELD_CTAS_PER_SM = 3
+TEAM_SLOT_BYTES = 64 * 1024
+TEAM_MAX_CTAS = 4096       # the CTAs the kernel's scratch has flags and states for
+H100_SMS = 132
+TEAM_FORMS = {"warp": 0, "cta": 1, "stream": 2}
+# Where a share is more than one slot, it is streamed again for the
+# normalisation: the bytes that should still be in the 50 MB L2 cache then
+# (every team's slab) are kept under 32 MB where the card has the CTAs.
+L2_BYTES = 50 * 2 ** 20
+TEAM_REREAD_BUDGET = 32 * 2 ** 20
+
 
 @functools.lru_cache(maxsize=None)
-def plan(c: int, hw: int, groups: int, esize: int, channels_last: bool, n: int = 16) -> dict:
-    """How K3 runs a [n, c, hw] call: ``kernel`` and, for "rows", its launch
-    shape: ``cluster`` CTAs per sample (a power of two, so that the batch has
-    about ``ROWS_TARGET_CTAS`` in all), ``rows`` pixel rows a pass in a CTA of
-    ``threads`` threads (a thread owns 8 channels of a pixel)."""
+def team_plan(c: int, hw: int, groups: int, esize: int, n: int, sms: int = H100_SMS) -> dict:
+    """The "team" kernels' launch for a contiguous NCHW [n, c, hw] call on a
+    card of ``sms`` SMs: the ``form`` ("warp", "cta" or "stream"), ``team``
+    CTAs a slab ("stream"), ``ctas`` in all; and what it moves at once:
+    ``in_flight``, the bytes of x of the slabs being normalised together
+    ("stream": those of the slabs its teams hold), and ``reread``, those of
+    them that a second read takes from the L2 cache."""
+    slab = (c // groups) * hw * esize        # bytes of a (sample, group)
+    slabs = n * groups
+    if slab <= 32 * TEAM_BATCH_BYTES:
+        ctas = min(-(-slabs // TEAM_WARPS), sms * TEAM_HELD_CTAS_PER_SM)
+        return {"form": "warp", "team": 0, "ctas": ctas,
+                "in_flight": min(slabs, ctas * TEAM_WARPS) * slab, "reread": 0}
+    if slab <= TEAM_THREADS * TEAM_BATCH_BYTES:
+        ctas = min(slabs, sms * TEAM_HELD_CTAS_PER_SM)
+        return {"form": "cta", "team": 1, "ctas": ctas, "in_flight": ctas * slab, "reread": 0}
+    # as few CTAs a slab as keep the slabs in flight (one a team) within the
+    # L2 budget, and enough that the slabs' teams cover the card: a team's
+    # statistics cost a few microseconds of waiting each slab (measured:
+    # teams of 1 to 16 CTAs beat teams of 64 and 128 on the SD1.5 decode's
+    # shapes); a divisor of the SMs, so that the teams fill every SM
+    sizes = [t for t in range(1, sms + 1) if sms % t == 0]
+    team = next(t for t in sizes if (sms // t) * slab <= TEAM_REREAD_BUDGET or t == sms)
+    team = next(t for t in sizes if t >= team and t * slabs >= sms or t == sms)
+    teams = max(1, min(slabs, sms // team))
+    reread = -(-slab // team) > TEAM_SLOT_BYTES  # the shares stream again for pass 2
+    return {"form": "stream", "team": team, "ctas": team * teams, "in_flight": teams * slab,
+            "reread": teams * slab if reread else 0}
+
+
+@functools.lru_cache(maxsize=None)
+def plan(c: int, hw: int, groups: int, esize: int, channels_last: bool, n: int = 16,
+         sms: int = H100_SMS) -> dict:
+    """How K3 runs a [n, c, hw] call: ``kernel`` and its launch shape.  For
+    "rows", ``cluster`` CTAs per sample (a power of two, so that the batch
+    has about ``ROWS_TARGET_CTAS`` in all), ``rows`` pixel rows a pass in a
+    CTA of ``threads`` threads (a thread owns 8 channels of a pixel).  For
+    contiguous NCHW, "team" with ``team_plan``'s shape, which the plan also
+    gives where it keeps "nchw"."""
     if not channels_last:
-        return {"kernel": "nchw"}
+        return {"kernel": "team", **team_plan(c, hw, groups, esize, n, sms)}
     cpr = c // 8  # 8-channel chunks per pixel row
     if c % 8 or c // groups < 8 or cpr > ROWS_THREADS or groups > ROWS_MAX_GROUPS:
         return {"kernel": "groups"}
@@ -88,7 +150,7 @@ def plan(c: int, hw: int, groups: int, esize: int, channels_last: bool, n: int =
 def kernels_for(c: int, hw: int, groups: int, channels_last: bool) -> tuple[str, ...]:
     """The K3 kernels that take the call, the general one first."""
     if not channels_last:
-        return ("nchw",)
+        return ("nchw", "team")
     names = ("groups",) if (c // groups) % 2 == 0 else ()
     if plan(c, hw, groups, 2, True)["kernel"] == "rows":
         names += ("rows",)
@@ -128,27 +190,60 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"group_norm_silu: x must be contiguous NCHW with H*W % 8 == 0 or "
                          f"channels-last with C/groups even or C % 8 == 0 and C/groups >= 8, "
                          f"got shape {tuple(x.shape)} strides {x.stride()}")
-    how = plan(c, h * w, groups, x.element_size(), channels_last, n)
+    how = plan(c, h * w, groups, x.element_size(), channels_last, n, _sms(device))
     if kernel is not None and kernel != how["kernel"]:
         if kernel not in kernels_for(c, h * w, groups, channels_last):
             raise ValueError(f"group_norm_silu: kernel {kernel!r} does not take shape "
                              f"{tuple(x.shape)}, groups {groups}, strides {x.stride()}")
-        how = {"kernel": kernel}
+        how = {**how, "kernel": kernel}
     if not weight.is_contiguous() or not bias.is_contiguous():
         weight, bias = weight.contiguous(), bias.contiguous()
     out = torch.empty_like(x)  # keeps x's layout
-    err = _build.library().dmtpu_group_norm_silu(
-        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        n, c, h * w, groups, float(eps), int(silu), int(x.dtype == torch.bfloat16),
-        _KERNEL_IDS[how["kernel"]], how.get("cluster", 0), how.get("rows", 0),
-        how.get("threads", 0),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    is_bf16 = int(x.dtype == torch.bfloat16)
+    if how["kernel"] == "team":
+        scratch, epoch = _team_scratch(device)
+        err = _build.library().dmtpu_group_norm_team(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            n, c, h * w, groups, float(eps), int(silu), is_bf16, TEAM_FORMS[how["form"]],
+            how["team"], how["ctas"], scratch.data_ptr(), epoch, stream)
+    else:
+        err = _build.library().dmtpu_group_norm_silu(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            n, c, h * w, groups, float(eps), int(silu), is_bf16,
+            _KERNEL_IDS[how["kernel"]], how.get("cluster", 0), how.get("rows", 0),
+            how.get("threads", 0), stream)
     _build.check(err, "group_norm_silu launch")
     group_norm_silu.launches += 1
+    group_norm_silu.launches_by_kernel[how["kernel"]] += 1
     return out
 
 
 group_norm_silu.launches = 0
+group_norm_silu.launches_by_kernel = {"nchw": 0, "groups": 0, "rows": 0, "team": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_TEAM_SCRATCH: dict = {}
+
+
+def _team_scratch(device: int) -> tuple[torch.Tensor, int]:
+    """The "team" kernel's flags and per-CTA states on ``device`` (room for
+    4096 CTAs: 160 KiB, zeroed once), and this launch's epoch: each launch's flags
+    count up from the launch's number times 2^32, so the flags an earlier
+    launch left read as not yet set and nothing is cleared between launches.
+    One scratch a device: the launches on it must run one after the other (one
+    stream), as every path of the port runs them."""
+    if device not in _TEAM_SCRATCH:
+        _TEAM_SCRATCH[device] = [torch.zeros(5 * TEAM_MAX_CTAS, dtype=torch.int64,
+                                             device=torch.device("cuda", device)), 0]
+    entry = _TEAM_SCRATCH[device]
+    entry[1] += 1
+    return entry[0], entry[1] << 32
 
 
 class GroupNormSiLU(torch.autograd.Function):

@@ -280,21 +280,21 @@ def test_a_gradient_through_head_dim_256_goes_through_k2(cuda):
 @pytest.mark.parametrize("b,s,d", [(16, 256, 512), (16, 64, 512), (4, 200, 512), (4, 256, 504)])
 def test_a_gradient_through_head_dim_512_goes_through_k2(cuda, b, s, d):
     """CelebA-HQ's one head of 512 (S = 256 and 64 at b16), a ragged length
-    and a padded head dim: K1's d=512 instance (wgmma) and K2's (mma.sync),
-    one launch each, against K2's plain version on K1's outputs and against
-    plain autograd on the same bf16 values; a wider head raises in both
-    directions."""
+    and a padded head dim: K1's d=512 instance and K2's (both wgmma; K2's a
+    CTA pair), one launch each, against K2's plain version on K1's outputs
+    and against plain autograd on the same bf16 values; a wider head raises
+    in both directions."""
     q, k, v, do = _qkv_do(cuda, 23, b, s, s, 1, d)
     def counts():
         return (flash_attention_fwd.launches_by_head_dim[d],
                 flash_attention_bwd.launches_by_head_dim[d],
-                flash_attention_bwd.launches_by_kernel["mma"])
+                flash_attention_bwd.launches_by_kernel["wgmma"])
 
     before = counts()
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     attention(*leaves).backward(do)
     assert counts() == tuple(x + 1 for x in before)
-    assert select_bwd_kernel(d) == "mma" and k2_kernels_for(d) == ["mma"]
+    assert select_bwd_kernel(d) == "wgmma" and k2_kernels_for(d) == ["mma", "wgmma"]
     o, lse = flash_attention_fwd(q, k, v)
     got = flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
@@ -373,8 +373,8 @@ def test_k2_split_instances_against_plain_and_f32_autograd(cuda, b, sq, sk, h, d
 @pytest.mark.parametrize("d", [160, 256, 512])
 def test_a_broadcast_q_falls_to_mma_at_the_new_head_dims(cuda, d):
     """A q broadcast over the batch (stride 0: no tensor map) goes to
-    mma.sync in both directions, where K1 at d=512 and K2 at 160 and 256
-    otherwise take wgmma; forcing wgmma on it raises."""
+    mma.sync in both directions, where K1 at d=512 and K2 at 160, 256 and
+    512 otherwise take wgmma; forcing wgmma on it raises."""
     g = torch.Generator(device=cuda).manual_seed(35)
     q = torch.randn(1, 64, 1, d, generator=g, device=cuda).bfloat16().expand(2, 64, 1, d)
     k, v, do = (torch.randn(2, 64, 1, d, generator=g, device=cuda).bfloat16() for _ in range(3))
@@ -387,8 +387,6 @@ def test_a_broadcast_q_falls_to_mma_at_the_new_head_dims(cuda, d):
     want_o, _ = flash_attention_reference(q, k, v)
     torch.cuda.synchronize()
     assert_k1_close(o, want_o)
-    if d > 256:  # K2 at 512 is mma.sync either way
-        return
     before = dict(flash_attention_bwd.launches_by_kernel)
     got = flash_attention_bwd(q, k, v, o, lse, do)
     assert flash_attention_bwd.launches_by_kernel["mma"] == before["mma"] + 1
@@ -403,16 +401,16 @@ def test_the_forward_takes_head_dims_to_512_and_the_backward_to_256():
     """Both directions take every multiple of 8 up to 512 (the mma.sync
     kernels' widest instances, CelebA-HQ's one head; the backward's limit was
     256 until its d=512 instance came) and refuse anything else, naming the
-    kernel and the limit.  At 512 the forward has a wgmma instance too, and
-    the dispatch takes it; the backward stays on mma.sync."""
+    kernel and the limit.  At 512 both directions have a wgmma instance too,
+    and the dispatch takes it."""
     assert MAX_HEAD_DIM == 512
     for d in (8, 256, 264, 504, 512):
         assert k1_kernels_for(d)[0] == "mma" and k2_kernels_for(d)[0] == "mma"
         q = torch.zeros(2, 16, 1, d, dtype=torch.bfloat16)
         _check_qkv(q, q, q)
         _check_qkv(q, q, q, backward=True)
-    assert k1_kernels_for(512) == ["mma", "wgmma"] and k2_kernels_for(512) == ["mma"]
-    assert select_kernel(512) == "wgmma" and select_bwd_kernel(512) == "mma"
+    assert k1_kernels_for(512) == ["mma", "wgmma"] and k2_kernels_for(512) == ["mma", "wgmma"]
+    assert select_kernel(512) == "wgmma" and select_bwd_kernel(512) == "wgmma"
     for d in (520, 1024, 500):
         q = torch.zeros(2, 16, 1, d, dtype=torch.bfloat16)
         for backward, name in ((False, "K1"), (True, "K2")):
@@ -782,7 +780,7 @@ def test_k3_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, c, 
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     channels_last = layout == torch.channels_last
     names = k3_kernels_for(c, hw, 32, channels_last)
-    assert names == (("groups", "rows") if channels_last else ("nchw",))
+    assert names == (("groups", "rows") if channels_last else ("nchw", "team"))
     for kernel in names:
         got = group_norm_silu(x, w, bias, 32, eps, silu, kernel=kernel)
         again = group_norm_silu(x, w, bias, 32, eps, silu, kernel=kernel)
@@ -874,7 +872,7 @@ def test_k3_every_group_norm_shape_of_the_vae(cuda, c, hw, silu, layout):
     want = group_norm_silu_reference(x, w, bias, 32, 1e-6, silu)
     channels_last = layout == torch.channels_last
     names = k3_kernels_for(c, hw, 32, channels_last)
-    assert names == (("nchw",) if not channels_last else
+    assert names == (("nchw", "team") if not channels_last else
                      ("groups",) if c == 128 else ("groups", "rows"))
     for kernel in names:
         got = group_norm_silu(x, w, bias, 32, 1e-6, silu, kernel=kernel)
@@ -1051,3 +1049,95 @@ def test_mmdit_train_step_runs_k1_and_k2_a_block_and_agrees_with_the_plain_path(
     err = (sum((a - b).square().sum() for a, b in zip(got, want)).sqrt()
            / sum(b.square().sum() for b in want).sqrt()).item()
     assert err <= 3e-2 and all(bool(torch.isfinite(a).all()) for a in got)
+
+
+# ---- K3's NCHW "team" kernel and K2's d=512 CTA pair -----------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,hw,dtype,silu", [
+    (500, 256, 16, torch.bfloat16, True), (16, 1024, 64, torch.bfloat16, False),
+    (16, 128, 1024, torch.float32, True), (16, 1536, 256, torch.bfloat16, True),
+    (16, 512, 4096, torch.float32, True), (2, 256, 65536, torch.float32, False),
+    (1, 128, 262144, torch.float32, True), (1, 512, 16384, torch.float32, True),
+    (3, 96, 240, torch.float32, True)])
+def test_k3_team_kernel_in_each_form_against_plain_and_the_old_kernel(cuda, n, c, hw, dtype,
+                                                                       silu):
+    """The NCHW kernel the plan takes ("team": a warp a slab, a CTA a slab,
+    or a team of CTAs a slab) at the pixel UNets' and the decodes' shapes and
+    a batch of one: one launch, against the plain version (1e-4 in f32, one
+    rounding in bf16) and the old one-CTA-a-slab kernel, two runs bit for
+    bit (the team's statistics merged in a fixed order, no atomics)."""
+    x, w, bias = _k3_case(cuda, 40, n, c, hw, dtype, torch.contiguous_format)
+    how = k3_plan(c, hw, 32, x.element_size(), False, n)
+    assert how["kernel"] == "team" and how["form"] in ("warp", "cta", "stream")
+    before = group_norm_silu.launches_by_kernel["team"]
+    got = group_norm_silu(x, w, bias, 32, 1e-6, silu)
+    again = group_norm_silu(x, w, bias, 32, 1e-6, silu)
+    assert group_norm_silu.launches_by_kernel["team"] == before + 2
+    old = group_norm_silu(x, w, bias, 32, 1e-6, silu, kernel="nchw")
+    want = group_norm_silu_reference(x, w, bias, 32, 1e-6, silu)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert got.is_contiguous() and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got.float(), old.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("form,team,ctas", [("stream", 8, 16), ("stream", 3, 9),
+                                            ("stream", 37, 74), ("stream", 1, 5),
+                                            ("cta", 1, 7), ("warp", 0, 2)])
+def test_k3_team_kernel_at_launch_shapes_the_plan_does_not_pick(cuda, form, team, ctas):
+    """Teams whose shares are several 64 KB slots (streamed again for the
+    normalisation), teams that do not divide a slab evenly, fewer CTAs than
+    slabs: the same values, and the same bits twice."""
+    from dmtpu_torch.ops import _build
+    from dmtpu_torch.ops.groupnorm import TEAM_FORMS, _team_scratch
+    shape = {"stream": (2, 128, 65536), "cta": (3, 128, 1936), "warp": (5, 256, 64)}[form]
+    x, w, bias = _k3_case(cuda, 41, *shape, torch.float32, torch.contiguous_format)
+    n, c, h, wd = x.shape
+
+    def run():
+        y = torch.empty_like(x)
+        scratch, epoch = _team_scratch(x.get_device())
+        _build.check(_build.library().dmtpu_group_norm_team(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), n, c, h * wd, 32, 1e-6,
+            1, 0, TEAM_FORMS[form], team, ctas, scratch.data_ptr(), epoch,
+            torch.cuda.current_stream().cuda_stream), "group_norm_team launch")
+        return y
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, group_norm_silu_reference(x, w, bias, 32, 1e-6, True),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,d", [
+    (16, 256, 256, 1, 512), (16, 64, 64, 1, 512), (4, 200, 200, 1, 512), (4, 256, 256, 1, 504),
+    (2, 77, 333, 2, 512), (2, 333, 40, 1, 264), (2, 100, 77, 2, 384)])
+def test_k2_d512_pair_instance_against_plain_and_its_mma_sync_twin(cuda, b, sq, sk, h, d):
+    """K2's wgmma instance of 512 (a cluster of two CTAs on the column
+    halves): the dispatch takes it for every multiple of 8 in (256, 512], and
+    its gradients agree with K2's plain version (1e-2) and f32 autograd
+    through ``mha`` (2e-2); with one key tile two runs agree bit for bit;
+    the mma.sync instance, forced, agrees too."""
+    from dmtpu_torch.ops.flash_attention import wgmma_bwd_instance, wgmma_bwd_key_tile
+    q, k, v, do = _qkv_do(cuda, 36, b, sq, sk, h, d)
+    assert select_bwd_kernel(d) == "wgmma" and wgmma_bwd_instance(d) == 512
+    o, lse = flash_attention_fwd(q, k, v)
+    before = dict(flash_attention_bwd.launches_by_kernel)
+    got = flash_attention_bwd(q, k, v, o, lse, do)
+    assert flash_attention_bwd.launches_by_kernel == {"mma": before["mma"],
+                                                      "wgmma": before["wgmma"] + 1}
+    torch.cuda.synchronize()
+    assert all(x.dtype == torch.bfloat16 and torch.isfinite(x).all() for x in got)
+    assert_grads_close(got, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)
+    leaves = [x.float().requires_grad_() for x in (q, k, v)]
+    mha(*leaves).backward(do.float())
+    assert_grads_close(got, [x.grad for x in leaves], 2e-2)
+    if sk <= wgmma_bwd_key_tile(d):
+        again = flash_attention_bwd(q, k, v, o, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+    forced = flash_attention_bwd(q, k, v, o, lse, do, kernel="mma")
+    assert_grads_close(forced, flash_attention_backward_reference(q, k, v, o, lse, do), 1e-2)

@@ -184,6 +184,31 @@ def test_flash_backward_matches_pallas_interpret(s, d, block_q, block_k):
         np.testing.assert_allclose(g, np.asarray(w), err_msg=f"d{name}", **GRAD_TOL)
 
 
+@pytest.mark.parametrize("d", [512, 504])
+def test_flash_backward_reference_at_head_dim_512_matches_pallas_interpret(d):
+    """K2's plain version at CelebA-HQ's head dim (512; 504, a padded one),
+    which K2 runs on its wgmma CTA-pair instance: against the Pallas
+    flash_small_d fused backward kernel (``_bwd``) in interpret mode, fed the
+    same O and logsumexp.  The JAX package's forward takes D <= 128, so the
+    backward kernel is called directly; nothing in it limits D."""
+    b, h, s = 2, 1, 64
+    q, k, v = _qkv(15, b, s, s, h, d)
+    do = np.random.RandomState(16).randn(b, s, h, d).astype(np.float32)
+    scale = d ** -0.5
+    o, lse = flash_attention_reference(t(q), t(k), t(v), scale)
+
+    def flat(x):
+        return jnp.swapaxes(jnp.asarray(x), 1, 2).reshape(b * h, s, d)
+
+    res = (flat(q), flat(k), flat(v), flat(o.numpy()), jnp.asarray(lse.numpy()).reshape(b * h, s))
+    with jax.default_device(CPU), pltpu.force_tpu_interpret_mode():
+        want = jfsd._bwd(scale, 32, 32, res, flat(do))
+    ref = flash_attention_backward_reference(t(q), t(k), t(v), o, lse, t(do), scale)
+    for name, w, r in zip("qkv", want, ref):
+        w = np.swapaxes(np.asarray(w).reshape(b, h, s, d), 1, 2)
+        np.testing.assert_allclose(r.numpy(), w, err_msg=f"d{name}", **GRAD_TOL)
+
+
 @pytest.mark.parametrize("sq,d", [(256, 160), (64, 40), (128, 80)])
 def test_cross_attention_grads_match_jax_mha(sq, d):
     """S_k=77 at SD's head dims: the attention operator's gradients on the
@@ -302,7 +327,7 @@ def test_forced_attention_kernel_on_the_cpu_is_the_plain_version(kernel):
     np.testing.assert_allclose(got_o.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("kernel", [None, "nchw", "groups", "rows"])
+@pytest.mark.parametrize("kernel", [None, "nchw", "groups", "rows", "team"])
 @pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last])
 def test_forced_group_norm_kernel_on_the_cpu_is_the_plain_version(kernel, layout):
     rs = np.random.RandomState(8)

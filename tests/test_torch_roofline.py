@@ -225,7 +225,7 @@ def test_attention_backward_launch_plan_of_a_train_step():
     for (sq, sk, d), calls in chip_smoke.ATTN_CALLS.items():
         plan[fa.select_bwd_kernel(d)] += calls
     assert plan == {"wgmma": 32, "mma": 0}
-    assert fa._BWD_ROWS == {40: 128, 64: 64, 72: 64, 80: 64, 160: 64, 256: 64}
+    assert fa._BWD_ROWS == {40: 128, 64: 64, 72: 64, 80: 64, 160: 64, 256: 64, 512: 64}
     assert set(fa._BWD_ROWS) == set(fa.WGMMA_BWD_HEAD_DIMS)
     # the cross-attention shapes have one key tile: dq written once, in bf16
     assert fa.WGMMA_BWD_KEY_TILE == 128
@@ -237,7 +237,8 @@ def test_attention_backward_launch_plan_of_a_train_step():
 @pytest.mark.parametrize("c,hw,dtype,silu,eps", GN)
 def test_group_norm_plan_of_the_path(c, hw, dtype, silu, eps):
     esize = 2 if dtype == "bf16" else 4
-    assert gn.plan(c, hw, 32, esize, False) == {"kernel": "nchw"}
+    assert gn.plan(c, hw, 32, esize, False) == {"kernel": "team",
+                                                **gn.team_plan(c, hw, 32, esize, 16)}
     how = gn.plan(c, hw, 32, esize, True, B)
     assert how["kernel"] == "rows"
     cpr = c // 8
@@ -248,7 +249,7 @@ def test_group_norm_plan_of_the_path(c, hw, dtype, silu, eps):
     assert how["cluster"] in (1, 2, 4, 8) and B * how["cluster"] <= gn.ROWS_TARGET_CTAS
     assert hw // how["cluster"] >= how["rows"]  # every CTA has a full pass of pixels
     assert gn.kernels_for(c, hw, 32, True) == ("groups", "rows")
-    assert gn.kernels_for(c, hw, 32, False) == ("nchw",)
+    assert gn.kernels_for(c, hw, 32, False) == ("nchw", "team")
 
 
 @pytest.mark.parametrize("n,want", [(1, 8), (2, 8), (4, 8), (8, 8), (16, 4), (32, 2), (64, 1),
@@ -339,9 +340,12 @@ def test_vae_group_norm_work_bound_and_plan(c, hw, silu):
     assert nbytes == 2 * B * c * hw * 4 and ops == B * c * hw * (10 if silu else 6)
     ms, by = roofline.bound_ms(ops, nbytes, peak_flops=roofline.PEAK_F32_FLOPS)
     assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e12 * 1e3)
-    # contiguous NCHW, as the f32 VAE gives it: one CTA per (sample, group)
-    assert gn.plan(c, hw, 32, 4, False, B) == {"kernel": "nchw"} and hw % 8 == 0
-    assert gn.kernels_for(c, hw, 32, False) == ("nchw",)
+    # contiguous NCHW, as the f32 VAE gives it: a team of CTAs per (sample,
+    # group), the old one CTA per (sample, group) forcible beside it
+    how = gn.plan(c, hw, 32, 4, False, B)
+    assert how["kernel"] == "team" and how["form"] == "stream" and hw % 8 == 0
+    assert how["ctas"] <= gn.H100_SMS and how["ctas"] % how["team"] == 0
+    assert gn.kernels_for(c, hw, 32, False) == ("nchw", "team")
     # channels-last: 4 channels a group (C = 128) cannot go by whole rows
     how = gn.plan(c, hw, 32, 4, True, B)
     if c == 128:
@@ -485,7 +489,7 @@ def test_celebahq_train_step_launch_plan_and_k2_bound_at_head_dim_512():
     256x256), its loss and backward traced on the meta device (chip_smoke
     phase 19): the attention's 5 calls at S=256 and 1 at S=64, one head of
     512 each, and 71 GroupNorms give 6 K1 + 6 K2 + 71 K3 a step, K2 on its
-    mma.sync instance; at b16 K2's call at S=256 moves 33.6 MB (q, k, v, o,
+    wgmma instance of 512 (a CTA pair on the column halves); at b16 K2's call at S=256 moves 33.6 MB (q, k, v, o,
     dO and the lse read, dq, dk, dv written) for 5.4 GFLOP and is bound by
     its bytes, 0.0100 ms; the one at S=64 by 8.4 MB, 0.0025 ms."""
     from dmtpu_torch.utils.config import instantiate_from_config, load_config, merge_dotlist
@@ -503,7 +507,8 @@ def test_celebahq_train_step_launch_plan_and_k2_bound_at_head_dim_512():
     plan = {"K1": sum(calls["attention"].values()), "K2": 0,
             "K3": sum(calls["group_norm"].values())}
     for (h, sq, sk, d), n in calls["attention"].items():
-        assert fa.bwd_kernels_for(d) == ["mma"] and fa.select_bwd_kernel(d) == "mma"
+        assert fa.bwd_kernels_for(d) == ["mma", "wgmma"] and fa.select_bwd_kernel(d) == "wgmma"
+        assert fa.wgmma_bwd_instance(d) == 512 and fa.wgmma_bwd_key_tile(d) == 64
         assert fa.MMA_NARROW_HEAD_DIM < d <= fa.MAX_HEAD_DIM
         plan["K2"] += n
     assert plan == chip_smoke.CELEBAHQ_TRAIN_STEP == {"K1": 6, "K2": 6, "K3": 71}

@@ -1,5 +1,5 @@
-"""K1's wgmma instance at head dim 512 and K2's column-split instances at 160
-and 256, on the CPU: the head dim each call goes to, the launch plans of the
+"""K1's wgmma instance at head dim 512, K2's column-split instances at 160
+and 256 and its CTA-pair instance at 512, on the CPU: the head dim each call goes to, the launch plans of the
 paths that run them (as ``chip_smoke.py`` counts them on the card), the
 shared memory each instance asks for, and the C entry points that stand
 behind them.  The kernels themselves run only on the card: the ``gpu`` cases
@@ -29,12 +29,12 @@ SMEM_LIMIT = 232_448  # the dynamic shared memory a block may use on the H100
 @pytest.mark.parametrize("d", range(8, 520, 8))
 def test_every_head_dim_maps_to_its_k2_instance(d):
     """K2: 40, 64, 72 and 80 on their own instances; every multiple of 8 in
-    (80, 256] on the narrower of 160 and 256 that is at least as wide; below
-    40, 48, 56 and above 256 on mma.sync alone."""
+    (80, 512] on the narrowest of 160, 256 and 512 that is at least as wide;
+    below 40, 48 and 56 on mma.sync alone."""
     if d in (40, 64, 72, 80):
         want = d
-    elif 80 < d <= 256:
-        want = 160 if d <= 160 else 256
+    elif 80 < d <= 512:
+        want = 160 if d <= 160 else 256 if d <= 256 else 512
     else:
         want = None
     assert fa.wgmma_bwd_instance(d) == want
@@ -74,16 +74,17 @@ def test_k2_launch_plans_of_the_pixel_steps():
 
 def test_celebahq_launch_plans():
     """CelebA-HQ's UNet: 6 K1 a call, all wgmma (300 a b16 DDIM-50
-    request); a train step's 6 K1 through wgmma and 6 K2 on mma.sync (its
-    d=512 instance, the one K2 kernel not yet redesigned)."""
+    request); a train step's 6 K1 and 6 K2 through wgmma (K2 on its d=512
+    CTA-pair instance since it replaced the mma.sync one on the path)."""
     calls = [(d, n) for (_, _, _, d), n in chip_smoke.CELEBAHQ_ATTN.items()]
     k1 = {"mma": 0, "wgmma": 0}
     for d, n in calls:
         k1[fa.select_kernel(d)] += n
     assert k1 == {"mma": 0, "wgmma": 6}
     assert chip_smoke.CELEBAHQ_STEPS * k1["wgmma"] == 300
-    assert _k2_split(calls) == {"mma": 6, "wgmma": 0}
+    assert _k2_split(calls) == {"mma": 0, "wgmma": 6}
     assert all(d > fa.MMA_NARROW_HEAD_DIM for d, _ in calls)
+    assert {fa.wgmma_bwd_instance(d) for _, _, d, _ in chip_smoke.K2_D512_ROWS} == {512}
     # phase 18's rows: every one through wgmma, b128 among them
     assert {fa.select_kernel(d) for _, _, d, _ in chip_smoke.K1_D512_ROWS} == {"wgmma"}
     assert (128, 256, 512, 0) in chip_smoke.K1_D512_ROWS
@@ -105,6 +106,13 @@ def test_k2_instance_shared_memory_fits_a_block(d):
     padded f32 dQ rows of a step staged over them), two dS^T tiles."""
     smem = chip_smoke.K2_WGMMA_SMEM[d]
     assert 0 < smem <= SMEM_LIMIT
+    if d in fa.WGMMA_BWD_PAIR_HEAD_DIMS:
+        # each CTA of the pair: K and V of 64 keys over its 256 columns, two
+        # stages of Q and dO over them, P^T and dS^T, the 16 KiB the partial
+        # S^T and dP^T of 32 rows cross in, the stats and 9 barriers; the f32
+        # dQ chunks of 64 columns are staged over a stage
+        assert smem == 1024 + 2 * 4 * 8192 + 2 * 8 * 8192 + 2 * 8192 + 16384 + 2 * 512 + 8 * 9
+        assert 2 * 64 * (64 * 4 + 16) <= 8 * 8192
     if d in fa.WGMMA_BWD_SPLIT_HEAD_DIMS:
         tiles = -(-d // 64)
         stage = max(2 * tiles * 64 * 128, 64 * (4 * d + 32))  # Q + dO, or the staged rows
