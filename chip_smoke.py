@@ -95,7 +95,12 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      dispatch is noted, not failed), summed over one decode and one encode;
      and the decoder's seven shapes at 256x256 on 32 samples (DiT's decode,
      NCHW) and at 1024x1024 on 2 samples (SD3-medium's), each summed over
-     one decode;
+     one decode; then the channels-last shapes "rows" does not take (4
+     channels a group): the CIFAR-10 UNet's reconstruction at 8 images and
+     at b500, CelebA-HQ's at b16 (``K3_SMALL_PATHS``), through "chunks"
+     (16-byte chunks of fixed channels, a cluster per sample) and the old
+     per-group "groups" kernel, summed over a UNet call; and off the path 1,
+     2, 3 and 6 channels a group with C % 8 != 0 (``K3_ODD_SHAPES``);
   4. one UNet forward through the kernels and one through the plain ops, each
      measured against an f32 plain run (TF32 off): the kernel path must come
      within 1.5x the plain path's error, plus 1e-3; then the batch-16 UNet
@@ -344,7 +349,9 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      the CLI's batch of 500 (every K1 launch at d=256), one call profiled,
      and ``sample_uncond --mode reconstruction`` in this process on
      ``RECON_IMAGES`` PNGs it writes into a temporary ``ImageDir`` (DDIM
-     inversion, then DDIM-50; launches exactly 99 calls' worth); (d)
+     inversion, then DDIM-50; launches exactly 99 calls' worth; its input is
+     channels-last, so its 891 small-group GroupNorms all go to K3's
+     "chunks" kernel, none to "groups" or "nchw"); (d)
      ``configs/ddpm_cfg_cifar10.yaml``'s UNetCategorialAdaGN (bf16 torso, the
      null class its table's zero last row): the b2 agreement with labels, K1
      and K3 at its shapes on the CFG-doubled b20, and ``sample_cfg.main`` in this
@@ -395,7 +402,12 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      S=64 a call, K3 at its 71 GroupNorms' shapes at b16 as in 3, the timed
      b16 DDIM-50 request at
      256x256 (images per second, peak, launches exactly 50 x a call's, every
-     K1 at d=512 through wgmma), one call timed and profiled; (c) ``sample_sdedit.main``:
+     K1 at d=512 through wgmma), one call timed and profiled; (h)
+     ``sample_uncond --mode reconstruction`` in this process on
+     ``CELEBAHQ_RECON_IMAGES`` of the PNGs, DDIM-``CELEBAHQ_RECON_STEPS``
+     (inversion, then sampling; launches exactly), its K3 launches by kernel
+     logged: the small-group GroupNorms through "chunks", none through
+     "groups"; (c) ``sample_sdedit.main``:
      DDPM respaced to 100, ``--edit_steps 50``, exactly 50 UNet calls; (d)
      ``sample_mask_guidance.main`` (center masks, DDPM-50), then
      ``inpaint_batch`` with and without RePaint (DDPM-25, r 2, j 5): the known
@@ -1011,19 +1023,35 @@ UI_SD_PROMPT, UI_SD_NEGATIVE = "a photograph of an astronaut riding a horse", "b
 UI_IDLE_STEPS, UI_SD_IDLE_STEPS = 10, 5
 
 
-# path -> launches of K3's NCHW "team" kernel in its timed run, as the phases record them
+# K3's channels-last calls that "rows" does not take (fewer than 8 channels a
+# group): the paths of ``dmtpu_torch.dev.k3_probe.CL_PATHS`` that phase 3
+# holds "chunks" at, and the off-path shapes it checks (n, C, H*W, dtype,
+# silu, groups: 1, 2, 3 and 6 channels a group with C % 8 != 0)
+K3_SMALL_PATHS = ("cifar_recon_b8", "cifar_recon_b500", "celebahq_recon_b16")
+K3_ODD_SHAPES = [(2, 33, 64, "f32", True, 33), (3, 66, 49, "bf16", False, 33),
+                 (2, 99, 25, "f32", True, 33), (2, 198, 36, "bf16", True, 33)]
+# the CelebA-HQ UNet's reconstruction in phase 18: images, DDIM steps
+CELEBAHQ_RECON_IMAGES, CELEBAHQ_RECON_STEPS = 2, 5
+
+# path -> launches of K3's NCHW "team" kernel, and of its channels-last
+# "chunks" kernel, in its timed run, as the phases record them
 K3_TEAM_BY_PATH: dict = {}
+K3_CHUNKS_BY_PATH: dict = {}
 
 
 def k3_team_launches(check, label: str) -> int:
     """K3's launches by kernel since the phase zeroed its counts: the path's
     contiguous NCHW GroupNorms all went to the "team" kernel, none to the
-    one-CTA-a-(sample, group) "nchw" kernel that it replaced on every path."""
+    one-CTA-a-(sample, group) "nchw" kernel that it replaced on every path,
+    and its channels-last ones that "rows" does not take to "chunks", none to
+    the one-CTA-a-(sample, group) "groups" kernel that it replaced."""
     from dmtpu_torch.ops.groupnorm import group_norm_silu
     by_kernel = dict(group_norm_silu.launches_by_kernel)
-    check(by_kernel["nchw"] == 0,
-          f"{label}: K3 by kernel {by_kernel}: the NCHW GroupNorms through the team kernel")
+    check(by_kernel["nchw"] == 0 and by_kernel["groups"] == 0,
+          f"{label}: K3 by kernel {by_kernel}: the NCHW GroupNorms through the team kernel, "
+          "the small-group channels-last ones through chunks")
     K3_TEAM_BY_PATH[label] = by_kernel["team"]
+    K3_CHUNKS_BY_PATH[label] = by_kernel["chunks"]
     return by_kernel["team"]
 
 
@@ -1145,6 +1173,13 @@ def main() -> int:
                                      for inst in k3_team),
           "K3 team kernels (warp, cta and stream forms; f32 and bf16; SiLU or not) built, "
           "no spills")
+    k3_chunks = k3_team_instances(lib_path, r"group_norm_chunks_kernelI\w+")
+    for inst in k3_chunks:
+        log("K3 chunks instance " + json.dumps(inst))
+    check(len(k3_chunks) == 12 and all(inst["spill_stores"] == inst["spill_loads"] == 0
+                                       for inst in k3_chunks),
+          "K3 chunks kernels (held, streamed by 16-byte chunks, streamed value by value; f32 "
+          "and bf16; SiLU or not) built, no spills")
 
     # ---- 2. K1 ------------------------------------------------------------
     log("SDPA backends enabled: " + json.dumps({
@@ -1258,10 +1293,10 @@ def main() -> int:
     variants = [("bf16", True, 1e-5, cl), ("bf16", False, 1e-6, cl), ("f32", True, 1e-5, cl),
                 ("f32", False, 1e-6, cl), ("bf16", True, 1e-5, nchw), ("f32", False, 1e-6, nchw)]
 
-    def library_gn(x, w, bias, eps, silu):
+    def library_gn(x, w, bias, eps, silu, groups=32):
         # the library's GroupNorm wants weight and bias in x's dtype: the
         # caller, whose parameters are f32, casts them in every call
-        y = torch.nn.functional.group_norm(x, 32, w.to(x.dtype), bias.to(x.dtype), eps)
+        y = torch.nn.functional.group_norm(x, groups, w.to(x.dtype), bias.to(x.dtype), eps)
         return torch.nn.functional.silu(y) if silu else y
 
     def add_row(totals, row, calls):
@@ -1274,7 +1309,7 @@ def main() -> int:
         if calls:
             totals["err"] = max(totals["err"], row["max_abs_err"])
 
-    def k3_case(c, hw, dname, silu, eps, layout, calls, on_path=True, n=B):
+    def k3_case(c, hw, dname, silu, eps, layout, calls, on_path=True, n=B, groups=32):
         """One K3 row at batch ``n``: every kernel that takes the call checked against the
         plain version (two runs bit for bit) and timed.  ``calls`` is printed
         with the row, which is returned.  Off the path a slower dispatch is
@@ -1285,9 +1320,9 @@ def main() -> int:
             dtype=dtype, memory_format=layout)
         w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
         bias = 0.1 * torch.randn(c, generator=g, device=dev)
-        ref = group_norm_silu_reference(x, w, bias, 32, eps, silu)
-        names = list(gn_kernels_for(c, hw, 32, layout == cl))
-        planned = gn_plan(c, hw, 32, x.element_size(), layout == cl, n)
+        ref = group_norm_silu_reference(x, w, bias, groups, eps, silu)
+        names = list(gn_kernels_for(c, hw, groups, layout == cl))
+        planned = gn_plan(c, hw, groups, x.element_size(), layout == cl, n)
         chosen = planned["kernel"]
         # f32: summation order only.  bf16: the two round f32 values that
         # differ in the last f32 bits, so they may land one bf16 step
@@ -1295,32 +1330,33 @@ def main() -> int:
         tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
         errs = {}
         for name in names:
-            y = group_norm_silu(x, w, bias, 32, eps, silu, kernel=name)
-            again = group_norm_silu(x, w, bias, 32, eps, silu, kernel=name)
+            y = group_norm_silu(x, w, bias, groups, eps, silu, kernel=name)
+            again = group_norm_silu(x, w, bias, groups, eps, silu, kernel=name)
             torch.cuda.synchronize()
             diff = (y.float() - ref.float()).abs_()
             errs[name] = diff.max().item()
             check(bool((diff <= tol * ref.float().abs() + 1e-4).all())
                   and bool(torch.isfinite(y).all()) and torch.equal(y, again)
                   and y.is_contiguous(memory_format=layout),
-                  f"K3[{name}] {dname} silu={silu} eps={eps} {layout} b{n} C={c} HW={hw}")
+                  f"K3[{name}] {dname} silu={silu} eps={eps} {layout} b{n} C={c} HW={hw} "
+                  f"G={groups}")
             del y, again, diff
         by_kernel = {name: [] for name in names}
         for name in names + names[::-1]:
             by_kernel[name].append(time_ms(
-                lambda: group_norm_silu(x, w, bias, 32, eps, silu, kernel=name), 20))
+                lambda: group_norm_silu(x, w, bias, groups, eps, silu, kernel=name), 20))
         ms = sum(by_kernel[chosen]) / len(by_kernel[chosen])
-        plain_ms = time_ms(lambda: group_norm_silu_reference(x, w, bias, 32, eps, silu), 3)
-        library_ms = time_ms(lambda: library_gn(x, w, bias, eps, silu), 10)
-        host = host_us(lambda: group_norm_silu(x, w, bias, 32, eps, silu), 200)
+        plain_ms = time_ms(lambda: group_norm_silu_reference(x, w, bias, groups, eps, silu), 3)
+        library_ms = time_ms(lambda: library_gn(x, w, bias, eps, silu, groups), 10)
+        host = host_us(lambda: group_norm_silu(x, w, bias, groups, eps, silu), 200)
         bound_t, bound_by = roofline.bound_ms(
             *roofline.group_norm_work(n, c, hw, x.element_size(), silu),
             peak_flops=roofline.PEAK_F32_FLOPS)
         row = dict(
-            b=n, c=c, hw=hw, dtype=dname, silu=silu, eps=eps,
+            b=n, c=c, hw=hw, groups=groups, dtype=dname, silu=silu, eps=eps,
             layout="NHWC" if layout == cl else "NCHW", calls=calls, kernel=chosen,
             cluster=planned.get("cluster"), form=planned.get("form"), team=planned.get("team"),
-            ctas=planned.get("ctas"),
+            ctas=planned.get("ctas"), held=planned.get("held"),
             max_abs_err=errs[chosen], ms=ms, ms_by_kernel=by_kernel, plain_ms=plain_ms,
             bound_ms=bound_t, bound_by=bound_by, library_ms=library_ms, host_us=host,
             host_bound=ms <= 1.2 * host / 1e3)
@@ -1374,6 +1410,25 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"K3 per b{SD3_B} VAE decode at 1024x1024 ({GN_PER_DECODE} calls): "
         + json.dumps(k3_sd3))
+    # the channels-last GroupNorms that "rows" does not take, as the CIFAR-10
+    # UNet's reconstruction hands them to K3 (its input batch is channels-last
+    # in memory and cuDNN keeps the layout): its 9 small-group calls of a UNet
+    # call at the reconstruction's 8 images and at the CLI's default batch of
+    # 500, and CelebA-HQ's 16 at b16, through "chunks" (the plan's), the old
+    # per-group kernel "groups" beside it; then, off the path, 1, 2, 3 and 6
+    # channels a group with C % 8 != 0
+    from dmtpu_torch.dev.k3_probe import CL_PATHS
+    k3_small = {}
+    for label in K3_SMALL_PATHS:
+        n, eps, table = CL_PATHS[label]
+        k3_small[label] = new_totals()
+        for (c, hw, dname, silu), calls in sorted(table.items()):
+            add_row(k3_small[label], k3_case(c, hw, dname, silu, eps, cl, calls, n=n), calls)
+            torch.cuda.empty_cache()
+        log(f"K3 per {label} UNet call ({sum(table.values())} small-group channels-last "
+            "calls): " + json.dumps(k3_small[label]))
+    for n, c, hw, dname, silu, groups in K3_ODD_SHAPES:
+        k3_case(c, hw, dname, silu, 1e-5, cl, 0, on_path=False, n=n, groups=groups)
     # how the rows kernel's time depends on the CTAs a sample is spread over
     # (the plan aims at 64 in all), beside what the card's memory system gives a
     # plain copy (one read, one write) and a plain sum (one read) of the same x
@@ -1483,7 +1538,7 @@ def main() -> int:
         torch.cuda.synchronize()
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         t0 = time.perf_counter()
         out = sampler.sample(unet, noise)
@@ -1755,6 +1810,23 @@ def main() -> int:
              dit_vae_decode_b32=k3_dit, sd3_vae_decode_b2=k3_sd3,
              sdxl_vae_decode_b1=sdxl["k3_vae"], **pixel["k3_per_call"],
              **guidance["k3_per_call"]),
+        # K3's channels-last route for the shapes "rows" does not take, the
+        # "chunks" kernel (16-byte chunks of fixed channels, a cluster per
+        # sample that holds it in shared memory or streams it) since it took
+        # them over from the one-CTA-a-(sample, group) "groups" kernel: its
+        # launches in the CIFAR-10 UNet's reconstruction (8 images, DDIM-50)
+        # and in the other timed runs (CelebA-HQ's reconstruction too), its
+        # columns summed over the 9 small-group calls of one CIFAR UNet call
+        # at b500, and the same at b8 and over CelebA-HQ's 16 at b16 (each
+        # with both kernels' times, ms_by_kernel)
+        dict(entry("group_norm_silu_chunks", "dmtpu_torch/csrc/group_norm_silu.cu",
+                   "dmtpu/ops/groupnorm.py:44",
+                   (K3_CHUNKS_BY_PATH["cifar_reconstruction"], dict(K3_CHUNKS_BY_PATH)),
+                   f"per b{CIFAR_B} CIFAR UNet call of a reconstruction: sum over its 9 "
+                   "small-group channels-last GroupNorm calls", k3_small["cifar_recon_b500"]),
+             other_sources=["dmtpu_torch/csrc/hopper.cuh"],
+             cifar_recon_b8=k3_small["cifar_recon_b8"],
+             celebahq_recon_b16=k3_small["celebahq_recon_b16"]),
         # K1 at head dim 256 (the pixel UNets' one head as wide as the
         # channels), the wgmma kernel's d=256 instance since it took the shape
         # over from the mma.sync kernel's: its launches in the CIFAR UNet's
@@ -1883,14 +1955,15 @@ def wgmma_bwd_instances(lib_path, lib) -> list:
     return sorted(found, key=lambda x: (x["d"], x["one_tile"]))
 
 
-def k3_team_instances(lib_path) -> list:
+def k3_team_instances(lib_path, pattern: str = r"group_norm_(?:held|stream)_kernelI\w+") -> list:
     """Each instance of K3's NCHW "team" kernels (group_norm_held_kernel,
-    group_norm_stream_kernel) as ptxas reported it in ``build.log``: its
-    mangled name, registers, spill stores and loads."""
+    group_norm_stream_kernel; or of those ``pattern`` names) as ptxas
+    reported it in ``build.log``: its mangled name, registers, spill stores
+    and loads."""
     log_lines = (lib_path.parent / "build.log").read_text().splitlines()
     found = []
     for i, line in enumerate(log_lines):
-        inst = re.search(r"group_norm_(?:held|stream)_kernelI\w+", line)
+        inst = re.search(pattern, line)
         if not (inst and "Compiling entry" in line):
             continue
         after = " ".join(log_lines[i + 1:i + 5])
@@ -2304,7 +2377,7 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_bwd.launches_by_head_dim.clear()
 
@@ -2478,7 +2551,7 @@ def phase_text_to_image(dev, check, gen, ref_model, card, time_ms) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
 
     def counts():
         return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
@@ -2725,7 +2798,7 @@ def phase_serving(dev, check, sd, ref_model, card) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
 
     def counts():
         return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
@@ -2969,7 +3042,7 @@ def phase_finetune_cli(dev, check, gen, ref_model, card) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
 
     def counts():
@@ -3317,7 +3390,7 @@ def phase_dit(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
 
     def counts():
@@ -3553,7 +3626,7 @@ def phase_dit_train(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
 
@@ -3853,7 +3926,7 @@ def phase_mmdit(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
 
     def counts():
@@ -4106,7 +4179,7 @@ def phase_mmdit_train(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_bwd.launches_by_kernel.update(mma=0, wgmma=0)
 
@@ -4453,7 +4526,7 @@ def phase_sdxl(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_tot
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
 
     def counts():
@@ -4756,6 +4829,7 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
         flash_attention_fwd,
         select_kernel,
     )
+    from dmtpu_torch.dev.k3_probe import CIFAR_SMALL
     from dmtpu_torch.ops.groupnorm import group_norm_silu
     from dmtpu_torch.scripts import sample_cfg, sample_uncond
     from dmtpu_torch.utils.config import Config, instantiate_from_config, load_config, merge_dotlist
@@ -4763,7 +4837,7 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_fwd.launches_by_head_dim.clear()
 
@@ -5036,6 +5110,16 @@ def phase_pixel(dev, check, gen, card, time_ms, host_us, k3_row, add_row, new_to
         _, seconds, _, by_kernel, _ = timed(
             "cifar_reconstruction", lambda: sample_uncond.main(argv),
             {k: calls_n * v for k, v in per_call.items()}, k1_by_kernel(cifar_calls, calls_n))
+        # the input batch is channels-last, so every GroupNorm is: its 9
+        # small-group calls a UNet call through "chunks", none through "groups"
+        k3_by_kernel = dict(group_norm_silu.launches_by_kernel)
+        small = sum(CIFAR_SMALL.values()) * calls_n
+        log(f"cifar_reconstruction: K3 launches by kernel {k3_by_kernel}")
+        check(k3_by_kernel["chunks"] == small and k3_by_kernel["groups"] == 0
+              and k3_by_kernel["nchw"] == 0,
+              f"cifar_reconstruction: the {small} small-group channels-last GroupNorms "
+              f"({calls_n} UNet calls x {sum(CIFAR_SMALL.values())}) all through chunks, none "
+              f"through groups or nchw: {k3_by_kernel}")
         grids = sorted(os.listdir(os.path.join(root, "recon")))
         shapes = {np.asarray(Image.open(os.path.join(root, "recon", f))).shape for f in grids}
         metrics["cifar_reconstruction"] = {"seconds": seconds, "images": RECON_IMAGES,
@@ -5122,7 +5206,7 @@ def phase_pixel_train(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         for fn in (flash_attention_fwd, flash_attention_bwd):
             fn.launches_by_kernel.update(mma=0, wgmma=0)
             fn.launches_by_head_dim.clear()
@@ -5482,7 +5566,7 @@ def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals, k3_row,
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_fwd.launches_by_kernel.update(mma=0, wgmma=0)
         flash_attention_fwd.launches_by_head_dim.clear()
 
@@ -5683,6 +5767,31 @@ def phase_guidance(dev, check, gen, card, time_ms, host_us, new_totals, k3_row,
         batch = np.stack([np.asarray(Image.open(os.path.join(images_dir, f"{i}.png")),
                                      np.float32) / 127.5 - 1 for i in range(EDIT_B)])
         refs = torch.from_numpy(batch).permute(0, 3, 1, 2).contiguous().to(dev)
+
+        # (h) reconstruction through the CLI (DDIM inversion, then sampling):
+        # its input batch is channels-last, so the UNet's 16 small-group
+        # GroupNorms a call reach K3 channels-last, through "chunks"
+        argv = ["-c", CELEBAHQ_CONFIG, "--weights", weights, "--save_dir",
+                os.path.join(root, "recon"), "--n_samples", str(CELEBAHQ_RECON_IMAGES),
+                "--sampler", "ddim", "--respace_steps", str(CELEBAHQ_RECON_STEPS), "--mode",
+                "reconstruction", "--input_dir", images_dir, *PIXEL_OVERRIDES]
+        recon_calls = 2 * CELEBAHQ_RECON_STEPS - 1  # the inversion's S - 1 calls, then S
+        _, seconds = timed("celebahq_reconstruction", lambda: sample_uncond.main(argv), per_call,
+                           recon_calls)
+        k3_by_kernel = dict(group_norm_silu.launches_by_kernel)
+        names, shapes = pngs(os.path.join(root, "recon"))
+        metrics["celebahq_reconstruction"].update(
+            images=len(names), k3_by_kernel=k3_by_kernel,
+            chunks_per_call=k3_by_kernel["chunks"] / recon_calls)
+        log(f"sample_uncond --mode reconstruction, CelebA-HQ, {CELEBAHQ_RECON_IMAGES} images, "
+            f"DDIM-{CELEBAHQ_RECON_STEPS} ({recon_calls} UNet calls): {seconds:.3f} s ({card}); "
+            f"K3 launches by kernel {k3_by_kernel}: "
+            f"{k3_by_kernel['chunks'] / recon_calls:g} through chunks a call")
+        check(len(names) == CELEBAHQ_RECON_IMAGES and shapes == {(size + 4, 2 * size + 6, 3)}
+              and k3_by_kernel["chunks"] > 0 and k3_by_kernel["groups"] == 0,
+              f"CelebA-HQ reconstruction: {CELEBAHQ_RECON_IMAGES} image / reconstruction pairs; "
+              "its small-group GroupNorms through chunks, none through groups")
+        part_done("h")
 
         # (c) SDEdit through the CLI: DDPM respaced to 100, the last 50 rows
         argv = base + ["--save_dir", os.path.join(root, "sdedit"), "--respace_steps",
@@ -5913,7 +6022,7 @@ def phase_celebahq_t5(dev, check, gen, card, time_ms, host_us) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         for fn in (flash_attention_fwd, flash_attention_bwd):
             fn.launches_by_kernel.update(mma=0, wgmma=0)
             fn.launches_by_head_dim.clear()
@@ -6434,7 +6543,7 @@ def phase_eval(dev, check, gen, card, time_ms) -> dict:
                 "--eval_batch_size", str(EVAL_FEATURE_B), "--out", out_json, *PIXEL_OVERRIDES]
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
         flash_attention_fwd.launches_by_head_dim.clear()
         t0 = time.perf_counter()
         try:
@@ -6746,7 +6855,7 @@ def phase_remat_parallel(dev, check, gen, card, time_ms) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
 
     def counts():
         return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,
@@ -7157,7 +7266,7 @@ def phase_ui(dev, check, card, sd, ref_model) -> dict:
     def zero_counts():
         flash_attention_fwd.launches = flash_attention_bwd.launches = 0
         group_norm_silu.launches = 0
-        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0)
+        group_norm_silu.launches_by_kernel.update(nchw=0, groups=0, rows=0, team=0, chunks=0)
 
     def counts():
         return {"K1": flash_attention_fwd.launches, "K2": flash_attention_bwd.launches,

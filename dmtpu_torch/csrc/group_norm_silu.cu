@@ -14,7 +14,7 @@
 // a sample is up to 268 MB (SDXL's 1024x1024 decode in f32), far beyond one
 // SM's shared memory, so the kernels below read x for the statistics and
 // then normalise it from registers or shared memory where it fits, or read
-// it again, the second read coming partly out of the 50 MB L2 cache.  Four
+// it again, the second read coming partly out of the 50 MB L2 cache.  Five
 // kernels, chosen by dmtpu_torch/ops/groupnorm.py::plan:
 //   - "rows", for channels-last (N, H, W, C in memory; cuDNN returns the
 //     UNet's bf16 convolutions so): a group is only C/G contiguous values at
@@ -30,15 +30,20 @@
 //   - one CTA per (sample, group) over contiguous NCHW (the group is one
 //     slab, read 16 bytes at a time): the first port, which "team" replaced
 //     on every path; kept for comparison (kernel="nchw");
+//   - "chunks", for the channels-last shapes "rows" does not take (C no
+//     multiple of 8, fewer than 8 channels a group): 16-byte chunks of a
+//     fixed channel set a thread, a cluster per sample that holds it in
+//     shared memory where it fits; see the comment at group_norm_chunks_kernel;
 //   - one CTA per (sample, group) over channels-last, two values at a time:
-//     for the shapes "rows" does not take (C no multiple of 8, fewer than 8
-//     channels a group).
+//     the first port's kernel for the shapes "rows" does not take, which
+//     "chunks" replaced on every path; kept for comparison (kernel="groups").
 // The statistics are (count, mean, M2) states merged with Chan's formula
 // across threads, warps and CTAs; a thread's own state comes from exact
 // two-pass moments of 8-value chunks (the per-group kernels) or from sums of
 // x - shift and (x - shift)^2 with the shift at its first pixel's group mean
-// (the rows kernel).  The TPU kernel's E[x^2] - E[x]^2, which cancels badly
-// in f32, is not copied.
+// (the rows kernel); "chunks" sums x - shift and its square around one shift
+// per group for the whole sample.  The TPU kernel's E[x^2] - E[x]^2, which
+// cancels badly in f32, is not copied.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -425,6 +430,350 @@ group_norm_rows_kernel(const T* __restrict__ x, const float* __restrict__ weight
     }
 #pragma unroll
     for (int u = 0; u < kDepth; ++u) cur[u] = nxt[u];
+  }
+}
+
+// ---- channels-last, 16-byte chunks of fixed channels ("chunks") ------------
+// For every channels-last call that "rows" does not take: fewer than 8
+// channels a group (the CIFAR-10, CelebA-HQ and MNIST UNets' groups of 2, 4
+// and 6 channels at C = 64, 128 and 192), C no multiple of 8, more than 4096
+// channels or 128 groups.  The one-CTA-a-(sample, group) kernel above reads
+// such a group C/G values at a time at a stride of C: at 4 channels a group
+// a warp uses a quarter of each 32-byte sector it brings in, and the three
+// neighbouring groups' CTAs fetch the same sector again.  Here a sample is a
+// flat array of HW * C values with a period of L = lcm(C, 8) values: the P =
+// L / 8 chunks of 8 values of a period hold the same channels in every
+// period, so a thread that owns chunk ci (of a column block of Pb = min(P,
+// 512) chunks; one block unless P > 512) owns a fixed set of channels in
+// every period it reads, and a warp reads 32 chunks at neighbouring
+// addresses, 16 bytes a thread: every sector a CTA brings in is its own.  A
+// CTA of Pb * R threads reads R periods at a time; the CTAs of a sample form
+// a thread block cluster.  Two forms (kHeld):
+//   - held: the sample fits the cluster's shared memory (the CIFAR-10 and
+//     MNIST UNets' samples, 256 KB at 128 x 32 x 32 in bf16): each CTA copies
+//     its share of whole periods into shared memory by cp.async.bulk, in
+//     pieces, takes the statistics from each piece as it lands, and
+//     normalises from shared memory, so x is read once, as the TPU kernel
+//     read a sample held in VMEM;
+//   - streamed: larger samples (CelebA-HQ's 16 MB), read twice as "rows"
+//     reads them: the periods go round the cluster's CTAs in turn with two
+//     batches of loads in flight, and the second read runs backwards, so
+//     that what the first read last comes out of the L2 cache.  Where H*W*C
+//     is no multiple of 8 (C odd, say) a sample's start is not 16-byte
+//     aligned and its last period is cut: value by value (kVec = false).
+// The statistics: each value's difference from its group's shift (the mean
+// of the group's values at the sample's first pixel, which every CTA
+// computes alike) is summed, with its square, for each of the 8 values of the
+// thread's chunk; the CTA adds up each group's sums in a fixed order, and
+// the cluster's CTAs add up the CTAs' sums in rank order through distributed
+// shared memory: plain sums around one shift per group, so every CTA holds
+// the same statistics and two runs give the same bits, with no atomics.  The
+// normalisation uses each thread's 8 scales and shifts, and the SiLU
+// ex2.approx / rcp.approx, as "rows" does.
+constexpr int kChunkCols = 512;  // chunks of a period a CTA covers at once (Pb), its most threads
+constexpr int kChunkMaxGroups = 8192;
+constexpr int kChunkPieces = 4;  // bulk copies of a held share
+constexpr int kSmemLimit = 232448;  // the dynamic shared memory a block may use
+
+// lcm(C, 8): the values of a period
+__host__ __device__ __forceinline__ int chunk_period(int C) {
+  const int g = (C & 7) == 0 ? 8 : (C & 3) == 0 ? 4 : (C & 1) == 0 ? 2 : 1;
+  return C / g * 8;
+}
+
+// A launch's dynamic shared memory: the held share of periods (128-byte
+// aligned), the pieces' barriers, each thread's 8 sums and 8 sums of squares,
+// and five arrays of G floats (the shifts, the CTA's two sums, the sample's
+// mean and rstd).
+inline long long chunks_smem(int C, int HW, int G, int esize, bool held, int cluster,
+                             int threads) {
+  const int L = chunk_period(C);
+  const long long nper = ((long long)HW * C + L - 1) / L;
+  const long long share =
+      held ? ((nper + cluster - 1) / cluster * L * esize + 127) / 128 * 128 : 0;
+  return share + kChunkPieces * 8 + 2LL * 8 * threads * 4 + 5LL * G * 4;
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_float(float& d, float v) { d = v; }
+__device__ __forceinline__ void from_float(__nv_bfloat16& d, float v) { d = __float2bfloat16(v); }
+
+// The 8 channels of chunk ci of a period and their groups, without a
+// division per value: ch[j] = (8 ci + j) % C, grp[j] = ch[j] / cpg.
+__device__ __forceinline__ void chunk_channels(int ci, int C, int cpg, int (&ch)[8],
+                                               int (&grp)[8]) {
+  int c = (ci * 8) % C;
+  int g = c / cpg, u = c - g * cpg;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    ch[j] = c;
+    grp[j] = g;
+    if (++c == C) {
+      c = g = u = 0;
+    } else if (++u == cpg) {
+      u = 0;
+      ++g;
+    }
+  }
+}
+
+template <typename T, bool kSilu, bool kHeld, bool kVec>
+__global__ void __launch_bounds__(kChunkCols)
+group_norm_chunks_kernel(const T* __restrict__ x, const float* __restrict__ weight,
+                         const float* __restrict__ bias, T* __restrict__ y, int C, int HW, int G,
+                         float eps, int R) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kBatch = 64 / (8 * sizeof(T));  // chunks of a batch of loads: 64 bytes a thread
+  const int rank = blockIdx.x, csize = gridDim.x;  // the cluster spans the grid's x
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int cpg = C / G, L = chunk_period(C), P = L / 8;
+  const int Pb = min(P, kChunkCols), nblocks = (P + Pb - 1) / Pb;
+  const bool active = tid < Pb * R;
+  const int lc = tid % Pb, r = tid / Pb;  // the thread's chunk in the block, its period of R
+  const long long total = (long long)HW * C;  // values of a sample
+  const int nper = (int)((total + L - 1) / L);
+  const T* xs = x + (long long)blockIdx.y * total;
+  T* ys = y + (long long)blockIdx.y * total;
+  // held: this CTA's periods [q0, q1), copied in npieces pieces of `span`
+  // periods, a multiple of R, so that a thread's periods in a piece are its
+  // first one plus multiples of R
+  int q0 = 0, q1 = nper, span = 1, npieces = 0;
+  if constexpr (kHeld) {
+    q0 = (int)((long long)rank * nper / csize);
+    q1 = (int)((long long)(rank + 1) * nper / csize);
+    const int rounds = (q1 - q0 + R - 1) / R;
+    span = max(1, (rounds + kChunkPieces - 1) / kChunkPieces) * R;
+    npieces = (q1 - q0 + span - 1) / span;
+  }
+  const long long held_bytes =
+      kHeld ? ((long long)((nper + csize - 1) / csize) * L * sizeof(T) + 127) / 128 * 128 : 0;
+  T* share = reinterpret_cast<T*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + held_bytes);
+  float* ps = reinterpret_cast<float*>(full + kChunkPieces);  // [8][nthreads] sums
+  float* pq = ps + 8 * nthreads;                              // and sums of squares
+  float* shift = pq + 8 * nthreads;                           // [G] each
+  float* gs = shift + G;
+  float* gq = gs + G;
+  float* fmean = gq + G;
+  float* frstd = fmean + G;
+
+  if constexpr (kHeld) {
+    if (tid == 0) {
+      for (int k = 0; k < npieces; ++k) dmtpu::mbar_init(full + k, 1);
+      dmtpu::mbar_fence_init();
+    }
+    __syncthreads();
+    if (tid == 0)
+      for (int k = 0; k < npieces; ++k) {
+        const int a = q0 + k * span, b = min(q1, a + span);
+        const uint32_t bytes = (uint32_t)((long long)(b - a) * L * sizeof(T));
+        dmtpu::mbar_arrive_expect_tx(full + k, bytes);
+        dmtpu::bulk_load(share + (long long)(a - q0) * L, xs + (long long)a * L, bytes, full + k);
+      }
+  }
+  // each group's shift: the mean of its values at the sample's first pixel
+  for (int g = tid; g < G; g += nthreads) {
+    float s = 0.f;
+    for (int u = 0; u < cpg; ++u) s += to_float(xs[g * cpg + u]);
+    shift[g] = s / cpg;
+  }
+  __syncthreads();
+
+  const int stride = csize * R;  // streamed: between a thread's periods
+  const int p_first = rank * R + r;
+  const int step = kBatch * stride;
+  // pass 1, a column block at a time: the thread's sums, then each group's over the CTA
+  for (int kb = 0; kb < nblocks; ++kb) {
+    const int ci = kb * Pb + lc;
+    const bool mine = active && ci < P;
+    float sh[8], s[8], q[8];
+    {
+      int ch[8], grp[8];
+      chunk_channels(mine ? ci : 0, C, cpg, ch, grp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j] = q[j] = 0.f;
+        sh[j] = shift[grp[j]];
+      }
+    }
+    auto add = [&](const float* v) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float d = v[j] - sh[j];
+        s[j] += d;
+        q[j] = fmaf(d, d, q[j]);
+      }
+    };
+    if constexpr (kHeld) {
+      for (int k = 0; k < npieces; ++k) {
+        dmtpu::mbar_wait(full + k, 0);  // every thread: no CTA leaves with a copy in flight
+        const int b = min(q1, q0 + (k + 1) * span);
+        for (int p = q0 + k * span + r; mine && p < b; p += R) {
+          Chunk<T> c;
+          c.load(share + (long long)(p - q0) * L + ci * 8);
+          float v[8];
+          c.unpack(v);
+          add(v);
+        }
+      }
+    } else if constexpr (kVec) {
+      const int p_end = mine ? nper : 0;
+      const T* src = xs + ci * 8;
+      auto load_batch = [&](Chunk<T>(&batch)[kBatch], int p) {
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (p + u * stride < p_end) batch[u].load(src + (long long)(p + u * stride) * L);
+      };
+      Chunk<T> cur[kBatch], nxt[kBatch];
+      load_batch(cur, p_first);
+      for (int p = p_first; p < p_end; p += step) {
+        load_batch(nxt, p + step);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (p + u * stride >= p_end) break;
+          float v[8];
+          cur[u].unpack(v);
+          add(v);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) cur[u] = nxt[u];
+      }
+    } else {
+      for (int p = p_first; mine && p < nper; p += stride) {
+        const long long e0 = (long long)p * L + ci * 8;
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = e0 + j < total ? to_float(xs[e0 + j]) : sh[j];
+        add(v);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      ps[j * nthreads + tid] = s[j];
+      pq[j * nthreads + tid] = q[j];
+    }
+    __syncthreads();
+    // each place of the block's period (chunk column, value) summed over the
+    // R periods, into the slot of the thread of the first; then each group
+    // over its places: fixed orders, no atomics
+    for (int e = tid; e < 8 * Pb; e += nthreads) {
+      const int j = e / Pb, col = e - j * Pb;
+      float a = 0.f, b = 0.f;
+      for (int rr = 0; rr < R; ++rr) {
+        a += ps[j * nthreads + col + Pb * rr];
+        b += pq[j * nthreads + col + Pb * rr];
+      }
+      ps[j * nthreads + col] = a;
+      pq[j * nthreads + col] = b;
+    }
+    __syncthreads();
+    const int first = kb * Pb * 8, ppp = L / C;  // the block's first place; pixels a period
+    for (int g = tid; g < G; g += nthreads) {
+      float a = kb ? gs[g] : 0.f, b = kb ? gq[g] : 0.f;
+      for (int pix = 0; pix < ppp; ++pix)
+        for (int u = 0; u < cpg; ++u) {
+          const int e = pix * C + g * cpg + u - first;
+          if (e >= 0 && e < 8 * Pb) {
+            a += ps[(e & 7) * nthreads + (e >> 3)];
+            b += pq[(e & 7) * nthreads + (e >> 3)];
+          }
+        }
+      gs[g] = a;
+      gq[g] = b;
+    }
+    __syncthreads();
+  }
+
+  // the sample's statistics: every CTA adds the cluster's CTAs' sums in rank order
+  cluster.sync();
+  for (int g = tid; g < G; g += nthreads) {
+    float a = 0.f, b = 0.f;
+    for (int other = 0; other < csize; ++other) {
+      a += cluster.map_shared_rank(gs, other)[g];
+      b += cluster.map_shared_rank(gq, other)[g];
+    }
+    const float n = (float)((long long)HW * cpg);
+    const float m = a / n;
+    fmean[g] = shift[g] + m;
+    frstd[g] = rsqrtf(fmaxf(b / n - m * m, 0.f) + eps);
+  }
+  cluster.sync();  // no CTA leaves, or lets its sums go, while another reads them
+  if (!active) return;
+
+  // pass 2: y = x * sc + sf with the thread's 8 scales and shifts; for the
+  // SiLU, y / (1 + 2^(x * ec + eh)) with ec, eh = -log2(e) * (sc, sf)
+  for (int kb = nblocks - 1; kb >= 0; --kb) {
+    const int ci = kb * Pb + lc;
+    if (ci >= P) continue;
+    float sc[8], sf[8], ec[8], eh[8];
+    {
+      int ch[8], grp[8];
+      chunk_channels(ci, C, cpg, ch, grp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sc[j] = weight[ch[j]] * frstd[grp[j]];
+        sf[j] = bias[ch[j]] - fmean[grp[j]] * sc[j];
+        ec[j] = -kLog2e * sc[j];
+        eh[j] = -kLog2e * sf[j];
+      }
+    }
+    auto normalise8 = [&](float* v) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float t = fmaf(v[j], sc[j], sf[j]);
+        v[j] = kSilu ? t * rcp_approx(1.f + ex2_approx(fmaf(v[j], ec[j], eh[j]))) : t;
+      }
+    };
+    if constexpr (kHeld) {
+      for (int p = q0 + r; p < q1; p += R) {
+        Chunk<T> c;
+        c.load(share + (long long)(p - q0) * L + ci * 8);
+        float v[8];
+        c.unpack(v);
+        normalise8(v);
+        store8(ys + (long long)p * L + ci * 8, v);
+      }
+    } else if constexpr (kVec) {
+      const T* src = xs + ci * 8;
+      T* dst = ys + ci * 8;
+      auto load_batch = [&](Chunk<T>(&batch)[kBatch], int p) {
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          if (p + u * stride < nper) batch[u].load(src + (long long)(p + u * stride) * L);
+      };
+      const int nbatch = p_first < nper ? (nper - p_first + step - 1) / step : 0;
+      int p = p_first + (nbatch - 1) * step;
+      Chunk<T> cur[kBatch], nxt[kBatch];
+      if (nbatch > 0) load_batch(cur, p);
+      for (int i = 0; i < nbatch; ++i, p -= step) {
+        if (i + 1 < nbatch) load_batch(nxt, p - step);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (p + u * stride >= nper) break;
+          float v[8];
+          cur[u].unpack(v);
+          normalise8(v);
+          store8(dst + (long long)(p + u * stride) * L, v);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) cur[u] = nxt[u];
+      }
+    } else {
+      if (p_first >= nper) continue;
+      for (int p = p_first + (nper - 1 - p_first) / stride * stride; p >= p_first; p -= stride) {
+        const long long e0 = (long long)p * L + ci * 8;
+        float v[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = e0 + j < total ? to_float(xs[e0 + j]) : 0.f;
+        normalise8(v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (e0 + j < total) from_float(ys[e0 + j], v[j]);
+      }
+    }
   }
 }
 
@@ -868,6 +1217,48 @@ cudaError_t launch_rows(const void* x, const void* w, const void* b, void* y, in
                                         stream);
 }
 
+template <typename T, bool kSilu, bool kHeld, bool kVec>
+cudaError_t launch_chunks_instance(const T* x, const float* w, const float* b, T* y, int N, int C,
+                                   int HW, int G, float eps, int cluster, int periods,
+                                   int threads, int smem, cudaStream_t stream) {
+  static bool allowed[dmtpu::kMaxDevices] = {};
+  const cudaError_t attr = dmtpu::allow_dynamic_smem(
+      group_norm_chunks_kernel<T, kSilu, kHeld, kVec>, kSmemLimit, allowed);
+  if (attr != cudaSuccess) return attr;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster, N);
+  config.blockDim = dim3(threads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = cluster;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = 1;
+  config.attrs = attrs;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, group_norm_chunks_kernel<T, kSilu, kHeld, kVec>, x, w, b, y,
+                            C, HW, G, eps, periods);
+}
+
+template <typename T, bool kSilu>
+cudaError_t launch_chunks_form(const void* x, const void* w, const void* b, void* y, int N, int C,
+                               int HW, int G, float eps, bool held, bool vec, int cluster,
+                               int periods, int threads, int smem, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const float* wt = static_cast<const float*>(w);
+  const float* bt = static_cast<const float*>(b);
+  T* yt = static_cast<T*>(y);
+  if (held)
+    return launch_chunks_instance<T, kSilu, true, true>(xt, wt, bt, yt, N, C, HW, G, eps, cluster,
+                                                        periods, threads, smem, stream);
+  if (vec)
+    return launch_chunks_instance<T, kSilu, false, true>(xt, wt, bt, yt, N, C, HW, G, eps,
+                                                         cluster, periods, threads, smem, stream);
+  return launch_chunks_instance<T, kSilu, false, false>(xt, wt, bt, yt, N, C, HW, G, eps, cluster,
+                                                        periods, threads, smem, stream);
+}
+
 }  // namespace
 
 // x, y: f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned; y has x's
@@ -945,4 +1336,50 @@ extern "C" int dmtpu_group_norm_team(const void* x, const void* weight, const vo
                                                        ctas, eps, flags, parts, ep, st)
               : (int)launch_team_instance<float, false>(xt, w, b, yt, C, HW, G, slabs, form,
                                                         team, ctas, eps, flags, parts, ep, st);
+}
+
+// The "chunks" kernel over channels-last (see the comment above
+// group_norm_chunks_kernel): x, y f32 (is_bf16 = 0) or bf16, 16-byte
+// aligned; weight, bias f32 [C]; needs C % G == 0, G <= 8192, N <= 65535.
+// held = 1: each CTA of a cluster of `cluster` (at most 8) holds its share of
+// the sample in shared memory (needs H*W*C % 8 == 0); held = 0: the sample
+// is streamed, twice.  A CTA of `threads` threads (a multiple of 32, at most
+// 512, at least min(P, 512) * periods with P = lcm(C, 8) / 8) reads `periods`
+// periods at a time.  Returns the CUDA error code of the launch (0 on
+// success).
+extern "C" int dmtpu_group_norm_chunks(const void* x, const void* weight, const void* bias,
+                                       void* y, int N, int C, int HW, int G, float eps, int silu,
+                                       int is_bf16, int held, int cluster, int periods,
+                                       int threads, void* stream) {
+  if (N < 1 || N > 65535 || C < 1 || HW < 1 || G < 1 || C % G || G > kChunkMaxGroups ||
+      cluster < 1 || cluster > 8 || periods < 1)
+    return (int)cudaErrorInvalidValue;
+  const int pb = chunk_period(C) / 8 < kChunkCols ? chunk_period(C) / 8 : kChunkCols;
+  const bool vec = (long long)HW * C % 8 == 0;
+  const long long smem = chunks_smem(C, HW, G, is_bf16 ? 2 : 4, held != 0, cluster, threads);
+  if (threads % 32 || threads > kChunkCols || (long long)pb * periods > threads ||
+      (held && !vec) || smem > kSmemLimit)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool h = held != 0;
+  if (is_bf16)
+    return silu ? (int)launch_chunks_form<__nv_bfloat16, true>(x, weight, bias, y, N, C, HW, G,
+                                                               eps, h, vec, cluster, periods,
+                                                               threads, (int)smem, st)
+                : (int)launch_chunks_form<__nv_bfloat16, false>(x, weight, bias, y, N, C, HW, G,
+                                                                eps, h, vec, cluster, periods,
+                                                                threads, (int)smem, st);
+  return silu ? (int)launch_chunks_form<float, true>(x, weight, bias, y, N, C, HW, G, eps, h, vec,
+                                                     cluster, periods, threads, (int)smem, st)
+              : (int)launch_chunks_form<float, false>(x, weight, bias, y, N, C, HW, G, eps, h, vec,
+                                                      cluster, periods, threads, (int)smem, st);
+}
+
+// The dynamic shared memory, in bytes, that dmtpu_group_norm_chunks asks for
+// a launch of these arguments (more than 232448: a launch it refuses).
+extern "C" int dmtpu_group_norm_chunks_smem(int C, int HW, int G, int is_bf16, int held,
+                                            int cluster, int threads) {
+  if (C < 1 || HW < 1 || G < 1 || cluster < 1 || threads < 1) return -1;
+  const long long smem = chunks_smem(C, HW, G, is_bf16 ? 2 : 4, held != 0, cluster, threads);
+  return smem > kSmemLimit ? kSmemLimit + 1 : (int)smem;
 }

@@ -1,7 +1,9 @@
-"""Development probe of K3 (GroupNorm + SiLU) over contiguous NCHW on one CUDA card.
+"""Development probe of K3 (GroupNorm + SiLU) on one CUDA card: its contiguous
+NCHW route and its channels-last small-group route.
 
     python -m dmtpu_torch.dev.k3_probe            # check, time, variants
     python -m dmtpu_torch.dev.k3_probe time       # one phase
+    python -m dmtpu_torch.dev.k3_probe time cl    # its channels-last part alone
 
 - ``check``: builds the kernels, prints what ``ptxas`` said of the "team"
   kernel's instances (registers, spills), and holds both NCHW kernels
@@ -21,6 +23,19 @@
 - ``variants``: the team kernel at other launch shapes than the plan's
   (team sizes, CTAs in all) at the SD1.5 decode's largest shape, SDXL's and
   the CIFAR UNet's, by device time: what the plan's choice is read off.
+
+Each phase also takes the channels-last calls that the "rows" kernel does
+not take (``CL_PATHS``: the small-group GroupNorms of the CIFAR-10 UNet's
+reconstruction at b8 and b500, CelebA-HQ's at b16 and the MNIST UNet's at
+b500, as ``sample_uncond --mode reconstruction`` hands them to K3): ``check``
+holds "chunks" (as planned, and in its other form: held or streamed) and
+"groups" against the plain version, two runs bit for bit, the layout kept,
+there and at odd shapes (1, 2, 3 and 6 channels a group with C % 8 != 0, a
+large mean); ``time`` gives each path's device time of "groups", of
+"chunks" as planned and in its other form (the streamed form is "rows"
+widened to chunks of several groups), of the library call, of
+``x.clone()`` and the bound; ``variants`` the chunks kernel at every cluster
+size in both forms at each shape of those paths.
 
 With no argument each phase runs in a process of its own with a time limit: a
 team whose CTAs are not all resident would otherwise wait for ever.
@@ -93,6 +108,37 @@ PATHS = {
     "cifar_b500": (500, 1e-5, CIFAR),
 }
 
+# The channels-last GroupNorms that "rows" does not take (fewer than 8
+# channels a group), read off the UNets' module trees: (C, H*W, dtype, silu):
+# calls a call.  The reconstruction's input batch is channels-last in memory
+# (``sample_uncond``'s ``permute``) and cuDNN keeps the layout, so every one
+# of them reaches K3 channels-last there.
+CIFAR_SMALL = {(128, 1024, "bf16", True): 7, (128, 1024, "f32", True): 1,
+               (128, 256, "bf16", True): 1}
+CELEBAHQ_SMALL = {(128, 65536, "bf16", True): 7, (128, 65536, "f32", True): 1,
+                  (128, 16384, "bf16", True): 7, (128, 4096, "bf16", True): 1}
+MNIST_SMALL = {(64, 256, "bf16", True): 1, (64, 1024, "bf16", True): 7,
+               (64, 1024, "f32", True): 1, (128, 16, "bf16", False): 1,
+               (128, 16, "bf16", True): 11, (128, 64, "bf16", True): 7,
+               (128, 256, "bf16", False): 5, (128, 256, "bf16", True): 6,
+               (128, 1024, "bf16", True): 2, (192, 256, "bf16", True): 1,
+               (192, 1024, "bf16", True): 1}
+# label: (batch, eps, table), 32 groups
+CL_PATHS = {
+    "cifar_recon_b8": (8, 1e-5, CIFAR_SMALL),
+    "cifar_recon_b500": (500, 1e-5, CIFAR_SMALL),
+    "celebahq_recon_b16": (16, 1e-5, CELEBAHQ_SMALL),
+    "mnist_b500_cl": (500, 1e-5, MNIST_SMALL),
+}
+# the SD1.5 UNet's channels-last shapes, which "rows" takes: n, C, H*W
+ROWS_SHAPES = [(16, 320, 4096), (16, 640, 1024), (16, 1280, 256), (16, 2560, 64),
+               (32, 320, 4096), (32, 960, 1024)]
+# channels-last shapes off the paths: n, C, H*W, dtype, silu, groups (1, 2,
+# 3 and 6 channels a group with C % 8 != 0; H*W*C % 8 != 0 in three)
+CL_ODD_SHAPES = [(2, 33, 64, "f32", True, 33), (3, 66, 49, "bf16", False, 33),
+                 (2, 99, 25, "f32", True, 33), (2, 198, 36, "bf16", True, 33),
+                 (4, 36, 15, "f32", False, 6), (2, 12, 9, "bf16", True, 2)]
+
 # n, C, H*W, dtype, silu, groups
 CHECK_SHAPES = [
     (2, 256, 16, "bf16", True, 32), (5, 512, 64, "f32", False, 32), (3, 256, 256, "bf16", True, 32),
@@ -111,10 +157,12 @@ VARIANT_SHAPES = [(16, 128, 262144, "f32"), (16, 256, 262144, "f32"), (1, 128, 1
                   (16, 512, 16384, "f32")]
 
 
-def _inputs(torch, gen, n, c, hw, dname):
+def _inputs(torch, gen, n, c, hw, dname, channels_last=False):
     dtype = torch.bfloat16 if dname == "bf16" else torch.float32
     side = max(f for f in range(1, int(hw ** 0.5) + 1) if hw % f == 0)
-    x = (torch.randn(n, c, side, hw // side, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = (torch.randn(n, c, side, hw // side, generator=gen, device="cuda") * 2 + 0.5).to(
+        dtype=dtype, memory_format=fmt)
     w = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
     return x, w, 0.1 * torch.randn(c, generator=gen, device="cuda")
 
@@ -141,7 +189,79 @@ def _forced(torch, x, w, b, groups, eps, silu, form, team, ctas):
     return y
 
 
-def check() -> int:
+def _chunks(torch, x, w, b, groups, eps, silu, held=None, cluster=None, periods=None):
+    """The chunks kernel at a forced form (``held``), cluster size and
+    periods a pass (CTA size)."""
+    from dmtpu_torch.ops import _build
+    from dmtpu_torch.ops.groupnorm import chunks_plan
+    n, c, h, wd = x.shape
+    how = chunks_plan(c, h * wd, groups, x.element_size(), n, held, cluster, periods)
+    y = torch.empty_like(x)
+    err = _build.library().dmtpu_group_norm_chunks(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), n, c, h * wd, groups, eps,
+        int(silu), int(x.dtype == torch.bfloat16), int(how["held"]), how["cluster"],
+        how["periods"], how["threads"], torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "group_norm_chunks launch")
+    return y
+
+
+def _other_form(c, hw, groups, esize, n):
+    """The chunks kernel's form the plan does not pick, where the kernel
+    takes it (held needs H*W*C % 8 == 0 and a share that fits), else None."""
+    from dmtpu_torch.ops.groupnorm import SMEM_LIMIT, chunks_plan
+    held = not chunks_plan(c, hw, groups, esize, n)["held"]
+    if held and ((hw * c) % 8 or chunks_plan(c, hw, groups, esize, n, True, 8)["smem"]
+                 > SMEM_LIMIT):
+        return None
+    return held
+
+
+def check_channels_last(torch, gen) -> int:
+    """"chunks" (as planned and in its other form) and "groups" against the
+    plain version at the channels-last paths' shapes and at odd ones; two
+    runs bit for bit, the layout kept."""
+    from dmtpu_torch.ops.groupnorm import (
+        group_norm_silu,
+        group_norm_silu_reference,
+        kernels_for,
+        plan,
+    )
+    shapes = sorted({(min(n, 16), c, hw, dname, silu, 32)
+                     for n, _, table in CL_PATHS.values() for c, hw, dname, silu in table})
+    bad = 0
+    for n, c, hw, dname, silu, groups in shapes + CL_ODD_SHAPES:
+        x, w, b = _inputs(torch, gen, n, c, hw, dname, channels_last=True)
+        want = group_norm_silu_reference(x, w, b, groups, 1e-5, silu)
+        how = plan(c, hw, groups, x.element_size(), True, n)
+        runs = {name: (lambda name=name: group_norm_silu(x, w, b, groups, 1e-5, silu,
+                                                         kernel=name))
+                for name in kernels_for(c, hw, groups, True)}
+        other = _other_form(c, hw, groups, x.element_size(), n)
+        if other is not None:
+            runs["chunks " + ("held" if other else "streamed")] = \
+                lambda: _chunks(torch, x, w, b, groups, 1e-5, silu, other)
+        line = f"channels-last b{n} C={c} HW={hw} G={groups} {dname} silu={silu} plan {how}:"
+        for name, run in runs.items():
+            y, again = run(), run()
+            torch.cuda.synchronize()
+            ok, err = _close(torch, y, want)
+            same = torch.equal(y, again) and y.is_contiguous(memory_format=torch.channels_last)
+            bad += not (ok and same)
+            line += f" {name} max err {err:.2e} same bits {same} {'ok' if ok and same else 'BAD'};"
+        print(line, flush=True)
+    # mean >> std through both forms of the chunks kernel (bound as in the card tests)
+    x, w, b = _inputs(torch, gen, 2, 128, 1024, "f32", channels_last=True)
+    x = (x - 0.5) / 2 * 0.01 + 100
+    want = group_norm_silu_reference(x.double(), w.double(), b.double(), 32, 1e-8, False)
+    for held in (True, False):
+        err = (_chunks(torch, x, w, b, 32, 1e-8, False, held).double() - want).abs().max().item()
+        bad += not err <= 1e-2
+        print(f"channels-last large mean, chunks held={held}: max err {err:.2e} "
+              f"{'ok' if err <= 1e-2 else 'BAD'}", flush=True)
+    return bad
+
+
+def check(only_cl: bool = False) -> int:
     import torch
     from dmtpu_torch.ops import _build
     from dmtpu_torch.ops.groupnorm import group_norm_silu, group_norm_silu_reference, plan
@@ -151,9 +271,15 @@ def check() -> int:
     print(_card(), f"; built and loaded in {time.time() - t0:.1f} s", flush=True)
     log = (lib.parent / "build.log").read_text().splitlines()
     for i, line in enumerate(log):
-        if "Compiling entry" in line and "group_norm_team_kernel" in line:
+        if "Compiling entry" in line and ("group_norm_held_kernel" in line or
+                                          "group_norm_stream_kernel" in line or
+                                          "group_norm_chunks_kernel" in line):
             print("  ", " | ".join(x.strip()[:110] for x in log[i:i + 4]), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if only_cl:
+        bad = check_channels_last(torch, gen)
+        print("check:", "FAILED" if bad else "all ok")
+        return 1 if bad else 0
     bad = 0
     for n, c, hw, dname, silu, groups in CHECK_SHAPES:
         x, w, b = _inputs(torch, gen, n, c, hw, dname)
@@ -190,18 +316,19 @@ def check() -> int:
     err = (got.double() - want).abs().max().item()
     bad += not err <= 1e-2
     print(f"large mean: max err {err:.2e} {'ok' if err <= 1e-2 else 'BAD'}")
+    bad += check_channels_last(torch, gen)
     print("check:", "FAILED" if bad else "all ok")
     return 1 if bad else 0
 
 
-def timing() -> int:
+def timing(only_cl: bool = False) -> int:
     import torch
     import torch.nn.functional as F
     from dmtpu_torch.ops import roofline
     from dmtpu_torch.ops.groupnorm import group_norm_silu, plan
     print(_card(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for label, (n, eps, table) in PATHS.items():
+    for label, (n, eps, table) in ({} if only_cl else PATHS).items():
         sums = dict(team=0.0, nchw=0.0, library=0.0, clone=0.0, bound=0.0)
         for (c, hw, dname, silu), calls in sorted(table.items()):
             x, w, b = _inputs(torch, gen, n, c, hw, dname)
@@ -228,16 +355,56 @@ def timing() -> int:
             torch.cuda.empty_cache()
         print(f"SUM {label} (one call's GroupNorms), device ms: "
               + " ".join(f"{k} {v:.3f}" for k, v in sums.items()), flush=True)
+    timing_channels_last(torch, F, gen)
     return 0
 
 
-def variants() -> int:
+def timing_channels_last(torch, F, gen) -> None:
+    """At each shape of ``CL_PATHS``: the device time of "groups", of
+    "chunks" as planned and in its other form, of the library call, of
+    ``x.clone()`` and the bound; each path's sums over one call."""
+    from dmtpu_torch.ops import roofline
+    from dmtpu_torch.ops.groupnorm import group_norm_silu, plan
+    for label, (n, eps, table) in CL_PATHS.items():
+        sums = {}
+        for (c, hw, dname, silu), calls in sorted(table.items()):
+            x, w, b = _inputs(torch, gen, n, c, hw, dname, channels_last=True)
+            wl, bl = w.to(x.dtype), b.to(x.dtype)
+
+            def library():
+                y = F.group_norm(x, 32, wl, bl, eps)
+                return F.silu(y) if silu else y
+
+            how = plan(c, hw, 32, x.element_size(), True, n)
+            row = {name: _device_ms(torch, lambda name=name: group_norm_silu(
+                x, w, b, 32, eps, silu, kernel=name), 10) for name in ("groups", "chunks")}
+            other = _other_form(c, hw, 32, x.element_size(), n)
+            if other is not None:
+                row["chunks_" + ("held" if other else "streamed")] = _device_ms(
+                    torch, lambda: _chunks(torch, x, w, b, 32, eps, silu, other), 10)
+            row["library"] = _device_ms(torch, library, 10)
+            row["clone"] = _device_ms(torch, x.clone, 10)
+            row["bound"] = roofline.bound_ms(*roofline.group_norm_work(n, c, hw, x.element_size(),
+                                                                     silu),
+                                             peak_flops=roofline.PEAK_F32_FLOPS)[0]
+            for key, value in row.items():
+                sums[key] = sums.get(key, 0.0) + calls * value
+            print(f"{label} b{n} C={c} HW={hw} {dname} silu={silu} x{calls} channels-last plan "
+                  f"{how}: device ms " + " ".join(f"{k} {v:.4f}" for k, v in row.items()),
+                  flush=True)
+            del x
+            torch.cuda.empty_cache()
+        print(f"SUM {label} (one call's small-group channels-last GroupNorms), device ms: "
+              + " ".join(f"{k} {v:.4f}" for k, v in sums.items()), flush=True)
+
+
+def variants(only_cl: bool = False) -> int:
     import torch
     from dmtpu_torch.ops.groupnorm import team_plan
     print(_card(), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for n, c, hw, dname in VARIANT_SHAPES:
+    for n, c, hw, dname in [] if only_cl else VARIANT_SHAPES:
         x, w, b = _inputs(torch, gen, n, c, hw, dname)
         planned = team_plan(c, hw, 32, x.element_size(), n, sms)
         form, team = planned["form"], planned["team"]
@@ -256,6 +423,37 @@ def variants() -> int:
               f"{_device_ms(torch, x.clone, 10):.4f}", flush=True)
         del x
         torch.cuda.empty_cache()
+    # the chunks kernel at every cluster size and CTA size (periods a pass),
+    # held and streamed, at each shape of the channels-last paths
+    from dmtpu_torch.ops.groupnorm import SMEM_LIMIT, chunks_plan
+    shapes = sorted({(n, c, hw, dname) for n, _, table in CL_PATHS.values()
+                     for c, hw, dname, _ in table})
+    for n, c, hw, dname in shapes:
+        x, w, b = _inputs(torch, gen, n, c, hw, dname, channels_last=True)
+        planned = chunks_plan(c, hw, 32, x.element_size(), n)
+        row = {}
+        for held in (True, False):
+            for cluster in (1, 2, 4, 8):
+                for periods in (4, 8, 16, 32):
+                    how = chunks_plan(c, hw, 32, x.element_size(), n, held, cluster, periods)
+                    if how["smem"] > SMEM_LIMIT or how["threads"] > 512 or \
+                            (held and (hw * c) % 8):
+                        continue
+                    row[f"{'held' if held else 'streamed'} cluster {cluster} threads "
+                        f"{how['threads']}"] = round(_device_ms(torch, lambda: _chunks(
+                            torch, x, w, b, 32, 1e-5, True, held, cluster, periods), 10), 4)
+        print(f"chunks b{n} C={c} HW={hw} {dname} channels-last plan {planned}: device ms {row}; "
+              f"x.clone() {_device_ms(torch, x.clone, 10):.4f}", flush=True)
+        del x
+        torch.cuda.empty_cache()
+    # where "rows" takes the call (the SD1.5 UNet's shapes): rows against chunks
+    from dmtpu_torch.ops.groupnorm import group_norm_silu
+    for n, c, hw in ROWS_SHAPES:
+        x, w, b = _inputs(torch, gen, n, c, hw, "bf16", channels_last=True)
+        row = {name: round(_device_ms(torch, lambda name=name: group_norm_silu(
+            x, w, b, 32, 1e-5, True, kernel=name), 10), 4) for name in ("rows", "chunks")}
+        print(f"rows shape b{n} C={c} HW={hw} bf16 channels-last: device ms {row}; chunks plan "
+              f"{chunks_plan(c, hw, 32, 2, n)}", flush=True)
     return 0
 
 
@@ -264,7 +462,7 @@ PHASES = {"check": check, "time": timing, "variants": variants}
 
 def main(argv: list[str]) -> int:
     if argv:
-        return PHASES[argv[0]]()
+        return PHASES[argv[0]](argv[1:] == ["cl"])
     for phase, limit in PHASE_LIMITS.items():
         try:
             rc = subprocess.run([sys.executable, "-m", "dmtpu_torch.dev.k3_probe", phase],

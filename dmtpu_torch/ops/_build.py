@@ -56,6 +56,12 @@ _SIGNATURES = {
     # x, weight, bias, y, N, C, HW, G, eps, silu, is_bf16, form, team, ctas, scratch, epoch,
     # stream
     "dmtpu_group_norm_team": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 5 + [_P, _L, _P],
+    # x, weight, bias, y, N, C, HW, G, eps, silu, is_bf16, held, cluster, periods, threads,
+    # stream
+    "dmtpu_group_norm_chunks": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 6 + [_P],
+    # C, HW, G, is_bf16, held, cluster, threads: the chunks kernel's dynamic shared
+    # memory for such a launch, in bytes
+    "dmtpu_group_norm_chunks_smem": [_I] * 7,
 }
 
 

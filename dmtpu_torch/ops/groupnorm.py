@@ -7,11 +7,13 @@ normalisation are computed in f32; the output has the input's dtype.
   it launches the kernel (f32 or bf16, contiguous NCHW or channels-last,
   f32 weight and bias; anything else raises), on a CPU tensor it runs the
   reference.
-- ``plan`` and ``kernels_for``: which of the source's four kernels a call
+- ``plan`` and ``kernels_for``: which of the source's five kernels a call
   takes (channels-last goes by whole pixel rows with a thread block cluster
-  per sample, where C and C/groups allow; contiguous NCHW by teams of CTAs
-  that each hold a share of a (sample, group) slab in registers, or a warp
-  a slab where slabs are small) and the launch shape.
+  per sample, where C and C/groups allow, and otherwise by 16-byte chunks of
+  fixed channels, a cluster per sample that holds it in shared memory where
+  it fits; contiguous NCHW by teams of CTAs that each hold a share of a
+  (sample, group) slab in registers, or a warp a slab where slabs are small)
+  and the launch shape.
 - ``group_norm_silu_reference``: the plain PyTorch version (two-pass
   statistics, as ``dmtpu.ops.groupnorm.group_norm_silu_reference``).
 - ``GroupNormSiLU``: the differentiable op, a ``torch.autograd.Function``
@@ -28,6 +30,7 @@ normalisation are computed in f32; the output has the input's dtype.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -53,14 +56,17 @@ def group_norm_silu_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch
     return xn.to(x.dtype)
 
 
-# The four K3 kernels of ``csrc/group_norm_silu.cu``: one CTA per (sample,
+# The five K3 kernels of ``csrc/group_norm_silu.cu``: one CTA per (sample,
 # group) over contiguous NCHW ("nchw") or over channels-last ("groups", C/G
 # values a pixel, two at a time), and "rows": channels-last by whole pixel
 # rows, 16 bytes a thread, a thread block cluster per sample (these three
-# through ``dmtpu_group_norm_silu``'s ``kernel`` argument); and "team"
+# through ``dmtpu_group_norm_silu``'s ``kernel`` argument); "team"
 # (``dmtpu_group_norm_team``): contiguous NCHW, a (sample, group) slab spread
 # over a team of CTAs that merge their statistics through global memory, or
-# a warp a slab where slabs are small.
+# a warp a slab where slabs are small; and "chunks"
+# (``dmtpu_group_norm_chunks``): channels-last as a flat array with a period
+# of lcm(C, 8) values, a thread a 16-byte chunk of fixed channels, a cluster
+# per sample that holds it in shared memory ("held") or streams it twice.
 _KERNEL_IDS = {"nchw": 0, "groups": 1, "rows": 2}
 ROWS_THREADS = 512         # the rows kernel's largest CTA
 ROWS_CLUSTER = 8           # most CTAs per sample (the portable cluster size)
@@ -69,6 +75,28 @@ ROWS_CLUSTER = 8           # most CTAs per sample (the portable cluster size)
 # loads live (3.9 MB in flight), 0.069 ms; 128 such CTAs 0.081 ms; 32, 0.101 ms.
 ROWS_TARGET_CTAS = 64
 ROWS_MAX_GROUPS = 128
+
+# The "chunks" kernel: a CTA covers at most CHUNKS_COLS chunks of a period at
+# once (more in column blocks, one after the other), in about
+# CHUNKS_HELD_THREADS threads where the cluster holds the sample, about
+# CHUNKS_STREAM_THREADS where it streams it.  A sample is held where a CTA's
+# share of it is at most CHUNKS_HOLD_MAX bytes in a cluster of 8; the
+# cluster is then the smallest that keeps a share within CHUNKS_HOLD_TARGET,
+# or larger where the batch would leave SMs without two CTAs.  Measured on an
+# NVIDIA H100 80GB HBM3 (700 W), device time (``dev/k3_probe.py variants
+# cl``), the CIFAR-10 UNet's b500 (128, 1024) bf16 held in CTAs of 128
+# threads: clusters of 4 (64 KB shares) 0.1141 ms, of 8 (32 KB) 0.1154, of
+# 2 (128 KB) 0.1518; clusters of 4 in 256 threads 0.1221; in f32, clusters
+# of 8 (64 KB) 0.2131, of 4 (128 KB) 0.2276; CelebA-HQ's b16 (128, 4096)
+# bf16 held by 8 (128 KB shares) 0.0349, streamed by 4 in 512 threads 0.0218.
+CHUNKS_COLS = 512
+CHUNKS_HELD_THREADS = 128
+CHUNKS_STREAM_THREADS = 512
+CHUNKS_HOLD_TARGET = 64 * 1024
+CHUNKS_HOLD_MAX = 96 * 1024
+CHUNKS_MAX_GROUPS = 8192
+CHUNKS_PIECES = 4
+SMEM_LIMIT = 232_448       # the dynamic shared memory a block may use
 
 # The "team" kernels (contiguous NCHW), by the (sample, group) slab's size:
 # "warp", a warp a slab (eight a CTA), and "cta", a CTA of 256 threads a slab,
@@ -124,20 +152,98 @@ def team_plan(c: int, hw: int, groups: int, esize: int, n: int, sms: int = H100_
             "reread": teams * slab if reread else 0}
 
 
+def chunks_smem(c: int, hw: int, groups: int, esize: int, held: bool, cluster: int,
+                threads: int) -> int:
+    """The "chunks" kernel's dynamic shared memory for such a launch, in
+    bytes: the held share of periods (128-byte aligned), the pieces'
+    barriers, each thread's 8 sums and 8 sums of squares, and five arrays of
+    ``groups`` floats (as ``dmtpu_group_norm_chunks_smem`` reckons it)."""
+    period = c * 8 // math.gcd(c, 8)
+    nper = -(-hw * c // period)
+    share = -(-(-(-nper // cluster) * period * esize) // 128) * 128 if held else 0
+    return share + CHUNKS_PIECES * 8 + 2 * 8 * threads * 4 + 5 * groups * 4
+
+
+@functools.lru_cache(maxsize=None)
+def chunks_plan(c: int, hw: int, groups: int, esize: int, n: int = 16,
+                held: Optional[bool] = None, cluster: Optional[int] = None,
+                periods: Optional[int] = None, sms: int = H100_SMS) -> dict:
+    """The "chunks" kernel's launch for a channels-last [n, c, hw] call: a
+    sample is a flat array with a period of lcm(c, 8) values, P = period / 8
+    chunks of 8; a CTA of ``threads`` threads reads ``periods`` periods at a
+    time, a thread one chunk of each; ``cluster`` CTAs a sample that hold it
+    in shared memory (``held``) or stream it; ``smem`` bytes of dynamic
+    shared memory a CTA.  ``held``, ``cluster`` and ``periods`` may be forced."""
+    period = c * 8 // math.gcd(c, 8)
+    cols = min(period // 8, CHUNKS_COLS)
+    nper = -(-hw * c // period)
+
+    def share(k: int) -> int:  # bytes of a CTA's share in a cluster of k
+        return -(-nper // k) * period * esize
+
+    if held is None:
+        held = (hw * c) % 8 == 0 and share(8) <= CHUNKS_HOLD_MAX and \
+            chunks_smem(c, hw, groups, esize, True, 8, CHUNKS_COLS) <= SMEM_LIMIT
+    if held:
+        periods = periods or max(1, CHUNKS_HELD_THREADS // cols)
+        if cluster is None:
+            cluster = next(k for k in (1, 2, 4, 8) if share(k) <= CHUNKS_HOLD_TARGET or k == 8)
+            while cluster < ROWS_CLUSTER and n * cluster < 2 * sms:
+                cluster *= 2
+    else:
+        periods = periods or max(1, CHUNKS_STREAM_THREADS // cols)
+        if cluster is None:
+            cluster = ROWS_CLUSTER
+            while cluster > 1 and (n * cluster > ROWS_TARGET_CTAS or nper // cluster < periods):
+                cluster //= 2
+    threads = -(-cols * periods // 32) * 32
+    while held and cluster < ROWS_CLUSTER and \
+            chunks_smem(c, hw, groups, esize, held, cluster, threads) > SMEM_LIMIT:
+        cluster *= 2
+    return {"kernel": "chunks", "held": held, "cluster": cluster, "periods": periods,
+            "threads": threads, "smem": chunks_smem(c, hw, groups, esize, held, cluster, threads)}
+
+
+def _rows_takes(c: int, groups: int) -> bool:
+    return c % 8 == 0 and c // groups >= 8 and c // 8 <= ROWS_THREADS and \
+        groups <= ROWS_MAX_GROUPS
+
+
 @functools.lru_cache(maxsize=None)
 def plan(c: int, hw: int, groups: int, esize: int, channels_last: bool, n: int = 16,
          sms: int = H100_SMS) -> dict:
     """How K3 runs a [n, c, hw] call: ``kernel`` and its launch shape.  For
-    "rows", ``cluster`` CTAs per sample (a power of two, so that the batch
-    has about ``ROWS_TARGET_CTAS`` in all), ``rows`` pixel rows a pass in a
-    CTA of ``threads`` threads (a thread owns 8 channels of a pixel).  For
-    contiguous NCHW, "team" with ``team_plan``'s shape, which the plan also
-    gives where it keeps "nchw"."""
+    channels-last, "rows" with ``rows_plan``'s shape; the shapes it does not
+    take go to "chunks" with
+    ``chunks_plan``'s shape (to "groups" past ``CHUNKS_MAX_GROUPS`` groups,
+    where C/groups is even), and so do those it takes at batches above 32
+    where a cluster holds the sample.  For contiguous NCHW, "team" with
+    ``team_plan``'s shape, which the plan also gives where it keeps "nchw"."""
     if not channels_last:
         return {"kernel": "team", **team_plan(c, hw, groups, esize, n, sms)}
-    cpr = c // 8  # 8-channel chunks per pixel row
-    if c % 8 or c // groups < 8 or cpr > ROWS_THREADS or groups > ROWS_MAX_GROUPS:
+    if not _rows_takes(c, groups):
+        if groups <= CHUNKS_MAX_GROUPS:
+            return chunks_plan(c, hw, groups, esize, n, sms=sms)
         return {"kernel": "groups"}
+    if n * 2 > ROWS_TARGET_CTAS:
+        # the batch leaves "rows" one CTA a sample, reading it twice; where
+        # the sample fits a cluster's shared memory, "chunks" reads it once
+        # over more CTAs.  Measured (NVIDIA H100 80GB HBM3, 700 W, CUDA
+        # events, the CIFAR-10 UNet's b500 bf16): (256, 256) 0.0575 ms
+        # against 0.0756, (512, 256) 0.1212 against 0.1446, (512, 64) 0.0381
+        # against 0.0543
+        chunks = chunks_plan(c, hw, groups, esize, n, sms=sms)
+        if chunks["held"]:
+            return chunks
+    return rows_plan(c, hw, n)
+
+
+def rows_plan(c: int, hw: int, n: int) -> dict:
+    """The "rows" kernel's launch for a channels-last [n, c, hw] call that it
+    takes: ``cluster`` CTAs per sample (a power of two, so that the batch
+    has about ``ROWS_TARGET_CTAS`` in all), ``rows`` pixel rows a pass in a
+    CTA of ``threads`` threads (a thread owns 8 channels of a pixel)."""
+    cpr = c // 8  # 8-channel chunks per pixel row
     rows = ROWS_THREADS // cpr
     threads = -(-rows * cpr // 32) * 32
     cluster = ROWS_CLUSTER
@@ -148,11 +254,13 @@ def plan(c: int, hw: int, groups: int, esize: int, channels_last: bool, n: int =
 
 @functools.lru_cache(maxsize=None)
 def kernels_for(c: int, hw: int, groups: int, channels_last: bool) -> tuple[str, ...]:
-    """The K3 kernels that take the call, the general one first."""
+    """The K3 kernels that take the call (C % groups == 0), the oldest first."""
     if not channels_last:
         return ("nchw", "team")
     names = ("groups",) if (c // groups) % 2 == 0 else ()
-    if plan(c, hw, groups, 2, True)["kernel"] == "rows":
+    if groups <= CHUNKS_MAX_GROUPS:
+        names += ("chunks",)
+    if _rows_takes(c, groups):
         names += ("rows",)
     return names
 
@@ -188,20 +296,30 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         channels_last = True
     else:
         raise ValueError(f"group_norm_silu: x must be contiguous NCHW with H*W % 8 == 0 or "
-                         f"channels-last with C/groups even or C % 8 == 0 and C/groups >= 8, "
-                         f"got shape {tuple(x.shape)} strides {x.stride()}")
+                         f"channels-last with at most {CHUNKS_MAX_GROUPS} groups or C/groups "
+                         f"even, got shape {tuple(x.shape)} strides {x.stride()}")
     how = plan(c, h * w, groups, x.element_size(), channels_last, n, _sms(device))
     if kernel is not None and kernel != how["kernel"]:
         if kernel not in kernels_for(c, h * w, groups, channels_last):
             raise ValueError(f"group_norm_silu: kernel {kernel!r} does not take shape "
                              f"{tuple(x.shape)}, groups {groups}, strides {x.stride()}")
-        how = {**how, "kernel": kernel}
+        if kernel == "chunks":
+            how = chunks_plan(c, h * w, groups, x.element_size(), n, sms=_sms(device))
+        elif kernel == "rows":
+            how = rows_plan(c, h * w, n)
+        else:
+            how = {"kernel": kernel}
     if not weight.is_contiguous() or not bias.is_contiguous():
         weight, bias = weight.contiguous(), bias.contiguous()
     out = torch.empty_like(x)  # keeps x's layout
     stream = torch.cuda.current_stream(x.device).cuda_stream
     is_bf16 = int(x.dtype == torch.bfloat16)
-    if how["kernel"] == "team":
+    if how["kernel"] == "chunks":
+        err = _build.library().dmtpu_group_norm_chunks(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            n, c, h * w, groups, float(eps), int(silu), is_bf16, int(how["held"]),
+            how["cluster"], how["periods"], how["threads"], stream)
+    elif how["kernel"] == "team":
         scratch, epoch = _team_scratch(device)
         err = _build.library().dmtpu_group_norm_team(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
@@ -220,7 +338,8 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 group_norm_silu.launches = 0
-group_norm_silu.launches_by_kernel = {"nchw": 0, "groups": 0, "rows": 0, "team": 0}
+group_norm_silu.launches_by_kernel = {"nchw": 0, "groups": 0, "rows": 0, "team": 0,
+                                      "chunks": 0}
 
 
 @functools.lru_cache(maxsize=None)

@@ -780,7 +780,7 @@ def test_k3_every_shape_of_the_path_through_every_kernel_that_takes_it(cuda, c, 
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     channels_last = layout == torch.channels_last
     names = k3_kernels_for(c, hw, 32, channels_last)
-    assert names == (("groups", "rows") if channels_last else ("nchw", "team"))
+    assert names == (("groups", "chunks", "rows") if channels_last else ("nchw", "team"))
     for kernel in names:
         got = group_norm_silu(x, w, bias, 32, eps, silu, kernel=kernel)
         again = group_norm_silu(x, w, bias, 32, eps, silu, kernel=kernel)
@@ -813,26 +813,29 @@ def test_k3_every_shape_of_the_path_at_the_cfg_doubled_batch(cuda, c, hw, dtype,
 @pytest.mark.parametrize("c,side,groups", [(320, 16, 32), (96, 5, 8), (72, 4, 8), (2560, 8, 32)])
 def test_k3_rows_kernel_at_every_cluster_size(cuda, n, c, side, groups):
     """The cluster shrinks as the batch grows and for small images; a group
-    of 9 channels (72 / 8) makes every chunk straddle two groups."""
+    of 9 channels (72 / 8) makes every chunk straddle two groups.  Where the
+    batch leaves rows one CTA a sample (n = 70) and a cluster holds the
+    sample, the plan takes "chunks" instead; rows is forced there."""
     x, w, bias = _k3_case(cuda, 21, n, c, side * side, torch.float32, torch.channels_last)
     how = k3_plan(c, side * side, groups, 4, True, n)
-    assert how["kernel"] == "rows"
-    got = group_norm_silu(x, w, bias, groups, 1e-5, True)
+    assert how["kernel"] == ("chunks" if n == 70 else "rows")
+    got = group_norm_silu(x, w, bias, groups, 1e-5, True, kernel="rows")
     want = group_norm_silu_reference(x, w, bias, groups, 1e-5, True)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
 def test_k3_statistics_survive_a_large_mean(cuda):
-    """mean >> std: the shifted sums of the rows kernel and the Welford chunks
-    of the per-group kernels both keep the variance (E[x^2] - E[x]^2 in f32
-    would lose it: 100^2 against 1e-4).  The bound is 1e-2: the kernels apply
-    y = x * (w * rstd) + (b - mean * w * rstd), two terms of about 1e4 |w|
-    that cancel, so y carries a few f32 roundings of 1e4 |w| (|w| up to 4)."""
+    """mean >> std: the shifted sums of the rows and chunks kernels and the
+    Welford chunks of the per-group kernels all keep the variance (E[x^2] -
+    E[x]^2 in f32 would lose it: 100^2 against 1e-4).  The bound is 1e-2: the
+    kernels apply y = x * (w * rstd) + (b - mean * w * rstd), two terms of
+    about 1e4 |w| that cancel, so y carries a few f32 roundings of 1e4 |w|
+    (|w| up to 4)."""
     x, w, bias = _k3_case(cuda, 22, 2, 320, 1024, torch.float32, torch.channels_last)
     x = (x - 2) / 3 * 0.01 + 100  # std 0.01 around 100
     want = group_norm_silu_reference(x.double(), w.double(), bias.double(), 32, 1e-8, False)
-    for kernel in ("rows", "groups"):
+    for kernel in ("rows", "groups", "chunks"):
         got = group_norm_silu(x, w, bias, 32, 1e-8, False, kernel=kernel)
         torch.testing.assert_close(got.double(), want, rtol=1e-2, atol=1e-2)
     got = group_norm_silu(x.contiguous(), w, bias, 32, 1e-8, False)
@@ -841,17 +844,81 @@ def test_k3_statistics_survive_a_large_mean(cuda):
 
 @pytest.mark.gpu
 def test_k3_channels_last_shapes_the_rows_kernel_does_not_take(cuda):
-    """Two channels a group go to the per-group kernel; an odd count that is
-    no multiple of 8 is refused; a forced kernel that does not fit raises."""
+    """Two channels a group go to the chunks kernel (the per-group kernel
+    forcible beside it); an odd count that is no multiple of 8 goes to it
+    too, and agrees; a forced kernel that does not fit raises."""
     x, w, bias = _k3_case(cuda, 23, 2, 64, 64, torch.float32, torch.channels_last)
-    assert k3_kernels_for(64, 64, 32, True) == ("groups",)
+    assert k3_kernels_for(64, 64, 32, True) == ("groups", "chunks")
+    before = group_norm_silu.launches_by_kernel["chunks"]
     torch.testing.assert_close(group_norm_silu(x, w, bias), group_norm_silu_reference(x, w, bias),
                                rtol=1e-4, atol=1e-4)
+    assert group_norm_silu.launches_by_kernel["chunks"] == before + 1
     with pytest.raises(ValueError, match="does not take"):
         group_norm_silu(x, w, bias, kernel="rows")
     x, w, bias = _k3_case(cuda, 23, 2, 33, 64, torch.float32, torch.channels_last)
-    with pytest.raises(ValueError, match="channels-last"):
-        group_norm_silu(x, w, bias, 11)
+    assert k3_kernels_for(33, 64, 11, True) == ("chunks",)
+    got = group_norm_silu(x, w, bias, 11)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(got, group_norm_silu_reference(x, w, bias, 11), rtol=1e-4,
+                               atol=1e-4)
+    with pytest.raises(ValueError, match="does not take"):
+        group_norm_silu(x, w, bias, 11, kernel="groups")
+
+
+# (n, C, H*W, groups): the CIFAR-10 UNet's small-group shapes in its
+# reconstruction at b8 and b500, CelebA-HQ's at b16, and off the paths 1, 2,
+# 3 and 6 channels a group with C % 8 != 0 (H*W*C % 8 != 0 in three)
+K3_CHUNKS_CASES = [(8, 128, 1024, 32), (8, 128, 256, 32), (500, 128, 1024, 32),
+                   (500, 128, 256, 32), (16, 128, 65536, 32), (16, 128, 16384, 32),
+                   (16, 128, 4096, 32), (2, 33, 64, 33), (3, 66, 49, 33), (2, 99, 25, 33),
+                   (2, 198, 36, 33), (4, 36, 15, 6), (2, 12, 9, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,hw,groups", K3_CHUNKS_CASES)
+@pytest.mark.parametrize("dtype,silu", [(torch.bfloat16, True), (torch.float32, True),
+                                        (torch.bfloat16, False)])
+def test_k3_chunks_kernel_in_both_forms_against_plain_and_the_old_kernel(cuda, n, c, hw, groups,
+                                                                         dtype, silu):
+    """The chunks kernel, as planned and in its other form (the sample held
+    in the cluster's shared memory or streamed twice, where the kernel takes
+    that form), and the per-group kernel where C/groups is even, against
+    the plain version; two runs bit for bit, the layout kept, and the
+    kernel's shared memory as the plan reckons it."""
+    from dmtpu_torch.ops import _build
+    from dmtpu_torch.ops.groupnorm import SMEM_LIMIT, chunks_plan
+
+    x, w, bias = _k3_case(cuda, 40, n, c, hw, dtype, torch.channels_last)
+    want = group_norm_silu_reference(x, w, bias, groups, 1e-5, silu)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    how = k3_plan(c, hw, groups, x.element_size(), True, n)
+    assert how["kernel"] == "chunks"
+    forms = [how]
+    other = chunks_plan(c, hw, groups, x.element_size(), n, not how["held"])
+    if other["smem"] <= SMEM_LIMIT and (other["held"] is False or (hw * c) % 8 == 0):
+        forms.append(other)
+    for form in forms:
+        assert _build.library().dmtpu_group_norm_chunks_smem(
+            c, hw, groups, int(dtype == torch.bfloat16), int(form["held"]), form["cluster"],
+            form["threads"]) == form["smem"]
+
+        def run(form=form):
+            y = torch.empty_like(x)
+            _build.check(_build.library().dmtpu_group_norm_chunks(
+                x.data_ptr(), w.data_ptr(), bias.data_ptr(), y.data_ptr(), n, c, hw, groups,
+                1e-5, int(silu), int(dtype == torch.bfloat16), int(form["held"]), form["cluster"],
+                form["periods"], form["threads"], torch.cuda.current_stream().cuda_stream),
+                "chunks")
+            return y
+
+        got, again = run(), run()
+        assert got.is_contiguous(memory_format=torch.channels_last) and torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    planned = group_norm_silu(x, w, bias, groups, 1e-5, silu)
+    assert torch.equal(planned, got if len(forms) == 1 else run(forms[0]))
+    if (c // groups) % 2 == 0:
+        old = group_norm_silu(x, w, bias, groups, 1e-5, silu, kernel="groups")
+        torch.testing.assert_close(old.float(), want.float(), rtol=tol, atol=tol)
 
 
 # ---- K3 at the VAE's GroupNorm shapes, and the VAE through it ---------------------
@@ -873,7 +940,7 @@ def test_k3_every_group_norm_shape_of_the_vae(cuda, c, hw, silu, layout):
     channels_last = layout == torch.channels_last
     names = k3_kernels_for(c, hw, 32, channels_last)
     assert names == (("nchw", "team") if not channels_last else
-                     ("groups",) if c == 128 else ("groups", "rows"))
+                     ("groups", "chunks") if c == 128 else ("groups", "chunks", "rows"))
     for kernel in names:
         got = group_norm_silu(x, w, bias, 32, 1e-6, silu, kernel=kernel)
         again = group_norm_silu(x, w, bias, 32, 1e-6, silu, kernel=kernel)

@@ -327,7 +327,7 @@ def test_forced_attention_kernel_on_the_cpu_is_the_plain_version(kernel):
     np.testing.assert_allclose(got_o.numpy(), want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("kernel", [None, "nchw", "groups", "rows", "team"])
+@pytest.mark.parametrize("kernel", [None, "nchw", "groups", "rows", "team", "chunks"])
 @pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last])
 def test_forced_group_norm_kernel_on_the_cpu_is_the_plain_version(kernel, layout):
     rs = np.random.RandomState(8)

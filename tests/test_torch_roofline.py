@@ -248,7 +248,7 @@ def test_group_norm_plan_of_the_path(c, hw, dtype, silu, eps):
     assert how["threads"] % 32 == 0 and how["threads"] - how["rows"] * cpr < 32
     assert how["cluster"] in (1, 2, 4, 8) and B * how["cluster"] <= gn.ROWS_TARGET_CTAS
     assert hw // how["cluster"] >= how["rows"]  # every CTA has a full pass of pixels
-    assert gn.kernels_for(c, hw, 32, True) == ("groups", "rows")
+    assert gn.kernels_for(c, hw, 32, True) == ("groups", "chunks", "rows")
     assert gn.kernels_for(c, hw, 32, False) == ("nchw", "team")
 
 
@@ -259,12 +259,12 @@ def test_group_norm_cluster_follows_the_batch(n, want):
 
 
 @pytest.mark.parametrize("c,hw,groups,kernels", [
-    (64, 64, 32, ("groups",)),          # 2 channels a group: a chunk would span 4 groups
-    (132, 64, 33, ("groups",)),         # C is no multiple of 8
-    (66, 64, 33, ("groups",)),
-    (72, 16, 8, ("rows",)),             # 9 channels a group: odd, so only whole rows
-    (8192, 64, 32, ("groups",)),        # a pixel row wider than the largest CTA
-    (96, 25, 8, ("groups", "rows")),
+    (64, 64, 32, ("groups", "chunks")),  # 2 channels a group: a chunk spans 4 groups
+    (132, 64, 33, ("groups", "chunks")),  # C is no multiple of 8
+    (66, 64, 33, ("groups", "chunks")),
+    (72, 16, 8, ("chunks", "rows")),    # 9 channels a group: odd, so no per-group kernel
+    (8192, 64, 32, ("groups", "chunks")),  # a pixel row wider than the largest rows CTA
+    (96, 25, 8, ("groups", "chunks", "rows")),
 ])
 def test_group_norm_kernels_for_other_shapes(c, hw, groups, kernels):
     assert gn.kernels_for(c, hw, groups, True) == kernels
@@ -346,12 +346,15 @@ def test_vae_group_norm_work_bound_and_plan(c, hw, silu):
     assert how["kernel"] == "team" and how["form"] == "stream" and hw % 8 == 0
     assert how["ctas"] <= gn.H100_SMS and how["ctas"] % how["team"] == 0
     assert gn.kernels_for(c, hw, 32, False) == ("nchw", "team")
-    # channels-last: 4 channels a group (C = 128) cannot go by whole rows
+    # channels-last: 4 channels a group (C = 128) cannot go by whole rows, but
+    # by 16-byte chunks of fixed channels
     how = gn.plan(c, hw, 32, 4, True, B)
     if c == 128:
-        assert how == {"kernel": "groups"} and gn.kernels_for(c, hw, 32, True) == ("groups",)
+        assert how == gn.chunks_plan(c, hw, 32, 4, B) and how["kernel"] == "chunks"
+        assert gn.kernels_for(c, hw, 32, True) == ("groups", "chunks")
     else:
-        assert how["kernel"] == "rows" and gn.kernels_for(c, hw, 32, True) == ("groups", "rows")
+        assert how["kernel"] == "rows"
+        assert gn.kernels_for(c, hw, 32, True) == ("groups", "chunks", "rows")
         assert how["rows"] * (c // 8) <= how["threads"] <= gn.ROWS_THREADS
         assert B * how["cluster"] <= gn.ROWS_TARGET_CTAS and hw // how["cluster"] >= how["rows"]
 
