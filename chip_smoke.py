@@ -130,7 +130,16 @@ Phases (any failure exits non-zero, and the last line is then not printed):
      one warm-up step, then 10 timed steps (images per second, ms per step,
      peak memory) and a ``torch.profiler`` breakdown of one step; (d) 10 steps on one fixed batch 2: the kernel
      path's loss is finite and falls, and stays within 1e-3 of the plain
-     bf16 path's loss at the same weights at every step;
+     bf16 path's loss at the same weights at every step; (e) the optimizer
+     options at b16 from the same weights, each with a warm-up and 5 timed
+     steps (ms per step, ms in ``optimizer.step`` by CUDA events, the
+     allocator's peak, exact launches): ``adamw`` with f32 moments, with
+     ``mu_dtype="bfloat16"`` (its first moment bf16, 2 bytes a parameter,
+     half the f32 one's), the main path's ``adafactor`` and
+     ``adafactor(momentum=0.9, multiply_by_parameter_scale=True)`` (a bf16
+     momentum); for the two
+     options one more step whose change of every parameter agrees with an
+     f64 recomputation from the same gradient and state;
   8. text to image, f32 with TF32 off but in (c): (a) at batch 2: CLIP-L on the
      card within 1e-4 relative L2 of the same module on the CPU (f32 on both
      sides, other summation order); the VAE's decode and encode through K3
@@ -586,6 +595,10 @@ UNET_CHECK_BATCH = 2
 UNET_TIMED_FORWARDS, UNET_PROFILED_FORWARDS = 10, 3
 TRAIN_CHECK_BATCH, TRAIN_TIMED_STEPS, LEARN_STEPS = 2, 10, 10
 TRAIN_LR, TRAIN_CLIP, EMA_DECAY = 1e-4, 1.0, 0.9999
+# phase 7 (e): timed steps of each optimizer setting; the f64 check's bound
+# on a step's error, as a share of the tensor's largest change (f32 sums of
+# thousands of terms in the factored moments and RMS: ~1e-6)
+OPTIM_TIMED_STEPS, OPTIM_F64_RTOL = 5, 1e-4
 SEED = 0
 
 SD15 = dict(in_channels=4, model_channels=320, out_channels=4, num_res_blocks=2,
@@ -2525,8 +2538,201 @@ def phase_train(dev, check, gen, ref_model, card) -> dict:
     for name, ms in profile["top"]:
         log(f"  {ms:9.4f} ms  {name}")
     metrics["profile_ms"] = dict(profile["classes"], wall=profile["wall_ms"], **profile["ranges"])
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (e) the optimizer options at b16, beside the f32-moment AdamW
+    metrics["optimizers"] = train_optimizer_options(
+        dev, check, model, init, batch, make_diffusion_loss_fn(diffuser, model, 1000),
+        want_per_step, counts, zero_counts, card)
     return {"launches": launches, "k2_by_kernel": k2_by_kernel, "metrics": metrics,
             "k2_d160_launches": k2_d160}
+
+
+def adam_f64_update(p, g, mu, nu, n: int, group: dict):
+    """One Adam step's change of ``p`` recomputed in f64 from the same
+    gradient and stored moments: mu = (1 - b1) g + b1 mu, nu likewise, the
+    bias corrections of update n, then -lr (mu_hat / (sqrt(nu_hat) + eps)
+    + weight_decay p).  The constants are the numbers the optimizer applies,
+    f32's, and b1 as JAX's weak typing gives it to a bf16 moment
+    (0.8984375)."""
+    import numpy as np
+    import torch
+
+    def as_(x, dtype):
+        return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+    f32 = torch.float32
+    b1, b2 = group["betas"]
+    m = as_(1 - b1, f32) * g + as_(b1, mu.dtype) * mu.double()
+    v = as_(1 - b2, f32) * g * g + as_(b2, f32) * nu.double()
+    u = (m / (1 - np.float64(b1) ** n)) / ((v / (1 - np.float64(b2) ** n)).sqrt()
+                                           + as_(group["eps"], f32))
+    return -as_(group["lr"], f32) * (u + as_(group["weight_decay"], f32) * p)
+
+
+def adafactor_f64_update(p, g, state: dict, group: dict):
+    """One adafactor step's change of ``p`` recomputed in f64 from the same
+    gradient and stored statistics, in optax's chain order: the factored
+    (or whole) second moment, block-RMS clipping, lr, the parameter's RMS
+    (at least 1e-3), the momentum (m rounded as JAX gives it to a bf16
+    accumulator), the decoupled decay."""
+    import torch
+    from dmtpu_torch.utils.optim import factored_dims
+
+    def rms(x):
+        return x.square().mean().sqrt()
+
+    n = state["step"] + 1
+    decay = 1.0 - n ** -group["decay_rate"]
+    g2 = g * g + group["eps"]
+    dims = factored_dims(p.shape, group["min_dim_size_to_factor"])
+    if dims is None:
+        u = g / (decay * state["v"].double() + (1 - decay) * g2).sqrt()
+    else:
+        d1, d0 = dims
+        v_row = decay * state["v_row"].double() + (1 - decay) * g2.mean(d0)
+        v_col = decay * state["v_col"].double() + (1 - decay) * g2.mean(d1)
+        reduced_d1 = d1 - 1 if d1 > d0 else d1
+        row_factor = (v_row / v_row.mean(reduced_d1, keepdim=True)).rsqrt()
+        u = g * row_factor.unsqueeze(d0) * v_col.rsqrt().unsqueeze(d1)
+    u = u / torch.clamp(rms(u) / group["clipping_threshold"], min=1.0)
+    u = u * group["lr"]
+    if group["multiply_by_parameter_scale"]:
+        u = u * torch.clamp(rms(p), min=1e-3)
+    if group["momentum"] is not None:
+        acc = state["momentum"]
+        beta = float(torch.tensor(group["momentum"], dtype=torch.float64).to(acc.dtype))
+        one_minus = float(torch.tensor(1 - group["momentum"], dtype=torch.float32))
+        u = one_minus * u + beta * acc.double()
+    return -(u + group["weight_decay"] * p)
+
+
+def train_optimizer_options(dev, check, model, init, batch, loss_fn, want_per_step, counts,
+                            zero_counts, card) -> dict:
+    """Phase 7 (e): the SD1.5 UNet's b16 train step with (i) ``adamw(mu_dtype=
+    "bfloat16")`` and (ii) ``adafactor(momentum=0.9,
+    multiply_by_parameter_scale=True)``, beside ``adamw`` with f32 moments
+    (``torch.optim.AdamW``) and the main path's ``adafactor``.  Each from the same weights: a warm-up step,
+    ``OPTIM_TIMED_STEPS`` timed steps (host clock; ``optimizer.step`` by
+    CUDA events from its pre- to its post-hook; the allocator's peak), the
+    launches of each timed run, the state's dtypes and (i)'s first-moment
+    bytes, then one more step whose change of every parameter is held
+    against ``adam_f64_update`` / ``adafactor_f64_update`` from a copy of
+    the gradient and the state it started from: within ``OPTIM_F64_RTOL``
+    of the tensor's largest change plus the f32 spacing at the parameter
+    (the rounding of p + change)."""
+    import torch
+    from dmtpu_torch.parallel import TrainState, make_train_step
+    from dmtpu_torch.utils.optim import adafactor, adamw
+
+    settings = {
+        "adamw_f32_moments": lambda ps: adamw(ps, lr=TRAIN_LR),
+        "adamw_bf16_mu": lambda ps: adamw(ps, lr=TRAIN_LR, mu_dtype="bfloat16"),
+        "adafactor": lambda ps: adafactor(ps, lr=TRAIN_LR),
+        "adafactor_momentum_scale": lambda ps: adafactor(
+            ps, lr=TRAIN_LR, momentum=0.9, multiply_by_parameter_scale=True),
+    }
+    n_params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(loss_fn, clip_grad_norm=TRAIN_CLIP)
+    out = {}
+    for name, make in settings.items():
+        model.load_state_dict(init)
+        state = TrainState.create(model, make(model.parameters()), ema_decay=EMA_DECAY,
+                                  ema_gradual=True, ema_dtype=torch.bfloat16)
+        opt = state.optimizer
+        events = []
+        opt.register_step_pre_hook(
+            lambda *_: events.append([torch.cuda.Event(enable_timing=True)]) or
+            events[-1][0].record())
+        opt.register_step_post_hook(
+            lambda *_: events[-1].append(torch.cuda.Event(enable_timing=True)) or
+            events[-1][1].record())
+        step(state, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        events.clear()
+        zero_counts()
+        t0 = time.perf_counter()
+        history = [step(state, batch) for _ in range(OPTIM_TIMED_STEPS)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        opt_ms = [a.elapsed_time(b) for a, b in events]
+        losses = [m["loss"].item() for m in history]
+        entries = [opt.state[p] for p in model.parameters()]
+        row = {"ms_per_step": 1e3 * seconds / OPTIM_TIMED_STEPS,
+               "optimizer_step_ms": sum(opt_ms) / len(opt_ms), "peak_bytes": peak,
+               "steps": OPTIM_TIMED_STEPS, "losses": losses}
+        check(all(map(math.isfinite, losses)), f"train b{B} {name}: finite losses")
+        check(launches == {k: OPTIM_TIMED_STEPS * n for k, n in want_per_step.items()},
+              f"train b{B} {name}: launches {launches} == {OPTIM_TIMED_STEPS} x {want_per_step}")
+        if name.startswith("adamw"):
+            mu_dtype = torch.bfloat16 if name == "adamw_bf16_mu" else torch.float32
+            check(len(entries) == len(list(model.parameters()))
+                  and all(e["exp_avg"].dtype == mu_dtype and e["exp_avg_sq"].dtype ==
+                          torch.float32 for e in entries),
+                  f"train {name}: first moments {mu_dtype}, second moments f32")
+            row["first_moment_bytes"] = sum(e["exp_avg"].numel() * e["exp_avg"].element_size()
+                                            for e in entries)
+        else:
+            check(all(("momentum" in e) == (name != "adafactor")
+                      and e.get("momentum", torch.empty(0, dtype=torch.bfloat16)).dtype
+                      == torch.bfloat16
+                      and all(e[k].dtype == torch.float32 for k in ("v", "v_row", "v_col")
+                              if k in e) for e in entries),
+                  f"train {name}: f32 second-moment statistics"
+                  + (", a bf16 momentum" if name != "adafactor" else ", no momentum"))
+        log(f"train b{B} {name}: {OPTIM_TIMED_STEPS} steps, {row['ms_per_step']:.3f} ms/step, "
+            f"optimizer.step {row['optimizer_step_ms']:.3f} ms (CUDA events; each "
+            f"{[round(x, 3) for x in opt_ms]}), peak {peak / 2**30:.3f} GiB ({card}); "
+            f"launches {launches}; losses {losses}")
+        if name in ("adamw_bf16_mu", "adafactor_momentum_scale"):
+            # one more step, its change of every parameter against f64
+            params = list(model.parameters())
+            before = [(p.detach().clone(), {k: v.clone() if torch.is_tensor(v) else v
+                                            for k, v in opt.state[p].items()}) for p in params]
+            step(state, batch)
+            torch.cuda.synchronize()
+            worst, worst_name = 0.0, ""
+            names = [n for n, _ in model.named_parameters()]
+            for pname, p, (p0, s0) in zip(names, params, before):
+                g = p.grad.double()
+                if name == "adamw_bf16_mu":
+                    ref = adam_f64_update(p0.double(), g, s0["exp_avg"], s0["exp_avg_sq"],
+                                          s0["step"] + 1, opt.param_groups[0])
+                else:
+                    ref = adafactor_f64_update(p0.double(), g, s0, opt.param_groups[0])
+                got = p.detach().double() - p0.double()
+                spacing = (torch.nextafter(p.detach(), torch.full_like(p, math.inf))
+                           - p.detach()).double()
+                bound = OPTIM_F64_RTOL * ref.abs().max() + spacing
+                ratio = ((got - ref).abs() / bound).max().item()
+                if ratio > worst:
+                    worst, worst_name = ratio, pname
+            del before
+            row["f64_worst_ratio"] = worst
+            log(f"train b{B} {name}: one step's change of each of {len(params)} parameters vs "
+                f"f64: worst |change - f64| / ({OPTIM_F64_RTOL:g} x max |f64| + f32 spacing) "
+                f"= {worst:.4f} ({worst_name})")
+            check(worst <= 1.0, f"train {name}: every parameter's step within "
+                                f"{OPTIM_F64_RTOL:g} of its largest f64 step + the f32 spacing")
+        out[name] = row
+        del state, opt, entries
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    f32_mu, bf16_mu = (out[k]["first_moment_bytes"] for k in ("adamw_f32_moments",
+                                                               "adamw_bf16_mu"))
+    check(2 * bf16_mu == f32_mu and bf16_mu == 2 * n_params,
+          f"adamw bf16 first moment {bf16_mu} B == f32's {f32_mu} / 2 == 2 x {n_params}")
+    saved = out["adamw_f32_moments"]["peak_bytes"] - out["adamw_bf16_mu"]["peak_bytes"]
+    log(f"train b{B} peaks ({card}): AdamW f32 moments "
+        f"{out['adamw_f32_moments']['peak_bytes'] / 2**30:.3f} GiB, bf16 first moment "
+        f"{out['adamw_bf16_mu']['peak_bytes'] / 2**30:.3f} GiB ({saved / 1e9:.3f} GB less), "
+        f"adafactor {out['adafactor']['peak_bytes'] / 2**30:.3f} GiB, with momentum and "
+        f"scaling {out['adafactor_momentum_scale']['peak_bytes'] / 2**30:.3f} GiB")
+    return out
 
 
 def phase_text_to_image(dev, check, gen, ref_model, card, time_ms) -> dict:

@@ -34,12 +34,17 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU feed-forward (the SD blocks' ``gated_ff=True``)."""
+    """``glu=True`` (the SD blocks' ``gated_ff``): GEGLU, then a Linear;
+    ``glu=False``: a Linear, exact GELU, then a Linear (upstream keys
+    ``net.0.0.*`` / ``net.2.*``; the JAX module's ``net__0__0`` /
+    ``net__2``)."""
 
-    def __init__(self, dim: int, mult: int = 4, dtype=None, device=None):
+    def __init__(self, dim: int, mult: int = 4, glu: bool = True, dtype=None, device=None):
         super().__init__()
         inner = int(dim * mult)
-        self.net = nn.Sequential(GEGLU(dim, inner, dtype=dtype, device=device), nn.Dropout(0.0),
+        project_in = (GEGLU(dim, inner, dtype=dtype, device=device) if glu else
+                      nn.Sequential(Linear(dim, inner, dtype=dtype, device=device), nn.GELU()))
+        self.net = nn.Sequential(project_in, nn.Dropout(0.0),
                                  Linear(inner, dim, dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -78,11 +83,13 @@ class BasicTransformerBlock(nn.Module):
     self-attention: the block input picks the matching (tomesd's call
     structure), ``attn1`` runs on N - r tokens, and its output is unmerged
     before the residual add.  Skipped when ``attn1`` is a cross-attention
-    (``disable_self_attn``) or the token grid ``hw`` is not given."""
+    (``disable_self_attn``) or the token grid ``hw`` is not given.
+    ``gated_ff=False`` gives it the non-gated ``FeedForward``."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: Optional[int] = None,
-                 disable_self_attn: bool = False, tome_ratio: float = 0.0, tome_sx: int = 2,
-                 tome_sy: int = 2, tome_seed: Optional[int] = None, dtype=None, device=None):
+                 gated_ff: bool = True, disable_self_attn: bool = False,
+                 tome_ratio: float = 0.0, tome_sx: int = 2, tome_sy: int = 2,
+                 tome_seed: Optional[int] = None, dtype=None, device=None):
         super().__init__()
         self.disable_self_attn = disable_self_attn
         self.tome_ratio, self.tome_sx, self.tome_sy, self.tome_seed = (
@@ -91,7 +98,7 @@ class BasicTransformerBlock(nn.Module):
                                     d_head, dtype=dtype, device=device)
         self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, dtype=dtype,
                                     device=device)
-        self.ff = FeedForward(dim, dtype=dtype, device=device)
+        self.ff = FeedForward(dim, glu=gated_ff, dtype=dtype, device=device)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5, device=device)
         self.norm3 = nn.LayerNorm(dim, eps=1e-5, device=device)

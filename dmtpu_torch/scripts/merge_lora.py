@@ -12,10 +12,13 @@ alpha / rank from the config), and writes the whole ``StableDiffusion`` as a
 torch state dict in the wrapper's own layout (``unet.`` / ``vae.`` /
 ``text_encoder.``), which ``StableDiffusion.load_weights`` reads.
 
-``--base`` overrides the config's ``weights:``; with neither, the base is
+``--base`` overrides the config's ``weights:``: a CompVis ``.ckpt`` /
+``.safetensors``, a torch file in the wrapper's layout, or the JAX
+package's ``.npz`` (what its ``merge_lora`` writes, read through the Flax
+bridge; ``StableDiffusion.load_weights``).  With neither, the base is
 seeded random parameters from ``seed`` on ``--device`` (the draws of the
-training run when it ran on that device).  The merged file is written
-from the CPU.  Reading or writing the JAX package's ``.npz`` is not ported.
+training run when it ran on that device).  The merged file is written from
+the CPU, as a torch state dict (writing the JAX ``.npz`` is not ported).
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lora", type=str, required=True,
                    help="LoRA checkpoint directory (runs/<exp>/ckpt/stepNNNNNN)")
     p.add_argument("--base", type=str, default=None,
-                   help="base SD weights (.ckpt/.safetensors); default: the config's `weights:`")
+                   help="base SD weights (.ckpt/.safetensors/.pt, or the JAX package's .npz); "
+                        "default: the config's `weights:`")
     p.add_argument("--out", type=str, required=True, help="output .pt path")
     p.add_argument("--no-ema", action="store_true",
                    help="merge the raw adapters instead of their EMA shadow")

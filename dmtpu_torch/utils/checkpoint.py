@@ -14,12 +14,16 @@ in the same one-card format: every rank gathers the full tensors of its
 sharded ``DTensor``s (a collective, so every rank calls ``save_checkpoint``)
 and rank 0 writes the file.  Loading reads the full file on every rank and
 shards each tensor as the state's own is sharded.
+
+``save_array_dict`` writes a flat ``.npz`` of tensors or arrays, as the JAX
+function of that name does (portable model-only weights).
 """
 from __future__ import annotations
 
 import os
 from typing import Any, Dict
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
@@ -115,3 +119,16 @@ def load_checkpoint_host(path: str) -> Dict[str, Any]:
     ``model``, ``optimizer``, ``ema``), whatever device it was saved from:
     for offline tools such as ``merge_lora``."""
     return _load(path, "cpu")
+
+
+def save_array_dict(path: str, arrays: Dict[str, Any]) -> None:
+    """A flat ``.npz`` of ``arrays`` (tensors, moved to the host, or
+    arrays).  numpy has no bf16: a bf16 tensor is written as f32, which
+    holds it exactly."""
+    def host(v: Any) -> np.ndarray:
+        if not torch.is_tensor(v):
+            return np.asarray(v)
+        v = v.detach().cpu()
+        return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+
+    np.savez(path, **{k: host(v) for k, v in arrays.items()})

@@ -7,10 +7,15 @@ given parameters, computing what the optax chain computes:
 - ``adam``: bias-corrected Adam, ``eps`` outside the square root; with
   ``weight_decay`` the decay is decoupled and scaled by ``lr`` (optax's
   ``add_decayed_weights`` before ``scale_by_learning_rate``), which is
-  ``torch.optim.AdamW``'s update.
+  ``torch.optim.AdamW``'s update.  With ``mu_dtype`` (a dtype or its name:
+  ``"bfloat16"`` / ``"bf16"``, ``"float32"`` / ``"f32"``) the first moment
+  is stored in that dtype and the update is ``Adam`` below, optax's
+  ``scale_by_adam`` step by step; with ``mu_dtype=None`` it is
+  ``torch.optim.Adam`` / ``AdamW``.
 - ``adamw``: the same with ``weight_decay=0.01``.
 - ``adafactor``: ``Adafactor`` below, optax's ``adafactor`` with this repo's
-  defaults.
+  defaults (no momentum, no parameter scaling), each of which a config may
+  turn on (``momentum``, ``momentum_dtype``, ``multiply_by_parameter_scale``).
 - ``sgd``: ``torch.optim.SGD``, whose coupled weight decay and momentum
   buffer compute ``optax.chain(add_decayed_weights, sgd(momentum, nesterov))``.
 
@@ -24,15 +29,19 @@ its param groups (``lr_updates``), so a resumed run goes on where it stopped.
 
 ``lr_fn`` gives the learning rate of a config's optimizer for logging.
 
-Not ported, since no caller of the JAX factories sets them: a bf16 first
-moment (``mu_dtype``) and adafactor's momentum and parameter scaling.
+A state kept in a dtype of its own (``Adam``'s first moment, ``Adafactor``'s
+momentum) keeps it through ``load_state_dict``, which would otherwise cast
+it to its parameter's dtype.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Iterable, Mapping, Optional
 
 import numpy as np
 import torch
+
+from dmtpu_torch.models.ema import as_dtype
 
 
 Schedule = Callable[[int], float]
@@ -188,8 +197,14 @@ def lr_fn(optim_conf: Mapping) -> Callable[[int], float]:
 
 
 def adam(params: Iterable, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
-         weight_decay: float = 0.0) -> torch.optim.Optimizer:
+         weight_decay: float = 0.0, mu_dtype=None) -> torch.optim.Optimizer:
+    """``mu_dtype="bfloat16"`` stores the first moment in bf16, which halves
+    that share of the optimizer's memory (the second moment keeps the
+    parameter's dtype)."""
     lr, schedule = _resolve_lr(lr)
+    if mu_dtype is not None:
+        return scheduled(Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                              mu_dtype=mu_dtype), schedule)
     if weight_decay:
         return scheduled(torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
                                            weight_decay=weight_decay), schedule)
@@ -197,7 +212,9 @@ def adam(params: Iterable, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
 
 
 def adamw(params: Iterable, lr=1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
-          weight_decay: float = 0.01) -> torch.optim.Optimizer:
+          weight_decay: float = 0.01, mu_dtype=None) -> torch.optim.Optimizer:
+    if mu_dtype is not None:
+        return adam(params, lr, betas, eps, weight_decay, mu_dtype)
     lr, schedule = _resolve_lr(lr)
     return scheduled(torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps,
                                        weight_decay=weight_decay), schedule)
@@ -211,12 +228,126 @@ def sgd(params: Iterable, lr, momentum: float = 0.0, weight_decay: float = 0.0,
 
 
 def adafactor(params: Iterable, lr=None, min_dim_size_to_factor: int = 128,
-              decay_rate: float = 0.8, clipping_threshold: Optional[float] = 1.0,
-              weight_decay: float = 0.0, eps: float = 1e-30) -> "Adafactor":
+              decay_rate: float = 0.8, momentum: Optional[float] = None,
+              momentum_dtype="bfloat16", clipping_threshold: Optional[float] = 1.0,
+              multiply_by_parameter_scale: bool = False, weight_decay: float = 0.0,
+              eps: float = 1e-30) -> "Adafactor":
     lr, schedule = _resolve_lr(lr)
     return scheduled(Adafactor(params, lr=lr, min_dim_size_to_factor=min_dim_size_to_factor,
-                               decay_rate=decay_rate, clipping_threshold=clipping_threshold,
+                               decay_rate=decay_rate, momentum=momentum,
+                               momentum_dtype=momentum_dtype,
+                               clipping_threshold=clipping_threshold,
+                               multiply_by_parameter_scale=multiply_by_parameter_scale,
                                weight_decay=weight_decay, eps=eps), schedule)
+
+
+@functools.lru_cache(maxsize=256)  # a schedule's lr changes each update
+def _scalar(x: float, dtype: torch.dtype) -> float:
+    """``x`` rounded to ``dtype``: a Python number that meets an array in JAX
+    is weakly typed and takes the array's dtype."""
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
+def _moment(x: torch.Tensor, acc: torch.Tensor, decay: float) -> torch.Tensor:
+    """optax's ``update_moment``, (1 - decay) x + decay acc, as a jitted JAX
+    step computes it, in the wider dtype of the two.  Each Python scalar is
+    rounded to the dtype of the operand it multiplies (b1 = 0.9 meets a bf16
+    moment as 0.8984375); a product in the narrower dtype is not rounded to
+    it (XLA drops the f32 -> bf16 -> f32 round trip of a product that the
+    sum promotes), one in the wider dtype is."""
+    wide = torch.promote_types(x.dtype, acc.dtype)
+    out = x.to(wide) * _scalar(1 - decay, x.dtype)
+    return out.add_(acc.to(wide) * _scalar(decay, acc.dtype))
+
+
+class _StateDtypes:
+    """``Optimizer.load_state_dict`` casts each floating state tensor to its
+    parameter's dtype; this puts back the dtype that ``STATE_DTYPES`` (state
+    key -> the param group's dtype option) names."""
+
+    STATE_DTYPES: dict = {}
+
+    def _restore_state_dtypes(self) -> None:
+        for group in self.param_groups:
+            for p in group["params"]:
+                state = self.state.get(p)
+                for key, option in self.STATE_DTYPES.items():
+                    dtype = as_dtype(group.get(option))
+                    if state and key in state and dtype is not None:
+                        state[key] = state[key].to(dtype)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        super().load_state_dict(state_dict)
+        self._restore_state_dtypes()
+
+
+class Adam(_StateDtypes, torch.optim.Optimizer):
+    """Adam as optax computes ``chain(scale_by_adam(b1, b2, eps, mu_dtype),
+    add_decayed_weights(weight_decay), scale_by_learning_rate(lr))``, which
+    is the JAX ``adam`` with a decay and ``adamw``; the route of ``adam`` /
+    ``adamw`` with a ``mu_dtype``.  Per parameter p (gradient g) and update
+    n from 1:
+
+    1. mu = (1 - b1) g + b1 mu and nu = (1 - b2) g² + b2 nu;
+    2. u = (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps), the bias
+       corrections computed in f32;
+    3. mu stored in ``mu_dtype`` (step 2 used it unrounded), nu in the
+       parameter's dtype;
+    4. p += -lr (u + weight_decay p), rounded once to p's dtype.
+
+    This is what a jitted JAX step computes (``dmtpu.parallel.
+    make_train_step``): each operation in the dtype JAX gives its result
+    (f32 with f32 parameters whatever ``mu_dtype``; bf16 throughout with
+    bf16 parameters and moment, MMDiT's ``param_dtype``), each Python number
+    rounded to the dtype of the array it meets (b1 = 0.9 multiplies a bf16
+    moment as 0.8984375), and ``_moment``'s products as XLA fuses them.
+    """
+
+    STATE_DTYPES = {"exp_avg": "mu_dtype"}
+
+    def __init__(self, params: Iterable, lr: float = 1e-3, betas=(0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0, mu_dtype=None):
+        defaults = dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay,
+                        mu_dtype=as_dtype(mu_dtype))
+        super().__init__(params, defaults)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(step=0, exp_avg=torch.zeros_like(
+                        p, dtype=as_dtype(group["mu_dtype"]) or p.dtype),
+                        exp_avg_sq=torch.zeros_like(p))
+                p.add_(_adam_update(p, p.grad, state, group))
+                state["step"] += 1
+        return loss
+
+
+def _adam_update(p: torch.Tensor, g: torch.Tensor, state: dict, group: dict) -> torch.Tensor:
+    """The amount added to p; the moments stored.  Each operation runs in
+    the dtype JAX gives its result (mu and the update that of p + mu, nu
+    that of p), with its Python scalar rounded to it."""
+    b1, b2 = group["betas"]
+    n = np.float32(state["step"] + 1)
+    mu = _moment(g, state["exp_avg"], b1)
+    nu = _moment(g.square(), state["exp_avg_sq"], b2)
+    state["exp_avg"].copy_(mu)
+    state["exp_avg_sq"].copy_(nu)
+    # optax: 1 - decay ** count in f32, then in the moment's dtype
+    bc1, bc2 = (float(np.float32(1) - np.float32(b) ** n) for b in (b1, b2))
+    u = mu.div_(_scalar(bc1, mu.dtype)).div_(
+        nu.div_(_scalar(bc2, nu.dtype)).sqrt_().add_(_scalar(group["eps"], nu.dtype)))
+    if group["weight_decay"]:
+        u.add_(p.to(u.dtype) * _scalar(group["weight_decay"], p.dtype))
+    return u.mul_(_scalar(-group["lr"], u.dtype))
 
 
 def factored_dims(shape: torch.Size, min_dim_size_to_factor: int) -> Optional[tuple[int, int]]:
@@ -230,14 +361,15 @@ def factored_dims(shape: torch.Size, min_dim_size_to_factor: int) -> Optional[tu
     return order[-2], order[-1]
 
 
-class Adafactor(torch.optim.Optimizer):
+class Adafactor(_StateDtypes, torch.optim.Optimizer):
     """Adafactor (Shazeer & Stern, arXiv:1804.04235) as ``optax.adafactor``
-    computes it with this repo's defaults (no momentum, no parameter
-    scaling).  The second-moment statistics are kept in the parameter's
+    computes it; this repo's defaults leave out momentum and parameter
+    scaling.  The second-moment statistics are kept in the parameter's
     dtype, as optax keeps them (in a dtype narrower than f32 each is decayed
     and summed in f32 and rounded once, as optax does), and the rest runs in
     the parameter's dtype (bf16 under MMDiT's ``param_dtype``), as optax's
-    arithmetic does.  Per parameter and step n (from 0):
+    arithmetic does.  Per parameter and step n (from 0), in optax's chain
+    order:
 
     1. second moment with decay 1 - (n + 1)^-decay_rate of g^2 + eps:
        factored into row and column means over the two largest dims when
@@ -246,16 +378,30 @@ class Adafactor(torch.optim.Optimizer):
        else kept whole; u = g / sqrt(estimate);
     2. u clipped to block RMS ``clipping_threshold``;
     3. times ``lr`` (none when ``lr`` is None);
-    4. plus ``weight_decay * param`` (decoupled, not scaled by ``lr``);
-    5. param -= u.
+    4. with ``multiply_by_parameter_scale``, times max(RMS(param), 1e-3),
+       the whole parameter's RMS (a sharded ``DTensor``'s too);
+    5. with ``momentum`` m: u = (1 - m) u + m acc (``_moment``: m meets a
+       bf16 accumulator as 0.8984375); acc stores u rounded to
+       ``momentum_dtype`` (bf16 unless set; None means bf16, as in the JAX
+       factory), while u itself goes on unrounded (optax's ``ema`` without
+       debiasing);
+    6. plus ``weight_decay * param`` (decoupled, not scaled by ``lr``);
+    7. param -= u.
     """
+
+    STATE_DTYPES = {"momentum": "momentum_dtype"}
 
     def __init__(self, params: Iterable, lr: Optional[float] = None,
                  min_dim_size_to_factor: int = 128, decay_rate: float = 0.8,
-                 clipping_threshold: Optional[float] = 1.0, weight_decay: float = 0.0,
+                 momentum: Optional[float] = None, momentum_dtype="bfloat16",
+                 clipping_threshold: Optional[float] = 1.0,
+                 multiply_by_parameter_scale: bool = False, weight_decay: float = 0.0,
                  eps: float = 1e-30):
         defaults = dict(lr=lr, min_dim_size_to_factor=min_dim_size_to_factor,
-                        decay_rate=decay_rate, clipping_threshold=clipping_threshold,
+                        decay_rate=decay_rate, momentum=momentum,
+                        momentum_dtype=as_dtype(momentum_dtype) or torch.bfloat16,
+                        clipping_threshold=clipping_threshold,
+                        multiply_by_parameter_scale=multiply_by_parameter_scale,
                         weight_decay=weight_decay, eps=eps)
         super().__init__(params, defaults)
 
@@ -278,12 +424,14 @@ class Adafactor(torch.optim.Optimizer):
 
 
 def _init_state(p: torch.Tensor, group: dict) -> dict:
+    state = {"step": 0}
+    if group.get("momentum") is not None:
+        state["momentum"] = torch.zeros_like(p, dtype=as_dtype(group["momentum_dtype"]))
     dims = factored_dims(p.shape, group["min_dim_size_to_factor"])
     if dims is None:
-        return {"step": 0, "v": torch.zeros_like(p)}
+        return {**state, "v": torch.zeros_like(p)}
     d1, d0 = dims
-    return {"step": 0, "v_row": torch.zeros_like(p.mean(d0)),
-            "v_col": torch.zeros_like(p.mean(d1))}
+    return {**state, "v_row": torch.zeros_like(p.mean(d0)), "v_col": torch.zeros_like(p.mean(d1))}
 
 
 def _update(p: torch.Tensor, g: torch.Tensor, state: dict, group: dict) -> torch.Tensor:
@@ -311,6 +459,12 @@ def _update(p: torch.Tensor, g: torch.Tensor, state: dict, group: dict) -> torch
         u.div_(torch.clamp(u.square().mean().sqrt() / group["clipping_threshold"], min=1.0))
     if group["lr"] is not None:
         u.mul_(group["lr"])
+    if group.get("multiply_by_parameter_scale"):
+        # optax's safe_root_mean_squares(p, 1e-3), in the parameter's dtype
+        u.mul_(torch.clamp(p.square().mean().sqrt(), min=_scalar(1e-3, p.dtype)))
+    if group.get("momentum") is not None:
+        u = _moment(u, state["momentum"], group["momentum"])
+        state["momentum"].copy_(u)
     if group["weight_decay"]:
         u.add_(p, alpha=group["weight_decay"])
     return u

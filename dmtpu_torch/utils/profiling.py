@@ -1,17 +1,37 @@
-"""Step timing for the train loop.
+"""Profiling: a trace of a region, and step timing for the train loop.
 
-Counterpart of ``StepTimer`` in ``dmtpu/utils/profiling.py``: a rolling
-window of host-clock step times.  It adds no synchronisation: on the card a
-step's time is the time between two ticks of the host loop, which the
-loop's own reads of a metric hold to the card's pace.  The JAX file's
-``trace`` (a ``jax.profiler`` context) is not ported: ``torch.profiler`` is
-called where a trace is wanted.
+Counterpart of ``dmtpu/utils/profiling.py``:
+
+- ``trace(logdir)``: a ``torch.profiler`` trace of the region inside it
+  (the JAX file's is a ``jax.profiler`` one), written under ``logdir`` as a
+  ``*.pt.trace.json`` that TensorBoard's profiler plugin and Perfetto read:
+  CPU activity, and the card's when one is there.
+- ``StepTimer``: a rolling window of host-clock step times.  It adds no
+  synchronisation: on the card a step's time is the time between two ticks
+  of the host loop, which the loop's own reads of a metric hold to the
+  card's pace.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
-from typing import Optional
+from typing import Iterator, Optional
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[None]:
+    """Trace the region inside into ``logdir``: the host's activity, and the
+    card's where there is one."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
 
 
 class StepTimer:

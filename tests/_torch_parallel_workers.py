@@ -23,6 +23,16 @@ from dmtpu_torch.utils import optim
 
 UNET = dict(dim=32, dim_mults=(1, 2), use_attn=(False, True), num_res_blocks=1, dropout=0.0)
 ADAGN = dict(dim=32, dim_mults=(1, 2), use_attn=(False, False), num_classes=10, dropout=0.0)
+# adafactor with the options whose statistics span a whole parameter (the
+# block RMS of parameter scaling, the factored moments: 32 and 64 channels
+# factor at 32) and a bf16 momentum.  eps 1e-8, not 1e-30: a bias before a
+# one-channel-per-group GroupNorm has a zero gradient by the model's math,
+# which holds only rounding noise, other noise in a sharded sum than in an
+# unsharded one; at eps 1e-30 adafactor makes of it a full step of either
+# sign (g / sqrt(g^2 + eps)), at 1e-8 a vanishing one, while a real
+# gradient (|g| >> 1e-4) still steps as at 1e-30
+ADAFACTOR = dict(lr=1e-3, min_dim_size_to_factor=32, momentum=0.9,
+                 multiply_by_parameter_scale=True, eps=1e-8)
 
 
 def batches(n_steps: int, size: int = 16, seed: int = 2) -> list:
@@ -54,8 +64,9 @@ def train(rank: int, world: int, weights: str, fsdp: int = 1, micro_batches: int
     ``full_state``, any parameter sharded)."""
     mesh = make_mesh("cpu", fsdp) if world else None
     model = build(weights, kind)
-    optimizer = (optim.sgd(model.parameters(), lr=0.1) if opt == "sgd"
-                 else optim.adam(model.parameters(), lr=1e-3))
+    optimizer = {"sgd": lambda ps: optim.sgd(ps, lr=0.1),
+                 "adam": lambda ps: optim.adam(ps, lr=1e-3),
+                 "adafactor": lambda ps: optim.adafactor(ps, **ADAFACTOR)}[opt](model.parameters())
     state = TrainState.create(model, optimizer, ema_decay=0.999 if ema else None)
     if mesh is not None:
         state = shard_train_state(state, mesh)

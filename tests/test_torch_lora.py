@@ -191,3 +191,68 @@ def test_merge_lora_cli(lora_run, tmp_path):
         outp = merged2.unet(torch.zeros(1, 4, 4, 4), torch.zeros(1, dtype=torch.int64),
                             context=torch.zeros(1, 16, 32))
     assert torch.isfinite(outp).all()
+
+
+def test_merge_lora_cli_takes_a_jax_npz_base(lora_run, tmp_path):
+    """``--base`` is the JAX package's ``.npz`` (seeded random params of the
+    tiny stack, drawn without running the inits): the merged UNet is the JAX
+    ``merge_lora`` of that file's UNet (1e-6), the VAE and text tower are
+    the file's, as the bridge loads them."""
+    import types
+
+    from dmtpu.utils.config import instantiate_from_config as jax_instantiate
+    from tests._torch_helpers import jax_random_params
+
+    _, cfg, _ = lora_run
+    conf = load_config(cfg)
+    jsd = jax_instantiate(conf.model)
+    size, max_len = conf.data.params.img_size, jsd.text_encoder.max_length
+    lat = size // 8
+    vae = types.SimpleNamespace(init=lambda k, x: jsd.vae.init(k, x, rng=k))
+    params = {
+        "unet": jax_random_params(jsd.unet, jnp.zeros((1, lat, lat, jsd.unet.in_channels)),
+                                  jnp.zeros((1,), jnp.int32),
+                                  jnp.zeros((1, max_len, jsd.unet.context_dim)), seed=1),
+        "vae": jax_random_params(vae, jnp.zeros((1, size, size, 3)), seed=2),
+        "text_encoder": jax_random_params(jsd.text_encoder.model,
+                                          jnp.ones((1, max_len), jnp.int32), seed=3)}
+    npz = str(tmp_path / "base.npz")
+    np.savez(npz, params=params)
+    base = instantiate_from_config(conf.model).load_weights(npz)
+    lora = init_lora(base.unet, torch.Generator().manual_seed(6), rank=4)
+    with torch.no_grad():
+        for p in lora.parameters():
+            p.add_(0.1)
+    ck = ckpt_lib.save_checkpoint(str(tmp_path / "ck"), 1, TrainState.create(
+        lora, adamw(lora.parameters(), lr=1e-4), ema_decay=None))
+    out = str(tmp_path / "merged.pt")
+    merge_cli.main(["-c", cfg, "--lora", ck, "--base", npz, "--out", out, "--device", "cpu"])
+    merged = instantiate_from_config(conf.model).load_weights(out)
+
+    adapters = dict(lora.named_parameters())
+    jax_keys = {torch_path(k): k for k in _kernel_keys(params["unet"])}
+    want_unet = jlora.merge_lora(params["unet"], {
+        jax_keys[p]: {"a": adapters[p + ".a"].detach().numpy(),
+                      "b": adapters[p + ".b"].detach().numpy()} for p in lora.paths},
+        lora_scale(4, 8))
+    want = load_flax_params(SDUNetModel(**dict(conf.model.params.unet_config.params)),
+                            want_unet).state_dict()
+    got = merged.state_dict()
+    for k, v in want.items():
+        np.testing.assert_allclose(got["unet." + k].numpy(), v.numpy(), rtol=0, atol=1e-6,
+                                   err_msg=k)
+    for k, v in base.state_dict().items():
+        if not k.startswith("unet."):
+            assert torch.equal(got[k], v), k
+    assert not torch.equal(got[f"unet.{lora.paths[0]}.weight"],
+                           base.state_dict()[f"unet.{lora.paths[0]}.weight"])
+
+
+def _kernel_keys(tree, prefix=""):
+    """The dotted paths of a Flax tree's ``kernel`` leaves."""
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if hasattr(v, "items"):
+            yield from _kernel_keys(v, path + ".")
+        elif k == "kernel":
+            yield path

@@ -20,7 +20,8 @@ masks, so only a model without dropout can give the one-rank numbers).
   full-batch step (the JAX test's 1e-5 / 1e-7).
 - fsdp=2 (a 2 x 2 mesh; FSDP2 shards the parameters) is pure data
   parallelism over 4 ranks (1e-6), with parameters actually sharded and the
-  gradients clipped through their shards.
+  gradients clipped through their shards; and so is fsdp=2 over 2 ranks
+  with adafactor (momentum, parameter scaling, factored moments).
 - Label dropout: the class-conditional AdaGN UNet with ``p_uncond`` 0.5
   over 2 ranks is the one-rank step (1e-6).
 - Sampling through ``DataParallelSampler`` (a stochastic DDPM and DDIM) is
@@ -140,13 +141,18 @@ def test_micro_batch_accumulation(weights, tmp_path):
     _close(det[0][2]["params"], full[2]["params"], atol=1e-7, rtol=1e-5)
 
 
-def test_fsdp_matches_pure_data_parallel(weights, tmp_path):
+@pytest.mark.parametrize("opt,world", [pytest.param("sgd", 4, id="sgd"),
+                                       pytest.param("adafactor", 2, id="adafactor")])
+def test_fsdp_matches_pure_data_parallel(weights, tmp_path, opt, world):
     """With the gradients clipped at 0.5 (below their norm): the sharded norm
-    and the scaling of the shards."""
+    and the scaling of the shards; SGD on a 2 x 2 mesh.  Adafactor
+    (``W.ADAFACTOR``) on fsdp=2 alone: its factored moments, block RMS
+    clipping and parameter scale are the whole parameter's under sharding,
+    its bf16 momentum sharded as the parameter."""
     path = weights[0]
-    fsdp = spawn(W.train, 4, tmp_path, path, 2, 1, "diffusion", "sgd", 2, True, "unet", None,
+    fsdp = spawn(W.train, world, tmp_path, path, 2, 1, "diffusion", opt, 2, True, "unet", None,
                  None, 0.5)
-    dp = W.train(0, 0, path, n_steps=2, clip=0.5)  # pure DP is the one-rank run (above)
+    dp = W.train(0, 0, path, opt=opt, n_steps=2, clip=0.5)  # pure DP: the one-rank run (above)
     assert min(dp[1]) > 0.5
     assert fsdp[0][3], "fsdp=2 shards the parameters"
     np.testing.assert_allclose(fsdp[0][0], dp[0], rtol=1e-6)

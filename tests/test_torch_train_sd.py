@@ -143,6 +143,30 @@ def test_train_sd_end_to_end_and_resume(setup):
         assert not os.path.exists(d / "other")
 
 
+@pytest.mark.parametrize("overrides,key,group", [
+    (["train.optim.target=dmtpu.utils.optim.adamw", "train.optim.params.mu_dtype=bfloat16"],
+     "exp_avg", {"mu_dtype": torch.bfloat16, "weight_decay": 0.01}),
+    (["train.optim.params.momentum=0.9", "train.optim.params.multiply_by_parameter_scale=true"],
+     "momentum", {"momentum": 0.9, "multiply_by_parameter_scale": True}),
+])
+def test_train_sd_takes_the_optimizer_options(setup, overrides, key, group):
+    """A config's ``mu_dtype`` (adamw) and ``momentum`` / parameter scaling
+    (adafactor) reach the optimizer: one step, a checkpoint whose state
+    holds the option's bf16 tensor for every UNet parameter."""
+    d, cfg = setup
+    exp = str(d / f"exp_{key}")
+    out = train_sd.main(["-c", cfg, "-e", exp, "-ni", "--device", "cpu", "train.n_steps=1",
+                         "train.sample_freq=0", *overrides])
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"]).all()
+    (ckpt,) = glob.glob(os.path.join(exp, "ckpt", "step*"))
+    blob = ckpt_lib.load_checkpoint_host(ckpt)
+    state = blob["optimizer"]["state"]
+    assert len(state) == len(blob["model"]) > 0
+    assert all(entry[key].dtype == torch.bfloat16 for entry in state.values())
+    (saved,) = blob["optimizer"]["param_groups"]
+    assert {k: saved[k] for k in group} == group
+
+
 def test_resume_equals_uninterrupted(tmp_path):
     rs = np.random.RandomState(4)
     batches = [{"image": t(rs.randn(2, 4, 8, 8).astype(np.float32)),
