@@ -1,0 +1,6 @@
+"""K1 (attention forward) at its roofline in the traced steps, in percent."""
+from portbench import readers
+
+
+def read(trace):
+    return readers.kernel_roofline_pct(trace, "k1")

@@ -1,0 +1,6 @@
+"""K3 (GroupNorm+SiLU) at its roofline in the traced requests, in percent."""
+from portbench import readers
+
+
+def read(trace):
+    return readers.kernel_roofline_pct(trace, "k3")

@@ -1,0 +1,6 @@
+"""Operations of the whole steps (three a forward) over the window's time and the bf16 peak, in percent."""
+from portbench import readers
+
+
+def read(trace):
+    return readers.mfu(trace)
