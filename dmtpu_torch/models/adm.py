@@ -36,6 +36,7 @@ from torch import nn
 from dmtpu_torch.ops.attention import attention
 from dmtpu_torch.ops.groupnorm import group_norm, group_norm_silu_reference
 from dmtpu_torch.ops.rematerialize import Policy, normalize_use_checkpoint, remat_call
+from dmtpu_torch.utils import profiling
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:
@@ -65,7 +66,13 @@ def resolve_torso_dtype(torso_dtype, use_fp16: bool = False, use_bf16: bool = Fa
 
 
 def _cast(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
-    return None if t is None else t.to(dtype)
+    """A parameter in the compute dtype; while a profiler records, the
+    bytes of each copy go to the ``weight_cast_bytes`` count."""
+    if t is None:
+        return None
+    if profiling.recording() and t.dtype != dtype:
+        profiling.count("weight_cast_bytes", t.numel() * dtype.itemsize)
+    return t.to(dtype)
 
 
 class Linear(nn.Linear):
@@ -80,7 +87,7 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        return F.linear(x.to(dt), _cast(self.weight, dt), _cast(self.bias, dt))
 
 
 class Conv2d(nn.Conv2d):
@@ -96,7 +103,7 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+        return self._conv_forward(x.to(dt), _cast(self.weight, dt), _cast(self.bias, dt))
 
 
 class Conv1d(nn.Conv1d):
@@ -113,7 +120,7 @@ def pointwise(conv: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     """A 1x1 ``Conv2d`` or kernel-1 ``Conv1d`` applied to [B, S, C_in] tokens
     as the dense layer it is, in the conv's compute dtype."""
     dt = getattr(conv, "compute_dtype", torch.float32)
-    weight = conv.weight.reshape(conv.weight.shape[0], -1).to(dt)
+    weight = _cast(conv.weight.reshape(conv.weight.shape[0], -1), dt)
     return F.linear(tokens.to(dt), weight, _cast(conv.bias, dt))
 
 

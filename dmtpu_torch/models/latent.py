@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from dmtpu_torch.models.stablediffusion.autoencoder import AutoencoderKL
+from dmtpu_torch.utils import profiling
 
 
 def PretrainedVAE(from_pretrained: Optional[str] = None, **kwargs: Any) -> AutoencoderKL:
@@ -75,9 +76,11 @@ class LatentDiffusionWrapper(nn.Module):
         return self.vit_forward(x, t, y)
 
     def make_model_fn(self) -> Callable[..., torch.Tensor]:
-        """model_fn(x, t, y=None) for the samplers."""
+        """model_fn(x, t, y=None) for the samplers; each call a ``denoiser``
+        span while a profiler records."""
 
         def model_fn(x, t, y=None, **kw):
-            return self.vit_forward(x, t, y)
+            with profiling.span("denoiser", device=True):
+                return self.vit_forward(x, t, y)
 
         return model_fn

@@ -33,6 +33,7 @@ from dmtpu_torch.models.stablediffusion.text_encoders import (
     FrozenT5Embedder,
 )
 from dmtpu_torch.models.stablediffusion.unet import SDUNetModel
+from dmtpu_torch.utils import profiling
 
 __all__ = [
     "StableDiffusion",
@@ -211,9 +212,11 @@ class StableDiffusion(nn.Module):
         return self.unet_forward(x, timesteps, text_embed)
 
     def make_model_fn(self) -> Callable[..., torch.Tensor]:
-        """model_fn(x, t, text_embed=...) for the DDIM / DDPM samplers."""
+        """model_fn(x, t, text_embed=...) for the DDIM / DDPM samplers; each
+        call a ``denoiser`` span while a profiler records."""
 
         def model_fn(x, t, text_embed=None, **kw):
-            return self.unet_forward(x, t, text_embed)
+            with profiling.span("denoiser", device=True):
+                return self.unet_forward(x, t, text_embed)
 
         return model_fn

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from dmtpu_torch.ops import _build
 from dmtpu_torch.ops.dispatch import kernels_enabled
+from dmtpu_torch.utils import profiling
 
 
 def group_norm_silu_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -379,7 +380,7 @@ class GroupNormSiLU(torch.autograd.Function):
     def backward(ctx, grad: torch.Tensor):
         saved = ctx.saved_tensors
         wanted = [i for i in range(3) if ctx.needs_input_grad[i]]
-        with torch.enable_grad(), torch.profiler.record_function("GroupNormSiLU.backward"):
+        with torch.enable_grad(), profiling.span("GroupNormSiLU.backward"):
             inputs = [t.detach().requires_grad_(i in wanted) for i, t in enumerate(saved)]
             out = group_norm_silu_reference(*inputs, *ctx.args)
             grads = torch.autograd.grad(out, [inputs[i] for i in wanted], grad)

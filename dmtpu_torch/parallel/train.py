@@ -47,7 +47,7 @@ from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
 from dmtpu_torch.models.ema import EMAState
 from dmtpu_torch.parallel.mesh import FSDP_AXIS, mesh_rank, mesh_size, shard_dim
-from dmtpu_torch.utils import rows
+from dmtpu_torch.utils import profiling, rows
 from dmtpu_torch.utils.rows import RowGenerator
 
 LossFn = Callable[[Any, torch.Generator], torch.Tensor]
@@ -207,9 +207,14 @@ def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
     device's default generator under ``dropout_rng(seed, step)``.
 
     The metrics stay on the device, so a step does not wait for the card.
+    While a profiler records, the step is a ``train.step`` span with
+    ``train.forward`` / ``train.backward`` (each micro-batch), ``train.clip``
+    (the division, the all-reduce, the norm and the clip), ``train.optimizer``
+    and ``train.ema`` under it (``utils/profiling.py``).
     """
     n, rank = mesh_size(mesh), mesh_rank(mesh)
 
+    @profiling.spanned("train.step", device=True)
     def step_fn(state: TrainState, batch: Any) -> Dict[str, torch.Tensor]:
         params = [p for p in state.model.parameters() if p.requires_grad]
         device = _local(params[0]).device
@@ -219,21 +224,25 @@ def make_train_step(loss_fn: LossFn, clip_grad_norm: Optional[float] = None,
         loss = torch.zeros((), device=device)
         with dropout_rng(seed, state.step, device, rank):
             for part in parts:
-                part_loss = loss_fn(part, _row_generator(generator, part, n, rank))
-                part_loss.backward()
+                with profiling.span("train.forward"):
+                    part_loss = loss_fn(part, _row_generator(generator, part, n, rank))
+                with profiling.span("train.backward"):
+                    part_loss.backward()
                 loss += part_loss.detach()
-        loss /= len(parts)
-        grads = [p.grad for p in params if p.grad is not None]
-        if len(parts) > 1:  # the sum in the parameters' dtype, then the mean, as JAX
-            torch._foreach_div_([_local(g) for g in grads], float(len(parts)))
-        if n > 1:  # FSDP2 has reduced the sharded parameters' gradients
-            _all_reduce_mean([g for g in grads if not isinstance(g, DTensor)] + [loss])
-        grad_norm = global_norm(grads)
-        if clip_grad_norm is not None:
-            _clip(params, clip_grad_norm, grad_norm)
-        state.optimizer.step()
+        with profiling.span("train.clip"):
+            loss /= len(parts)
+            grads = [p.grad for p in params if p.grad is not None]
+            if len(parts) > 1:  # the sum in the parameters' dtype, then the mean, as JAX
+                torch._foreach_div_([_local(g) for g in grads], float(len(parts)))
+            if n > 1:  # FSDP2 has reduced the sharded parameters' gradients
+                _all_reduce_mean([g for g in grads if not isinstance(g, DTensor)] + [loss])
+            grad_norm = global_norm(grads)
+            if clip_grad_norm is not None:
+                _clip(params, clip_grad_norm, grad_norm)
+        with profiling.span("train.optimizer"):
+            state.optimizer.step()
         if state.ema is not None:
-            with torch.profiler.record_function("EMAState.update"):
+            with profiling.span("train.ema"):
                 state.ema.update(dict(state.model.named_parameters()))
         state.step += 1
         return {"loss": loss, "grad_norm": grad_norm}

@@ -47,7 +47,7 @@ from dmtpu_torch.utils.misc import (
     get_time_str,
 )
 from dmtpu_torch.utils.optim import lr_fn
-from dmtpu_torch.utils.profiling import StepTimer
+from dmtpu_torch.utils.profiling import StepTimer, trace
 
 
 def base_parser(description: Optional[str] = None) -> argparse.ArgumentParser:
@@ -87,26 +87,6 @@ def train_parser(doc: str, profile: bool = False) -> argparse.ArgumentParser:
 # the steps of a run (counted from its first, resumed or not) that a
 # ``--profile`` trace covers, first and last
 PROFILE_STEPS = (10, 15)
-
-
-def start_trace(directory: str, device: torch.device) -> torch.profiler.profile:
-    """A running ``torch.profiler`` trace of the host and, on a card, the
-    device, written into ``directory`` as a TensorBoard trace file when it
-    stops."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(
-        activities=activities, on_trace_ready=torch.profiler.tensorboard_trace_handler(directory))
-    prof.start()
-    return prof
-
-
-def stop_trace(prof: torch.profiler.profile, device: torch.device) -> None:
-    """Waits for the card's queued work, then stops and writes the trace."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    prof.stop()
 
 
 def parse_overrides(unknown: Sequence[str]) -> List[str]:
@@ -370,12 +350,12 @@ class TrainRun:
         try:
             while step < train.n_steps:
                 if profile_dir and step - run_start == PROFILE_STEPS[0]:
-                    tracer = start_trace(profile_dir, self.device)
+                    tracer = trace(profile_dir).start()
                 metrics = train_step(state, to_batch(
                     shard_batch(next(gen), self.mesh, self.micro_batches)))
                 timer.tick()
                 if tracer is not None and step - run_start == PROFILE_STEPS[1]:
-                    stop_trace(tracer, self.device)
+                    tracer.stop()
                     tracer = None
                     self.logger.info(f"Wrote profiler trace to {profile_dir}")
                 # the throughput is read at tick time, so each logged step
@@ -400,7 +380,7 @@ class TrainRun:
         finally:
             gen.close()  # stops the loader's threads
             if tracer is not None:  # the run ended inside the window
-                stop_trace(tracer, self.device)
+                tracer.stop()
                 self.logger.info(f"Wrote profiler trace to {profile_dir}")
         if not check_freq(train.save_freq, step - 1):
             step -= 1

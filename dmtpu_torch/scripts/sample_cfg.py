@@ -72,6 +72,7 @@ from dmtpu_torch.scripts._common import (
     load_torch_weights,
     open_device,
 )
+from dmtpu_torch.utils import profiling
 from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image
 from dmtpu_torch.utils.logger import get_logger
@@ -165,10 +166,15 @@ def pixel_model_fn(model: nn.Module, batch_size: int) -> Callable[..., torch.Ten
     ``batch_size``: a ``UNetCombined`` takes the CFG-doubled batch through
     ``forward_cfg`` and a plain one (a guidance interval's unguided steps)
     through its conditional UNet."""
-    if isinstance(model, UNetCombined):
-        return lambda x, t, y=None, **kw: (model.forward_cfg(x, t, y)
-                                           if x.shape[0] == 2 * batch_size else model(x, t, y))
-    return lambda x, t, y=None, **kw: model(x, t, y)
+    cfg = isinstance(model, UNetCombined)
+
+    def model_fn(x, t, y=None, **kw):
+        with profiling.span("denoiser", device=True):
+            if cfg and x.shape[0] == 2 * batch_size:
+                return model.forward_cfg(x, t, y)
+            return model(x, t, y)
+
+    return model_fn
 
 
 def batch_seed(seed: int, class_id: int, index: int) -> int:
@@ -177,6 +183,7 @@ def batch_seed(seed: int, class_id: int, index: int) -> int:
     return int(np.random.SeedSequence([seed, class_id, index]).generate_state(1, np.uint64)[0])
 
 
+@profiling.spanned("request", device=True)
 @torch.no_grad()
 def sample_class(model: nn.Module, diffuser: DDPMCFG, class_id: int, n_samples: int, *,
                  shape: Sequence[int], num_classes: int, batch_size: int = 64, seed: int = 2022,
@@ -188,7 +195,9 @@ def sample_class(model: nn.Module, diffuser: DDPMCFG, class_id: int, n_samples: 
     class ``num_classes`` as the unconditional branch -> the VAE decode
     (``decode``, latent models only).  ``on_stage(name)`` is called as the
     work of each stage has been enqueued ("sample", then "decode", for each
-    batch).  ``dp`` shares each batch's rows out over the ranks."""
+    batch).  ``dp`` shares each batch's rows out over the ranks.  While a
+    profiler records, the call is a ``request`` span with ``sample`` and
+    ``decode`` for each batch under it (``utils/profiling.py``)."""
     dev = torch.device(device)
     dp = dp or DataParallelSampler()
     mark = on_stage or (lambda name: None)
@@ -202,11 +211,13 @@ def sample_class(model: nn.Module, diffuser: DDPMCFG, class_id: int, n_samples: 
 
         def one(noise, y, uncond, generator):
             model_fn = model.make_model_fn() if latent else pixel_model_fn(model, len(noise))
-            z = diffuser.sample(model_fn, noise, generator, uncond_conditioning=uncond,
-                                model_kwargs=dict(y=y))
+            with profiling.span("sample", device=True):
+                z = diffuser.sample(model_fn, noise, generator, uncond_conditioning=uncond,
+                                    model_kwargs=dict(y=y))
             mark("sample")
             if latent and decode:
-                z = model.decode_latent(z)
+                with profiling.span("decode", device=True):
+                    z = model.decode_latent(z)
                 mark("decode")
             return z
 

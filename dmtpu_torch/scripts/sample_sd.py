@@ -57,6 +57,7 @@ from dmtpu_torch.diffusions import (
 from dmtpu_torch.diffusions.deepcache import deepcache_sample, pfdiff_deepcache_sample
 from dmtpu_torch.diffusions.guidance import MaskGuidanceDDIMCFG
 from dmtpu_torch.ops import freeu as freeu_lib
+from dmtpu_torch.utils import profiling
 from dmtpu_torch.utils.config import instantiate_from_config, load_config
 from dmtpu_torch.utils.image import pil_image
 from dmtpu_torch.utils.logger import get_logger
@@ -295,6 +296,7 @@ def deepcache_sampler(diffuser, sd, cond: torch.Tensor, uncond: torch.Tensor,
 
 
 @torch.no_grad()
+@profiling.spanned("request", device=True)
 def sample_images(
     conf: Mapping,
     prompt: str,
@@ -337,6 +339,9 @@ def sample_images(
     enqueued ("begin", "text_encode", then "sample" and "decode" for each
     batch).  Under a ``torchrun`` launch each rank computes its rows of each
     batch (``DataParallelSampler``) and every rank returns all the images.
+    While a profiler records, the call is a ``request`` span with
+    ``text_encode``, then ``sample``, ``decode`` and ``to_host`` for each
+    batch under it (``utils/profiling.py``).
     """
     from dmtpu_torch.scripts._common import DataParallelSampler
 
@@ -367,8 +372,9 @@ def sample_images(
             return x.permute(2, 0, 1)[None].expand(batch_size, -1, -1, -1).contiguous()
 
         mark("begin")
-        ce = encode_prompt(sd, prompt, batch_size, bool(weights), dev)
-        ue = encode_prompt(sd, negative, batch_size, bool(weights), dev)
+        with profiling.span("text_encode", device=True):
+            ce = encode_prompt(sd, prompt, batch_size, bool(weights), dev)
+            ue = encode_prompt(sd, negative, batch_size, bool(weights), dev)
         mark("text_encode")
         lat_h, lat_w = height // 8, width // 8
         generator = torch.Generator(device=dev).manual_seed(seed)
@@ -413,9 +419,11 @@ def sample_images(
         def one(x, c, u, *known, generator):  # a rank's rows of a batch
             if known:
                 diffuser.set_mask_and_image(known[0], known[1].contiguous())
-            z = run(x, c, u, generator)
+            with profiling.span("sample", device=True):
+                z = run(x, c, u, generator)
             mark("sample")
-            decoded = sd.decode_latent(z).clamp(-1.0, 1.0)
+            with profiling.span("decode", device=True):
+                decoded = sd.decode_latent(z).clamp(-1.0, 1.0)
             mark("decode")
             return decoded
 
@@ -430,7 +438,9 @@ def sample_images(
                 x = diffuser.diffuse(init_lat, t, x)
             decoded = data_parallel.run(one, x, ce, ue, *(inpaint or ()), generator=generator)
             take = min(batch_size, n_samples - done)
-            images.append(image_norm_to_uint8(decoded[:take].permute(0, 2, 3, 1).cpu().numpy()))
+            with profiling.span("to_host"):
+                host = decoded[:take].permute(0, 2, 3, 1).cpu().numpy()
+                images.append(image_norm_to_uint8(host))
             done += take
         return np.concatenate(images)
 

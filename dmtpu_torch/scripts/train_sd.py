@@ -49,7 +49,7 @@ from dmtpu_torch.scripts._common import TrainRun, to_device
 from dmtpu_torch.scripts.sample_sd import LATENT_CHANNELS
 from dmtpu_torch.utils.config import instantiate_from_config
 from dmtpu_torch.utils.image import save_image_grid
-from dmtpu_torch.utils import rows
+from dmtpu_torch.utils import profiling, rows
 
 UNetFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -62,21 +62,30 @@ def make_sd_loss_fn(sd, diffuser, empty_ids: torch.Tensor, p_uncond: float, tota
     encode, the caption-drop mask (when ``p_uncond > 0``; a dropped caption
     becomes ``empty_ids``, the empty prompt's [1, L] ids), t and eps.  The
     VAE and the text tower run without gradients.  ``unet(x, t, context)``
-    is ``sd.unet`` unless given (LoRA gives the base with merged weights)."""
+    is ``sd.unet`` unless given (LoRA gives the base with merged weights).
+    While a profiler records, the encode, the text tower and the UNet call
+    are ``vae.encode``, ``text_encode`` and ``denoiser`` spans."""
     unet = unet or sd.unet
 
     def loss_fn(batch: Mapping[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
         images, ids = batch["image"], batch["input_ids"]
         b = images.shape[0]
         with torch.no_grad():
-            z0 = sd.encode_latent(images, generator)
+            with profiling.span("vae.encode", device=True):
+                z0 = sd.encode_latent(images, generator)
             if p_uncond > 0:
                 drop = rows.rand(b, generator, ids.device) < p_uncond
                 ids = torch.where(drop[:, None], empty_ids, ids)
-            context = sd.text_encoder_encode_tokens(ids)
+            with profiling.span("text_encode", device=True):
+                context = sd.text_encoder_encode_tokens(ids)
         t = rows.randint(0, total_steps, (b,), generator, z0.device)
         eps = rows.randn(z0.shape, generator, z0.device, z0.dtype)
-        return diffuser.loss_func(lambda x, tt: unet(x, tt, context), z0, t, eps=eps)
+
+        def denoiser(x, tt):
+            with profiling.span("denoiser", device=True):
+                return unet(x, tt, context)
+
+        return diffuser.loss_func(denoiser, z0, t, eps=eps)
 
     return loss_fn
 
